@@ -10,7 +10,8 @@ exits non-zero before a result is printed:
   2. build    every ``csrc/*.cu`` compiled with nvcc (ptxas register and
               shared-memory report);
   3. kernel   each kernel against its plain PyTorch version on the card over
-              seeded cases (keep masks must be bit-equal);
+              seeded cases, clustered (trained-like) ones and K up to
+              MAX_K included (keep masks must be bit-equal);
   4. e2e      the port's main path: a full-width YOLOv3 (80 classes, random
               weights from a seed, BN statistics taken from the smoke's own
               images) in ``Detector(input_size=416, batch_size=8)``, one
@@ -21,8 +22,14 @@ exits non-zero before a result is printed:
               CPU (plain version);
   5. times    predict_batch images/s at batch 8 and 32 (host letterbox
               included), the device-only program (normalize + forward +
-              decode + NMS from device-resident uint8), and the NMS kernel
-              at B = 8 (the main path's own inputs) and B = 256, K = 1024.
+              decode + NMS from device-resident uint8), NMS split into
+              candidates, kernel and the rest, and the NMS kernel (per call
+              between events: back-to-back wrapper calls, "ms", and one call
+              captured as a CUDA graph and replayed, "graph_ms"; the
+              profiler's device time per kernel: bitmask, scan, scan ns per
+              step) at B = 8 on the main path's own inputs and on clustered
+              ones, B = 256 (main path x 32, and stress cases), K = 1024, and
+              B = 8 clustered at K = 4096.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port; the last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -44,7 +51,11 @@ from fastvision_tpu_torch.data import normalize_images
 from fastvision_tpu_torch.infer import Detector, preprocess_batch
 from fastvision_tpu_torch.models import YOLOv3
 from fastvision_tpu_torch.ops import COCO_ANCHORS, batched_non_max_suppression, nms_candidates
-from fastvision_tpu_torch.ops.nms_kernel import suppression_mask_cuda, suppression_mask_plain
+from fastvision_tpu_torch.ops.nms_kernel import (
+    MAX_K,
+    suppression_mask_cuda,
+    suppression_mask_plain,
+)
 from fastvision_tpu_torch.testing import nms_case
 
 SEED = 0
@@ -55,8 +66,10 @@ NUM_CLASSES = 80
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 # float32 operations per box pair of the IoU test: 2 min, 2 max, 2 sub and
-# 2 clamps for the overlap, 1 mul, add-sub-add for the union, 1 div, 1 compare
+# 2 clamps for the overlap, 1 mul, add-sub-add for the union, 1 div, 1 compare;
+# a pair disjoint in x is decided by 2 compares (x1_j < x2_i and x1_i < x2_j)
 NMS_OPS_PER_PAIR = 14
+NMS_OPS_PER_X_DISJOINT_PAIR = 2
 SIZES = ((416, 416), (480, 640), (640, 360), (200, 300),
          (375, 500), (720, 1280), (300, 200), (416, 240))
 
@@ -96,6 +109,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` captured once as a CUDA graph
+    and replayed: the device's time per call, launch gaps included, without
+    the host's Python and launch cost (which exceeds a small kernel's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=10)
+
+
 def host_s(fn, reps: int, warmup: int = 1) -> float:
     """Mean host seconds per call of ``fn`` (which ends in a device sync)."""
     for _ in range(warmup):
@@ -132,21 +161,32 @@ def device_profile(fn, reps: int, top: int = 8) -> dict:
             "top_kernels_ms": dict(ranked)}
 
 
-def nms_bound(scores: torch.Tensor, keep: torch.Tensor) -> tuple[float, str, dict]:
+def nms_bound(boxes: torch.Tensor, scores: torch.Tensor,
+              keep: torch.Tensor) -> tuple[float, str, dict]:
     """Least time for greedy suppression of this data on an H100: each kept
     box tested against every later valid box (NMS_OPS_PER_PAIR float32
-    operations per pair, plus 3 per valid box for its area) over the float32
-    peak, against boxes and scores read once and the keep mask written once
-    over the memory rate."""
+    operations for a pair that overlaps in x, NMS_OPS_PER_X_DISJOINT_PAIR for
+    one disjoint in x, which IoU > thr >= 0 cannot pass; plus 3 per valid box
+    for its area) over the float32 peak, against boxes and scores read once
+    and the keep mask written once over the memory rate."""
     b, k = scores.shape
-    valid = (scores > float("-inf")).to(torch.int64)
-    later_valid = valid.flip(-1).cumsum(-1).flip(-1) - valid  # valid j > i
-    pairs = int((later_valid * keep.to(torch.int64)).sum())
-    ops = NMS_OPS_PER_PAIR * pairs + 3 * int(valid.sum())
+    valid = scores > float("-inf")
+    later = torch.ones(k, k, dtype=torch.bool, device=scores.device).triu(1)
+    pairs = torch.zeros((), dtype=torch.int64, device=scores.device)
+    x_pairs = torch.zeros_like(pairs)
+    for i in range(b):  # one image at a time: [K, K] at most
+        x1, x2 = boxes[i, :, 0], boxes[i, :, 2]
+        p = later & keep[i, :, None] & valid[i, None, :]  # (kept i, later valid j)
+        pairs += p.sum()
+        x_pairs += (p & (x1[None, :] < x2[:, None]) & (x1[:, None] < x2[None, :])).sum()
+    pairs, x_pairs = int(pairs), int(x_pairs)
+    ops = (NMS_OPS_PER_PAIR * x_pairs + NMS_OPS_PER_X_DISJOINT_PAIR * (pairs - x_pairs)
+           + 3 * int(valid.sum()))
     n_bytes = b * k * (4 * 4 + 4 + 1)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_S
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    return 1e3 * max(t_ops, t_bytes), bound_by, {"pairs": pairs, "ops": ops, "bytes": n_bytes}
+    return 1e3 * max(t_ops, t_bytes), bound_by, {
+        "pairs": pairs, "x_overlap_pairs": x_pairs, "ops": ops, "bytes": n_bytes}
 
 
 def images(seed: int, n: int) -> list[np.ndarray]:
@@ -189,27 +229,50 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3), builds=report)
 
 
-def phase_kernel(dev: torch.device) -> dict:
-    """Kernel vs plain over seeded cases; returns the totals."""
-    cases = mismatches = max_abs = 0
+def kernel_cases():
+    """(group, seed, B, K, iou_thres, nms_case flags) of phase_kernel: 48
+    stress and random cases, clustered (trained-like, heavy suppression)
+    ones, and K above 2048 up to the kernel's MAX_K."""
     stress = dict()  # class offsets, ties, -inf tail, on-threshold pairs
     plain = dict(ties=False, neg_inf_tail=False, on_threshold=False)
+    clustered = dict(plain, clusters=20)
     for b in (1, 8, 256):
         for k in (1, 37, 64, 1024):
             for thr in (0.45, 0.6):
                 for flags in (stress, plain):
-                    boxes, scores = nms_case(SEED + 1000 * b + k, b, k, thr, **flags)
-                    boxes = torch.from_numpy(boxes).to(dev)
-                    scores = torch.from_numpy(scores).to(dev)
-                    got = suppression_mask_cuda(boxes, scores, thr)
-                    want = suppression_mask_plain(boxes, scores, thr)
-                    diff = (got.to(torch.int8) - want.to(torch.int8)).abs()
-                    mismatches += int(diff.sum())
-                    max_abs = max(max_abs, int(diff.max()))
-                    cases += 1
+                    yield "base", SEED + 1000 * b + k, b, k, thr, flags
+    for b in (1, 8, 256):
+        for k in (64, 1024):
+            for thr in (0.45, 0.6):
+                yield "clustered", SEED + 7 + 1000 * b + k, b, k, thr, clustered
+    for b, k in ((2, 2049), (2, 4096), (1, MAX_K)):
+        for flags in (stress, clustered):
+            yield "large_k", SEED + 11 + k, b, k, 0.45, flags
+
+
+def phase_kernel(dev: torch.device) -> dict:
+    """Kernel vs plain over seeded cases; returns the totals."""
+    cases = mismatches = max_abs = 0
+    groups: dict = {}
+    for group, seed, b, k, thr, flags in kernel_cases():
+        boxes, scores = nms_case(seed, b, k, thr, **flags)
+        boxes = torch.from_numpy(boxes).to(dev)
+        scores = torch.from_numpy(scores).to(dev)
+        got = suppression_mask_cuda(boxes, scores, thr)
+        want = suppression_mask_plain(boxes, scores, thr)
+        diff = (got.to(torch.int8) - want.to(torch.int8)).abs()
+        g = groups.setdefault(group, {"cases": 0, "mismatches": 0, "kept": 0, "boxes": 0})
+        g["cases"] += 1
+        g["mismatches"] += int(diff.sum())
+        g["kept"] += int(want.sum())
+        g["boxes"] += b * k
+        mismatches += int(diff.sum())
+        max_abs = max(max_abs, int(diff.max()))
+        cases += 1
     torch.cuda.synchronize()
     emit("kernel", name="nms_suppression_mask", cases=cases, mismatches=mismatches,
-         max_abs_err=max_abs, tolerance="bit-equal", launches=suppression_mask_cuda.launches)
+         max_abs_err=max_abs, tolerance="bit-equal", max_k=MAX_K, groups=groups,
+         launches=suppression_mask_cuda.launches)
     check(mismatches == 0, f"nms kernel disagrees with its plain version: {mismatches} flags")
     return {"mismatches": mismatches, "max_abs_err": max_abs}
 
@@ -297,38 +360,60 @@ def phase_times(dev: torch.device, e2e: dict, smi: str) -> dict:
         nms_ms = cuda_ms(lambda: batched_non_max_suppression(
             pred, conf_thres=det.conf_thres, iou_thres=det.iou_thres, max_det=det.max_det,
             class_offset=det.class_offset), reps=20)
+        # its parts: candidates (confidence mask, sort, top-K, gathers), the
+        # kernel on their output, and the rest (gathers of max_det outputs)
+        def cand(pred=pred, det=det):
+            return nms_candidates(pred, conf_thres=det.conf_thres, class_offset=det.class_offset)
+
+        cand_ms = cuda_ms(cand, reps=20)
+        _, nb, ns, _ = cand()
+        nb, ns = nb.contiguous(), ns.contiguous()
+        kernel_ms = cuda_ms(lambda: suppression_mask_cuda(nb, ns, det.iou_thres), reps=20)
         out[f"bs{bs}"] = {
             "predict_batch_img_s": bs / s, "predict_batch_ms": 1e3 * s,
             "host_letterbox_ms": 1e3 * pre_s,
             "device_program_ms": prog_ms, "device_program_img_s": bs / (prog_ms / 1e3),
             "normalize_forward_decode_ms": fwd_ms, "nms_total_ms": nms_ms,
+            "nms_split_ms": {"candidates_sort_topk_gathers": cand_ms, "kernel": kernel_ms,
+                             "rest": nms_ms - cand_ms - kernel_ms},
             "peak_device_mib": peak / 2**20,
             "device_program_profile": device_profile(lambda: det.infer(u8), 5),
         }
 
-    # the NMS kernel alone: the main path's own inputs (B = 8) and B = 256
+    # the NMS kernel alone: the main path's own inputs (B = 8), clustered
+    # (trained-like) inputs, B = 256, and K = 4096
     thr = det8.iou_thres
     boxes8, scores8 = e2e["nms_boxes"], e2e["top_scores"]
-    boxes256, scores256 = (t.repeat(32, *([1] * (t.ndim - 1))).contiguous()
-                           for t in (boxes8, scores8))
+    tiled = [t.repeat(32, *([1] * (t.ndim - 1))).contiguous() for t in (boxes8, scores8)]
+    clustered = dict(ties=False, neg_inf_tail=False, on_threshold=False, clusters=20)
+
+    def case(b, k, **flags):
+        return tuple(torch.from_numpy(a).to(dev) for a in nms_case(SEED, b, k, thr, **flags))
+
     kern: dict = {}
-    for tag, (bx, sc) in {"B8_main_path": (boxes8, scores8),
-                          "B256_main_path_x32": (boxes256, scores256)}.items():
+    for tag, (bx, sc), with_plain in (
+            ("B8_main_path", (boxes8, scores8), True),
+            ("B8_clustered", case(8, 1024, **clustered), False),
+            ("B256_main_path_x32", tiled, True),
+            ("B256_stress", case(256, 1024), False),
+            ("B8_K4096_clustered", case(8, 4096, **clustered), False)):
         keep = suppression_mask_cuda(bx, sc, thr)
-        bound_ms, bound_by, work = nms_bound(sc, keep)
+        bound_ms, bound_by, work = nms_bound(bx, sc, keep)
+        prof = device_profile(lambda: suppression_mask_cuda(bx, sc, thr), 20)
+        split = {name: sum(v for key, v in prof["top_kernels_ms"].items() if name in key)
+                 for name in ("overlap_mask_kernel", "greedy_scan_kernel")}
         kern[tag] = {
             "shape": list(sc.shape),
             "ms": cuda_ms(lambda: suppression_mask_cuda(bx, sc, thr), reps=200, warmup=10),
-            "profile": device_profile(lambda: suppression_mask_cuda(bx, sc, thr), 20),
-            "plain_ms": cuda_ms(lambda: suppression_mask_plain(bx, sc, thr), reps=3, warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "kept": int(keep.sum()), **work,
+            "graph_ms": graph_ms(lambda: suppression_mask_cuda(bx, sc, thr), reps=200),
+            "device_ms": prof["device_ms"], "bitmask_ms": split["overlap_mask_kernel"],
+            "scan_ms": split["greedy_scan_kernel"],
+            "scan_ns_per_step": 1e6 * split["greedy_scan_kernel"] / sc.shape[1],
+            "plain_ms": (cuda_ms(lambda: suppression_mask_plain(bx, sc, thr), reps=3, warmup=1)
+                         if with_plain else None),
+            "bound_ms": bound_ms, "bound_by": bound_by, "kept": int(keep.sum()),
+            "valid": int((sc > float("-inf")).sum()), **work,
         }
-    bx, sc = (torch.from_numpy(a).to(dev) for a in nms_case(SEED, 256, 1024, thr))
-    kern["B256_stress"] = {
-        "shape": list(sc.shape),
-        "ms": cuda_ms(lambda: suppression_mask_cuda(bx, sc, thr), reps=200, warmup=10),
-        "bound_ms": nms_bound(sc, suppression_mask_cuda(bx, sc, thr))[0],
-    }
     out["nms_kernel"] = kern
     out["clocks_power"] = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     emit("times", card=smi, **out)
@@ -355,8 +440,8 @@ def main() -> int:
         "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
         "launches": e2e["launches"], "max_abs_err": kernel["max_abs_err"],
         "mismatches": kernel["mismatches"], "ms": main_nms["ms"],
-        "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
-        "bound_by": main_nms["bound_by"], "library_ms": None,
+        "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
+        "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)

@@ -55,7 +55,10 @@ def suppression_mask(boxes: torch.Tensor, scores: torch.Tensor,
     if single:
         boxes, scores = boxes[None], scores[None]
     if boxes.device.type == "cuda":
-        keep = suppression_mask_cuda(boxes.contiguous(), scores.contiguous(), iou_thres)
+        boxes = boxes.contiguous()
+        if boxes.data_ptr() % 16:  # a view at an odd offset: the kernel reads float4s
+            boxes = boxes.clone()
+        keep = suppression_mask_cuda(boxes, scores.contiguous(), iou_thres)
     elif boxes.device.type == "cpu":
         keep = suppression_mask_plain(boxes, scores, iou_thres)
     else:

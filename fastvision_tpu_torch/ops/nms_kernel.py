@@ -6,15 +6,26 @@ computes the same keep mask with PyTorch operations; the CPU path and the
 tests use it, and it is the kernel's yardstick of correctness (keep masks
 must be bit-equal).
 
-What bounds the kernel on an H100: phase 1 (the overlap bitmask) does
-~K^2/2 IoUs per image at ~14 float32 operations each and moves only ~21
-bytes per box, so it is bound by float32 operations (no tensor cores);
-phase 2 (the greedy scan) is a K-step dependent chain per image. The design
-runs phase 1 over all (image, row tile, column tile) blocks at once, skips
-the tiles below the diagonal and the division for disjoint pairs, and keeps
-phase 2's chain in shared memory and registers, one warp per image, all
-images in parallel. The TPU kernel's one-hot reductions (a workaround for
-Mosaic's lack of dynamic scalar reads) have no counterpart here.
+What bounds the kernel on an H100: phase 1 (the overlap bitmask) tests
+~K^2/2 pairs per image, two float32 compares for a pair disjoint in x and
+~14 operations for the rest, and moves only ~21 bytes per box, so it is
+bound by float32 operations (no tensor cores);
+phase 2 (the greedy scan) is a K-step dependent chain per image, so at the
+main path's small batches its latency sets the time. Phase 1 runs over the
+upper-triangle tiles only, tests the x overlap first with two compares
+(class offsets make almost every pair disjoint in x) and masks the
+diagonal tile afterwards instead of testing j > i per pair; it stores the
+bitmask tile by tile, one word per row, so that each 64-row chunk of the
+upper triangle is one contiguous block. Phase 2 runs one warp-specialised
+block per image: a producer warp stages the chunks with ``cp.async.bulk``
+(one copy each) into a 3-stage ring (``mbarrier``s) and builds the valid
+flags as bits; the scanning warp loads a chunk's 64 diagonal words into
+registers and runs the serial step on them (integer masks, two rows per
+step: no branch and no memory access on the chain), while four more warps
+OR the kept rows into the removed set, which lives in shared memory, so
+any K up to ``MAX_K`` works. The TPU kernel's one-hot reductions (a
+workaround for Mosaic's lack of dynamic scalar reads) have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -26,8 +37,7 @@ import torch
 from .. import cuda_build
 from .iou import box_iou_matrix
 
-TILE = 64
-MAX_K = 32 * TILE  # the scan keeps one 64-bit removed-set word per lane
+MAX_K = 8192  # kMaxK in csrc/nms.cu: 3 staged chunks of up to 128 tiles
 
 
 def suppression_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
@@ -56,20 +66,28 @@ def _lib() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.fv_nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fv_nms_scratch_bytes.restype = ctypes.c_longlong
+    lib.fv_nms_max_k.argtypes = []
+    lib.fv_nms_max_k.restype = ctypes.c_int
     lib.fv_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fv_cuda_error_string.restype = ctypes.c_char_p
+    if lib.fv_nms_max_k() != MAX_K:
+        raise RuntimeError(f"csrc/nms.cu takes K <= {lib.fv_nms_max_k()}, MAX_K is {MAX_K}")
     return lib
 
 
 def suppression_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                           iou_thres: float) -> torch.Tensor:
     """Launch the CUDA kernel: boxes [B, K, 4] and scores [B, K], float32,
-    contiguous, on one CUDA device, K <= 2048 -> bool keep [B, K]. Raises on
-    anything else, on a failed build and on a refused launch."""
-    if boxes.device.type != "cuda" or scores.device != boxes.device:
+    contiguous, boxes 16-byte aligned, on one CUDA device, K <= MAX_K ->
+    bool keep [B, K]. Raises on anything else, on a failed build and on a
+    refused launch."""
+    device = boxes.device
+    if device.type != "cuda" or scores.device != device:
         raise ValueError(
             f"suppression_mask_cuda needs both tensors on one CUDA device, got "
-            f"{boxes.device} and {scores.device}")
+            f"{device} and {scores.device}")
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"expected float32, got {boxes.dtype} and {scores.dtype}")
     if boxes.ndim != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
@@ -78,22 +96,23 @@ def suppression_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
             f"and {tuple(scores.shape)}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned (the kernel reads one float4 per box)")
     b, k = scores.shape
-    if k > MAX_K or b > 65535:
-        raise ValueError(f"suppression_mask_cuda takes K <= {MAX_K} and B <= 65535, "
-                         f"got B={b}, K={k}")
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    if k > MAX_K:
+        raise ValueError(f"suppression_mask_cuda takes K <= {MAX_K}, got K={k}")
+    keep = torch.empty((b, k), dtype=torch.bool, device=device)
     if b == 0 or k == 0:
         return keep
-    n_words = -(-k // TILE)
-    # scratch, freed on return while the scan may still run: the caching
-    # allocator hands it out again only in this stream's order
-    mask = torch.empty((b, k, n_words), dtype=torch.int64, device=boxes.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    # scratch (its layout is the kernel's), freed on return while the scan
+    # may still run: the caching allocator hands it out again only in this
+    # stream's order
+    mask = torch.empty(lib.fv_nms_scratch_bytes(b, k), dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fv_nms_suppression_mask(
         boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-        b, k, float(iou_thres), boxes.device.index, stream)
+        b, k, float(iou_thres), device.index, stream)
     if err != 0:
         raise RuntimeError(
             f"nms kernel launch failed: {lib.fv_cuda_error_string(err).decode()} ({err})")

@@ -2,8 +2,9 @@
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``, so every
 place that holds the CUDA kernel against its plain version draws the same
-kinds of cases: class-offset coordinates, exact score ties, -inf tails and
-pairs built to sit on the IoU threshold.
+kinds of cases: class-offset coordinates, exact score ties, -inf tails,
+pairs built to sit on the IoU threshold and, as a trained detector gives,
+clusters of near-copies of a few objects (heavy suppression).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import numpy as np
 
 def nms_case(seed: int, b: int, k: int, iou_thres: float = 0.45, *, ties: bool = True,
              neg_inf_tail: bool = True, class_offset: float | None = 4096.0,
-             on_threshold: bool = True, num_classes: int = 80) -> tuple[np.ndarray, np.ndarray]:
+             on_threshold: bool = True, num_classes: int = 80,
+             clusters: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """-> (boxes [b, k, 4] float32 xyxy, scores [b, k] float32), each image's
     scores sorted descending (the suppression contract).
 
@@ -22,25 +24,59 @@ def nms_case(seed: int, b: int, k: int, iou_thres: float = 0.45, *, ties: bool =
       as the class-aware NMS does before suppression (None: no shift).
     on_threshold: every other box is a copy of its predecessor narrowed to
       ``iou_thres`` of its width, so the pair's IoU is the threshold up to
-      float32 rounding."""
+      float32 rounding.
+    clusters: each image holds this many objects (one class each), and each
+      candidate is a copy of one object's box jittered by ~5% of its size,
+      scored by the object's peak score falling off with the jitter, so most
+      candidates are suppressed by their cluster's best (None: independent
+      uniform boxes)."""
     rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, 400, (b, k, 2))
-    wh = rng.uniform(4, 120, (b, k, 2))
-    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    cls = None
+    if clusters:
+        boxes, cls, scores = _clustered(rng, b, k, clusters, num_classes)
+    else:
+        xy = rng.uniform(0, 400, (b, k, 2))
+        wh = rng.uniform(4, 120, (b, k, 2))
+        boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
     if on_threshold and k > 1:
         src = boxes[:, 0:-1:2]
         partner = src.copy()
         partner[..., 2] = src[..., 0] + (src[..., 2] - src[..., 0]) * np.float32(iou_thres)
         boxes[:, 1::2] = partner
     if class_offset is not None:
-        cls = rng.integers(0, num_classes, (b, k, 1)).astype(np.float32)
+        if cls is None:
+            cls = rng.integers(0, num_classes, (b, k, 1)).astype(np.float32)
         if on_threshold and k > 1:
             cls[:, 1::2] = cls[:, 0:-1:2]  # a pair shares its class
         boxes = (boxes + cls * np.float32(class_offset)).astype(np.float32)
-    scores = rng.uniform(0, 1, (b, k)).astype(np.float32)
+    if not clusters:
+        scores = rng.uniform(0, 1, (b, k)).astype(np.float32)
     if ties:
         scores = (np.round(scores * 8) / 8).astype(np.float32)
     scores = -np.sort(-scores, axis=-1, kind="stable")
     if neg_inf_tail:
         scores[:, k - k // 4:] = -np.inf
     return boxes, np.ascontiguousarray(scores)
+
+
+def _clustered(rng: np.random.Generator, b: int, k: int, n: int, num_classes: int,
+               jitter: float = 0.05) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """k candidates around n objects per image -> (boxes [b, k, 4] float32,
+    classes [b, k, 1] float32, scores [b, k] float32), sorted together by
+    descending score."""
+    obj = rng.integers(0, n, (b, k))
+    xy = rng.uniform(0, 400, (b, n, 2))
+    wh = rng.uniform(16, 160, (b, n, 2))
+    obj_cls = rng.integers(0, num_classes, (b, n)).astype(np.float32)
+    peak = rng.uniform(0.3, 1.0, (b, n))
+    noise = rng.normal(0, jitter, (b, k, 4))
+    size = np.take_along_axis(wh, obj[..., None], axis=1)
+    x1y1 = np.take_along_axis(xy, obj[..., None], axis=1) + noise[..., :2] * size
+    boxes = np.concatenate([x1y1, x1y1 + size * (1 + noise[..., 2:])], axis=-1)
+    falloff = np.exp(-0.5 * (noise ** 2).sum(-1) / (4 * jitter ** 2))
+    scores = np.take_along_axis(peak, obj, axis=1) * falloff
+    order = np.argsort(-scores, axis=-1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], axis=1).astype(np.float32)
+    cls = np.take_along_axis(obj_cls, np.take_along_axis(obj, order, axis=1), axis=1)
+    scores = np.take_along_axis(scores, order, axis=1).astype(np.float32)
+    return boxes, cls[..., None], scores

@@ -9,6 +9,9 @@ has only the port's dependencies:
 
 (``--noconftest`` because tests/conftest.py imports JAX.)
 
+The kernel's cases cover K up to ``MAX_K`` (8192) and clustered inputs
+(near-copies of a few objects, heavy suppression, as trained weights give).
+
 Tolerance: keep masks and Detections bit-equal. The kernel rounds every
 float32 intermediate as the plain version does (no FMA contraction, IEEE
 division), and everything around it is the same PyTorch code on both sides.
@@ -39,11 +42,12 @@ def _cuda() -> torch.device:
 
 
 @pytest.mark.parametrize("iou_thres", [0.45, 0.6])
-@pytest.mark.parametrize("b,k", [(1, 1), (1, 37), (8, 64), (8, 1024), (256, 1024), (3, MAX_K)])
+@pytest.mark.parametrize("b,k", [(1, 1), (1, 37), (8, 64), (8, 1024), (256, 1024), (3, MAX_K),
+                                 (2, 2049), (2, 4096), (1, 8192), (4, 1000)])
 @pytest.mark.parametrize("flags", [
     dict(), dict(ties=False, neg_inf_tail=False, on_threshold=False),
-    dict(class_offset=None),
-], ids=["stress", "random", "no_offset"])
+    dict(class_offset=None), dict(clusters=20),
+], ids=["stress", "random", "no_offset", "clustered"])
 def test_kernel_mask_equals_plain(b, k, iou_thres, flags):
     dev = _cuda()
     boxes, scores = nms_case(b * 7919 + k, b, k, iou_thres, **flags)
@@ -69,9 +73,15 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="K <="):
         suppression_mask_cuda(torch.zeros(1, MAX_K + 1, 4, device=dev),
                               torch.zeros(1, MAX_K + 1, device=dev), 0.45)
-    # the dispatcher makes its inputs contiguous and takes single images
+    # boxes at an offset that is not a multiple of 16 bytes
+    odd = torch.empty(boxes.numel() + 1, device=dev)[1:].view_as(boxes).copy_(boxes)
+    with pytest.raises(ValueError, match="aligned"):
+        suppression_mask_cuda(odd, scores, 0.45)
+    # the dispatcher makes its inputs contiguous and aligned, and takes single images
     keep = suppression_mask(boxes[0], scores[0], 0.45)
     assert torch.equal(keep, suppression_mask_plain(boxes, scores, 0.45)[0])
+    assert torch.equal(suppression_mask(odd, scores, 0.45),
+                       suppression_mask_plain(boxes, scores, 0.45))
 
 
 def test_detector_kernel_path_equals_cpu_path():

@@ -36,6 +36,9 @@ CASES = [
     pytest.param(dict(ties=False, neg_inf_tail=True, class_offset=None, on_threshold=False),
                  id="neg_inf_tail"),
     pytest.param(dict(ties=False, neg_inf_tail=False, on_threshold=True), id="on_threshold"),
+    pytest.param(dict(clusters=8), id="clustered_stress"),
+    pytest.param(dict(clusters=8, ties=False, neg_inf_tail=False, on_threshold=False),
+                 id="clustered"),
 ]
 
 
@@ -58,6 +61,32 @@ def test_plain_mask_equals_pallas_interpret(k):
         want = suppression_mask_pallas(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.45,
                                        interpret=True)
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("flags", [dict(clusters=6), dict(clusters=6, ties=False,
+                                                           neg_inf_tail=False,
+                                                           on_threshold=False)],
+                         ids=["clustered_stress", "clustered"])
+def test_plain_mask_equals_pallas_interpret_clustered(k, flags):
+    boxes, scores = nms_case(200 + k, 2, k, 0.45, **flags)
+    got = suppression_mask_plain(torch.from_numpy(boxes), torch.from_numpy(scores), 0.45)
+    assert int(got.sum()) < k  # clusters: most candidates are suppressed
+    for i in range(2):
+        want = suppression_mask_pallas(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.45,
+                                       interpret=True)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("flags", [dict(), dict(clusters=20)], ids=["stress", "clustered"])
+def test_plain_mask_equals_jax_xla_above_2048(flags):
+    """K above 2048, the CUDA kernel's limit before it held the removed set
+    in shared memory; the plain version has no limit at all."""
+    k = 2100
+    boxes, scores = nms_case(k, 1, k, 0.45, **flags)
+    got = suppression_mask_plain(torch.from_numpy(boxes), torch.from_numpy(scores), 0.45)
+    want = jnms.suppression_mask(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.45)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
 def test_suppression_mask_dispatch_and_checks():
