@@ -29,7 +29,24 @@ exits non-zero before a result is printed:
               profiler's device time per kernel: bitmask, scan, scan ns per
               step) at B = 8 on the main path's own inputs and on clustered
               ones, B = 256 (main path x 32, and stress cases), K = 1024, and
-              B = 8 clustered at K = 4096.
+              B = 8 clustered at K = 4096;
+  6. train    the training path: one float32 SGD step of a shallow YOLOv3
+              (80 classes, 256 px, TF32 off) on the card vs the CPU (its
+              own line, "train_card_vs_cpu", before the checks); a
+              full-width YOLOv3-416 ``Fit`` in bf16 (SGD nesterov, warmup
+              cosine, EMA) for 2 epochs over 64 in-memory images at batch
+              32, validated each epoch by ``detection_evaluator`` on 16
+              images at batch 8 with the NMS kernel's launch count reset
+              before and read after; then 10 steps on one batch (the loss
+              must fall);
+  7. train_times  the train step's images/s at batch 32, 416, bf16 (1
+              warm-up, 8 steps, one sync, as bench.py times it), peak
+              device memory, the step split between CUDA events
+              (forward, loss, backward, optimizer, EMA), the profiler's
+              busy share and top kernels, ``Fit`` images/s over one epoch
+              (loader and host letterbox included), the evaluator per
+              validation batch (forward, NMS, host mAP), and conv FLOPs per
+              image with the share of the dense bf16 peak (``mfu``).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port; the last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -47,16 +64,35 @@ import numpy as np
 import torch
 
 from fastvision_tpu_torch import cuda_build
-from fastvision_tpu_torch.data import normalize_images
-from fastvision_tpu_torch.infer import Detector, preprocess_batch
+from fastvision_tpu_torch.core import MetricLogger
+from fastvision_tpu_torch.data import DetectionLoader, normalize_images
+from fastvision_tpu_torch.infer import Detector, decode_predictions, preprocess_batch, scale_coords
 from fastvision_tpu_torch.models import YOLOv3
-from fastvision_tpu_torch.ops import COCO_ANCHORS, batched_non_max_suppression, nms_candidates
+from fastvision_tpu_torch.ops import (
+    COCO_ANCHORS,
+    MeanAveragePrecision,
+    batched_non_max_suppression,
+    nms_candidates,
+)
 from fastvision_tpu_torch.ops.nms_kernel import (
     MAX_K,
     suppression_mask_cuda,
     suppression_mask_plain,
 )
-from fastvision_tpu_torch.testing import nms_case
+from fastvision_tpu_torch.testing import SyntheticDetectionDataset, nms_case, state_max_rel_diff
+from fastvision_tpu_torch.train import (
+    Fit,
+    TrainState,
+    YOLOv3Loss,
+    build_optimizer,
+    constant_lr,
+    detection_evaluator,
+    ema_update,
+    make_eval_step,
+    make_train_step,
+    set_lr,
+    warmup_cosine_lr,
+)
 
 SEED = 0
 INPUT_SIZE = 416
@@ -65,6 +101,7 @@ NUM_CLASSES = 80
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 # float32 operations per box pair of the IoU test: 2 min, 2 max, 2 sub and
 # 2 clamps for the overlap, 1 mul, add-sub-add for the union, 1 div, 1 compare;
 # a pair disjoint in x is decided by 2 compares (x1_j < x2_i and x1_i < x2_j)
@@ -149,16 +186,17 @@ def device_profile(fn, reps: int, top: int = 8) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    kernels = {}
+    kernels, launches = {}, 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0 and ev.device_type.name == "CUDA":
             kernels[ev.key[:90]] = us / 1e3 / reps
+            launches += ev.count
     busy_ms = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else None,
-            "top_kernels_ms": dict(ranked)}
+            "device_ops_per_call": launches / reps, "top_kernels_ms": dict(ranked)}
 
 
 def nms_bound(boxes: torch.Tensor, scores: torch.Tensor,
@@ -420,6 +458,264 @@ def phase_times(dev: torch.device, e2e: dict, smi: str) -> dict:
     return out
 
 
+TRAIN_BATCH = 32  # bench.py's train config: batch 32 at 416, bf16
+TRAIN_IMAGES = 64  # per epoch of the smoke's Fit: 2 steps
+VAL_IMAGES, VAL_BATCH = 16, 8
+
+
+def conv_flops_per_image(model: torch.nn.Module, size: int) -> float:
+    """Forward multiply-adds x 2 of every convolution at ``size``, counted
+    from the layer shapes (one image, eval mode, on the model's device)."""
+    total = 0
+
+    def hook(m, _, out):
+        nonlocal total
+        k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+        total += 2 * k * out.shape[1] * out.shape[2] * out.shape[3]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    was_training = model.training
+    try:
+        model.eval()
+        with torch.inference_mode():
+            model(torch.zeros(1, size, size, 3, device=next(model.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train(was_training)
+    return float(total)
+
+
+def train_parts(anchors: np.ndarray, num_classes: int = NUM_CLASSES):
+    """The training recipe of examples/train_yolov3.py: YOLOv3Loss, the
+    v5 decode + NMS for validation."""
+    loss = YOLOv3Loss(anchors, num_classes=num_classes)
+    anchors_t = torch.from_numpy(anchors)
+
+    def loss_fn(heads, batch):
+        out = loss(heads, batch["labels"])
+        return out.total, {"box": out.box, "obj": out.obj, "cls": out.cls}
+
+    def postprocess(heads, batch):
+        pred = decode_predictions(heads, anchors_t.to(heads[0].device))
+        return batched_non_max_suppression(pred.float(), conf_thres=0.001, max_det=300)
+
+    return loss_fn, postprocess
+
+
+def device_batch_of(loader, dev: torch.device) -> dict:
+    batch = next(iter(loader))
+    return {k: torch.from_numpy(batch[k]).to(dev) for k in ("images", "labels")}
+
+
+def phase_train(dev: torch.device) -> dict:
+    """Training path: one fp32 step card vs CPU, a full-width bf16 Fit with
+    validation through the NMS kernel, and a learning check."""
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    loss_fn, postprocess = train_parts(anchors)
+
+    # --- 1. one float32 SGD step, TF32 off: the card against the CPU
+    small = YOLOv3(num_classes=NUM_CLASSES, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(SEED))
+    small_cpu = copy.deepcopy(small)
+    start = {k: v.clone() for k, v in small.state_dict().items()}
+    batch = next(iter(DetectionLoader(SyntheticDetectionDataset(4, NUM_CLASSES, seed=SEED + 1),
+                                      256, 4, max_boxes=16, seed=SEED)))
+    step32 = make_train_step(loss_fn)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = TrainState.create(small, build_optimizer("sgd", small), dev)
+        cpu = TrainState.create(small_cpu, build_optimizer("sgd", small_cpu), "cpu")
+        _, m_card = step32(card, {k: torch.from_numpy(batch[k]).to(dev)
+                                  for k in ("images", "labels")}, 1e-2)
+        _, m_cpu = step32(cpu, {k: torch.from_numpy(batch[k]) for k in ("images", "labels")},
+                          1e-2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    # tolerances: see tests/test_torch_gpu.py::test_train_step_on_card_equals_cpu
+    card_vs_cpu = {"model": "YOLOv3 stage_sizes (1,1,1,1,1), 80 classes, 256 px, batch 4, "
+                            "float32, TF32 off, one SGD step at lr 1e-2",
+                   "loss_rel": abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1),
+                   "grad_norm_rel": abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1),
+                   "state_max_rel": state_max_rel_diff(small.state_dict(),
+                                                       small_cpu.state_dict(), start),
+                   "tolerances": {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}}
+    emit("train_card_vs_cpu", **card_vs_cpu)
+    check(card_vs_cpu["loss_rel"] <= 1e-4, f"train step card vs cpu: {card_vs_cpu}")
+    check(card_vs_cpu["state_max_rel"]["kernels"][0] <= 1e-3
+          and card_vs_cpu["state_max_rel"]["others"][0] <= 1e-2,
+          f"train step card vs cpu: {card_vs_cpu}")
+    del small, small_cpu, card, cpu
+
+    # --- 2. full-width Fit in bf16, validation counted through the NMS kernel
+    model = YOLOv3(num_classes=NUM_CLASSES, generator=torch.Generator().manual_seed(SEED))
+    train_loader = DetectionLoader(SyntheticDetectionDataset(TRAIN_IMAGES, NUM_CLASSES, seed=SEED),
+                                   INPUT_SIZE, TRAIN_BATCH, max_boxes=32, seed=SEED)
+    val_loader = DetectionLoader(SyntheticDetectionDataset(VAL_IMAGES, NUM_CLASSES, seed=SEED + 2),
+                                 INPUT_SIZE, VAL_BATCH, max_boxes=32, train=False)
+    evaluate = detection_evaluator(make_eval_step(postprocess, dtype=torch.bfloat16))
+    val_launches = []
+
+    def counted_evaluator(state, loader):
+        suppression_mask_cuda.launches = 0
+        out = evaluate(state, loader)
+        torch.cuda.synchronize()
+        val_launches.append(suppression_mask_cuda.launches)
+        return out
+
+    records = []
+
+    class Log:
+        def log(self, step, **kw):
+            records.append({"step": step, **kw})
+
+    epochs = 2
+    fit = Fit(model, loss_fn, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937),
+              train_loader, val_loader, epochs=epochs,
+              schedule=warmup_cosine_lr(1e-2, 1e-4, epochs * len(train_loader), warmup_steps=1),
+              evaluator=counted_evaluator, ema_decay=0.9999, dtype=torch.bfloat16,
+              metric_key="map50", metric_mode="max", logger=Log())
+    check(fit.device == dev, f"Fit picked {fit.device}")
+    t0 = time.perf_counter()
+    fit.run()
+    fit_s = time.perf_counter() - t0
+    per_epoch = [r for r in records if "train_loss" in r]
+    check(len(per_epoch) == epochs and fit.global_step == epochs * len(train_loader),
+          f"Fit ran {fit.global_step} steps over {len(per_epoch)} epochs")
+    check(all(np.isfinite(r["train_loss"]) for r in per_epoch), f"train loss {per_epoch}")
+    check(all(0.0 <= r["map50"] <= 1.0 and 0.0 <= r["map"] <= 1.0 for r in per_epoch),
+          f"map out of range: {per_epoch}")
+    check(len(val_launches) == epochs and min(val_launches) > 0,
+          f"validation launched the nms kernel {val_launches} times")
+
+    # --- 3. learning check: 10 steps on one fixed batch
+    step = make_train_step(loss_fn, dtype=torch.bfloat16)
+    fixed = device_batch_of(train_loader, dev)
+    losses = []
+    for _ in range(10):
+        _, m = step(fit.state, fixed, 1e-2)
+        losses.append(m["loss"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    check(losses[-1] < losses[0], f"loss did not fall over 10 steps on one batch: {losses}")
+    emit("train", fit={"model": "YOLOv3 Darknet-53, 80 classes, full width and depth, bf16 autocast",
+              "input_size": INPUT_SIZE, "batch": TRAIN_BATCH, "train_images": TRAIN_IMAGES,
+              "val_images": VAL_IMAGES, "val_batch": VAL_BATCH, "epochs": epochs,
+              "global_step": fit.global_step, "seconds_first_run": fit_s,
+              "per_epoch": per_epoch, "val_nms_launches": val_launches},
+         learning_check_losses=losses)
+    return {"fit": fit, "loss_fn": loss_fn, "postprocess": postprocess,
+            "val_loader": val_loader, "val_launches": sum(val_launches)}
+
+
+def phase_train_times(dev: torch.device, train: dict, smi: str) -> dict:
+    """Train readings at batch 32, 416, bf16 (bench.py's train config)."""
+    fit, loss_fn = train["fit"], train["loss_fn"]
+    state, model = fit.state, fit.state.model
+    step = make_train_step(loss_fn, dtype=torch.bfloat16)
+    batch = device_batch_of(fit.train_loader, dev)
+    out: dict = {"card": smi}
+
+    # step img/s as bench.py times it: 1 warm-up, 8 steps, one sync
+    torch.cuda.reset_peak_memory_stats()
+    float(step(state, batch, 1e-3)[1]["loss"])
+    t0 = time.perf_counter()
+    for _ in range(8):
+        _, metrics = step(state, batch, 1e-3)
+    float(metrics["loss"])
+    step_s = (time.perf_counter() - t0) / 8
+    out["train_step_img_s"] = TRAIN_BATCH / step_s
+    out["train_step_ms"] = 1e3 * step_s
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+
+    # the step's parts between CUDA events
+    ema = [p.detach().clone() for p in model.parameters()]
+    params = list(model.parameters())
+    parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "optimizer": 0.0, "ema": 0.0}
+    reps = 5
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        x = normalize_images(batch["images"], torch.bfloat16)
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            heads = model(x)
+        ev[1].record()
+        loss, _ = loss_fn(heads, batch)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        set_lr(state.optimizer, 1e-3)
+        state.optimizer.step()
+        ev[4].record()
+        ema_update(ema, params, 100 + i)
+        ev[5].record()
+        ev[5].synchronize()
+        if i:  # the first is a warm-up
+            for name, a, b in zip(parts, ev[:-1], ev[1:]):
+                parts[name] += a.elapsed_time(b) / reps
+    out["step_split_ms"] = parts
+
+    # Fit over one epoch: loader, host letterbox and H2D included
+    fit_epoch = Fit(model, loss_fn, state.optimizer, DetectionLoader(
+        SyntheticDetectionDataset(2 * TRAIN_IMAGES, NUM_CLASSES, seed=SEED + 3), INPUT_SIZE,
+        TRAIN_BATCH, max_boxes=32, seed=SEED), epochs=1, ema_decay=0.9999,
+        dtype=torch.bfloat16, schedule=constant_lr(1e-3), logger=MetricLogger(stdout=False))
+    t0 = time.perf_counter()
+    fit_epoch.run()
+    fit_s = time.perf_counter() - t0
+    out["fit_epoch_img_s"] = fit_epoch.global_step * TRAIN_BATCH / fit_s
+    out["fit_epoch_steps"] = fit_epoch.global_step
+
+    # the evaluator per validation batch: forward, NMS, host mAP
+    eval_model = fit.eval_state().model.eval()
+    anchors_t = torch.from_numpy(COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()).to(dev)
+    vb = next(iter(train["val_loader"]))
+    u8 = torch.from_numpy(vb["images"]).to(dev)
+    with torch.inference_mode():
+        def fwd():
+            with torch.autocast(dev.type, dtype=torch.bfloat16):
+                heads = eval_model(normalize_images(u8, torch.bfloat16))
+            return decode_predictions(heads, anchors_t).float()
+
+        fwd_ms = cuda_ms(fwd, reps=10)
+        pred = fwd()
+        nms_ms = cuda_ms(lambda: batched_non_max_suppression(pred, conf_thres=0.001,
+                                                             max_det=300), reps=10)
+        det = batched_non_max_suppression(pred, conf_thres=0.001, max_det=300)
+    boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
+
+    def host_map():
+        m = MeanAveragePrecision()
+        for i in range(vb["num_real"]):
+            meta, v = vb["meta"][i], valid[i]
+            gt = meta["gt_pixels"]
+            m.update(scale_coords(boxes[i][v], meta["scale"], meta["pad"], meta["orig_hw"]),
+                     scores[i][v], classes[i][v], gt[:, 1:5], gt[:, 0])
+        return m.compute()
+
+    map_ms = 1e3 * host_s(host_map, reps=3)
+    out["eval_per_val_batch_ms"] = {"batch": VAL_BATCH, "forward_decode": fwd_ms,
+                                    "nms": nms_ms, "host_map": map_ms,
+                                    "detections": int(valid.sum())}
+
+    # last: the profiler may leave the host's launches slower after it
+    prof = device_profile(lambda: step(state, batch, 1e-3), reps=3, top=10)
+    prof["device_share_of_unprofiled_step"] = prof["device_ms"] / out["train_step_ms"]
+    out["step_profile"] = prof
+
+    fwd_flops = conv_flops_per_image(model, INPUT_SIZE)
+    train_flops = 3 * fwd_flops
+    out["flops_per_image"] = {"forward": fwd_flops, "train_3x_forward": train_flops}
+    out["mfu"] = train_flops * out["train_step_img_s"] / PEAK_BF16_FLOPS
+    out["mfu_peak"] = "989e12 dense bf16 (H100 SXM data sheet, at 700 W)"
+    out["clocks_power"] = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    emit("train_times", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -432,13 +728,19 @@ def main() -> int:
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
+    del e2e["det"], e2e["model"]
+    train = phase_train(dev)
+    phase_train_times(dev, train, device["smi"])
     main_nms = times["nms_kernel"]["B8_main_path"]
     print(device["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppression_mask", "route": "cuda",
         "source": "fastvision_tpu_torch/csrc/nms.cu",
         "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
-        "launches": e2e["launches"], "max_abs_err": kernel["max_abs_err"],
+        "launches": e2e["launches"] + train["val_launches"],
+        "launches_by_path": {"detector_predict_batch": e2e["launches"],
+                             "fit_validation": train["val_launches"]},
+        "max_abs_err": kernel["max_abs_err"],
         "mismatches": kernel["mismatches"], "ms": main_nms["ms"],
         "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,

@@ -1,13 +1,23 @@
-"""Host image reading and letterbox (port of fastvision_tpu/data/dataset.py's
-``imread_rgb`` and ``letterbox``).
+"""Host image reading, letterbox, label files and the detection dataset (port
+of fastvision_tpu/data/dataset.py).
+
+The on-disk format: ``<root>/{train,val,test}/images/<id>.jpg`` and
+``labels/<id>.txt``, one ``category_idx xmin ymin xmax ymax`` line per box in
+original pixels, classes 0-based.
 
 The resize is ``torch.nn.functional.interpolate(mode='bilinear',
 align_corners=False, antialias=False)`` on host tensors, rounded back to
 uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
 (cv2 rounds with fixed-point weights). cv2 is used only to decode files,
 where it is installed.
+
+Not ported yet: the reduced-size JPEG decode (``decode_size``,
+``imread_rgb_scaled``), ``sample_i420`` and ``ClassificationDataset``.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -54,3 +64,83 @@ def letterbox(image: np.ndarray, size: int, pad_value: int = 114,
     out = np.full((size, size, image.shape[2]), pad_value, image.dtype)
     out[top : top + nh, left : left + nw] = image
     return out, scale, (left, top)
+
+
+def read_label_file(path: str) -> np.ndarray:
+    """labels/<id>.txt -> [N, 5] float32 (cls, x1, y1, x2, y2) pixels; a
+    missing file is an image without boxes."""
+    if not os.path.exists(path):
+        return np.zeros((0, 5), np.float32)
+    rows = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 5:
+                rows.append([float(v) for v in parts[:5]])
+    return np.asarray(rows, np.float32).reshape(-1, 5)
+
+
+def boxes_to_normalized_xywh(boxes_xyxy: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pixel xyxy -> normalized xywh (the label tensor format)."""
+    out = np.empty_like(boxes_xyxy)
+    out[:, 0] = (boxes_xyxy[:, 0] + boxes_xyxy[:, 2]) / 2 / width
+    out[:, 1] = (boxes_xyxy[:, 1] + boxes_xyxy[:, 3]) / 2 / height
+    out[:, 2] = (boxes_xyxy[:, 2] - boxes_xyxy[:, 0]) / width
+    out[:, 3] = (boxes_xyxy[:, 3] - boxes_xyxy[:, 1]) / height
+    return out
+
+
+def pad_labels(cls: np.ndarray, xywhn: np.ndarray, max_boxes: int) -> np.ndarray:
+    """-> [max_boxes, 5] (class, cx, cy, w, h), class == -1 padding."""
+    out = np.full((max_boxes, 5), -1, np.float32)
+    n = min(len(cls), max_boxes)
+    if n:
+        out[:n, 0] = cls[:n]
+        out[:n, 1:5] = xywhn[:n]
+    return out
+
+
+class DetectionDataset:
+    """Detection samples from disk: (RGB uint8 image, [N, 5] pixel-xyxy
+    labels, id). Decoding needs cv2. The id scan is cached to
+    ``<split_dir>/.samples.json`` when ``cache=True``."""
+
+    def __init__(self, root: str, split: str = "train", cache: bool = False,
+                 decode_size: int | None = None):
+        if decode_size:
+            raise NotImplementedError(
+                "decode_size (reduced-size JPEG decode) is not ported yet "
+                "(ROADMAP Queue 1, item 11)")
+        self.dir = os.path.join(root, split)
+        self.images_dir = os.path.join(self.dir, "images")
+        self.labels_dir = os.path.join(self.dir, "labels")
+        self.ids = self._scan(cache)
+
+    def _scan(self, cache: bool) -> list[str]:
+        cache_path = os.path.join(self.dir, ".samples.json")
+        if cache and os.path.exists(cache_path):
+            with open(cache_path) as f:
+                return json.load(f)
+        ids = sorted(
+            os.path.splitext(name)[0]
+            for name in os.listdir(self.images_dir)
+            if name.lower().endswith(IMG_EXTS)
+        )
+        if cache:
+            with open(cache_path, "w") as f:
+                json.dump(ids, f)
+        return ids
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def image_path(self, idx: int) -> str:
+        base = os.path.join(self.images_dir, self.ids[idx])
+        for ext in IMG_EXTS:
+            if os.path.exists(base + ext):
+                return base + ext
+        raise FileNotFoundError(base)
+
+    def __getitem__(self, idx: int):
+        labels = read_label_file(os.path.join(self.labels_dir, self.ids[idx] + ".txt"))
+        return imread_rgb(self.image_path(idx)), labels, self.ids[idx]

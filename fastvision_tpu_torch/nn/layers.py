@@ -31,11 +31,34 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d with the JAX package's defaults (eps 1e-5; momentum 0.1
-    in torch's new-fraction convention == flax's 0.9). Statistics stay
-    float32 under autocast."""
+    in torch's new-fraction convention == flax's 0.9) and flax's running
+    statistics. Statistics stay float32 under autocast.
+
+    In train mode the batch is normalized with its own (biased) statistics,
+    as torch and flax both do, and the running statistics move by
+    ``new = (1 - momentum) * old + momentum * batch`` with the BIASED batch
+    variance, as flax does; torch alone folds in the unbiased one
+    (n / (n - 1) larger, n = B * H * W)."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        if m is None:  # torch's cumulative average over the batches seen
+            self.num_batches_tracked.add_(1)
+            m = 1.0 / int(self.num_batches_tracked)
+        # torch moves a copy by (1 - m) * old + m * unbiased (autograd may
+        # keep the tensor it was given, so that one is not written again)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, m, self.eps)
+        with torch.no_grad():
+            # (1 - m) * old + m * biased == var * (n - 1) / n + old * (1 - m) / n
+            self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
+        return y
 
 
 class ConvBN(nn.Module):

@@ -1,10 +1,13 @@
-"""Seeded inputs that stress the exactness of greedy NMS suppression.
+"""Seeded inputs shared by the CPU tests, the card tests and ``chip_smoke.py``.
 
-Shared by the CPU tests, the card tests and ``chip_smoke.py``, so every
-place that holds the CUDA kernel against its plain version draws the same
-kinds of cases: class-offset coordinates, exact score ties, -inf tails,
-pairs built to sit on the IoU threshold and, as a trained detector gives,
-clusters of near-copies of a few objects (heavy suppression).
+`nms_case` stresses the exactness of greedy NMS suppression, so every place
+that holds the CUDA kernel against its plain version draws the same kinds of
+cases: class-offset coordinates, exact score ties, -inf tails, pairs built
+to sit on the IoU threshold and, as a trained detector gives, clusters of
+near-copies of a few objects (heavy suppression).
+
+`SyntheticDetectionDataset` is an in-memory detection dataset to train and
+validate on where no image files can be written or decoded (no cv2).
 """
 from __future__ import annotations
 
@@ -80,3 +83,64 @@ def _clustered(rng: np.random.Generator, b: int, k: int, n: int, num_classes: in
     cls = np.take_along_axis(obj_cls, np.take_along_axis(obj, order, axis=1), axis=1)
     scores = np.take_along_axis(scores, order, axis=1).astype(np.float32)
     return boxes, cls[..., None], scores
+
+
+class SyntheticDetectionDataset:
+    """Seeded in-memory detection samples with the ``DetectionDataset``
+    interface: ``ds[i]`` -> (uint8 RGB image [H, W, 3], pixel-xyxy labels
+    [n, 5] float32 (cls, x1, y1, x2, y2), id).
+
+    Each image is uniform noise at one of ``sizes`` (cycled by index) with
+    1 to ``max_objects`` filled rectangles, each in its class's colour, so
+    the classes can be learnt from colour and the boxes from the edges.
+    Sample ``i`` depends only on (seed, i)."""
+
+    def __init__(self, n: int, num_classes: int = 80, seed: int = 0,
+                 sizes=((416, 416), (480, 640), (640, 360), (375, 500), (300, 200)),
+                 max_objects: int = 4):
+        self.n = n
+        self.num_classes = num_classes
+        self.seed = seed
+        self.sizes = tuple(tuple(s) for s in sizes)
+        self.max_objects = max_objects
+        self.colours = np.random.default_rng(seed).integers(0, 256, (num_classes, 3), np.uint8)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, idx: int):
+        if not 0 <= idx < self.n:
+            raise IndexError(idx)
+        rng = np.random.default_rng((self.seed, idx))
+        h, w = self.sizes[idx % len(self.sizes)]
+        image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        labels = []
+        for _ in range(int(rng.integers(1, self.max_objects + 1))):
+            c = int(rng.integers(0, self.num_classes))
+            bw, bh = int(rng.uniform(0.1, 0.5) * w), int(rng.uniform(0.1, 0.5) * h)
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            image[y1 : y1 + bh, x1 : x1 + bw] = self.colours[c]
+            labels.append([c, x1, y1, x1 + bw, y1 + bh])
+        return image, np.asarray(labels, np.float32).reshape(-1, 5), f"synthetic_{idx}"
+
+
+def state_max_rel_diff(got: dict, want: dict, start: dict) -> dict:
+    """Worst floating-point tensors of two state_dicts trained from the same
+    ``start``, as {"kernels": (err, name), "others": (err, name)}: for
+    kernels (rank > 1) err = max|got - want| / std(want); for the rest
+    (biases, BN scale and shift, running statistics, which start as
+    constants, so that their std is made by the updates alone) err =
+    max|got - want| / max(std(want), max|want - start|)."""
+    worst = {"kernels": (0.0, ""), "others": (0.0, "")}
+    for k, w in want.items():
+        if not w.is_floating_point() or w.numel() < 2:
+            continue
+        w = w.double()
+        d = float((got[k].double().cpu() - w).abs().max())
+        kind = "kernels" if w.ndim > 1 else "others"
+        scale = float(w.std())
+        if kind == "others":
+            scale = max(scale, float((w - start[k].double()).abs().max()))
+        if scale and d / scale > worst[kind][0]:
+            worst[kind] = (d / scale, k)
+    return worst

@@ -1,0 +1,25 @@
+"""Training: the YOLOv3 loss, optimizers, schedules, EMA, train / eval steps
+and the Fit harness (names as in fastvision_tpu.train)."""
+from .ema import ema_update, make_ema_update
+from .fit import Fit, detection_evaluator
+from .losses import YOLOv3Loss, YoloLossOutput, binary_cross_entropy
+from .optim import build_optimizer, decay_mask, get_lr, set_lr
+from .schedulers import (
+    SCHEDULES,
+    PlateauScheduler,
+    constant_lr,
+    cosine_lr,
+    exponential_lr,
+    linear_lr,
+    step_decay_lr,
+    warmup_cosine_lr,
+)
+from .steps import TrainState, device_batch, make_eval_step, make_train_step
+
+__all__ = [
+    "ema_update", "make_ema_update", "Fit", "detection_evaluator", "YOLOv3Loss",
+    "YoloLossOutput", "binary_cross_entropy", "build_optimizer", "decay_mask", "get_lr",
+    "set_lr", "SCHEDULES", "PlateauScheduler", "constant_lr", "cosine_lr", "exponential_lr",
+    "linear_lr", "step_decay_lr", "warmup_cosine_lr", "TrainState", "device_batch",
+    "make_eval_step", "make_train_step",
+]

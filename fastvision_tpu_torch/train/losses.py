@@ -1,0 +1,242 @@
+"""Losses for YOLOv3 training (port of fastvision_tpu/train/losses.py: BCE,
+the dense target assignment and ``YOLOv3Loss``).
+
+Labels arrive padded [B, M, 5] = (class, cx, cy, w, h) with NORMALIZED xywh
+and class == -1 marking padding. Targets are built by a dense scatter into
+per-image [H * W * A] grids; unmatched candidates go to a sentinel slot past
+the end, which is dropped.
+
+Two ground truths can claim the same (cell, anchor) slot. ``index_put_``
+and ``scatter_`` leave the winner of duplicate indices undefined, on CUDA per
+element, so a box could come from one GT and its class from another. The
+port picks the winner explicitly, the candidate with the highest flat index
+(GT-major, then anchor, then candidate cell), and gathers its whole row:
+box, class and positive flag always come from one GT. XLA's CPU scatter
+applies updates in order, so the last (highest) index is also its winner.
+
+Not ported yet: cross-entropy, focal, IoU and smooth-L1 losses,
+``YOLOv3LossPerCell``, and BCE on probabilities (``from_logits=False``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.iou import box_iou, wh_iou_matrix
+from ..ops.one_hot import one_hot
+
+_EPS = 1e-8
+
+
+def _reduce(loss: torch.Tensor, weights, reduction: str) -> torch.Tensor:
+    if weights is not None:
+        loss = loss * weights
+    if reduction == "mean":
+        if weights is not None:
+            return loss.sum() / (torch.as_tensor(weights).sum() + _EPS)
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, weights=None,
+                         reduction: str = "mean") -> torch.Tensor:
+    """Elementwise BCE on logits, in the stable form
+    max(x, 0) - x * t + log(1 + exp(-|x|))."""
+    targets = targets.to(logits.dtype)
+    loss = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return _reduce(loss, weights, reduction)
+
+
+class YoloLossOutput(NamedTuple):
+    total: torch.Tensor
+    box: torch.Tensor
+    obj: torch.Tensor
+    cls: torch.Tensor
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return (x * mask).sum() / (mask.sum() + _EPS)
+
+
+def _dense_targets(labels: torch.Tensor, anchors_feat: torch.Tensor, grid_hw: tuple[int, int],
+                   ratio_thres: float | None = None, neighbor_cells: bool = False) -> dict:
+    """Target assignment for one level.
+
+    labels [B, M, 5] (cls, cxn, cyn, wn, hn), cls < 0 = padding;
+    anchors_feat [A, 2] in feature units; grid_hw (H, W).
+    ratio_thres: match every anchor whose wh ratio to the GT is below it;
+      None: only the best anchor per GT by wh-IoU.
+    neighbor_cells: each GT also trains the two nearest neighbour cells
+      (offset targets in (-0.5, 1.5); needs the v5 decode).
+
+    Returns dense [B, H, W, A, ...] targets: ``pos`` (float 0/1), ``box``
+    (offset_x, offset_y, w_feat, h_feat), ``cls`` (int64), ``anchor``,
+    plus ``gt_xywh_feat`` [B, M, 4] and ``gt_valid`` [B, M]."""
+    h, w = grid_hw
+    b, m, _ = labels.shape
+    a = anchors_feat.shape[0]
+    dev, dt = labels.device, labels.dtype
+    valid = labels[..., 0] >= 0  # [B, M]
+    cls_idx = labels[..., 0].to(torch.int32).clamp(min=0)
+    scale = torch.tensor([w, h], dtype=dt, device=dev)
+    txy = labels[..., 1:3] * scale  # feature coords
+    twh = labels[..., 3:5] * scale
+
+    if ratio_thres is not None:
+        r = twh[:, :, None, :] / anchors_feat[None, None, :, :]  # [B, M, A, 2]
+        match = torch.maximum(r, 1.0 / r).amax(dim=-1) < ratio_thres  # [B, M, A]
+    else:
+        sim = wh_iou_matrix(twh.reshape(-1, 2), anchors_feat).reshape(b, m, a)
+        match = one_hot(sim.argmax(dim=-1), a).bool()
+    match = match & valid[..., None]
+
+    # candidate cells: the centre (+ the 2 nearest neighbours when enabled)
+    gx0, gy0 = torch.floor(txy[..., 0]), torch.floor(txy[..., 1])  # [B, M]
+    fx, fy = txy[..., 0] - gx0, txy[..., 1] - gy0
+    if neighbor_cells:
+        # ultralytics build_targets: west/east by x-fraction, north/south by y
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        cand_dx = torch.stack([z, -o, o, z, z], dim=-1)  # [B, M, 5]
+        cand_dy = torch.stack([z, z, z, -o, o], dim=-1)
+        in_x, in_y = txy[..., 0], txy[..., 1]
+        cand_ok = torch.stack([
+            torch.ones_like(fx, dtype=torch.bool),
+            (fx < 0.5) & (in_x > 1.0),  # west
+            (fx > 0.5) & (in_x < w - 1.0),  # east
+            (fy < 0.5) & (in_y > 1.0),  # north
+            (fy > 0.5) & (in_y < h - 1.0),  # south
+        ], dim=-1)
+    else:
+        cand_dx = cand_dy = torch.zeros_like(fx)[..., None]
+        cand_ok = torch.ones_like(fx, dtype=torch.bool)[..., None]
+    c = cand_ok.shape[-1]
+
+    gx = (gx0[..., None] + cand_dx).clamp(0, w - 1).to(torch.int64)  # [B, M, C]
+    gy = (gy0[..., None] + cand_dy).clamp(0, h - 1).to(torch.int64)
+    # offset target relative to the candidate cell: in (-0.5, 1.5) for neighbours
+    off = torch.stack([txy[..., 0:1] - gx.to(dt), txy[..., 1:2] - gy.to(dt)], dim=-1)
+
+    # (match [B, M, A]) x (candidates [B, M, C]) -> [B, M, A, C]
+    match_ac = match[..., :, None] & cand_ok[..., None, :]
+    aidx = torch.arange(a, device=dev)[None, None, :, None]
+    size = h * w * a
+    flat = (gy[:, :, None, :] * w + gx[:, :, None, :]) * a + aidx  # [B, M, A, C]
+    flat = torch.where(match_ac, flat, size)  # the sentinel slot, dropped below
+
+    n = m * a * c
+    vals = torch.cat([
+        off[:, :, None].expand(b, m, a, c, 2).to(torch.float32),
+        twh[:, :, None, None].expand(b, m, a, c, 2).to(torch.float32),
+        cls_idx[:, :, None, None, None].expand(b, m, a, c, 1).to(torch.float32),
+        torch.ones((b, m, a, c, 1), dtype=torch.float32, device=dev),
+    ], dim=-1).reshape(b, n, 6)
+    # one winner per slot: the highest candidate index, whose whole row is taken
+    src = torch.arange(n, device=dev).expand(b, n)
+    winner = torch.full((b, size + 1), -1, dtype=torch.int64, device=dev)
+    winner = winner.scatter_reduce_(1, flat.reshape(b, n), src, "amax")[:, :size]
+    hit = winner >= 0
+    dense = vals.gather(1, winner.clamp(min=0)[..., None].expand(b, size, 6))
+    dense = torch.where(hit[..., None], dense, 0.0).reshape(b, h, w, a, 6)
+    return {
+        "pos": dense[..., 5],
+        "box": dense[..., :4],
+        "cls": dense[..., 4].to(torch.int64),
+        "anchor": anchors_feat.expand(b, h, w, a, 2),
+        "gt_xywh_feat": torch.cat([txy, twh], dim=-1),
+        "gt_valid": valid,
+    }
+
+
+class YOLOv3Loss:
+    """wh-ratio < ``ratio_thres`` multi-anchor match, CIoU box loss, BCE
+    class loss, objectness BCE against the detached IoU at positives; the
+    total is scaled by the batch size.
+
+    decode_style 'v3' decodes sigma-xy / exp-wh; 'v5' (default) decodes
+    2 * sig - 0.5 / (2 * sig)^2. Heads are taken in float32 whatever the
+    model's dtype."""
+
+    def __init__(
+        self,
+        anchors,  # [L, A, 2] input-image pixels, deepest level first
+        strides: Sequence[int] = (32, 16, 8),
+        num_classes: int = 80,
+        ratio_box: float = 0.05,
+        ratio_conf: float = 1.0,
+        ratio_cls: float = 0.5,
+        ratio_thres: float = 4.0,
+        decode_style: str = "v5",
+        level_balance: Sequence[float] | None = None,
+        neighbor_cells: bool = False,
+    ):
+        if decode_style not in ("v5", "v3"):
+            raise ValueError("decode_style must be 'v5' or 'v3'")
+        self.anchors = np.asarray(anchors, np.float32)
+        self.strides = tuple(strides)
+        self.num_classes = num_classes
+        self.ratio_box = ratio_box
+        self.ratio_conf = ratio_conf
+        self.ratio_cls = ratio_cls
+        self.ratio_thres = ratio_thres
+        self.decode_style = decode_style
+        self.level_balance = tuple(level_balance) if level_balance else (1.0,) * len(strides)
+        self.neighbor_cells = neighbor_cells
+        self._anchors_feat: dict[torch.device, torch.Tensor] = {}
+
+    def anchors_feat(self, device: torch.device) -> torch.Tensor:
+        """[L, A, 2] anchors in feature units on ``device`` (copied once)."""
+        t = self._anchors_feat.get(device)
+        if t is None:
+            strides = np.asarray(self.strides, np.float32)[:, None, None]
+            t = torch.from_numpy(self.anchors / strides).to(device)
+            self._anchors_feat[device] = t
+        return t
+
+    def _decode_cell(self, head: torch.Tensor, anchors_feat: torch.Tensor):
+        """Raw head [..., 4] -> (xy in the cell frame, wh in feature units)."""
+        if self.decode_style == "v3":
+            pxy = torch.sigmoid(head[..., 0:2])
+            pwh = torch.exp(head[..., 2:4].clamp(-9.0, 9.0)) * anchors_feat
+        else:
+            sig = torch.sigmoid(head[..., 0:4])
+            pxy = sig[..., 0:2] * 2.0 - 0.5
+            pwh = (sig[..., 2:4] * 2.0) ** 2 * anchors_feat
+        return pxy, pwh
+
+    def __call__(self, heads: Sequence[torch.Tensor], labels: torch.Tensor) -> YoloLossOutput:
+        """heads: per-level [B, H, W, A, 5 + C]; labels: [B, M, 5] padded."""
+        batch = heads[0].shape[0]
+        anchors = self.anchors_feat(heads[0].device)
+        labels = labels.to(torch.float32)
+        loss_box = loss_obj = loss_cls = 0.0
+        for li, head in enumerate(heads):
+            head = head.float()
+            _, h, w, a, _ = head.shape
+            t = _dense_targets(labels, anchors[li], (h, w), ratio_thres=self.ratio_thres,
+                               neighbor_cells=self.neighbor_cells)
+            pos = t["pos"]
+
+            pxy, pwh = self._decode_cell(head, t["anchor"])
+            pred_xywh = torch.cat([pxy, pwh], dim=-1)
+            ciou = box_iou(pred_xywh, t["box"], kind="ciou", fmt="xywh")  # [B, H, W, A]
+            loss_box = loss_box + _masked_mean(1.0 - ciou, pos)
+
+            # objectness target = the detached IoU at positives
+            iou_t = box_iou(pred_xywh, t["box"], kind="iou", fmt="xywh").clamp(0.0, 1.0).detach()
+            obj_bce = binary_cross_entropy(head[..., 4], iou_t * pos, reduction="none")
+            loss_obj = loss_obj + obj_bce.mean() * self.level_balance[li]
+
+            cls_target = one_hot(t["cls"], self.num_classes)
+            cls_bce = binary_cross_entropy(head[..., 5:], cls_target, reduction="none")
+            # per-element mean over positives
+            loss_cls = loss_cls + _masked_mean(cls_bce.mean(dim=-1), pos)
+
+        total = (self.ratio_box * loss_box + self.ratio_conf * loss_obj
+                 + self.ratio_cls * loss_cls) * batch
+        return YoloLossOutput(total, self.ratio_box * loss_box * batch,
+                              self.ratio_conf * loss_obj * batch,
+                              self.ratio_cls * loss_cls * batch)

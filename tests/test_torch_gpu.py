@@ -118,3 +118,143 @@ def test_detector_kernel_path_equals_cpu_path():
     keep = suppression_mask(nms_boxes, scores, 0.45)  # a K-slice view: made contiguous
     assert suppression_mask_cuda.launches == before + 1
     assert torch.equal(keep.cpu(), suppression_mask_plain(nms_boxes.cpu(), scores.cpu(), 0.45))
+
+
+def _train_parts(num_classes=80):
+    from fastvision_tpu_torch.train import YOLOv3Loss
+
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    loss = YOLOv3Loss(anchors, num_classes=num_classes)
+
+    def loss_fn(heads, batch):
+        out = loss(heads, batch["labels"])
+        return out.total, {"box": out.box, "obj": out.obj, "cls": out.cls}
+
+    return anchors, loss_fn
+
+
+def _one_batch(size=128, n=4, seed=3):
+    from fastvision_tpu_torch.data import DetectionLoader
+    from fastvision_tpu_torch.testing import SyntheticDetectionDataset
+
+    ds = SyntheticDetectionDataset(n, 80, seed=seed)
+    return next(iter(DetectionLoader(ds, size, n, max_boxes=8, seed=seed)))
+
+
+def test_train_step_on_card_equals_cpu():
+    """One float32 SGD step (TF32 off) of a shallow YOLOv3 on the card and
+    on the CPU from the same weights and batch. Tolerances: loss 1e-4
+    relative; kernels max|d| <= 1e-3 * std; the other tensors (BN scale
+    and shift, biases, running statistics) max|d| <= 1e-2 of max(std,
+    largest update). Train-mode BN over few values per channel amplifies
+    float32 rounding in the backward (~5e-5 of the largest gradient between
+    the CPU and a float64 run), and cuDNN's float32 algorithms round
+    otherwise than the CPU's: a BN scale's one-step update differed by
+    2.4e-3 of itself (H100, 256 px)."""
+    import copy
+
+    from fastvision_tpu_torch.testing import state_max_rel_diff
+    from fastvision_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    dev = _cuda()
+    _, loss_fn = _train_parts()
+    model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(7))
+    cpu_model = copy.deepcopy(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _one_batch()
+    step = make_train_step(loss_fn)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = TrainState.create(model, build_optimizer("sgd", model), dev)
+        on_cpu = TrainState.create(cpu_model, build_optimizer("sgd", cpu_model), "cpu")
+        _, m_dev = step(on_card, {k: torch.from_numpy(batch[k]).to(dev)
+                                  for k in ("images", "labels")}, 1e-2)
+        _, m_cpu = step(on_cpu, {k: torch.from_numpy(batch[k]) for k in ("images", "labels")},
+                        1e-2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert float(m_dev["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-4)
+    assert float(m_dev["grad_norm"]) == pytest.approx(float(m_cpu["grad_norm"]), rel=1e-3)
+    worst = state_max_rel_diff(model.state_dict(), cpu_model.state_dict(), start)
+    assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst
+
+
+def test_fit_on_card_validates_through_the_nms_kernel():
+    """bf16 Fit of 2 steps with EMA, then validation: one NMS kernel launch
+    per validation batch, finite loss, map in [0, 1]."""
+    from fastvision_tpu_torch.data import DetectionLoader
+    from fastvision_tpu_torch.infer import decode_predictions
+    from fastvision_tpu_torch.testing import SyntheticDetectionDataset
+    from fastvision_tpu_torch.train import (
+        Fit,
+        build_optimizer,
+        detection_evaluator,
+        make_eval_step,
+        warmup_cosine_lr,
+    )
+
+    _cuda()
+    anchors, loss_fn = _train_parts()
+    anchors_t = torch.from_numpy(anchors).cuda()
+    model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(8))
+
+    def post(heads, batch):
+        return batched_non_max_suppression(decode_predictions(heads, anchors_t).float(),
+                                           conf_thres=0.01, max_det=100)
+
+    records = []
+
+    class Log:
+        def log(self, step, **kw):
+            records.append(kw)
+
+    train = DetectionLoader(SyntheticDetectionDataset(8, 80, seed=1), 128, 4, max_boxes=8)
+    val = DetectionLoader(SyntheticDetectionDataset(6, 80, seed=2), 128, 4, train=False)
+    fit = Fit(model, loss_fn, build_optimizer("sgd", model), train, val, epochs=1,
+              schedule=warmup_cosine_lr(1e-2, 1e-4, 2, 1), ema_decay=0.9999,
+              evaluator=detection_evaluator(make_eval_step(post, dtype=torch.bfloat16)),
+              dtype=torch.bfloat16, logger=Log())
+    assert fit.device.type == "cuda"
+    before = suppression_mask_cuda.launches
+    fit.run()
+    assert suppression_mask_cuda.launches == before + 2  # 6 images at batch 4
+    assert fit.global_step == 2
+    last = records[-1]
+    assert np.isfinite(last["train_loss"]) and 0.0 <= last["map50"] <= 1.0
+
+
+def test_prefetch_to_device_copies_to_the_card():
+    from fastvision_tpu_torch.data import prefetch_to_device
+
+    _cuda()
+    host = [{"images": np.full((2, 8, 8, 3), i, np.uint8),
+             "labels": np.full((2, 3, 5), -1.0, np.float32), "num_real": 2} for i in range(5)]
+    got = list(prefetch_to_device(iter(host)))
+    assert len(got) == 5
+    for g, h in zip(got, host):
+        assert g["images"].device.type == "cuda" and g["num_real"] == 2
+        assert torch.equal(g["images"].cpu(), torch.from_numpy(h["images"]))
+        assert torch.equal(g["labels"].cpu(), torch.from_numpy(h["labels"]))
+
+
+def test_bn_train_mode_under_bf16_autocast_keeps_float32_statistics():
+    from fastvision_tpu_torch.nn import ConvBN
+
+    dev = _cuda()
+    x = torch.randn(4, 8, 13, 13, generator=torch.Generator().manual_seed(0))
+    ref = ConvBN(8, 16, 3).train()
+    card = ConvBN(8, 16, 3).train()
+    card.load_state_dict(ref.state_dict())
+    card.to(dev, memory_format=torch.channels_last)
+    ref(x)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = card(x.to(dev))
+    assert y.dtype == torch.bfloat16
+    assert card.bn.running_var.dtype == torch.float32
+    torch.testing.assert_close(card.bn.running_var.cpu(), ref.bn.running_var, rtol=2e-2, atol=1e-3)
+    torch.testing.assert_close(card.bn.running_mean.cpu(), ref.bn.running_mean,
+                               rtol=2e-2, atol=1e-3)
