@@ -9,9 +9,11 @@ Ported so far: the YOLOv3 `Detector` inference chain (letterbox ->
 normalize -> Darknet-53 + YOLOv3 neck/head -> decode -> class-offset greedy
 NMS -> unscale) and the YOLOv3 training path (`train.Fit` over
 `data.DetectionLoader` with `train.YOLOv3Loss`, SGD / Adam, schedules, EMA
-and `train.detection_evaluator`). Greedy NMS suppression runs as a
-hand-written CUDA kernel (`csrc/nms.cu`) on CUDA tensors and as its plain
-PyTorch version on CPU tensors.
+and `train.detection_evaluator`), and Faster R-CNN (VGG16 + RPN + RoI-align
+head, `models.FasterRCNN`) for evaluation and training through `Fit`
+(`train.make_frcnn_train_step`, `train.make_frcnn_eval_step`). Greedy NMS
+suppression runs as a hand-written CUDA kernel (`csrc/nms.cu`) on CUDA
+tensors and as its plain PyTorch version on CPU tensors.
 """
 
 __version__ = "0.1.0"

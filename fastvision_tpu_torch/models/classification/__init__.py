@@ -1,3 +1,4 @@
 from .darknet53 import DarkResidual, Darknet53
+from .vgg import CFGS, VGG, VGGClassifier
 
-__all__ = ["DarkResidual", "Darknet53"]
+__all__ = ["DarkResidual", "Darknet53", "CFGS", "VGG", "VGGClassifier"]

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax YOLOv3 variables -> this port's state_dict.
+"""Weight bridge: the JAX package's flax YOLOv3 and Faster R-CNN variables ->
+this port's state_dicts.
 
 Takes the variables as nested dicts of numpy arrays (what
 ``jax.device_get(variables)`` returns), so this module needs no JAX. The
@@ -8,7 +9,10 @@ yolov3_from_torch``:
   - conv kernel HWIO -> OIHW (``transpose(3, 2, 0, 1)``);
   - ``.../bn/bn/{scale,bias}`` (params) and ``.../bn/bn/{mean,var}``
     (batch_stats) -> ``bn.{weight,bias,running_mean,running_var}``;
-  - ``head/pred{i}/{kernel,bias}`` -> ``head.head_out_{lvl}.{weight,bias}``.
+  - ``head/pred{i}/{kernel,bias}`` -> ``head.head_out_{lvl}.{weight,bias}``;
+  - Dense kernel [in, out] -> Linear weight [out, in]. The Faster R-CNN
+    head's fc1 takes RoI features flattened in (h, w, c) order in both
+    packages, so its rows need no re-interleave.
 
 The backbone's depth is read from the variables, so shallow nets bridge too.
 """
@@ -79,4 +83,28 @@ def yolov3_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         pred = params["head"][f"pred{li}"]
         out[f"head.head_out_{lvl}.weight"] = _t(np.transpose(pred["kernel"], (3, 2, 0, 1)))
         out[f"head.head_out_{lvl}.bias"] = _t(pred["bias"])
+    return out
+
+
+def _dense(out: dict, prefix: str, params: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(np.transpose(params["kernel"]))
+    out[f"{prefix}.bias"] = _t(params["bias"])
+
+
+def faster_rcnn_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """{'params': ...} of the JAX ``FasterRCNN`` -> a state_dict for this
+    port's ``FasterRCNN`` (``load_state_dict(strict=True)``)."""
+    params = variables["params"]
+    out: dict[str, torch.Tensor] = {}
+    bp = params["backbone"]
+    i = 0
+    while f"conv{i}" in bp:
+        _convbn(out, f"backbone.conv{i}", bp[f"conv{i}"], {})
+        i += 1
+    for name in ("conv", "cls", "reg"):
+        rp = params["rpn"][name]
+        out[f"rpn.{name}.weight"] = _t(np.transpose(rp["kernel"], (3, 2, 0, 1)))
+        out[f"rpn.{name}.bias"] = _t(rp["bias"])
+    for name in ("fc1", "fc2", "cls", "reg"):
+        _dense(out, f"head.{name}", params["head"][name])
     return out

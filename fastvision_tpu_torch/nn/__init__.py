@@ -1,3 +1,3 @@
-from .layers import ACTIVATIONS, BatchNorm, ConvBN, init_weights_
+from .layers import ACTIVATIONS, BatchNorm, ConvBN, init_weights_, max_pool
 
-__all__ = ["ACTIVATIONS", "BatchNorm", "ConvBN", "init_weights_"]
+__all__ = ["ACTIVATIONS", "BatchNorm", "ConvBN", "init_weights_", "max_pool"]

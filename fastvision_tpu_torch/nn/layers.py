@@ -10,7 +10,9 @@ cuDNN prefers on Hopper. Conventions carried over from the JAX package:
   - BN eps 1e-5 and torch momentum 0.1, which is flax momentum 0.9;
   - kaiming-normal fan_out conv init, BN scale 1 and shift 0.
 
-The int8 quantized forward and its calibration hooks are not ported yet.
+`max_pool` is flax's ``max_pool`` (VALID windows); `init_weights_` also
+gives ``nn.Linear`` flax ``Dense``'s init. The int8 quantized forward and
+its calibration hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -84,25 +86,45 @@ class ConvBN(nn.Module):
         return ACTIVATIONS[self.act](self.bn(self.conv(x)))
 
 
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """NCHW max pool over VALID windows (flax ``max_pool``, padding 'VALID':
+    a trailing row or column that fills no window is dropped)."""
+    return F.max_pool2d(x, window, stride)
+
+
+def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator | None) -> None:
+    """Normal(0, std) truncated to [-2 std, 2 std] in place: values outside
+    are drawn again, only those (``nn.init.trunc_normal_`` redraws the whole
+    tensor each round, seconds for a 100M-element Linear on the CPU)."""
+    flat = w.view(-1).normal_(0.0, std, generator=generator)
+    idx = (flat.abs() > 2 * std).nonzero().squeeze(1)
+    while idx.numel():
+        vals = torch.empty(idx.numel(), dtype=w.dtype, device=w.device).normal_(
+            0.0, std, generator=generator)
+        ok = vals.abs() <= 2 * std
+        flat[idx[ok]] = vals[ok]
+        idx = idx[~ok]
+
+
 def init_weights_(module: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
-    """Re-initialise every conv and BN below ``module`` from ``generator``:
-    ConvBN convs kaiming-normal fan_out (the JAX package's
-    ``variance_scaling(2, fan_out, normal)``), other convs lecun-normal
-    (flax's default: truncated normal, variance 1 / fan_in), biases 0, BN
-    scale 1, shift 0, running statistics reset."""
+    """Re-initialise every conv, linear and BN below ``module`` from
+    ``generator``: ConvBN convs kaiming-normal fan_out (the JAX package's
+    ``variance_scaling(2, fan_out, normal)``), other convs and linears
+    lecun-normal (flax's default for ``Conv`` and ``Dense``: truncated
+    normal, variance 1 / fan_in), biases 0, BN scale 1, shift 0, running
+    statistics reset."""
     convbn_convs = {id(m.conv) for m in module.modules() if isinstance(m, ConvBN)}
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 if id(m) in convbn_convs:
                     nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                             nonlinearity="relu", generator=generator)
                 else:
                     fan_in = m.weight[0].numel()
                     # flax truncates at 2 std and rescales to keep the variance
-                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                          generator=generator)
+                    _trunc_normal_(m.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978,
+                                   generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm2d):

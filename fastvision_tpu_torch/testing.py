@@ -6,6 +6,9 @@ cases: class-offset coordinates, exact score ties, -inf tails, pairs built
 to sit on the IoU threshold and, as a trained detector gives, clusters of
 near-copies of a few objects (heavy suppression).
 
+`rpn_nms_case` draws the other regime, Faster R-CNN's RPN: dense,
+class-agnostic boxes in a 512-px image at IoU 0.7.
+
 `SyntheticDetectionDataset` is an in-memory detection dataset to train and
 validate on where no image files can be written or decoded (no cv2).
 """
@@ -60,6 +63,28 @@ def nms_case(seed: int, b: int, k: int, iou_thres: float = 0.45, *, ties: bool =
     if neg_inf_tail:
         scores[:, k - k // 4:] = -np.inf
     return boxes, np.ascontiguousarray(scores)
+
+
+def rpn_nms_case(seed: int, b: int, k: int, image_size: int = 512,
+                 stride: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    """Inputs of the Faster R-CNN RPN's proposal NMS -> (boxes [b, k, 4]
+    float32 xyxy, scores [b, k] float32 sorted descending): k of the
+    (image_size / stride)^2 x 9 anchors (scales 8, 16, 32 x stride, ratios
+    0.5, 1, 2) decoded with N(0, 0.2) deltas and clipped to the image, so
+    large boxes overlap densely, as the RPN's do. No class offset; the
+    lowest 2% score -inf, as min-size-filtered proposals do."""
+    rng = np.random.default_rng(seed)
+    cells = image_size // stride
+    sizes = np.array([[s * stride / r**0.5, s * stride * r**0.5]
+                      for r in (0.5, 1.0, 2.0) for s in (8, 16, 32)])  # [9, (w, h)]
+    pick = rng.integers(0, cells * cells * 9, (b, k))
+    cy, cx = ((pick // 9) // cells + 0.5) * stride, ((pick // 9) % cells + 0.5) * stride
+    wh = sizes[pick % 9] * np.exp(np.clip(rng.normal(0, 0.2, (b, k, 2)), -4, 4))
+    ctr = np.stack([cx, cy], -1) + rng.normal(0, 0.2, (b, k, 2)) * sizes[pick % 9]
+    boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0, image_size)
+    scores = -np.sort(-rng.normal(0, 2, (b, k)), axis=-1).astype(np.float32)
+    scores[:, k - k // 50:] = -np.inf
+    return boxes.astype(np.float32), np.ascontiguousarray(scores)
 
 
 def _clustered(rng: np.random.Generator, b: int, k: int, n: int, num_classes: int,

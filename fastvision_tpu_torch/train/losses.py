@@ -1,5 +1,6 @@
-"""Losses for YOLOv3 training (port of fastvision_tpu/train/losses.py: BCE,
-the dense target assignment and ``YOLOv3Loss``).
+"""Losses (port of fastvision_tpu/train/losses.py): cross-entropy, soft
+cross-entropy, BCE, focal and binary focal, smooth-L1, the dense YOLOv3
+target assignment and ``YOLOv3Loss``.
 
 Labels arrive padded [B, M, 5] = (class, cx, cy, w, h) with NORMALIZED xywh
 and class == -1 marking padding. Targets are built by a dense scatter into
@@ -14,8 +15,8 @@ port picks the winner explicitly, the candidate with the highest flat index
 box, class and positive flag always come from one GT. XLA's CPU scatter
 applies updates in order, so the last (highest) index is also its winner.
 
-Not ported yet: cross-entropy, focal, IoU and smooth-L1 losses,
-``YOLOv3LossPerCell``, and BCE on probabilities (``from_logits=False``).
+Not ported yet: ``iou_loss``, ``YOLOv3LossPerCell``, and BCE on
+probabilities (``from_logits=False``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,56 @@ def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, weights=No
     max(x, 0) - x * t + log(1 + exp(-|x|))."""
     targets = targets.to(logits.dtype)
     loss = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return _reduce(loss, weights, reduction)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights=None,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Softmax cross-entropy over integer labels [...] and logits [..., C]."""
+    target = one_hot(labels, logits.shape[-1], logits.dtype)
+    return soft_cross_entropy(logits, target, weights, reduction)
+
+
+def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor, weights=None,
+                       reduction: str = "mean") -> torch.Tensor:
+    """Cross-entropy against a target distribution [..., C] (one-hot gives
+    `cross_entropy`)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return _reduce(-(target_probs.to(logp.dtype) * logp).sum(dim=-1), weights, reduction)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float = 0.25,
+               gamma: float = 2.0, weights=None, reduction: str = "mean") -> torch.Tensor:
+    """Per-class sigmoid focal loss over integer labels, summed over classes."""
+    target = one_hot(labels, logits.shape[-1], logits.dtype)
+    p = torch.sigmoid(logits)
+    ce = binary_cross_entropy(logits, target, reduction="none")
+    p_t = p * target + (1 - p) * (1 - target)
+    alpha_t = alpha * target + (1 - alpha) * (1 - target)
+    return _reduce((alpha_t * (1 - p_t) ** gamma * ce).sum(dim=-1), weights, reduction)
+
+
+def binary_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float | None = None,
+                      gamma: float = 2.0, weights=None, reduction: str = "mean") -> torch.Tensor:
+    """Sigmoid focal loss on a single logit (RetinaNet form); ``alpha=None``
+    leaves out the class weighting, as the Faster R-CNN RPN trains."""
+    targets = targets.to(logits.dtype)
+    ce = binary_cross_entropy(logits, targets, reduction="none")
+    p = torch.sigmoid(logits)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = (1 - p_t) ** gamma * ce
+    if alpha is not None:
+        loss = loss * (alpha * targets + (1 - alpha) * (1 - targets))
+    return _reduce(loss, weights, reduction)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0, weights=None,
+              reduction: str = "mean") -> torch.Tensor:
+    """Huber / smooth-L1, summed over the last axis when there is more than one."""
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff**2 / beta, diff - 0.5 * beta)
+    if loss.ndim > 1:
+        loss = loss.sum(dim=-1)
     return _reduce(loss, weights, reduction)
 
 

@@ -52,8 +52,9 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
-def _forward(model: nn.Module, images: torch.Tensor, dtype: torch.dtype, remat: bool = False):
-    x = normalize_images(images, dtype)
+def _forward(model: nn.Module, images: torch.Tensor, dtype: torch.dtype, remat: bool = False,
+             imagenet: bool = False):
+    x = normalize_images(images, dtype, imagenet=imagenet)
     with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
         if remat:
             return checkpoint(model, x, use_reentrant=False)
@@ -139,10 +140,11 @@ def make_train_step(
 
 
 def make_eval_step(postprocess: Callable | None = None,
-                   dtype: torch.dtype = torch.float32) -> Callable:
+                   dtype: torch.dtype = torch.float32, imagenet: bool = False) -> Callable:
     """Build ``eval_step(state, batch) -> outputs``: eval mode, no autograd,
-    ``postprocess(outputs, batch)`` (e.g. decode + NMS) in the same call.
-    The model's train/eval mode is restored afterwards."""
+    images scaled to [0, 1] (and imagenet-standardized with ``imagenet``),
+    ``postprocess(outputs, batch)`` (e.g. decode + NMS) in the same call,
+    outside autocast. The model's train/eval mode is restored afterwards."""
 
     def eval_step(state: TrainState, batch: dict):
         model = state.model
@@ -150,7 +152,7 @@ def make_eval_step(postprocess: Callable | None = None,
         model.eval()
         try:
             with torch.inference_mode():
-                out = _forward(model, batch["images"], dtype)
+                out = _forward(model, batch["images"], dtype, imagenet=imagenet)
                 if postprocess is not None:
                     out = postprocess(out, batch)
         finally:

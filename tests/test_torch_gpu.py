@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: the CUDA NMS kernel against its plain
-PyTorch version, and the Detector's kernel path against its CPU path.
+PyTorch version (also on Faster R-CNN's RPN and head inputs), the Detector's
+and Faster R-CNN's kernel paths against their CPU paths.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -29,7 +30,7 @@ from fastvision_tpu_torch.ops.nms_kernel import (
     suppression_mask_cuda,
     suppression_mask_plain,
 )
-from fastvision_tpu_torch.testing import nms_case
+from fastvision_tpu_torch.testing import nms_case, rpn_nms_case
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -258,3 +259,154 @@ def test_bn_train_mode_under_bf16_autocast_keeps_float32_statistics():
     torch.testing.assert_close(card.bn.running_var.cpu(), ref.bn.running_var, rtol=2e-2, atol=1e-3)
     torch.testing.assert_close(card.bn.running_mean.cpu(), ref.bn.running_mean,
                                rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["rpn_eval", "rpn_train", "head"])
+def test_kernel_mask_equals_plain_on_frcnn_inputs(case):
+    """Faster R-CNN's two regimes: the RPN's dense class-agnostic boxes at
+    IoU 0.7 (K = 1000 at eval, 2000 in training) and the head's
+    class-offset boxes (20 classes) at IoU 0.3, K = 400."""
+    dev = _cuda()
+    if case == "head":
+        thr = 0.3
+        boxes, scores = nms_case(41, 8, 400, thr, num_classes=20, clusters=30,
+                                 ties=False, on_threshold=False)
+    else:
+        thr = 0.7
+        boxes, scores = rpn_nms_case(40, 8, 1000 if case == "rpn_eval" else 2000)
+    boxes, scores = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    got = suppression_mask_cuda(boxes, scores, thr)
+    want = suppression_mask_plain(boxes, scores, thr)
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _frcnn(seed=9, **kw):
+    from fastvision_tpu_torch.models import FasterRCNN
+
+    cfg = dict(num_classes=3, image_size=128, anchor_scales=(2, 4, 6), rpn_pre_nms_train=256,
+               rpn_post_nms_train=64, rpn_pre_nms_eval=256, rpn_post_nms_eval=64,
+               roi_pos=4, roi_neg=12)
+    return FasterRCNN(**{**cfg, **kw}, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("form", ["roi_align", "roi_align_mxu"])
+def test_roi_align_on_card_equals_cpu(form):
+    import fastvision_tpu_torch.ops as ops
+
+    dev = _cuda()
+    rng = np.random.default_rng(10)
+    feat = torch.from_numpy(rng.normal(size=(2, 32, 32, 64)).astype(np.float32))
+    xy = rng.uniform(-20, 400, (2, 50, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(1, 300, (2, 50, 2))],
+                                            -1).astype(np.float32))
+    fn = getattr(ops, form)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = fn(feat.to(dev), boxes.to(dev)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    want = fn(feat, boxes)
+    # the card contracts y1 + off * bin into one FMA: sample coordinates
+    # (up to ~30 feature cells) differ by an ulp, weights by ~2e-6
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.std())
+
+
+def test_frcnn_eval_step_on_card():
+    """The eval step on the card launches the kernel twice (RPN, head); its
+    float32 outputs match the CPU's (TF32 off), and selection from the
+    card's own NMS inputs is identical on the card and on the CPU."""
+    import copy
+
+    from fastvision_tpu_torch.models.detection import (
+        detection_candidates,
+        proposal_candidates,
+        select_detections,
+        select_proposals,
+    )
+    from fastvision_tpu_torch.train import TrainState, make_frcnn_eval_step
+
+    dev = _cuda()
+    model = _frcnn()
+    cpu_model = copy.deepcopy(model).eval()
+    state = TrainState.create(model, None, dev)
+    images = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (2, 128, 128, 3),
+                                                                 dtype=np.uint8))
+    before = suppression_mask_cuda.launches
+    det = make_frcnn_eval_step(score_thresh=0.0, dtype=torch.bfloat16)(
+        state, {"images": images.to(dev)})
+    torch.cuda.synchronize()
+    assert suppression_mask_cuda.launches == before + 2
+    assert det.boxes.shape == (2, 100, 4) and int(det.valid.sum()) > 0
+    assert bool(torch.isfinite(det.boxes).all())
+
+    from fastvision_tpu_torch.data import normalize_images
+
+    x = normalize_images(images, imagenet=True)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model.eval()
+        with torch.inference_mode():
+            feat = model.features(x.to(dev))
+            anchors, obj, deltas, proposals, valid = model.propose(feat)
+            cls_logits, boxes = model.detect(feat, proposals)
+            feat_c = cpu_model.features(x)
+            _, obj_c, deltas_c, _, _ = cpu_model.propose(feat_c)
+            cls_c, boxes_c = cpu_model.detect(feat_c, proposals.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for got, want in ((obj, obj_c), (deltas, deltas_c), (cls_logits, cls_c), (boxes, boxes_c)):
+        assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.std())
+    top_b, top_s = proposal_candidates(anchors, obj, deltas, 128, 256)
+    on_card = select_proposals(top_b, top_s, 0.7, 64)
+    on_cpu = select_proposals(top_b.cpu(), top_s.cpu(), 0.7, 64)
+    assert torch.equal(on_card[0].cpu(), on_cpu[0]) and torch.equal(on_card[2].cpu(), on_cpu[2])
+    # sigmoid differs by an ulp between the card's and the CPU's implementations
+    torch.testing.assert_close(on_card[1].cpu(), on_cpu[1], rtol=1e-6, atol=0.0)
+    cands = detection_candidates(cls_logits, boxes, valid, 0.0, 100)
+    for a, b in zip(select_detections(*cands, 0.3, 100),
+                    select_detections(*(t.cpu() for t in cands), 0.3, 100)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_frcnn_train_step_on_card_equals_cpu():
+    """One float32 SGD step (TF32 off) on the card and on the CPU from the
+    same weights, batch and draws: losses within 1e-4 relative, weights
+    within 1e-3 of their std or 1e-2 of their largest update."""
+    import copy
+
+    from fastvision_tpu_torch.data import DetectionLoader
+    from fastvision_tpu_torch.models.detection import make_draws
+    from fastvision_tpu_torch.testing import SyntheticDetectionDataset, state_max_rel_diff
+    from fastvision_tpu_torch.train import TrainState, build_optimizer, make_frcnn_train_step
+
+    dev = _cuda()
+    model = _frcnn(12)
+    cpu_model = copy.deepcopy(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = next(iter(DetectionLoader(SyntheticDetectionDataset(2, 3, seed=4), 128, 2,
+                                      max_boxes=6, seed=4)))
+    draws = make_draws(torch.Generator().manual_seed(13), 2, 8 * 8 * 9, 64, 16, 4096, 0.5)
+    step = make_frcnn_train_step(seed=0)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = TrainState.create(model, build_optimizer("sgd", model, grad_clip_norm=10.0), dev)
+        on_cpu = TrainState.create(cpu_model, build_optimizer("sgd", cpu_model,
+                                                              grad_clip_norm=10.0), "cpu")
+        before = suppression_mask_cuda.launches
+        _, m_dev = step(on_card, {k: torch.from_numpy(batch[k]).to(dev)
+                                  for k in ("images", "labels")}, 1e-3,
+                        draws=type(draws)(*(t.to(dev) for t in draws)))
+        torch.cuda.synchronize()
+        assert suppression_mask_cuda.launches == before + 1
+        _, m_cpu = step(on_cpu, {k: torch.from_numpy(batch[k]) for k in ("images", "labels")},
+                        1e-3, draws=draws)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for k in ("rpn_cls", "rpn_reg", "cls", "reg", "loss"):
+        assert float(m_dev[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4), k
+    worst = state_max_rel_diff(model.state_dict(), cpu_model.state_dict(), start)
+    assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst

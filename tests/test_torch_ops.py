@@ -153,7 +153,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'fastvision_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'fastvision_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(" f"{sorted(mods)!r}" "))\n"
     )
@@ -163,3 +164,6 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(mods) >= 20
+    assert {"fastvision_tpu_torch.models.detection.faster_rcnn",
+            "fastvision_tpu_torch.train.frcnn_steps", "fastvision_tpu_torch.ops.roi_align",
+            "fastvision_tpu_torch.models.import_torch"} <= set(mods)
