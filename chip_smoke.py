@@ -71,7 +71,34 @@ exits non-zero before a result is printed:
               kernel alone in both regimes (ms, graph_ms, bound, plain); the
               train step's images/s at batch 8 (1 warm-up, 8 steps, one
               sync); peak memory, profiles, FLOPs from the layer shapes and
-              ``mfu``; then the run's total seconds.
+              ``mfu``;
+  12. ckpt_resume  checkpoint, preemption and resume at full width, for the
+              YOLOv3-416 ``Fit`` of the train phase (bf16, EMA) and the
+              Faster R-CNN-512 one of the frcnn_train phase: run 1 trains 2
+              epochs with ``ckpt_dir``; run 2 is cut by ``request_preempt``
+              after the first step of epoch 2; run 3, a new
+              ``Fit(resume=True)``, restores a state bit-equal to the one
+              saved (model, optimizer, EMA), at the saved epoch and steps,
+              and finishes; its final weights are held against run 1's with
+              the stated tolerance. Bytes on disk per checkpoint, the save's
+              host copy (the step loop's stall), ``wait()``, restore
+              seconds; the free disk space first;
+  13. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
+              EMA weights over 64 images of assorted sizes labelled with
+              the detector's own jittered detections (so that mAP is not
+              0): ``evaluate`` with device and with host matching (equal
+              mAP wherever the two matching rules agree; the device's mAP
+              equal to the host's boxes scored under the device's rule
+              always), ``evaluate_sweep`` over the reference's 9 points
+              and 2 at conf 0.001 against as many per-point ``evaluate``s
+              (equal rows), images/s and kernel launches of each;
+  14. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
+              from ``testing.write_detection_dataset``: ``train`` YOLOv3-416
+              with the default recipe (mosaic 0.5, hflip, HSV) for 2
+              epochs, ``train --resume`` to 3, ``eval --ckpt ... --sweep``,
+              and ``train model.name=faster_rcnn`` at 512 for 1 epoch; epoch
+              images/s with decode and augmentation, launches per command;
+              then the run's total seconds.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port; the last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -82,17 +109,26 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from fastvision_tpu_torch import cuda_build
-from fastvision_tpu_torch.core import MetricLogger
+from fastvision_tpu_torch.core import MetricLogger, restore_inference_weights
 from fastvision_tpu_torch.data import DetectionLoader, normalize_images
-from fastvision_tpu_torch.infer import Detector, decode_predictions, preprocess_batch, scale_coords
+from fastvision_tpu_torch.infer import (
+    REFERENCE_SWEEP,
+    Detector,
+    decode_predictions,
+    preprocess_batch,
+    scale_coords,
+)
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.detection import (
     detection_candidates,
@@ -106,6 +142,8 @@ from fastvision_tpu_torch.ops import (
     COCO_ANCHORS,
     MeanAveragePrecision,
     batched_non_max_suppression,
+    match_predictions,
+    match_predictions_device,
     nms_candidates,
     roi_align,
     roi_align_mxu,
@@ -120,6 +158,7 @@ from fastvision_tpu_torch.testing import (
     nms_case,
     rpn_nms_case,
     state_max_rel_diff,
+    write_detection_dataset,
 )
 from fastvision_tpu_torch.train import (
     Fit,
@@ -1156,6 +1195,350 @@ def phase_frcnn_times(dev: torch.device, model: FasterRCNN, u8: torch.Tensor, ke
     return out
 
 
+# ---------------------------------------------------------------------------
+# checkpoint / resume, Detector.evaluate and the CLI
+# ---------------------------------------------------------------------------
+EVAL_IMAGES, EVAL_BATCH = 64, 32
+# final weights of a run cut and resumed vs one never cut: every step runs
+# again on the card, whose bf16 convolutions and their backward may sum in
+# another order between runs (cuDNN's algorithms are not deterministic), so
+# the two runs differ by rounding only: tolerances as the card-vs-CPU step's
+RESUME_TOLERANCES = {"kernels": 1e-3, "others": 1e-2}
+
+
+def yolo_model(seed: int = SEED) -> YOLOv3:
+    return YOLOv3(num_classes=NUM_CLASSES, generator=torch.Generator().manual_seed(seed))
+
+
+def quiet_logger() -> MetricLogger:
+    return MetricLogger(stdout=False)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def host_state(fit: Fit) -> dict:
+    """The state a checkpoint holds, copied to the host."""
+    ema = fit.ema_model
+    return copy.deepcopy({
+        "model": {k: v.cpu() for k, v in fit.state.model.state_dict().items()},
+        "optimizer": fit.state.optimizer.state_dict(),
+        "ema": {k: v.detach().cpu() for k, v in ema.named_parameters()} if ema else None,
+        "step": fit.state.step})
+
+
+def same_state(a, b) -> bool:
+    """Bit equality of two nested states (tensors compared on the host)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def counted(evaluate, sink: list):
+    """An evaluator that records the NMS kernel's launches of each call."""
+    def run(state, loader):
+        suppression_mask_cuda.launches = 0
+        out = evaluate(state, loader)
+        torch.cuda.synchronize()
+        sink.append(suppression_mask_cuda.launches)
+        return out
+    return run
+
+
+def yolo_resume_fit(dev, ckpt_dir: str, resume: bool, sink: list) -> Fit:
+    """The train phase's full-width YOLOv3-416 bf16 Fit (EMA on), checkpointed."""
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    loss_fn, postprocess = train_parts(anchors, NUM_CLASSES)
+    model = yolo_model()
+    loader = DetectionLoader(SyntheticDetectionDataset(TRAIN_IMAGES, NUM_CLASSES, seed=SEED),
+                             INPUT_SIZE, TRAIN_BATCH, max_boxes=32, seed=SEED)
+    val = DetectionLoader(SyntheticDetectionDataset(VAL_IMAGES, NUM_CLASSES, seed=SEED + 2),
+                          INPUT_SIZE, VAL_BATCH, max_boxes=32, train=False)
+    return Fit(model, loss_fn, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937),
+               loader, val, epochs=2,
+               schedule=warmup_cosine_lr(1e-2, 1e-4, 2 * len(loader), warmup_steps=1),
+               evaluator=counted(detection_evaluator(make_eval_step(postprocess,
+                                                                    dtype=torch.bfloat16)), sink),
+               ema_decay=0.9999, dtype=torch.bfloat16, metric_key="map50", metric_mode="max",
+               logger=quiet_logger(), ckpt_dir=ckpt_dir, resume=resume, device=dev)
+
+
+def frcnn_resume_fit(dev, ckpt_dir: str, resume: bool, sink: list) -> Fit:
+    """The frcnn_train phase's full-width Faster R-CNN-512 bf16 Fit, checkpointed."""
+    model = frcnn_model()
+    loader = frcnn_loader(FRCNN_TRAIN_IMAGES, SEED, FRCNN_BATCH, FRCNN_SIZE)
+    return Fit(model, None, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937,
+                                            grad_clip_norm=10.0),
+               loader, frcnn_loader(FRCNN_VAL_IMAGES, SEED + 2, FRCNN_BATCH, FRCNN_SIZE,
+                                    train=False), epochs=2,
+               schedule=step_decay_lr(FRCNN_LR, 8 * len(loader)),
+               evaluator=counted(detection_evaluator(make_frcnn_eval_step(
+                   dtype=torch.bfloat16, **FRCNN_VAL)), sink),
+               step_fn=make_frcnn_train_step(SEED, torch.bfloat16), metric_key="map50",
+               metric_mode="max", logger=quiet_logger(), ckpt_dir=ckpt_dir, resume=resume,
+               device=dev)
+
+
+def resume_case(dev, build, workdir: str) -> dict:
+    """Run 1: 2 epochs, checkpointed. Run 2: the same, cut after the first
+    step of epoch 2 (request_preempt). Run 3: a new Fit(resume=True) that
+    finishes it. The restored state must equal the saved one bit for bit."""
+    sink: list = []
+    run1_dir, run2_dir = os.path.join(workdir, "run1"), os.path.join(workdir, "run2")
+    fit1 = build(dev, run1_dir, False, sink)
+    start = {k: v.detach().cpu().clone() for k, v in fit1.state.model.state_dict().items()}
+    t0 = time.perf_counter()
+    fit1.run()
+    run1_s = time.perf_counter() - t0
+    steps = len(fit1.train_loader)
+    check(not fit1.interrupted and fit1.global_step == 2 * steps, f"run 1: {fit1.global_step}")
+    save = dict(fit1.ckpt.last_save)
+    ckpt_bytes = dir_bytes(os.path.join(run1_dir, str(fit1.ckpt.latest_step())))
+
+    fit2 = build(dev, run2_dir, False, sink)
+    inner, calls = fit2.step_fn, []
+
+    def cut(state, batch, lr):
+        calls.append(1)
+        if len(calls) == steps + 1:
+            fit2.request_preempt()
+        return inner(state, batch, lr)
+
+    fit2.step_fn = cut
+    fit2.run()
+    check(fit2.interrupted and fit2.global_step == steps + 1, f"run 2 stopped at {fit2.global_step}")
+    at_save = host_state(fit2)
+    del fit2
+    t0 = time.perf_counter()
+    fit3 = build(dev, run2_dir, True, sink)
+    torch.cuda.synchronize()
+    build_restore_s = time.perf_counter() - t0
+    restored = host_state(fit3)
+    bit_equal_restore = same_state(restored, at_save)
+    check(bit_equal_restore, "the restored state differs from the state at the save")
+    check((fit3.start_epoch, fit3.global_step, fit3.state.step) == (1, steps + 1, steps + 1),
+          f"resumed at epoch {fit3.start_epoch}, global step {fit3.global_step}")
+    t0 = time.perf_counter()
+    fit3._restore()  # the restore alone: read the files, load model, optimizer, EMA
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(same_state(host_state(fit3), at_save), "a second restore differs")
+    fit3.run()
+    check(fit3.global_step == fit1.global_step, f"run 3 ended at {fit3.global_step}")
+    final1, final3 = host_state(fit1), host_state(fit3)
+    worst = state_max_rel_diff(final3["model"], final1["model"], start)
+    check(worst["kernels"][0] <= RESUME_TOLERANCES["kernels"]
+          and worst["others"][0] <= RESUME_TOLERANCES["others"],
+          f"resumed run's final weights vs the uncut run's: {worst}")
+    # one more save, timed: the step loop's stall (host copy) and the write
+    mgr = fit3.ckpt
+    t0 = time.perf_counter()
+    fit3._save(99, {"epoch": 99, "global_step": fit3.global_step})
+    stall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    out = {"steps_per_epoch": steps, "run1_s": run1_s, "bytes_on_disk_per_checkpoint": ckpt_bytes,
+           "checkpoint_tensor_bytes": save["bytes"], "host_copy_s_fit_save": save["host_copy_s"],
+           "save_call_stall_s": stall_s, "save_host_copy_s": mgr.last_save["host_copy_s"],
+           "wait_s": wait_s, "write_gb_s": mgr.last_save["bytes"] / max(wait_s, 1e-9) / 1e9,
+           "copy_gb_s": mgr.last_save["bytes"] / max(mgr.last_save["host_copy_s"], 1e-9) / 1e9,
+           "restore_s": restore_s, "fit_build_and_restore_s": build_restore_s,
+           "restored_bit_equal": bit_equal_restore,
+           "start_epoch": fit3.start_epoch, "global_step_at_resume": steps + 1,
+           "final_bit_equal_to_uncut": same_state(final1, final3),
+           "final_max_rel_vs_uncut": worst, "tolerances": RESUME_TOLERANCES,
+           "val_launches": sink, "checkpoints": sorted(os.listdir(run1_dir))}
+    del fit1, fit3
+    return out
+
+
+def phase_ckpt_resume(dev: torch.device, smi: str, workdir: str) -> dict:
+    """Checkpoint, preempt and resume both detectors at full width. Keeps the
+    YOLOv3 run 1's checkpoints for phase_evaluate."""
+    free = shutil.disk_usage(workdir).free
+    print(f"free disk space under {workdir}: {free / 2**30:.1f} GiB", flush=True)
+    yolo = resume_case(dev, yolo_resume_fit, os.path.join(workdir, "yolo"))
+    shutil.rmtree(os.path.join(workdir, "yolo", "run2"))
+    torch.cuda.empty_cache()
+    frcnn = resume_case(dev, frcnn_resume_fit, os.path.join(workdir, "frcnn"))
+    shutil.rmtree(os.path.join(workdir, "frcnn"))
+    torch.cuda.empty_cache()
+    emit("ckpt_resume", card=smi, free_disk_gib=free / 2**30,
+         yolov3={"model": "YOLOv3-416 full width, bf16, EMA, batch 32", **yolo},
+         faster_rcnn={"model": "Faster R-CNN VGG16-512 full width, bf16, batch 8", **frcnn})
+    return {"yolo_ckpt": os.path.join(workdir, "yolo", "run1"),
+            "launches": {"ckpt_resume_yolo_validation": sum(yolo["val_launches"]),
+                         "ckpt_resume_frcnn_validation": sum(frcnn["val_launches"])}}
+
+
+class PseudoLabelled:
+    """The images of ``ds`` labelled with ``det``'s own ``k`` best
+    detections, each box jittered by N(0, ``jitter``) of its size: a model
+    with random weights finds nothing of the synthetic GT, so its mAP
+    would be 0 whatever the matching; against these labels it is well
+    above 0, and near-duplicate detections put two predictions on one GT,
+    where the device and host matching rules may differ."""
+
+    def __init__(self, ds, det: Detector, k: int = 4, jitter: float = 0.1, seed: int = SEED):
+        self.images = [ds[i][0] for i in range(len(ds))]
+        rng = np.random.default_rng(seed)
+        self.labels = []
+        for r in det.predict_batch(self.images):
+            b, c = r["boxes"][:k], r["classes"][:k].astype(np.float32)
+            wh = np.concatenate([b[:, 2:] - b[:, :2]] * 2, 1)
+            b = b + rng.normal(0, jitter, b.shape).astype(np.float32) * wh
+            self.labels.append(np.concatenate([c[:, None], b], 1).astype(np.float32))
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int):
+        return self.images[i], self.labels[i], f"pseudo_{i}"
+
+
+def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
+    """Detector(YOLOv3-416, batch 32) from the resume phase's run-1
+    checkpoint (EMA weights) over EVAL_IMAGES images of assorted sizes
+    labelled with its own jittered detections: device against host
+    matching, the reference sweep (and two low-confidence points) against
+    per-point evaluate, the NMS kernel's launches around each call."""
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = yolo_model()
+    meta = restore_inference_weights(ckpt_dir, model)
+    det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=EVAL_BATCH, device=dev)
+    ds = PseudoLabelled(SyntheticDetectionDataset(EVAL_IMAGES, NUM_CLASSES, seed=SEED + 4,
+                                                  sizes=SIZES), det)
+    det.evaluate(ds, max_images=EVAL_BATCH)  # warm-up: cuDNN's algorithm choice
+
+    def run(fn):
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, suppression_mask_cuda.launches
+
+    dev_res, dev_s, dev_l = run(lambda: det.evaluate(ds, device_matching=True))
+    host_res, host_s, host_l = run(lambda: det.evaluate(ds, device_matching=False))
+    # the two matchers differ where two same-class predictions overlap one GT
+    # at >= 0.5 IoU (the host keeps the lower index, the device the higher
+    # IoU; as in the JAX package): count such images, and score the host's
+    # boxes with the device's rule as well
+    thr = torch.from_numpy(np.linspace(0.5, 0.95, 10).astype(np.float32))
+    by_rule, conflicts = MeanAveragePrecision(), 0
+    for res, gt in det.predict_dataset(ds):
+        pb, pc = torch.from_numpy(res["boxes"])[None], torch.from_numpy(res["classes"]).float()[None]
+        tb, tcls = torch.from_numpy(gt[:, 1:5])[None], torch.from_numpy(gt[:, 0])[None]
+        corr = match_predictions_device(pb, pc, torch.ones(pc.shape, dtype=torch.bool), tb, tcls,
+                                        torch.ones(tcls.shape, dtype=torch.bool), thr)[0].numpy()
+        host_corr = match_predictions(res["boxes"], res["classes"], gt[:, 1:5], gt[:, 0],
+                                      np.linspace(0.5, 0.95, 10))
+        conflicts += int(not np.array_equal(corr, host_corr))
+        by_rule.update_matched(corr, res["scores"], res["classes"], gt[:, 0])
+    rule = by_rule.compute()
+    check(abs(dev_res["map50"] - rule.map50) <= 1e-6 and abs(dev_res["map"] - rule.map) <= 1e-6,
+          f"device matching {dev_res} vs the host's boxes under the device rule "
+          f"{rule.map50, rule.map}")
+    if conflicts == 0:
+        check(abs(dev_res["map50"] - host_res["map50"]) <= 1e-6
+              and abs(dev_res["map"] - host_res["map"]) <= 1e-6,
+              f"device matching {dev_res} vs host matching {host_res}")
+    points = REFERENCE_SWEEP + [(0.001, 0.45), (0.001, 0.65)]
+    sweep, sweep_s, sweep_l = run(lambda: det.evaluate_sweep(ds, points))
+    per_point, per_point_s, per_point_l = [], 0.0, 0
+    for conf, iou in points:
+        d = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=EVAL_BATCH,
+                     conf_thres=conf, iou_thres=iou, device=dev)
+        r, s, n = run(lambda d=d: d.evaluate(ds, device_matching=False))
+        per_point.append(r)
+        per_point_s += s
+        per_point_l += n
+    same = all((a["map50"], a["map"]) == (b["map50"], b["map"]) for a, b in zip(sweep, per_point))
+    check(same, f"sweep rows {sweep} differ from per-point evaluate {per_point}")
+    check(min(dev_l, host_l, sweep_l) > 0, f"launches {dev_l, host_l, sweep_l}")
+    check(dev_res["map50"] > 0 and sweep[0]["map50"] > 0, "no mAP to compare: all 0")
+    emit("evaluate", card=smi, model="YOLOv3-416 full width, bf16, EMA weights of the resume "
+         "phase's run 1", checkpoint_epoch=meta.get("epoch"), images=EVAL_IMAGES, batch=EVAL_BATCH,
+         device_matching={**dev_res, "seconds": dev_s, "launches": dev_l},
+         host_matching={**host_res, "seconds": host_s, "launches": host_l},
+         host_boxes_under_device_rule={"map50": rule.map50, "map": rule.map},
+         images_where_matchers_differ=conflicts,
+         labels="the detector's own 4 best boxes per image, jittered by N(0, 0.1) of their size",
+         sweep={"points": len(points), "seconds": sweep_s, "launches": sweep_l,
+                "img_s": EVAL_IMAGES / sweep_s, "rows": sweep},
+         per_point={"seconds": per_point_s, "launches": per_point_l,
+                    "img_s": EVAL_IMAGES / per_point_s},
+         sweep_rows_equal_per_point=same)
+    return {"launches": {"detector_evaluate_device": dev_l, "detector_evaluate_host": host_l,
+                         "detector_evaluate_sweep": sweep_l}}
+
+
+def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
+    """`fastvision_tpu_torch.cli.main` in-process over BMP files: train
+    YOLOv3-416 (default recipe: mosaic 0.5, hflip, HSV; EMA) for 2 epochs,
+    resume to 3, eval --sweep from the checkpoint, train Faster R-CNN-512
+    for 1 epoch."""
+    from fastvision_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    root = write_detection_dataset(os.path.join(workdir, "ds"), TRAIN_IMAGES, sizes=SIZES,
+                                   seed=SEED + 5, num_classes=FRCNN_CLASSES)
+    write_s = time.perf_counter() - t0
+    ckpt = os.path.join(workdir, "yolo_ckpt")
+    common = [f"data.data_root={root}", "data.num_workers=0", f"data.input_size={INPUT_SIZE}",
+              f"data.batch_size={TRAIN_BATCH}", "train.ema_decay=0.9999"]
+    runs: dict = {}
+
+    def run(tag, argv):
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        runs[tag] = {"seconds": time.perf_counter() - t0, "launches": suppression_mask_cuda.launches}
+        return out
+
+    def epochs(log_dir):
+        with open(os.path.join(log_dir, "train.jsonl")) as f:
+            return [r for r in map(json.loads, f) if "train_loss" in r]
+
+    fit = run("cli_train_yolo", ["train", "train.epochs=2", f"train.ckpt_dir={ckpt}", *common])
+    check(fit.global_step == 2 * len(fit.train_loader) and not fit.interrupted, "cli train")
+    del fit
+    fit = run("cli_train_resume", ["train", "--resume", "train.epochs=3",
+                                   f"train.ckpt_dir={ckpt}", *common])
+    check(fit.start_epoch == 2 and fit.global_step == 3 * len(fit.train_loader), "cli resume")
+    del fit
+    torch.cuda.empty_cache()
+    rows = run("cli_eval_sweep", ["eval", "--ckpt", ckpt, *common, "--sweep"])
+    check(len(rows) == len(REFERENCE_SWEEP) and all(r["images"] == TRAIN_IMAGES for r in rows),
+          f"sweep rows {rows}")
+    frcnn_ckpt = os.path.join(workdir, "frcnn_ckpt")
+    fit = run("cli_train_frcnn", ["train", "model.name=faster_rcnn", "train.epochs=1",
+                                  f"model.num_classes={FRCNN_CLASSES}",
+                                  f"data.input_size={FRCNN_SIZE}", f"data.batch_size={FRCNN_BATCH}",
+                                  f"train.ckpt_dir={frcnn_ckpt}", f"data.data_root={root}",
+                                  "data.num_workers=0", "train.lr=1e-2"])
+    check(fit.global_step == len(fit.train_loader), "cli faster_rcnn")
+    del fit
+    torch.cuda.empty_cache()
+    yolo_epochs, frcnn_epochs = epochs(ckpt), epochs(frcnn_ckpt)
+    check(all(np.isfinite(r["train_loss"]) for r in yolo_epochs + frcnn_epochs), "cli losses")
+    check(min(r["launches"] for r in runs.values()) > 0, f"cli launches {runs}")
+    emit("cli", card=smi, images_per_split=TRAIN_IMAGES, image_hw=[list(s) for s in SIZES],
+         bmp_write_s=write_s, runs=runs,
+         yolo_epochs=[{k: r[k] for k in ("epoch", "train_loss", "epoch_img_s", "map50", "map")}
+                      for r in yolo_epochs],
+         frcnn_epochs=[{k: r[k] for k in ("epoch", "train_loss", "epoch_img_s", "map50", "map")}
+                       for r in frcnn_epochs],
+         sweep_best=max(rows, key=lambda r: r["map50"]))
+    return {"launches": {tag: r["launches"] for tag, r in runs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1180,6 +1563,17 @@ def main() -> int:
     feval = phase_frcnn_eval(dev, frcnn, u8)
     ftrain = phase_frcnn_train(dev)
     ftimes = phase_frcnn_times(dev, frcnn, u8, fkernel, ftrain, device["smi"])
+    del frcnn, ftrain["fit"], ftrain["step_fn"], ftrain["batch"]
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        resume = phase_ckpt_resume(dev, device["smi"], workdir)
+        evaluate = phase_evaluate(dev, device["smi"], resume["yolo_ckpt"])
+        shutil.rmtree(os.path.join(workdir, "yolo"))
+        cli_run = phase_cli(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
 
     main_nms = times["nms_kernel"]["B8_main_path"]
@@ -1187,7 +1581,8 @@ def main() -> int:
         f"frcnn_{tag}": ftimes["nms_kernel"][tag] for tag in ("rpn_eval", "rpn_train", "head")}}
     by_path = {"detector_predict_batch": e2e["launches"], "fit_validation": train["val_launches"],
                "frcnn_eval_step": feval["launches"],
-               "frcnn_fit_validation": ftrain["val_launches"]}
+               "frcnn_fit_validation": ftrain["val_launches"],
+               **resume["launches"], **evaluate["launches"], **cli_run["launches"]}
     print(device["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppression_mask", "route": "cuda",

@@ -8,8 +8,9 @@ original pixels, classes 0-based.
 The resize is ``torch.nn.functional.interpolate(mode='bilinear',
 align_corners=False, antialias=False)`` on host tensors, rounded back to
 uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
-(cv2 rounds with fixed-point weights). cv2 is used only to decode files,
-where it is installed.
+(cv2 rounds with fixed-point weights). ``.bmp`` files (uncompressed 24- and
+32-bit) are read and written with numpy; other image files go to cv2, which
+must then be installed.
 
 Not ported yet: the reduced-size JPEG decode (``decode_size``,
 ``imread_rgb_scaled``), ``sample_i420`` and ``ClassificationDataset``.
@@ -26,15 +27,73 @@ import torch.nn.functional as F
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
+def read_bmp(path: str) -> np.ndarray:
+    """An uncompressed 24- or 32-bit BMP (BI_RGB, or BI_BITFIELDS with the
+    BGRX masks cv2 writes) -> RGB uint8 HWC, rows bottom-up or top-down,
+    each padded to 4 bytes. Anything else raises ValueError."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if len(buf) < 54 or buf[:2] != b"BM":
+        raise ValueError(f"not a BMP file: {path}")
+    offset = int.from_bytes(buf[10:14], "little")
+    header = int.from_bytes(buf[14:18], "little")
+    width = int.from_bytes(buf[18:22], "little", signed=True)
+    height = int.from_bytes(buf[22:26], "little", signed=True)
+    bpp = int.from_bytes(buf[28:30], "little")
+    compression = int.from_bytes(buf[30:34], "little")
+    bgrx_masks = (0x00FF0000, 0x0000FF00, 0x000000FF)
+    if compression == 3 and bpp == 32 and tuple(
+            int.from_bytes(buf[54 + 4 * i:58 + 4 * i], "little") for i in range(3)) == bgrx_masks:
+        compression = 0  # the same bytes as BI_RGB
+    if header < 40 or bpp not in (24, 32) or compression != 0 or width <= 0 or height == 0:
+        raise ValueError(f"unsupported BMP (header {header}, {bpp} bpp, compression "
+                         f"{compression}, {width} x {height}): {path}")
+    rows, stride = abs(height), (bpp * width + 31) // 32 * 4
+    if len(buf) < offset + rows * stride:
+        raise ValueError(f"truncated BMP: {path}")
+    px = np.frombuffer(buf, np.uint8, rows * stride, offset).reshape(rows, stride)
+    px = px[:, : width * bpp // 8].reshape(rows, width, bpp // 8)[..., 2::-1]  # BGR(X) -> RGB
+    return np.ascontiguousarray(px[::-1] if height > 0 else px)  # height > 0: bottom-up
+
+
+def write_bmp(path: str, image: np.ndarray) -> None:
+    """RGB uint8 HWC -> an uncompressed 24-bit bottom-up BMP."""
+    image = np.asarray(image, np.uint8)
+    h, w = image.shape[:2]
+    stride = (24 * w + 31) // 32 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : 3 * w] = image[::-1, :, ::-1].reshape(h, 3 * w)
+    size = 54 + rows.nbytes
+    header = (b"BM" + size.to_bytes(4, "little") + bytes(4) + (54).to_bytes(4, "little")
+              + (40).to_bytes(4, "little") + w.to_bytes(4, "little", signed=True)
+              + h.to_bytes(4, "little", signed=True) + (1).to_bytes(2, "little")
+              + (24).to_bytes(2, "little") + bytes(4) + rows.nbytes.to_bytes(4, "little")
+              + (2835).to_bytes(4, "little") * 2 + bytes(8))
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
 def imread_rgb(path: str) -> np.ndarray:
-    """Decode an image file -> RGB uint8 HWC. Needs cv2 (ImportError without
-    it); callers with arrays need nothing."""
+    """Decode an image file -> RGB uint8 HWC. ``.bmp`` is read with numpy;
+    other files need cv2 (ImportError without it)."""
+    if path.lower().endswith(".bmp"):
+        return read_bmp(path)
     import cv2
 
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         raise FileNotFoundError(f"cannot decode image: {path}")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def imwrite_rgb(path: str, image: np.ndarray) -> None:
+    """Write RGB uint8 HWC: ``.bmp`` with numpy, other files with cv2."""
+    if path.lower().endswith(".bmp"):
+        return write_bmp(path, image)
+    import cv2
+
+    if not cv2.imwrite(path, cv2.cvtColor(np.ascontiguousarray(image), cv2.COLOR_RGB2BGR)):
+        raise OSError(f"cannot write image: {path}")
 
 
 def resize_bilinear(image: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -102,7 +161,7 @@ def pad_labels(cls: np.ndarray, xywhn: np.ndarray, max_boxes: int) -> np.ndarray
 
 class DetectionDataset:
     """Detection samples from disk: (RGB uint8 image, [N, 5] pixel-xyxy
-    labels, id). Decoding needs cv2. The id scan is cached to
+    labels, id). Decoding needs cv2 except for ``.bmp``. The id scan is cached to
     ``<split_dir>/.samples.json`` when ``cache=True``."""
 
     def __init__(self, root: str, split: str = "train", cache: bool = False,

@@ -2,8 +2,10 @@
 (port of fastvision_tpu/data/pipeline.py, serial RGB path).
 
   - deterministic per-epoch sampling: the order from a numpy Generator
-    seeded by (seed, epoch), each sample's augmentation from one seeded by
-    (seed, epoch, position), as in the JAX package;
+    seeded by (seed, epoch), each sample's mosaic and augmentation from one
+    seeded by (seed, epoch, position), as in the JAX package, so an epoch
+    can start at any batch (`DetectionLoader.epoch(start_batch=...)`) and
+    give the batches it would have given;
   - fixed-shape batches: images uint8 [B, S, S, 3] NHWC, labels [B, M, 5]
     normalized xywh with class == -1 padding;
   - `prefetch_to_device`: background threads that load the next batches
@@ -13,7 +15,7 @@
 Not ported yet: the worker pools (``num_workers`` > 1, thread and process
 backends), the native letterbox (``use_native``), packed-I420 output
 (``emit='i420'``, ``native_jpeg``), multi-host sharding (``host_shard``),
-mosaic, and ``ClassificationLoader``.
+and ``ClassificationLoader``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from ..device import resolve_device
 from .augment import Augmentation
 from .dataset import boxes_to_normalized_xywh, letterbox, pad_labels
+from .mosaic import mosaic4
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -79,8 +82,9 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 class DetectionLoader:
     """Batches of letterboxed images + padded normalized-xywh labels.
 
-    train=True: a seeded shuffle per epoch and the augmentation pipeline;
-    the last partial batch is dropped unless ``drop_last=False``.
+    train=True: a seeded shuffle per epoch, a 4-image mosaic with
+    probability ``mosaic_prob``, and the augmentation pipeline; the last
+    partial batch is dropped unless ``drop_last=False``.
     train=False: dataset order, letterbox only, the ragged last batch padded
     (the last image repeated, its labels empty) with ``num_real`` telling
     how many are real, and per-image ``meta`` (id, scale, pad, original hw,
@@ -107,14 +111,14 @@ class DetectionLoader:
         on_corrupt: str = "raise",
         host_shard=None,
     ):
-        if mosaic_prob:
-            raise _not_ported("mosaic (data/mosaic.py)", 11)
         if use_native:
             raise _not_ported("the native letterbox (use_native)", 11)
         if num_workers > 1:
-            raise _not_ported("the loader's worker pools (num_workers > 1)", 11)
+            raise NotImplementedError(
+                "the loader's worker pools (num_workers > 1) are not ported yet (ROADMAP "
+                "Queue 1, item 11); pass num_workers=0 (data.num_workers=0 on the CLI)")
         if emit != "rgb" or native_jpeg:
-            raise _not_ported("packed-I420 output (emit='i420', native_jpeg)", 1)
+            raise _not_ported("packed-I420 output (emit='i420', native_jpeg)", 6)
         if host_shard not in (None, ""):
             raise _not_ported("multi-host input sharding (host_shard)", 17)
         if on_corrupt not in ("raise", "skip"):
@@ -125,6 +129,7 @@ class DetectionLoader:
         self.max_boxes = max_boxes
         self.train = train
         self.augmentation = augmentation
+        self.mosaic_prob = mosaic_prob
         self.seed = seed
         self.drop_last = train if drop_last is None else drop_last
         self.pad_value = pad_value
@@ -134,11 +139,18 @@ class DetectionLoader:
         n = len(self.ds)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _fetch(self, fn, idx: int):
+        return fetch_with_corrupt_policy(self.ds, self.on_corrupt, fn, idx)
+
     def _load_raw(self, idx: int, rng: np.random.Generator):
-        """Decode + augment one sample; labels stay pixel xyxy. ``rng`` is
-        the sample's own, seeded from (seed, epoch, position)."""
-        image, labels, sid = fetch_with_corrupt_policy(self.ds, self.on_corrupt,
-                                                       self.ds.__getitem__, idx)
+        """Decode + mosaic + augment one sample; labels stay pixel xyxy.
+        ``rng`` is the sample's own, seeded from (seed, epoch, position)."""
+        image, labels, sid = self._fetch(self.ds.__getitem__, idx)
+        if self.train and self.mosaic_prob > 0 and rng.uniform() < self.mosaic_prob:
+            others = rng.integers(0, len(self.ds), 3)
+            samples = [(image, labels)] + [
+                self._fetch(lambda j: self.ds[j][:2], int(j)) for j in others]
+            image, labels = mosaic4(samples, self.input_size, rng, self.pad_value)
         if self.train and self.augmentation is not None:
             image, labels = self.augmentation(image, labels, rng)
         return image, labels, sid
@@ -154,12 +166,13 @@ class DetectionLoader:
             return pad_labels(lab[:, 0], xywhn, self.max_boxes)
         return pad_labels(np.zeros(0), np.zeros((0, 4)), self.max_boxes)
 
-    def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
-        """-> batches {'images', 'labels', 'num_real', 'meta'}."""
+    def epoch(self, epoch_idx: int = 0, start_batch: int = 0) -> Iterator[dict]:
+        """-> batches {'images', 'labels', 'num_real', 'meta'}, from batch
+        ``start_batch`` of the epoch on (the earlier ones are not loaded)."""
         rng = np.random.default_rng((self.seed, epoch_idx))
         order = rng.permutation(len(self.ds)) if self.train else np.arange(len(self.ds))
         bs = self.batch_size
-        for b in range(len(self)):
+        for b in range(start_batch, len(self)):
             raws = [self._load_raw(int(i), np.random.default_rng((self.seed, epoch_idx, pos)))
                     for pos, i in enumerate(order[b * bs : (b + 1) * bs], start=b * bs)]
             real = len(raws)

@@ -1,13 +1,13 @@
-"""Mean average precision (mAP) over IoU thresholds, on the host in numpy
-(a copy of fastvision_tpu/ops/map.py's host path).
+"""Mean average precision (mAP) over IoU thresholds (port of
+fastvision_tpu/ops/map.py).
 
 Per image, predictions are matched greedily to ground truths of their class
 (pairs in descending IoU order, each prediction and each GT used at most
 once) at every IoU threshold; AP per class from the PR curve by 101-point
 COCO interpolation, the continuous VOC2009 area, or VOC2007's 11 points.
-
-Not ported yet: ``match_predictions_device`` (matching inside the eval
-program) and ``update_matched``.
+The matching runs on the host in numpy (`match_predictions`) or, batched,
+on the tensors' device (`match_predictions_device`, whose correct-matrix
+goes to `MeanAveragePrecision.update_matched`).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 def _box_iou_np(a: np.ndarray, b: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -60,6 +61,47 @@ def match_predictions(
         keep = np.unique(t_idx, return_index=True)[1]
         correct[p_idx[keep], ti] = True
     return correct
+
+
+def match_predictions_device(
+    pred_boxes: torch.Tensor,
+    pred_classes: torch.Tensor,
+    pred_valid: torch.Tensor,
+    true_boxes: torch.Tensor,
+    true_classes: torch.Tensor,
+    true_valid: torch.Tensor,
+    iou_thresholds: torch.Tensor,
+) -> torch.Tensor:
+    """Batched correct-matrix on the tensors' device: [B, P, T] bool.
+
+    The greedy "pairs by IoU descending, unique prediction, unique target"
+    matching of `match_predictions` as two argmaxes: each prediction keeps
+    its highest-IoU GT of its class (ties: the smallest GT index), then
+    each GT keeps, among the predictions pointing at it, the one with the
+    highest IoU (ties: the smallest prediction index; ``torch.argmax``
+    returns the first maximum). Both winners do not depend on the
+    threshold, so correct[p, t] = (best IoU of p >= thr_t) & p won its GT.
+    Boxes [B, P | G, 4] xyxy in one coordinate space per image; invalid rows
+    are masked; zero-IoU pairs never match (thresholds > 0)."""
+    tb, pb = true_boxes, pred_boxes
+    tl = torch.maximum(tb[:, :, None, :2], pb[:, None, :, :2])
+    br = torch.minimum(tb[:, :, None, 2:], pb[:, None, :, 2:])
+    inter = (br - tl).clamp(min=0).prod(-1)  # [B, G, P]
+    area_t = (tb[..., 2:] - tb[..., :2]).prod(-1)
+    area_p = (pb[..., 2:] - pb[..., :2]).prod(-1)
+    iou = inter / (area_t[:, :, None] + area_p[:, None, :] - inter + 1e-7)
+    ok = ((true_classes[:, :, None] == pred_classes[:, None, :])
+          & true_valid[:, :, None] & pred_valid[:, None, :])
+    iou = torch.where(ok, iou, 0.0)
+    best_iou = iou.amax(dim=1)  # [B, P]: each prediction's best same-class GT
+    best_g = iou.argmax(dim=1)
+    g = torch.arange(tb.shape[1], device=iou.device)
+    points_at = best_g[:, None, :] == g[None, :, None]  # [B, G, P]
+    winner = torch.where(points_at, best_iou[:, None, :], -1.0).argmax(dim=2)  # [B, G]
+    p = torch.arange(pb.shape[1], device=iou.device)
+    is_winner = winner.gather(1, best_g) == p[None, :]
+    eligible = best_iou[..., None] >= iou_thresholds.to(best_iou.dtype)
+    return eligible & (is_winner & (best_iou > 0) & pred_valid)[..., None]
 
 
 def compute_ap(recall: np.ndarray, precision: np.ndarray, method: str = "coco") -> float:
@@ -149,6 +191,32 @@ class MeanAveragePrecision:
             pred_boxes, pred_classes, true_boxes, true_classes, self.iou_thresholds
         )
         self._stats.append((correct, pred_scores, pred_classes))
+
+    def update_matched(
+        self,
+        correct,
+        pred_scores,
+        pred_classes,
+        gt_classes,
+        pred_valid=None,
+        gt_valid=None,
+    ):
+        """Accumulate one image whose correct-matrix ([P, T] bool, aligned
+        with this evaluator's iou_thresholds) was computed already, e.g. by
+        `match_predictions_device`: padding stripped, then stored."""
+        correct = np.asarray(correct, bool).reshape(-1, len(self.iou_thresholds))
+        pred_scores = np.asarray(pred_scores, np.float32).reshape(-1)
+        pred_classes = np.asarray(pred_classes).reshape(-1)
+        gt_classes = np.asarray(gt_classes).reshape(-1)
+        if pred_valid is not None:
+            m = np.asarray(pred_valid, bool).reshape(-1)
+            correct, pred_scores, pred_classes = correct[m], pred_scores[m], pred_classes[m]
+        if gt_valid is not None:
+            gt_classes = gt_classes[np.asarray(gt_valid, bool).reshape(-1)]
+        if gt_classes.size:
+            self._gt_classes.append(gt_classes.copy())
+        if pred_scores.size:
+            self._stats.append((correct, pred_scores, pred_classes))
 
     def compute(self) -> MAPResult:
         nt = len(self.iou_thresholds)

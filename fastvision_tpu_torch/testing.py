@@ -10,9 +10,13 @@ near-copies of a few objects (heavy suppression).
 class-agnostic boxes in a 512-px image at IoU 0.7.
 
 `SyntheticDetectionDataset` is an in-memory detection dataset to train and
-validate on where no image files can be written or decoded (no cv2).
+validate on where no image files can be written or decoded (no cv2);
+`write_detection_dataset` writes its samples to disk as ``.bmp`` files,
+which the port reads without cv2, in the layout `DetectionDataset` reads.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -147,6 +151,30 @@ class SyntheticDetectionDataset:
             image[y1 : y1 + bh, x1 : x1 + bw] = self.colours[c]
             labels.append([c, x1, y1, x1 + bw, y1 + bh])
         return image, np.asarray(labels, np.float32).reshape(-1, 5), f"synthetic_{idx}"
+
+
+def write_detection_dataset(root: str, n: int,
+                            sizes=((416, 416), (480, 640), (640, 360), (375, 500), (300, 200)),
+                            seed: int = 0, splits=("train", "val"), num_classes: int = 80,
+                            max_objects: int = 4) -> str:
+    """Write ``n`` `SyntheticDetectionDataset` samples per split as
+    ``<root>/<split>/images/<id>.bmp`` + ``labels/<id>.txt`` (one ``cls x1
+    y1 x2 y2`` line per box, pixels). The splits are consecutive slices of
+    one seeded dataset, so they share its class colours. -> root."""
+    from .data.dataset import write_bmp
+
+    ds = SyntheticDetectionDataset(n * len(splits), num_classes, seed, sizes, max_objects)
+    for k, split in enumerate(splits):
+        images, labels = (os.path.join(root, split, d) for d in ("images", "labels"))
+        os.makedirs(images, exist_ok=True)
+        os.makedirs(labels, exist_ok=True)
+        for i in range(k * n, (k + 1) * n):
+            image, lab, _ = ds[i]
+            stem = f"{split}_{i:06d}"
+            write_bmp(os.path.join(images, stem + ".bmp"), image)
+            with open(os.path.join(labels, stem + ".txt"), "w") as f:
+                f.writelines(f"{int(r[0])} {r[1]:g} {r[2]:g} {r[3]:g} {r[4]:g}\n" for r in lab)
+    return root
 
 
 def state_max_rel_diff(got: dict, want: dict, start: dict) -> dict:

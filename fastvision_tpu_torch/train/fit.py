@@ -6,9 +6,20 @@ the train step, keeps an EMA copy of the weights, and validates every
 ``eval_every`` epochs with the EMA weights when there are any. The epoch's
 loss sum stays on the device and is read once at the end of the epoch.
 
-Not ported yet: checkpointing (``ckpt_dir``, ``resume``, the save on
-preemption; core/checkpoint.py), meshes and FSDP (``mesh``, ``fsdp``), and a
-``step_fn`` that takes a per-step random key.
+With ``ckpt_dir`` every epoch is checkpointed (`core.checkpoint`: the raw
+weights and BN statistics, the optimizer's state, the EMA parameters, and
+the epoch, global step and state step in the meta); the best slot follows
+``metric_key`` / ``metric_mode``. On preemption the state is saved in the
+interrupted epoch's slot, stamped with the previous epoch and the epoch's
+first global step as in the JAX package, plus how many of its batches are
+done and their loss sum. ``resume=True`` restores the newest checkpoint and
+redoes the interrupted epoch from the batch after the last one done: the
+loader's order and augmentations come from (seed, epoch[, position]) and a
+step's random draws from (seed, step), so a resumed run takes the same
+steps as one never interrupted.
+
+Not ported yet: meshes and FSDP (``mesh``, ``fsdp``), and a ``step_fn``
+that takes a per-step random key.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.checkpoint import CheckpointManager
 from ..core.telemetry import MetricLogger
 from ..data.pipeline import prefetch_to_device
 from ..infer.postprocess import scale_coords
@@ -46,7 +58,10 @@ class Fit:
     plateau schedule. The last ``no_aug_epochs`` epochs use
     ``no_aug_loader`` (default: the train loader) at ``no_aug_lr``.
     ``multiscale``: train input sizes, one per epoch, from a seeded
-    permutation cycled every ``len(multiscale)`` epochs."""
+    permutation cycled every ``len(multiscale)`` epochs. ``ckpt_dir``:
+    checkpoint after every epoch (``save_every_epoch``; else after the last
+    only) and on preemption; ``resume``: continue from the newest
+    checkpoint there."""
 
     def __init__(
         self,
@@ -61,6 +76,7 @@ class Fit:
         mesh=None,
         evaluator: Callable | None = None,
         ckpt_dir: str | None = None,
+        save_every_epoch: bool = True,
         eval_every: int = 1,
         no_aug_epochs: int = 0,
         no_aug_loader=None,
@@ -79,8 +95,6 @@ class Fit:
         dtype: torch.dtype = torch.float32,
         device: str | torch.device | None = None,
     ):
-        if ckpt_dir or resume:
-            raise _not_ported("checkpointing (ckpt_dir, resume; core/checkpoint.py)", 10)
         if mesh is not None or fsdp:
             raise _not_ported("meshes and FSDP (mesh, fsdp)", 17)
         self.state = TrainState.create(model, optimizer, device)
@@ -92,6 +106,7 @@ class Fit:
         self.schedule = schedule or constant_lr(1e-3)
         self.plateau = plateau
         self.evaluator = evaluator
+        self.save_every_epoch = save_every_epoch
         self.eval_every = eval_every
         self.no_aug_epochs = no_aug_epochs
         self.no_aug_loader = no_aug_loader
@@ -125,6 +140,38 @@ class Fit:
             self._ema_pairs = (list(self.ema_model.parameters()),
                                list(self.state.model.parameters()))
             self._ema_update = make_ema_update(ema_decay)
+        # where a resumed epoch starts: batches already done and their loss sum
+        self._resume_batch, self._resume_loss = 0, None
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self._restore()
+
+    def _restore(self) -> None:
+        restored = self.ckpt.restore()
+        state, meta = restored["state"], restored["meta"]
+        model = self.state.model
+        model.load_state_dict(state["model"])
+        if "optimizer" in state:
+            self.state.optimizer.load_state_dict(state["optimizer"])
+        if self.ema_model is not None:
+            # the EMA shadow; the restored raw weights (not the fresh init)
+            # when the checkpoint has none
+            ema = state.get("ema") or dict(model.named_parameters())
+            with torch.no_grad():
+                for name, p in self.ema_model.named_parameters():
+                    p.copy_(ema[name])
+        self._resume_batch = int(meta.get("epoch_batches_done", 0))
+        self._resume_loss = meta.get("epoch_loss_sum")
+        self.start_epoch = int(meta.get("epoch", -1)) + 1
+        self.global_step = int(meta.get("global_step", 0)) + self._resume_batch
+        self.state.step = int(meta.get("state_step", self.global_step))
+        print(f"[fit] resumed from epoch {self.start_epoch}, batch {self._resume_batch}")
+
+    def _save(self, step: int, extra: dict, metric: float | None = None) -> None:
+        ema = dict(self.ema_model.named_parameters()) if self.ema_model is not None else None
+        self.ckpt.save(step, self.state.model.state_dict(), self.state.optimizer.state_dict(),
+                       ema=ema, extra={**extra, "state_step": self.state.step}, metric=metric,
+                       higher_is_better=self.metric_mode == "max")
 
     def request_preempt(self) -> None:
         """Stop after the current step (safe from a signal handler or
@@ -137,11 +184,17 @@ class Fit:
             lr *= self.plateau.scale
         return lr
 
-    def _train_epoch(self, epoch: int, loader, lr_override: float | None = None) -> float:
-        loss_sum = None  # on the device: one read at the end of the epoch
-        n_steps = n_images = 0
+    def _train_epoch(self, epoch: int, loader, lr_override: float | None = None):
+        """-> (the epoch's mean loss, its images/s); on preemption the
+        batches done and their loss sum are left in ``self._progress``."""
+        skip, loss0 = self._resume_batch, self._resume_loss
+        self._resume_batch, self._resume_loss = 0, None
+        # on the device: one read at the end of the epoch
+        loss_sum = None if loss0 is None else torch.tensor(loss0, device=self.device)
+        n_steps, n_images = skip, 0
+        batches = loader.epoch(epoch, start_batch=skip) if skip else loader.epoch(epoch)
         t0 = time.perf_counter()
-        for batch in prefetch_to_device(loader.epoch(epoch), device=self.device):
+        for batch in prefetch_to_device(batches, device=self.device):
             if self._preempt:
                 break
             lr = lr_override if lr_override is not None else self._lr()
@@ -157,13 +210,15 @@ class Fit:
                 dt = time.perf_counter() - t0
                 self.logger.log(self.global_step, epoch=epoch, loss=float(step_loss), lr=lr,
                                 img_per_sec=n_images / max(dt, 1e-9))
+        img_s = n_images / max(time.perf_counter() - t0, 1e-9)
+        if self._preempt:
+            self._progress = (n_steps, None if loss_sum is None else float(loss_sum))
+            return float("nan"), img_s
         if n_steps == 0:
-            if self._preempt:  # the request came before the first batch
-                return float("nan")
             raise ValueError(
                 f"train loader produced zero batches in epoch {epoch} "
                 "(dataset smaller than batch_size with drop_last?)")
-        return float(loss_sum) / n_steps
+        return float(loss_sum) / n_steps, img_s
 
     def eval_state(self) -> TrainState:
         """State for evaluation and serving: the EMA weights, when enabled,
@@ -218,25 +273,44 @@ class Fit:
                     size = self.epoch_input_size(epoch)
                     loader.input_size = size
                     self.logger.log(self.global_step, epoch=epoch, img_size=size)
-            train_loss = self._train_epoch(epoch, loader, lr_override)
+            epoch_start_step = self.global_step - self._resume_batch
+            train_loss, img_s = self._train_epoch(epoch, loader, lr_override)
             if self._preempt:
                 self.interrupted = True
+                if self.ckpt is not None:
+                    done, loss_sum = self._progress
+                    self._save(epoch, {"epoch": epoch - 1, "global_step": epoch_start_step,
+                                       "preempted": True, "epoch_batches_done": done,
+                                       "epoch_loss_sum": loss_sum})
+                    self.ckpt.wait()
                 self.logger.log(self.global_step, epoch=epoch, preempted=True)
+                print(f"[fit] preempted in epoch {epoch}: checkpoint saved, resume "
+                      "finishes this epoch")
                 break
 
             val_metrics: dict[str, Any] = {}
             if (epoch + 1) % self.eval_every == 0 or epoch == self.epochs - 1:
                 val_metrics = self._validate(epoch)
-            self.logger.log(self.global_step, epoch=epoch, train_loss=train_loss, **val_metrics)
+            self.logger.log(self.global_step, epoch=epoch, train_loss=train_loss,
+                            epoch_img_s=img_s, **val_metrics)
 
-            # compare like with like: with eval_every > 1 the plateau only
-            # sees fresh validation metrics (or the train loss when there is
-            # no evaluator at all)
+            # compare like with like: with eval_every > 1 the plateau and the
+            # best slot only see fresh validation metrics (or the train loss
+            # when there is no evaluator at all)
             expects_val = self.evaluator is not None and self.val_loader is not None
-            if self.plateau is not None and (val_metrics or not expects_val):
-                self.plateau.update(val_metrics.get(self.metric_key, train_loss))
+            fresh = bool(val_metrics) or not expects_val
+            metric = val_metrics.get(self.metric_key, train_loss)
+            if self.plateau is not None and fresh:
+                self.plateau.update(metric)
+            if self.ckpt is not None and (self.save_every_epoch or epoch == self.epochs - 1):
+                self._save(epoch, {"epoch": epoch, "global_step": self.global_step,
+                                   "train_loss": train_loss,
+                                   **{k: float(v) for k, v in val_metrics.items()}},
+                           metric=float(metric) if fresh else None)
         if self.multiscale:
             self.train_loader.input_size = self._base_input_size
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return self.state
 
 

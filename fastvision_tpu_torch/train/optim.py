@@ -59,7 +59,7 @@ def build_optimizer(
     are frozen. The learning rate starts at 0: set it with `set_lr`."""
     if accum_steps > 1:
         raise NotImplementedError(
-            "accum_steps > 1 (optax.MultiSteps) is not ported yet (ROADMAP Queue 1, item 10); "
+            "accum_steps > 1 (optax.MultiSteps) is not ported yet (ROADMAP Queue 1, item 9); "
             "make_train_step(accum_steps=...) accumulates within a step")
     mask = decay_mask(model)
     groups: dict[bool, list] = {True: [], False: []}

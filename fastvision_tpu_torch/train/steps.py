@@ -89,7 +89,7 @@ def make_train_step(
     if batch_transform is not None:
         raise NotImplementedError(
             "batch_transform (mixup / cutmix, train/mix.py) is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
+            "(ROADMAP Queue 1, item 9)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the CUDA NMS kernel against its plain
 PyTorch version (also on Faster R-CNN's RPN and head inputs), the Detector's
-and Faster R-CNN's kernel paths against their CPU paths.
+and Faster R-CNN's kernel paths against their CPU paths, device-side mAP
+matching, checkpoints of CUDA tensors, and Detector.evaluate on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -410,3 +411,83 @@ def test_frcnn_train_step_on_card_equals_cpu():
         assert float(m_dev[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4), k
     worst = state_max_rel_diff(model.state_dict(), cpu_model.state_dict(), start)
     assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst
+
+
+def test_match_predictions_device_on_card_equals_cpu():
+    from fastvision_tpu_torch.ops import match_predictions_device
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(0, 80, (16, 12, 2)).astype(np.float32)
+    gt = np.concatenate([gt, gt + rng.uniform(4, 40, (16, 12, 2)).astype(np.float32)], -1)
+    src = rng.integers(0, 12, (16, 300))
+    pred = np.take_along_axis(gt, src[..., None], 1) + rng.normal(0, 3, (16, 300, 4))
+    args = [torch.from_numpy(pred.astype(np.float32)), torch.from_numpy(src % 3).float(),
+            torch.from_numpy(rng.uniform(size=(16, 300)) < 0.8),
+            torch.from_numpy(gt), torch.from_numpy(rng.integers(0, 3, (16, 12))).float(),
+            torch.from_numpy(rng.uniform(size=(16, 12)) < 0.9)]
+    thr = torch.linspace(0.5, 0.95, 10)
+    want = match_predictions_device(*args, thr)
+    got = match_predictions_device(*(a.to(dev) for a in args), thr.to(dev))
+    assert want.any() and torch.equal(got.cpu(), want)
+
+
+def test_checkpoint_save_restore_on_card(tmp_path):
+    """CUDA tensors go through pinned host buffers: the restored state is
+    the saved one bit for bit, and the live tensors may change at once."""
+    from fastvision_tpu_torch.core import CheckpointManager
+
+    dev = _cuda()
+    model = YOLOv3(num_classes=3, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        sum(h.float().sum() for h in model(torch.rand(2, 64, 64, 3, device=dev))).backward()
+    opt.step()
+    want = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, model.state_dict(), opt.state_dict())
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    mgr.wait()
+    got = mgr.restore()["state"]
+    assert all(torch.equal(got["model"][k], v) for k, v in want.items())
+    momentum = [s["momentum_buffer"] for s in got["optimizer"]["state"].values()]
+    assert len(momentum) == len(list(model.parameters())) and momentum[0].device.type == "cpu"
+    model.load_state_dict(got["model"])
+    assert all(torch.equal(v.cpu(), want[k]) for k, v in model.state_dict().items())
+
+
+def test_evaluate_on_card_device_equals_host_matching(tmp_path):
+    """Detector.evaluate on the card: device matching equals the host's
+    boxes scored with the device's rule; the sweep's rows equal per-point
+    host-matched evaluate; the kernel launches on each path."""
+    from fastvision_tpu_torch.infer import Detector as Det
+    from fastvision_tpu_torch.testing import SyntheticDetectionDataset
+
+    dev = _cuda()
+    model = YOLOv3(num_classes=3, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(0))
+    anchors = (np.array([[[32, 32], [40, 24], [24, 40]]] * 3, np.float32)
+               / np.array([1, 1.6, 2.5], np.float32)[:, None, None])
+    ds = SyntheticDetectionDataset(6, 3, seed=1, sizes=((64, 64), (48, 80)))
+    cpu = Det(model, anchors, input_size=64, batch_size=4, conf_thres=0.05, device="cpu",
+              dtype=torch.float32).evaluate(ds, device_matching=True)
+    det = Det(model, anchors, input_size=64, batch_size=4, conf_thres=0.05, device=dev,
+              dtype=torch.float32)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = suppression_mask_cuda.launches
+        on_dev = det.evaluate(ds, device_matching=True)
+        assert suppression_mask_cuda.launches == before + 2
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert abs(on_dev["map"] - cpu["map"]) <= 1e-4 and abs(on_dev["map50"] - cpu["map50"]) <= 1e-4
+    points = [(0.05, 0.45), (0.3, 0.25)]
+    rows = det.evaluate_sweep(ds, points)
+    for (conf, iou), row in zip(points, rows):
+        ref = Det(model, anchors, input_size=64, batch_size=4, conf_thres=conf, iou_thres=iou,
+                  device=dev, dtype=torch.float32).evaluate(ds, device_matching=False)
+        assert (row["map50"], row["map"]) == (ref["map50"], ref["map"])

@@ -165,10 +165,12 @@ def test_dataset_and_label_helpers_match_jax(det_root, tmp_path):
 
 def test_loader_rejects_what_is_not_ported():
     ds = SyntheticDetectionDataset(4, 3)
-    for kw in (dict(mosaic_prob=0.5), dict(use_native=True), dict(num_workers=4),
+    for kw in (dict(use_native=True), dict(num_workers=4),
                dict(emit="i420"), dict(native_jpeg=True), dict(host_shard="0/2")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             DetectionLoader(ds, **kw)
+    with pytest.raises(NotImplementedError, match="data.num_workers=0"):
+        DetectionLoader(ds, num_workers=2)
     with pytest.raises(ValueError):
         DetectionLoader(ds, on_corrupt="ignore")
 

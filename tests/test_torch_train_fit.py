@@ -223,8 +223,7 @@ def test_fit_ema_eval_state_and_preempt(tiny):
 
 
 def test_fit_rejects_what_is_not_ported(tiny, tmp_path):
-    for kw in (dict(ckpt_dir=str(tmp_path)), dict(resume=True), dict(mesh=object()),
-               dict(fsdp=True)):
+    for kw in (dict(mesh=object()), dict(fsdp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tiny(**kw)
     with pytest.raises(NotImplementedError):
