@@ -10,8 +10,9 @@ exits non-zero before a result is printed:
   2. build    every ``csrc/*.cu`` compiled with nvcc (ptxas register and
               shared-memory report);
   3. kernel   each kernel against its plain PyTorch version on the card over
-              seeded cases, clustered (trained-like) ones and K up to
-              MAX_K included (keep masks must be bit-equal);
+              seeded cases, clustered (trained-like) ones, K up to MAX_K
+              included, and the evaluate paths' B = 32, K = 1024 at every
+              IoU threshold of the sweep (keep masks must be bit-equal);
   4. e2e      the port's main path: a full-width YOLOv3 (80 classes, random
               weights from a seed, BN statistics taken from the smoke's own
               images) in ``Detector(input_size=416, batch_size=8)``, one
@@ -74,19 +75,24 @@ exits non-zero before a result is printed:
               ``mfu``;
   12. ckpt_resume  checkpoint, preemption and resume at full width, for the
               YOLOv3-416 ``Fit`` of the train phase (bf16, EMA) and the
-              Faster R-CNN-512 one of the frcnn_train phase: run 1 trains 2
-              epochs with ``ckpt_dir``; run 2 is cut by ``request_preempt``
-              after the first step of epoch 2; run 3, a new
-              ``Fit(resume=True)``, restores a state bit-equal to the one
-              saved (model, optimizer, EMA), at the saved epoch and steps,
-              and finishes; its final weights are held against run 1's with
-              the stated tolerance. Bytes on disk per checkpoint, the save's
-              host copy (the step loop's stall), ``wait()``, restore
-              seconds; the free disk space first;
+              Faster R-CNN-512 one of the frcnn_train phase, under
+              ``torch.use_deterministic_algorithms(True, warn_only=True)``:
+              run 1 trains 2 epochs with ``ckpt_dir``; run 2 is cut by
+              ``request_preempt`` after the first step of epoch 2; run 3, a
+              new ``Fit(resume=True)``, restores a state bit-equal to the
+              one saved (model, optimizer, EMA), at the saved epoch and
+              steps, and finishes; its final state must equal run 1's bit
+              for bit where no op warned of a missing deterministic
+              implementation, else its weights are held to the stated
+              tolerance. Bytes on disk per checkpoint, the save's host copy
+              (the step loop's stall), ``wait()``, restore seconds; the free
+              disk space first;
   13. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
               EMA weights over 64 images of assorted sizes labelled with
               the detector's own jittered detections (so that mAP is not
-              0): ``evaluate`` with device and with host matching (equal
+              0): the kernel against its plain version, bit-equal, on the
+              first batch's predictions at every grid point's thresholds;
+              ``evaluate`` with device and with host matching (equal
               mAP wherever the two matching rules agree; the device's mAP
               equal to the host's boxes scored under the device's rule
               always), ``evaluate_sweep`` over the reference's 9 points
@@ -115,6 +121,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -193,6 +200,10 @@ NMS_OPS_PER_PAIR = 14
 NMS_OPS_PER_X_DISJOINT_PAIR = 2
 SIZES = ((416, 416), (480, 640), (640, 360), (200, 300),
          (375, 500), (720, 1280), (300, 200), (416, 240))
+EVAL_IMAGES, EVAL_BATCH = 64, 32
+# the evaluate phase's grid: the reference sweep and two low-confidence points
+EVAL_POINTS = REFERENCE_SWEEP + [(0.001, 0.45), (0.001, 0.65)]
+SWEEP_IOUS = sorted({iou for _, iou in EVAL_POINTS})
 
 
 class SmokeFailure(RuntimeError):
@@ -265,6 +276,39 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True, warn_only=True) and cuDNN's
+    deterministic algorithms; yields the list that collects PyTorch's
+    warnings for the ops that ran without a deterministic implementation
+    (empty: every op of the block was deterministic). cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG from before its first call (main sets it).
+    Uninitialised memory is not filled (PyTorch's NaN fill of every
+    ``torch.empty`` doubles the checkpoint's host copy and adds a kernel
+    per allocation): an op that read such memory would show as runs that
+    differ, which the caller checks."""
+    from torch.utils import deterministic as fill
+
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             fill.fill_uninitialized_memory)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        fill.fill_uninitialized_memory = False
+        found: list[str] = []
+        try:
+            yield found
+        finally:
+            torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[2:4]
+            fill.fill_uninitialized_memory = flags[4]
+            found.extend(sorted({str(w.message)[:200] for w in caught
+                                 if "deterministic" in str(w.message)}))
 
 
 def _is_range(ev) -> bool:
@@ -374,7 +418,8 @@ def phase_build() -> None:
 def kernel_cases():
     """(group, seed, B, K, iou_thres, nms_case flags) of phase_kernel: 48
     stress and random cases, clustered (trained-like, heavy suppression)
-    ones, and K above 2048 up to the kernel's MAX_K."""
+    ones, K above 2048 up to the kernel's MAX_K, and the evaluate paths'
+    B = 32, K = 1024 at each IoU threshold of the reference sweep."""
     stress = dict()  # class offsets, ties, -inf tail, on-threshold pairs
     plain = dict(ties=False, neg_inf_tail=False, on_threshold=False)
     clustered = dict(plain, clusters=20)
@@ -390,6 +435,10 @@ def kernel_cases():
     for b, k in ((2, 2049), (2, 4096), (1, MAX_K)):
         for flags in (stress, clustered):
             yield "large_k", SEED + 11 + k, b, k, 0.45, flags
+    # the evaluate paths' batch and candidates at the sweep's IoU thresholds
+    for thr in SWEEP_IOUS:
+        for flags in (stress, clustered):
+            yield "sweep", SEED + 13 + int(100 * thr), EVAL_BATCH, 1024, thr, flags
 
 
 def phase_kernel(dev: torch.device) -> dict:
@@ -1198,11 +1247,11 @@ def phase_frcnn_times(dev: torch.device, model: FasterRCNN, u8: torch.Tensor, ke
 # ---------------------------------------------------------------------------
 # checkpoint / resume, Detector.evaluate and the CLI
 # ---------------------------------------------------------------------------
-EVAL_IMAGES, EVAL_BATCH = 64, 32
-# final weights of a run cut and resumed vs one never cut: every step runs
-# again on the card, whose bf16 convolutions and their backward may sum in
-# another order between runs (cuDNN's algorithms are not deterministic), so
-# the two runs differ by rounding only: tolerances as the card-vs-CPU step's
+# final weights of a run cut and resumed vs one never cut. The phase runs
+# under deterministic algorithms: where every op had a deterministic
+# implementation the two must be bit-equal; where one had not (PyTorch
+# warns), they may differ by rounding only: tolerances as the card-vs-CPU
+# step's
 RESUME_TOLERANCES = {"kernels": 1e-3, "others": 1e-2}
 
 
@@ -1332,9 +1381,6 @@ def resume_case(dev, build, workdir: str) -> dict:
     check(fit3.global_step == fit1.global_step, f"run 3 ended at {fit3.global_step}")
     final1, final3 = host_state(fit1), host_state(fit3)
     worst = state_max_rel_diff(final3["model"], final1["model"], start)
-    check(worst["kernels"][0] <= RESUME_TOLERANCES["kernels"]
-          and worst["others"][0] <= RESUME_TOLERANCES["others"],
-          f"resumed run's final weights vs the uncut run's: {worst}")
     # one more save, timed: the step loop's stall (host copy) and the write
     mgr = fit3.ckpt
     t0 = time.perf_counter()
@@ -1363,13 +1409,27 @@ def phase_ckpt_resume(dev: torch.device, smi: str, workdir: str) -> dict:
     YOLOv3 run 1's checkpoints for phase_evaluate."""
     free = shutil.disk_usage(workdir).free
     print(f"free disk space under {workdir}: {free / 2**30:.1f} GiB", flush=True)
-    yolo = resume_case(dev, yolo_resume_fit, os.path.join(workdir, "yolo"))
-    shutil.rmtree(os.path.join(workdir, "yolo", "run2"))
-    torch.cuda.empty_cache()
-    frcnn = resume_case(dev, frcnn_resume_fit, os.path.join(workdir, "frcnn"))
-    shutil.rmtree(os.path.join(workdir, "frcnn"))
-    torch.cuda.empty_cache()
+    with deterministic_algorithms() as nondeterministic:
+        yolo = resume_case(dev, yolo_resume_fit, os.path.join(workdir, "yolo"))
+        shutil.rmtree(os.path.join(workdir, "yolo", "run2"))
+        torch.cuda.empty_cache()
+        frcnn = resume_case(dev, frcnn_resume_fit, os.path.join(workdir, "frcnn"))
+        shutil.rmtree(os.path.join(workdir, "frcnn"))
+        torch.cuda.empty_cache()
+    for name, r in (("yolov3", yolo), ("faster_rcnn", frcnn)):
+        if not nondeterministic:  # every op deterministic: the resumed run repeats the uncut one
+            check(r["final_bit_equal_to_uncut"], f"{name}: the resumed run's final state differs "
+                  f"from the uncut run's under deterministic algorithms: {r['final_max_rel_vs_uncut']}")
+        else:
+            worst = r["final_max_rel_vs_uncut"]
+            check(worst["kernels"][0] <= RESUME_TOLERANCES["kernels"]
+                  and worst["others"][0] <= RESUME_TOLERANCES["others"],
+                  f"{name}: resumed run's final weights vs the uncut run's: {worst}")
     emit("ckpt_resume", card=smi, free_disk_gib=free / 2**30,
+         deterministic_algorithms={"on": True, "warn_only": True,
+                                   "ops_without_deterministic_implementation": nondeterministic,
+                                   "final_state_required": "tolerance" if nondeterministic
+                                   else "bit-equal"},
          yolov3={"model": "YOLOv3-416 full width, bf16, EMA, batch 32", **yolo},
          faster_rcnn={"model": "Faster R-CNN VGG16-512 full width, bf16, batch 8", **frcnn})
     return {"yolo_ckpt": os.path.join(workdir, "yolo", "run1"),
@@ -1414,7 +1474,27 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
     det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=EVAL_BATCH, device=dev)
     ds = PseudoLabelled(SyntheticDetectionDataset(EVAL_IMAGES, NUM_CLASSES, seed=SEED + 4,
                                                   sizes=SIZES), det)
-    det.evaluate(ds, max_images=EVAL_BATCH)  # warm-up: cuDNN's algorithm choice
+    for device_matching in (True, False):  # warm-up: cuDNN's algorithm choice, each path once
+        det.evaluate(ds, max_images=EVAL_BATCH, device_matching=device_matching)
+
+    # the kernel against its plain version on this path's own inputs: the
+    # first batch's device-resident predictions, each grid point's candidates
+    first = next(det._loader(ds, 1).epoch(0))
+    pred = det.predecode(torch.from_numpy(first["images"]).to(dev)).float()
+    kernel_vs_plain = []
+    for conf, iou in EVAL_POINTS:
+        _, bx, sc, _ = nms_candidates(pred, conf_thres=conf, class_offset=det.class_offset)
+        bx, sc = bx.contiguous(), sc.contiguous()
+        keep = suppression_mask_cuda(bx, sc, iou)
+        want = suppression_mask_plain(bx, sc, iou)
+        kernel_vs_plain.append({"conf": conf, "iou": iou, "shape": list(sc.shape),
+                                "valid": int((sc > float("-inf")).sum()),
+                                "kept": int(want.sum()), "mismatches": int((keep != want).sum())})
+    check(all(r["mismatches"] == 0 for r in kernel_vs_plain),
+          f"nms kernel vs plain on the evaluate path's inputs: {kernel_vs_plain}")
+    check(all(any(r["valid"] for r in kernel_vs_plain if r["iou"] == iou) for iou in SWEEP_IOUS),
+          f"an IoU threshold without candidates: {kernel_vs_plain}")
+    del pred
 
     def run(fn):
         suppression_mask_cuda.launches = 0
@@ -1448,7 +1528,7 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
         check(abs(dev_res["map50"] - host_res["map50"]) <= 1e-6
               and abs(dev_res["map"] - host_res["map"]) <= 1e-6,
               f"device matching {dev_res} vs host matching {host_res}")
-    points = REFERENCE_SWEEP + [(0.001, 0.45), (0.001, 0.65)]
+    points = EVAL_POINTS
     sweep, sweep_s, sweep_l = run(lambda: det.evaluate_sweep(ds, points))
     per_point, per_point_s, per_point_l = [], 0.0, 0
     for conf, iou in points:
@@ -1468,6 +1548,7 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
          host_matching={**host_res, "seconds": host_s, "launches": host_l},
          host_boxes_under_device_rule={"map50": rule.map50, "map": rule.map},
          images_where_matchers_differ=conflicts,
+         kernel_vs_plain_per_point={"tolerance": "bit-equal", "first_batch": kernel_vs_plain},
          labels="the detector's own 4 best boxes per image, jittered by N(0, 0.1) of their size",
          sweep={"points": len(points), "seconds": sweep_s, "launches": sweep_l,
                 "img_s": EVAL_IMAGES / sweep_s, "rows": sweep},
@@ -1475,7 +1556,8 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
                     "img_s": EVAL_IMAGES / per_point_s},
          sweep_rows_equal_per_point=same)
     return {"launches": {"detector_evaluate_device": dev_l, "detector_evaluate_host": host_l,
-                         "detector_evaluate_sweep": sweep_l}}
+                         "detector_evaluate_sweep": sweep_l},
+            "mismatches": sum(r["mismatches"] for r in kernel_vs_plain)}
 
 
 def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
@@ -1540,6 +1622,9 @@ def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
 
 
 def main() -> int:
+    # cuBLAS reads its workspace layout once; this one (of the two that
+    # PyTorch documents) lets phase_ckpt_resume run its matmuls deterministically
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -1590,7 +1675,7 @@ def main() -> int:
         "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
-        "mismatches": kernel["mismatches"] + fkernel["mismatches"],
+        "mismatches": kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"],
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -77,24 +77,26 @@ def _anchors(cfg) -> np.ndarray:
 
 
 def _maybe_import_pretrained(cfg, model: torch.nn.Module) -> None:
-    """Load ``model.pretrained`` (a torch checkpoint) into the fresh model
-    with a shape-filtered partial load: heads of another shape keep their
-    initialisation. A reference Faster R-CNN checkpoint is renamed to the
-    port's modules first."""
+    """Load ``model.pretrained`` (a torch checkpoint in any naming scheme
+    that `models.import_torch.state_dict_for_port` routes: a detector, or a
+    Darknet-53 / VGG16 classifier for the trunk) into the fresh model with a
+    shape-filtered partial load: heads of another shape keep their
+    initialisation. Raises when no tensor of the checkpoint fits the model."""
     if not cfg.model.pretrained:
         return
     from .core.checkpoint import load_torch_state, partial_load
-    from .models.import_torch import frcnn_state_dict_from_reference
+    from .models.import_torch import state_dict_for_port
 
     state = load_torch_state(cfg.model.pretrained)
-    if "rpn.conv3x3.weight" in state:
-        if not cfg.model.reference_compat:
-            print("[import] WARNING: this looks like a reference Faster_Rcnn checkpoint but "
-                  "model.reference_compat is false — its weights assume integer-grid anchors "
-                  "and h-from-dw decoding; set model.reference_compat=true or boxes will be "
-                  "degraded")
-        state = frcnn_state_dict_from_reference(state)
-    partial_load(model, state)
+    if "rpn.conv3x3.weight" in state and not cfg.model.reference_compat:
+        print("[import] WARNING: this looks like a reference Faster_Rcnn checkpoint but "
+              "model.reference_compat is false — its weights assume integer-grid anchors "
+              "and h-from-dw decoding; set model.reference_compat=true or boxes will be "
+              "degraded")
+    loaded, _ = partial_load(model, state_dict_for_port(state))
+    if not loaded:
+        raise ValueError(f"model.pretrained={cfg.model.pretrained}: no tensor of it matches a "
+                         f"name and shape of the {cfg.model.name} model")
 
 
 def _build_yolo(cfg):

@@ -119,18 +119,18 @@ class CheckpointManager:
     """Run checkpoints ``<dir>/<step>/{model,optimizer,ema}.pt + meta.json``,
     the newest ``max_to_keep`` retained, plus the best-metric slot
     ``<dir>/best/<step>/`` and ``best.json``. One write is in flight at a
-    time: `save` waits for the previous one before it copies."""
+    time: `save` waits for the previous one before it copies.
+
+    A manager changes its directory only when it saves: the first `save`
+    creates it and removes the temporary entries of writes cut off by a
+    crash. A manager that only restores (eval, infer) leaves it as it is,
+    so it may read the run of a trainer that is still writing there."""
 
     def __init__(self, directory: str, max_to_keep: int | None = 5):
         self.directory = os.path.abspath(directory)
         self.best_dir = os.path.join(self.directory, "best")
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
-        for root in (self.directory, self.best_dir):  # writes cut off by a crash
-            if os.path.isdir(root):
-                for name in os.listdir(root):
-                    if name.startswith(".tmp-"):
-                        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        self._cleaned = False
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
         self._best_metric = None
@@ -178,6 +178,14 @@ class CheckpointManager:
         shadow parameters. A step already on disk is overwritten (a
         preemption checkpoint holds the interrupted epoch's slot)."""
         self.wait()
+        if not self._cleaned:
+            os.makedirs(self.directory, exist_ok=True)
+            for root in (self.directory, self.best_dir):  # writes cut off by a crash
+                if os.path.isdir(root):
+                    for name in os.listdir(root):
+                        if name.startswith(".tmp-"):
+                            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+            self._cleaned = True
         meta = dict(extra or {})
         meta["date"] = datetime.datetime.now().isoformat()
         meta["step"] = int(step)

@@ -8,10 +8,11 @@ decodes in the heads' dtype, and runs class-offset greedy NMS in float32,
 whose suppression is the hand-written CUDA kernel on the card; the host
 unscales the kept boxes to original pixels.
 
-`Detector.evaluate` scores a dataset: by default the per-image mAP matching
-runs on the device beside the NMS (`ops.map.match_predictions_device`) and
-the host only accumulates the correct-matrices; ``device_matching=False``
-matches in original pixels on the host (and can write COCO results JSON).
+`Detector.evaluate` scores a dataset: by default the host matches each
+image's detections in original pixels (and can write COCO results JSON), as
+the reference does; ``device_matching=True`` runs the matching on the device
+beside the NMS (`ops.map.match_predictions_device`), the JAX package's
+default, and the host only accumulates the correct-matrices.
 `Detector.evaluate_sweep` scores a grid of (conf, iou) thresholds in one
 data pass: each batch is uploaded and run through the model once, and every
 grid point runs its NMS on the device-resident predictions.
@@ -294,25 +295,25 @@ class Detector:
 
     def evaluate(self, dataset, metric_file: str | None = None, config_note: str = "",
                  max_images: int | None = None, tta: bool = False,
-                 device_matching: bool | None = None, max_boxes: int = 120,
+                 device_matching: bool = False, max_boxes: int = 120,
                  num_workers: int = 0, save_json: str | None = None,
                  coco_ids: bool = False) -> dict:
         """mAP over a DetectionDataset -> {map50, map, images, img_per_sec}.
 
-        ``device_matching`` (default: on unless ``save_json``) matches on the
-        device (`infer_match`; ``max_boxes`` bounds each image's GT there);
-        off, the host matches in original pixels. ``metric_file``: append a
-        reference-style table row. ``save_json``: write every detection as
-        COCO results JSON (host matching only), with ``coco_ids`` mapping the
-        80 classes to the annotation ids 1..90. ``max_images``: the first n
-        images only."""
+        The host matches each image's boxes in original pixels, by the
+        reference's rule. ``device_matching=True`` matches on the device
+        instead (`infer_match`; ``max_boxes`` bounds each image's GT there),
+        by the JAX package's default rule, which differs where two
+        same-class predictions overlap one GT (`ops.map.match_predictions_device`).
+        ``metric_file``: append a reference-style table row. ``save_json``:
+        write every detection as COCO results JSON (host matching only),
+        with ``coco_ids`` mapping the 80 classes to the annotation ids 1..90.
+        ``max_images``: the first n images only."""
         if tta:
             raise _not_ported("test-time augmentation (tta)", 6)
         if save_json and device_matching:
             raise ValueError("save_json needs original-pixel boxes on the host: use "
                              "device_matching=False")
-        if device_matching is None:
-            device_matching = not save_json
         m = MeanAveragePrecision()
         n = len(dataset) if max_images is None else min(len(dataset), max_images)
         ds = dataset if n == len(dataset) else _Subset(dataset, n)

@@ -1,8 +1,10 @@
-"""Reference-checkpoint import: the reference demo's Faster R-CNN state_dict
--> this port's ``FasterRCNN`` state_dict (the port's counterpart of
-fastvision_tpu/models/import_torch.py::frcnn_from_reference).
+"""Reference-checkpoint import into the port's detectors (the port's
+counterpart of fastvision_tpu/models/import_torch.py): `state_dict_for_port`
+routes a checkpoint by its key scheme; backbone classifiers (a reference
+Darknet-53, a torchvision or reference VGG16) map onto the detectors'
+trunks, and a reference Faster R-CNN maps as below.
 
-Use the result with ``FasterRCNN(reference_compat=True)``. The mapping:
+Use a reference Faster R-CNN with ``FasterRCNN(reference_compat=True)``. Its mapping:
 
   - ``backbone.vgg{1..5}.{n}`` biased convs, in order -> ``backbone.conv{i}.conv``
     (13 convs for VGG16; both sides drop the last pool);
@@ -64,3 +66,64 @@ def frcnn_state_dict_from_reference(torch_state: Mapping[str, Any]) -> dict[str,
     out["head.reg.weight"] = _t(s["fast.regressor.weight"][4:])
     out["head.reg.bias"] = _t(s["fast.regressor.bias"][4:])
     return out
+
+
+def darknet53_state_dict_from_reference(torch_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference's Darknet-53 classifier (``conv0..conv5``,
+    ``res{1..5}.{j}.conv{1,2}``, each ``.conv`` + ``.bn``) -> the port's
+    YOLOv3 backbone: the same names under ``backbone.``. The classifier top
+    ``fc`` has no counterpart in the detector and is dropped."""
+    return {"backbone." + k: torch.as_tensor(v) for k, v in torch_state.items()
+            if not k.startswith("fc.")}
+
+
+def vgg16_state_dict_for_frcnn(torch_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A VGG16 classifier, torchvision's (``features.N``) or the reference's
+    (``vgg{1..5}.N``), -> the port's ``FasterRCNN``, as the reference starts
+    its Faster R-CNN from one: the 13 convs in order -> ``backbone.conv{i}.conv``
+    (batch-norm layers, which the detector's trunk has not, are dropped);
+    ``classifier.0`` / ``classifier.3`` -> ``head.fc1`` / ``head.fc2``, fc1's
+    input columns re-interleaved from (C, 7, 7) to (7, 7, C); the 1000-way
+    ``classifier.6`` is dropped."""
+    s = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+         for k, v in torch_state.items()}
+
+    def convs(prefix: str) -> list[str]:  # "<prefix>N" of the rank-4 weights, by N
+        n = sorted(int(k[len(prefix):].split(".")[0]) for k, v in s.items()
+                   if k.startswith(prefix) and k.endswith(".weight") and v.ndim == 4)
+        return [f"{prefix}{i}" for i in n]
+
+    layers = (convs("features.") if "features.0.weight" in s
+              else [c for stage in range(1, 6) for c in convs(f"vgg{stage}.")])
+    out: dict[str, torch.Tensor] = {}
+    for i, name in enumerate(layers):
+        out[f"backbone.conv{i}.conv.weight"] = _t(s[f"{name}.weight"])
+        out[f"backbone.conv{i}.conv.bias"] = _t(s[f"{name}.bias"])
+    if "classifier.0.weight" in s:
+        w1 = s["classifier.0.weight"]
+        w1 = w1.reshape(w1.shape[0], 512, 7, 7).transpose(0, 2, 3, 1)
+        out["head.fc1.weight"] = _t(w1.reshape(w1.shape[0], -1))
+        out["head.fc1.bias"] = _t(s["classifier.0.bias"])
+    if "classifier.3.weight" in s:
+        out["head.fc2.weight"] = _t(s["classifier.3.weight"])
+        out["head.fc2.bias"] = _t(s["classifier.3.bias"])
+    return out
+
+
+def state_dict_for_port(torch_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Route a torch checkpoint to the port's detector names by its key
+    scheme (the detectors' part of the JAX package's ``detect_and_import``):
+    the reference demo's YOLOv3 naming, which is the port's own, and the
+    port's Faster R-CNN pass as they are; a reference Faster R-CNN, a
+    reference Darknet-53 classifier and a torchvision or reference VGG16 are
+    renamed. Raises ValueError, with the first keys, on any other scheme."""
+    s = torch_state
+    if "backbone.conv0.conv.weight" in s or "head.head_out_small.weight" in s:
+        return {k: torch.as_tensor(v) for k, v in s.items()}
+    if "rpn.conv3x3.weight" in s:
+        return frcnn_state_dict_from_reference(s)
+    if "conv0.conv.weight" in s:
+        return darknet53_state_dict_from_reference(s)
+    if "features.0.weight" in s or "vgg1.0.weight" in s:
+        return vgg16_state_dict_for_frcnn(s)
+    raise ValueError(f"unrecognized torch checkpoint naming scheme; first keys: {sorted(s)[:6]}")

@@ -13,12 +13,16 @@ bit-equal to an uninterrupted one (model, optimizer and EMA state), for a
 shallow, narrow-necked YOLOv3 and a Faster R-CNN with a narrow head.
 """
 import copy
+import functools
+import importlib
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from fastvision_tpu_torch.core import (
     CheckpointManager,
     load_torch_state,
     partial_load,
+    restore_inference_weights,
     set_random_seeds,
     trainable_mask,
 )
@@ -50,7 +55,6 @@ from fastvision_tpu_torch.data import (
 )
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.detection.faster_rcnn import FastHead
-from fastvision_tpu_torch.nn.layers import init_weights_
 from fastvision_tpu_torch.ops import map as port_map
 from fastvision_tpu_torch.testing import SyntheticDetectionDataset, write_detection_dataset
 
@@ -171,11 +175,14 @@ def _padded_cases(rng, quantize, b=16, p=24, g=12, n_cls=3):
     return [np.stack(out[k]).astype(cast.get(k, bool)) for k in ("pb", "pc", "pv", "tb", "tc", "tv")]
 
 
+_jax_match_device = jax.jit(jax_map.match_predictions_device)
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 def test_match_predictions_device_matches_jax(quantize):
     args = _padded_cases(np.random.default_rng(3 + quantize), quantize)
     thr = THRESHOLDS.astype(np.float32)
-    want = np.asarray(jax_map.match_predictions_device(*map(jnp.asarray, args), jnp.asarray(thr)))
+    want = np.asarray(_jax_match_device(*map(jnp.asarray, args), jnp.asarray(thr)))
     got = port_map.match_predictions_device(*map(torch.from_numpy, args), torch.from_numpy(thr))
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any() and not got.numpy()[~args[2]].any()  # padded rows never match
@@ -284,6 +291,41 @@ def test_checkpoint_manager_round_trip(tmp_path, monkeypatch):
         CheckpointManager(str(tmp_path / "empty")).restore()
 
 
+def test_restore_leaves_a_write_in_flight_alone(tmp_path, monkeypatch):
+    """eval / infer restoring from the directory of a run that is still
+    training: the trainer's write in flight goes on and completes, and a
+    restore from a path that does not exist creates nothing."""
+    def net():
+        return torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.BatchNorm2d(4))
+
+    model, ck = net(), str(tmp_path / "ck")
+    mgr = CheckpointManager(ck)
+    mgr.save(0, model.state_dict(), ema=dict(model.named_parameters()), extra={"epoch": 0})
+    mgr.wait()
+    real_save, started, release = torch.save, threading.Event(), threading.Event()
+
+    def held(obj, path, *a, **k):  # the write stops after its first file
+        real_save(obj, path, *a, **k)
+        started.set()
+        assert release.wait(30)
+
+    monkeypatch.setattr(torch, "save", held)
+    mgr.save(1, model.state_dict(), extra={"epoch": 1})
+    assert started.wait(30)
+    in_flight = [n for n in os.listdir(ck) if n.startswith(".tmp-1-")]
+    assert len(in_flight) == 1
+    other = net()
+    assert restore_inference_weights(ck, other)["step"] == 0
+    assert torch.equal(other[0].weight, model[0].weight)
+    assert [n for n in os.listdir(ck) if n.startswith(".tmp-1-")] == in_flight
+    release.set()
+    mgr.wait()
+    assert mgr.all_steps() == [0, 1] and CheckpointManager(ck).restore()["meta"]["epoch"] == 1
+    with pytest.raises(FileNotFoundError):
+        restore_inference_weights(str(tmp_path / "typo"), other)
+    assert not (tmp_path / "typo").exists()
+
+
 def test_partial_load_masks_and_torch_state(tmp_path):
     src = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 5))
     dst = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))  # other head
@@ -325,16 +367,17 @@ def base_models():
     # one block per Darknet stage and a narrow neck: checkpoints of ~0.1 GB
     yolo = YOLOv3(num_classes=C, channels=(128, 64, 32), stage_sizes=(1, 1, 1, 1, 1),
                   generator=torch.Generator().manual_seed(0))
-    frcnn = FasterRCNN(**FRCNN_CFG, generator=torch.Generator().manual_seed(0))
-    # a narrow head: checkpoints of KBs, not of the 4096-wide MLP's 0.4 GB
-    frcnn.head = init_weights_(FastHead(512 * 7 * 7, C, hidden=64),
-                               torch.Generator().manual_seed(1))
+    # a narrow head: checkpoints of MBs, not of the 4096-wide MLP's 0.4 GB
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(importlib.import_module("fastvision_tpu_torch.models.detection.faster_rcnn"),
+                   "FastHead", functools.partial(FastHead, hidden=64))
+        frcnn = FasterRCNN(**FRCNN_CFG, generator=torch.Generator().manual_seed(0))
     return {"yolov3": yolo, "faster_rcnn": frcnn}
 
 
 def _fit(kind, base, ckpt_dir=None, resume=False, preempt_after=None):
     model = copy.deepcopy(base)
-    ds = SyntheticDetectionDataset(6, C, seed=2, sizes=((64, 64), (48, 80)))
+    ds = SyntheticDetectionDataset(4, C, seed=2, sizes=((64, 64), (48, 80)))
     aug = Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)])
     loader = DetectionLoader(ds, 64, 2, max_boxes=4, seed=1, augmentation=aug, mosaic_prob=0.5)
     if kind == "yolov3":
@@ -344,7 +387,7 @@ def _fit(kind, base, ckpt_dir=None, resume=False, preempt_after=None):
         loss_fn, step_fn = None, tt.make_frcnn_train_step(seed=3)
     log = _Log()
     fit = tt.Fit(model, loss_fn, tt.build_optimizer("sgd", model, grad_clip_norm=10.0), loader,
-                 epochs=2, schedule=tt.warmup_cosine_lr(1e-2, 1e-4, 6, warmup_steps=2),
+                 epochs=2, schedule=tt.warmup_cosine_lr(1e-2, 1e-4, 4, warmup_steps=2),
                  ema_decay=0.9, step_fn=step_fn, ckpt_dir=ckpt_dir, resume=resume, logger=log,
                  device="cpu")
     if preempt_after is not None:
@@ -372,18 +415,18 @@ def test_fit_preempted_and_resumed_equals_uninterrupted(kind, base_models, tmp_p
     ckpt = str(tmp_path / "ck")
     fit1, log1 = _fit(kind, base_models[kind])
     fit1.run()
-    fit2, _ = _fit(kind, base_models[kind], ckpt, preempt_after=4)  # epoch 1, batch 1 done
+    fit2, _ = _fit(kind, base_models[kind], ckpt, preempt_after=3)  # epoch 1, batch 1 done
     fit2.run()
-    assert fit2.interrupted and fit2.global_step == 4
+    assert fit2.interrupted and fit2.global_step == 3
     saved = _state(fit2)
     meta = CheckpointManager(ckpt).restore()["meta"]
     assert (meta["epoch"], meta["global_step"], meta["epoch_batches_done"], meta["state_step"],
-            meta["preempted"]) == (0, 3, 1, 4, True)
+            meta["preempted"]) == (0, 2, 1, 3, True)
     fit3, log3 = _fit(kind, base_models[kind], ckpt, resume=True)
-    assert (fit3.start_epoch, fit3.global_step) == (1, 4)
+    assert (fit3.start_epoch, fit3.global_step) == (1, 3)
     assert _tensors_equal(_state(fit3), saved)  # the restored state is the saved one
     fit3.run()
-    assert fit3.global_step == fit1.global_step == 6
+    assert fit3.global_step == fit1.global_step == 4
     assert _tensors_equal(_state(fit3), _state(fit1))
     # the resumed epoch's logged loss is the whole epoch's, as without the cut
     assert [r["train_loss"] for r in log3.records if "train_loss" in r] == \

@@ -13,8 +13,11 @@ between the packages), metric-file rows equal (4 decimals), COCO boxes
 within 2e-3 px and scores within 1e-4, the same entries and ids. Sweep rows
 equal the per-point `evaluate` with host matching exactly (the sweep
 matches on the host). The CLI runs a small YOLOv3 (one block per Darknet
-stage, a narrow neck) and a Faster R-CNN with a 64-wide head at 64 px.
+stage, a narrow neck) and a Faster R-CNN with a 64-wide head at 64 px;
+``model.pretrained`` loads a Darknet-53 and a VGG16 classifier into their
+trunks exactly.
 """
+import functools
 import importlib
 import json
 import os
@@ -40,7 +43,6 @@ from fastvision_tpu_torch.data import DetectionDataset
 from fastvision_tpu_torch.infer import REFERENCE_SWEEP, Detector, detections_to_coco
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.detection.faster_rcnn import FastHead
-from fastvision_tpu_torch.nn.layers import init_weights_
 from fastvision_tpu_torch.testing import write_detection_dataset
 
 torch.set_num_threads(2)
@@ -83,8 +85,8 @@ def root(tmp_path_factory):
 def test_evaluate_matches_jax(detectors, root, tmp_path, device_matching):
     tdet, jdet = detectors
     ours, theirs = DetectionDataset(root, "val"), jd.DetectionDataset(root, "val")
-    got = tdet.evaluate(ours, metric_file=str(tmp_path / "t.txt"), config_note="conf .05",
-                        device_matching=device_matching)
+    mode = {"device_matching": True} if device_matching else {}  # the port's default: host
+    got = tdet.evaluate(ours, metric_file=str(tmp_path / "t.txt"), config_note="conf .05", **mode)
     want = jdet.evaluate(theirs, metric_file=str(tmp_path / "j.txt"), config_note="conf .05",
                          device_matching=device_matching)
     assert got["images"] == want["images"] == 5 and got["map50"] > 0
@@ -160,29 +162,84 @@ def test_detector_rejects_what_is_not_ported(detectors, root):
 # CLI
 # ---------------------------------------------------------------------------
 def _small_yolo(cfg):
-    return YOLOv3(num_classes=cfg.model.num_classes, channels=(128, 64, 32),
-                  stage_sizes=(1, 1, 1, 1, 1),
-                  generator=torch.Generator().manual_seed(cfg.train.seed))
+    """`cli._build_yolo` at a small size."""
+    model = YOLOv3(num_classes=cfg.model.num_classes, channels=(128, 64, 32),
+                   stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(cfg.train.seed))
+    cli._maybe_import_pretrained(cfg, model)
+    return model
 
 
 def _narrow_frcnn(**kw):
-    model = FasterRCNN(**kw)
-    model.head = init_weights_(FastHead(512 * 7 * 7, model.num_classes, hidden=64),
-                               torch.Generator().manual_seed(1))
-    return model
+    """FasterRCNN built with a 64-wide head MLP (the 4096-wide one holds
+    0.4 GB and takes seconds to initialise)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(importlib.import_module("fastvision_tpu_torch.models.detection.faster_rcnn"),
+                   "FastHead", functools.partial(FastHead, hidden=64))
+        return FasterRCNN(**kw)
+
+
+VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)  # torchvision's features.N
+VGG16_CHANNELS = (3, 64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+
+
+def _classifier_checkpoints(tmp_path, yolo) -> tuple[str, str, dict]:
+    """A reference Darknet-53 classifier holding ``yolo``'s backbone and a
+    seeded torchvision VGG16 with a 64-wide MLP, each with its 1000-way top,
+    saved as their sources save them. -> their paths, and the tensors of the
+    port's FasterRCNN that the VGG16 must become."""
+    darknet = {k[len("backbone."):]: v for k, v in yolo.state_dict().items()
+               if k.startswith("backbone.")}
+    darknet["fc.weight"], darknet["fc.bias"] = torch.zeros(1000, 1024), torch.zeros(1000)
+    gen, want, vgg = torch.Generator().manual_seed(8), {}, {}
+    for i, n in enumerate(VGG16_CONVS):
+        w = torch.randn(VGG16_CHANNELS[i + 1], VGG16_CHANNELS[i], 3, 3, generator=gen)
+        b = torch.randn(VGG16_CHANNELS[i + 1], generator=gen)
+        want[f"backbone.conv{i}.conv.weight"] = vgg[f"features.{n}.weight"] = w
+        want[f"backbone.conv{i}.conv.bias"] = vgg[f"features.{n}.bias"] = b
+    for name, shape in (("fc1", (64, 7 * 7 * 512)), ("fc2", (64, 64))):
+        want[f"head.{name}.weight"] = torch.randn(*shape, generator=gen)
+        want[f"head.{name}.bias"] = torch.randn(64, generator=gen)
+    w1 = want["head.fc1.weight"]  # the port's (7, 7, C) input columns -> torchvision's (C, 7, 7)
+    vgg["classifier.0.weight"] = w1.reshape(64, 7, 7, 512).permute(0, 3, 1, 2).reshape(64, -1)
+    vgg["classifier.0.bias"] = want["head.fc1.bias"]
+    vgg["classifier.3.weight"], vgg["classifier.3.bias"] = want["head.fc2.weight"], want["head.fc2.bias"]
+    vgg["classifier.6.weight"], vgg["classifier.6.bias"] = torch.zeros(1000, 64), torch.zeros(1000)
+    paths = str(tmp_path / "darknet53.pth"), str(tmp_path / "vgg16.pth")
+    torch.save(darknet, paths[0])
+    torch.save(vgg, paths[1])
+    return (*paths, want)
 
 
 def test_cli_train_resume_eval_infer(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(cli, "_build_yolo", _small_yolo)
     monkeypatch.setattr(tmodels, "FasterRCNN", _narrow_frcnn)
+    ckmod = importlib.import_module("fastvision_tpu_torch.core.checkpoint")
+    real_load, loads = ckmod.partial_load, []
+
+    def recording(model, state, verbose=True):  # what model.pretrained put into the model
+        out = real_load(model, state, verbose)
+        loads.append((out[0], {k: v.clone() for k, v in model.state_dict().items()}))
+        return out
+
+    monkeypatch.setattr(ckmod, "partial_load", recording)
+    src_yolo = YOLOv3(num_classes=C, channels=(128, 64, 32), stage_sizes=(1, 1, 1, 1, 1),
+                      generator=torch.Generator().manual_seed(7))
+    darknet, vgg, want_frcnn = _classifier_checkpoints(tmp_path, src_yolo)
     ckpt = str(tmp_path / "ck")
     root = write_detection_dataset(str(tmp_path / "ds"), 4, sizes=SIZES, seed=5, num_classes=C)
     common = [f"data.data_root={root}", "data.num_workers=0", f"data.input_size={SIZE}",
               "data.batch_size=2", f"model.num_classes={C}", "data.max_boxes=8",
               "train.bf16=false", "train.ema_decay=0.9", "train.warmup_epochs=1",
               "--device", "cpu"]
-    fit = cli.main(["train", "train.epochs=1", f"train.ckpt_dir={ckpt}", *common])
+    fit = cli.main(["train", "train.epochs=1", f"train.ckpt_dir={ckpt}",
+                    f"model.pretrained={darknet}", *common])
     assert fit.global_step == 2 and CheckpointManager(ckpt).all_steps() == [0]
+    # the Darknet-53 classifier filled the whole backbone and nothing else
+    (loaded, got), = loads
+    want = {k: v for k, v in src_yolo.state_dict().items() if k.startswith("backbone.")}
+    assert sorted(loaded) == sorted(want)
+    assert all(torch.equal(got[k], v) for k, v in want.items())
     fit = cli.main(["train", "--resume", "train.epochs=2", f"train.ckpt_dir={ckpt}", *common])
     assert fit.start_epoch == 1 and fit.global_step == 4
     mgr = CheckpointManager(ckpt)
@@ -215,9 +272,13 @@ def test_cli_train_resume_eval_infer(tmp_path, monkeypatch, capsys):
 
     # Faster R-CNN through the same command
     fit = cli.main(["train", "model.name=faster_rcnn", "train.epochs=1", "model.anchor_scales=[2, 4]",
-                    f"train.ckpt_dir={tmp_path / 'fr'}", *common])
+                    f"train.ckpt_dir={tmp_path / 'fr'}", f"model.pretrained={vgg}", *common])
     assert fit.global_step == 2 and CheckpointManager(str(tmp_path / "fr")).all_steps() == [0]
     assert tuple(fit.state.model.rpn.cls.weight.shape[:1]) == (6,)  # 2 scales x 3 ratios
+    # the VGG16 filled the 13 trunk convs and the head's MLP, and nothing else
+    (loaded, got), = loads[1:]
+    assert sorted(loaded) == sorted(want_frcnn) and len(want_frcnn) == 2 * 13 + 4
+    assert all(torch.equal(got[k], v) for k, v in want_frcnn.items())
 
 
 def test_cli_train_saves_on_sigterm_and_resumes(tmp_path, monkeypatch):
@@ -257,7 +318,14 @@ def test_cli_train_saves_on_sigterm_and_resumes(tmp_path, monkeypatch):
     assert not fit.interrupted and (fit.start_epoch, fit.global_step) == (0, 4)
 
 
-def test_cli_rejects_what_is_not_ported(root):
+def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
+    monkeypatch.setattr(cli, "_build_yolo", _small_yolo)
+    for state, match in (({"stem.weight": torch.zeros(1)}, "naming scheme"),
+                         ({"backbone.conv0.conv.weight": torch.zeros(1)}, "no tensor")):
+        torch.save(state, tmp_path / "pretrained.pth")
+        with pytest.raises(ValueError, match=match):
+            cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
+                      f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
     for argv, item in ((["serve"], 16), (["train-cls"], 13), (["train-video"], 14),
                        (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
                        (["generate", "--out", "x"], 10),

@@ -63,6 +63,19 @@ def test_kernel_mask_equals_plain(b, k, iou_thres, flags):
     assert torch.equal(got, want), int((got != want).sum())
 
 
+@pytest.mark.parametrize("iou_thres", [0.15, 0.25, 0.35, 0.65])
+@pytest.mark.parametrize("flags", [dict(), dict(clusters=20)], ids=["stress", "clustered"])
+def test_kernel_mask_equals_plain_at_sweep_thresholds(iou_thres, flags):
+    """Detector.evaluate's batch (32) and candidates (1024) at the reference
+    sweep's IoU thresholds: low ones suppress far more than 0.45."""
+    dev = _cuda()
+    boxes, scores = nms_case(32 * 7919 + int(100 * iou_thres), 32, 1024, iou_thres, **flags)
+    boxes, scores = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    got = suppression_mask_cuda(boxes, scores, iou_thres)
+    want = suppression_mask_plain(boxes, scores, iou_thres)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
 def test_kernel_wrapper_rejects_what_it_does_not_take():
     dev = _cuda()
     boxes, scores = (torch.from_numpy(a).to(dev) for a in nms_case(0, 2, 64))
