@@ -73,7 +73,30 @@ exits non-zero before a result is printed:
               train step's images/s at batch 8 (1 warm-up, 8 steps, one
               sync); peak memory, profiles, FLOPs from the layer shapes and
               ``mfu``;
-  12. ckpt_resume  checkpoint, preemption and resume at full width, for the
+  12. cls_card_vs_cpu  one SGD step of a shallow ResNeXt (groups 32,
+              1000 classes, 64 px) with mixup + cutmix + smoothing, the card
+              against the CPU in float32 (TF32 off) and in float64, and float32
+              forwards of full-width ResNet-50, VGG16, Darknet-53 and
+              ViT-B/16 at 224 on 2 images (TF32 off);
+  13. cls_train  full-width ResNet-50 (1000 classes, 224, bf16,
+              channels_last) through ``Fit`` with SGD momentum and
+              ``warmup_cosine_lr``, mixup 0.2 + cutmix 1.0 + smoothing 0.1,
+              2 epochs x 2 steps at batch 128 over a BMP folder of 10 classes
+              (``testing.write_classification_dataset``) read by
+              ``ClassificationLoader(num_workers=4, worker_backend="process")``,
+              whose first epoch must be byte-equal to the serial loader's;
+              validated by ``classification_evaluator`` (the NMS kernel's
+              launches counted: 0); 10 steps on one batch (the loss must
+              fall);
+  14. cls_times  the train step's images/s at batch 128 (1 warm-up, 8
+              steps, one sync), its split between CUDA events, the
+              profiler's busy share, peak memory, conv and Linear FLOPs and
+              ``mfu``; with 0 and 4 workers, the loader's first epoch (the
+              pool's start) and then, steady, the loader alone, ``Fit`` and
+              the evaluator images/s; the YOLOv3 ``DetectionLoader`` (mosaic,
+              hflip, HSV) alone with 0 and 4 workers over BMP files,
+              byte-equal;
+  15. ckpt_resume  checkpoint, preemption and resume at full width, for the
               YOLOv3-416 ``Fit`` of the train phase (bf16, EMA) and the
               Faster R-CNN-512 one of the frcnn_train phase, under
               ``torch.use_deterministic_algorithms(True, warn_only=True)``:
@@ -87,7 +110,7 @@ exits non-zero before a result is printed:
               tolerance. Bytes on disk per checkpoint, the save's host copy
               (the step loop's stall), ``wait()``, restore seconds; the free
               disk space first;
-  13. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
+  16. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
               EMA weights over 64 images of assorted sizes labelled with
               the detector's own jittered detections (so that mAP is not
               0): the kernel against its plain version, bit-equal, on the
@@ -98,17 +121,21 @@ exits non-zero before a result is printed:
               always), ``evaluate_sweep`` over the reference's 9 points
               and 2 at conf 0.001 against as many per-point ``evaluate``s
               (equal rows), images/s and kernel launches of each;
-  14. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
-              from ``testing.write_detection_dataset``: ``train`` YOLOv3-416
-              with the default recipe (mosaic 0.5, hflip, HSV) for 2
-              epochs, ``train --resume`` to 3, ``eval --ckpt ... --sweep``,
-              and ``train model.name=faster_rcnn`` at 512 for 1 epoch; epoch
-              images/s with decode and augmentation, launches per command;
-              then the run's total seconds.
+  17. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
+              from ``testing.write_detection_dataset``, on the config's
+              worker pools: ``train`` YOLOv3-416 with the default recipe
+              (mosaic 0.5, hflip, HSV) for 2 epochs, ``train --resume`` to 3,
+              ``eval --ckpt ... --sweep``, and ``train model.name=faster_rcnn``
+              at 512 for 1 epoch; ``train-cls`` ResNet-50-224 over the
+              cls_train folder for 1 epoch, ``--resume`` to 2, ``eval --task
+              cls --ckpt``; epoch images/s with decode and augmentation,
+              launches per command (0 for the classification ones); then the
+              run's total seconds.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
-port; the last line is {"ok": true, "device": {...}}. Without a CUDA card the
-script exits 1 at once.
+port, with its launches on every path (the classification paths counted and
+required at 0: they run no NMS); the last line is {"ok": true, "device":
+{...}}. Without a CUDA card the script exits 1 at once.
 """
 from __future__ import annotations
 
@@ -128,7 +155,16 @@ import torch
 
 from fastvision_tpu_torch import cuda_build
 from fastvision_tpu_torch.core import MetricLogger, restore_inference_weights
-from fastvision_tpu_torch.data import DetectionLoader, normalize_images
+from fastvision_tpu_torch.data import (
+    Augmentation,
+    ClassificationDataset,
+    ClassificationLoader,
+    DetectionDataset,
+    DetectionLoader,
+    HorizontalFlip,
+    HSVJitter,
+    normalize_images,
+)
 from fastvision_tpu_torch.infer import (
     REFERENCE_SWEEP,
     Detector,
@@ -137,6 +173,14 @@ from fastvision_tpu_torch.infer import (
     scale_coords,
 )
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
+from fastvision_tpu_torch.models.classification import (
+    Bottleneck,
+    ResNet,
+    darknet53,
+    resnet50,
+    vgg16,
+    vit_base_patch16,
+)
 from fastvision_tpu_torch.models.detection import (
     detection_candidates,
     fastrcnn_postprocess,
@@ -165,6 +209,7 @@ from fastvision_tpu_torch.testing import (
     nms_case,
     rpn_nms_case,
     state_max_rel_diff,
+    write_classification_dataset,
     write_detection_dataset,
 )
 from fastvision_tpu_torch.train import (
@@ -172,15 +217,19 @@ from fastvision_tpu_torch.train import (
     TrainState,
     YOLOv3Loss,
     build_optimizer,
+    classification_evaluator,
     constant_lr,
+    cross_entropy,
     detection_evaluator,
     ema_update,
     labels_to_pixel_xyxy,
+    make_classification_mix,
     make_eval_step,
     make_frcnn_eval_step,
     make_frcnn_train_step,
     make_train_step,
     set_lr,
+    soft_cross_entropy,
     step_decay_lr,
     warmup_cosine_lr,
 )
@@ -1252,6 +1301,307 @@ def phase_frcnn_times(dev: torch.device, model: FasterRCNN, u8: torch.Tensor, ke
 # implementation the two must be bit-equal; where one had not (PyTorch
 # warns), they may differ by rounding only: tolerances as the card-vs-CPU
 # step's
+# ---------------------------------------------------------------------------
+# Classification: ResNet-50, 1000 classes, 224 px, full width (train-cls)
+# ---------------------------------------------------------------------------
+CLS_SIZE, CLS_CLASSES, CLS_BATCH, CLS_FOLDERS = 224, 1000, 128, 10
+CLS_IMAGES = 2 * CLS_BATCH  # per split: 2 steps an epoch, 2 validation batches
+CLS_HW = ((224, 224), (240, 320), (320, 180), (150, 200), (300, 260), (375, 500))
+CLS_WORKERS = 4  # the config's default num_workers, worker_backend "process"
+# the mix of a modern ImageNet recipe, and its SGD: momentum 0.9, wd 1e-4
+CLS_MIX = dict(mixup_alpha=0.2, cutmix_alpha=1.0, smoothing=0.1)
+CLS_LR = 0.05  # 0.1 per 256 images
+
+
+def cls_model(seed: int = SEED) -> torch.nn.Module:
+    return resnet50(num_classes=CLS_CLASSES, generator=torch.Generator().manual_seed(seed))
+
+
+def cls_loss(logits, batch):
+    """train-cls's loss: soft cross-entropy on the mixed targets."""
+    acc = (logits.argmax(dim=-1) == batch["labels"]).float().mean()
+    if "soft" in batch:
+        return soft_cross_entropy(logits.float(), batch["soft"]), {"acc": acc}
+    return cross_entropy(logits.float(), batch["labels"]), {"acc": acc}
+
+
+def cls_step(dtype: torch.dtype = torch.bfloat16, mix: bool = True):
+    return make_train_step(cls_loss, dtype, imagenet=True, transform_seed=SEED,
+                           batch_transform=make_classification_mix(CLS_CLASSES, **CLS_MIX)
+                           if mix else None)
+
+
+def cls_loader(root: str, split: str, num_workers: int = CLS_WORKERS, train: bool = True,
+               size: int = CLS_SIZE) -> ClassificationLoader:
+    return ClassificationLoader(
+        ClassificationDataset(root, split), size, CLS_BATCH, train=train, seed=SEED,
+        augmentation=Augmentation([HorizontalFlip(p=0.5)]) if train else None,
+        num_workers=num_workers, worker_backend="process")
+
+
+def read_epoch(loader, epoch: int = 0) -> list[dict]:
+    return [{k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+            for b in loader.epoch(epoch)]
+
+
+def same_batches(a: list[dict], b: list[dict]) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) if isinstance(x[k], np.ndarray)
+                                     else x[k] == y[k] for k in x if k != "meta")
+        for x, y in zip(a, b))
+
+
+def phase_cls_card_vs_cpu(dev: torch.device) -> dict:
+    """One SGD step of a shallow ResNeXt with the mix, card vs CPU, and
+    float32 forwards of the full-width zoo at 224 on 2 images."""
+    small = ResNet(Bottleneck, (1, 1, 1, 1), num_classes=CLS_CLASSES, groups=32, base_width=4,
+                   generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 7)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, CLS_FOLDERS, 8).astype(np.int32))}
+    steps = {}
+    # both are gated. The float32 one holds on this seeded batch, but a float32
+    # step of a ReLU net with train-mode BN can take pre-activations within
+    # rounding of 0 to either side on either device, and then sits up to 1e-2
+    # from a float64 run (other batches, PERF.md): the float64 step is
+    # the comparison that does not depend on the batch
+    for dtype in (torch.float64, torch.float32):
+        card_m, cpu_m = copy.deepcopy(small).to(dtype), copy.deepcopy(small).to(dtype)
+        start = {k: v.clone() for k, v in cpu_m.state_dict().items()}
+        step = cls_step(dtype)
+        with no_tf32():
+            card = TrainState.create(card_m, build_optimizer("sgd", card_m, momentum=0.9), dev)
+            cpu = TrainState.create(cpu_m, build_optimizer("sgd", cpu_m, momentum=0.9), "cpu")
+            _, m_card = step(card, {k: v.to(dev) for k, v in batch.items()}, 1e-2)
+            _, m_cpu = step(cpu, batch, 1e-2)
+            torch.cuda.synchronize()
+        steps[str(dtype).split(".")[-1]] = {
+            "loss_rel": abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1),
+            "grad_norm_rel": abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1),
+            "state_max_rel": state_max_rel_diff(card_m.state_dict(), cpu_m.state_dict(), start)}
+    tol = {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}
+    for name, r in steps.items():
+        check(r["loss_rel"] <= tol["loss_rel"] and r["state_max_rel"]["kernels"][0]
+              <= tol["kernels"] and r["state_max_rel"]["others"][0] <= tol["others"],
+              f"cls train step card vs cpu, {name}: {r}")
+    del small
+
+    fwd = {}
+    u8 = np.random.default_rng(SEED + 8).integers(0, 256, (2, CLS_SIZE, CLS_SIZE, 3), np.uint8)
+    x = normalize_images(torch.from_numpy(u8), torch.float32, imagenet=True)
+    for name, build in (("resnet50", lambda g: resnet50(generator=g)),
+                        ("vgg16", lambda g: vgg16(generator=g)),
+                        ("darknet53", lambda g: darknet53(generator=g)),
+                        ("vit_base_patch16", lambda g: vit_base_patch16(generator=g))):
+        model = build(torch.Generator().manual_seed(SEED))
+        if any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+            calibrate_bn_(model, x)  # statistics from these images, not (0, 1)
+        model.eval()
+        with no_tf32(), torch.inference_mode():
+            want = model(x)
+            got = model.to(dev)(x.to(dev)).cpu()
+        fwd[name] = float((got - want).abs().max() / want.std())
+        del model
+        torch.cuda.empty_cache()
+    check(max(fwd.values()) <= 1e-3, f"fp32 zoo forwards card vs cpu: {fwd}")
+    emit("cls_card_vs_cpu",
+         step={"model": "ResNet(Bottleneck, (1,1,1,1), groups=32, base_width=4), 1000 classes, "
+                        "64 px, batch 8, mixup 0.2 + cutmix 1.0 + smoothing 0.1, one SGD step "
+                        "at lr 1e-2, TF32 off", "tolerances": tol, **steps},
+         forward_fp32_max_abs_over_std=fwd, forward_tolerance=1e-3,
+         forward_inputs=f"2 images at {CLS_SIZE}, BN statistics from them, TF32 off")
+    return {"forward": fwd, "step": steps}
+
+
+def phase_cls_train(dev: torch.device, workdir: str) -> dict:
+    """Full-width ResNet-50 / 224 / bf16 through Fit over a BMP folder, on
+    the config's worker pools; the pooled epoch byte-equal to the serial one."""
+    t0 = time.perf_counter()
+    root = write_classification_dataset(os.path.join(workdir, "cls"), CLS_IMAGES,
+                                        num_classes=CLS_FOLDERS, sizes=CLS_HW, seed=SEED + 9)
+    write_s = time.perf_counter() - t0
+    train_loader, val_loader = cls_loader(root, "train"), cls_loader(root, "val", train=False)
+    t0 = time.perf_counter()
+    pooled = read_epoch(train_loader)
+    pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = read_epoch(cls_loader(root, "train", num_workers=0))
+    serial_s = time.perf_counter() - t0
+    byte_equal = same_batches(pooled, serial)
+    check(byte_equal, "the pooled classification epoch differs from the serial one")
+
+    records = []
+
+    class Log:
+        def log(self, step, **kw):
+            records.append({"step": step, **kw})
+
+    val_launches: list = []
+    model = cls_model()
+    epochs = 2
+    fit = Fit(model, cls_loss, build_optimizer("sgd", model, weight_decay=1e-4, momentum=0.9),
+              train_loader, val_loader, epochs=epochs,
+              schedule=warmup_cosine_lr(CLS_LR, 1e-4, epochs * len(train_loader), warmup_steps=1),
+              evaluator=counted(classification_evaluator(make_eval_step(
+                  dtype=torch.bfloat16, imagenet=True)), val_launches),
+              step_fn=cls_step(), dtype=torch.bfloat16, metric_key="accuracy",
+              metric_mode="max", logger=Log(), seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    fit.run()
+    fit_s = time.perf_counter() - t0
+    per_epoch = [r for r in records if "train_loss" in r]
+    check(len(per_epoch) == epochs and fit.global_step == epochs * len(train_loader),
+          f"cls Fit ran {fit.global_step} steps over {len(per_epoch)} epochs")
+    check(all(np.isfinite(r["train_loss"]) and 0.0 <= r["accuracy"] <= 1.0 for r in per_epoch),
+          f"cls Fit: {per_epoch}")
+    check(val_launches == [0] * epochs, f"classification validation launched nms {val_launches}")
+
+    step = cls_step(mix=False)
+    fixed = {k: torch.from_numpy(v).to(dev) for k, v in pooled[0].items() if k != "num_real"}
+    losses = []
+    for _ in range(10):
+        _, m = step(fit.state, fixed, 0.05)
+        losses.append(m["loss"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    check(losses[-1] < losses[0], f"cls loss did not fall over 10 steps on one batch: {losses}")
+    emit("cls_train", fit={"model": "ResNet-50, 1000 classes, full width and depth, bf16 "
+                                    "autocast, channels_last",
+                           "input_size": CLS_SIZE, "batch": CLS_BATCH, "epochs": epochs,
+                           "images_per_split": CLS_IMAGES, "folders": CLS_FOLDERS,
+                           "image_hw": [list(s) for s in CLS_HW], "bmp_write_s": write_s,
+                           "recipe": {**CLS_MIX, "sgd_momentum": 0.9, "weight_decay": 1e-4,
+                                      "schedule": f"warmup_cosine_lr({CLS_LR}, 1e-4)"},
+                           "loader": f"ClassificationLoader(num_workers={CLS_WORKERS}, "
+                                     "worker_backend='process')",
+                           "global_step": fit.global_step, "seconds_first_run": fit_s,
+                           "per_epoch": per_epoch, "val_nms_launches": val_launches},
+         pooled_epoch_byte_equal_to_serial=byte_equal, pooled_epoch_s=pooled_s,
+         serial_epoch_s=serial_s, learning_check_losses=losses)
+    train_loader.close()
+    val_loader.close()
+    return {"fit": fit, "root": root, "batch": fixed,
+            "launches": {"cls_fit_validation": sum(val_launches)}}
+
+
+def phase_cls_times(dev: torch.device, cls: dict, smi: str, workdir: str) -> dict:
+    """ResNet-50 train step img/s at batch 128, its split, peak memory and
+    mfu; Fit and the loaders with 0 and 4 workers; the evaluator's img/s."""
+    fit, batch, root = cls["fit"], cls["batch"], cls["root"]
+    state, model = fit.state, fit.state.model
+    step = cls_step()
+    out: dict = {"card": smi}
+    torch.cuda.reset_peak_memory_stats()
+    float(step(state, batch, 1e-3)[1]["loss"])
+    t0 = time.perf_counter()
+    for _ in range(8):
+        _, metrics = step(state, batch, 1e-3)
+    float(metrics["loss"])
+    step_s = (time.perf_counter() - t0) / 8
+    out["train_step_img_s"] = CLS_BATCH / step_s
+    out["train_step_ms"] = 1e3 * step_s
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+
+    mix = make_classification_mix(CLS_CLASSES, **CLS_MIX)
+    parts = {"mix": 0.0, "forward": 0.0, "loss": 0.0, "backward": 0.0, "optimizer": 0.0}
+    reps = 5
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        mixed = mix(batch, np.random.default_rng((SEED, i)))
+        ev[1].record()
+        x = normalize_images(mixed["images"], torch.bfloat16, imagenet=True)
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            logits = model(x)
+        ev[2].record()
+        loss, _ = cls_loss(logits, mixed)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        set_lr(state.optimizer, 1e-3)
+        state.optimizer.step()
+        ev[5].record()
+        ev[5].synchronize()
+        if i:  # the first is a warm-up
+            for name, a, b in zip(parts, ev[:-1], ev[1:]):
+                parts[name] += a.elapsed_time(b) / reps
+    out["step_split_ms"] = parts
+    prof = device_profile(lambda: step(state, batch, 1e-3), reps=3, top=8)
+    prof["device_share_of_unprofiled_step"] = prof["device_ms"] / out["train_step_ms"]
+    out["step_profile"] = prof
+
+    model.eval()
+    with torch.inference_mode():
+        fwd_flops = count_flops(model, lambda: model(torch.zeros(
+            1, CLS_SIZE, CLS_SIZE, 3, device=dev).contiguous(memory_format=torch.channels_last)))
+    model.train()
+    out["flops_per_image"] = {"forward": fwd_flops, "train_3x_forward": 3 * fwd_flops,
+                              "counted": "conv and Linear layers"}
+    out["mfu"] = 3 * fwd_flops * out["train_step_img_s"] / PEAK_BF16_FLOPS
+
+    # at 0 and 4 workers: the loader's first epoch (a pool starts: 4 forks of
+    # this process), then, steady, the loader alone, Fit over 2 epochs from
+    # the files, and the evaluator
+    first_s, loader_rates, fit_rates, eval_rates = {}, {}, {}, {}
+    for workers in (0, CLS_WORKERS):
+        loader = cls_loader(root, "train", num_workers=workers)
+        t0 = time.perf_counter()
+        read_epoch(loader, 10)
+        first_s[workers] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(b["num_real"] for e in (11, 12) for b in read_epoch(loader, e))
+        loader_rates[workers] = n / (time.perf_counter() - t0)
+        f = Fit(model, cls_loss, state.optimizer, loader, epochs=2, step_fn=cls_step(),
+                dtype=torch.bfloat16, schedule=constant_lr(1e-3), seed=SEED,
+                logger=MetricLogger(stdout=False), device=dev)
+        t0 = time.perf_counter()
+        f.run()
+        torch.cuda.synchronize()
+        fit_rates[workers] = f.global_step * CLS_BATCH / (time.perf_counter() - t0)
+        loader.close()
+        val = cls_loader(root, "val", num_workers=workers, train=False)
+        read_epoch(val)
+        evaluate = classification_evaluator(make_eval_step(dtype=torch.bfloat16, imagenet=True))
+        t0 = time.perf_counter()
+        evaluate(f.state, val)
+        eval_rates[workers] = len(val.ds) / (time.perf_counter() - t0)
+        val.close()
+    out["loader_first_epoch_s_by_workers"] = first_s
+    out["loader_img_s_by_workers"] = loader_rates
+    out["fit_epoch_img_s_by_workers"] = fit_rates
+    out["evaluator_img_s_by_workers"] = eval_rates
+    out["timed_images"] = {"loader": 2 * CLS_IMAGES, "fit": 2 * CLS_IMAGES,
+                           "evaluator": CLS_IMAGES}
+
+    # the YOLOv3 train loader (mosaic 0.5, hflip, HSV) over BMP files, alone:
+    # a first epoch, then one timed
+    det_root = write_detection_dataset(os.path.join(workdir, "det_loader"), TRAIN_IMAGES,
+                                       sizes=SIZES, seed=SEED + 10, splits=("train",))
+    det_rates, det_epochs = {}, {}
+    for workers in (0, CLS_WORKERS):
+        loader = DetectionLoader(
+            DetectionDataset(det_root, "train"), INPUT_SIZE, TRAIN_BATCH, max_boxes=32,
+            seed=SEED, mosaic_prob=0.5, num_workers=workers, worker_backend="process",
+            augmentation=Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)]))
+        read_epoch(loader)
+        t0 = time.perf_counter()
+        det_epochs[workers] = read_epoch(loader, 1)
+        det_rates[workers] = len(det_epochs[workers]) * TRAIN_BATCH / (time.perf_counter() - t0)
+        loader.close()
+    det_equal = same_batches(det_epochs[0], det_epochs[CLS_WORKERS])
+    check(det_equal, "the pooled YOLOv3 loader epoch differs from the serial one")
+    shutil.rmtree(det_root)
+    out["yolo_loader_img_s_by_workers"] = det_rates
+    out["yolo_loader"] = (f"DetectionLoader {INPUT_SIZE}, batch {TRAIN_BATCH}, mosaic 0.5 + "
+                          f"hflip + HSV 0.5, {TRAIN_IMAGES} BMP files of the sizes "
+                          f"{[list(s) for s in SIZES]}")
+    out["yolo_pooled_epoch_byte_equal_to_serial"] = det_equal
+    out["host_cpus"] = os.cpu_count()
+    out["clocks_power"] = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    emit("cls_times", **out)
+    return out
+
+
 RESUME_TOLERANCES = {"kernels": 1e-3, "others": 1e-2}
 
 
@@ -1560,11 +1910,12 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
             "mismatches": sum(r["mismatches"] for r in kernel_vs_plain)}
 
 
-def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
-    """`fastvision_tpu_torch.cli.main` in-process over BMP files: train
-    YOLOv3-416 (default recipe: mosaic 0.5, hflip, HSV; EMA) for 2 epochs,
-    resume to 3, eval --sweep from the checkpoint, train Faster R-CNN-512
-    for 1 epoch."""
+def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str) -> dict:
+    """`fastvision_tpu_torch.cli.main` in-process over BMP files, on the
+    config's worker pools (4 workers, 'process'): train YOLOv3-416 (default
+    recipe: mosaic 0.5, hflip, HSV; EMA) for 2 epochs, resume to 3, eval
+    --sweep from the checkpoint, train Faster R-CNN-512 for 1 epoch; then
+    train-cls ResNet-50-224 for 1 epoch, --resume to 2, eval --task cls."""
     from fastvision_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -1572,7 +1923,7 @@ def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
                                    seed=SEED + 5, num_classes=FRCNN_CLASSES)
     write_s = time.perf_counter() - t0
     ckpt = os.path.join(workdir, "yolo_ckpt")
-    common = [f"data.data_root={root}", "data.num_workers=0", f"data.input_size={INPUT_SIZE}",
+    common = [f"data.data_root={root}", f"data.input_size={INPUT_SIZE}",
               f"data.batch_size={TRAIN_BATCH}", "train.ema_decay=0.9999"]
     runs: dict = {}
 
@@ -1604,21 +1955,48 @@ def phase_cli(dev: torch.device, smi: str, workdir: str) -> dict:
                                   f"model.num_classes={FRCNN_CLASSES}",
                                   f"data.input_size={FRCNN_SIZE}", f"data.batch_size={FRCNN_BATCH}",
                                   f"train.ckpt_dir={frcnn_ckpt}", f"data.data_root={root}",
-                                  "data.num_workers=0", "train.lr=1e-2"])
+                                  "train.lr=1e-2"])
     check(fit.global_step == len(fit.train_loader), "cli faster_rcnn")
+    check(fit.train_loader.num_workers == 4 and fit.train_loader.worker_backend == "process",
+          "the detection CLI did not run on the config's worker pools")
     del fit
     torch.cuda.empty_cache()
+
+    cls_ckpt = os.path.join(workdir, "cls_ckpt")
+    cls_common = [f"data.data_root={cls_root}", "model.backbone=resnet50",
+                  f"model.num_classes={CLS_CLASSES}", f"data.input_size={CLS_SIZE}",
+                  f"data.batch_size={CLS_BATCH}", f"train.ckpt_dir={cls_ckpt}"]
+    cls_recipe = [f"train.lr={CLS_LR}", "train.momentum=0.9", "train.weight_decay=1e-4",
+                  "train.warmup_epochs=0", "train.mixup_alpha=0.2", "train.cutmix_alpha=1.0",
+                  "train.label_smoothing=0.1"]
+    fit = run("cli_train_cls", ["train-cls", "train.epochs=1", *cls_recipe, *cls_common])
+    steps = len(fit.train_loader)
+    check(fit.global_step == steps and fit.train_loader.num_workers == 4, "cli train-cls")
+    del fit
+    fit = run("cli_train_cls_resume", ["train-cls", "--resume", "train.epochs=2", *cls_recipe,
+                                       *cls_common])
+    check(fit.start_epoch == 1 and fit.global_step == 2 * steps, "cli train-cls --resume")
+    del fit
+    torch.cuda.empty_cache()
+    cls_res = run("cli_eval_cls", ["eval", "--task", "cls", "--ckpt", cls_ckpt, *cls_common])
+    check(0.0 <= cls_res["accuracy"] <= 1.0, f"eval --task cls: {cls_res}")
+    cls_epochs = epochs(cls_ckpt)
     yolo_epochs, frcnn_epochs = epochs(ckpt), epochs(frcnn_ckpt)
-    check(all(np.isfinite(r["train_loss"]) for r in yolo_epochs + frcnn_epochs), "cli losses")
-    check(min(r["launches"] for r in runs.values()) > 0, f"cli launches {runs}")
+    check(all(np.isfinite(r["train_loss"]) for r in yolo_epochs + frcnn_epochs + cls_epochs),
+          "cli losses")
+    cls_tags = ("cli_train_cls", "cli_train_cls_resume", "cli_eval_cls")
+    check(all(r["launches"] > 0 for tag, r in runs.items() if tag not in cls_tags)
+          and all(runs[tag]["launches"] == 0 for tag in cls_tags), f"cli launches {runs}")
+    keys = ("epoch", "train_loss", "epoch_img_s")
     emit("cli", card=smi, images_per_split=TRAIN_IMAGES, image_hw=[list(s) for s in SIZES],
-         bmp_write_s=write_s, runs=runs,
-         yolo_epochs=[{k: r[k] for k in ("epoch", "train_loss", "epoch_img_s", "map50", "map")}
-                      for r in yolo_epochs],
-         frcnn_epochs=[{k: r[k] for k in ("epoch", "train_loss", "epoch_img_s", "map50", "map")}
-                       for r in frcnn_epochs],
-         sweep_best=max(rows, key=lambda r: r["map50"]))
-    return {"launches": {tag: r["launches"] for tag, r in runs.items()}}
+         bmp_write_s=write_s, workers="the config's: num_workers 4, worker_backend 'process'",
+         runs=runs,
+         yolo_epochs=[{k: r[k] for k in (*keys, "map50", "map")} for r in yolo_epochs],
+         frcnn_epochs=[{k: r[k] for k in (*keys, "map50", "map")} for r in frcnn_epochs],
+         sweep_best=max(rows, key=lambda r: r["map50"]),
+         cls_epochs=[{k: r[k] for k in (*keys, "accuracy")} for r in cls_epochs],
+         cls_eval={"accuracy": cls_res["accuracy"], "img_per_sec": cls_res["img_per_sec"]})
+    return {"launches": {tag: r["launches"] for tag, r in runs.items()}, "zero": cls_tags}
 
 
 def main() -> int:
@@ -1653,10 +2031,15 @@ def main() -> int:
 
     workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
     try:
+        phase_cls_card_vs_cpu(dev)
+        cls = phase_cls_train(dev, workdir)
+        phase_cls_times(dev, cls, device["smi"], workdir)
+        del cls["fit"], cls["batch"]
+        torch.cuda.empty_cache()
         resume = phase_ckpt_resume(dev, device["smi"], workdir)
         evaluate = phase_evaluate(dev, device["smi"], resume["yolo_ckpt"])
         shutil.rmtree(os.path.join(workdir, "yolo"))
-        cli_run = phase_cli(dev, device["smi"], workdir)
+        cli_run = phase_cli(dev, device["smi"], workdir, cls["root"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -1667,13 +2050,18 @@ def main() -> int:
     by_path = {"detector_predict_batch": e2e["launches"], "fit_validation": train["val_launches"],
                "frcnn_eval_step": feval["launches"],
                "frcnn_fit_validation": ftrain["val_launches"],
-               **resume["launches"], **evaluate["launches"], **cli_run["launches"]}
+               **cls["launches"], **resume["launches"], **evaluate["launches"],
+               **cli_run["launches"]}
+    # classification runs no NMS: its paths are counted, and hold 0 launches
+    zero_paths = sorted([*cls["launches"], *cli_run["zero"]])
+    check(all(by_path[p] == 0 for p in zero_paths), f"classification launched nms: {by_path}")
     print(device["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppression_mask", "route": "cuda",
         "source": "fastvision_tpu_torch/csrc/nms.cu",
         "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "paths_expected_at_zero": zero_paths,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
         "mismatches": kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"],
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],

@@ -1,23 +1,31 @@
-"""CLI of the port: train / eval / infer for YOLOv3 and Faster R-CNN (port of
+"""CLI of the port: train / eval / infer for YOLOv3 and Faster R-CNN, and
+train-cls / eval --task cls for the classification zoo (port of
 fastvision_tpu/cli.py).
 
-    python -m fastvision_tpu_torch train --config cfg.yaml data.num_workers=0
-    python -m fastvision_tpu_torch train --config cfg.yaml data.num_workers=0 --resume
+    python -m fastvision_tpu_torch train --config cfg.yaml
+    python -m fastvision_tpu_torch train --config cfg.yaml --resume
     python -m fastvision_tpu_torch train --config cfg.yaml model.name=faster_rcnn \\
-        data.input_size=512 data.num_workers=0
+        data.input_size=512
     python -m fastvision_tpu_torch eval  --config cfg.yaml --ckpt ckpts/ [--sweep]
     python -m fastvision_tpu_torch infer --config cfg.yaml --ckpt ckpts/ --source img_or_dir
+    python -m fastvision_tpu_torch train-cls model.backbone=resnet50 model.num_classes=1000 \\
+        data.input_size=224 data.data_root=imagenet/ [--resume]
+    python -m fastvision_tpu_torch eval --task cls --ckpt ckpts/ model.backbone=resnet50 ...
 
 Config = dataclass tree <- YAML <- dotted overrides (`core.config`); dataset
 descriptors use the reference's flat YAML schema. Every command runs on
-CUDA; ``--device cpu`` runs it on the CPU. ``train`` checkpoints into
-``train.ckpt_dir`` every epoch, and on SIGTERM (``train.preempt_save``)
-saves and stops; ``--resume`` continues from the newest checkpoint there.
-``eval`` / ``infer`` load a YOLOv3 run's EMA weights when it kept them.
+CUDA; ``--device cpu`` runs it on the CPU. The loaders run on the config's
+worker pools (``data.num_workers``, ``data.worker_backend``; 0 is serial).
+``train`` and ``train-cls`` checkpoint into ``train.ckpt_dir`` every epoch,
+and on SIGTERM (``train.preempt_save``) save and stop; ``--resume``
+continues from the newest checkpoint there. ``eval`` / ``infer`` load a
+run's EMA weights when it kept them.
 
-The loader's worker pools are not ported: pass ``data.num_workers=0``.
-Without cv2 the data must be ``.bmp`` files (read with numpy). Subcommands
-and flags the port does not have yet exit naming their ROADMAP item.
+Classification data is folder-per-class (``<data_root>/<train_dir>/<class>/
+<image>``); detection data is ``<split>/images`` + ``<split>/labels``.
+Without cv2 the images must be ``.bmp`` files (read with numpy).
+Subcommands and flags the port does not have yet exit naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 # ROADMAP Queue 1 items of the JAX package's subcommands that are not ported
-_NOT_PORTED_COMMANDS = {"train-cls": 13, "train-video": 14, "serve": 16, "convert": 11,
+_NOT_PORTED_COMMANDS = {"train-video": 14, "serve": 16, "convert": 11,
                         "anchors": 2, "export": 16, "generate": 10, "doctor": 10}
 
 
@@ -76,12 +84,13 @@ def _anchors(cfg) -> np.ndarray:
     return np.ascontiguousarray(anchors)
 
 
-def _maybe_import_pretrained(cfg, model: torch.nn.Module) -> None:
+def _maybe_import_pretrained(cfg, model: torch.nn.Module, task: str = "detect") -> None:
     """Load ``model.pretrained`` (a torch checkpoint in any naming scheme
-    that `models.import_torch.state_dict_for_port` routes: a detector, or a
-    Darknet-53 / VGG16 classifier for the trunk) into the fresh model with a
-    shape-filtered partial load: heads of another shape keep their
-    initialisation. Raises when no tensor of the checkpoint fits the model."""
+    that `models.import_torch.state_dict_for_port` routes for ``task``: a
+    detector, a Darknet-53 / VGG16 classifier for a detector's trunk, or a
+    classifier of the zoo) into the fresh model with a shape-filtered
+    partial load: heads of another shape keep their initialisation. Raises
+    when no tensor of the checkpoint fits the model."""
     if not cfg.model.pretrained:
         return
     from .core.checkpoint import load_torch_state, partial_load
@@ -93,10 +102,11 @@ def _maybe_import_pretrained(cfg, model: torch.nn.Module) -> None:
               "model.reference_compat is false — its weights assume integer-grid anchors "
               "and h-from-dw decoding; set model.reference_compat=true or boxes will be "
               "degraded")
-    loaded, _ = partial_load(model, state_dict_for_port(state))
+    loaded, _ = partial_load(model, state_dict_for_port(state, task))
     if not loaded:
+        name = cfg.model.backbone if task == "cls" else cfg.model.name
         raise ValueError(f"model.pretrained={cfg.model.pretrained}: no tensor of it matches a "
-                         f"name and shape of the {cfg.model.name} model")
+                         f"name and shape of the {name} model")
 
 
 def _build_yolo(cfg):
@@ -106,6 +116,31 @@ def _build_yolo(cfg):
                    generator=torch.Generator().manual_seed(cfg.train.seed))
     _maybe_import_pretrained(cfg, model)
     return model
+
+
+def _build_zoo_model(cfg) -> torch.nn.Module:
+    """A classification zoo model (``model.backbone``: resnet18 ...
+    resnext101_32x8d, vgg11 ... vgg19_bn, darknet53, vit_*_patch16) with
+    ``model.num_classes``, its weights seeded by ``train.seed``."""
+    from .models import classification as zoo
+
+    factory = getattr(zoo, cfg.model.backbone, None)
+    if factory is None or not cfg.model.backbone.islower():
+        raise SystemExit(f"unknown cls model {cfg.model.backbone!r} (available: "
+                         f"{[n for n in zoo.__all__ if n.islower()]})")
+    kw = {"image_size": cfg.data.input_size} if cfg.model.backbone.startswith("vit") else {}
+    return factory(num_classes=cfg.model.num_classes,
+                   generator=torch.Generator().manual_seed(cfg.train.seed), **kw)
+
+
+def _run_closing(fit, *loaders):
+    """``fit.run()``, then stop the loaders' worker pools. -> ``fit``."""
+    try:
+        fit.run()
+    finally:
+        for loader in loaders:
+            loader.close()
+    return fit
 
 
 def _preempt_signals(cfg):
@@ -148,15 +183,15 @@ def cmd_train(args, overrides):
     val_ds = DetectionDataset(d.data_root, d.val_dir, d.cache)
     aug = (build_augmentation(d.augment)
            or Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)]))
+    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
     train_loader = DetectionLoader(train_ds, d.input_size, d.batch_size, d.max_boxes,
                                    train=True, augmentation=aug, mosaic_prob=0.5,
-                                   seed=cfg.train.seed, on_corrupt=d.on_corrupt,
-                                   num_workers=d.num_workers)
+                                   seed=cfg.train.seed, on_corrupt=d.on_corrupt, **workers)
     val_loader = DetectionLoader(val_ds, d.input_size, d.batch_size, d.max_boxes, train=False,
-                                 num_workers=d.num_workers)  # eval stays strict (on_corrupt)
+                                 **workers)  # eval stays strict (on_corrupt)
     no_aug_loader = DetectionLoader(train_ds, d.input_size, d.batch_size, d.max_boxes,
                                     train=True, seed=cfg.train.seed, on_corrupt=d.on_corrupt,
-                                    num_workers=d.num_workers)
+                                    **workers)
     loss_obj = YOLOv3Loss(anchors, num_classes=cfg.model.num_classes,
                           neighbor_cells=cfg.train.neighbor_cells)
 
@@ -197,8 +232,7 @@ def cmd_train(args, overrides):
         ema_decay=cfg.train.ema_decay, step_fn=step_fn,
         multiscale=cfg.train.multiscale or None, preempt_signals=_preempt_signals(cfg),
         dtype=dtype, device=args.device)
-    fit.run()
-    return fit
+    return _run_closing(fit, train_loader, val_loader, no_aug_loader)
 
 
 def _train_faster_rcnn(cfg, args):
@@ -227,13 +261,14 @@ def _train_faster_rcnn(cfg, args):
     optimizer = build_optimizer(cfg.train.optimizer, model, weight_decay=cfg.train.weight_decay,
                                 momentum=cfg.train.momentum,
                                 grad_clip_norm=cfg.train.grad_clip_norm or 10.0)
+    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
     train_loader = DetectionLoader(
         DetectionDataset(d.data_root, d.train_dir, d.cache), d.input_size, d.batch_size,
         d.max_boxes, train=True, seed=cfg.train.seed, on_corrupt=d.on_corrupt,
-        augmentation=build_augmentation(d.augment), num_workers=d.num_workers)
+        augmentation=build_augmentation(d.augment), **workers)
     val_loader = DetectionLoader(
         DetectionDataset(d.data_root, d.val_dir, d.cache), d.input_size, d.batch_size,
-        d.max_boxes, train=False, num_workers=d.num_workers)
+        d.max_boxes, train=False, **workers)
     steps_per_epoch = max(len(train_loader), 1)
     fit = Fit(
         model, None, optimizer, train_loader, val_loader, epochs=cfg.train.epochs,
@@ -245,8 +280,73 @@ def _train_faster_rcnn(cfg, args):
         resume=args.resume, metric_key="map50", metric_mode="max",
         step_fn=make_frcnn_train_step(cfg.train.seed, dtype),
         preempt_signals=_preempt_signals(cfg), dtype=dtype, device=args.device)
-    fit.run()
-    return fit
+    return _run_closing(fit, train_loader, val_loader)
+
+
+def cmd_train_cls(args, overrides):
+    """Classification training (the JAX package's ``train-cls``): ImageNet
+    standardization, hflip by default, mixup / cutmix / label smoothing
+    when configured, SGD or Adam with ``warmup_cosine_lr``, validation
+    top-1 as the best-checkpoint metric. -> the finished (or preempted)
+    `train.Fit`."""
+    cfg = _load_config(args, overrides)
+    from .core import MetricLogger, set_random_seeds
+    from .data import (
+        Augmentation,
+        ClassificationDataset,
+        ClassificationLoader,
+        HorizontalFlip,
+        build_augmentation,
+    )
+    from .train import (
+        Fit,
+        build_optimizer,
+        classification_evaluator,
+        cross_entropy,
+        make_classification_mix,
+        make_eval_step,
+        make_train_step,
+        soft_cross_entropy,
+        warmup_cosine_lr,
+    )
+
+    set_random_seeds(cfg.train.seed)
+    d, t, dtype = cfg.data, cfg.train, _dtype(cfg)
+    model = _build_zoo_model(cfg)
+    _maybe_import_pretrained(cfg, model, task="cls")
+
+    def loss_fn(logits, batch):
+        acc = (logits.argmax(dim=-1) == batch["labels"]).float().mean()
+        if "soft" in batch:  # mixup / cutmix / smoothing targets (train.mix)
+            return soft_cross_entropy(logits.float(), batch["soft"]), {"acc": acc}
+        return cross_entropy(logits.float(), batch["labels"]), {"acc": acc}
+
+    mix = None
+    if t.mixup_alpha > 0 or t.cutmix_alpha > 0 or t.label_smoothing > 0:
+        mix = make_classification_mix(cfg.model.num_classes, mixup_alpha=t.mixup_alpha,
+                                      cutmix_alpha=t.cutmix_alpha, smoothing=t.label_smoothing)
+    optimizer = build_optimizer(t.optimizer, model, weight_decay=t.weight_decay,
+                                momentum=t.momentum, accum_steps=t.accum_steps)
+    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
+    cats = d.categories or None
+    train_loader = ClassificationLoader(
+        ClassificationDataset(d.data_root, d.train_dir, cats), d.input_size, d.batch_size,
+        augmentation=build_augmentation(d.augment) or Augmentation([HorizontalFlip(p=0.5)]),
+        seed=t.seed, on_corrupt=d.on_corrupt, **workers)
+    val_loader = ClassificationLoader(ClassificationDataset(d.data_root, d.val_dir, cats),
+                                      d.input_size, d.batch_size, train=False, **workers)
+    steps_per_epoch = max(len(train_loader), 1)
+    fit = Fit(
+        model, loss_fn, optimizer, train_loader, val_loader, epochs=t.epochs,
+        schedule=warmup_cosine_lr(t.lr, t.final_lr, t.epochs * steps_per_epoch,
+                                  warmup_steps=t.warmup_epochs * steps_per_epoch),
+        evaluator=classification_evaluator(make_eval_step(dtype=dtype, imagenet=True)),
+        ckpt_dir=t.ckpt_dir, logger=MetricLogger(t.ckpt_dir), resume=args.resume,
+        metric_key="accuracy", metric_mode="max",
+        step_fn=make_train_step(loss_fn, dtype, accum_steps=t.microbatch, remat=t.remat,
+                                batch_transform=mix, transform_seed=t.seed, imagenet=True),
+        preempt_signals=_preempt_signals(cfg), dtype=dtype, device=args.device, seed=t.seed)
+    return _run_closing(fit, train_loader, val_loader)
 
 
 def _detector_from_cfg(cfg, ckpt: str, device):
@@ -265,14 +365,48 @@ def _detector_from_cfg(cfg, ckpt: str, device):
                     dtype=_dtype(cfg), device=device)
 
 
+def _eval_classifier(cfg, args) -> dict:
+    """``eval --task cls --ckpt dir``: top-1 over the val split of a
+    train-cls run's weights (EMA when it kept them), with the evaluator
+    the train loop uses; prints it with the images/s."""
+    import time
+
+    from .core.checkpoint import restore_inference_weights
+    from .data import ClassificationDataset, ClassificationLoader
+    from .train import TrainState, classification_evaluator, make_eval_step
+
+    if not args.ckpt:
+        raise SystemExit("eval --task cls needs --ckpt")
+    model = _build_zoo_model(cfg)
+    restore_inference_weights(args.ckpt, model)
+    d = cfg.data
+    loader = ClassificationLoader(
+        ClassificationDataset(d.data_root, d.val_dir, d.categories or None), d.input_size,
+        d.batch_size, train=False, num_workers=d.num_workers, worker_backend=d.worker_backend)
+    evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True))
+    state = TrainState.create(model, None, args.device)
+    try:
+        t0 = time.perf_counter()
+        res = evaluate(state, loader)
+        dt = time.perf_counter() - t0
+    finally:
+        loader.close()
+    n = len(loader.ds)
+    res["img_per_sec"] = n / dt
+    print(f"top-1 accuracy {res['accuracy']:.4f}  ({n} imgs, {n / dt:.1f} img/s)")
+    return res
+
+
 def cmd_eval(args, overrides):
     """-> the evaluate result, or the sweep's rows."""
-    if args.task != "detect":
-        raise _exit_not_ported(f"eval --task {args.task}", 13 if args.task == "cls" else 14)
+    if args.task == "video":
+        raise _exit_not_ported("eval --task video", 14)
     for flag, item in (("int8", 15), ("int8_percentile", 15), ("tta", 6), ("fast_decode", 6)):
         if getattr(args, flag):
             raise _exit_not_ported("--" + flag.replace("_", "-"), item)
     cfg = _load_config(args, overrides)
+    if args.task == "cls":
+        return _eval_classifier(cfg, args)
     from .data import DetectionDataset
     from .infer.predictor import REFERENCE_SWEEP
 
@@ -348,8 +482,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p = common(sub.add_parser("eval"))
     p.add_argument("--task", choices=["detect", "cls", "video"], default="detect",
-                   help="detect: mAP over a detection val split (default); cls / video: "
-                        "top-1 accuracy (not ported)")
+                   help="detect: mAP over a detection val split (default); cls: top-1 "
+                        "accuracy over a folder-per-class val split; video: not ported")
     p.add_argument("--ckpt", default="")
     p.add_argument("--metric-file", default="")
     p.add_argument("--max-images", type=int, default=None)
@@ -418,7 +552,8 @@ def main(argv=None):
     overrides = [o for o in overrides if "=" in o]
     if args.cmd in _NOT_PORTED_COMMANDS:
         raise _exit_not_ported(f"the {args.cmd!r} subcommand", _NOT_PORTED_COMMANDS[args.cmd])
-    return {"train": cmd_train, "eval": cmd_eval, "infer": cmd_infer}[args.cmd](args, overrides)
+    return {"train": cmd_train, "train-cls": cmd_train_cls, "eval": cmd_eval,
+            "infer": cmd_infer}[args.cmd](args, overrides)
 
 
 if __name__ == "__main__":

@@ -17,12 +17,12 @@ from .config import (
     to_dict,
     update_dataclass,
 )
-from .rng import set_random_seeds
+from .rng import set_random_seeds, step_seed
 from .telemetry import MetricLogger
 
 __all__ = [
     "CheckpointManager", "load_torch_state", "partial_load", "restore_inference_weights",
     "trainable_mask", "Config", "DataConfig", "ModelConfig", "NMSConfig", "TrainConfig",
-    "apply_overrides", "from_yaml", "to_dict", "update_dataclass", "set_random_seeds",
+    "apply_overrides", "from_yaml", "to_dict", "update_dataclass", "set_random_seeds", "step_seed",
     "MetricLogger",
 ]

@@ -117,7 +117,7 @@ class DataConfig:
     input_size: int = 416
     batch_size: int = 32
     max_boxes: int = 120  # fixed label padding
-    num_workers: int = 4  # the port's loader takes 0 or 1 (worker pools not ported)
+    num_workers: int = 4
     worker_backend: str = "process"
     # train-time augmentation (data/augment.py::build_augmentation):
     # 'name' / 'name:p' strings or {op: name, **kwargs} dicts; empty keeps

@@ -8,17 +8,20 @@ original pixels, classes 0-based.
 The resize is ``torch.nn.functional.interpolate(mode='bilinear',
 align_corners=False, antialias=False)`` on host tensors, rounded back to
 uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
-(cv2 rounds with fixed-point weights). ``.bmp`` files (uncompressed 24- and
+(cv2 rounds with fixed-point weights). Its float kernel rounds a few pixels
+differently on one intra-op thread and on several, so the loaders run all
+their host work on one thread (`pipeline._PooledLoader`). ``.bmp`` files (uncompressed 24- and
 32-bit) are read and written with numpy; other image files go to cv2, which
 must then be installed.
 
 Not ported yet: the reduced-size JPEG decode (``decode_size``,
-``imread_rgb_scaled``), ``sample_i420`` and ``ClassificationDataset``.
+``imread_rgb_scaled``) and ``sample_i420``.
 """
 from __future__ import annotations
 
 import json
 import os
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -203,3 +206,29 @@ class DetectionDataset:
     def __getitem__(self, idx: int):
         labels = read_label_file(os.path.join(self.labels_dir, self.ids[idx] + ".txt"))
         return imread_rgb(self.image_path(idx)), labels, self.ids[idx]
+
+
+class ClassificationDataset:
+    """Folder-per-class layout: ``<root>/<split>/<class_name>/<image>``.
+    Class indices follow the sorted folder names, or ``categories`` (the
+    dataset descriptor's order). -> (RGB uint8 image, class index); decoding
+    needs cv2 except for ``.bmp``."""
+
+    def __init__(self, root: str, split: str = "train",
+                 categories: Sequence[str] | None = None):
+        self.dir = os.path.join(root, split)
+        self.class_names = list(categories or sorted(
+            d for d in os.listdir(self.dir) if os.path.isdir(os.path.join(self.dir, d))))
+        self.samples: list[tuple[str, int]] = []
+        for ci, name in enumerate(self.class_names):
+            cdir = os.path.join(self.dir, name)
+            if os.path.isdir(cdir):
+                self.samples += [(os.path.join(cdir, f), ci) for f in sorted(os.listdir(cdir))
+                                 if f.lower().endswith(IMG_EXTS)]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int):
+        path, label = self.samples[idx]
+        return imread_rgb(path), label

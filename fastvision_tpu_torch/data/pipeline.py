@@ -1,27 +1,30 @@
 """Input pipeline: host decode / augment -> fixed-shape batches -> device
-(port of fastvision_tpu/data/pipeline.py, serial RGB path).
+(port of fastvision_tpu/data/pipeline.py, RGB path).
 
   - deterministic per-epoch sampling: the order from a numpy Generator
     seeded by (seed, epoch), each sample's mosaic and augmentation from one
     seeded by (seed, epoch, position), as in the JAX package, so an epoch
-    can start at any batch (`DetectionLoader.epoch(start_batch=...)`) and
-    give the batches it would have given;
-  - fixed-shape batches: images uint8 [B, S, S, 3] NHWC, labels [B, M, 5]
-    normalized xywh with class == -1 padding;
+    can start at any batch (``epoch(start_batch=...)``) and give the
+    batches it would have given, on any worker backend;
+  - worker pools (``num_workers`` > 1): a thread pool per batch, or forked
+    processes writing into shared memory (`decode_pool.DecodePool`);
+  - fixed-shape batches: `DetectionLoader` gives images uint8 [B, S, S, 3]
+    NHWC and labels [B, M, 5] normalized xywh with class == -1 padding,
+    `ClassificationLoader` images and int32 labels [B];
   - `prefetch_to_device`: background threads that load the next batches
     and copy them to the card from pinned memory on a side stream;
   - `normalize_images`: uint8 -> float on the device, inside the step.
 
-Not ported yet: the worker pools (``num_workers`` > 1, thread and process
-backends), the native letterbox (``use_native``), packed-I420 output
-(``emit='i420'``, ``native_jpeg``), multi-host sharding (``host_shard``),
-and ``ClassificationLoader``.
+Not ported yet: the native letterbox (``use_native``), packed-I420 output
+(``emit='i420'``, ``native_jpeg``) and multi-host sharding (``host_shard``).
 """
 from __future__ import annotations
 
 import queue
+import sys
 import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -29,7 +32,8 @@ import torch
 
 from ..device import resolve_device
 from .augment import Augmentation
-from .dataset import boxes_to_normalized_xywh, letterbox, pad_labels
+from .dataset import boxes_to_normalized_xywh, letterbox, pad_labels, resize_bilinear
+from .decode_pool import DecodePool
 from .mosaic import mosaic4
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -79,7 +83,129 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
 
 
-class DetectionLoader:
+def parse_worker_backend(worker_backend: str) -> tuple[str, str]:
+    """'thread' | 'process' | 'process:fork|forkserver|spawn' -> (backend,
+    start method). A bare 'process' forks: the port never imports JAX, whose
+    client threads made the JAX package prefer forkserver."""
+    backend, _, start = worker_backend.partition(":")
+    if backend not in ("thread", "process") or (
+            start and (backend != "process" or start not in ("fork", "forkserver", "spawn"))):
+        raise ValueError("worker_backend must be 'thread', 'process', or "
+                         f"'process:fork|forkserver|spawn', got {worker_backend!r}")
+    return backend, start or "fork"
+
+
+class _PooledLoader:
+    """The worker pools the loaders share. ``num_workers`` 0 or 1 is serial;
+    above 1, 'thread' maps each batch's samples over a thread pool (the
+    resize and the file read release the GIL), 'process' streams the epoch
+    through a `DecodePool` of forked workers that write each sample into
+    shared memory. Every sample's random draws are seeded by (seed, epoch,
+    position), so all backends give byte-equal batches. Subclasses define
+    ``_sample_work(item) -> (uint8 image, aux)`` for ``item = (position,
+    dataset index, epoch)``."""
+
+    def _init_workers(self, num_workers: int, worker_backend: str) -> None:
+        self.worker_backend, self.worker_start_method = parse_worker_backend(worker_backend)
+        self.num_workers = num_workers
+        self._pool = None
+        self._decode_pool = None
+        if num_workers > 1 and self.worker_backend == "thread":
+            self._pool = ThreadPoolExecutor(max_workers=num_workers)
+
+    def _slot_shape(self) -> tuple[int, int, int]:
+        return (self.input_size, self.input_size, 3)
+
+    def _get_decode_pool(self) -> DecodePool:
+        # rebuilt when input_size changes (multi-scale training): the forked
+        # workers hold a snapshot of this loader, and the slots its shape
+        shape = self._slot_shape()
+        if self._decode_pool is not None and self._decode_pool.slot_shape != shape:
+            self._decode_pool.close()
+            self._decode_pool = None
+        if self._decode_pool is None:
+            self._decode_pool = DecodePool(
+                self._sample_work, self.num_workers, shape,
+                n_slots=max(4 * self.num_workers, 2 * self.batch_size),
+                start_method=self.worker_start_method)
+        return self._decode_pool
+
+    def _one_thread_work(self, item):
+        """``_sample_work`` on one intra-op thread, as the worker processes
+        run it: torch's float resize rounds some pixels differently on one
+        thread and on several, and every backend must give the same bytes.
+        (With OpenMP the setting is the calling thread's own.)"""
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return self._sample_work(item)
+        finally:
+            torch.set_num_threads(n)
+
+    def _samples(self, items: list) -> Iterator:
+        """``_sample_work`` over ``items`` in order, on the chosen backend.
+        The process backend's images are views of a ring slot, valid until
+        the next sample is taken."""
+        if self.num_workers > 1 and self.worker_backend == "process":
+            return self._get_decode_pool().imap(items)
+        if self._pool is not None:  # one batch in flight at a time
+            bs = self.batch_size
+            return (out for i in range(0, len(items), bs)
+                    for out in self._pool.map(self._one_thread_work, items[i : i + bs]))
+        return map(self._one_thread_work, items)
+
+    def _epoch_items(self, epoch_idx: int, start_batch: int) -> list:
+        """(position, dataset index, epoch) of every sample the epoch loads
+        from batch ``start_batch`` on: a seeded shuffle per epoch for
+        training, the dataset order otherwise."""
+        rng = np.random.default_rng((self.seed, epoch_idx))
+        order = rng.permutation(len(self.ds)) if self.train else np.arange(len(self.ds))
+        end = min(len(self) * self.batch_size, len(order))
+        return [(pos, int(order[pos]), epoch_idx)
+                for pos in range(start_batch * self.batch_size, end)]
+
+    def _batched(self, epoch_idx: int, start_batch: int) -> Iterator[tuple]:
+        """-> (images uint8 [B, S, S, 3], the samples' aux, real count) per
+        batch; a ragged last batch repeats its last image up to B. A process
+        pool is built at this call, in the caller's thread (the loaders'
+        ``epoch`` is not a generator function), not in the thread that
+        consumes the batches."""
+        samples = self._samples(self._epoch_items(epoch_idx, start_batch))
+
+        def batches():
+            batch = np.empty((self.batch_size, *self._slot_shape()), np.uint8)
+            aux = []
+            for image, a in samples:
+                batch[len(aux)] = image
+                aux.append(a)
+                if len(aux) == self.batch_size:
+                    yield batch.copy(), aux, len(aux)
+                    aux = []
+            if aux:
+                batch[len(aux):] = batch[len(aux) - 1]
+                yield batch.copy(), aux, len(aux)
+
+        return batches()
+
+    def close(self) -> None:
+        """Stop the worker processes and threads (also done at exit)."""
+        if self._decode_pool is not None:
+            self._decode_pool.close()
+            self._decode_pool = None
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    def __getstate__(self):
+        # forkserver / spawn workers unpickle this loader through
+        # _sample_work: the live pools stay behind (workers never use them)
+        state = self.__dict__.copy()
+        state["_pool"] = None
+        state["_decode_pool"] = None
+        return state
+
+
+class DetectionLoader(_PooledLoader):
     """Batches of letterboxed images + padded normalized-xywh labels.
 
     train=True: a seeded shuffle per epoch, a 4-image mosaic with
@@ -89,7 +215,8 @@ class DetectionLoader:
     (the last image repeated, its labels empty) with ``num_real`` telling
     how many are real, and per-image ``meta`` (id, scale, pad, original hw,
     pixel-space GT) for unscaling and mAP. ``input_size`` may be changed
-    between epochs (multi-scale training).
+    between epochs (multi-scale training). ``num_workers`` /
+    ``worker_backend``: the worker pools of `_PooledLoader`.
     """
 
     def __init__(
@@ -106,6 +233,7 @@ class DetectionLoader:
         pad_value: int = 114,
         use_native: bool = False,
         num_workers: int = 0,
+        worker_backend: str = "thread",
         emit: str = "rgb",
         native_jpeg: bool | None = None,
         on_corrupt: str = "raise",
@@ -113,10 +241,6 @@ class DetectionLoader:
     ):
         if use_native:
             raise _not_ported("the native letterbox (use_native)", 11)
-        if num_workers > 1:
-            raise NotImplementedError(
-                "the loader's worker pools (num_workers > 1) are not ported yet (ROADMAP "
-                "Queue 1, item 11); pass num_workers=0 (data.num_workers=0 on the CLI)")
         if emit != "rgb" or native_jpeg:
             raise _not_ported("packed-I420 output (emit='i420', native_jpeg)", 6)
         if host_shard not in (None, ""):
@@ -134,6 +258,7 @@ class DetectionLoader:
         self.drop_last = train if drop_last is None else drop_last
         self.pad_value = pad_value
         self.on_corrupt = on_corrupt
+        self._init_workers(num_workers, worker_backend)
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -166,33 +291,78 @@ class DetectionLoader:
             return pad_labels(lab[:, 0], xywhn, self.max_boxes)
         return pad_labels(np.zeros(0), np.zeros((0, 4)), self.max_boxes)
 
+    def _sample_work(self, item):
+        """(position, dataset index, epoch) -> (letterboxed uint8 [S, S, 3],
+        (padded labels, meta)): one sample's whole host pipeline."""
+        pos, idx, epoch_idx = item
+        image, lab, sid = self._load_raw(idx, np.random.default_rng((self.seed, epoch_idx, pos)))
+        out, scale, (px, py) = letterbox(image, self.input_size, self.pad_value)
+        meta = {"id": sid, "scale": scale, "pad": (px, py), "orig_hw": image.shape[:2],
+                "gt_pixels": lab}
+        return out, (self._finalize(lab, scale, px, py), meta)
+
     def epoch(self, epoch_idx: int = 0, start_batch: int = 0) -> Iterator[dict]:
         """-> batches {'images', 'labels', 'num_real', 'meta'}, from batch
         ``start_batch`` of the epoch on (the earlier ones are not loaded)."""
-        rng = np.random.default_rng((self.seed, epoch_idx))
-        order = rng.permutation(len(self.ds)) if self.train else np.arange(len(self.ds))
-        bs = self.batch_size
-        for b in range(start_batch, len(self)):
-            raws = [self._load_raw(int(i), np.random.default_rng((self.seed, epoch_idx, pos)))
-                    for pos, i in enumerate(order[b * bs : (b + 1) * bs], start=b * bs)]
-            real = len(raws)
-            while len(raws) < bs:  # ragged last eval batch
-                raws.append(raws[-1])
-            outs = [letterbox(r[0], self.input_size, self.pad_value) for r in raws]
-            labels, metas = [], []
-            for i, ((image, lab, sid), (_, scale, (px, py))) in enumerate(zip(raws, outs)):
-                if i < real:
-                    labels.append(self._finalize(lab, scale, px, py))
-                    metas.append({"id": sid, "scale": scale, "pad": (px, py),
-                                  "orig_hw": image.shape[:2], "gt_pixels": lab})
-                else:
-                    labels.append(np.full((self.max_boxes, 5), -1, np.float32))
-            yield {
-                "images": np.stack([o[0] for o in outs]),
-                "labels": np.stack(labels),
-                "num_real": real,
-                "meta": metas,
-            }
+        empty = np.full((self.max_boxes, 5), -1, np.float32)
+        return ({"images": images,
+                 "labels": np.stack([a[0] for a in aux] + [empty] * (self.batch_size - real)),
+                 "num_real": real, "meta": [a[1] for a in aux]}
+                for images, aux, real in self._batched(epoch_idx, start_batch))
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+class ClassificationLoader(_PooledLoader):
+    """Classification batches: images uint8 [B, S, S, 3] (each image resized
+    to S x S with the bilinear `resize_bilinear`, within +-1 of the JAX
+    package's cv2 resize), labels int32 [B], ``num_real``.
+
+    train=True: a seeded shuffle per epoch, the augmentation pipeline, the
+    last partial batch dropped. train=False: dataset order, no augmentation,
+    the ragged last batch padded with its last image and label. The
+    augmentation's draws are seeded by (seed, epoch, position), so every
+    backend and worker count gives byte-equal batches."""
+
+    def __init__(self, dataset, input_size: int = 224, batch_size: int = 32, train: bool = True,
+                 augmentation: Augmentation | None = None, seed: int = 0,
+                 on_corrupt: str = "raise", num_workers: int = 0,
+                 worker_backend: str = "thread", host_shard=None):
+        if host_shard not in (None, ""):
+            raise _not_ported("multi-host input sharding (host_shard)", 17)
+        if on_corrupt not in ("raise", "skip"):
+            raise ValueError(f"on_corrupt must be 'raise' or 'skip', got {on_corrupt!r}")
+        self.ds = dataset
+        self.input_size = input_size
+        self.batch_size = batch_size
+        self.train = train
+        self.augmentation = augmentation
+        self.seed = seed
+        self.on_corrupt = on_corrupt
+        self._init_workers(num_workers, worker_backend)
+
+    def __len__(self) -> int:
+        n = len(self.ds)
+        return n // self.batch_size if self.train else -(-n // self.batch_size)
+
+    def _sample_work(self, item):
+        """(position, dataset index, epoch) -> (uint8 [S, S, 3], label)."""
+        pos, idx, epoch_idx = item
+        image, label = fetch_with_corrupt_policy(self.ds, self.on_corrupt,
+                                                 self.ds.__getitem__, idx)
+        if self.train and self.augmentation is not None:
+            image, _ = self.augmentation(image, None,
+                                         np.random.default_rng((self.seed, epoch_idx, pos)))
+        return resize_bilinear(image, self.input_size, self.input_size), label
+
+    def epoch(self, epoch_idx: int = 0, start_batch: int = 0) -> Iterator[dict]:
+        """-> batches {'images', 'labels', 'num_real'}, from batch
+        ``start_batch`` of the epoch on."""
+        return ({"images": images,
+                 "labels": np.asarray(labels + labels[-1:] * (self.batch_size - real), np.int32),
+                 "num_real": real}
+                for images, labels, real in self._batched(epoch_idx, start_batch))
 
     def __iter__(self):
         return self.epoch(0)
@@ -301,3 +471,9 @@ def prefetch_to_device(
                     q.get_nowait()
             except queue.Empty:
                 pass
+        # a loader's next epoch may reuse its worker pool: the thread that
+        # read this one must be out of it first (at most one batch away).
+        # Not while the interpreter exits: its daemon threads no longer run
+        if not sys.is_finalizing():
+            for t in threads:
+                t.join()

@@ -4,8 +4,10 @@ Residual stages (1, 2, 8, 8, 4) of widths 64 * 2**i after a 32-wide stem,
 each stage opened by a stride-2 3x3 ConvBN. The forward returns
 [P5, P4, P3] (strides 32, 16, 8; channels 1024, 512, 256), NCHW like every
 module inside the detector. Module names follow the reference demo's torch
-checkpoints (``conv0``, ``conv{i}``, ``res{i}.{j}.conv{1,2}``). The
-classification top is not ported yet.
+checkpoints (``conv0``, ``conv{i}``, ``res{i}.{j}.conv{1,2}``, ``fc``).
+
+`darknet53()` is the classifier (``including_top=True``): NHWC images
+[B, H, W, 3] -> global average pool of P5 -> ``fc`` logits.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ...nn.layers import ConvBN
+from ...nn.layers import ConvBN, global_avg_pool, init_weights_
 
 
 class DarkResidual(nn.Module):
@@ -36,8 +38,11 @@ class Darknet53(nn.Module):
     strides_per_level = (32, 16, 8)
     channels_per_level = (1024, 512, 256)
 
-    def __init__(self, act: str = "silu", stage_sizes: Sequence[int] = (1, 2, 8, 8, 4)):
+    def __init__(self, act: str = "silu", stage_sizes: Sequence[int] = (1, 2, 8, 8, 4),
+                 including_top: bool = False, num_classes: int = 1000,
+                 generator: torch.Generator | None = None):
         super().__init__()
+        self.including_top = including_top
         if len(stage_sizes) != 5:
             raise ValueError(f"Darknet53 has 5 stages, got stage_sizes={stage_sizes}")
         self.stage_sizes = tuple(stage_sizes)
@@ -49,11 +54,23 @@ class Darknet53(nn.Module):
             setattr(self, f"res{i + 1}",
                     nn.Sequential(*(DarkResidual(features, act) for _ in range(n_blocks))))
             prev = features
+        if including_top:
+            self.fc = nn.Linear(prev, num_classes)
+            init_weights_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor):
+        if self.including_top:
+            x = x.permute(0, 3, 1, 2)
         x = self.conv0(x)
         feats = []
         for i in range(1, 6):
             x = getattr(self, f"res{i}")(getattr(self, f"conv{i}")(x))
             feats.append(x)
+        if self.including_top:
+            return self.fc(global_avg_pool(x))
         return [feats[4], feats[3], feats[2]]  # P5(32), P4(16), P3(8)
+
+
+def darknet53(num_classes: int = 1000, **kwargs) -> Darknet53:
+    """The Darknet-53 classifier (the JAX package's ``darknet53`` factory)."""
+    return Darknet53(num_classes=num_classes, including_top=True, **kwargs)

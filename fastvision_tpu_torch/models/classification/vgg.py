@@ -1,25 +1,35 @@
-"""VGG conv trunk and its 4096-4096 MLP (port of
-fastvision_tpu/models/classification/vgg.py).
+"""VGG 11/13/16/19 with and without BN, the conv trunk and the 4096-4096
+MLP (port of fastvision_tpu/models/classification/vgg.py).
 
 Faster R-CNN uses the VGG16 trunk without its last max pool (stride 16) as
-its backbone, and the MLP as the RoI head. Module names follow the JAX
-package (``conv{i}`` for the i-th conv, ``fc1`` / ``fc2``), so the flax
-variables bridge by name. Dropout draws no random numbers itself: the caller
-passes the keep masks, drawn from its own ``torch.Generator``, so a run is
-repeatable and a test can feed the JAX package's masks.
+its backbone, and the MLP (`VGGClassifier`) as the RoI head. Module names
+follow the JAX package (``conv{i}`` for the i-th conv, ``fc1`` / ``fc2`` /
+``fc3``), so the flax variables bridge by name.
 
-Not ported yet: the classification top (``including_top=True``: adaptive
-average pool to 7x7, the MLP and ``fc3``), ROADMAP Queue 1 item 13.
+The classifier (``including_top=True``) takes NHWC images [B, H, W, 3],
+pools the last map to 7 x 7 with the JAX package's `adaptive_avg_pool`,
+flattens it in (h, w, c) order, as the JAX package flattens NHWC, and runs
+fc1 -> ReLU -> dropout -> fc2 -> ReLU -> dropout -> fc3. A torch VGG
+checkpoint's fc1 reads a (c, h, w) flatten instead: its input columns are
+re-interleaved on import (`models.import_torch.vgg_state_dict_from_torch`).
+The trunk alone (``including_top=False``) takes and returns NCHW.
+
+Dropout draws its keep masks from the ``generator`` the caller passes to
+``forward`` (the train step's per-step generator), or takes given masks,
+so a run is repeatable and a test can feed the JAX package's masks. In
+train mode without either, the classifier raises, as flax's ``Dropout``
+does without its rng.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import ConvBN, max_pool
+from ...nn.layers import ConvBN, adaptive_avg_pool, init_weights_, max_pool
 
 # stage channel plans; 'M' = 2x2 max pool (standard VGG configs A / B / D / E)
 CFGS = {
@@ -39,17 +49,15 @@ def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 class VGG(nn.Module):
-    """The VGG conv trunk on NCHW input: ``cfg`` from `CFGS`, ConvBN (BN
-    with ``batch_norm``) + ReLU convs, 2x2 VALID max pools;
-    ``drop_last_pool`` stops before the last pool (stride 16)."""
+    """``cfg`` from `CFGS`, ConvBN (BN with ``batch_norm``) + ReLU convs, 2x2
+    VALID max pools; ``drop_last_pool`` stops before the last pool (stride
+    16); ``including_top`` adds the classifier of ``num_classes``.
+    ``generator`` seeds the initial weights."""
 
-    def __init__(self, cfg: Sequence, batch_norm: bool = False, including_top: bool = True,
-                 drop_last_pool: bool = False):
+    def __init__(self, cfg: Sequence, batch_norm: bool = False, num_classes: int = 1000,
+                 including_top: bool = True, drop_last_pool: bool = False,
+                 dropout: float = 0.5, generator: torch.Generator | None = None):
         super().__init__()
-        if including_top:
-            raise NotImplementedError(
-                "VGG's classification top (adaptive_avg_pool, classifier, fc3) is not "
-                "ported yet (ROADMAP Queue 1, item 13); pass including_top=False")
         self.cfg = tuple(cfg[:-1] if drop_last_pool else cfg)
         prev, i = 3, 0
         for v in self.cfg:
@@ -57,8 +65,15 @@ class VGG(nn.Module):
                 setattr(self, f"conv{i}", ConvBN(prev, int(v), 3, 1, use_bn=batch_norm, act="relu"))
                 prev, i = int(v), i + 1
         self.out_channels = prev
+        self.including_top = including_top
+        self.dropout_rate = dropout
+        if including_top:
+            self.fc1 = nn.Linear(prev * 7 * 7, 4096)
+            self.fc2 = nn.Linear(4096, 4096)
+            self.fc3 = nn.Linear(4096, num_classes)
+        init_weights_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
         i = 0
         for v in self.cfg:
             if v == "M":
@@ -67,6 +82,26 @@ class VGG(nn.Module):
                 x = getattr(self, f"conv{i}")(x)
                 i += 1
         return x
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                keep_masks=None) -> torch.Tensor:
+        if not self.including_top:
+            return self.trunk(x)
+        x = adaptive_avg_pool(self.trunk(x.permute(0, 3, 1, 2)), (7, 7))
+        x = x.permute(0, 2, 3, 1).flatten(1)  # (h, w, c), the JAX package's order
+        train_dropout = self.training and self.dropout_rate > 0
+        if train_dropout and keep_masks is None:
+            if generator is None:
+                raise ValueError("VGG in train mode needs a generator (or keep_masks) for "
+                                 "its dropout")
+            keep_masks = [torch.rand((x.shape[0], 4096), generator=generator,
+                                     device=generator.device) < 1.0 - self.dropout_rate
+                          for _ in range(2)]
+        for fc, i in ((self.fc1, 0), (self.fc2, 1)):
+            x = F.relu(fc(x))
+            if train_dropout:
+                x = dropout(x, keep_masks[i], self.dropout_rate)
+        return self.fc3(x)
 
 
 class VGGClassifier(nn.Module):
@@ -87,3 +122,13 @@ class VGGClassifier(nn.Module):
             if keep_masks is not None:
                 x = dropout(x, keep_masks[i], self.dropout_rate)
         return x
+
+
+vgg11 = partial(VGG, CFGS["vgg11"], batch_norm=False)
+vgg13 = partial(VGG, CFGS["vgg13"], batch_norm=False)
+vgg16 = partial(VGG, CFGS["vgg16"], batch_norm=False)
+vgg19 = partial(VGG, CFGS["vgg19"], batch_norm=False)
+vgg11_bn = partial(VGG, CFGS["vgg11"], batch_norm=True)
+vgg13_bn = partial(VGG, CFGS["vgg13"], batch_norm=True)
+vgg16_bn = partial(VGG, CFGS["vgg16"], batch_norm=True)
+vgg19_bn = partial(VGG, CFGS["vgg19"], batch_norm=True)

@@ -1,20 +1,23 @@
-"""Weight bridge: the JAX package's flax YOLOv3 and Faster R-CNN variables ->
-this port's state_dicts.
+"""Weight bridge: the JAX package's flax variables -> this port's
+state_dicts, for YOLOv3, Faster R-CNN and the classification zoo (ResNet /
+ResNeXt, VGG with its top, the Darknet-53 classifier, ViT).
 
 Takes the variables as nested dicts of numpy arrays (what
 ``jax.device_get(variables)`` returns), so this module needs no JAX. The
-mapping is the inverse of ``fastvision_tpu/models/import_torch.py::
-yolov3_from_torch``:
+mapping is the inverse of ``fastvision_tpu/models/import_torch.py``:
 
   - conv kernel HWIO -> OIHW (``transpose(3, 2, 0, 1)``);
   - ``.../bn/bn/{scale,bias}`` (params) and ``.../bn/bn/{mean,var}``
     (batch_stats) -> ``bn.{weight,bias,running_mean,running_var}``;
   - ``head/pred{i}/{kernel,bias}`` -> ``head.head_out_{lvl}.{weight,bias}``;
   - Dense kernel [in, out] -> Linear weight [out, in]. The Faster R-CNN
-    head's fc1 takes RoI features flattened in (h, w, c) order in both
-    packages, so its rows need no re-interleave.
+    head's and VGG's fc1 take a map flattened in (h, w, c) order in both
+    packages, so their rows need no re-interleave;
+  - ViT attention: flax's q / k / v kernels [dim, heads, head_dim] -> one
+    ``qkv`` weight [3 dim, dim], its out kernel [heads, head_dim, dim] ->
+    ``proj`` [dim, dim].
 
-The backbone's depth is read from the variables, so shallow nets bridge too.
+Depths are read from the variables, so shallow nets bridge too.
 """
 from __future__ import annotations
 
@@ -30,18 +33,22 @@ def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order="C"))  # a C-contiguous copy
 
 
+def _bn(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    bn, st = params["bn"]["bn"], stats["bn"]["bn"]
+    out[f"{prefix}.weight"] = _t(bn["scale"])
+    out[f"{prefix}.bias"] = _t(bn["bias"])
+    out[f"{prefix}.running_mean"] = _t(st["mean"])
+    out[f"{prefix}.running_var"] = _t(st["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
 def _convbn(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
     conv = params["conv"]
     out[f"{prefix}.conv.weight"] = _t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
     if "bias" in conv:
         out[f"{prefix}.conv.bias"] = _t(conv["bias"])
     if "bn" in params:
-        bn, st = params["bn"]["bn"], stats["bn"]["bn"]
-        out[f"{prefix}.bn.weight"] = _t(bn["scale"])
-        out[f"{prefix}.bn.bias"] = _t(bn["bias"])
-        out[f"{prefix}.bn.running_mean"] = _t(st["mean"])
-        out[f"{prefix}.bn.running_var"] = _t(st["var"])
-        out[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+        _bn(out, f"{prefix}.bn", params, stats)
 
 
 def darknet53_state_dict_from_jax(variables: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -107,4 +114,90 @@ def faster_rcnn_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tenso
         out[f"rpn.{name}.bias"] = _t(rp["bias"])
     for name in ("fc1", "fc2", "cls", "reg"):
         _dense(out, f"head.{name}", params["head"][name])
+    return out
+
+
+def _conv_bn(out: dict, conv: str, bn: str, params: Mapping, stats: Mapping) -> None:
+    """A JAX ConvBN -> torchvision-style separate ``conv`` / ``bn`` names."""
+    out[f"{conv}.weight"] = _t(np.transpose(params["conv"]["kernel"], (3, 2, 0, 1)))
+    _bn(out, bn, params, stats)
+
+
+def resnet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``ResNet`` (ResNeXt too) -> a state_dict for
+    this port's ``ResNet`` in torchvision's names."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict[str, torch.Tensor] = {}
+    _conv_bn(out, "conv1", "bn1", p["stem"], s["stem"])
+    for i in range(1, 5):
+        j = 0
+        while f"stage{i}_block{j}" in p:
+            blk, pre = f"stage{i}_block{j}", f"layer{i}.{j}"
+            k = 0
+            while f"ConvBN_{k}" in p[blk]:
+                _conv_bn(out, f"{pre}.conv{k + 1}", f"{pre}.bn{k + 1}", p[blk][f"ConvBN_{k}"],
+                         s[blk][f"ConvBN_{k}"])
+                k += 1
+            if "downsample" in p[blk]:
+                _conv_bn(out, f"{pre}.downsample.0", f"{pre}.downsample.1",
+                         p[blk]["downsample"], s[blk]["downsample"])
+            j += 1
+    if "fc" in p:
+        _dense(out, "fc", p["fc"])
+    return out
+
+
+def vgg_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``VGG`` (with or without BN and its top) -> a
+    state_dict for this port's ``VGG``."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out: dict[str, torch.Tensor] = {}
+    i = 0
+    while f"conv{i}" in p:
+        _convbn(out, f"conv{i}", p[f"conv{i}"], s.get(f"conv{i}", {}))
+        i += 1
+    for name in ("fc1", "fc2", "fc3"):
+        if name in p:
+            _dense(out, name, p[name])
+    return out
+
+
+def darknet53_classifier_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``Darknet53`` classifier -> a state_dict for
+    `classification.darknet53`."""
+    out = darknet53_state_dict_from_jax(variables)
+    _dense(out, "fc", variables["params"]["fc"])
+    return out
+
+
+def vit_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``ViT`` -> a state_dict for this port's ``ViT``."""
+    p = variables["params"]
+    out = {"patch_embed.weight": _t(np.transpose(p["patch_embed"]["kernel"], (3, 2, 0, 1))),
+           "patch_embed.bias": _t(p["patch_embed"]["bias"]),
+           "cls_token": _t(p["cls_token"]), "pos_embed": _t(p["pos_embed"])}
+
+    def norm(prefix, params):
+        out[f"{prefix}.weight"] = _t(params["scale"])
+        out[f"{prefix}.bias"] = _t(params["bias"])
+
+    i = 0
+    while f"block{i}" in p:
+        blk, pre = p[f"block{i}"], f"blocks.{i}"
+        norm(f"{pre}.norm1", blk["norm1"])
+        norm(f"{pre}.norm2", blk["norm2"])
+        attn = blk["attn"]
+        dim = attn["query"]["kernel"].shape[0]
+        qkv = [np.reshape(attn[n]["kernel"], (dim, dim)).T for n in ("query", "key", "value")]
+        out[f"{pre}.attn.qkv.weight"] = _t(np.concatenate(qkv))
+        out[f"{pre}.attn.qkv.bias"] = _t(np.concatenate(
+            [np.reshape(attn[n]["bias"], -1) for n in ("query", "key", "value")]))
+        out[f"{pre}.attn.proj.weight"] = _t(np.reshape(attn["out"]["kernel"], (dim, dim)).T)
+        out[f"{pre}.attn.proj.bias"] = _t(attn["out"]["bias"])
+        _dense(out, f"{pre}.mlp.fc1", blk["fc1"])
+        _dense(out, f"{pre}.mlp.fc2", blk["fc2"])
+        i += 1
+    norm("norm", p["norm"])
+    if "head" in p:
+        _dense(out, "head", p["head"])
     return out

@@ -10,9 +10,11 @@ cuDNN prefers on Hopper. Conventions carried over from the JAX package:
   - BN eps 1e-5 and torch momentum 0.1, which is flax momentum 0.9;
   - kaiming-normal fan_out conv init, BN scale 1 and shift 0.
 
-`max_pool` is flax's ``max_pool`` (VALID windows); `init_weights_` also
-gives ``nn.Linear`` flax ``Dense``'s init. The int8 quantized forward and
-its calibration hooks are not ported yet.
+`max_pool` is flax's ``max_pool`` (VALID windows, or explicit -inf
+padding); `init_weights_` also gives ``nn.Linear`` flax ``Dense``'s init,
+and `Dense` is the JAX package's he-normal ``Dense``. `global_avg_pool` and
+`adaptive_avg_pool` are the JAX package's pools on NCHW tensors. The int8
+quantized forward and its calibration hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -86,10 +88,43 @@ class ConvBN(nn.Module):
         return ACTIVATIONS[self.act](self.bn(self.conv(x)))
 
 
-def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
-    """NCHW max pool over VALID windows (flax ``max_pool``, padding 'VALID':
-    a trailing row or column that fills no window is dropped)."""
-    return F.max_pool2d(x, window, stride)
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2, padding: int = 0) -> torch.Tensor:
+    """NCHW max pool (flax ``max_pool``): VALID windows, where a trailing row
+    or column that fills no window is dropped; ``padding`` pads each side
+    with -inf first, as flax's explicit ``((p, p), (p, p))`` does."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NC."""
+    return x.mean(dim=(2, 3))
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """NCHW average pool to ``out_hw``, as the JAX package computes it: the
+    mean of equal blocks when H and W divide, else a VALID window pool of
+    window ceil(H / oh) and stride max(H // oh, 1) cut to ``out_hw``. The
+    second is not torch's ``adaptive_avg_pool2d``, whose windows vary."""
+    n, c, h, w = x.shape
+    oh, ow = out_hw
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    window = (-(-h // oh), -(-w // ow))
+    stride = (max(h // oh, 1), max(w // ow, 1))
+    return F.avg_pool2d(x, window, stride)[:, :, :oh, :ow]
+
+
+class Dense(nn.Linear):
+    """The JAX package's ``Dense``: a biased Linear whose weight is
+    he-normal (variance 2 / fan_in, not truncated), its bias 0."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_features, features)
+        with torch.no_grad():
+            nn.init.kaiming_normal_(self.weight, mode="fan_in", nonlinearity="relu",
+                                    generator=generator)
+            nn.init.zeros_(self.bias)
 
 
 def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator | None) -> None:
@@ -106,18 +141,26 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator | Non
         idx = idx[~ok]
 
 
-def init_weights_(module: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
+def init_weights_(module: nn.Module, generator: torch.Generator | None = None,
+                  he_convs: bool = False) -> nn.Module:
     """Re-initialise every conv, linear and BN below ``module`` from
-    ``generator``: ConvBN convs kaiming-normal fan_out (the JAX package's
-    ``variance_scaling(2, fan_out, normal)``), other convs and linears
+    ``generator``: ConvBN convs (every conv with ``he_convs``, for modules
+    whose convs are the JAX package's ConvBN convs under other names)
+    kaiming-normal fan_out (the JAX package's ``variance_scaling(2,
+    fan_out, normal)``), `Dense` he-normal fan_in, other convs and linears
     lecun-normal (flax's default for ``Conv`` and ``Dense``: truncated
     normal, variance 1 / fan_in), biases 0, BN scale 1, shift 0, running
     statistics reset."""
     convbn_convs = {id(m.conv) for m in module.modules() if isinstance(m, ConvBN)}
+    if he_convs:
+        convbn_convs |= {id(m) for m in module.modules() if isinstance(m, nn.Conv2d)}
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                if id(m) in convbn_convs:
+                if isinstance(m, Dense):
+                    nn.init.kaiming_normal_(m.weight, mode="fan_in", nonlinearity="relu",
+                                            generator=generator)
+                elif id(m) in convbn_convs:
                     nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                             nonlinearity="relu", generator=generator)
                 else:

@@ -13,6 +13,8 @@ class-agnostic boxes in a 512-px image at IoU 0.7.
 validate on where no image files can be written or decoded (no cv2);
 `write_detection_dataset` writes its samples to disk as ``.bmp`` files,
 which the port reads without cv2, in the layout `DetectionDataset` reads.
+`write_classification_dataset` writes a folder-per-class ``.bmp`` tree,
+the layout `ClassificationDataset` reads.
 """
 from __future__ import annotations
 
@@ -174,6 +176,29 @@ def write_detection_dataset(root: str, n: int,
             write_bmp(os.path.join(images, stem + ".bmp"), image)
             with open(os.path.join(labels, stem + ".txt"), "w") as f:
                 f.writelines(f"{int(r[0])} {r[1]:g} {r[2]:g} {r[3]:g} {r[4]:g}\n" for r in lab)
+    return root
+
+
+def write_classification_dataset(root: str, n: int, num_classes: int = 10,
+                                 sizes=((224, 224), (240, 320), (320, 180), (150, 200),
+                                        (300, 260)),
+                                 seed: int = 0, splits=("train", "val")) -> str:
+    """Write ``n`` images per split as ``<root>/<split>/class_<c>/<id>.bmp``,
+    image i of class i % num_classes and of size ``sizes[i % len(sizes)]``:
+    noise over its class's colour, so that a classifier can learn the
+    classes. -> root."""
+    from .data.dataset import write_bmp
+
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (num_classes, 3))
+    for split in splits:
+        for c in range(num_classes):
+            os.makedirs(os.path.join(root, split, f"class_{c:03d}"), exist_ok=True)
+        for i in range(n):
+            c, (h, w) = i % num_classes, sizes[i % len(sizes)]
+            noise = rng.integers(0, 128, (h, w, 3))
+            write_bmp(os.path.join(root, split, f"class_{c:03d}", f"{split}_{i:06d}.bmp"),
+                      (noise + colours[c] // 2).astype(np.uint8))
     return root
 
 

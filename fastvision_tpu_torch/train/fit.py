@@ -18,12 +18,17 @@ loader's order and augmentations come from (seed, epoch[, position]) and a
 step's random draws from (seed, step), so a resumed run takes the same
 steps as one never interrupted.
 
-Not ported yet: meshes and FSDP (``mesh``, ``fsdp``), and a ``step_fn``
-that takes a per-step random key.
+A ``step_fn`` that takes a 4th positional argument (or ``*args``, or a
+positional one named ``rng``; the rules of the JAX package's ``step_fn``
+setter) gets a ``torch.Generator`` on the model's device, seeded from
+(``seed``, global step): the per-step key that dropout needs.
+
+Not ported yet: meshes and FSDP (``mesh``, ``fsdp``).
 """
 from __future__ import annotations
 
 import copy
+import inspect
 import signal
 import time
 from typing import Any, Callable, Sequence
@@ -33,6 +38,7 @@ import torch
 from torch import nn
 
 from ..core.checkpoint import CheckpointManager
+from ..core.rng import step_seed
 from ..core.telemetry import MetricLogger
 from ..data.pipeline import prefetch_to_device
 from ..infer.postprocess import scale_coords
@@ -61,7 +67,8 @@ class Fit:
     permutation cycled every ``len(multiscale)`` epochs. ``ckpt_dir``:
     checkpoint after every epoch (``save_every_epoch``; else after the last
     only) and on preemption; ``resume``: continue from the newest
-    checkpoint there."""
+    checkpoint there. ``seed``: the root of the per-step generators that
+    an rng-taking ``step_fn`` receives."""
 
     def __init__(
         self,
@@ -94,11 +101,14 @@ class Fit:
         fsdp: bool = False,
         dtype: torch.dtype = torch.float32,
         device: str | torch.device | None = None,
+        seed: int = 0,
     ):
         if mesh is not None or fsdp:
             raise _not_ported("meshes and FSDP (mesh, fsdp)", 17)
         self.state = TrainState.create(model, optimizer, device)
         self.device = self.state.device
+        self.seed = seed
+        self._generator = None
         self.step_fn = step_fn or make_train_step(loss_fn, dtype=dtype)
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -173,6 +183,34 @@ class Fit:
                        ema=ema, extra={**extra, "state_step": self.state.step}, metric=metric,
                        higher_is_better=self.metric_mode == "max")
 
+    @property
+    def step_fn(self) -> Callable:
+        """(state, batch, lr[, rng]) -> (state, metrics). Assigning it
+        inspects the new callable: it takes the per-step generator when it
+        has 4 positional parameters, ``*args``, or a positional ``rng``
+        (keyword-only parameters and ``**kwargs`` do not count)."""
+        return self._step_fn
+
+    @step_fn.setter
+    def step_fn(self, fn: Callable) -> None:
+        self._step_fn = fn
+        try:
+            params = inspect.signature(fn).parameters.values()
+        except (TypeError, ValueError):
+            self._step_takes_rng = False
+            return
+        positional = [p for p in params if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+        self._step_takes_rng = (len(positional) >= 4 or any(p.name == "rng" for p in positional)
+                                or any(p.kind == p.VAR_POSITIONAL for p in params))
+
+    def _step(self, batch: dict, lr: float):
+        if not self._step_takes_rng:
+            return self.step_fn(self.state, batch, lr)
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(step_seed(self.seed, self.global_step))
+        return self.step_fn(self.state, batch, lr, self._generator)
+
     def request_preempt(self) -> None:
         """Stop after the current step (safe from a signal handler or
         another thread: the train loop polls the flag between batches)."""
@@ -198,7 +236,7 @@ class Fit:
             if self._preempt:
                 break
             lr = lr_override if lr_override is not None else self._lr()
-            self.state, metrics = self.step_fn(self.state, batch, lr)
+            self.state, metrics = self._step(batch, lr)
             if self.ema_model is not None:
                 self._ema_update(*self._ema_pairs, self.state.step)
             step_loss = metrics["loss"]
@@ -341,5 +379,25 @@ def detection_evaluator(eval_step: Callable, num_batches: int | None = None,
                          scores[i][v], classes[i][v], gt[:, 1:5], gt[:, 0])
         res = m.compute()
         return {"map50": res.map50, "map": res.map}
+
+    return evaluate
+
+
+def classification_evaluator(eval_step: Callable, mesh=None) -> Callable:
+    """Build ``evaluator(state, loader) -> {'accuracy'}``: top-1 over the
+    real images of each batch (``num_real``: a padded last batch counts its
+    real ones only). ``eval_step(state, batch)`` returns the logits; the
+    count stays on the device and is read once at the end."""
+    if mesh is not None:
+        raise _not_ported("meshes (mesh)", 17)
+
+    def evaluate(state: TrainState, loader) -> dict:
+        correct, total = torch.zeros((), dtype=torch.int64, device=state.device), 0
+        for batch in prefetch_to_device(loader.epoch(0), device=state.device):
+            n = batch.get("num_real", batch["images"].shape[0])
+            logits = eval_step(state, batch)
+            correct += (logits[:n].argmax(dim=-1) == batch["labels"][:n]).sum()
+            total += int(n)
+        return {"accuracy": int(correct) / max(total, 1)}
 
     return evaluate

@@ -17,9 +17,9 @@ from __future__ import annotations
 
 from typing import Callable
 
-import numpy as np
 import torch
 
+from ..core.rng import step_seed
 from ..data.pipeline import normalize_images
 from .optim import set_lr
 from .steps import TrainState, device_batch, make_eval_step
@@ -34,11 +34,6 @@ def labels_to_pixel_xyxy(labels_norm: torch.Tensor, size: int) -> torch.Tensor:
                                        dim=-1)], dim=-1)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of train step ``step``: (seed, step) mixed."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
-
-
 def make_frcnn_train_step(seed: int = 0, dtype: torch.dtype = torch.float32) -> Callable:
     """Build ``train_step(state, batch, lr, draws=None) -> (state, metrics)``
     for `Fit`: forward in train mode (bf16 autocast when ``dtype`` is bf16;
@@ -48,7 +43,7 @@ def make_frcnn_train_step(seed: int = 0, dtype: torch.dtype = torch.float32) -> 
     package's samples and dropout masks through it)."""
     generators: dict[torch.device, torch.Generator] = {}
 
-    def train_step(state: TrainState, batch: dict, lr: float, draws=None):
+    def train_step(state: TrainState, batch: dict, lr: float, *, draws=None):
         model, opt = state.model, state.optimizer
         batch = device_batch(batch)
         labels = labels_to_pixel_xyxy(batch["labels"].float(), model.image_size)

@@ -6,11 +6,16 @@ is bf16) -> loss in float32 -> backward -> the host-scheduled learning rate
 float32. The step's loss and gradient norm stay on the device: nothing in
 the step waits for the card.
 
-Not ported yet: ``batch_transform`` (mixup / cutmix, train/mix.py).
+A ``batch_transform`` (mixup / cutmix, `train.mix`) edits the batch on the
+device before the forward, with a numpy Generator seeded from
+(``transform_seed``, step); a step called with a ``torch.Generator``
+(`Fit` passes one seeded from (seed, step)) hands it to models that draw
+dropout masks (VGG's classifier).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import numpy as np
@@ -53,12 +58,16 @@ class TrainState:
 
 
 def _forward(model: nn.Module, images: torch.Tensor, dtype: torch.dtype, remat: bool = False,
-             imagenet: bool = False):
+             imagenet: bool = False, generator: torch.Generator | None = None):
     x = normalize_images(images, dtype, imagenet=imagenet)
-    with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
+    # only models that draw random numbers take the generator (VGG's dropout)
+    kw = ({"generator": generator} if generator is not None
+          and "generator" in inspect.signature(model.forward).parameters else {})
+    with torch.autocast(x.device.type, dtype=dtype,
+                        enabled=dtype in (torch.bfloat16, torch.float16)):
         if remat:
-            return checkpoint(model, x, use_reentrant=False)
-        return model(x)
+            return checkpoint(model, x, use_reentrant=False, **kw)
+        return model(x, **kw)
 
 
 def make_train_step(
@@ -67,9 +76,11 @@ def make_train_step(
     accum_steps: int = 1,
     remat: bool = False,
     batch_transform: Callable | None = None,
+    transform_seed: int = 0,
     with_grad_norm: bool = True,
+    imagenet: bool = False,
 ) -> Callable:
-    """Build ``train_step(state, batch, lr) -> (state, metrics)``.
+    """Build ``train_step(state, batch, lr, rng=None) -> (state, metrics)``.
 
     - loss_fn(outputs, batch) -> (scalar loss, metrics dict);
     - batch: 'images' uint8 NHWC on the model's device (+ what loss_fn
@@ -83,18 +94,22 @@ def make_train_step(
     - remat: the forward is checkpointed and recomputed during backward
       (``torch.utils.checkpoint``); the recompute's BN statistics update is
       undone, so BN moves once per forward as without remat;
+    - batch_transform(batch, rng) -> batch: a random edit of the device
+      batch before the forward (mixup / cutmix, `train.mix`); ``rng`` is a
+      numpy Generator seeded from (transform_seed, state.step), so the
+      draws repeat on resume and match between the card and the CPU;
     - with_grad_norm: add metrics['grad_norm'], the global norm of the
-      gradients before clipping (one extra read of every gradient).
+      gradients before clipping (one extra read of every gradient);
+    - imagenet: standardize the images with the ImageNet mean and std
+      after scaling them to [0, 1] (the classifiers' input);
+    - rng: a ``torch.Generator`` on the model's device for models that draw
+      random numbers in their forward (dropout); others ignore it.
     """
-    if batch_transform is not None:
-        raise NotImplementedError(
-            "batch_transform (mixup / cutmix, train/mix.py) is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def grads_of(model: nn.Module, batch: dict):
-        outputs = _forward(model, batch["images"], dtype, remat)
+    def grads_of(model: nn.Module, batch: dict, rng: torch.Generator | None):
+        outputs = _forward(model, batch["images"], dtype, remat, imagenet, rng)
         if remat:  # BN's statistics after the forward, before the recompute
             buffers = list(model.buffers())
             saved = [b.clone() for b in buffers]
@@ -113,15 +128,18 @@ def make_train_step(
         parts = {k: v.chunk(accum_steps) for k, v in batch.items()}
         return [{k: parts[k][i] for k in batch} for i in range(accum_steps)]
 
-    def train_step(state: TrainState, batch: dict, lr: float):
+    def train_step(state: TrainState, batch: dict, lr: float,
+                   rng: torch.Generator | None = None):
         model, opt = state.model, state.optimizer
         batch = device_batch(batch)
+        if batch_transform is not None:
+            batch = batch_transform(batch, np.random.default_rng((transform_seed, state.step)))
         model.train()
         model.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss, metrics = grads_of(model, batch)
+            loss, metrics = grads_of(model, batch, rng)
         else:
-            runs = [grads_of(model, mb) for mb in split(batch)]
+            runs = [grads_of(model, mb, rng) for mb in split(batch)]
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             torch._foreach_div_(grads, float(accum_steps))
             loss = torch.stack([r[0] for r in runs]).mean()

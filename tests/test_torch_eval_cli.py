@@ -326,12 +326,12 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=match):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
-    for argv, item in ((["serve"], 16), (["train-cls"], 13), (["train-video"], 14),
+    for argv, item in ((["serve"], 16), (["train-video"], 14),
                        (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
                        (["generate", "--out", "x"], 10),
                        (["convert", "--kind", "coco", "--out", "x"], 11),
                        (["eval", "--tta"], 6), (["eval", "--int8"], 15),
-                       (["eval", "--fast-decode"], 6), (["eval", "--task", "cls"], 13),
+                       (["eval", "--fast-decode"], 6), (["eval", "--task", "video"], 14),
                        (["infer", "--source", "a.mp4"], 6)):
         with pytest.raises(SystemExit, match=f"item {item}\\)"):
             cli.main(argv)
@@ -340,8 +340,6 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
                            ("nms.multi_label=true", 5), ("data.host_shard=auto", 17)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             cli.main(["eval", override, *common])
-    with pytest.raises(NotImplementedError, match="data.num_workers=0"):
-        cli.main(["train", *common])  # the config's default num_workers is 4
     with pytest.raises(ValueError, match="YOLOv3"):
         cli.main(["eval", "model.name=faster_rcnn", *common])
     if not torch.cuda.is_available():

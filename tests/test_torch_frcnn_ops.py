@@ -207,8 +207,8 @@ def test_vgg_trunk_shapes_and_top():
     assert sum(1 for k in vgg.state_dict() if k.endswith("conv.weight")) == 13
     out = vgg(torch.zeros(1, 3, 64, 48))
     assert out.shape == (1, 512, 4, 3)  # four pools: stride 16
-    with pytest.raises(NotImplementedError, match="item 13"):
-        VGG(CFGS["vgg16"])
+    top = VGG((8, "M"), num_classes=10).eval()  # the classifier top: NHWC in, logits out
+    assert top(torch.zeros(1, 16, 16, 3)).shape == (1, 10) and top.fc1.in_features == 8 * 7 * 7
 
 
 def test_init_weights_linear_is_flax_dense_init():

@@ -1,7 +1,10 @@
 """Card-only tests of the PyTorch port: the CUDA NMS kernel against its plain
 PyTorch version (also on Faster R-CNN's RPN and head inputs), the Detector's
 and Faster R-CNN's kernel paths against their CPU paths, device-side mAP
-matching, checkpoints of CUDA tensors, and Detector.evaluate on the card.
+matching, checkpoints of CUDA tensors, Detector.evaluate on the card, and
+the classification path (a train step with the mix and the zoo's forwards
+card vs CPU, process-pool loaders forked after CUDA initialised, the
+classification evaluator).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -504,3 +507,106 @@ def test_evaluate_on_card_device_equals_host_matching(tmp_path):
         ref = Det(model, anchors, input_size=64, batch_size=4, conf_thres=conf, iou_thres=iou,
                   device=dev, dtype=torch.float32).evaluate(ds, device_matching=False)
         assert (row["map50"], row["map"]) == (ref["map50"], ref["map"])
+
+
+# ---------------------------------------------------------------- classification
+def _small_resnext(seed=0):
+    from fastvision_tpu_torch.models.classification import Bottleneck, ResNet
+
+    return ResNet(Bottleneck, (1, 1, 1, 1), num_classes=10, groups=4, base_width=4,
+                  generator=torch.Generator().manual_seed(seed))
+
+
+def test_cls_train_step_with_mix_on_card_equals_cpu():
+    """One SGD step of a small ResNeXt with mixup + cutmix + smoothing, the
+    card against the CPU, in float64 (a float32 ReLU net with train-mode BN
+    sits up to 1e-2 from float64 at random batches, on either device). The
+    mix's draws come from the host's generator, so both see the same ones.
+    Tolerances: loss 1e-4 relative, kernels 1e-3 of std, the rest 1e-2."""
+    import copy
+
+    from fastvision_tpu_torch.testing import state_max_rel_diff
+    from fastvision_tpu_torch.train import (
+        TrainState,
+        build_optimizer,
+        make_classification_mix,
+        make_train_step,
+        soft_cross_entropy,
+    )
+
+    dev = _cuda()
+    model = _small_resnext().double()
+    cpu_model = copy.deepcopy(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(3)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 8))}
+    step = make_train_step(lambda lg, b: (soft_cross_entropy(lg, b["soft"]), {}),
+                           torch.float64, imagenet=True, transform_seed=5,
+                           batch_transform=make_classification_mix(10, 0.2, 1.0, 0.1))
+    on_card = TrainState.create(model, build_optimizer("sgd", model), dev)
+    on_cpu = TrainState.create(cpu_model, build_optimizer("sgd", cpu_model), "cpu")
+    _, m_dev = step(on_card, {k: v.to(dev) for k, v in batch.items()}, 1e-2)
+    _, m_cpu = step(on_cpu, batch, 1e-2)
+    assert float(m_dev["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-4)
+    worst = state_max_rel_diff(model.state_dict(), cpu_model.state_dict(), start)
+    assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst
+
+
+@pytest.mark.parametrize("name", ["resnext", "vgg", "darknet53", "vit"])
+def test_cls_zoo_forward_on_card_equals_cpu(name):
+    """float32 eval forwards (TF32 off), card vs CPU: max|d| <= 1e-3 * std."""
+    from fastvision_tpu_torch.models import classification as tz
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(1)
+    model = {"resnext": lambda: _small_resnext(1),
+             "vgg": lambda: tz.VGG((8, "M", 16, "M"), num_classes=10, generator=g),
+             "darknet53": lambda: tz.Darknet53(stage_sizes=(1, 1, 1, 1, 1), including_top=True,
+                                               num_classes=10, generator=g),
+             "vit": lambda: tz.ViT(num_classes=10, patch=8, dim=64, depth=2, heads=4,
+                                   image_size=32, generator=g)}[name]().eval()
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = model(x)
+            got = model.to(dev)(x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert float((got - want).abs().max() / want.std()) <= 1e-3
+
+
+def test_cls_loader_process_pool_after_cuda_init_and_evaluator_on_card(tmp_path):
+    """Workers forked from a process that holds a CUDA context (they never
+    touch it) give the serial loader's bytes; classification_evaluator runs
+    on the card and counts the real images of a padded last batch."""
+    from fastvision_tpu_torch.data import ClassificationDataset, ClassificationLoader
+    from fastvision_tpu_torch.testing import write_classification_dataset
+    from fastvision_tpu_torch.train import TrainState, classification_evaluator, make_eval_step
+
+    dev = _cuda()
+    torch.zeros(1, device=dev)
+    root = write_classification_dataset(str(tmp_path), 11, num_classes=3,
+                                        sizes=((240, 320), (64, 64)), seed=4)
+    ds = ClassificationDataset(root, "val")
+    serial = list(ClassificationLoader(ds, 64, 4, train=False).epoch(0))
+    pooled_loader = ClassificationLoader(ds, 64, 4, train=False, num_workers=3,
+                                         worker_backend="process")
+    try:
+        pooled = list(pooled_loader.epoch(0))
+        assert len(pooled) == len(serial) == 3
+        for a, b in zip(pooled, serial):
+            np.testing.assert_array_equal(a["images"], b["images"])
+            np.testing.assert_array_equal(a["labels"], b["labels"])
+        model = _small_resnext(2)
+        state = TrainState.create(model, None, dev)
+        res = classification_evaluator(make_eval_step(imagenet=True))(state, pooled_loader)
+    finally:
+        pooled_loader.close()
+    step = make_eval_step(imagenet=True)
+    pred = np.concatenate([step(state, {"images": torch.from_numpy(b["images"]).to(dev)})
+                           .argmax(-1).cpu().numpy()[:b["num_real"]] for b in serial])
+    labels = np.concatenate([b["labels"][:b["num_real"]] for b in serial])
+    assert len(labels) == 11 and res["accuracy"] == pytest.approx(float((pred == labels).mean()))

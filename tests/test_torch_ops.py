@@ -166,4 +166,7 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) == len(mods) >= 20
     assert {"fastvision_tpu_torch.models.detection.faster_rcnn",
             "fastvision_tpu_torch.train.frcnn_steps", "fastvision_tpu_torch.ops.roi_align",
-            "fastvision_tpu_torch.models.import_torch"} <= set(mods)
+            "fastvision_tpu_torch.models.import_torch", "fastvision_tpu_torch.data.decode_pool",
+            "fastvision_tpu_torch.models.classification.resnet",
+            "fastvision_tpu_torch.models.classification.vit", "fastvision_tpu_torch.train.mix",
+            "fastvision_tpu_torch.ops.accuracy"} <= set(mods)

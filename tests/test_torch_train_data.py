@@ -165,14 +165,15 @@ def test_dataset_and_label_helpers_match_jax(det_root, tmp_path):
 
 def test_loader_rejects_what_is_not_ported():
     ds = SyntheticDetectionDataset(4, 3)
-    for kw in (dict(use_native=True), dict(num_workers=4),
-               dict(emit="i420"), dict(native_jpeg=True), dict(host_shard="0/2")):
+    for kw in (dict(use_native=True), dict(emit="i420"), dict(native_jpeg=True),
+               dict(host_shard="0/2")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DetectionLoader(ds, **kw)
-    with pytest.raises(NotImplementedError, match="data.num_workers=0"):
-        DetectionLoader(ds, num_workers=2)
-    with pytest.raises(ValueError):
-        DetectionLoader(ds, on_corrupt="ignore")
+    # the worker pools are ported: the config's default builds, bad backends raise
+    DetectionLoader(ds, num_workers=4, worker_backend="process").close()
+    for kw in (dict(on_corrupt="ignore"), dict(num_workers=2, worker_backend="process:greenlet")):
+        with pytest.raises(ValueError):
+            DetectionLoader(ds, **kw)
 
 
 def test_corrupt_samples_skip_policy():

@@ -206,8 +206,11 @@ def test_step_api_details(variables):
     _, metrics = tt.make_train_step(_port_loss, with_grad_norm=False)(state, kept, 1e-3)
     assert "grad_norm" not in metrics and metrics["loss"].ndim == 0
     assert not metrics["loss"].requires_grad
-    with pytest.raises(NotImplementedError, match="mixup"):
-        tt.make_train_step(_port_loss, batch_transform=lambda b, k: b)
+    # batch_transform (ported) gets a numpy Generator seeded from (transform_seed, step)
+    seen = []
+    tt.make_train_step(_port_loss, transform_seed=7, batch_transform=lambda b, r: (
+        seen.append(r.uniform()) or b))(state, kept, 1e-3)
+    assert seen == [np.random.default_rng((7, state.step - 1)).uniform()]
     with pytest.raises(ValueError, match="divisible"):
         tt.make_train_step(_port_loss, accum_steps=2)(state, kept, 1e-3)
     if not torch.cuda.is_available():
