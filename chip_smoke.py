@@ -96,7 +96,29 @@ exits non-zero before a result is printed:
               the evaluator images/s; the YOLOv3 ``DetectionLoader`` (mosaic,
               hflip, HSV) alone with 0 and 4 workers over BMP files,
               byte-equal;
-  15. ckpt_resume  checkpoint, preemption and resume at full width, for the
+  15. video_card_vs_cpu  float32 forwards (TF32 off) of full-width C3D (101
+              classes) and 3D-ResNet-50 (400) at 16 x 112 and SlowFast-R50
+              (400, alpha 8, beta 1/8) at 32 x 224 on 2 clips, card vs CPU;
+              one SGD step of a small SlowFast at 8 x 64, card vs CPU, in
+              float32 and float64;
+  16. video_train  full-width SlowFast-R50 (32 x 224, bf16,
+              channels_last_3d) through ``Fit`` with SGD momentum and
+              ``warmup_cosine_lr``, 2 epochs x 2 steps at batch 8 over BMP
+              frame directories (``testing.write_video_dataset``: 16 + 8
+              clips of 40 frames at 240 x 320, 4 classes) read by
+              ``VideoClipLoader(num_workers=4, worker_backend="process")``,
+              whose first epoch must be byte-equal to the serial loader's;
+              validated by ``video_multiclip_evaluator(n_clips=4)`` (the NMS
+              kernel's launches counted: 0); 10 steps on one batch (the loss
+              must fall);
+  17. video_times  the train step's clips/s at batch 8 (1 warm-up, 8 steps,
+              one sync), its split between CUDA events, the profiler's busy
+              share and top kernels, peak memory, Conv3d and Linear FLOPs and
+              ``mfu``; with 0 and 4 workers the loader's first epoch, then,
+              steady, the loader alone, ``Fit`` and the evaluator clips/s;
+              ``VideoClassifier.predict_clip`` latency; C3D and 3D-ResNet-50
+              train steps at 16 x 112, batch 32;
+  18. ckpt_resume  checkpoint, preemption and resume at full width, for the
               YOLOv3-416 ``Fit`` of the train phase (bf16, EMA) and the
               Faster R-CNN-512 one of the frcnn_train phase, under
               ``torch.use_deterministic_algorithms(True, warn_only=True)``:
@@ -110,7 +132,7 @@ exits non-zero before a result is printed:
               tolerance. Bytes on disk per checkpoint, the save's host copy
               (the step loop's stall), ``wait()``, restore seconds; the free
               disk space first;
-  16. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
+  19. evaluate  ``Detector(input_size=416, batch_size=32)`` with run 1's
               EMA weights over 64 images of assorted sizes labelled with
               the detector's own jittered detections (so that mAP is not
               0): the kernel against its plain version, bit-equal, on the
@@ -121,27 +143,31 @@ exits non-zero before a result is printed:
               always), ``evaluate_sweep`` over the reference's 9 points
               and 2 at conf 0.001 against as many per-point ``evaluate``s
               (equal rows), images/s and kernel launches of each;
-  17. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
+  20. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
               from ``testing.write_detection_dataset``, on the config's
               worker pools: ``train`` YOLOv3-416 with the default recipe
               (mosaic 0.5, hflip, HSV) for 2 epochs, ``train --resume`` to 3,
               ``eval --ckpt ... --sweep``, and ``train model.name=faster_rcnn``
               at 512 for 1 epoch; ``train-cls`` ResNet-50-224 over the
               cls_train folder for 1 epoch, ``--resume`` to 2, ``eval --task
-              cls --ckpt``; epoch images/s with decode and augmentation,
-              launches per command (0 for the classification ones); then the
-              run's total seconds.
+              cls --ckpt``; ``train-video`` SlowFast-R50 (32 x 224) over the
+              video_train clips for 1 epoch, ``--resume`` to 2, ``eval --task
+              video --ckpt`` with 4 clips a video (its accuracy equal to the
+              run's last validation); epoch images/s with decode and
+              augmentation, launches per command (0 for the classification
+              and video ones); then the run's total seconds.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
-port, with its launches on every path (the classification paths counted and
-required at 0: they run no NMS); the last line is {"ok": true, "device":
-{...}}. Without a CUDA card the script exits 1 at once.
+port, with its launches on every path (the classification and video paths
+counted and required at 0: they run no NMS); the last line is {"ok": true,
+"device": {...}}. Without a CUDA card the script exits 1 at once.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -163,11 +189,14 @@ from fastvision_tpu_torch.data import (
     DetectionLoader,
     HorizontalFlip,
     HSVJitter,
+    VideoClipLoader,
+    VideoFolderDataset,
     normalize_images,
 )
 from fastvision_tpu_torch.infer import (
     REFERENCE_SWEEP,
     Detector,
+    VideoClassifier,
     decode_predictions,
     preprocess_batch,
     scale_coords,
@@ -189,6 +218,7 @@ from fastvision_tpu_torch.models.detection import (
     select_detections,
     select_proposals,
 )
+from fastvision_tpu_torch.models.video import SlowFast, c3d, resnet50_3d, slowfast_resnet50
 from fastvision_tpu_torch.ops import (
     COCO_ANCHORS,
     MeanAveragePrecision,
@@ -211,6 +241,7 @@ from fastvision_tpu_torch.testing import (
     state_max_rel_diff,
     write_classification_dataset,
     write_detection_dataset,
+    write_video_dataset,
 )
 from fastvision_tpu_torch.train import (
     Fit,
@@ -231,6 +262,7 @@ from fastvision_tpu_torch.train import (
     set_lr,
     soft_cross_entropy,
     step_decay_lr,
+    video_multiclip_evaluator,
     warmup_cosine_lr,
 )
 
@@ -247,6 +279,8 @@ PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 # a pair disjoint in x is decided by 2 compares (x1_j < x2_i and x1_i < x2_j)
 NMS_OPS_PER_PAIR = 14
 NMS_OPS_PER_X_DISJOINT_PAIR = 2
+BATCH_NORMS = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
+CONVS = (torch.nn.Conv2d, torch.nn.Conv3d)
 SIZES = ((416, 416), (480, 640), (640, 360), (200, 300),
          (375, 500), (720, 1280), (300, 200), (416, 240))
 EVAL_IMAGES, EVAL_BATCH = 64, 32
@@ -434,7 +468,7 @@ def calibrate_bn_(model: torch.nn.Module, x: torch.Tensor) -> None:
     through 75 layers; set them from one float32 batch so the heads give
     scores in a realistic range and NMS gets real work."""
     for m in model.modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
+        if isinstance(m, BATCH_NORMS):
             m.reset_running_stats()
             m.momentum = None  # cumulative average: one batch sets the stats
     model.train()
@@ -667,11 +701,9 @@ def conv_flops_per_image(model: torch.nn.Module, size: int) -> float:
 
     def hook(m, _, out):
         nonlocal total
-        k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
-        total += 2 * k * out.shape[1] * out.shape[2] * out.shape[3]
+        total += 2 * math.prod(m.kernel_size) * m.in_channels // m.groups * out[0].numel()
 
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.Conv2d)]
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, CONVS)]
     was_training = model.training
     try:
         model.eval()
@@ -1144,21 +1176,20 @@ def phase_frcnn_train(dev: torch.device) -> dict:
 
 
 def count_flops(model: torch.nn.Module, fn) -> float:
-    """Multiply-adds x 2 of every conv and linear layer that ``fn()`` runs,
-    counted from the layer shapes."""
+    """Multiply-adds x 2 of every conv (2-D and 3-D) and linear layer that
+    ``fn()`` runs, counted from the layer shapes."""
     total = 0
 
     def conv(m, _, out):
         nonlocal total
-        k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
-        total += 2 * k * out.numel()
+        total += 2 * math.prod(m.kernel_size) * m.in_channels // m.groups * out.numel()
 
     def linear(m, _, out):
         nonlocal total
         total += 2 * m.in_features * out.numel()
 
-    handles = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
-               for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    handles = [m.register_forward_hook(conv if isinstance(m, CONVS) else linear)
+               for m in model.modules() if isinstance(m, (*CONVS, torch.nn.Linear))]
     try:
         fn()
     finally:
@@ -1394,7 +1425,7 @@ def phase_cls_card_vs_cpu(dev: torch.device) -> dict:
                         ("darknet53", lambda g: darknet53(generator=g)),
                         ("vit_base_patch16", lambda g: vit_base_patch16(generator=g))):
         model = build(torch.Generator().manual_seed(SEED))
-        if any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+        if any(isinstance(m, BATCH_NORMS) for m in model.modules()):
             calibrate_bn_(model, x)  # statistics from these images, not (0, 1)
         model.eval()
         with no_tf32(), torch.inference_mode():
@@ -1599,6 +1630,317 @@ def phase_cls_times(dev: torch.device, cls: dict, smi: str, workdir: str) -> dic
     out["host_cpus"] = os.cpu_count()
     out["clocks_power"] = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     emit("cls_times", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Video: SlowFast-R50, 400 classes (Kinetics-400), 32 frames at 224, alpha 8,
+# beta 1/8 (the 4x16 R50 setting), full width (train-video)
+# ---------------------------------------------------------------------------
+VID_T, VID_SIZE, VID_CLASSES, VID_BATCH = 32, 224, 400, 8
+VID_CLIPS = (16, 8)  # train and val clips: 2 steps an epoch, 1 validation batch
+VID_FOLDERS, VID_FRAMES, VID_HW = 4, 40, (240, 320)  # BMP frame directories
+VID_WORKERS = 4  # the config's default num_workers, worker_backend "process"
+VID_EVAL_CLIPS = 4
+VID_LR = 0.0125  # the SlowFast recipe's 0.1 per 64 clips, SGD momentum 0.9, wd 1e-4
+# C3D (UCF-101's 101 classes) and the factorized 3D-ResNet-50 at 16 x 112
+SMALL_VID_T, SMALL_VID_SIZE, SMALL_VID_BATCH = 16, 112, 32
+
+
+def vid_model(seed: int = SEED) -> torch.nn.Module:
+    return slowfast_resnet50(num_classes=VID_CLASSES, generator=torch.Generator().manual_seed(seed))
+
+
+def vid_loss(logits, batch):
+    """train-video's loss: cross-entropy."""
+    acc = (logits.argmax(dim=-1) == batch["labels"]).float().mean()
+    return cross_entropy(logits.float(), batch["labels"]), {"acc": acc}
+
+
+def vid_step(dtype: torch.dtype = torch.bfloat16):
+    return make_train_step(vid_loss, dtype, imagenet=True)
+
+
+def vid_loader(root: str, split: str, num_workers: int = VID_WORKERS,
+               train: bool = True) -> VideoClipLoader:
+    return VideoClipLoader(VideoFolderDataset(root, split), num_frames=VID_T, size=VID_SIZE,
+                           batch_size=VID_BATCH, strategy="average", train=train, seed=SEED,
+                           num_workers=num_workers, worker_backend="process")
+
+
+def vid_evaluator(sink: list | None = None):
+    evaluate = video_multiclip_evaluator(make_eval_step(dtype=torch.bfloat16, imagenet=True),
+                                         n_clips=VID_EVAL_CLIPS)
+    return evaluate if sink is None else counted(evaluate, sink)
+
+
+def phase_video_card_vs_cpu(dev: torch.device) -> dict:
+    """float32 forwards (TF32 off) of full-width C3D, 3D-ResNet-50 and
+    SlowFast-R50 on 2 clips, and one SGD step of a small SlowFast in float32
+    and float64, card vs CPU."""
+    fwd = {}
+    for name, build, t, size in (
+            ("c3d", lambda g: c3d(num_classes=101, generator=g), SMALL_VID_T, SMALL_VID_SIZE),
+            ("resnet50_3d", lambda g: resnet50_3d(num_classes=VID_CLASSES, generator=g),
+             SMALL_VID_T, SMALL_VID_SIZE),
+            ("slowfast_resnet50", lambda g: vid_model(), VID_T, VID_SIZE)):
+        u8 = np.random.default_rng(SEED + 20).integers(0, 256, (2, t, size, size, 3), np.uint8)
+        x = normalize_images(torch.from_numpy(u8), torch.float32, imagenet=True)
+        model = build(torch.Generator().manual_seed(SEED))
+        if any(isinstance(m, BATCH_NORMS) for m in model.modules()):
+            calibrate_bn_(model, x)  # statistics from these clips, not (0, 1)
+        model.eval()
+        with no_tf32(), torch.inference_mode():
+            want = model(x)
+            got = model.to(dev, memory_format=torch.channels_last_3d)(x.to(dev)).cpu()
+        fwd[name] = float((got - want).abs().max() / want.std())
+        del model
+        torch.cuda.empty_cache()
+    check(max(fwd.values()) <= 1e-3, f"fp32 video forwards card vs cpu: {fwd}")
+
+    small = SlowFast((1, 1, 1, 1), num_classes=VID_CLASSES, alpha=4,
+                     generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 21)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (4, 8, 64, 64, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, VID_FOLDERS, 4).astype(np.int32))}
+    steps = {}
+    for dtype in (torch.float64, torch.float32):
+        card_m, cpu_m = copy.deepcopy(small).to(dtype), copy.deepcopy(small).to(dtype)
+        start = {k: v.clone() for k, v in cpu_m.state_dict().items()}
+        step = vid_step(dtype)
+        with no_tf32():
+            card = TrainState.create(card_m, build_optimizer("sgd", card_m, momentum=0.9), dev)
+            cpu = TrainState.create(cpu_m, build_optimizer("sgd", cpu_m, momentum=0.9), "cpu")
+            _, m_card = step(card, {k: v.to(dev) for k, v in batch.items()}, 1e-2)
+            _, m_cpu = step(cpu, batch, 1e-2)
+            torch.cuda.synchronize()
+        steps[str(dtype).split(".")[-1]] = {
+            "loss_rel": abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1),
+            "grad_norm_rel": abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1),
+            "state_max_rel": state_max_rel_diff(card_m.state_dict(), cpu_m.state_dict(), start)}
+    tol = {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}
+    for name, r in steps.items():
+        check(r["loss_rel"] <= tol["loss_rel"] and r["state_max_rel"]["kernels"][0]
+              <= tol["kernels"] and r["state_max_rel"]["others"][0] <= tol["others"],
+              f"video train step card vs cpu, {name}: {r}")
+    emit("video_card_vs_cpu",
+         step={"model": "SlowFast((1,1,1,1), alpha=4), 400 classes, 8 x 64, batch 4, one SGD "
+                        "step at lr 1e-2, TF32 off", "tolerances": tol, **steps},
+         forward_fp32_max_abs_over_std=fwd, forward_tolerance=1e-3,
+         forward_inputs=(f"2 clips: c3d (101 classes) and resnet50_3d at {SMALL_VID_T} x "
+                         f"{SMALL_VID_SIZE}, slowfast_resnet50 at {VID_T} x {VID_SIZE}; BN "
+                         "statistics from them, TF32 off"))
+    return {"forward": fwd, "step": steps}
+
+
+def phase_video_train(dev: torch.device, workdir: str) -> dict:
+    """Full-width SlowFast-R50 / 32 x 224 / bf16 through Fit over BMP frame
+    directories on the config's worker pools, validated by the multi-clip
+    evaluator; the pooled epoch byte-equal to the serial one."""
+    t0 = time.perf_counter()
+    root = write_video_dataset(os.path.join(workdir, "video"), VID_CLIPS,
+                               num_classes=VID_FOLDERS, frames=VID_FRAMES, hw=VID_HW,
+                               seed=SEED + 22)
+    write_s = time.perf_counter() - t0
+    train_loader, val_loader = vid_loader(root, "train"), vid_loader(root, "val", train=False)
+    t0 = time.perf_counter()
+    pooled = read_epoch(train_loader)
+    pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = read_epoch(vid_loader(root, "train", num_workers=0))
+    serial_s = time.perf_counter() - t0
+    byte_equal = same_batches(pooled, serial)
+    check(byte_equal, "the pooled video epoch differs from the serial one")
+
+    records = []
+
+    class Log:
+        def log(self, step, **kw):
+            records.append({"step": step, **kw})
+
+    val_launches: list = []
+    model = vid_model()
+    epochs = 2
+    fit = Fit(model, vid_loss, build_optimizer("sgd", model, weight_decay=1e-4, momentum=0.9),
+              train_loader, val_loader, epochs=epochs,
+              schedule=warmup_cosine_lr(VID_LR, 1e-5, epochs * len(train_loader), warmup_steps=1),
+              evaluator=vid_evaluator(val_launches), step_fn=vid_step(), dtype=torch.bfloat16,
+              metric_key="accuracy", metric_mode="max", logger=Log(), seed=SEED, device=dev)
+    check(model.slow_pathway.conv1[0].weight.is_contiguous(
+        memory_format=torch.channels_last_3d), "SlowFast is not in channels_last_3d memory")
+    t0 = time.perf_counter()
+    fit.run()
+    fit_s = time.perf_counter() - t0
+    per_epoch = [r for r in records if "train_loss" in r]
+    check(len(per_epoch) == epochs and fit.global_step == epochs * len(train_loader),
+          f"video Fit ran {fit.global_step} steps over {len(per_epoch)} epochs")
+    check(all(np.isfinite(r["train_loss"]) and 0.0 <= r["accuracy"] <= 1.0
+              and r["n_clips"] == VID_EVAL_CLIPS for r in per_epoch), f"video Fit: {per_epoch}")
+    check(val_launches == [0] * epochs, f"video validation launched nms {val_launches}")
+
+    step = vid_step()
+    fixed = {k: torch.from_numpy(v).to(dev) for k, v in pooled[0].items() if k != "num_real"}
+    losses = []
+    for _ in range(10):
+        _, m = step(fit.state, fixed, VID_LR)
+        losses.append(m["loss"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    check(losses[-1] < losses[0], f"video loss did not fall over 10 steps on one batch: {losses}")
+    emit("video_train", fit={
+        "model": "SlowFast-R50 (slowfast_resnet50), 400 classes, alpha 8, beta 1/8, full width "
+                 "and depth, bf16 autocast, channels_last_3d",
+        "clip": [VID_T, VID_SIZE, VID_SIZE], "batch": VID_BATCH, "epochs": epochs,
+        "clips_per_split": list(VID_CLIPS), "folders": VID_FOLDERS,
+        "frames_per_clip_dir": VID_FRAMES, "frame_hw": list(VID_HW), "bmp_write_s": write_s,
+        "recipe": {"sgd_momentum": 0.9, "weight_decay": 1e-4,
+                   "schedule": f"warmup_cosine_lr({VID_LR}, 1e-5)"},
+        "loader": f"VideoClipLoader(num_workers={VID_WORKERS}, worker_backend='process', "
+                  "strategy='average')",
+        "validation": f"video_multiclip_evaluator(n_clips={VID_EVAL_CLIPS})",
+        "global_step": fit.global_step, "seconds_first_run": fit_s, "per_epoch": per_epoch,
+        "val_nms_launches": val_launches},
+         pooled_epoch_byte_equal_to_serial=byte_equal, pooled_epoch_s=pooled_s,
+         serial_epoch_s=serial_s, learning_check_losses=losses)
+    train_loader.close()
+    val_loader.close()
+    return {"fit": fit, "root": root, "batch": fixed,
+            "launches": {"video_fit_validation": sum(val_launches)}}
+
+
+def step_rate(step, state, batch, lr: float = 1e-3, reps: int = 8) -> float:
+    """Seconds per train step: 1 warm-up, ``reps`` steps, one sync. The
+    step gets a generator for models with dropout (C3D)."""
+    rng = torch.Generator(device=state.device).manual_seed(SEED)
+    float(step(state, batch, lr, rng)[1]["loss"])
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, metrics = step(state, batch, lr, rng)
+    float(metrics["loss"])
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_video_times(dev: torch.device, video: dict, smi: str) -> dict:
+    """SlowFast-R50 train step clips/s at batch 8, its split, peak memory
+    and mfu; the loader and Fit with 0 and 4 workers; the evaluator;
+    VideoClassifier.predict_clip; C3D and 3D-ResNet-50 step rates."""
+    fit, batch, root = video["fit"], video["batch"], video["root"]
+    state, model = fit.state, fit.state.model
+    step = vid_step()
+    out: dict = {"card": smi}
+    torch.cuda.reset_peak_memory_stats()
+    step_s = step_rate(step, state, batch)
+    out["train_step_clips_s"] = VID_BATCH / step_s
+    out["train_step_ms"] = 1e3 * step_s
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+
+    parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "optimizer": 0.0}
+    reps = 5
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        x = normalize_images(batch["images"], torch.bfloat16, imagenet=True)
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            logits = model(x)
+        ev[1].record()
+        loss, _ = vid_loss(logits, batch)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        set_lr(state.optimizer, 1e-3)
+        state.optimizer.step()
+        ev[4].record()
+        ev[4].synchronize()
+        if i:  # the first is a warm-up
+            for name, a, b in zip(parts, ev[:-1], ev[1:]):
+                parts[name] += a.elapsed_time(b) / reps
+    out["step_split_ms"] = parts
+    prof = device_profile(lambda: step(state, batch, 1e-3), reps=3, top=10)
+    prof["device_share_of_unprofiled_step"] = prof["device_ms"] / out["train_step_ms"]
+    out["step_profile"] = prof
+
+    model.eval()
+    with torch.inference_mode():
+        fwd_flops = count_flops(model, lambda: model(torch.zeros(
+            1, VID_T, VID_SIZE, VID_SIZE, 3, device=dev)))
+    model.train()
+    out["flops_per_clip"] = {"forward": fwd_flops, "train_3x_forward": 3 * fwd_flops,
+                             "counted": "Conv3d and Linear layers"}
+    out["mfu"] = 3 * fwd_flops * out["train_step_clips_s"] / PEAK_BF16_FLOPS
+
+    # at 0 and 4 workers: the loader's first epoch (a pool starts: 4 forks of
+    # this process), then, steady, the loader alone, Fit over 2 epochs from
+    # the files, and the multi-clip evaluator
+    n_train, n_val = VID_CLIPS
+    first_s, loader_rates, fit_rates, eval_rates = {}, {}, {}, {}
+    for workers in (0, VID_WORKERS):
+        loader = vid_loader(root, "train", num_workers=workers)
+        t0 = time.perf_counter()
+        read_epoch(loader, 10)
+        first_s[workers] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(b["num_real"] for e in (11, 12) for b in read_epoch(loader, e))
+        loader_rates[workers] = n / (time.perf_counter() - t0)
+        f = Fit(model, vid_loss, state.optimizer, loader, epochs=2, step_fn=vid_step(),
+                dtype=torch.bfloat16, schedule=constant_lr(1e-3), seed=SEED,
+                logger=MetricLogger(stdout=False), device=dev)
+        t0 = time.perf_counter()
+        f.run()
+        torch.cuda.synchronize()
+        fit_rates[workers] = f.global_step * VID_BATCH / (time.perf_counter() - t0)
+        loader.close()
+        val = vid_loader(root, "val", num_workers=workers, train=False)
+        evaluate = vid_evaluator()
+        evaluate(f.state, val)  # the pool's start and the eval program's first call
+        t0 = time.perf_counter()
+        evaluate(f.state, val)
+        eval_rates[workers] = n_val * VID_EVAL_CLIPS / (time.perf_counter() - t0)
+        val.close()
+    out["loader_first_epoch_s_by_workers"] = first_s
+    out["loader_clips_s_by_workers"] = loader_rates
+    out["fit_epoch_clips_s_by_workers"] = fit_rates
+    out["evaluator_clips_s_by_workers"] = eval_rates
+    out["timed_clips"] = {"loader": 2 * n_train, "fit": 2 * n_train,
+                          "evaluator": n_val * VID_EVAL_CLIPS}
+
+    vc = VideoClassifier(model, num_frames=VID_T, size=VID_SIZE, device=dev)
+    raw = np.random.default_rng(SEED + 23).integers(0, 256, (VID_T, *VID_HW, 3), np.uint8)
+    probs = vc.predict_clip(raw)["probs"]
+    check(probs.shape == (VID_CLASSES,) and np.isfinite(probs).all()
+          and abs(float(probs.sum()) - 1.0) < 1e-3, "VideoClassifier.predict_clip")
+    out["predict_clip_ms"] = 1e3 * host_s(lambda: vc.predict_clip(raw), reps=5)
+    u8 = batch["images"][:1]
+    out["predict_clip_device_ms"] = cuda_ms(lambda: vc.probabilities(u8), reps=10)
+    model.train()
+
+    # C3D (101 classes) and 3D-ResNet-50 (400) at 16 x 112, batch 32, bf16
+    others = {}
+    rng = np.random.default_rng(SEED + 24)
+    for name, build, classes in (("c3d", c3d, 101), ("resnet50_3d", resnet50_3d, VID_CLASSES)):
+        m = build(num_classes=classes, generator=torch.Generator().manual_seed(SEED))
+        st = TrainState.create(m, build_optimizer("sgd", m, weight_decay=1e-4, momentum=0.9), dev)
+        b = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (SMALL_VID_BATCH, SMALL_VID_T, SMALL_VID_SIZE, SMALL_VID_SIZE, 3),
+                 dtype=np.uint8)).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, classes, SMALL_VID_BATCH).astype(
+                 np.int32)).to(dev)}
+        torch.cuda.reset_peak_memory_stats()
+        sec = step_rate(vid_step(), st, b)
+        m.eval()
+        with torch.inference_mode():
+            flops = count_flops(m, lambda: m(torch.zeros(
+                1, SMALL_VID_T, SMALL_VID_SIZE, SMALL_VID_SIZE, 3, device=dev)))
+        others[name] = {"train_step_clips_s": SMALL_VID_BATCH / sec, "train_step_ms": 1e3 * sec,
+                        "forward_flops_per_clip": flops,
+                        "mfu": 3 * flops * SMALL_VID_BATCH / sec / PEAK_BF16_FLOPS,
+                        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}
+        del m, st, b
+        torch.cuda.empty_cache()
+    out["c3d_resnet50_3d"] = {"clip": [SMALL_VID_T, SMALL_VID_SIZE, SMALL_VID_SIZE],
+                              "batch": SMALL_VID_BATCH, **others}
+    out["host_cpus"] = os.cpu_count()
+    out["clocks_power"] = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    emit("video_times", **out)
     return out
 
 
@@ -1910,12 +2252,14 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
             "mismatches": sum(r["mismatches"] for r in kernel_vs_plain)}
 
 
-def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str) -> dict:
+def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str, video_root: str) -> dict:
     """`fastvision_tpu_torch.cli.main` in-process over BMP files, on the
     config's worker pools (4 workers, 'process'): train YOLOv3-416 (default
     recipe: mosaic 0.5, hflip, HSV; EMA) for 2 epochs, resume to 3, eval
     --sweep from the checkpoint, train Faster R-CNN-512 for 1 epoch; then
-    train-cls ResNet-50-224 for 1 epoch, --resume to 2, eval --task cls."""
+    train-cls ResNet-50-224 for 1 epoch, --resume to 2, eval --task cls;
+    then train-video SlowFast-R50 (32 x 224) for 1 epoch, --resume to 2,
+    eval --task video with 4 clips a video."""
     from fastvision_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -1980,13 +2324,39 @@ def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str) -> dict:
     torch.cuda.empty_cache()
     cls_res = run("cli_eval_cls", ["eval", "--task", "cls", "--ckpt", cls_ckpt, *cls_common])
     check(0.0 <= cls_res["accuracy"] <= 1.0, f"eval --task cls: {cls_res}")
+
+    vid_ckpt = os.path.join(workdir, "video_ckpt")
+    vid_common = [f"data.data_root={video_root}", "model.backbone=slowfast_resnet50",
+                  f"model.num_classes={VID_CLASSES}", f"data.num_frames={VID_T}",
+                  f"data.input_size={VID_SIZE}", f"data.batch_size={VID_BATCH}",
+                  f"data.eval_clips={VID_EVAL_CLIPS}", f"train.ckpt_dir={vid_ckpt}"]
+    vid_recipe = [f"train.lr={VID_LR}", "train.momentum=0.9", "train.weight_decay=1e-4",
+                  "train.warmup_epochs=0"]
+    fit = run("cli_train_video", ["train-video", "train.epochs=1", *vid_recipe, *vid_common])
+    steps = len(fit.train_loader)
+    check(fit.global_step == steps and fit.train_loader.num_workers == 4
+          and fit.train_loader.worker_backend == "process", "cli train-video")
+    del fit
+    fit = run("cli_train_video_resume", ["train-video", "--resume", "train.epochs=2",
+                                         *vid_recipe, *vid_common])
+    check(fit.start_epoch == 1 and fit.global_step == 2 * steps, "cli train-video --resume")
+    del fit
+    torch.cuda.empty_cache()
+    vid_res = run("cli_eval_video", ["eval", "--task", "video", "--ckpt", vid_ckpt, *vid_common])
+    check(0.0 <= vid_res["accuracy"] <= 1.0 and vid_res["n_clips"] == VID_EVAL_CLIPS,
+          f"eval --task video: {vid_res}")
+    vid_epochs = epochs(vid_ckpt)
+    check(vid_res["accuracy"] == vid_epochs[-1]["accuracy"],
+          f"eval --task video {vid_res} differs from the run's last validation {vid_epochs[-1]}")
+
     cls_epochs = epochs(cls_ckpt)
     yolo_epochs, frcnn_epochs = epochs(ckpt), epochs(frcnn_ckpt)
-    check(all(np.isfinite(r["train_loss"]) for r in yolo_epochs + frcnn_epochs + cls_epochs),
-          "cli losses")
-    cls_tags = ("cli_train_cls", "cli_train_cls_resume", "cli_eval_cls")
-    check(all(r["launches"] > 0 for tag, r in runs.items() if tag not in cls_tags)
-          and all(runs[tag]["launches"] == 0 for tag in cls_tags), f"cli launches {runs}")
+    check(all(np.isfinite(r["train_loss"])
+              for r in yolo_epochs + frcnn_epochs + cls_epochs + vid_epochs), "cli losses")
+    zero_tags = ("cli_train_cls", "cli_train_cls_resume", "cli_eval_cls", "cli_train_video",
+                 "cli_train_video_resume", "cli_eval_video")
+    check(all(r["launches"] > 0 for tag, r in runs.items() if tag not in zero_tags)
+          and all(runs[tag]["launches"] == 0 for tag in zero_tags), f"cli launches {runs}")
     keys = ("epoch", "train_loss", "epoch_img_s")
     emit("cli", card=smi, images_per_split=TRAIN_IMAGES, image_hw=[list(s) for s in SIZES],
          bmp_write_s=write_s, workers="the config's: num_workers 4, worker_backend 'process'",
@@ -1995,8 +2365,11 @@ def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str) -> dict:
          frcnn_epochs=[{k: r[k] for k in (*keys, "map50", "map")} for r in frcnn_epochs],
          sweep_best=max(rows, key=lambda r: r["map50"]),
          cls_epochs=[{k: r[k] for k in (*keys, "accuracy")} for r in cls_epochs],
-         cls_eval={"accuracy": cls_res["accuracy"], "img_per_sec": cls_res["img_per_sec"]})
-    return {"launches": {tag: r["launches"] for tag, r in runs.items()}, "zero": cls_tags}
+         cls_eval={"accuracy": cls_res["accuracy"], "img_per_sec": cls_res["img_per_sec"]},
+         video_epochs=[{k: r[k] for k in (*keys, "accuracy")} for r in vid_epochs],
+         video_eval={"accuracy": vid_res["accuracy"], "n_clips": vid_res["n_clips"],
+                     "clip_per_sec": vid_res["clip_per_sec"]})
+    return {"launches": {tag: r["launches"] for tag, r in runs.items()}, "zero": zero_tags}
 
 
 def main() -> int:
@@ -2036,10 +2409,15 @@ def main() -> int:
         phase_cls_times(dev, cls, device["smi"], workdir)
         del cls["fit"], cls["batch"]
         torch.cuda.empty_cache()
+        phase_video_card_vs_cpu(dev)
+        video = phase_video_train(dev, workdir)
+        phase_video_times(dev, video, device["smi"])
+        del video["fit"], video["batch"]
+        torch.cuda.empty_cache()
         resume = phase_ckpt_resume(dev, device["smi"], workdir)
         evaluate = phase_evaluate(dev, device["smi"], resume["yolo_ckpt"])
         shutil.rmtree(os.path.join(workdir, "yolo"))
-        cli_run = phase_cli(dev, device["smi"], workdir, cls["root"])
+        cli_run = phase_cli(dev, device["smi"], workdir, cls["root"], video["root"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -2050,11 +2428,13 @@ def main() -> int:
     by_path = {"detector_predict_batch": e2e["launches"], "fit_validation": train["val_launches"],
                "frcnn_eval_step": feval["launches"],
                "frcnn_fit_validation": ftrain["val_launches"],
-               **cls["launches"], **resume["launches"], **evaluate["launches"],
-               **cli_run["launches"]}
-    # classification runs no NMS: its paths are counted, and hold 0 launches
-    zero_paths = sorted([*cls["launches"], *cli_run["zero"]])
-    check(all(by_path[p] == 0 for p in zero_paths), f"classification launched nms: {by_path}")
+               **cls["launches"], **video["launches"], **resume["launches"],
+               **evaluate["launches"], **cli_run["launches"]}
+    # classification and video recognition run no NMS: their paths are
+    # counted, and hold 0 launches
+    zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"]])
+    check(all(by_path[p] == 0 for p in zero_paths),
+          f"classification or video launched nms: {by_path}")
     print(device["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppression_mask", "route": "cuda",

@@ -1,6 +1,6 @@
-"""CLI of the port: train / eval / infer for YOLOv3 and Faster R-CNN, and
-train-cls / eval --task cls for the classification zoo (port of
-fastvision_tpu/cli.py).
+"""CLI of the port: train / eval / infer for YOLOv3 and Faster R-CNN,
+train-cls / eval --task cls for the classification zoo and train-video /
+eval --task video for the video zoo (port of fastvision_tpu/cli.py).
 
     python -m fastvision_tpu_torch train --config cfg.yaml
     python -m fastvision_tpu_torch train --config cfg.yaml --resume
@@ -11,19 +11,26 @@ fastvision_tpu/cli.py).
     python -m fastvision_tpu_torch train-cls model.backbone=resnet50 model.num_classes=1000 \\
         data.input_size=224 data.data_root=imagenet/ [--resume]
     python -m fastvision_tpu_torch eval --task cls --ckpt ckpts/ model.backbone=resnet50 ...
+    python -m fastvision_tpu_torch train-video model.backbone=slowfast_resnet50 \\
+        model.num_classes=400 data.num_frames=32 data.input_size=224 data.data_root=k400/
+    python -m fastvision_tpu_torch eval --task video --ckpt ckpts/ data.eval_clips=4 ...
 
 Config = dataclass tree <- YAML <- dotted overrides (`core.config`); dataset
 descriptors use the reference's flat YAML schema. Every command runs on
 CUDA; ``--device cpu`` runs it on the CPU. The loaders run on the config's
 worker pools (``data.num_workers``, ``data.worker_backend``; 0 is serial).
-``train`` and ``train-cls`` checkpoint into ``train.ckpt_dir`` every epoch,
-and on SIGTERM (``train.preempt_save``) save and stop; ``--resume``
-continues from the newest checkpoint there. ``eval`` / ``infer`` load a
-run's EMA weights when it kept them.
+``train``, ``train-cls`` and ``train-video`` checkpoint into
+``train.ckpt_dir`` every epoch, and on SIGTERM (``train.preempt_save``)
+save and stop; ``--resume`` continues from the newest checkpoint there.
+``eval`` / ``infer`` load a run's EMA weights when it kept them.
 
 Classification data is folder-per-class (``<data_root>/<train_dir>/<class>/
-<image>``); detection data is ``<split>/images`` + ``<split>/labels``.
-Without cv2 the images must be ``.bmp`` files (read with numpy).
+<image>``), video data too, each clip a video file or a directory of
+frames (``data.num_frames`` drawn by ``data.frame_strategy``; ``eval
+--task video`` with ``data.eval_clips`` > 1 scores ``eval_clips``
+windows per video); detection data is ``<split>/images`` +
+``<split>/labels``. Without cv2 the images and frames must be ``.bmp``
+files (read with numpy) and video files cannot be read.
 Subcommands and flags the port does not have yet exit naming their ROADMAP
 item.
 """
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 # ROADMAP Queue 1 items of the JAX package's subcommands that are not ported
-_NOT_PORTED_COMMANDS = {"train-video": 14, "serve": 16, "convert": 11,
+_NOT_PORTED_COMMANDS = {"serve": 16, "convert": 11,
                         "anchors": 2, "export": 16, "generate": 10, "doctor": 10}
 
 
@@ -87,10 +94,10 @@ def _anchors(cfg) -> np.ndarray:
 def _maybe_import_pretrained(cfg, model: torch.nn.Module, task: str = "detect") -> None:
     """Load ``model.pretrained`` (a torch checkpoint in any naming scheme
     that `models.import_torch.state_dict_for_port` routes for ``task``: a
-    detector, a Darknet-53 / VGG16 classifier for a detector's trunk, or a
-    classifier of the zoo) into the fresh model with a shape-filtered
-    partial load: heads of another shape keep their initialisation. Raises
-    when no tensor of the checkpoint fits the model."""
+    detector, a Darknet-53 / VGG16 classifier for a detector's trunk, a
+    classifier of the zoo, or a video model) into the fresh model with a
+    shape-filtered partial load: heads of another shape keep their
+    initialisation. Raises when no tensor of the checkpoint fits the model."""
     if not cfg.model.pretrained:
         return
     from .core.checkpoint import load_torch_state, partial_load
@@ -104,7 +111,7 @@ def _maybe_import_pretrained(cfg, model: torch.nn.Module, task: str = "detect") 
               "degraded")
     loaded, _ = partial_load(model, state_dict_for_port(state, task))
     if not loaded:
-        name = cfg.model.backbone if task == "cls" else cfg.model.name
+        name = cfg.model.name if task == "detect" else cfg.model.backbone
         raise ValueError(f"model.pretrained={cfg.model.pretrained}: no tensor of it matches a "
                          f"name and shape of the {name} model")
 
@@ -118,15 +125,21 @@ def _build_yolo(cfg):
     return model
 
 
-def _build_zoo_model(cfg) -> torch.nn.Module:
-    """A classification zoo model (``model.backbone``: resnet18 ...
-    resnext101_32x8d, vgg11 ... vgg19_bn, darknet53, vit_*_patch16) with
-    ``model.num_classes``, its weights seeded by ``train.seed``."""
-    from .models import classification as zoo
+def _build_zoo_model(cfg, task: str = "cls") -> torch.nn.Module:
+    """A zoo model of ``model.backbone`` with ``model.num_classes``, its
+    weights seeded by ``train.seed``: for ``task='cls'`` a classifier
+    (resnet18 ... resnext101_32x8d, vgg11 ... vgg19_bn, darknet53,
+    vit_*_patch16), for ``'video'`` a video model (c3d, c3d_bn,
+    resnet18_3d ... resnet152_3d, slowfast_resnet18 ...
+    slowfast_resnet152)."""
+    if task == "video":
+        from .models import video as zoo
+    else:
+        from .models import classification as zoo
 
     factory = getattr(zoo, cfg.model.backbone, None)
     if factory is None or not cfg.model.backbone.islower():
-        raise SystemExit(f"unknown cls model {cfg.model.backbone!r} (available: "
+        raise SystemExit(f"unknown {task} model {cfg.model.backbone!r} (available: "
                          f"{[n for n in zoo.__all__ if n.islower()]})")
     kw = {"image_size": cfg.data.input_size} if cfg.model.backbone.startswith("vit") else {}
     return factory(num_classes=cfg.model.num_classes,
@@ -349,6 +362,67 @@ def cmd_train_cls(args, overrides):
     return _run_closing(fit, train_loader, val_loader)
 
 
+def _video_loader(cfg, split: str, train: bool):
+    from .data import VideoClipLoader, VideoFolderDataset
+
+    d = cfg.data
+    return VideoClipLoader(
+        VideoFolderDataset(d.data_root, split, d.categories or None), num_frames=d.num_frames,
+        size=d.input_size, batch_size=d.batch_size, strategy=d.frame_strategy, train=train,
+        num_workers=d.num_workers, worker_backend=d.worker_backend,
+        # eval draws from seed 0 and stays strict, as in the JAX package
+        **({"seed": cfg.train.seed, "on_corrupt": d.on_corrupt} if train else {}))
+
+
+def _video_evaluator(cfg):
+    """``data.eval_clips`` > 1: the multi-clip protocol, else one clip per
+    video (top-1 over the loader's clips), imagenet-standardized."""
+    from .train import classification_evaluator, make_eval_step, video_multiclip_evaluator
+
+    step = make_eval_step(dtype=_dtype(cfg), imagenet=True)
+    if cfg.data.eval_clips > 1:
+        return video_multiclip_evaluator(step, n_clips=cfg.data.eval_clips)
+    return classification_evaluator(step)
+
+
+def cmd_train_video(args, overrides):
+    """Video recognition training (the JAX package's ``train-video``): C3D,
+    the 3D-ResNet or SlowFast over folder-per-class clips of
+    ``data.num_frames`` frames at ``data.input_size``, cross-entropy,
+    imagenet standardization, SGD or Adam with ``warmup_cosine_lr``,
+    validation top-1 as the best-checkpoint metric. -> the finished (or
+    preempted) `train.Fit`."""
+    cfg = _load_config(args, overrides)
+    from .core import MetricLogger, set_random_seeds
+    from .train import Fit, build_optimizer, cross_entropy, make_train_step, warmup_cosine_lr
+
+    set_random_seeds(cfg.train.seed)
+    t, dtype = cfg.train, _dtype(cfg)
+    model = _build_zoo_model(cfg, task="video")
+    _maybe_import_pretrained(cfg, model, task="video")
+
+    def loss_fn(logits, batch):
+        acc = (logits.argmax(dim=-1) == batch["labels"]).float().mean()
+        return cross_entropy(logits.float(), batch["labels"]), {"acc": acc}
+
+    optimizer = build_optimizer(t.optimizer, model, weight_decay=t.weight_decay,
+                                momentum=t.momentum)
+    train_loader = _video_loader(cfg, cfg.data.train_dir, train=True)
+    val_loader = _video_loader(cfg, cfg.data.val_dir, train=False)
+    steps_per_epoch = max(len(train_loader), 1)
+    fit = Fit(
+        model, loss_fn, optimizer, train_loader, val_loader, epochs=t.epochs,
+        schedule=warmup_cosine_lr(t.lr, t.final_lr, t.epochs * steps_per_epoch,
+                                  warmup_steps=t.warmup_epochs * steps_per_epoch),
+        evaluator=_video_evaluator(cfg), ckpt_dir=t.ckpt_dir, logger=MetricLogger(t.ckpt_dir),
+        resume=args.resume, metric_key="accuracy", metric_mode="max", eval_every=t.eval_every,
+        save_every_epoch=t.save_every_epoch,
+        step_fn=make_train_step(loss_fn, dtype, accum_steps=t.microbatch, remat=t.remat,
+                                imagenet=True),
+        preempt_signals=_preempt_signals(cfg), dtype=dtype, device=args.device, seed=t.seed)
+    return _run_closing(fit, train_loader, val_loader)
+
+
 def _detector_from_cfg(cfg, ckpt: str, device):
     from .core.checkpoint import restore_inference_weights
     from .infer import Detector
@@ -366,9 +440,10 @@ def _detector_from_cfg(cfg, ckpt: str, device):
 
 
 def _eval_classifier(cfg, args) -> dict:
-    """``eval --task cls --ckpt dir``: top-1 over the val split of a
-    train-cls run's weights (EMA when it kept them), with the evaluator
-    the train loop uses; prints it with the images/s."""
+    """``eval --task cls|video --ckpt dir``: top-1 over the val split of a
+    train-cls / train-video run's weights (EMA when it kept them), with the
+    evaluator the train loop uses (for video with ``data.eval_clips`` > 1
+    the multi-clip protocol); prints it with the images (clips) per second."""
     import time
 
     from .core.checkpoint import restore_inference_weights
@@ -376,14 +451,17 @@ def _eval_classifier(cfg, args) -> dict:
     from .train import TrainState, classification_evaluator, make_eval_step
 
     if not args.ckpt:
-        raise SystemExit("eval --task cls needs --ckpt")
-    model = _build_zoo_model(cfg)
+        raise SystemExit(f"eval --task {args.task} needs --ckpt")
+    model = _build_zoo_model(cfg, args.task)
     restore_inference_weights(args.ckpt, model)
     d = cfg.data
-    loader = ClassificationLoader(
-        ClassificationDataset(d.data_root, d.val_dir, d.categories or None), d.input_size,
-        d.batch_size, train=False, num_workers=d.num_workers, worker_backend=d.worker_backend)
-    evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True))
+    if args.task == "video":
+        loader, evaluate = _video_loader(cfg, d.val_dir, train=False), _video_evaluator(cfg)
+    else:
+        loader = ClassificationLoader(
+            ClassificationDataset(d.data_root, d.val_dir, d.categories or None), d.input_size,
+            d.batch_size, train=False, num_workers=d.num_workers, worker_backend=d.worker_backend)
+        evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True))
     state = TrainState.create(model, None, args.device)
     try:
         t0 = time.perf_counter()
@@ -391,21 +469,20 @@ def _eval_classifier(cfg, args) -> dict:
         dt = time.perf_counter() - t0
     finally:
         loader.close()
-    n = len(loader.ds)
-    res["img_per_sec"] = n / dt
-    print(f"top-1 accuracy {res['accuracy']:.4f}  ({n} imgs, {n / dt:.1f} img/s)")
+    n, unit = len(loader.ds) * res.get("n_clips", 1), "clip" if args.task == "video" else "img"
+    res[f"{unit}_per_sec"] = n / dt
+    extra = f" ({res['n_clips']}-clip protocol)" if "n_clips" in res else ""
+    print(f"top-1 accuracy {res['accuracy']:.4f}{extra}  ({n} {unit}s, {n / dt:.1f} {unit}/s)")
     return res
 
 
 def cmd_eval(args, overrides):
     """-> the evaluate result, or the sweep's rows."""
-    if args.task == "video":
-        raise _exit_not_ported("eval --task video", 14)
     for flag, item in (("int8", 15), ("int8_percentile", 15), ("tta", 6), ("fast_decode", 6)):
         if getattr(args, flag):
             raise _exit_not_ported("--" + flag.replace("_", "-"), item)
     cfg = _load_config(args, overrides)
-    if args.task == "cls":
+    if args.task in ("cls", "video"):
         return _eval_classifier(cfg, args)
     from .data import DetectionDataset
     from .infer.predictor import REFERENCE_SWEEP
@@ -483,7 +560,8 @@ def make_parser() -> argparse.ArgumentParser:
     p = common(sub.add_parser("eval"))
     p.add_argument("--task", choices=["detect", "cls", "video"], default="detect",
                    help="detect: mAP over a detection val split (default); cls: top-1 "
-                        "accuracy over a folder-per-class val split; video: not ported")
+                        "accuracy over a folder-per-class val split; video: top-1 over a "
+                        "folder-per-class split of clips (data.eval_clips windows per clip)")
     p.add_argument("--ckpt", default="")
     p.add_argument("--metric-file", default="")
     p.add_argument("--max-images", type=int, default=None)
@@ -552,8 +630,8 @@ def main(argv=None):
     overrides = [o for o in overrides if "=" in o]
     if args.cmd in _NOT_PORTED_COMMANDS:
         raise _exit_not_ported(f"the {args.cmd!r} subcommand", _NOT_PORTED_COMMANDS[args.cmd])
-    return {"train": cmd_train, "train-cls": cmd_train_cls, "eval": cmd_eval,
-            "infer": cmd_infer}[args.cmd](args, overrides)
+    return {"train": cmd_train, "train-cls": cmd_train_cls, "train-video": cmd_train_video,
+            "eval": cmd_eval, "infer": cmd_infer}[args.cmd](args, overrides)
 
 
 if __name__ == "__main__":

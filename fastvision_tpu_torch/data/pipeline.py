@@ -42,12 +42,13 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 def normalize_images(images: torch.Tensor, dtype=torch.float32,
                      imagenet: bool = False) -> torch.Tensor:
-    """uint8 (or float pixel) NHWC [B, H, W, 3] -> ``dtype`` in [0, 1],
-    optionally imagenet-standardized. Casts first, then divides in
-    ``dtype``, as the JAX package does."""
-    if images.ndim != 4 or images.shape[-1] != 3:
-        raise ValueError(
-            f"normalize_images expects RGB NHWC [B, H, W, 3], got {tuple(images.shape)}")
+    """uint8 (or float pixel) NHWC images [B, H, W, 3] or NDHWC clips
+    [B, T, H, W, 3] -> ``dtype`` in [0, 1], optionally imagenet-standardized
+    over the last axis. Casts first, then divides in ``dtype``, as the JAX
+    package does."""
+    if images.ndim not in (4, 5) or images.shape[-1] != 3:
+        raise ValueError("normalize_images expects RGB NHWC [B, H, W, 3] or NDHWC "
+                         f"[B, T, H, W, 3], got {tuple(images.shape)}")
     x = images.to(dtype) / 255.0
     if imagenet:
         mean = torch.as_tensor(IMAGENET_MEAN).to(x.device, dtype)

@@ -17,9 +17,11 @@ default, and the host only accumulates the correct-matrices.
 data pass: each batch is uploaded and run through the model once, and every
 grid point runs its NMS on the device-resident predictions.
 
+`VideoClassifier` classifies clips with a model of the video zoo.
+
 Not ported yet: multi_label NMS, packed-I420 input, device letterbox,
-fast_decode, TTA, the reference_demo postprocess (ROADMAP Queue 1, item 6),
-quantize (item 15) and video.
+fast_decode, TTA, the reference_demo postprocess (ROADMAP Queue 1, item 6)
+and quantize (item 15).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.dataset import IMG_EXTS
+from ..data.dataset import IMG_EXTS, resize_bilinear
 from ..data.pipeline import (
     DetectionLoader,
     _not_ported,
@@ -40,6 +42,7 @@ from ..data.pipeline import (
     prefetch_to_device,
 )
 from ..device import resolve_device
+from ..nn.layers import memory_format_for
 from ..ops.box import xywhn2xyxy
 from ..ops.map import MeanAveragePrecision, match_predictions_device
 from ..ops.nms import Detections, batched_non_max_suppression, class_offset_for
@@ -141,7 +144,7 @@ class Detector:
             raise ValueError(f"postprocess_mode must be 'standard' or 'reference_demo', "
                              f"got {postprocess_mode!r}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device, memory_format=torch.channels_last).eval()
+        self.model = model.to(self.device, memory_format=memory_format_for(model)).eval()
         self.anchors = torch.as_tensor(np.asarray(anchors, np.float32), device=self.device)
         self.input_size = input_size
         self.strides = tuple(strides)
@@ -369,3 +372,54 @@ class Detector:
                 _write_metric_rows(metric_file, f"sweep input_size {self.input_size} "
                                                 f"conf_thres {conf} iou_thres {iou}", r)
         return results
+
+
+class VideoClassifier:
+    """Clip-level video recognition with a model of the video zoo (C3D,
+    3D-ResNet, SlowFast) that already holds its weights.
+
+    >>> vc = VideoClassifier(model, num_frames=32, size=224, class_names=names)
+    >>> vc.predict_clip(frames)  # {'class', 'prob', 'probs'}
+
+    The model is moved to ``device`` (None: CUDA, raising without a card)
+    in ``channels_last_3d`` memory and set to eval mode. A clip's frames
+    are resized to ``size`` with `resize_bilinear`; the device normalizes
+    (imagenet by default), runs the model under ``dtype`` autocast and
+    takes the softmax in float32."""
+
+    def __init__(self, model: nn.Module, num_frames: int = 16, size: int = 112,
+                 strategy: str = "average", class_names: Sequence[str] | None = None,
+                 normalize: str = "imagenet", dtype: torch.dtype = torch.bfloat16,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device, memory_format=memory_format_for(model)).eval()
+        self.num_frames = num_frames
+        self.size = size
+        self.strategy = strategy
+        self.class_names = list(class_names) if class_names else None
+        self.imagenet = normalize == "imagenet"
+        self.dtype = dtype
+
+    @torch.inference_mode()
+    def probabilities(self, clips_u8: torch.Tensor) -> torch.Tensor:
+        """Device uint8 clips [B, T, S, S, 3] -> float32 softmax [B, C]."""
+        x = normalize_images(clips_u8, self.dtype, imagenet=self.imagenet)
+        with torch.autocast(self.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            logits = self.model(x)
+        return torch.softmax(logits.float(), dim=-1)
+
+    def predict_clip(self, clip: np.ndarray) -> dict:
+        """clip: [T, H, W, 3] uint8 -> {'class', 'prob', 'probs'}."""
+        frames = np.stack([resize_bilinear(f, self.size, self.size) for f in clip])
+        probs = self.probabilities(torch.from_numpy(frames[None]).to(self.device))[0].cpu().numpy()
+        idx = int(np.argmax(probs))
+        return {"class": self.class_names[idx] if self.class_names else idx,
+                "prob": float(probs[idx]), "probs": probs}
+
+    def predict_video(self, path: str, rng: np.random.Generator | None = None) -> dict:
+        """A video file (decoded with cv2; ``data.video_sampler.load_clip``)
+        -> `predict_clip` of ``num_frames`` frames drawn by ``strategy``."""
+        from ..data.video_sampler import load_clip
+
+        return self.predict_clip(load_clip(path, self.num_frames, self.strategy, self.size, rng))

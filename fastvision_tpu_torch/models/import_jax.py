@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's flax variables -> this port's
-state_dicts, for YOLOv3, Faster R-CNN and the classification zoo (ResNet /
-ResNeXt, VGG with its top, the Darknet-53 classifier, ViT).
+state_dicts, for YOLOv3, Faster R-CNN, the classification zoo (ResNet /
+ResNeXt, VGG with its top, the Darknet-53 classifier, ViT) and the video
+zoo (C3D, the 3D-ResNet, SlowFast).
 
 Takes the variables as nested dicts of numpy arrays (what
 ``jax.device_get(variables)`` returns), so this module needs no JAX. The
@@ -15,7 +16,12 @@ mapping is the inverse of ``fastvision_tpu/models/import_torch.py``:
     packages, so their rows need no re-interleave;
   - ViT attention: flax's q / k / v kernels [dim, heads, head_dim] -> one
     ``qkv`` weight [3 dim, dim], its out kernel [heads, head_dim, dim] ->
-    ``proj`` [dim, dim].
+    ``proj`` [dim, dim];
+  - video: conv kernels DHWIO -> OIDHW (``transpose(4, 3, 0, 1, 2)``), a
+    ConvBN3D's ``bn/{scale,bias}`` and ``bn/{mean,var}`` -> the BN's
+    weights and running statistics, under the reference's names (see
+    `models.video`). C3D's fc6 rows are re-interleaved from the JAX
+    package's (t, h, w, c) flatten to the port's (c, t, h, w).
 
 Depths are read from the variables, so shallow nets bridge too.
 """
@@ -200,4 +206,99 @@ def vit_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     norm("norm", p["norm"])
     if "head" in p:
         _dense(out, "head", p["head"])
+    return out
+
+
+def _conv3d(out: dict, prefix: str, conv: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(np.transpose(conv["kernel"], (4, 3, 0, 1, 2)))
+    if "bias" in conv:
+        out[f"{prefix}.bias"] = _t(conv["bias"])
+
+
+def _bn3d(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(params["scale"])
+    out[f"{prefix}.bias"] = _t(params["bias"])
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _convbn3d(out: dict, conv: str, bn: str, params: Mapping, stats: Mapping) -> None:
+    """A JAX ConvBN3D -> separate ``conv`` / ``bn`` names."""
+    _conv3d(out, conv, params["conv"])
+    _bn3d(out, bn, params["bn"], stats["bn"])
+
+
+def c3d_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``C3D`` (``c3d`` or ``c3d_bn``) -> a state_dict
+    for this port's ``C3D``."""
+    from .video.c3d import PLAN
+
+    p, s = variables["params"], variables.get("batch_stats", {})
+    bn = "bn" in p["conv1a"]
+    names = iter(["conv1a", "conv2a", "conv3a", "conv3b", "conv4a", "conv4b", "conv5a", "conv5b"])
+    out: dict[str, torch.Tensor] = {}
+    for li, (widths, _, _) in enumerate(PLAN, start=1):
+        n = 0
+        for _ in widths:  # conv [, BN], ReLU per conv in the layer's Sequential
+            name = next(names)
+            _conv3d(out, f"layer{li}.{n}.conv", p[name]["conv"])
+            if bn:
+                _bn3d(out, f"layer{li}.{n + 1}", p[name]["bn"], s[name]["bn"])
+            n += 3 if bn else 2
+    k6 = np.asarray(p["fc6"]["kernel"])  # [(t, h, w, c), out]
+    w6 = k6.T.reshape(-1, 1, 4, 4, 512).transpose(0, 4, 1, 2, 3)
+    out["classifier.0.weight"] = _t(w6.reshape(w6.shape[0], -1))
+    out["classifier.0.bias"] = _t(p["fc6"]["bias"])
+    _dense(out, "classifier.3", p["fc7"])
+    _dense(out, "classifier.6", p["fc8"])
+    return out
+
+
+def resnet3d_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``ResNet3D`` -> a state_dict for this port's
+    ``ResNet3D`` in the reference's names."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict[str, torch.Tensor] = {}
+    _convbn3d(out, "conv1.0", "conv1.1", p["stem"], s["stem"])
+    for i in range(1, 5):
+        j = 0
+        while f"stage{i}_block{j}" in p:
+            blk, pre = f"stage{i}_block{j}", f"res{i + 1}.{j}"
+            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("conv2_spatial", "bn2_spatial"),
+                             ("conv2_temporal", "bn2_temporal"), ("conv3", "bn3")):
+                if conv in p[blk]:
+                    _convbn3d(out, f"{pre}.{conv}", f"{pre}.{bn}", p[blk][conv], s[blk][conv])
+            if "downsample" in p[blk]:
+                _convbn3d(out, f"{pre}.downsample.0", f"{pre}.downsample.1",
+                          p[blk]["downsample"], s[blk]["downsample"])
+            j += 1
+    _dense(out, "fc", p["fc"])
+    return out
+
+
+def slowfast_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Variables of the JAX ``SlowFast`` -> a state_dict for this port's
+    ``SlowFast`` in the reference's names."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict[str, torch.Tensor] = {}
+    for ours in ("slow", "fast"):
+        path = f"{ours}_pathway"
+        _convbn3d(out, f"{path}.conv1.0", f"{path}.conv1.1", p[f"{ours}_stem"], s[f"{ours}_stem"])
+        for i in range(1, 5):
+            j = 0
+            while f"{ours}_s{i}_b{j}" in p:
+                blk, pre = f"{ours}_s{i}_b{j}", f"{path}.res{i + 1}.{j}"
+                for k in (1, 2, 3):
+                    _convbn3d(out, f"{pre}.conv{k}.conv", f"{pre}.bn{k}", p[blk][f"conv{k}"],
+                              s[blk][f"conv{k}"])
+                if "downsample" in p[blk]:
+                    _convbn3d(out, f"{pre}.downsample.0.conv", f"{pre}.downsample.1",
+                              p[blk]["downsample"], s[blk]["downsample"])
+                j += 1
+    for ours, ref in (("lateral_stem", "lateral_pool1"), ("lateral_s1", "lateral_res2"),
+                      ("lateral_s2", "lateral_res3"), ("lateral_s3", "lateral_res4")):
+        if ours in p:
+            _conv3d(out, f"fast_pathway.{ref}.conv", p[ours]["conv"])
+    _dense(out, "fc", p["fc"])
     return out

@@ -1,7 +1,7 @@
 """Reference-checkpoint import into the port's models (the port's
 counterpart of fastvision_tpu/models/import_torch.py): `state_dict_for_port`
-routes a checkpoint by its key scheme, for a detector (``task='detect'``)
-or a classifier (``task='cls'``).
+routes a checkpoint by its key scheme, for a detector (``task='detect'``),
+a classifier (``task='cls'``) or a video model (``task='video'``).
 
 Detectors: backbone classifiers (a reference Darknet-53, a torchvision or
 reference VGG16) map onto the detectors' trunks, and a reference Faster
@@ -11,6 +11,10 @@ reference ResNet (``conv1.{0,1}``, ``res2..res5``) is renamed to
 torchvision's, and a torchvision or reference VGG to the port's ``conv{i}``
 / ``fc{1,2,3}``, fc1's input columns re-interleaved from the torch (C, 7, 7)
 flatten to the port's (7, 7, C).
+
+Video models: the port's 3D-ResNet and SlowFast use the reference's names
+and load its checkpoints as they are; a reference C3D's convs are taken in
+order within each ``layer{i}`` (``c3d_state_dict_from_reference``).
 
 Use a reference Faster R-CNN with ``FasterRCNN(reference_compat=True)``. Its mapping:
 
@@ -150,11 +154,46 @@ def resnet_state_dict_from_reference(torch_state: Mapping[str, Any]) -> dict[str
     return out
 
 
+def c3d_state_dict_from_reference(torch_state: Mapping[str, Any],
+                                  batch_norm: bool) -> dict[str, torch.Tensor]:
+    """A reference C3D (``layer{1..5}.{n}.conv`` convs, a BatchNorm3d right
+    after each in ``c3d_bn``, ``classifier.{0,3,6}``) -> the port's ``C3D``
+    (``c3d_bn`` with ``batch_norm``): each layer's convs in order to the
+    port's Sequential positions. A conv bias before BN is folded into the
+    BN's running mean (BN(x + b) == BN'(x) with mean' = mean - b), as the
+    JAX package's importer does: the port's BN convs have no bias. The
+    classifier reads the same (c, t, h, w) flatten and passes as it is."""
+    s = _numpy(torch_state)
+    out: dict[str, torch.Tensor] = {}
+    for li in range(1, 6):
+        convs = sorted(int(k.split(".")[1]) for k in s
+                       if k.startswith(f"layer{li}.") and k.endswith(".conv.weight"))
+        for i, n in enumerate(convs):
+            m = 3 * i if batch_norm else 2 * i  # conv [, BN], ReLU per conv in the port
+            out[f"layer{li}.{m}.conv.weight"] = _t(s[f"layer{li}.{n}.conv.weight"])
+            bias = s.get(f"layer{li}.{n}.conv.bias")
+            bn = f"layer{li}.{n + 1}"
+            if batch_norm:
+                for name in ("weight", "bias", "running_mean", "running_var"):
+                    out[f"layer{li}.{m + 1}.{name}"] = _t(s[f"{bn}.{name}"])
+                if f"{bn}.num_batches_tracked" in s:
+                    out[f"layer{li}.{m + 1}.num_batches_tracked"] = torch.as_tensor(
+                        s[f"{bn}.num_batches_tracked"])
+                if bias is not None:
+                    out[f"layer{li}.{m + 1}.running_mean"] -= _t(bias)
+            elif bias is not None:
+                out[f"layer{li}.{m}.conv.bias"] = _t(bias)
+    for k in ("0", "3", "6"):
+        for name in ("weight", "bias"):
+            out[f"classifier.{k}.{name}"] = _t(s[f"classifier.{k}.{name}"])
+    return out
+
+
 def state_dict_for_port(torch_state: Mapping[str, Any],
                         task: str = "detect") -> dict[str, torch.Tensor]:
     """Route a torch checkpoint to the port's names by its key scheme (the
-    JAX package's ``detect_and_import``) for a detector (``task='detect'``)
-    or a classifier (``'cls'``).
+    JAX package's ``detect_and_import``) for a detector (``task='detect'``),
+    a classifier (``'cls'``) or a video model (``'video'``).
 
     detect: the reference demo's YOLOv3 naming, which is the port's own,
     and the port's Faster R-CNN pass as they are; a reference Faster R-CNN,
@@ -162,8 +201,20 @@ def state_dict_for_port(torch_state: Mapping[str, Any],
     are renamed. Raises ValueError, with the first keys, on any other scheme.
     cls: a reference ResNet and a torchvision or reference VGG are renamed;
     anything else (torchvision ResNet / ResNeXt, the reference Darknet-53,
-    the port's own checkpoints) passes as it is."""
+    the port's own checkpoints) passes as it is.
+    video: a SlowFast (``fast_pathway.conv1.0``) or 3D-ResNet (a 5-D
+    ``conv1.0``), the reference's or the port's, passes as it is; a C3D
+    (a 5-D ``layer1.0.conv``) is renamed for ``c3d_bn`` when it has BN
+    layers, else for ``c3d``. Raises ValueError on any other scheme."""
     s = torch_state
+    if task == "video":
+        if "fast_pathway.conv1.0.weight" in s or (
+                "conv1.0.weight" in s and s["conv1.0.weight"].ndim == 5):
+            return {k: torch.as_tensor(v) for k, v in s.items()}
+        if "layer1.0.conv.weight" in s and s["layer1.0.conv.weight"].ndim == 5:
+            return c3d_state_dict_from_reference(s, "layer1.1.running_mean" in s)
+        raise ValueError("unrecognized video checkpoint naming scheme; first keys: "
+                         f"{sorted(s)[:6]}")
     if task == "cls":
         if "conv1.0.weight" in s:
             return resnet_state_dict_from_reference(s)

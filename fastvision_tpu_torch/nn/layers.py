@@ -1,8 +1,10 @@
 """NN building blocks: conv + BN + activation (port of fastvision_tpu/nn/layers.py).
 
-The modules work on NCHW tensors, as torch modules do; the detector keeps
-them in ``channels_last`` memory, which is NHWC in memory and the layout
-cuDNN prefers on Hopper. Conventions carried over from the JAX package:
+The modules work on NCHW tensors (NCDHW for the video zoo's), as torch
+modules do; the entry points keep them in ``channels_last`` memory
+(``channels_last_3d`` for a model with 3-D convs, `memory_format_for`),
+which is NHWC (NDHWC) in memory and the layout cuDNN prefers on Hopper.
+Conventions carried over from the JAX package:
 
   - symmetric ``k // 2`` padding (at stride 2 this is torch's own pad=1 and
     not XLA's right-biased SAME, so imported weights stay exact);
@@ -33,19 +35,26 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d with the JAX package's defaults (eps 1e-5; momentum 0.1
-    in torch's new-fraction convention == flax's 0.9) and flax's running
-    statistics. Statistics stay float32 under autocast.
+def memory_format_for(model: nn.Module) -> torch.memory_format:
+    """The memory format an entry point moves ``model`` into: ``channels_last_3d``
+    when it has a 5-D (Conv3d) weight, ``channels_last`` otherwise (torch
+    refuses ``channels_last`` on a 5-D tensor)."""
+    if any(p.dim() == 5 for p in model.parameters()):
+        return torch.channels_last_3d
+    return torch.channels_last
+
+
+class _FlaxRunningStats:
+    """The forward of `BatchNorm` and `BatchNorm3d`: JAX package defaults
+    (eps 1e-5; momentum 0.1 in torch's new-fraction convention == flax's
+    0.9) and flax's running statistics. Statistics stay float32 under
+    autocast.
 
     In train mode the batch is normalized with its own (biased) statistics,
     as torch and flax both do, and the running statistics move by
     ``new = (1 - momentum) * old + momentum * batch`` with the BIASED batch
     variance, as flax does; torch alone folds in the unbiased one
-    (n / (n - 1) larger, n = B * H * W)."""
-
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
-        super().__init__(num_features, eps=eps, momentum=momentum)
+    (n / (n - 1) larger, n = B * H * W, or B * T * H * W)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -63,6 +72,21 @@ class BatchNorm(nn.BatchNorm2d):
             # (1 - m) * old + m * biased == var * (n - 1) / n + old * (1 - m) / n
             self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
         return y
+
+
+class BatchNorm(_FlaxRunningStats, nn.BatchNorm2d):
+    """BatchNorm2d with the JAX package's defaults and running statistics
+    (`_FlaxRunningStats`)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    """BatchNorm3d over NCDHW clips, as `BatchNorm` (the video zoo's)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
 
 class ConvBN(nn.Module):
@@ -150,13 +174,14 @@ def init_weights_(module: nn.Module, generator: torch.Generator | None = None,
     fan_out, normal)``), `Dense` he-normal fan_in, other convs and linears
     lecun-normal (flax's default for ``Conv`` and ``Dense``: truncated
     normal, variance 1 / fan_in), biases 0, BN scale 1, shift 0, running
-    statistics reset."""
+    statistics reset. 3-D convs and BN are treated as 2-D ones."""
+    convs = (nn.Conv2d, nn.Conv3d)
     convbn_convs = {id(m.conv) for m in module.modules() if isinstance(m, ConvBN)}
     if he_convs:
-        convbn_convs |= {id(m) for m in module.modules() if isinstance(m, nn.Conv2d)}
+        convbn_convs |= {id(m) for m in module.modules() if isinstance(m, convs)}
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (*convs, nn.Linear)):
                 if isinstance(m, Dense):
                     nn.init.kaiming_normal_(m.weight, mode="fan_in", nonlinearity="relu",
                                             generator=generator)
@@ -170,6 +195,6 @@ def init_weights_(module: nn.Module, generator: torch.Generator | None = None,
                                    generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                 m.reset_parameters()
     return module

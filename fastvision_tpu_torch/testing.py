@@ -14,7 +14,9 @@ validate on where no image files can be written or decoded (no cv2);
 `write_detection_dataset` writes its samples to disk as ``.bmp`` files,
 which the port reads without cv2, in the layout `DetectionDataset` reads.
 `write_classification_dataset` writes a folder-per-class ``.bmp`` tree,
-the layout `ClassificationDataset` reads.
+the layout `ClassificationDataset` reads; `write_video_dataset` a
+folder-per-class tree of clips stored as directories of ``.bmp`` frames,
+the layout `VideoFolderDataset` reads.
 """
 from __future__ import annotations
 
@@ -199,6 +201,34 @@ def write_classification_dataset(root: str, n: int, num_classes: int = 10,
             noise = rng.integers(0, 128, (h, w, 3))
             write_bmp(os.path.join(root, split, f"class_{c:03d}", f"{split}_{i:06d}.bmp"),
                       (noise + colours[c] // 2).astype(np.uint8))
+    return root
+
+
+def write_video_dataset(root: str, n, num_classes: int = 4, frames: int = 40,
+                        hw: tuple[int, int] = (240, 320), seed: int = 0,
+                        splits=("train", "val")) -> str:
+    """Write ``n`` clips per split (an int, or one count per split) as
+    ``<root>/<split>/class_<c>/<split>_<i>/f<t>.bmp``: clip i of class
+    i % num_classes, ``frames`` frames of ``hw``, each noise over its
+    class's colour with a bright bar that moves across the frames, so that
+    a model can learn the classes. -> root."""
+    from .data.dataset import write_bmp
+
+    counts = (n,) * len(splits) if isinstance(n, int) else tuple(n)
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 192, (num_classes, 3))
+    h, w = hw
+    for split, count in zip(splits, counts):
+        for i in range(count):
+            c = i % num_classes
+            d = os.path.join(root, split, f"class_{c:03d}", f"{split}_{i:06d}")
+            os.makedirs(d, exist_ok=True)
+            clip = rng.integers(0, 64, (frames, h, w, 3), dtype=np.uint8) + colours[c].astype(
+                np.uint8)
+            for t in range(frames):
+                x = (t * w) // frames
+                clip[t, :, x : x + w // 16] = 255
+                write_bmp(os.path.join(d, f"f{t:04d}.bmp"), clip[t])
     return root
 
 

@@ -1,8 +1,14 @@
 """Training: losses, optimizers, schedules, EMA, the mix transform, the train
-/ eval steps and the Fit harness with its detection and classification
-evaluators (names as in fastvision_tpu.train)."""
+/ eval steps and the Fit harness with its detection, classification and
+multi-clip video evaluators (names as in fastvision_tpu.train)."""
 from .ema import ema_update, make_ema_update
-from .fit import Fit, classification_evaluator, detection_evaluator
+from .fit import (
+    Fit,
+    classification_evaluator,
+    detection_evaluator,
+    multiclip_windows,
+    video_multiclip_evaluator,
+)
 from .frcnn_steps import labels_to_pixel_xyxy, make_frcnn_eval_step, make_frcnn_train_step
 from .losses import (
     YOLOv3Loss,
@@ -36,5 +42,5 @@ __all__ = [
     "smooth_labels", "build_optimizer", "decay_mask", "get_lr",
     "set_lr", "SCHEDULES", "PlateauScheduler", "constant_lr", "cosine_lr", "exponential_lr",
     "linear_lr", "step_decay_lr", "warmup_cosine_lr", "TrainState", "device_batch",
-    "make_eval_step", "make_train_step",
+    "make_eval_step", "make_train_step", "multiclip_windows", "video_multiclip_evaluator",
 ]

@@ -401,3 +401,58 @@ def classification_evaluator(eval_step: Callable, mesh=None) -> Callable:
         return {"accuracy": int(correct) / max(total, 1)}
 
     return evaluate
+
+
+def multiclip_windows(total: int, num_frames: int, n_clips: int) -> list[np.ndarray]:
+    """The multi-clip protocol's frame indices for a clip of ``total``
+    frames: ``n_clips`` windows of ``num_frames`` consecutive frames, their
+    starts evenly spaced by ``np.linspace`` over [0, total - num_frames]
+    and rounded; a clip no longer than a window gives ``n_clips`` copies of
+    its frames, the last repeated."""
+    if total <= num_frames:
+        return [np.clip(np.arange(num_frames), 0, max(total - 1, 0))] * n_clips
+    starts = np.round(np.linspace(0, total - num_frames, n_clips)).astype(np.int64)
+    return [s + np.arange(num_frames) for s in starts]
+
+
+def video_multiclip_evaluator(eval_step: Callable, n_clips: int = 4, mesh=None) -> Callable:
+    """Build ``evaluator(state, loader) -> {'accuracy', 'n_clips'}``, the
+    Kinetics-style test protocol: `multiclip_windows` per video, the logits
+    of its windows summed before the argmax.
+
+    ``loader`` is a `data.VideoClipLoader` (train=False): the windows are
+    read on its workers (`VideoClipLoader.windows`) and stream through
+    ``eval_step(state, batch) -> logits`` in batches of its batch size
+    ([bs, T, S, S, 3], one shape: the ragged tail repeats its last clip and
+    is ignored). The logits stay on the device until the end."""
+    if mesh is not None:
+        raise _not_ported("meshes (mesh)", 17)
+
+    def evaluate(state: TrainState, loader) -> dict:
+        ds, bs = loader.ds, loader.batch_size
+        n_videos = len(ds)
+        jobs = [(v, w) for v in range(n_videos)
+                for w in multiclip_windows(ds.clip_length(v), loader.num_frames, n_clips)]
+        labels = np.zeros(n_videos, np.int64)
+        windows = loader.windows(jobs)  # a process pool starts here, in this thread
+
+        def batches():
+            clips = np.empty((bs, loader.num_frames, loader.size, loader.size, 3), np.uint8)
+            real = 0
+            for k, (clip, label) in enumerate(windows):
+                clips[real] = clip
+                labels[jobs[k][0]] = label
+                real += 1
+                if real == bs or k == len(jobs) - 1:
+                    clips[real:] = clips[real - 1]
+                    yield {"images": clips.copy(), "num_real": real}
+                    real = 0
+
+        logits = []
+        for batch in prefetch_to_device(batches(), device=state.device, device_keys=("images",)):
+            logits.append(eval_step(state, batch)[: batch["num_real"]].float())
+        per_video = torch.cat(logits).view(n_videos, n_clips, -1).sum(dim=1)
+        pred = per_video.argmax(dim=-1).cpu().numpy()
+        return {"accuracy": float((pred == labels).mean()), "n_clips": n_clips}
+
+    return evaluate

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.pipeline import normalize_images
 from ..device import resolve_device
+from ..nn.layers import memory_format_for
 from .optim import set_lr
 
 
@@ -47,9 +48,10 @@ class TrainState:
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer,
                device: str | torch.device | None = None) -> "TrainState":
         """Moves ``model`` to ``device`` (None: CUDA, raising without a card)
-        in ``channels_last`` memory, the layout cuDNN prefers; the
-        optimizer keeps its references to the same parameters."""
-        model.to(resolve_device(device), memory_format=torch.channels_last)
+        in ``channels_last`` memory (``channels_last_3d`` for a model with
+        3-D convs), the layout cuDNN prefers; the optimizer keeps its
+        references to the same parameters."""
+        model.to(resolve_device(device), memory_format=memory_format_for(model))
         return cls(model, optimizer)
 
     @property

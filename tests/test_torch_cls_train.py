@@ -251,7 +251,7 @@ def test_fit_best_slot_follows_the_later_validation_metric(tmp_path):
 
 
 # ---------------------------------------------------------------- CLI
-def _small_zoo_model(cfg):
+def _small_zoo_model(cfg, task="cls"):
     return tz.ResNet(tz.BasicBlock, (1, 1, 1, 1), num_classes=cfg.model.num_classes,
                      generator=torch.Generator().manual_seed(cfg.train.seed))
 

@@ -326,13 +326,12 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=match):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
-    for argv, item in ((["serve"], 16), (["train-video"], 14),
+    for argv, item in ((["serve"], 16), (["export", "--task", "video", "--out", "x"], 16),
                        (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
                        (["generate", "--out", "x"], 10),
                        (["convert", "--kind", "coco", "--out", "x"], 11),
                        (["eval", "--tta"], 6), (["eval", "--int8"], 15),
-                       (["eval", "--fast-decode"], 6), (["eval", "--task", "video"], 14),
-                       (["infer", "--source", "a.mp4"], 6)):
+                       (["eval", "--fast-decode"], 6), (["infer", "--source", "a.mp4"], 6)):
         with pytest.raises(SystemExit, match=f"item {item}\\)"):
             cli.main(argv)
     common = [f"data.data_root={root}", "--device", "cpu"]

@@ -610,3 +610,110 @@ def test_cls_loader_process_pool_after_cuda_init_and_evaluator_on_card(tmp_path)
                            .argmax(-1).cpu().numpy()[:b["num_real"]] for b in serial])
     labels = np.concatenate([b["labels"][:b["num_real"]] for b in serial])
     assert len(labels) == 11 and res["accuracy"] == pytest.approx(float((pred == labels).mean()))
+
+
+# ---------------------------------------------------------------- video
+def _small_slowfast(seed=0):
+    from fastvision_tpu_torch.models.video import SlowFast
+
+    return SlowFast((1, 1, 1, 1), num_classes=5, alpha=4, beta_inv=4, expansion=1,
+                    generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("name", ["c3d_bn", "resnet18_3d", "slowfast"])
+def test_video_zoo_forward_on_card_equals_cpu(name):
+    """float32 eval forwards (TF32 off) in channels_last_3d, card vs CPU:
+    max|d| <= 1e-3 * std; C3D at 16 x 32 (the adaptive pool upsamples)."""
+    from fastvision_tpu_torch.models import video as tv
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(1)
+    model, t = {"c3d_bn": lambda: (tv.c3d_bn(num_classes=5, generator=g), 16),
+                "resnet18_3d": lambda: (tv.resnet18_3d(num_classes=5, generator=g), 8),
+                "slowfast": lambda: (_small_slowfast(1), 8)}[name]()
+    model.eval()
+    x = torch.rand(2, t, 32, 32, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = model(x)
+            got = model.to(dev, memory_format=torch.channels_last_3d)(x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert float((got - want).abs().max() / want.std()) <= 1e-3
+
+
+def test_video_train_step_on_card_equals_cpu():
+    """One SGD step of a small SlowFast in float64, card vs CPU, after
+    ``TrainState.create`` placed it in channels_last_3d. Tolerances: loss
+    1e-4 relative, kernels 1e-3 of std, the rest 1e-2."""
+    import copy
+
+    from fastvision_tpu_torch.testing import state_max_rel_diff
+    from fastvision_tpu_torch.train import (
+        TrainState,
+        build_optimizer,
+        cross_entropy,
+        make_train_step,
+    )
+
+    dev = _cuda()
+    model = _small_slowfast().double()
+    cpu_model = copy.deepcopy(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(4)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (4, 8, 32, 32, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 5, 4))}
+    step = make_train_step(lambda lg, b: (cross_entropy(lg, b["labels"]), {}), torch.float64,
+                           imagenet=True)
+    on_card = TrainState.create(model, build_optimizer("sgd", model, momentum=0.9), dev)
+    assert model.fast_pathway.conv1[0].weight.is_contiguous(memory_format=torch.channels_last_3d)
+    on_cpu = TrainState.create(cpu_model, build_optimizer("sgd", cpu_model, momentum=0.9), "cpu")
+    _, m_dev = step(on_card, {k: v.to(dev) for k, v in batch.items()}, 1e-2)
+    _, m_cpu = step(on_cpu, batch, 1e-2)
+    assert float(m_dev["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-4)
+    worst = state_max_rel_diff(model.state_dict(), cpu_model.state_dict(), start)
+    assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst
+
+
+def test_video_loader_process_pool_after_cuda_init_and_multiclip_evaluator_on_card(tmp_path):
+    """A VideoClipLoader's workers forked from a process that holds a CUDA
+    context give the serial loader's bytes; the multi-clip evaluator runs
+    on the card with the clips read on that pool, and its accuracy is the
+    one of the per-clip logits summed by hand."""
+    from fastvision_tpu_torch.data import VideoClipLoader, VideoFolderDataset
+    from fastvision_tpu_torch.testing import write_video_dataset
+    from fastvision_tpu_torch.train import (
+        TrainState,
+        make_eval_step,
+        multiclip_windows,
+        video_multiclip_evaluator,
+    )
+
+    dev = _cuda()
+    torch.zeros(1, device=dev)
+    root = write_video_dataset(str(tmp_path), 5, num_classes=5, frames=12, hw=(40, 48), seed=4,
+                               splits=("val",))
+    ds = VideoFolderDataset(root, "val")
+    serial = list(VideoClipLoader(ds, 8, 32, 2, train=False).epoch(0))
+    pooled_loader = VideoClipLoader(ds, 8, 32, 2, train=False, num_workers=3,
+                                    worker_backend="process")
+    state = TrainState.create(_small_slowfast(2), None, dev)
+    step = make_eval_step(imagenet=True)
+    try:
+        pooled = list(pooled_loader.epoch(0))
+        assert len(pooled) == len(serial) == 3
+        for a, b in zip(pooled, serial):
+            np.testing.assert_array_equal(a["images"], b["images"])
+        res = video_multiclip_evaluator(step, n_clips=3)(state, pooled_loader)
+    finally:
+        pooled_loader.close()
+    sums = []
+    for v in range(len(ds)):
+        clips = np.stack([ds.load_clip(v, 8, "consecutive", 32, None, indices=w)[0]
+                          for w in multiclip_windows(ds.clip_length(v), 8, 3)])
+        sums.append(step(state, {"images": torch.from_numpy(clips).to(dev)}).float().sum(0))
+    pred = torch.stack(sums).argmax(-1).cpu().numpy()
+    labels = np.array([lab for _, lab in ds.samples])
+    assert res == {"accuracy": pytest.approx(float((pred == labels).mean())), "n_clips": 3}
