@@ -8,7 +8,8 @@ exits non-zero before a result is printed:
 
   1. device   the card's name, count and power limit (nvidia-smi);
   2. build    every ``csrc/*.cu`` compiled with nvcc (ptxas register and
-              shared-memory report);
+              shared-memory report) and every ``csrc/*.cpp`` (the JPEG
+              decoder) with the host compiler, all at once;
   3. kernel   each kernel against its plain PyTorch version on the card over
               seeded cases, clustered (trained-like) ones, K up to MAX_K
               included, and the evaluate paths' B = 32, K = 1024 at every
@@ -143,7 +144,30 @@ exits non-zero before a result is printed:
               always), ``evaluate_sweep`` over the reference's 9 points
               and 2 at conf 0.001 against as many per-point ``evaluate``s
               (equal rows), images/s and kernel launches of each;
-  20. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
+  20. codec   the port's image decoder (``data/codec.py``, JPEG through
+              ``csrc/jpeg_decode.cpp``) over the committed corpus in
+              ``tests/torch_codec_fixtures``: every file's decode against the
+              cv2 pixels (or sha256) stored beside it, 0 differing bytes; the
+              progressive, truncated and interlaced files must raise; then
+              ``decode_image`` ms per full-size JPEG (640 x 480 to 1280 x
+              720) on one thread and images/s on 4;
+  21. serve   the serving path: the serving preset's ``Detector`` built by
+              the CLI's ``_detector_from_cfg`` (full-width YOLOv3-416, 80
+              classes, bf16, random weights, batch 8, buckets 1 / 2 / 4,
+              multi-label NMS at conf 0.001 / IoU 0.6) in ``VisionService``
+              behind ``make_server`` on a loopback port: ``warmup`` timed;
+              each full-size JPEG POSTed alone (equal to
+              ``VisionService.predict``); 16 clients x 16 requests at once
+              (requests/s, p50 / p90 / p99, the batches formed; every
+              answer equal, exactly, to its image's answer at the bucket it
+              ran in: a bf16 answer is fixed by the bucket alone); one
+              batch of 8 split into decode, letterbox, upload + device + NMS
+              and JSON; ``/predict_stream`` of 24 images; ``/healthz``; 413
+              for an announced 64 MiB body; the drain (queued requests
+              answered, a late one 503); the NMS kernel bit-equal to its
+              plain version on this path's multi-label inputs (K = 1024),
+              timed, and its launches on each path;
+  22. cli     ``fastvision_tpu_torch.cli.main`` in-process over BMP files
               from ``testing.write_detection_dataset``, on the config's
               worker pools: ``train`` YOLOv3-416 with the default recipe
               (mosaic 0.5, hflip, HSV) for 2 epochs, ``train --resume`` to 3,
@@ -155,7 +179,9 @@ exits non-zero before a result is printed:
               video --ckpt`` with 4 clips a video (its accuracy equal to the
               run's last validation); epoch images/s with decode and
               augmentation, launches per command (0 for the classification
-              and video ones); then the run's total seconds.
+              and video ones); ``python -m fastvision_tpu_torch serve`` as a
+              process on a free port (``/healthz``, one JPEG, SIGTERM: it
+              must drain and exit with 0); then the run's total seconds.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port, with its launches on every path (the classification and video paths
@@ -164,12 +190,15 @@ counted and required at 0: they run no NMS); the last line is {"ok": true,
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -193,6 +222,7 @@ from fastvision_tpu_torch.data import (
     VideoFolderDataset,
     normalize_images,
 )
+from fastvision_tpu_torch.data.codec import decode_image
 from fastvision_tpu_torch.infer import (
     REFERENCE_SWEEP,
     Detector,
@@ -493,8 +523,7 @@ def phase_build() -> None:
     for b in builds:
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
-        report.append({"source": f"csrc/{b.name}.cu", "nvcc_s": round(b.seconds, 3),
-                       "ptxas": ptxas})
+        report.append({"source": b.source, "compile_s": round(b.seconds, 3), "ptxas": ptxas})
     emit("build", seconds=round(time.perf_counter() - t0, 3), builds=report)
 
 
@@ -2252,6 +2281,395 @@ def phase_evaluate(dev: torch.device, smi: str, ckpt_dir: str) -> dict:
             "mismatches": sum(r["mismatches"] for r in kernel_vs_plain)}
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_codec_fixtures")
+SERVE_THREADS, SERVE_PER_THREAD, STREAM_IMAGES = 16, 16, 24
+def codec_fixtures() -> tuple[list[dict], dict]:
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    for e in manifest:
+        with open(os.path.join(FIXTURES, e["file"]), "rb") as f:
+            e["data"] = f.read()
+    with np.load(os.path.join(FIXTURES, "cv2_decodes.npz")) as stored:
+        pixels = {k: stored[k] for k in stored.files}
+    return manifest, pixels
+
+
+def full_size_jpegs() -> list[bytes]:
+    return [e["data"] for e in codec_fixtures()[0] if e["file"].startswith("full_")]
+
+
+def phase_codec(smi: str) -> dict:
+    """The port's decoder against cv2's pixels stored with the corpus (0
+    differing bytes), the files that must raise, then decode_image's time
+    on the full-size JPEGs on one thread and on 4."""
+    manifest, pixels = codec_fixtures()
+    differing, raised, checked = 0, [], 0
+    for e in manifest:
+        if "raises" in e:
+            try:
+                decode_image(e["data"])
+            except ValueError as err:
+                check(e["raises"] in str(err), f"{e['file']}: raised {err!r}")
+                raised.append(e["file"])
+                continue
+            raise SmokeFailure(f"{e['file']} decoded; it must raise {e['raises']!r}")
+        got = decode_image(e["data"])
+        check(list(got.shape) == e["shape"], f"{e['file']}: shape {got.shape} != {e['shape']}")
+        if e["file"] in pixels:
+            differing += int((got != pixels[e["file"]]).sum())
+        check(hashlib.sha256(got.tobytes()).hexdigest() == e["sha256"],
+              f"{e['file']}: the decode's sha256 differs from cv2's")
+        checked += 1
+    check(differing == 0, f"the decoder differs from cv2 in {differing} bytes")
+    full = [e for e in manifest if e["file"].startswith("full_")]
+    times = {}
+    for e in full:
+        decode_image(e["data"])
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = decode_image(e["data"])
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        times[e["file"]] = {"ms": ms, "out_mb_s": out.nbytes / 1e6 / (ms / 1e3),
+                            "in_bytes": len(e["data"])}
+    from concurrent.futures import ThreadPoolExecutor
+
+    datas = [e["data"] for e in full] * 16
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(decode_image, datas[:8]))
+        t0 = time.perf_counter()
+        outs = list(pool.map(decode_image, datas))
+        dt = time.perf_counter() - t0
+    threads4 = {"images": len(datas), "img_s": len(datas) / dt,
+                "out_mb_s": sum(o.nbytes for o in outs) / 1e6 / dt}
+    emit("codec", card=smi, files=len(manifest), checked=checked, differing_bytes=differing,
+         raised=raised, full_size_1_thread=times, full_size_4_threads=threads4,
+         host_cpus=os.cpu_count())
+    return {"differing": differing}
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None, timeout: float = 120):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path, body=body)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_detector(dev: torch.device) -> Detector:
+    """The serving preset's Detector, built by the CLI's own code: full-width
+    YOLOv3-416, 80 classes, bf16, random weights (train.seed 0), batch 8,
+    buckets (1, 2, 4), multi-label NMS at conf 0.001 / IoU 0.6; BN
+    statistics calibrated on the full-size corpus images."""
+    from fastvision_tpu_torch import cli
+
+    args, _ = cli.make_parser().parse_known_args(["serve"])
+    cfg = cli._load_config(args, list(cli.SERVE_PRESET))
+    det = cli._detector_from_cfg(cfg, "", dev, batch_buckets=cli.SERVE_BUCKETS)
+    batch, _ = preprocess_batch([decode_image(b) for b in full_size_jpegs()], INPUT_SIZE)
+    calibrate_bn_(det.model, normalize_images(torch.from_numpy(batch), torch.float32).to(dev))
+    return det
+
+
+def phase_serve(dev: torch.device, smi: str) -> dict:
+    """VisionService + make_server with the serving preset on the card:
+    warmup, sequential and concurrent /predict, one batch's split,
+    /predict_stream, /healthz, 413, the drain; the NMS kernel against its
+    plain version on this path's own multi-label inputs, and its launches
+    on each path."""
+    import base64
+    import http.client
+    import threading
+
+    from fastvision_tpu_torch.infer import VisionService, make_server
+    from fastvision_tpu_torch.ops import multilabel_candidates
+
+    det = serve_detector(dev)
+    check(det.multi_label and det.batch_buckets == (1, 2, 4, 8) and det.conf_thres == 0.001
+          and det.iou_thres == 0.6 and det.dtype == torch.bfloat16, "the serving preset")
+    service = VisionService(det)
+    jpegs = full_size_jpegs()
+    launches: dict = {}
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = suppression_mask_cuda.launches
+        return out, time.perf_counter() - t0
+
+    _, warmup_s = counted("serve_warmup", service.warmup)
+    batches: list[list[bytes]] = []
+    predict_many = service.predict_many
+
+    def recording(payloads):  # the batches the batcher forms
+        batches.append(list(payloads))
+        return predict_many(payloads)
+
+    service.predict_many = recording
+    port = free_port()
+    server = make_server(service, "127.0.0.1", port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        # sequential: each image alone, against VisionService.predict
+        def sequential():
+            out, lat = [], []
+            for b in jpegs:
+                t0 = time.perf_counter()
+                status, body = _http(port, "POST", "/predict", b)
+                lat.append(time.perf_counter() - t0)
+                check(status == 200, f"/predict: {status} {body[:200]}")
+                out.append(json.loads(body))
+            return out, lat
+
+        (seq, seq_lat), _ = counted("serve_sequential", sequential)
+        # each image's answer at each bucket: in bf16 an answer is fixed by
+        # the bucket (batch size) it runs in, whatever shares the batch,
+        # and differs between buckets (other cuDNN algorithms), so every
+        # concurrent answer is held, exactly, to its image's at its bucket
+        ref = {b: [predict_many([j] * b)[0] for j in jpegs] for b in det.batch_buckets}
+        check(seq == ref[1], "a sequential /predict answer differs from VisionService.predict")
+        n_det = [len(r["detection_scores"]) for r in seq]
+        check(min(n_det) > 0, f"no detections: {n_det}")
+        same_as = {(k, b): (k, next(b0 for b0 in det.batch_buckets if ref[b0][k] == ref[b][k]))
+                   for k in range(len(jpegs)) for b in det.batch_buckets}
+
+        # concurrent: SERVE_THREADS clients x SERVE_PER_THREAD requests
+        batches.clear()
+        results: list = []
+        lock = threading.Lock()
+
+        def client(t):
+            for i in range(SERVE_PER_THREAD):
+                k = (t + i) % len(jpegs)
+                t0 = time.perf_counter()
+                status, body = _http(port, "POST", "/predict", jpegs[k])
+                with lock:
+                    results.append((k, status, time.perf_counter() - t0, body))
+
+        def concurrent():
+            threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            check(not any(th.is_alive() for th in threads), "a client thread hangs")
+
+        _, conc_s = counted("serve_concurrent", concurrent)
+        n_req = SERVE_THREADS * SERVE_PER_THREAD
+        check(len(results) == n_req and all(r[1] == 200 for r in results),
+              f"concurrent: {sorted({r[1] for r in results})}")
+        index = {b: k for k, b in enumerate(jpegs)}
+        expected = collections.Counter(
+            same_as[(index[p], next(b for b in det.batch_buckets if b >= len(batch)))]
+            for batch in batches for p in batch)
+        answered: collections.Counter = collections.Counter()
+        for k, _, _, body in results:
+            got = json.loads(body)
+            at = [b for b in det.batch_buckets if ref[b][k] == got]
+            check(at, f"a concurrent answer for image {k} equals its answer at no bucket")
+            answered[same_as[(k, at[0])]] += 1
+        check(answered == expected, f"answers by (image, bucket) {dict(answered)} differ from "
+              f"the batches formed {dict(expected)}")
+        lat = np.array([r[2] for r in results]) * 1e3
+        sizes = [len(b) for b in batches]
+        formed = dict(sorted({b: sizes.count(b) for b in sizes}.items()))
+
+        # one batch of 8 split into its parts (predict_many's own steps)
+        payloads = [jpegs[i % len(jpegs)] for i in range(8)]
+        split = {"decode": [], "letterbox": [], "upload_device_nms": [], "json": []}
+        for _ in range(6):
+            t0 = time.perf_counter()
+            imgs = [decode_image(b) for b in payloads]
+            t1 = time.perf_counter()
+            batch, metas = preprocess_batch(imgs, INPUT_SIZE)
+            t2 = time.perf_counter()
+            d = det.infer(torch.from_numpy(batch).to(dev))
+            boxes, scores, classes, valid = (t.cpu().numpy() for t in d)
+            t3 = time.perf_counter()
+            for i in range(8):
+                v = valid[i]
+                service._to_json({"boxes": scale_coords(boxes[i][v], metas[i]["scale"],
+                                                        metas[i]["pad"], metas[i]["orig_hw"]),
+                                  "scores": scores[i][v], "classes": classes[i][v]})
+            t4 = time.perf_counter()
+            for key, v in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key].append(1e3 * v)
+        split_ms = {k: float(np.median(v[1:])) for k, v in split.items()}
+        u8 = torch.from_numpy(batch).to(dev)
+        split_ms["device_program_alone"] = cuda_ms(lambda: det.infer(u8), reps=10)
+
+        # the kernel against its plain version on this path's inputs
+        pred = det.predecode(u8).float()
+        _, nb, ns, _ = multilabel_candidates(pred, det.conf_thres, class_offset=det.class_offset)
+        nb, ns = nb.contiguous(), ns.contiguous()
+        keep = suppression_mask_cuda(nb, ns, det.iou_thres)
+        want = suppression_mask_plain(nb, ns, det.iou_thres)
+        kernel_mismatches = int((keep != want).sum())
+        check(kernel_mismatches == 0, f"nms kernel vs plain on the serving inputs: {kernel_mismatches}")
+        bound_ms, bound_by, work = nms_bound(nb, ns, keep)
+        prof = device_profile(lambda: suppression_mask_cuda(nb, ns, det.iou_thres), 20)
+        kernel = {
+            "shape": list(ns.shape), "iou_thres": det.iou_thres,
+            "valid": int((ns > float("-inf")).sum()), "kept": int(keep.sum()),
+            "ms": cuda_ms(lambda: suppression_mask_cuda(nb, ns, det.iou_thres), reps=200, warmup=10),
+            "graph_ms": graph_ms(lambda: suppression_mask_cuda(nb, ns, det.iou_thres), reps=200),
+            "device_ms": prof["device_ms"],
+            "plain_ms": cuda_ms(lambda: suppression_mask_plain(nb, ns, det.iou_thres), reps=3,
+                                warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "mismatches": kernel_mismatches, **work}
+        nms_ms = cuda_ms(lambda: det.nms(pred), reps=10)
+        cand_ms = cuda_ms(lambda: multilabel_candidates(pred, det.conf_thres,
+                                                        class_offset=det.class_offset), reps=10)
+
+        # /predict_stream: STREAM_IMAGES images, equal to predict_many per batch
+        stream_payloads = [jpegs[i % len(jpegs)] for i in range(STREAM_IMAGES)]
+        body = "\n".join(json.dumps({"image": base64.b64encode(b).decode()})
+                         for b in stream_payloads).encode()
+        (status, out), stream_s = counted("serve_stream", lambda: _http(
+            port, "POST", "/predict_stream", body))
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+        want_lines = [r for i in range(0, STREAM_IMAGES, det.batch_size)
+                      for r in predict_many(stream_payloads[i:i + det.batch_size])]
+        check(status == 200 and lines == want_lines,
+              f"/predict_stream: {status}, {len(lines)} lines")
+
+        status, health = _http(port, "GET", "/healthz")
+        health = json.loads(health)
+        check(status == 200 and health == {"status": "ok", "warmed_buckets": [1, 2, 4, 8],
+                                           "queue_depth": 0}, f"/healthz {health}")
+
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.putrequest("POST", "/predict")
+        c.putheader("Content-Length", str(64 << 20))  # announced, never sent
+        c.endheaders()
+        r = c.getresponse()
+        too_big = (r.status, json.loads(r.read()))
+        c.close()
+        check(too_big[0] == 413, f"a 64 MiB body: {too_big}")
+
+        # the drain: requests queue behind a busy device, shutdown answers each
+        drain: list = []
+
+        def post(k):
+            status, body = _http(port, "POST", "/predict", jpegs[k % len(jpegs)])
+            with lock:
+                drain.append(status)
+
+        def drain_run():
+            threads = [threading.Thread(target=post, args=(k,)) for k in range(24)]
+            for th in threads:
+                th.start()
+            deadline = time.monotonic() + 5
+            while server.batcher.queue_depth() == 0 and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            depth = server.batcher.queue_depth()
+            drained = server.batcher.shutdown()
+            for th in threads:
+                th.join(120)
+            return depth, drained
+
+        (depth, drained), _ = counted("serve_drain", drain_run)
+        late = _http(port, "POST", "/predict", jpegs[0])[0]
+        after = json.loads(_http(port, "GET", "/healthz")[1])
+        check(drained and depth > 0 and len(drain) == 24 and set(drain) <= {200, 503}
+              and drain.count(200) >= depth and late == 503 and after["status"] == "draining",
+              f"drain: depth {depth}, drained {drained}, answers {drain}, late {late}")
+    finally:
+        server.batcher.shutdown()
+        server.shutdown()
+        server.server_close()
+    check(all(v > 0 for v in launches.values()), f"serving paths without nms launches: {launches}")
+    emit("serve", card=smi, model="YOLOv3-416 full width, 80 classes, bf16, random weights "
+         "(seed 0) with BN statistics from the full-size corpus images",
+         preset={"multi_label": True, "conf_thres": det.conf_thres, "iou_thres": det.iou_thres,
+                 "batch": det.batch_size, "buckets": list(det.batch_buckets),
+                 "max_det": det.max_det},
+         warmup_s=warmup_s, images=[list(decode_image(b).shape) for b in jpegs],
+         sequential={"latency_ms": [1e3 * v for v in seq_lat], "detections": n_det},
+         concurrent={"clients": SERVE_THREADS, "requests": n_req, "seconds": conc_s,
+                     "req_s": n_req / conc_s, "p50_ms": float(np.percentile(lat, 50)),
+                     "p90_ms": float(np.percentile(lat, 90)),
+                     "p99_ms": float(np.percentile(lat, 99)), "batches_formed": formed,
+                     "answers_by_image_bucket": {f"{k}@{b}": n for (k, b), n in
+                                                 sorted(answered.items())},
+                     "distinct_answers_by_bucket": sorted({b for _, b in same_as.values()})},
+         batch8_split_ms=split_ms, nms_multilabel_ms={"total": nms_ms, "candidates": cand_ms},
+         stream={"images": STREAM_IMAGES, "seconds": stream_s, "lines": len(lines)},
+         healthz=health, healthz_after_drain=after,
+         body_cap=too_big, drain={"queued_at_shutdown": depth, "answers": drain, "late": late},
+         kernel=kernel, launches=launches)
+    return {"launches": launches, "kernel": kernel, "mismatches": kernel_mismatches}
+
+
+def cli_serve(ckpt: str, log_path: str) -> dict:
+    """``python -m fastvision_tpu_torch serve --ckpt ...`` as its own
+    process on a free port, its output in ``log_path``: it must answer
+    /healthz (every bucket warmed) and a POSTed JPEG, then drain on SIGTERM
+    and exit with 0."""
+    port = free_port()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "fastvision_tpu_torch", "serve", "--ckpt", ckpt,
+             "--host", "127.0.0.1", "--port", str(port), f"data.input_size={INPUT_SIZE}"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    raise SmokeFailure(f"serve exited early ({proc.returncode}):\n"
+                                       f"{f.read()[-3000:]}")
+            try:
+                status, health = _http(port, "GET", "/healthz", timeout=5)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    with open(log_path) as f:
+                        raise SmokeFailure(f"serve never answered /healthz:\n"
+                                           f"{f.read()[-3000:]}") from None
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        health = json.loads(health)
+        t1 = time.perf_counter()
+        status_post, body = _http(port, "POST", "/predict", full_size_jpegs()[0])
+        post_s = time.perf_counter() - t1
+        answer = json.loads(body)
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        out = f.read()
+    check(status == 200 and health["warmed_buckets"] == [1, 2, 4, 8], f"serve /healthz {health}")
+    check(status_post == 200 and "detection_scores" in answer, f"serve /predict {answer}")
+    check(proc.returncode == 0 and "drained" in out,
+          f"serve after SIGTERM: exit {proc.returncode}\n{out[-3000:]}")
+    return {"up_s": up_s, "post_s": post_s, "exit": proc.returncode,
+            "detections": len(answer["detection_scores"]), "seconds": time.perf_counter() - t0,
+            "log": out.strip().splitlines()[-4:]}
+
+
 def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str, video_root: str) -> dict:
     """`fastvision_tpu_torch.cli.main` in-process over BMP files, on the
     config's worker pools (4 workers, 'process'): train YOLOv3-416 (default
@@ -2349,6 +2767,7 @@ def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str, video_ro
     check(vid_res["accuracy"] == vid_epochs[-1]["accuracy"],
           f"eval --task video {vid_res} differs from the run's last validation {vid_epochs[-1]}")
 
+    serve = cli_serve(ckpt, os.path.join(workdir, "serve.log"))
     cls_epochs = epochs(cls_ckpt)
     yolo_epochs, frcnn_epochs = epochs(ckpt), epochs(frcnn_ckpt)
     check(all(np.isfinite(r["train_loss"])
@@ -2368,7 +2787,8 @@ def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str, video_ro
          cls_eval={"accuracy": cls_res["accuracy"], "img_per_sec": cls_res["img_per_sec"]},
          video_epochs=[{k: r[k] for k in (*keys, "accuracy")} for r in vid_epochs],
          video_eval={"accuracy": vid_res["accuracy"], "n_clips": vid_res["n_clips"],
-                     "clip_per_sec": vid_res["clip_per_sec"]})
+                     "clip_per_sec": vid_res["clip_per_sec"]},
+         serve=serve)
     return {"launches": {tag: r["launches"] for tag, r in runs.items()}, "zero": zero_tags}
 
 
@@ -2417,19 +2837,23 @@ def main() -> int:
         resume = phase_ckpt_resume(dev, device["smi"], workdir)
         evaluate = phase_evaluate(dev, device["smi"], resume["yolo_ckpt"])
         shutil.rmtree(os.path.join(workdir, "yolo"))
+        torch.cuda.empty_cache()
+        codec = phase_codec(device["smi"])
+        serve = phase_serve(dev, device["smi"])
+        torch.cuda.empty_cache()
         cli_run = phase_cli(dev, device["smi"], workdir, cls["root"], video["root"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
 
     main_nms = times["nms_kernel"]["B8_main_path"]
-    regimes = {"yolo_B8_main_path": main_nms, **{
+    regimes = {"yolo_B8_main_path": main_nms, "yolo_serve_multilabel_B8": serve["kernel"], **{
         f"frcnn_{tag}": ftimes["nms_kernel"][tag] for tag in ("rpn_eval", "rpn_train", "head")}}
     by_path = {"detector_predict_batch": e2e["launches"], "fit_validation": train["val_launches"],
                "frcnn_eval_step": feval["launches"],
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
-               **evaluate["launches"], **cli_run["launches"]}
+               **evaluate["launches"], **serve["launches"], **cli_run["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"]])
@@ -2443,7 +2867,8 @@ def main() -> int:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "paths_expected_at_zero": zero_paths,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
-        "mismatches": kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"],
+        "mismatches": (kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"]
+                       + serve["mismatches"]),
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -1,6 +1,7 @@
-"""CLI of the port: train / eval / infer for YOLOv3 and Faster R-CNN,
-train-cls / eval --task cls for the classification zoo and train-video /
-eval --task video for the video zoo (port of fastvision_tpu/cli.py).
+"""CLI of the port: train / eval / infer / serve for YOLOv3 and Faster
+R-CNN, train-cls / eval --task cls for the classification zoo and
+train-video / eval --task video for the video zoo (port of
+fastvision_tpu/cli.py).
 
     python -m fastvision_tpu_torch train --config cfg.yaml
     python -m fastvision_tpu_torch train --config cfg.yaml --resume
@@ -14,6 +15,7 @@ eval --task video for the video zoo (port of fastvision_tpu/cli.py).
     python -m fastvision_tpu_torch train-video model.backbone=slowfast_resnet50 \\
         model.num_classes=400 data.num_frames=32 data.input_size=224 data.data_root=k400/
     python -m fastvision_tpu_torch eval --task video --ckpt ckpts/ data.eval_clips=4 ...
+    python -m fastvision_tpu_torch serve --config cfg.yaml --ckpt ckpts/ --port 8080
 
 Config = dataclass tree <- YAML <- dotted overrides (`core.config`); dataset
 descriptors use the reference's flat YAML schema. Every command runs on
@@ -29,8 +31,13 @@ Classification data is folder-per-class (``<data_root>/<train_dir>/<class>/
 frames (``data.num_frames`` drawn by ``data.frame_strategy``; ``eval
 --task video`` with ``data.eval_clips`` > 1 scores ``eval_clips``
 windows per video); detection data is ``<split>/images`` +
-``<split>/labels``. Without cv2 the images and frames must be ``.bmp``
-files (read with numpy) and video files cannot be read.
+``<split>/labels``. Images and frames are JPEG (baseline), PNG or BMP
+files, read by the port's own decoder (`data.codec`), so no command needs
+cv2 for them; video files need cv2. ``serve`` answers HTTP requests
+(`infer.serving`) with the JAX package's serving preset: multi-label NMS at
+conf 0.001 / IoU 0.6 unless ``nms.*`` is given, batch buckets (1, 2, 4)
+below the batch size, micro-batched concurrent requests; SIGTERM drains
+the queue and exits.
 Subcommands and flags the port does not have yet exit naming their ROADMAP
 item.
 """
@@ -42,8 +49,14 @@ import os
 import numpy as np
 import torch
 
+# the serving preset (the reference's competition recipe, customize_service.py:453),
+# applied ahead of the user's overrides, and the batch sizes serving warms
+# below the batch size, so that a lone request runs a batch of 1
+SERVE_PRESET = ("nms.multi_label=true", "nms.conf_thres=0.001", "nms.iou_thres=0.6")
+SERVE_BUCKETS = (1, 2, 4)
+
 # ROADMAP Queue 1 items of the JAX package's subcommands that are not ported
-_NOT_PORTED_COMMANDS = {"serve": 16, "convert": 11,
+_NOT_PORTED_COMMANDS = {"convert": 11,
                         "anchors": 2, "export": 16, "generate": 10, "doctor": 10}
 
 
@@ -61,7 +74,6 @@ def _check_ported(cfg) -> None:
             (cfg.multihost, "multihost", 17),
             (bool(cfg.data.host_shard), "data.host_shard", 17),
             (cfg.data.i420, "data.i420 (packed YUV 4:2:0 batches)", 6),
-            (cfg.nms.multi_label, "nms.multi_label (multi-label NMS)", 5),
             (bool(cfg.compile_cache), "compile_cache (the JAX package's XLA cache)", 10)):
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
@@ -423,7 +435,7 @@ def cmd_train_video(args, overrides):
     return _run_closing(fit, train_loader, val_loader)
 
 
-def _detector_from_cfg(cfg, ckpt: str, device):
+def _detector_from_cfg(cfg, ckpt: str, device, batch_buckets=()):
     from .core.checkpoint import restore_inference_weights
     from .infer import Detector
 
@@ -436,7 +448,8 @@ def _detector_from_cfg(cfg, ckpt: str, device):
     return Detector(model, _anchors(cfg), input_size=cfg.data.input_size,
                     conf_thres=cfg.nms.conf_thres, iou_thres=cfg.nms.iou_thres,
                     max_det=cfg.nms.max_det, class_names=cfg.data.categories or None,
-                    dtype=_dtype(cfg), device=device)
+                    dtype=_dtype(cfg), multi_label=cfg.nms.multi_label,
+                    batch_buckets=batch_buckets, device=device)
 
 
 def _eval_classifier(cfg, args) -> dict:
@@ -539,6 +552,22 @@ def cmd_infer(args, overrides):
     return results
 
 
+def cmd_serve(args, overrides):
+    """Serve YOLOv3 over HTTP until SIGTERM / SIGINT (`infer.serving.serve`),
+    with `SERVE_PRESET` ahead of the user's overrides (multi-label NMS at
+    conf 0.001 / IoU 0.6) and `SERVE_BUCKETS`."""
+    if args.int8 or args.calib_dir:
+        raise _exit_not_ported("int8 serving (--int8, --calib-dir)", 15)
+    if args.fast_decode:
+        raise _exit_not_ported("--fast-decode", 6)
+    cfg = _load_config(args, [*SERVE_PRESET, *overrides])
+    from .infer.serving import VisionService, serve
+
+    det = _detector_from_cfg(cfg, args.ckpt, args.device, batch_buckets=SERVE_BUCKETS)
+    window = args.batch_window if args.batch_window == "adaptive" else float(args.batch_window)
+    serve(VisionService(det), host=args.host, port=args.port, batch_window_ms=window)
+
+
 def make_parser() -> argparse.ArgumentParser:
     """The JAX package's CLI surface, every subcommand and flag, plus
     ``--device``; unknown key=value arguments are dotted config overrides."""
@@ -587,14 +616,20 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="./outputs")
     p.add_argument("--fast-decode", action="store_true",
                    help="reduced JPEG decode for >=2x oversized images (not ported)")
-    p = common(sub.add_parser("serve"))
+    p = common(sub.add_parser(
+        "serve", help="HTTP serving: POST /predict (an image body), POST /predict_stream "
+                      "(NDJSON), GET /healthz; multi-label NMS at conf 0.001 / IoU 0.6 "
+                      "unless nms.* is given"))
     p.add_argument("--ckpt", default="")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--batch-window", default="adaptive")
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--calib-dir", default="")
-    p.add_argument("--fast-decode", action="store_true")
+    p.add_argument("--batch-window", default="adaptive",
+                   help="'adaptive' (flush after an idle 2 ms, at most 20 ms) or a fixed "
+                        "window in ms")
+    p.add_argument("--int8", action="store_true", help="int8 serving (not ported)")
+    p.add_argument("--calib-dir", default="", help="int8 calibration images (not ported)")
+    p.add_argument("--fast-decode", action="store_true",
+                   help="reduced JPEG decode for >=2x oversized images (not ported)")
     sub.add_parser("doctor", help="environment triage (not ported)")
     p = sub.add_parser("convert")
     p.add_argument("--kind", choices=["coco", "voc"], required=True)
@@ -631,7 +666,7 @@ def main(argv=None):
     if args.cmd in _NOT_PORTED_COMMANDS:
         raise _exit_not_ported(f"the {args.cmd!r} subcommand", _NOT_PORTED_COMMANDS[args.cmd])
     return {"train": cmd_train, "train-cls": cmd_train_cls, "train-video": cmd_train_video,
-            "eval": cmd_eval, "infer": cmd_infer}[args.cmd](args, overrides)
+            "eval": cmd_eval, "infer": cmd_infer, "serve": cmd_serve}[args.cmd](args, overrides)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,799 @@
+// Baseline JPEG decoder: the port's counterpart of cv2.imdecode(...,
+// IMREAD_COLOR) followed by BGR -> RGB (fastvision_tpu/infer/serving.py:39-46,
+// fastvision_tpu/data/dataset.py:28-35), for machines without cv2 or PIL.
+//
+// Host code, not a kernel: it is built with the host compiler
+// (cuda_build.load("jpeg_decode")) and called through ctypes, which releases the
+// GIL, so the loaders' thread backend decodes in parallel.
+//
+// Scope: sequential Huffman JPEG at 8 bits (SOF0, SOF1), 1 or 3
+// components, any integral sampling factors, restart intervals, tables
+// (re)defined anywhere before a scan, 16-bit quantization tables,
+// interleaved and non-interleaved scans, the Adobe APP14 transform flag and
+// the EXIF orientation tag, applied as OpenCV applies it. Everything else
+// (progressive, arithmetic-coded, lossless, 12-bit, CMYK / YCCK) and every
+// truncated or corrupt stream fails with a message; nothing returns a
+// partial image.
+//
+// The pixels are libjpeg-turbo's defaults, bit for bit: the ISLOW integer
+// IDCT (jidctint.c: 13-bit constants, DESCALE rounding; the output clamped
+// as the x86 SIMD build's saturating packs clamp it), "fancy" triangular
+// chroma upsampling (jdsample.c: h2v1, h1v2 and h2v2 with their alternating
+// rounding biases; edge columns and rows replicated, as jdmainct.c's
+// context pointers replicate the first and the last real row; plain
+// replication where libjpeg falls back to it), and the fixed-point
+// YCbCr -> RGB tables of jdcolor.c.
+//
+// C interface (returns 0, or 1 with a message in `err`):
+//   fvj_dims(data, n, dims[2], err, errlen)   -> output height, width
+//   fvj_decode(data, n, out, out_bytes, err, errlen) -> RGB uint8 HWC
+#include <algorithm>
+#include <climits>
+#include <cstdarg>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct DecodeError {
+  std::string msg;
+};
+
+[[noreturn]] void fail(const char* fmt, ...) {
+  char buf[256];
+  va_list ap;
+  va_start(ap, fmt);
+  vsnprintf(buf, sizeof buf, fmt, ap);
+  va_end(ap);
+  throw DecodeError{buf};
+}
+
+constexpr const char* kItem = "(ROADMAP Queue 1, item 11)";
+// the largest image taken: OpenCV's default CV_IO_MAX_IMAGE_PIXELS
+constexpr int64_t kMaxPixels = int64_t(1) << 30;
+
+// zigzag position -> natural (row-major) index; the 16 extra entries absorb
+// a run that overshoots the block, as libjpeg's jpeg_natural_order does
+constexpr int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huffman {
+  bool defined = false;
+  uint16_t fast[512];  // (length << 8) | symbol for codes of <= 9 bits, else 0
+  int32_t maxcode[18];
+  int32_t valoff[17];
+  uint8_t vals[256];
+  int nvals = 0;
+
+  void build(const uint8_t* counts, const uint8_t* symbols, int n, bool dc) {
+    std::memcpy(vals, symbols, n);
+    nvals = n;
+    std::fill(fast, fast + 512, 0);
+    int code = 0, k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      int cnt = counts[len - 1];
+      // the codes must fit in len bits, the all-ones code excluded (jdhuff.c)
+      if (cnt && code + cnt >= (1 << len)) fail("corrupt JPEG data: bad Huffman table");
+      valoff[len] = k - code;
+      for (int i = 0; i < cnt; ++i, ++k, ++code) {
+        if (len <= 9) {
+          for (int j = code << (9 - len); j < (code + 1) << (9 - len); ++j)
+            fast[j] = static_cast<uint16_t>((len << 8) | vals[k]);
+        }
+      }
+      maxcode[len] = cnt ? code - 1 : -1;
+      code <<= 1;
+    }
+    maxcode[17] = INT32_MAX;
+    if (dc)
+      for (int i = 0; i < n; ++i)
+        if (vals[i] > 15) fail("corrupt JPEG data: bad DC Huffman table");
+    defined = true;
+  }
+};
+
+// Entropy-coded data: byte stuffing removed, a marker or the end of the
+// data feeds zero bits, and consuming one of those is a truncation.
+struct Bits {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t acc = 0;
+  int n = 0;    // bits in acc
+  int pad = 0;  // zero bits appended past the data, at the low end of acc
+  bool at_marker = false;
+
+  void fill() {
+    while (n <= 56) {
+      unsigned byte = 0;
+      if (!at_marker && p < end) {
+        if (*p != 0xFF) {
+          byte = *p++;
+        } else if (p + 1 < end && p[1] == 0x00) {
+          byte = 0xFF;
+          p += 2;
+        } else {
+          at_marker = true;  // p stays on the marker's 0xFF
+          pad += 8;
+        }
+      } else {
+        pad += 8;
+      }
+      acc = (acc << 8) | byte;
+      n += 8;
+    }
+  }
+  uint32_t peek(int k) {
+    if (n < k) fill();
+    return static_cast<uint32_t>(acc >> (n - k)) & ((1u << k) - 1);
+  }
+  void skip(int k) {
+    n -= k;
+    if (n < pad) fail("truncated JPEG data: the entropy-coded segment ends early");
+  }
+  int get(int k) {
+    uint32_t v = peek(k);
+    skip(k);
+    return static_cast<int>(v);
+  }
+  void reset(const uint8_t* q) {
+    p = q;
+    acc = 0;
+    n = pad = 0;
+    at_marker = false;
+  }
+};
+
+inline int decode_symbol(Bits& b, const Huffman& h) {
+  uint16_t e = h.fast[b.peek(9)];
+  if (e) {
+    b.skip(e >> 8);
+    return e & 255;
+  }
+  uint32_t code16 = b.peek(16);
+  for (int len = 10; len <= 16; ++len) {
+    int32_t c = static_cast<int32_t>(code16 >> (16 - len));
+    if (c <= h.maxcode[len]) {
+      int i = h.valoff[len] + c;
+      if (i < 0 || i >= h.nvals) break;
+      b.skip(len);
+      return h.vals[i];
+    }
+  }
+  fail("corrupt JPEG data: bad Huffman code");
+}
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int cw = 0, ch = 0;  // downsampled size in samples (libjpeg's downsampled_width/height)
+  int bw = 0, bh = 0;  // blocks per row / column of the MCU-padded grid
+  int td = 0, ta = 0;  // Huffman tables of the current scan
+  int dc_pred = 0;
+  bool coded = false;
+  int16_t qt[64];  // latched at the component's first scan, natural order
+  std::vector<int16_t> coef;
+  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8)
+};
+
+// ---- ISLOW IDCT (jidctint.c) ----
+constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373,
+                  F1_175 = 9633, F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
+                  F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+inline uint8_t clamp_u8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* ip = in + c;
+    const int16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+      int dc = int(int64_t(ip[0]) * qp[0] * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
+    z2 = int64_t(ip[0]) * qp[0];
+    z3 = int64_t(ip[32]) * qp[32];
+    int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = int64_t(ip[56]) * qp[56];
+    tmp1 = int64_t(ip[40]) * qp[40];
+    tmp2 = int64_t(ip[24]) * qp[24];
+    tmp3 = int64_t(ip[8]) * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int s = kConstBits - kPass1Bits;
+    wp[0] = int(descale(tmp10 + tmp3, s));
+    wp[56] = int(descale(tmp10 - tmp3, s));
+    wp[8] = int(descale(tmp11 + tmp2, s));
+    wp[48] = int(descale(tmp11 - tmp2, s));
+    wp[16] = int(descale(tmp12 + tmp1, s));
+    wp[40] = int(descale(tmp12 - tmp1, s));
+    wp[24] = int(descale(tmp13 + tmp0, s));
+    wp[32] = int(descale(tmp13 - tmp0, s));
+  }
+  constexpr int s2 = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
+      uint8_t dc = clamp_u8(int(descale(wp[0], kPass1Bits + 3)) + 128);
+      for (int c = 0; c < 8; ++c) op[c] = dc;
+      continue;
+    }
+    int64_t z2 = wp[2], z3 = wp[6];
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
+    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    op[0] = clamp_u8(int(descale(tmp10 + tmp3, s2)) + 128);
+    op[7] = clamp_u8(int(descale(tmp10 - tmp3, s2)) + 128);
+    op[1] = clamp_u8(int(descale(tmp11 + tmp2, s2)) + 128);
+    op[6] = clamp_u8(int(descale(tmp11 - tmp2, s2)) + 128);
+    op[2] = clamp_u8(int(descale(tmp12 + tmp1, s2)) + 128);
+    op[5] = clamp_u8(int(descale(tmp12 - tmp1, s2)) + 128);
+    op[3] = clamp_u8(int(descale(tmp13 + tmp0, s2)) + 128);
+    op[4] = clamp_u8(int(descale(tmp13 - tmp0, s2)) + 128);
+  }
+}
+
+// ---- YCbCr -> RGB tables (jdcolor.c build_ycc_rgb_table) ----
+struct ColorTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  ColorTables() {
+    auto fix = [](double x) { return static_cast<int64_t>(x * 65536.0 + 0.5); };
+    const int64_t half = int64_t(1) << 15;
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + half) >> 16);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+  }
+};
+
+const ColorTables& color_tables() {
+  static const ColorTables t;
+  return t;
+}
+
+uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* data, size_t n) : data_(data), end_(data + n) {}
+
+  // Parses the markers up to the first scan: size and orientation.
+  void read_header() { parse(true); }
+
+  int out_h() const { return orientation_ >= 5 ? width_ : height_; }
+  int out_w() const { return orientation_ >= 5 ? height_ : width_; }
+
+  void decode(uint8_t* out) {
+    parse(false);
+    for (auto& c : comps_)
+      if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+    std::vector<uint8_t> rgb;
+    bool direct = orientation_ <= 1;
+    uint8_t* dst = out;
+    if (!direct) {
+      rgb.resize(size_t(height_) * width_ * 3);
+      dst = rgb.data();
+    }
+    to_rgb(dst);
+    if (!direct) orient(rgb.data(), out);
+  }
+
+ private:
+  const uint8_t* data_;
+  const uint8_t* end_;
+  const uint8_t* p_ = nullptr;
+  int width_ = 0, height_ = 0;
+  int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int restart_interval_ = 0;
+  int orientation_ = 1;
+  bool jfif_ = false, adobe_ = false;
+  int adobe_transform_ = -1;
+  bool frame_ = false;
+  std::vector<Component> comps_;
+  uint16_t qtables_[4][64];
+  bool qdefined_[4] = {false, false, false, false};
+  Huffman dc_[4], ac_[4];
+
+  void need(const uint8_t* q, size_t k) {
+    if (q > end_ || size_t(end_ - q) < k) fail("truncated JPEG data: a marker segment ends early");
+  }
+
+  // The next marker at or after q (fill bytes and extraneous data skipped).
+  const uint8_t* next_marker(const uint8_t* q) {
+    while (q + 1 < end_) {
+      if (q[0] == 0xFF && q[1] != 0x00 && q[1] != 0xFF) return q;
+      ++q;
+    }
+    return nullptr;
+  }
+
+  void parse(bool header_only) {
+    if (end_ - data_ < 2 || data_[0] != 0xFF || data_[1] != 0xD8) fail("not a JPEG stream");
+    p_ = data_ + 2;
+    for (;;) {
+      const uint8_t* m = next_marker(p_);
+      if (!m) {
+        if (header_only || !frame_) fail("truncated JPEG data: no frame or scan");
+        return;  // the end of the data after the scans: the check of each component decides
+      }
+      int marker = m[1];
+      p_ = m + 2;
+      if (marker == 0xD9) {  // EOI
+        if (!frame_) fail("corrupt JPEG data: EOI before a frame");
+        return;
+      }
+      if (marker >= 0xD0 && marker <= 0xD7) continue;  // stray RSTn
+      if (marker == 0x01) continue;                    // TEM
+      if (marker == 0xD8) fail("corrupt JPEG data: a second SOI");
+      need(p_, 2);
+      int len = be16(p_);
+      if (len < 2) fail("corrupt JPEG data: marker length %d", len);
+      need(p_, len);
+      const uint8_t* seg = p_ + 2;
+      int seg_len = len - 2;
+      p_ += len;
+      switch (marker) {
+        case 0xC0:
+        case 0xC1:
+          read_sof(seg, seg_len);
+          break;
+        case 0xC2:
+        case 0xC6:
+        case 0xCA:
+        case 0xCE:
+          fail("progressive JPEG is not supported %s", kItem);
+        case 0xC3:
+        case 0xC7:
+        case 0xCB:
+        case 0xCF:
+          fail("lossless JPEG is not supported %s", kItem);
+        case 0xC5:
+          fail("hierarchical JPEG is not supported %s", kItem);
+        case 0xC9:
+        case 0xCD:
+        case 0xCC:
+          fail("arithmetic-coded JPEG is not supported %s", kItem);
+        case 0xC4:
+          read_dht(seg, seg_len);
+          break;
+        case 0xDB:
+          read_dqt(seg, seg_len);
+          break;
+        case 0xDD:
+          if (seg_len < 2) fail("corrupt JPEG data: DRI length");
+          restart_interval_ = be16(seg);
+          break;
+        case 0xE0:
+          if (seg_len >= 5 && std::memcmp(seg, "JFIF\0", 5) == 0) jfif_ = true;
+          break;
+        case 0xE1:
+          read_exif(seg, seg_len);
+          break;
+        case 0xEE:
+          if (seg_len >= 12 && std::memcmp(seg, "Adobe", 5) == 0) {
+            adobe_ = true;
+            adobe_transform_ = seg[11];
+          }
+          break;
+        case 0xDA:
+          if (!frame_) fail("corrupt JPEG data: a scan before the frame header");
+          if (header_only) return;
+          read_scan(seg, seg_len);
+          break;
+        case 0xDC:
+          fail("JPEG with a DNL marker is not supported %s", kItem);
+        default:
+          break;  // other APPn, COM, JPGn: skipped
+      }
+    }
+  }
+
+  void read_sof(const uint8_t* s, int n) {
+    if (frame_) fail("corrupt JPEG data: a second frame header");
+    if (n < 6) fail("corrupt JPEG data: SOF length");
+    if (s[0] != 8) fail("%d-bit JPEG is not supported %s", s[0], kItem);
+    height_ = be16(s + 1);
+    width_ = be16(s + 3);
+    int nc = s[5];
+    if (height_ == 0 || width_ == 0) fail("JPEG without a frame height (DNL) is not supported %s", kItem);
+    if (int64_t(width_) * height_ > kMaxPixels)
+      fail("JPEG of %d x %d exceeds %lld pixels", width_, height_, (long long)kMaxPixels);
+    if (nc == 4) fail("CMYK / YCCK JPEG is not supported %s", kItem);
+    if (nc != 1 && nc != 3) fail("JPEG with %d components is not supported %s", nc, kItem);
+    if (n < 6 + 3 * nc) fail("corrupt JPEG data: SOF length");
+    comps_.resize(nc);
+    for (int i = 0; i < nc; ++i) {
+      Component& c = comps_[i];
+      c.id = s[6 + 3 * i];
+      c.h = s[7 + 3 * i] >> 4;
+      c.v = s[7 + 3 * i] & 15;
+      c.tq = s[8 + 3 * i];
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        fail("corrupt JPEG data: component %d sampling %dx%d table %d", c.id, c.h, c.v, c.tq);
+      hmax_ = std::max(hmax_, c.h);
+      vmax_ = std::max(vmax_, c.v);
+    }
+    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
+    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    for (auto& c : comps_) {
+      if (hmax_ % c.h || vmax_ % c.v)
+        fail("JPEG with fractional sampling factors is not supported %s", kItem);
+      c.cw = int((int64_t(width_) * c.h + hmax_ - 1) / hmax_);
+      c.ch = int((int64_t(height_) * c.v + vmax_ - 1) / vmax_);
+      c.bw = mcux_ * c.h;
+      c.bh = mcuy_ * c.v;
+    }
+    frame_ = true;
+  }
+
+  void read_dht(const uint8_t* s, int n) {
+    while (n > 0) {
+      if (n < 17) fail("corrupt JPEG data: DHT length");
+      int tc = s[0] >> 4, th = s[0] & 15;
+      if (tc > 1 || th > 3) fail("corrupt JPEG data: DHT class %d id %d", tc, th);
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += s[1 + i];
+      if (total > 256 || 17 + total > n) fail("corrupt JPEG data: DHT length");
+      (tc ? ac_[th] : dc_[th]).build(s + 1, s + 17, total, tc == 0);
+      s += 17 + total;
+      n -= 17 + total;
+    }
+  }
+
+  void read_dqt(const uint8_t* s, int n) {
+    while (n > 0) {
+      int pq = s[0] >> 4, tq = s[0] & 15;
+      if (pq > 1 || tq > 3) fail("corrupt JPEG data: DQT precision %d id %d", pq, tq);
+      int size = 1 + 64 * (pq + 1);
+      if (n < size) fail("corrupt JPEG data: DQT length");
+      for (int k = 0; k < 64; ++k)
+        qtables_[tq][kNatural[k]] = pq ? be16(s + 1 + 2 * k) : s[1 + k];
+      qdefined_[tq] = true;
+      s += size;
+      n -= size;
+    }
+  }
+
+  // EXIF orientation (APP1 "Exif\0\0", IFD0 tag 0x0112), either byte order.
+  void read_exif(const uint8_t* s, int n) {
+    if (n < 14 || std::memcmp(s, "Exif\0\0", 6) != 0) return;
+    const uint8_t* t = s + 6;
+    int tn = n - 6;
+    bool le;
+    if (t[0] == 'I' && t[1] == 'I') le = true;
+    else if (t[0] == 'M' && t[1] == 'M') le = false;
+    else return;
+    auto u16 = [&](int off) -> int {
+      return le ? t[off] | (t[off + 1] << 8) : (t[off] << 8) | t[off + 1];
+    };
+    auto u32 = [&](int off) -> uint32_t {
+      return le ? uint32_t(t[off]) | (uint32_t(t[off + 1]) << 8) | (uint32_t(t[off + 2]) << 16) |
+                      (uint32_t(t[off + 3]) << 24)
+                : (uint32_t(t[off]) << 24) | (uint32_t(t[off + 1]) << 16) |
+                      (uint32_t(t[off + 2]) << 8) | uint32_t(t[off + 3]);
+    };
+    if (u16(2) != 42) return;
+    uint64_t ifd = u32(4);
+    if (ifd + 2 > uint64_t(tn)) return;
+    int count = u16(int(ifd));
+    for (int i = 0; i < count; ++i) {
+      uint64_t e = ifd + 2 + 12 * uint64_t(i);
+      if (e + 12 > uint64_t(tn)) return;
+      if (u16(int(e)) == 0x0112 && u16(int(e) + 2) == 3) {
+        int o = u16(int(e) + 8);
+        orientation_ = (o >= 1 && o <= 8) ? o : 1;
+        return;
+      }
+    }
+  }
+
+  void decode_block(Bits& b, Component& c, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));
+    const Huffman& dc = dc_[c.td];
+    const Huffman& ac = ac_[c.ta];
+    int s = decode_symbol(b, dc);
+    int64_t pred = int64_t(c.dc_pred) + (s ? extend(b.get(s), s) : 0);
+    if (pred > INT32_MAX || pred < INT32_MIN) fail("corrupt JPEG data: DC coefficient overflows");
+    c.dc_pred = int(pred);
+    blk[0] = static_cast<int16_t>(c.dc_pred);
+    for (int k = 1; k < 64; ++k) {
+      int rs = decode_symbol(b, ac);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(extend(b.get(s), s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  void read_scan(const uint8_t* s, int n) {
+    if (n < 1) fail("corrupt JPEG data: SOS length");
+    int ns = s[0];
+    if (ns < 1 || ns > 4 || n < 4 + 2 * ns) fail("corrupt JPEG data: SOS length");
+    std::vector<Component*> sc;
+    for (int i = 0; i < ns; ++i) {
+      int id = s[1 + 2 * i];
+      Component* c = nullptr;
+      for (auto& cc : comps_)
+        if (cc.id == id) c = &cc;
+      if (!c) fail("corrupt JPEG data: scan names component %d", id);
+      c->td = s[2 + 2 * i] >> 4;
+      c->ta = s[2 + 2 * i] & 15;
+      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined || !ac_[c->ta].defined)
+        fail("corrupt JPEG data: a scan uses an undefined Huffman table");
+      if (!c->coded) {  // the quantization table is latched at the first scan
+        if (!qdefined_[c->tq]) fail("corrupt JPEG data: undefined quantization table %d", c->tq);
+        for (int k = 0; k < 64; ++k) c->qt[k] = static_cast<int16_t>(qtables_[c->tq][k]);
+        c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
+      }
+      c->coded = true;
+      c->dc_pred = 0;
+      sc.push_back(c);
+    }
+    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    if (ss != 0 || se != 63 || ah != 0 || al != 0)
+      fail("corrupt JPEG data: spectral selection %d-%d in a sequential scan", ss, se);
+
+    Bits bits{p_, end_};
+    int64_t total;
+    int nbx = 0;
+    if (ns == 1) {
+      nbx = (sc[0]->cw + 7) / 8;
+      total = int64_t(nbx) * ((sc[0]->ch + 7) / 8);
+    } else {
+      int blocks = 0;
+      for (auto* c : sc) blocks += c->h * c->v;
+      if (blocks > 10) fail("corrupt JPEG data: %d blocks in an MCU", blocks);
+      total = int64_t(mcux_) * mcuy_;
+    }
+    int next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
+        const uint8_t* q = next_marker(bits.p);
+        if (!q || q[1] != 0xD0 + next_rst)
+          fail("corrupt JPEG data: expected restart marker %d", next_rst);
+        bits.reset(q + 2);
+        next_rst = (next_rst + 1) & 7;
+        for (auto* c : sc) c->dc_pred = 0;
+      }
+      if (ns == 1) {
+        Component& c = *sc[0];
+        int by = int(m / nbx), bx = int(m % nbx);
+        decode_block(bits, c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+      } else {
+        int my = int(m / mcux_), mx = int(m % mcux_);
+        for (auto* c : sc)
+          for (int y = 0; y < c->v; ++y)
+            for (int x = 0; x < c->h; ++x) {
+              size_t by = size_t(my) * c->v + y, bx = size_t(mx) * c->h + x;
+              decode_block(bits, *c, &c->coef[(by * c->bw + bx) * 64]);
+            }
+      }
+    }
+    p_ = bits.p;  // the marker parser finds what follows the entropy-coded data
+  }
+
+  // IDCT every block, then upsample and convert into a height x width RGB image.
+  void to_rgb(uint8_t* out) {
+    for (auto& c : comps_) {
+      int stride = c.bw * 8;
+      c.plane.assign(size_t(stride) * c.bh * 8, 0);
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.qt,
+                     &c.plane[size_t(by) * 8 * stride + bx * 8], stride);
+      std::vector<int16_t>().swap(c.coef);
+    }
+    const int W = width_, H = height_;
+    std::vector<uint8_t> full[3];
+    for (size_t i = 0; i < comps_.size(); ++i) full[i] = upsample(comps_[i]);
+    if (comps_.size() == 1) {
+      const uint8_t* y = full[0].data();
+      for (size_t i = 0; i < size_t(W) * H; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+      return;
+    }
+    bool rgb;
+    if (jfif_) rgb = false;
+    else if (adobe_) rgb = adobe_transform_ == 0;
+    else rgb = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+    const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
+    if (rgb) {
+      for (size_t i = 0; i < size_t(W) * H; ++i) {
+        out[3 * i] = c0[i];
+        out[3 * i + 1] = c1[i];
+        out[3 * i + 2] = c2[i];
+      }
+      return;
+    }
+    const ColorTables& t = color_tables();
+    for (size_t i = 0; i < size_t(W) * H; ++i) {
+      int y = c0[i], cb = c1[i], cr = c2[i];
+      out[3 * i] = clamp_u8(y + t.cr_r[cr]);
+      out[3 * i + 1] = clamp_u8(y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+      out[3 * i + 2] = clamp_u8(y + t.cb_b[cb]);
+    }
+  }
+
+  // One component at the full width x height, as jdsample.c upsamples it.
+  std::vector<uint8_t> upsample(const Component& c) {
+    const int W = width_, H = height_, S = c.bw * 8;
+    const int hf = hmax_ / c.h, vf = vmax_ / c.v, cw = c.cw, ch = c.ch;
+    const uint8_t* in = c.plane.data();
+    std::vector<uint8_t> out(size_t(W) * H);
+    auto row = [&](int r) { return in + size_t(r) * S; };
+    if (hf == 1 && vf == 1) {
+      for (int y = 0; y < H; ++y) std::memcpy(&out[size_t(y) * W], row(y), W);
+    } else if (hf == 2 && vf == 1 && cw > 2) {  // h2v1_fancy_upsample
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* ip = row(y);
+        uint8_t* op = &out[size_t(y) * W];
+        for (int x = 0; x < W; ++x) {
+          int k = x >> 1;
+          op[x] = (x & 1) ? uint8_t((3 * ip[k] + ip[std::min(k + 1, cw - 1)] + 2) >> 2)
+                          : uint8_t((3 * ip[k] + ip[std::max(k - 1, 0)] + 1) >> 2);
+        }
+      }
+    } else if (hf == 1 && vf == 2) {  // h1v2_fancy_upsample
+      for (int y = 0; y < H; ++y) {
+        int r = y >> 1;
+        const uint8_t* near = row(r);
+        const uint8_t* far = row((y & 1) ? std::min(r + 1, ch - 1) : std::max(r - 1, 0));
+        int bias = (y & 1) ? 2 : 1;
+        uint8_t* op = &out[size_t(y) * W];
+        for (int x = 0; x < W; ++x) op[x] = uint8_t((3 * near[x] + far[x] + bias) >> 2);
+      }
+    } else if (hf == 2 && vf == 2 && cw > 2) {  // h2v2_fancy_upsample
+      std::vector<int> sum(cw);
+      for (int y = 0; y < H; ++y) {
+        int r = y >> 1;
+        const uint8_t* near = row(r);
+        const uint8_t* far = row((y & 1) ? std::min(r + 1, ch - 1) : std::max(r - 1, 0));
+        for (int k = 0; k < cw; ++k) sum[k] = 3 * near[k] + far[k];
+        uint8_t* op = &out[size_t(y) * W];
+        for (int x = 0; x < W; ++x) {
+          int k = x >> 1;
+          op[x] = (x & 1) ? uint8_t((3 * sum[k] + sum[std::min(k + 1, cw - 1)] + 7) >> 4)
+                          : uint8_t((3 * sum[k] + sum[std::max(k - 1, 0)] + 8) >> 4);
+        }
+      }
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* ip = row(y / vf);
+        uint8_t* op = &out[size_t(y) * W];
+        for (int x = 0; x < W; ++x) op[x] = ip[x / hf];
+      }
+    }
+    return out;
+  }
+
+  // OpenCV's ExifTransform: 2 flip x, 3 flip both, 4 flip y, 5 transpose,
+  // 6 transpose + flip x, 7 transpose + flip both, 8 transpose + flip y.
+  void orient(const uint8_t* in, uint8_t* out) {
+    const int H = height_, W = width_, o = orientation_;
+    const int oh = out_h(), ow = out_w();
+    for (int y = 0; y < oh; ++y)
+      for (int x = 0; x < ow; ++x) {
+        int sy, sx;
+        switch (o) {
+          case 2: sy = y; sx = W - 1 - x; break;
+          case 3: sy = H - 1 - y; sx = W - 1 - x; break;
+          case 4: sy = H - 1 - y; sx = x; break;
+          case 5: sy = x; sx = y; break;
+          case 6: sy = H - 1 - x; sx = y; break;
+          case 7: sy = H - 1 - x; sx = W - 1 - y; break;
+          default: sy = x; sx = W - 1 - y; break;  // 8
+        }
+        std::memcpy(out + (size_t(y) * ow + x) * 3, in + (size_t(sy) * W + sx) * 3, 3);
+      }
+  }
+};
+
+int report(const char* msg, char* err, int errlen) {
+  if (err && errlen > 0) std::snprintf(err, size_t(errlen), "%s", msg);
+  return 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+int fvj_dims(const uint8_t* data, int64_t n, int32_t* dims, char* err, int errlen) {
+  try {
+    Decoder d(data, size_t(n));
+    d.read_header();
+    dims[0] = d.out_h();
+    dims[1] = d.out_w();
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e.msg.c_str(), err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report("out of memory decoding a JPEG", err, errlen);
+  }
+}
+
+int fvj_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_bytes, char* err,
+               int errlen) {
+  try {
+    Decoder d(data, size_t(n));
+    d.read_header();
+    if (int64_t(d.out_h()) * d.out_w() * 3 != out_bytes)
+      return report("output buffer does not match the image size", err, errlen);
+    Decoder full(data, size_t(n));
+    full.decode(out);
+    return 0;
+  } catch (const DecodeError& e) {
+    return report(e.msg.c_str(), err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report("out of memory decoding a JPEG", err, errlen);
+  }
+}
+
+}  // extern "C"

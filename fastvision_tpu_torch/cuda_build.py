@@ -1,14 +1,20 @@
-"""Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries.
+"""Builds the port's native sources into shared libraries: the CUDA
+kernels (``csrc/*.cu``) with ``nvcc``, and the host code (``csrc/*.cpp``,
+the JPEG decoder) with the host C++ compiler.
 
-Each source is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, loaded with ``ctypes``. The library's name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded from ``_build/`` (listed in ``.gitignore``). A
-failed build raises; nothing falls back.
+Each source is compiled at first use into a shared library with a plain C
+interface, loaded with ``ctypes``. The library's name carries a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged one is
+loaded from ``_build/`` (listed in ``.gitignore``). Each build writes a
+temporary file and renames it, so that several processes (pytest workers,
+forked loader workers) can build the same library at once. A failed build
+raises with the compiler's log; nothing falls back.
 
-Flags: ``sm_90a`` (Hopper), ``--fmad=false`` because the kernels must
+CUDA flags: ``sm_90a`` (Hopper), ``--fmad=false`` because the kernels must
 round every intermediate as the plain PyTorch versions do, and
-``-Xptxas -v`` so the build log records registers and shared memory.
+``-Xptxas -v`` so the build log records registers and shared memory. Host
+flags: ``-O3 -std=c++17``, no ``-march=native`` (a library built on one
+host may be loaded on another).
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 
@@ -27,18 +34,21 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 @dataclass(frozen=True)
 class Build:
     name: str
+    source: str  # path in the repository, e.g. fastvision_tpu_torch/csrc/nms.cu
     path: str  # the shared library
-    seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
-    log: str  # nvcc's output (ptxas register / shared-memory report)
+    seconds: float  # compiler wall time; 0.0 when an earlier build was reused
+    log: str  # the compiler's output (ptxas register / shared-memory report)
 
 
 _BUILDS: dict[str, Build] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()  # one build of a source at a time within a process
 
 
 def nvcc() -> str:
@@ -49,50 +59,81 @@ def nvcc() -> str:
     return path
 
 
-def _target(name: str) -> tuple[str, str]:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def host_compiler() -> str:
+    for cxx in (os.environ.get("CXX"), "c++", "g++"):
+        path = cxx and shutil.which(cxx)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found (looked for $CXX, c++ and g++ on PATH)")
+
+
+def _source(name: str) -> str:
+    for ext in (".cu", ".cpp"):
+        src = os.path.join(CSRC_DIR, name + ext)
+        if os.path.exists(src):
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _command(src: str, out: str) -> list[str]:
+    if src.endswith(".cu"):
+        return [nvcc(), *NVCC_FLAGS, "-o", out, src]
+    return [host_compiler(), *HOST_FLAGS, "-o", out, src]
+
+
+def _target(src: str, name: str) -> str:
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    h.update(" ".join(NVCC_FLAGS if src.endswith(".cu") else HOST_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def sources() -> list[str]:
+    """Names of the sources under ``csrc/`` (``*.cu`` and ``*.cpp``)."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cpp")))
 
 
 def build_all(names: list[str] | None = None) -> list[Build]:
-    """Compile the named sources (default: every ``csrc/*.cu``), one nvcc
-    process per source, all started together. Raises on the first failure."""
+    """Compile the named sources (default: every ``csrc/*.cu`` and
+    ``csrc/*.cpp``), one compiler process per source, all started together.
+    Raises after all have ended if any failed."""
     if names is None:
-        names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    running = []
-    for name in names:
-        if name in _BUILDS:
-            continue
-        src, so = _target(name)
-        if os.path.exists(so):
-            _BUILDS[name] = Build(name, so, 0.0, "")
-            continue
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((name, so, tmp, proc, time.perf_counter()))
-    failures = []
-    for name, so, tmp, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, so)
-        _BUILDS[name] = Build(name, so, seconds, log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return [_BUILDS[n] for n in names]
+        names = sources()
+    with _LOCK:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        running = []
+        for name in names:
+            if name in _BUILDS:
+                continue
+            src = _source(name)
+            rel = os.path.relpath(src, os.path.dirname(_PKG_DIR))
+            so = _target(src, name)
+            if os.path.exists(so):
+                _BUILDS[name] = Build(name, rel, so, 0.0, "")
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.Popen(_command(src, tmp), stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running.append((name, rel, so, tmp, proc, time.perf_counter()))
+        failures = []
+        for name, rel, so, tmp, proc, t0 in running:
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failures.append(f"the build of {rel} failed (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, so)
+            _BUILDS[name] = Build(name, rel, so, seconds, log)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return [_BUILDS[n] for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
+    built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         (build,) = build_all([name])

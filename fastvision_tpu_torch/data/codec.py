@@ -1,0 +1,227 @@
+"""Image decoding without cv2 or PIL: the port's counterpart of
+``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` followed by BGR -> RGB, as the JAX
+package decodes request bodies (fastvision_tpu/infer/serving.py:39-46) and
+image files (fastvision_tpu/data/dataset.py:28-35).
+
+`decode_image` picks the decoder by the payload's signature:
+
+- JPEG (``FF D8``): ``csrc/jpeg_decode.cpp``, built with the host compiler
+  and called through ctypes (which releases the GIL). Baseline sequential
+  Huffman JPEG at 8 bits, 1 or 3 components, any integral sampling,
+  restart intervals, the Adobe transform flag and the EXIF orientation,
+  bit-equal to libjpeg-turbo's default decode as cv2 runs it;
+- PNG, non-interlaced: gray, RGB, palette, gray + alpha and RGBA at bit
+  depths 1-8 and 16, with numpy and the standard library's ``zlib``; alpha
+  is dropped and 16 bits keep their high byte, as cv2's ``IMREAD_COLOR``
+  does;
+- BMP (``BM``): uncompressed 24- and 32-bit, with numpy.
+
+Anything else raises ``ValueError("cannot decode image payload")``; a
+progressive, arithmetic-coded, 12-bit, lossless or CMYK JPEG, an interlaced
+PNG and truncated or corrupt data raise ``ValueError`` naming what is
+missing. Nothing falls back to cv2. The output is RGB uint8 HWC; grayscale
+is repeated to 3 channels.
+"""
+from __future__ import annotations
+
+import ctypes
+import zlib
+
+import numpy as np
+
+from .. import cuda_build
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+MAX_PIXELS = 1 << 30  # the largest image taken: OpenCV's default CV_IO_MAX_IMAGE_PIXELS
+_ITEM = "(ROADMAP Queue 1, item 11)"
+_ERR_LEN = 256
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """``csrc/jpeg_decode.cpp``, built on first use (raises if it cannot
+    be built). Call it before forking workers, so they inherit it."""
+    lib = cuda_build.load("jpeg_decode")
+    if not getattr(lib, "_fv_typed", False):
+        for fn in (lib.fvj_dims, lib.fvj_decode):
+            fn.restype = ctypes.c_int
+        lib.fvj_dims.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                 ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
+        lib.fvj_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+        lib._fv_typed = True
+    return lib
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline JPEG -> RGB uint8 HWC, EXIF orientation applied."""
+    data = bytes(data)
+    lib = jpeg_library()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    dims = (ctypes.c_int32 * 2)()
+    if lib.fvj_dims(data, len(data), dims, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    out = np.empty((dims[0], dims[1], 3), np.uint8)
+    if lib.fvj_decode(data, len(data), out.ctypes.data, out.nbytes, err, _ERR_LEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def decode_bmp(buf: bytes, name: str = "BMP payload") -> np.ndarray:
+    """An uncompressed 24- or 32-bit BMP (BI_RGB, or BI_BITFIELDS with the
+    BGRX masks cv2 writes) -> RGB uint8 HWC, rows bottom-up or top-down,
+    each padded to 4 bytes. Anything else raises ValueError."""
+    if len(buf) < 54 or buf[:2] != b"BM":
+        raise ValueError(f"not a BMP file: {name}")
+    offset = int.from_bytes(buf[10:14], "little")
+    header = int.from_bytes(buf[14:18], "little")
+    width = int.from_bytes(buf[18:22], "little", signed=True)
+    height = int.from_bytes(buf[22:26], "little", signed=True)
+    bpp = int.from_bytes(buf[28:30], "little")
+    compression = int.from_bytes(buf[30:34], "little")
+    bgrx_masks = (0x00FF0000, 0x0000FF00, 0x000000FF)
+    if compression == 3 and bpp == 32 and tuple(
+            int.from_bytes(buf[54 + 4 * i:58 + 4 * i], "little") for i in range(3)) == bgrx_masks:
+        compression = 0  # the same bytes as BI_RGB
+    if header < 40 or bpp not in (24, 32) or compression != 0 or width <= 0 or height == 0:
+        raise ValueError(f"unsupported BMP (header {header}, {bpp} bpp, compression "
+                         f"{compression}, {width} x {height}): {name}")
+    rows, stride = abs(height), (bpp * width + 31) // 32 * 4
+    if len(buf) < offset + rows * stride:
+        raise ValueError(f"truncated BMP: {name}")
+    px = np.frombuffer(buf, np.uint8, rows * stride, offset).reshape(rows, stride)
+    px = px[:, : width * bpp // 8].reshape(rows, width, bpp // 8)[..., 2::-1]  # BGR(X) -> RGB
+    return np.ascontiguousarray(px[::-1] if height > 0 else px)  # height > 0: bottom-up
+
+
+def _png_chunks(data: bytes):
+    pos = len(PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) < length or len(crc) < 4:
+            raise ValueError("truncated PNG data")
+        if kind[0] & 0x20 == 0 and zlib.crc32(kind + body) != int.from_bytes(crc, "big"):
+            raise ValueError(f"corrupt PNG data: CRC error in a {kind.decode('latin-1')} chunk")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError("truncated PNG data: no IEND chunk")
+
+
+def _paeth_row(row: bytearray, prior: bytes, bpp: int) -> None:
+    for i in range(len(row)):
+        a = row[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        row[i] = (row[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
+
+
+def _average_row(row: bytearray, prior: bytes, bpp: int) -> None:
+    for i in range(len(row)):
+        a = row[i - bpp] if i >= bpp else 0
+        row[i] = (row[i] + ((a + prior[i]) >> 1)) & 255
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The PNG row filters undone -> [height, stride] uint8. None, Sub and Up
+    rows run in numpy; Average and Paeth rows, whose bytes each depend on the
+    byte to their left, byte by byte."""
+    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(height):
+        ftype, cur = int(rows[y, 0]), rows[y, 1:]
+        if ftype == 0:
+            out[y] = cur
+        elif ftype == 1:  # Sub: a running sum (mod 256) over each byte lane
+            lanes = np.zeros(-(-stride // bpp) * bpp, np.uint8)
+            lanes[:stride] = cur
+            out[y] = np.cumsum(lanes.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)[:stride]
+        elif ftype == 2:
+            out[y] = cur + prior
+        elif ftype in (3, 4):
+            row = bytearray(cur.tobytes())
+            (_average_row if ftype == 3 else _paeth_row)(row, prior.tobytes(), bpp)
+            out[y] = np.frombuffer(bytes(row), np.uint8)
+        else:
+            raise ValueError(f"corrupt PNG data: filter type {ftype}")
+        prior = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A non-interlaced PNG -> RGB uint8 HWC, as cv2's IMREAD_COLOR gives
+    it: palette expanded, gray repeated, alpha dropped, 16 bits to their
+    high byte, 1-4-bit gray scaled to 0-255."""
+    header, palette, idat = None, None, []
+    for kind, body in _png_chunks(data):
+        if kind == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("corrupt PNG data: IHDR length")
+            header = body
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None or not idat:
+        raise ValueError("corrupt PNG data: no IHDR or IDAT chunk")
+    width, height = int.from_bytes(header[0:4], "big"), int.from_bytes(header[4:8], "big")
+    depth, ctype, interlace = header[8], header[9], header[12]
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    valid_depths = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if channels is None or depth not in valid_depths or width == 0 or height == 0:
+        raise ValueError(f"corrupt PNG data: colour type {ctype} at bit depth {depth}, "
+                         f"{width} x {height}")
+    if interlace:
+        raise ValueError(f"interlaced (Adam7) PNG is not supported {_ITEM}")
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"PNG of {width} x {height} exceeds {MAX_PIXELS} pixels")
+    bits_per_pixel = channels * depth
+    stride = (width * bits_per_pixel + 7) // 8
+    try:  # inflate no more than the image needs
+        raw = zlib.decompressobj().decompress(b"".join(idat), height * (stride + 1))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG data: {e}") from None
+    if len(raw) < height * (stride + 1):
+        raise ValueError("truncated PNG data: the image data ends early")
+    rows = _unfilter(raw[: height * (stride + 1)], height, stride, max(1, bits_per_pixel // 8))
+    if depth == 16:
+        px = rows.reshape(height, width, channels, 2)[..., 0]  # the high byte of each sample
+    elif depth == 8:
+        px = rows.reshape(height, width, channels)
+    else:  # 1, 2 or 4 bits, one channel: unpack MSB first
+        per_byte = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        px = vals.reshape(height, stride * per_byte)[:, :width, None]
+        if ctype == 0:  # gray scaled to 0-255, as libpng's expand_gray_1_2_4_to_8
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("corrupt PNG data: a palette image without PLTE")
+        index = px[..., 0]
+        if int(index.max()) >= len(palette):
+            raise ValueError("corrupt PNG data: a palette index past the palette")
+        return np.ascontiguousarray(palette[index])
+    if channels in (1, 2):
+        return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=2))
+    return np.ascontiguousarray(px[..., :3])
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes -> RGB uint8 HWC, the decoder picked by signature: JPEG,
+    PNG or BMP. Anything else, or a payload its decoder refuses, raises
+    ValueError."""
+    data = bytes(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    raise ValueError("cannot decode image payload")

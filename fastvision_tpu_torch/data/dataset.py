@@ -10,9 +10,10 @@ align_corners=False, antialias=False)`` on host tensors, rounded back to
 uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
 (cv2 rounds with fixed-point weights). Its float kernel rounds a few pixels
 differently on one intra-op thread and on several, so the loaders run all
-their host work on one thread (`pipeline._PooledLoader`). ``.bmp`` files (uncompressed 24- and
-32-bit) are read and written with numpy; other image files go to cv2, which
-must then be installed.
+their host work on one thread (`pipeline._PooledLoader`). Image files are
+read by the port's own decoders (`codec.decode_image`: baseline JPEG, PNG and
+BMP, bit-equal to cv2's ``IMREAD_COLOR``), so no reader needs cv2;
+``imwrite_rgb`` writes ``.bmp`` with numpy and other formats with cv2.
 
 Not ported yet: the reduced-size JPEG decode (``decode_size``,
 ``imread_rgb_scaled``) and ``sample_i420``.
@@ -27,36 +28,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .codec import decode_bmp, decode_image
+
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
 def read_bmp(path: str) -> np.ndarray:
-    """An uncompressed 24- or 32-bit BMP (BI_RGB, or BI_BITFIELDS with the
-    BGRX masks cv2 writes) -> RGB uint8 HWC, rows bottom-up or top-down,
-    each padded to 4 bytes. Anything else raises ValueError."""
+    """An uncompressed 24- or 32-bit BMP file -> RGB uint8 HWC
+    (`codec.decode_bmp`). Anything else raises ValueError."""
     with open(path, "rb") as f:
-        buf = f.read()
-    if len(buf) < 54 or buf[:2] != b"BM":
-        raise ValueError(f"not a BMP file: {path}")
-    offset = int.from_bytes(buf[10:14], "little")
-    header = int.from_bytes(buf[14:18], "little")
-    width = int.from_bytes(buf[18:22], "little", signed=True)
-    height = int.from_bytes(buf[22:26], "little", signed=True)
-    bpp = int.from_bytes(buf[28:30], "little")
-    compression = int.from_bytes(buf[30:34], "little")
-    bgrx_masks = (0x00FF0000, 0x0000FF00, 0x000000FF)
-    if compression == 3 and bpp == 32 and tuple(
-            int.from_bytes(buf[54 + 4 * i:58 + 4 * i], "little") for i in range(3)) == bgrx_masks:
-        compression = 0  # the same bytes as BI_RGB
-    if header < 40 or bpp not in (24, 32) or compression != 0 or width <= 0 or height == 0:
-        raise ValueError(f"unsupported BMP (header {header}, {bpp} bpp, compression "
-                         f"{compression}, {width} x {height}): {path}")
-    rows, stride = abs(height), (bpp * width + 31) // 32 * 4
-    if len(buf) < offset + rows * stride:
-        raise ValueError(f"truncated BMP: {path}")
-    px = np.frombuffer(buf, np.uint8, rows * stride, offset).reshape(rows, stride)
-    px = px[:, : width * bpp // 8].reshape(rows, width, bpp // 8)[..., 2::-1]  # BGR(X) -> RGB
-    return np.ascontiguousarray(px[::-1] if height > 0 else px)  # height > 0: bottom-up
+        return decode_bmp(f.read(), path)
 
 
 def write_bmp(path: str, image: np.ndarray) -> None:
@@ -77,16 +58,15 @@ def write_bmp(path: str, image: np.ndarray) -> None:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """Decode an image file -> RGB uint8 HWC. ``.bmp`` is read with numpy;
-    other files need cv2 (ImportError without it)."""
-    if path.lower().endswith(".bmp"):
-        return read_bmp(path)
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(f"cannot decode image: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    """Decode an image file (JPEG, PNG or BMP, told apart by its bytes) ->
+    RGB uint8 HWC with `codec.decode_image`. A file it cannot decode raises
+    ValueError naming the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return decode_image(data)
+    except ValueError as e:
+        raise ValueError(f"cannot decode image {path}: {e}") from None
 
 
 def imwrite_rgb(path: str, image: np.ndarray) -> None:
@@ -164,7 +144,7 @@ def pad_labels(cls: np.ndarray, xywhn: np.ndarray, max_boxes: int) -> np.ndarray
 
 class DetectionDataset:
     """Detection samples from disk: (RGB uint8 image, [N, 5] pixel-xyxy
-    labels, id). Decoding needs cv2 except for ``.bmp``. The id scan is cached to
+    labels, id), decoded by `imread_rgb`. The id scan is cached to
     ``<split_dir>/.samples.json`` when ``cache=True``."""
 
     def __init__(self, root: str, split: str = "train", cache: bool = False,
@@ -211,8 +191,8 @@ class DetectionDataset:
 class ClassificationDataset:
     """Folder-per-class layout: ``<root>/<split>/<class_name>/<image>``.
     Class indices follow the sorted folder names, or ``categories`` (the
-    dataset descriptor's order). -> (RGB uint8 image, class index); decoding
-    needs cv2 except for ``.bmp``."""
+    dataset descriptor's order). -> (RGB uint8 image, class index), decoded
+    by `imread_rgb`."""
 
     def __init__(self, root: str, split: str = "train",
                  categories: Sequence[str] | None = None):

@@ -34,6 +34,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from .codec import jpeg_library
+
 _SENTINEL = None
 
 
@@ -80,6 +82,9 @@ class DecodePool:
         if self.num_workers <= 0:
             return
         self.n_slots = n_slots or max(4 * self.num_workers, 8)
+        # the JPEG decoder's library is built and loaded here, once, not in
+        # each worker (a forked worker inherits it)
+        jpeg_library()
         self._slot_bytes = int(np.prod(self.slot_shape))
         ctx = mp.get_context(start_method)
         self._shm = shared_memory.SharedMemory(create=True,

@@ -2,7 +2,7 @@
 
   - `VideoFolderDataset`: ``<root>/<split>/<class_name>/<clip>``, each clip
     a video file (.mp4 / .avi / ..., decoded with cv2) or a directory of
-    frame images (``.bmp`` read with numpy, the rest with cv2); classes
+    frame images (JPEG, PNG or BMP, read by `dataset.imread_rgb`); classes
     sorted, or pinned by ``categories``;
   - `VideoClipLoader`: batches {'images' uint8 [B, T, S, S, 3], 'labels'
     int32 [B], 'num_real'} on the worker pools of `pipeline._PooledLoader`.

@@ -19,9 +19,12 @@ grid point runs its NMS on the device-resident predictions.
 
 `VideoClassifier` classifies clips with a model of the video zoo.
 
-Not ported yet: multi_label NMS, packed-I420 input, device letterbox,
-fast_decode, TTA, the reference_demo postprocess (ROADMAP Queue 1, item 6)
-and quantize (item 15).
+``multi_label=True`` runs the serving NMS (`ops.nms.non_max_suppression_multilabel`:
+every (box, class) pair above the threshold is a candidate) in `infer`,
+`infer_match` and `evaluate`.
+
+Not ported yet: packed-I420 input, device letterbox, fast_decode, TTA, the
+reference_demo postprocess (ROADMAP Queue 1, item 6) and quantize (item 15).
 """
 from __future__ import annotations
 
@@ -45,7 +48,12 @@ from ..device import resolve_device
 from ..nn.layers import memory_format_for
 from ..ops.box import xywhn2xyxy
 from ..ops.map import MeanAveragePrecision, match_predictions_device
-from ..ops.nms import Detections, batched_non_max_suppression, class_offset_for
+from ..ops.nms import (
+    Detections,
+    batched_non_max_suppression,
+    class_offset_for,
+    non_max_suppression_multilabel,
+)
 from .decode import decode_predictions
 from .postprocess import scale_coords
 from .preprocess import preprocess_batch
@@ -117,6 +125,8 @@ class Detector:
     ``device=None`` means CUDA, and raises where there is no card.
     ``batch_buckets`` are extra batch sizes below ``batch_size``: a request
     of n images pads (repeating the last image) to the smallest bucket >= n.
+    ``multi_label`` selects the serving NMS (every (box, class) pair a
+    candidate), as the JAX package's serving preset does.
     """
 
     def __init__(
@@ -136,6 +146,7 @@ class Detector:
         batch_buckets: Sequence[int] = (),
         class_names: Sequence[str] | None = None,
         postprocess_mode: str = "standard",
+        multi_label: bool = False,
         device: str | torch.device | None = None,
     ):
         if postprocess_mode == "reference_demo":
@@ -160,6 +171,7 @@ class Detector:
         self.pad_value = pad_value
         self.class_names = list(class_names) if class_names else None
         self.postprocess_mode = postprocess_mode
+        self.multi_label = multi_label
         # decoded boxes can spill past the canvas (v5 wh up to 4x anchor)
         self.class_offset = class_offset_for(3.0 * input_size)
         self._match_thresholds = torch.from_numpy(np.linspace(0.5, 0.95, 10).astype(np.float32))
@@ -177,12 +189,13 @@ class Detector:
     @torch.inference_mode()
     def nms(self, pred: torch.Tensor, conf_thres: float | None = None,
             iou_thres: float | None = None) -> Detections:
-        """Decoded predictions -> Detections (float32 class-offset NMS) at
-        the detector's thresholds, or at the ones given."""
-        return batched_non_max_suppression(
-            pred.float(), conf_thres=self.conf_thres if conf_thres is None else conf_thres,
-            iou_thres=self.iou_thres if iou_thres is None else iou_thres,
-            max_det=self.max_det, class_offset=self.class_offset)
+        """Decoded predictions -> Detections (float32 class-offset NMS,
+        multi-label when the detector is) at the detector's thresholds, or at
+        the ones given."""
+        fn = non_max_suppression_multilabel if self.multi_label else batched_non_max_suppression
+        return fn(pred.float(), conf_thres=self.conf_thres if conf_thres is None else conf_thres,
+                  iou_thres=self.iou_thres if iou_thres is None else iou_thres,
+                  max_det=self.max_det, class_offset=self.class_offset)
 
     def infer(self, images_u8: torch.Tensor) -> Detections:
         """Device uint8 [B, S, S, 3] -> Detections in input-space pixels."""
@@ -236,7 +249,8 @@ class Detector:
         return self.predict_batch([image])[0]
 
     def predict_dir(self, directory: str) -> Iterator[tuple[str, dict]]:
-        """Batched inference over all images in a directory (needs cv2 to decode)."""
+        """Batched inference over all images in a directory (JPEG, PNG and
+        BMP files, read by `data.dataset.imread_rgb`)."""
         paths = sorted(
             os.path.join(directory, f)
             for f in os.listdir(directory)
@@ -347,6 +361,9 @@ class Detector:
         once, then each point's NMS runs on the device-resident predictions
         and its boxes are matched on the host. -> one {conf, iou, map50,
         map, images} per point; ``metric_file`` gets one table row each."""
+        if self.multi_label:
+            raise ValueError("evaluate_sweep requires the single-label NMS path "
+                             "(multi_label=False)")
         points = [(float(c), float(i)) for c, i in points]
         n = len(dataset) if max_images is None else min(len(dataset), max_images)
         ds = dataset if n == len(dataset) else _Subset(dataset, n)

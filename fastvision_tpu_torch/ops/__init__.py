@@ -18,9 +18,11 @@ from .nms import (
     Detections,
     batched_non_max_suppression,
     class_offset_for,
+    multilabel_candidates,
     nms,
     nms_candidates,
     non_max_suppression,
+    non_max_suppression_multilabel,
     suppression_mask,
 )
 from .one_hot import one_hot
@@ -30,8 +32,8 @@ __all__ = [
     "Accuracy", "accuracy", "COCO_ANCHORS", "box_area", "clip_boxes", "xywh2xyxy", "xywhn2xyxy",
     "xyxy2xywh", "xyxy2xywhn", "grid", "box_iou", "box_iou_matrix", "cal_iou",
     "cal_iou_batch", "wh_iou", "wh_iou_matrix", "CLASS_OFFSET", "Detections",
-    "batched_non_max_suppression", "class_offset_for", "nms", "nms_candidates",
-    "non_max_suppression", "suppression_mask", "MAPResult", "MeanAveragePrecision",
+    "batched_non_max_suppression", "class_offset_for", "multilabel_candidates", "nms",
+    "nms_candidates", "non_max_suppression", "non_max_suppression_multilabel", "suppression_mask", "MAPResult", "MeanAveragePrecision",
     "compute_ap", "match_predictions", "match_predictions_device", "one_hot", "decode_boxes",
     "encode_boxes",
     "roi_align", "roi_align_mxu", "roi_align_single",

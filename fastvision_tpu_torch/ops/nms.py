@@ -12,6 +12,9 @@ dimension instead of ``vmap``:
   4. greedy suppression (`suppression_mask`): the hand-written CUDA kernel
      for CUDA tensors, its plain PyTorch version for CPU tensors,
   5. fixed ``max_det`` outputs + validity mask.
+
+`non_max_suppression_multilabel` is the serving variant: every (box, class)
+pair above the threshold is a candidate of its own.
 """
 from __future__ import annotations
 
@@ -147,9 +150,14 @@ def batched_non_max_suppression(
     reports raw objectness. Class = argmax(obj * cls) in both modes (the
     first maximum, as in JAX). With bf16 predictions everything after the
     top-K gather runs in float32."""
-    boxes, nms_boxes, top_scores, top_classes = nms_candidates(
-        prediction, conf_thres, pre_nms_top_k, class_agnostic, box_format,
-        class_offset, score_mode)
+    return _select(*nms_candidates(prediction, conf_thres, pre_nms_top_k, class_agnostic,
+                                   box_format, class_offset, score_mode), iou_thres, max_det)
+
+
+def _select(boxes: torch.Tensor, nms_boxes: torch.Tensor, top_scores: torch.Tensor,
+            top_classes: torch.Tensor, iou_thres: float, max_det: int) -> Detections:
+    """Greedy suppression of score-sorted candidates, then the ``max_det``
+    best survivors as fixed-size Detections."""
     k = top_scores.shape[-1]
     keep = suppression_mask(nms_boxes, top_scores, iou_thres)
     final_scores = torch.where(keep, top_scores, float("-inf"))
@@ -162,6 +170,64 @@ def batched_non_max_suppression(
         classes=torch.where(out_valid, torch.gather(top_classes, 1, out_idx), -1),
         valid=out_valid,
     )
+
+
+def multilabel_candidates(
+    prediction: torch.Tensor,
+    conf_thres: float = 0.001,
+    pre_nms_top_k: int = 1024,
+    box_format: str = "xywh",
+    class_offset: float = CLASS_OFFSET,
+    min_wh: float = 2.0,
+    max_wh: float = 7680.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The top-K (box, class) pairs of [B, N, 5 + C] predictions, as
+    `nms_candidates` returns them: every pair with obj * cls > conf_thres
+    (strict) is a candidate, its flat index box * C + cls, K = min(
+    pre_nms_top_k, N * C), ties kept in flat-index order. For
+    ``box_format='xywh'`` a box with a side outside [min_wh, max_wh] has its
+    objectness zeroed first (``min_wh=0`` turns that off)."""
+    if prediction.ndim != 3:
+        raise ValueError(f"non_max_suppression_multilabel expects [B, N, 5+C], got shape "
+                         f"{tuple(prediction.shape)}")
+    b, n, width = prediction.shape
+    c = width - 5
+    obj = prediction[..., 4]
+    if min_wh > 0 and box_format == "xywh":
+        wh = prediction[..., 2:4]
+        obj = torch.where(((wh >= min_wh) & (wh <= max_wh)).all(dim=-1), obj, 0.0)
+    scores = prediction[..., 5:] * obj[..., None]  # [B, N, C]
+    flat = torch.where(scores > conf_thres, scores, float("-inf")).reshape(b, n * c)
+    top_scores, top_idx = _top_k(flat, min(pre_nms_top_k, n * c))
+    top_scores = top_scores.float()
+    top_classes = (top_idx % c).to(torch.int32)
+    boxes = torch.gather(prediction[..., :4], 1,
+                         (top_idx // c)[..., None].expand(-1, -1, 4)).float()
+    if box_format == "xywh":
+        boxes = xywh2xyxy(boxes)
+    nms_boxes = boxes + (top_classes.to(boxes.dtype) * class_offset)[..., None]
+    return boxes, nms_boxes, top_scores, top_classes
+
+
+def non_max_suppression_multilabel(
+    prediction: torch.Tensor,
+    conf_thres: float = 0.001,
+    iou_thres: float = 0.6,
+    max_det: int = 300,
+    pre_nms_top_k: int = 1024,
+    box_format: str = "xywh",
+    class_offset: float = CLASS_OFFSET,
+    min_wh: float = 2.0,
+    max_wh: float = 7680.0,
+) -> Detections:
+    """Multi-label NMS, the serving variant (the JAX package's
+    ``non_max_suppression_multilabel``, batched over a leading dimension):
+    every (box, class) pair above ``conf_thres`` is its own candidate
+    (`multilabel_candidates`), suppressed class by class through the class
+    offset; one box may be kept under several classes. [B, N, 5 + C] ->
+    Detections with a leading batch dim."""
+    return _select(*multilabel_candidates(prediction, conf_thres, pre_nms_top_k, box_format,
+                                          class_offset, min_wh, max_wh), iou_thres, max_det)
 
 
 def non_max_suppression(

@@ -252,3 +252,372 @@ def state_max_rel_diff(got: dict, want: dict, start: dict) -> dict:
         if scale and d / scale > worst[kind][0]:
             worst[kind] = (d / scale, k)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Image codec fixtures: files that cv2 and PIL write on a machine that has
+# them, beside cv2's decodes, so that the port's decoder (data/codec.py) is
+# held to cv2 where cv2 is absent.
+
+ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+          34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+          37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+FULL_SIZE_HW = ((480, 640), (640, 480), (375, 500), (720, 1280))
+
+
+def jpeg_tables(buf: bytes) -> tuple[dict, dict]:
+    """The DQT and DHT tables of a JPEG stream, up to its first scan:
+    ({id: 64 values in natural order}, {(class, id): (counts[16], symbols)})."""
+    dqt, dht, pos = {}, {}, 2
+    while pos + 4 <= len(buf) and buf[pos] == 0xFF and buf[pos + 1] != 0xDA:
+        marker, length = buf[pos + 1], int.from_bytes(buf[pos + 2:pos + 4], "big")
+        seg, pos = buf[pos + 4:pos + 2 + length], pos + 2 + length
+        while marker == 0xDB and seg:
+            wide, tq = seg[0] >> 4, seg[0] & 15
+            vals = np.frombuffer(seg[1:1 + 64 * (wide + 1)], ">u2" if wide else np.uint8)
+            q = np.zeros(64, np.int64)
+            q[list(ZIGZAG)] = vals
+            dqt[tq], seg = q, seg[1 + 64 * (wide + 1):]
+        while marker == 0xC4 and seg:
+            counts = list(seg[1:17])
+            dht[(seg[0] >> 4, seg[0] & 15)] = (counts, bytes(seg[17:17 + sum(counts)]))
+            seg = seg[17 + sum(counts):]
+    return dqt, dht
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, code: int, length: int) -> None:
+        self.acc, self.n = (self.acc << length) | code, self.n + length
+        while self.n >= 8:
+            self.n -= 8
+            byte = (self.acc >> self.n) & 255
+            self.out += b"\xff\x00" if byte == 255 else bytes((byte,))
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self) -> None:  # pad the last byte with 1-bits
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes((0xFF, marker)) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
+                         interleaved: bool = True, restart: int = 0, qt16: bool = False,
+                         redefine: bool = False) -> bytes:
+    """A minimal baseline JPEG encoder for the features cv2's encoder does
+    not write: non-interleaved scans (one per component), 16-bit
+    quantization tables (``qt16``: the luma table x 3, stored at 16 bits),
+    restart intervals in either kind of scan, and tables redefined between
+    scans (``redefine``: Huffman table 0 switches to the chroma tables and
+    quantization table 0 is overwritten after the luma scan, which a decoder
+    must have latched). ``dqt`` / ``dht`` come from `jpeg_tables` of a cv2
+    JPEG; ``rgb`` [H, W, 3] (YCbCr, 3 components) or [H, W] (1 component)."""
+    h, w = rgb.shape[:2]
+    f = rgb.astype(np.float64)
+    if rgb.ndim == 2:
+        planes, factors = [f], [(1, 1)]
+    else:
+        r, g, b = f[..., 0], f[..., 1], f[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        factors = [tuple(sampling), (1, 1), (1, 1)]
+    hmax, vmax = factors[0]
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    k = np.arange(8)
+    dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    dct[0] /= np.sqrt(2)
+    qts = {0: dqt[0] * (3 if qt16 else 1), 1: dqt[1]}
+    tq = [0, 1, 1]
+    comps = []
+    for ci, ((hc, vc), p) in enumerate(zip(factors, planes)):
+        fx, fy = hmax // hc, vmax // vc
+        p = np.pad(p, ((0, mcuy * 8 * vmax - h), (0, mcux * 8 * hmax - w)), mode="edge")
+        p = p.reshape(p.shape[0] // fy, fy, p.shape[1] // fx, fx).mean((1, 3)) - 128
+        blocks = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        coef = np.einsum("ux,abxy,vy->abuv", dct, blocks, dct).reshape(*blocks.shape[:2], 64)
+        q = np.clip(np.round(coef / qts[tq[ci]]), -1023, 1023).astype(np.int64)
+        comps.append({"id": ci + 1, "hv": (hc, vc), "zz": q[..., list(ZIGZAG)],
+                      "bw": -(-(-(-w * hc // hmax)) // 8), "bh": -(-(-(-h * vc // vmax)) // 8)})
+
+    def codes(table):
+        counts, symbols = table
+        out, code, i = {}, 0, 0
+        for length, n in enumerate(counts, 1):
+            for _ in range(n):
+                out[symbols[i]] = (code, length)
+                code, i = code + 1, i + 1
+            code <<= 1
+        return out
+
+    def dqt_seg(tid, values):
+        wide = int(values.max()) > 255 or (qt16 and tid == 0)
+        body = bytes(((1 if wide else 0) << 4 | tid,)) + (
+            values[list(ZIGZAG)].astype(">u2").tobytes() if wide
+            else values[list(ZIGZAG)].astype(np.uint8).tobytes())
+        return _segment(0xDB, body)
+
+    def dht_seg(tc, th, table):
+        return _segment(0xC4, bytes((tc << 4 | th,)) + bytes(table[0]) + table[1])
+
+    def scan(members, tables):
+        bits, preds, count = _BitWriter(), [0] * len(members), 0
+        if len(members) == 1:
+            c = members[0]
+            units = [[(0, c["zz"][by, bx])] for by in range(c["bh"]) for bx in range(c["bw"])]
+        else:
+            units = [[(i, c["zz"][my * c["hv"][1] + y, mx * c["hv"][0] + x])
+                      for i, c in enumerate(members)
+                      for y in range(c["hv"][1]) for x in range(c["hv"][0])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        for unit in units:
+            if restart and count and count % restart == 0:
+                bits.flush()
+                bits.out += bytes((0xFF, 0xD0 + (count // restart - 1) % 8))
+                preds = [0] * len(members)
+            count += 1
+            for i, z in unit:
+                dc, ac = tables[i]
+                diff = int(z[0]) - preds[i]
+                preds[i] = int(z[0])
+                cat = abs(diff).bit_length()
+                bits.put(*dc[cat])
+                if cat:
+                    bits.put(diff if diff > 0 else diff + (1 << cat) - 1, cat)
+                run = 0
+                for v in z[1:]:
+                    v = int(v)
+                    if v == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        bits.put(*ac[0xF0])
+                        run -= 16
+                    cat = abs(v).bit_length()
+                    bits.put(*ac[(run << 4) | cat])
+                    bits.put(v if v > 0 else v + (1 << cat) - 1, cat)
+                    run = 0
+                if run:
+                    bits.put(*ac[0x00])
+        bits.flush()
+        ids = b"".join(bytes((c["id"], th << 4 | th)) for c, th in zip(members, sel))
+        return _segment(0xDA, bytes((len(members),)) + ids + b"\x00\x3f\x00") + bytes(bits.out)
+
+    luma = (codes(dht[(0, 0)]), codes(dht[(1, 0)]))
+    chroma = (codes(dht[(0, 1)]), codes(dht[(1, 1)])) if len(comps) > 1 else luma
+    out = bytearray(b"\xff\xd8" + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    for tid in sorted({tq[i] for i in range(len(comps))}):
+        out += dqt_seg(tid, qts[tid])
+    out += _segment(0xC0, bytes((8,)) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                    + bytes((len(comps),)) + b"".join(
+                        bytes((c["id"], c["hv"][0] << 4 | c["hv"][1], tq[i]))
+                        for i, c in enumerate(comps)))
+    for tc in (0, 1):
+        for th in ((0, 1) if len(comps) > 1 else (0,)):
+            out += dht_seg(tc, th, dht[(tc, th)])
+    if restart:
+        out += _segment(0xDD, restart.to_bytes(2, "big"))
+    if interleaved:
+        sel = [0, 1, 1][:len(comps)]
+        out += scan(comps, [luma, chroma, chroma][:len(comps)])
+    else:
+        for i, c in enumerate(comps):
+            sel = [0] if redefine else [min(i, 1)]
+            if redefine and i == 1:  # table 0 becomes the chroma tables; qt 0 is overwritten
+                out += dht_seg(0, 0, dht[(0, 1)]) + dht_seg(1, 0, dht[(1, 1)])
+                out += dqt_seg(0, np.full(64, 77, np.int64))
+            out += scan([c], [luma if i == 0 else chroma])
+    return bytes(out + b"\xff\xd9")
+
+
+def _exif_app1(orientation: int, little_endian: bool) -> bytes:
+    e = "little" if little_endian else "big"
+    tiff = ((b"II" if little_endian else b"MM") + (42).to_bytes(2, e) + (8).to_bytes(4, e)
+            + (1).to_bytes(2, e) + (0x0112).to_bytes(2, e) + (3).to_bytes(2, e)
+            + (1).to_bytes(4, e) + orientation.to_bytes(2, e) + bytes(2) + bytes(4))
+    return _segment(0xE1, b"Exif\x00\x00" + tiff)
+
+
+def _png(pixels: np.ndarray, ctype: int, depth: int, palette=None, interlace: int = 0) -> bytes:
+    """A PNG of already packed rows (filter 0 on every row)."""
+    import zlib
+
+    h = pixels.shape[0]
+    raw = b"".join(b"\x00" + pixels[y].tobytes() for y in range(h))
+    width = pixels.shape[1] * 8 // depth if depth < 8 else pixels.shape[1]
+
+    def chunk(kind, body):
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+    ihdr = (width.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes((depth, ctype, 0, 0, interlace)))
+    plte = chunk(b"PLTE", palette.tobytes()) if palette is not None else b""
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + plte
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _scene(h: int, w: int, seed: int) -> np.ndarray:
+    """Smooth seeded content with shapes: gradients, filled rectangles and
+    discs of random colours, mild noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([rng.uniform(40, 200) + rng.uniform(-60, 60) * np.sin(
+        x / rng.uniform(30, 200) + rng.uniform(0, 6)) * np.cos(y / rng.uniform(30, 200))
+        for _ in range(3)], -1)
+    for _ in range(int(rng.integers(4, 9))):
+        colour = rng.uniform(0, 255, 3)
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        sx, sy = rng.uniform(0.05, 0.3) * w, rng.uniform(0.05, 0.3) * h
+        if rng.random() < 0.5:
+            mask = (np.abs(x - cx) < sx / 2) & (np.abs(y - cy) < sy / 2)
+        else:
+            mask = ((x - cx) / sx) ** 2 + ((y - cy) / sy) ** 2 < 0.25
+        img[mask] = colour
+    img += rng.normal(0, 2, img.shape)
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
+    """Write the codec corpus into ``out_dir`` with cv2 and PIL (which must be
+    installed): about 40 small files (at most 96 x 128) that cover the JPEG
+    decoder's features and the PNG types, files that must raise, and
+    `FULL_SIZE_HW` JPEGs at COCO's sizes (4:2:0, quality 90, smooth seeded
+    scenes), the serving traffic on the card. Beside them
+    ``cv2_decodes.npz`` (cv2's RGB decode of each small file) and
+    ``manifest.json``: one entry per file with its features, and for the
+    full-size files the shape and sha256 of cv2's decode; files that must
+    raise carry the message they raise with. -> the manifest."""
+    import hashlib
+    import io
+    import json
+
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    files: list[tuple[str, bytes, str]] = []  # (name, bytes, features)
+    raising: dict[str, str] = {}
+
+    def jpg(img, *params):
+        return cv2.imencode(".jpg", img[..., ::-1] if img.ndim == 3 else img, list(params))[1].tobytes()
+
+    sampling = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+                "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+    q, s = cv2.IMWRITE_JPEG_QUALITY, cv2.IMWRITE_JPEG_SAMPLING_FACTOR
+    for i, (hw, samp, quality, extra) in enumerate((
+            ((67, 93), "420", 90, ()), ((41, 57), "420", 50, ()), ((45, 63), "420", 100, ()),
+            ((45, 77), "422", 90, ()), ((53, 35), "440", 90, ()), ((33, 71), "444", 95, ()),
+            ((58, 97), "411", 75, ()), ((71, 69), "420", 90, (cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
+            ((47, 83), "422", 50, (cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
+            ((77, 99), "420", 90, (cv2.IMWRITE_JPEG_RST_INTERVAL, 2)),
+            ((29, 37), "444", 100, (cv2.IMWRITE_JPEG_RST_INTERVAL, 1, cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
+            ((1, 1), "420", 90, ()), ((9, 3), "420", 90, ()), ((15, 17), "422", 90, ()))):
+        img = (rng.integers(0, 256, hw + (3,), dtype=np.uint8) if i in (1, 2, 5, 10)
+               else _scene(*hw, seed + i))
+        files.append((f"cv2_{samp}_q{quality}_{hw[0]}x{hw[1]}_{i}.jpg",
+                      jpg(img, q, quality, s, sampling[samp], *extra),
+                      f"cv2 baseline {samp} q{quality}" + (" optimized/restart" if extra else "")))
+    files.append(("cv2_gray_q90_37x59.jpg", jpg(rng.integers(0, 256, (37, 59), dtype=np.uint8), q, 90),
+                  "1 component"))
+    files.append(("cv2_gray_rst_50x40.jpg", jpg(_scene(50, 40, seed + 20)[..., 0], q, 60,
+                                                cv2.IMWRITE_JPEG_RST_INTERVAL, 3), "1 component, restarts"))
+    base = jpg(_scene(37, 53, seed + 21), q, 90, s, sampling["420"])
+    for o in range(1, 9):
+        files.append((f"exif_orientation_{o}.jpg", base[:2] + _exif_app1(o, o % 2 == 0) + base[2:],
+                      f"EXIF orientation {o}, {'II' if o % 2 == 0 else 'MM'}"))
+    app0_end = 4 + int.from_bytes(base[4:6], "big")
+    bare = base[:2] + base[app0_end:]  # the JFIF marker removed
+    for t in (0, 1):
+        adobe = _segment(0xEE, b"Adobe" + (100).to_bytes(2, "big") + bytes(4) + bytes((t,)))
+        files.append((f"adobe_transform_{t}.jpg", bare[:2] + adobe + bare[2:],
+                      f"Adobe APP14 transform {t}"))
+    rgb_ids = bytearray(bare)
+    for marker, first in ((b"\xff\xc0", 10), (b"\xff\xda", 5)):
+        at = bytes(rgb_ids).find(marker)
+        for k in range(3):
+            rgb_ids[at + first + (3 if marker == b"\xff\xc0" else 2) * k] = b"RGB"[k]
+    files.append(("component_ids_rgb.jpg", bytes(rgb_ids), "components named R, G, B, no JFIF"))
+
+    scene = _scene(53, 75, seed + 30)
+    dqt, dht = jpeg_tables(jpg(scene, q, 80))
+    for name, kw in (("noninterleaved_420", dict(interleaved=False)),
+                     ("noninterleaved_420_redefined_tables", dict(interleaved=False, redefine=True)),
+                     ("noninterleaved_422_restart", dict(interleaved=False, sampling=(2, 1), restart=5)),
+                     ("qt16_420_restart", dict(qt16=True, restart=4)),
+                     ("qt16_noninterleaved_444", dict(qt16=True, interleaved=False, sampling=(1, 1)))):
+        files.append((f"enc_{name}.jpg", encode_baseline_jpeg(scene, dqt, dht, **kw),
+                      "own encoder: " + name.replace("_", " ")))
+    bio = io.BytesIO()
+    Image.fromarray(scene).save(bio, "JPEG", quality=85, progressive=True)
+    files.append(("progressive.jpg", bio.getvalue(), "must raise: progressive"))
+    raising["progressive.jpg"] = "progressive JPEG is not supported"
+    whole = jpg(_scene(64, 96, seed + 31), q, 90)
+    files.append(("truncated.jpg", whole[: len(whole) * 2 // 3], "must raise: truncated"))
+    raising["truncated.jpg"] = "truncated JPEG data"
+
+    def png_cv(img):
+        return cv2.imencode(".png", img[..., ::-1] if img.ndim == 3 and img.shape[2] in (3, 4)
+                            else img)[1].tobytes()
+
+    def png_pil(img, **kw):
+        b = io.BytesIO()
+        img.save(b, "PNG", **kw)
+        return b.getvalue()
+
+    hw, small = (41, 67), (19, 27)  # noise content at the small size
+    files += [
+        ("png_rgb8.png", png_cv(_scene(*hw, seed + 40)), "PNG RGB 8-bit"),
+        ("png_rgb16.png", png_cv(rng.integers(0, 65536, small + (3,), dtype=np.uint16)), "PNG RGB 16-bit"),
+        ("png_rgba8.png", png_cv(rng.integers(0, 256, small + (4,), dtype=np.uint8)), "PNG RGBA 8-bit"),
+        ("png_rgba16.png", png_cv(rng.integers(0, 65536, small + (4,), dtype=np.uint16)), "PNG RGBA 16-bit"),
+        ("png_gray8.png", png_cv(_scene(*hw, seed + 41)[..., 1]), "PNG gray 8-bit"),
+        ("png_gray16.png", png_cv(rng.integers(0, 65536, small, dtype=np.uint16)), "PNG gray 16-bit"),
+        ("png_gray_alpha8.png", png_pil(Image.fromarray(rng.integers(0, 256, small + (2,), dtype=np.uint8), "LA")),
+         "PNG gray + alpha 8-bit"),
+        ("png_gray1.png", png_pil(Image.fromarray(rng.integers(0, 2, hw).astype(bool))), "PNG gray 1-bit"),
+    ]
+    for depth in (2, 4):
+        packed = rng.integers(0, 256, (hw[0], hw[1] * depth // 8 + 1), dtype=np.uint8)
+        files.append((f"png_gray{depth}.png", _png(packed, 0, depth), f"PNG gray {depth}-bit"))
+    for depth in (1, 2, 4, 8):
+        pal = Image.fromarray(rng.integers(0, 2 ** depth, hw, dtype=np.uint8), "P")
+        pal.putpalette(rng.integers(0, 256, 3 * 2 ** depth).tolist())
+        files.append((f"png_palette{depth}.png", png_pil(pal, bits=depth), f"PNG palette {depth}-bit"))
+    files.append(("png_interlaced.png", _png(rng.integers(0, 256, (8, 8), dtype=np.uint8), 0, 8,
+                                              interlace=1), "must raise: Adam7"))
+    raising["png_interlaced.png"] = "interlaced (Adam7) PNG is not supported"
+
+    for i, (h, w) in enumerate(FULL_SIZE_HW):
+        files.append((f"full_{h}x{w}.jpg", jpg(_scene(h, w, seed + 100 + i), q, 90, s, sampling["420"]),
+                      "full size, 4:2:0 q90"))
+
+    decodes, manifest = {}, {"files": []}
+    for name, data, features in files:
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+        entry = {"file": name, "features": features, "bytes": len(data)}
+        if name in raising:
+            entry["raises"] = raising[name]
+        else:
+            bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            if bgr is None:
+                raise RuntimeError(f"cv2 cannot decode its own fixture {name}")
+            rgb = np.ascontiguousarray(bgr[..., ::-1])
+            entry["shape"] = list(rgb.shape)
+            entry["sha256"] = hashlib.sha256(rgb.tobytes()).hexdigest()
+            if not name.startswith("full_"):
+                decodes[name] = rgb
+        manifest["files"].append(entry)
+    np.savez_compressed(os.path.join(out_dir, "cv2_decodes.npz"), **decodes)
+    manifest["written_with"] = {"cv2": cv2.__version__, "PIL": Image.__version__}
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest

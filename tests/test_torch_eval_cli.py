@@ -326,7 +326,9 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=match):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
-    for argv, item in ((["serve"], 16), (["export", "--task", "video", "--out", "x"], 16),
+    for argv, item in ((["serve", "--int8"], 15), (["serve", "--calib-dir", "d"], 15),
+                       (["serve", "--fast-decode"], 6),
+                       (["export", "--task", "video", "--out", "x"], 16),
                        (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
                        (["generate", "--out", "x"], 10),
                        (["convert", "--kind", "coco", "--out", "x"], 11),
@@ -336,7 +338,7 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
             cli.main(argv)
     common = [f"data.data_root={root}", "--device", "cpu"]
     for override, item in (("mesh_model=2", 17), ("fsdp=true", 17), ("data.i420=true", 6),
-                           ("nms.multi_label=true", 5), ("data.host_shard=auto", 17)):
+                           ("compile_cache=cache", 10), ("data.host_shard=auto", 17)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             cli.main(["eval", override, *common])
     with pytest.raises(ValueError, match="YOLOv3"):

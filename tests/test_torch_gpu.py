@@ -21,6 +21,8 @@ Tolerance: keep masks and Detections bit-equal. The kernel rounds every
 float32 intermediate as the plain version does (no FMA contraction, IEEE
 division), and everything around it is the same PyTorch code on both sides.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -717,3 +719,92 @@ def test_video_loader_process_pool_after_cuda_init_and_multiclip_evaluator_on_ca
     pred = torch.stack(sums).argmax(-1).cpu().numpy()
     labels = np.array([lab for _, lab in ds.samples])
     assert res == {"accuracy": pytest.approx(float((pred == labels).mean())), "n_clips": 3}
+
+
+def _serving_predictions(seed, b, n=10647, c=80, size=416):
+    """Decoded-prediction-like rows [B, N, 5 + C] at the serving preset's
+    shapes (YOLOv3-416: 10,647 boxes x 80 classes): xywh in pixels, some
+    boxes under min_wh, sigmoid-range objectness and class scores."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, size, (b, n, 2))
+    wh = rng.uniform(1.0, size / 2, (b, n, 2))
+    obj = rng.beta(0.5, 4.0, (b, n, 1))
+    cls = rng.beta(0.5, 6.0, (b, n, c))
+    return torch.from_numpy(np.concatenate([xy, wh, obj, cls], -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_kernel_mask_equals_plain_on_multilabel_inputs(b):
+    """The serving preset's regime: every (box, class) pair a candidate at
+    conf 0.001, K = 1024 slots all full, one box under several class
+    offsets, IoU 0.6; and the whole multi-label NMS on the card equals the
+    CPU's."""
+    from fastvision_tpu_torch.ops import multilabel_candidates, non_max_suppression_multilabel
+    from fastvision_tpu_torch.ops.nms import class_offset_for
+
+    dev = _cuda()
+    pred = _serving_predictions(b, b)
+    offset = class_offset_for(3.0 * 416)
+    _, nms_boxes, scores, _ = multilabel_candidates(pred.to(dev), 0.001, class_offset=offset)
+    nms_boxes, scores = nms_boxes.contiguous(), scores.contiguous()
+    assert bool((scores > float("-inf")).all())
+    before = suppression_mask_cuda.launches
+    got = suppression_mask_cuda(nms_boxes, scores, 0.6)
+    torch.cuda.synchronize()
+    assert suppression_mask_cuda.launches == before + 1
+    assert torch.equal(got, suppression_mask_plain(nms_boxes, scores, 0.6))
+    kw = dict(conf_thres=0.001, iou_thres=0.6, class_offset=offset)
+    on_card = non_max_suppression_multilabel(pred.to(dev), **kw)
+    on_cpu = non_max_suppression_multilabel(pred, **kw)
+    for x, y in zip(on_card, on_cpu):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_vision_service_round_trip_on_card():
+    """VisionService with the serving preset's NMS on the card behind
+    make_server: warmup builds the decoder and the kernel and runs every
+    bucket; /predict decodes a JPEG of the corpus without cv2 and answers as
+    VisionService.predict does, through the kernel; the Detections of the
+    card's predictions equal the CPU's (plain version) on the same tensor."""
+    import http.client
+    import json
+    import socket
+    import threading
+
+    from fastvision_tpu_torch.infer import VisionService, make_server, preprocess_batch
+    from fastvision_tpu_torch.data.codec import decode_image
+
+    dev = _cuda()
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(6))
+    card = VisionService(Detector(model, anchors, input_size=128, batch_size=4,
+                                  batch_buckets=(1, 2), conf_thres=0.001, iou_thres=0.6,
+                                  multi_label=True, device=dev))
+    card.warmup()
+    assert card.warmed_buckets == [1, 2, 4]
+    with open(os.path.join(os.path.dirname(__file__), "torch_codec_fixtures",
+                           "full_480x640.jpg"), "rb") as f:
+        body = f.read()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server = make_server(card, "127.0.0.1", port)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        before = suppression_mask_cuda.launches
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        c.request("POST", "/predict", body=body)
+        r = c.getresponse()
+        got = json.loads(r.read())
+        c.close()
+        assert r.status == 200 and suppression_mask_cuda.launches == before + 1
+    finally:
+        server.batcher.shutdown()
+        server.shutdown()
+        server.server_close()
+    assert got == card.predict(body) and len(got["detection_scores"]) > 0
+    u8 = torch.from_numpy(preprocess_batch([decode_image(body)] * 4, 128)[0]).to(dev)
+    pred = card.detector.predecode(u8).float()
+    for x, y in zip(card.detector.nms(pred), card.detector.nms(pred.cpu())):
+        assert torch.equal(x.cpu(), y)

@@ -181,3 +181,53 @@ def test_non_max_suppression_rejects_batches():
         tnms.non_max_suppression(torch.zeros(2, 10, 7))
     with pytest.raises(ValueError):
         tnms.batched_non_max_suppression(torch.zeros(10, 7))
+
+
+def _multilabel_predictions(seed, b, n, c, tie_rows=0):
+    """`_predictions` with some boxes below min_wh = 2 or, in rows 3-5,
+    above max_wh, so that the width-height test zeroes their objectness."""
+    pred = _predictions(seed, b, n, c, tie_rows)
+    pred[:, 3::11, 2] = 1.5  # narrower than min_wh
+    pred[:, 5::13, 3] = 8000.0  # taller than max_wh
+    return pred
+
+
+@pytest.mark.parametrize("case", [
+    dict(box_format="xywh", conf_thres=0.001, iou_thres=0.6, pre_nms_top_k=256),
+    dict(box_format="xywh", conf_thres=0.3, iou_thres=0.45, pre_nms_top_k=1024),
+    dict(box_format="xyxy", conf_thres=0.001, iou_thres=0.6, pre_nms_top_k=256, min_wh=0.0),
+    dict(box_format="xywh", conf_thres=0.001, iou_thres=0.6, pre_nms_top_k=4096, max_det=20),
+], ids=["serving_preset", "high_conf", "xyxy", "k_above_pairs"])
+def test_non_max_suppression_multilabel_matches_jax(case):
+    """Every (box, class) pair a candidate, K = min(pre_nms_top_k, N * C),
+    ties in flat-index order (rows repeating row 0's scores), the strict
+    obj * cls > conf test and the min_wh / max_wh zeroing: the keep sets,
+    classes and order equal the JAX package's, per image of the batch."""
+    pred = _multilabel_predictions(4, 3, 300, 7, tie_rows=25)
+    kw = {"max_det": 100, "class_offset": jnms.class_offset_for(300.0), **case}
+    got = tnms.non_max_suppression_multilabel(torch.from_numpy(pred), **kw)
+    want = jax.vmap(lambda p: jnms.non_max_suppression_multilabel(p, **kw))(jnp.asarray(pred))
+    assert int(got.valid.sum()) > 10
+    _assert_same_detections(got, want)
+    kept = [{(tuple(b), int(c)) for b, c, v in zip(bx, cl, va) if v}
+            for bx, cl, va in zip(got.boxes.numpy().round(3), got.classes.numpy(),
+                                  got.valid.numpy())]
+    assert all(len(k) == int(v.sum()) for k, v in zip(kept, got.valid))  # each pair once
+
+
+def test_multilabel_candidates_and_checks():
+    """A box kept under two classes; a box whose side is below min_wh never
+    becomes a candidate; the score test is strict; only [B, N, 5+C] is taken."""
+    pred = torch.zeros(1, 3, 7)
+    pred[0, :, :4] = torch.tensor([[20.0, 20, 10, 10], [60, 60, 10, 10], [40, 40, 1.0, 10]])
+    pred[0, :, 4] = 1.0
+    pred[0, 0, 5:7] = torch.tensor([0.9, 0.8])  # box 0: classes 0 and 1
+    pred[0, 1, 5] = 0.5  # box 1: class 0 at exactly conf_thres
+    pred[0, 2, 6] = 0.95  # box 2: 1 px wide
+    det = tnms.non_max_suppression_multilabel(pred, conf_thres=0.5, iou_thres=0.5)
+    assert det.valid.sum() == 2
+    np.testing.assert_array_equal(det.classes[0, :2].numpy(), [0, 1])
+    np.testing.assert_array_equal(det.boxes[0, 0].numpy(), det.boxes[0, 1].numpy())
+    assert tnms.non_max_suppression_multilabel(pred, conf_thres=0.5, min_wh=0.0).valid.sum() == 3
+    with pytest.raises(ValueError, match=r"\[B, N, 5\+C\]"):
+        tnms.non_max_suppression_multilabel(pred[0])
