@@ -181,7 +181,34 @@ exits non-zero before a result is printed:
               augmentation, launches per command (0 for the classification
               and video ones); ``python -m fastvision_tpu_torch serve`` as a
               process on a free port (``/healthz``, one JPEG, SIGTERM: it
-              must drain and exit with 0); then the run's total seconds.
+              must drain and exit with 0);
+  23. i420    bench.py's jpeg -> boxes path: ``Detector(input_format='i420',
+              batch_size=32)`` (YOLOv3-416 full width, 80 classes, bf16,
+              random weights, BN from the phase's images, conf 0.25 / IoU
+              0.45, K = 1024) over 284 JPEGs written with
+              ``testing.encode_baseline_jpeg`` (7x7-blurred seeded noise,
+              4:2:0 q90: 256 at 640 x 480, 16 at 1280 x 720, 8 at 1920 x
+              1080, 4 with EXIF orientation 6). The fused JPEG -> I420
+              decode and the reduced RGB decode against the oracles stored
+              with the codec corpus (bit-equal); ``predict_dataset(
+              fast_decode=True)`` with 0 and 4 process workers (the same
+              detections, GT byte-equal, 0 fallbacks) and on the RGB path,
+              each with the kernel's launches counted; the i420 program in
+              float32 (TF32 off) card vs CPU (the heads; the decoded boxes
+              reported); the device letterbox
+              card vs CPU and vs the host letterbox, and a
+              ``device_letterbox`` predict_batch; ``evaluate(tta=True)`` and
+              ``evaluate`` under ``reference_demo`` (pad 0) on 64 images
+              labelled with the detector's own detections; the kernel
+              bit-equal to its plain version on each of these paths' inputs
+              (the demo's in original pixels up to 1920); the times: fused
+              decode against decode + letterbox + RGB -> I420 (1 and 4
+              threads), H2D of an i420 and an rgb batch of 32, device
+              programs, device vs host letterbox, TTA eval images/s;
+              then the run's total seconds.
+
+``python3 chip_smoke.py --only i420`` runs the device, build and i420 phases
+alone (a quick check of this path; the full run takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port, with its launches on every path (the classification and video paths
@@ -222,7 +249,8 @@ from fastvision_tpu_torch.data import (
     VideoFolderDataset,
     normalize_images,
 )
-from fastvision_tpu_torch.data.codec import decode_image
+from fastvision_tpu_torch.data.codec import decode_image, decode_jpeg_i420, decode_jpeg_reduced
+from fastvision_tpu_torch.data.dataset import imread_rgb_scaled, letterbox
 from fastvision_tpu_torch.infer import (
     REFERENCE_SWEEP,
     Detector,
@@ -231,6 +259,8 @@ from fastvision_tpu_torch.infer import (
     preprocess_batch,
     scale_coords,
 )
+from fastvision_tpu_torch.infer.postprocess import reference_demo_unscale
+from fastvision_tpu_torch.infer.predictor import _Subset
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.classification import (
     Bottleneck,
@@ -259,6 +289,12 @@ from fastvision_tpu_torch.ops import (
     roi_align,
     roi_align_mxu,
 )
+from fastvision_tpu_torch.ops.image import (
+    i420_packed_to_rgb,
+    letterbox_batch,
+    pack_canvas,
+    rgb_batch_to_i420_packed,
+)
 from fastvision_tpu_torch.ops.nms_kernel import (
     MAX_K,
     suppression_mask_cuda,
@@ -271,6 +307,7 @@ from fastvision_tpu_torch.testing import (
     state_max_rel_diff,
     write_classification_dataset,
     write_detection_dataset,
+    write_jpeg_detection_dataset,
     write_video_dataset,
 )
 from fastvision_tpu_torch.train import (
@@ -614,6 +651,13 @@ def phase_e2e(dev: torch.device) -> dict:
         heads_cpu = cpu_model(x32[:2])
     head_rel = [float((a - b).abs().max() / b.std()) for a, b in zip(heads_dev, heads_cpu)]
     check(max(head_rel) <= 1e-3, f"fp32 heads card vs cpu: max|d|/std {head_rel} > 1e-3")
+    # reported: the decode (wh = (2 sigmoid)^2 anchor) amplifies their rounding
+    dec_dev = decode_predictions(heads_dev, torch.from_numpy(anchors), det.strides, "v5")
+    dec_cpu = decode_predictions(heads_cpu, torch.from_numpy(anchors), det.strides, "v5")
+    decoded_rel = {k: float((dec_dev[..., sl] - dec_cpu[..., sl]).abs().max()
+                            / dec_cpu[..., sl].std())
+                   for k, sl in (("xy", slice(0, 2)), ("wh", slice(2, 4)), ("obj", slice(4, 5)),
+                                 ("cls", slice(5, None)))}
 
     # --- the card's decoded predictions: NMS on the card (kernel) vs the CPU (plain)
     u8 = torch.from_numpy(batch).to(dev)
@@ -634,6 +678,7 @@ def phase_e2e(dev: torch.device) -> dict:
          input_size=INPUT_SIZE, batch=8, image_hw=[list(s) for s in SIZES],
          launches=launches, boxes_per_image=n_boxes, first_call_s=round(first_call_s, 3),
          head_max_abs_over_std=head_rel, head_tolerance=1e-3,
+         decoded_max_abs_over_field_std=decoded_rel,
          nms_card_equals_cpu=same, kernel_mismatches_on_main_path_inputs=main_mismatches,
          valid_candidates=int((top_scores > float("-inf")).sum()),
          candidates_shape=list(top_scores.shape))
@@ -2792,6 +2837,333 @@ def phase_cli(dev: torch.device, smi: str, workdir: str, cls_root: str, video_ro
     return {"launches": {tag: r["launches"] for tag, r in runs.items()}, "zero": zero_tags}
 
 
+# the i420 phase: bench.py's jpeg -> boxes path (fused decode, packed I420,
+# device colour decode), the device letterbox, TTA and reference_demo
+I420_BATCH = 32
+I420_SHAPES = [(480, 640)] * 256 + [(720, 1280)] * 16 + [(1080, 1920)] * 8 + [(480, 640)] * 4
+I420_ORIENTATIONS = [1] * 280 + [6] * 4
+I420_EVAL_IMAGES = 64
+I420_WORKERS = 4
+LETTERBOX_BATCH, CANVAS_HW = 8, (640, 640)
+
+
+def check_native_oracles() -> dict:
+    """The fused JPEG -> I420 decode and the reduced RGB decode on this host
+    against the JAX package's and cv2's outputs stored with the corpus
+    (sha256 of the bytes; scale, pads and dims exactly)."""
+    with open(os.path.join(FIXTURES, "native_oracles.json")) as f:
+        oracles = json.load(f)
+    data = {e["file"]: e["data"] for e in codec_fixtures()[0]}
+    fused = reduced = 0
+    for e in oracles["fused_i420"]:
+        packed, scale, pads, orig, dec = decode_jpeg_i420(
+            data[e["file"]], e["size"], oracles["i420_pad_value"], e["reduce_target"])
+        got = [hashlib.sha256(packed.tobytes()).hexdigest(), float(np.float32(scale)), list(pads),
+               list(orig), list(dec)]
+        check(got == [e["sha256"], e["scale"], e["pads"], e["orig_hw"], e["decoded_hw"]],
+              f"fused decode differs from the stored oracle: {e}, got {got}")
+        fused += 1
+    for e in oracles["cv2_reduced"]:
+        rgb = decode_jpeg_reduced(data[e["file"]], e["factor"])
+        check([list(rgb.shape), hashlib.sha256(rgb.tobytes()).hexdigest()]
+              == [e["shape"], e["sha256"]], f"reduced decode differs from cv2's: {e}")
+        reduced += 1
+    factors = sorted({next(f for f in (1, 2, 4, 8)
+                           if -(-max(e["orig_hw"]) // f) == max(e["decoded_hw"]))
+                      for e in oracles["fused_i420"]})
+    return {"fused_i420_cases": fused, "reduced_rgb_cases": reduced, "factors": factors,
+            "differing": 0}
+
+
+def kernel_vs_plain_on(pred: torch.Tensor, conf: float, iou: float, class_offset: float,
+                       **kw) -> dict:
+    """The NMS kernel against its plain version on one path's candidates."""
+    _, bx, sc, _ = nms_candidates(pred, conf_thres=conf, class_offset=class_offset, **kw)
+    bx, sc = bx.contiguous(), sc.contiguous()
+    keep = suppression_mask_cuda(bx, sc, iou)
+    want = suppression_mask_plain(bx, sc, iou)
+    return {"shape": list(sc.shape), "valid": int((sc > float("-inf")).sum()),
+            "kept": int(want.sum()), "mismatches": int((keep != want).sum())}
+
+
+def counted_launches(fn):
+    """-> (fn(), seconds, NMS kernel launches), the count reset just before."""
+    suppression_mask_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, suppression_mask_cuda.launches
+
+
+def same_detections(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        ra["id"] == rb["id"] and all(np.array_equal(ra[k], rb[k])
+                                     for k in ("boxes", "scores", "classes"))
+        and np.array_equal(ga, gb) for (ra, ga), (rb, gb) in zip(a, b))
+
+
+def phase_i420(dev: torch.device, smi: str, workdir: str) -> dict:
+    """bench.py's jpeg -> boxes Detector (YOLOv3-416 full width, bf16,
+    input_format='i420', batch 32, fast_decode) over JPEG files: the fused
+    decode against the stored oracles; predict_dataset with 0 and 4 process
+    workers (the same detections, GT byte-equal, 0 fallbacks), the kernel's
+    launches counted; float32 card vs CPU of the i420 program; the device
+    letterbox card vs CPU and vs the host's; evaluate with TTA and under
+    reference_demo on 64 images; the kernel bit-equal on each path's inputs;
+    then the times."""
+    t_phase = time.perf_counter()
+    oracles = check_native_oracles()
+    root = os.path.join(workdir, "i420")
+    t0 = time.perf_counter()
+    write_jpeg_detection_dataset(root, I420_SHAPES, seed=SEED + 9, num_classes=NUM_CLASSES,
+                                 orientations=I420_ORIENTATIONS, workers=os.cpu_count() or 1)
+    data_s = time.perf_counter() - t0
+    ds = DetectionDataset(root, "val")
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = yolo_model()
+    first = [ds[i][0] for i in range(8)]
+    calibrate_bn_(model.to(dev), normalize_images(
+        torch.from_numpy(preprocess_batch(first, INPUT_SIZE)[0]), torch.float32).to(dev))
+    det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=I420_BATCH,
+                   input_format="i420", device=dev)
+    det_rgb = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=I420_BATCH, device=dev)
+    head = _Subset(ds, I420_BATCH)
+    for d in (det, det_rgb):  # warm-up: cuDNN's choices, the decode library
+        list(d.predict_dataset(head, fast_decode=True))
+
+    # --- the main path, counted: predict_dataset on 0 and 4 workers
+    runs = {}
+    for tag, d, workers in (("i420_predict_dataset_w0", det, 0),
+                            ("i420_predict_dataset_w4", det, I420_WORKERS),
+                            ("rgb_predict_dataset_w4", det_rgb, I420_WORKERS)):
+        d.i420_fallbacks = 0
+        out, s, launches = counted_launches(lambda d=d, w=workers: list(
+            d.predict_dataset(ds, fast_decode=True, num_workers=w)))
+        runs[tag] = {"results": out, "seconds": s, "img_s": len(ds) / s, "launches": launches,
+                     "fallbacks": d.i420_fallbacks}
+    w0, w4 = runs["i420_predict_dataset_w0"], runs["i420_predict_dataset_w4"]
+    check(same_detections(w0["results"], w4["results"]),
+          "predict_dataset with 4 workers differs from 0 workers on the i420 path")
+    check(w0["fallbacks"] == w4["fallbacks"] == 0, f"fused-decode fallbacks: {w0['fallbacks']}")
+    check(all(r["launches"] > 0 for r in runs.values()),
+          f"a predict_dataset run never launched the kernel: "
+          f"{ {k: r['launches'] for k, r in runs.items()} }")
+    n_boxes = [len(r["boxes"]) for r, _ in w0["results"]]
+    check(sum(n_boxes) > 0, "no detections on the i420 path")
+    check(all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
+              for r, _ in w0["results"]), "non-finite detections")
+    turned = [i for i, o in enumerate(I420_ORIENTATIONS) if o >= 5]
+    check(all((w0["results"][i][0]["boxes"][:, [0, 2]] <= I420_SHAPES[i][0]).all()
+              and (w0["results"][i][0]["boxes"][:, [1, 3]] <= I420_SHAPES[i][1]).all()
+              for i in turned), "a box of an EXIF-turned image lies outside its turned frame")
+    rgb_vs_i420 = {"images": len(ds), "i420_boxes": sum(n_boxes),
+                   "rgb_boxes": sum(len(r["boxes"]) for r, _ in runs["rgb_predict_dataset_w4"]
+                                    ["results"])}
+
+    # --- float32, TF32 off: the i420 program on the card vs the CPU, pre-NMS
+    batch = next(det._loader(ds, 1).epoch(0))
+    packed = torch.from_numpy(batch["images"][:2])
+    d32 = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=2, input_format="i420",
+                   dtype=torch.float32, device=dev)
+    cpu32 = Detector(copy.deepcopy(model).cpu(), anchors, input_size=INPUT_SIZE, batch_size=2,
+                     input_format="i420", dtype=torch.float32, device="cpu")
+    # the raw heads (pre-decode, pre-NMS), each to its own std, as e2e holds
+    # them; the decoded fields are reported: wh = (2 sigmoid)^2 anchor of a
+    # random-weight model amplifies the float32 rounding (e2e reports the
+    # same for its RGB images) while the heads agree
+    with no_tf32(), torch.inference_mode():
+        h_card = [h.float().cpu() for h in d32.model(normalize_images(packed.to(dev),
+                                                                      torch.float32))]
+        p_card = d32.predecode(packed.to(dev)).float().cpu()
+        h_cpu = cpu32.model(normalize_images(packed, torch.float32))
+    p_cpu = cpu32.predecode(packed).float()
+    head_rel = [float((a - b).abs().max() / b.std()) for a, b in zip(h_card, h_cpu)]
+    decoded_rel = {k: float((p_card[..., sl] - p_cpu[..., sl]).abs().max() / p_cpu[..., sl].std())
+                   for k, sl in (("xy", slice(0, 2)), ("wh", slice(2, 4)), ("obj", slice(4, 5)),
+                                 ("cls", slice(5, None)))}
+    check(max(head_rel) <= 1e-3, f"i420 program fp32 card vs cpu: heads max|d|/std {head_rel}")
+    del cpu32, h_card, h_cpu, p_card, p_cpu
+
+    # --- the device letterbox: card vs CPU, and vs the host letterbox
+    # two images of each kind: 640 x 480, 720p, 1080p (reduced), EXIF-turned
+    kinds = [[i for i, (hw, o) in enumerate(zip(I420_SHAPES, I420_ORIENTATIONS))
+              if (hw, o >= 5) == (shape, turn)][:2]
+             for shape, turn in dict.fromkeys(zip(I420_SHAPES, [o >= 5 for o in
+                                                               I420_ORIENTATIONS]))]
+    lb_picks = [i for k in kinds for i in k][:LETTERBOX_BATCH]
+    arrs = [imread_rgb_scaled(ds.image_path(i), INPUT_SIZE)[0] for i in lb_picks]
+    canvas, sizes = (torch.from_numpy(a) for a in pack_canvas(arrs, *CANVAS_HW))
+    c_dev, s_dev = canvas.to(dev), sizes.to(dev)
+    lb_card = letterbox_batch(c_dev, s_dev, INPUT_SIZE)
+    lb_cpu = letterbox_batch(canvas, sizes, INPUT_SIZE)
+    lb_card_vs_cpu = float((lb_card[0].cpu() - lb_cpu[0]).abs().max())
+    check(lb_card_vs_cpu <= 1e-3 and all(torch.equal(a.cpu(), b)
+                                         for a, b in zip(lb_card[1:], lb_cpu[1:])),
+          f"device letterbox card vs cpu: {lb_card_vs_cpu}")
+    host = np.stack([letterbox(a, INPUT_SIZE)[0] for a in arrs])
+    lb_vs_host = float((lb_card[0].cpu() - torch.from_numpy(host).float()).abs().max())
+    check(lb_vs_host <= 1.0 + 1e-3, f"device letterbox vs the host's: max|d| {lb_vs_host}")
+    det_lb = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=LETTERBOX_BATCH,
+                      device_letterbox=True, canvas_hw=CANVAS_HW, device=dev)
+    lb_paths = [ds.image_path(i) for i in lb_picks]
+    det_lb.predict_batch(lb_paths)
+    lb_res, _, lb_launches = counted_launches(lambda: det_lb.predict_batch(lb_paths))
+    check(lb_launches > 0 and sum(len(r["boxes"]) for r in lb_res) > 0,
+          "device_letterbox predict_batch found nothing or never launched the kernel")
+
+    # --- evaluate with TTA and under reference_demo (pad 0), 64 images (the
+    # 24 large ones first, so that the demo's first batch holds boxes in
+    # original pixels up to 1920) labelled with the i420 detector's own
+    # jittered detections
+    ev_root = os.path.join(workdir, "i420_eval")
+    rng = np.random.default_rng(SEED)
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(ev_root, "val", sub), exist_ok=True)
+    large = [i for i, (hw, o) in enumerate(zip(I420_SHAPES, I420_ORIENTATIONS))
+             if max(hw) > 640 and o == 1]
+    picks = large + [i for i in range(len(I420_SHAPES)) if i not in large][
+        : I420_EVAL_IMAGES - len(large)]
+    for k, i in enumerate(picks):
+        r = w0["results"][i][0]
+        shutil.copy(ds.image_path(i), os.path.join(ev_root, "val", "images", f"{k:05d}.jpg"))
+        b = r["boxes"][:4]
+        wh = np.concatenate([b[:, 2:] - b[:, :2]] * 2, 1)
+        b = b + rng.normal(0, 0.1, b.shape) * wh
+        with open(os.path.join(ev_root, "val", "labels", f"{k:05d}.txt"), "w") as f:
+            f.writelines(f"{int(c)} {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f}\n"
+                         for c, (x1, y1, x2, y2) in zip(r["classes"][:4], b))
+    ev_ds = DetectionDataset(ev_root, "val")
+    det_demo = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=I420_BATCH,
+                        postprocess_mode="reference_demo", pad_value=0, device=dev)
+    det.evaluate(_Subset(ev_ds, I420_BATCH), tta=True)  # warm-up of the [2B] program
+    det_demo.evaluate(_Subset(ev_ds, I420_BATCH))
+    tta, tta_s, tta_l = counted_launches(lambda: det.evaluate(ev_ds, tta=True))
+    plain, plain_s, plain_l = counted_launches(lambda: det.evaluate(ev_ds))
+    demo, demo_s, demo_l = counted_launches(lambda: det_demo.evaluate(ev_ds))
+    check(min(tta_l, demo_l) > 0 and tta["map50"] > 0 and demo["map50"] > 0,
+          f"evaluate tta {tta} ({tta_l} launches), demo {demo} ({demo_l})")
+
+    # --- the kernel bit-equal on each path's own inputs
+    packed_dev = torch.from_numpy(batch["images"]).to(dev)
+    pred = det.predecode(packed_dev).float()
+    pred_tta = det.predecode_tta(packed_dev).float()
+    demo_batch = next(det_demo._loader(ev_ds, 1).epoch(0))
+    metas = demo_batch["meta"]
+    ratios, pads, ori_wh = det_demo._demo_inputs(metas, I420_BATCH)
+    pred_demo = reference_demo_unscale(
+        det_demo.predecode(torch.from_numpy(demo_batch["images"]).to(dev)).float(), ratios,
+        pads[:, 0], pads[:, 1], ori_wh[:, 0], ori_wh[:, 1], min_wh=det_demo.min_box_px)
+    vs_plain = {
+        "i420_batch32": kernel_vs_plain_on(pred, det.conf_thres, det.iou_thres, det.class_offset),
+        "tta_batch64": kernel_vs_plain_on(pred_tta, det.conf_thres, det.iou_thres,
+                                       det.class_offset),
+        "reference_demo_batch32": kernel_vs_plain_on(pred_demo, det.conf_thres, det.iou_thres,
+                                                  det.class_offset, box_format="xyxy",
+                                                  score_mode="obj"),
+    }
+    mismatches = sum(r["mismatches"] for r in vs_plain.values())
+    check(mismatches == 0 and all(r["valid"] for r in vs_plain.values()),
+          f"nms kernel vs plain on the i420 phase's inputs: {vs_plain}")
+    demo_max_px = float(pred_demo[..., :4].max())
+    check(demo_max_px > 3 * INPUT_SIZE,
+          f"the reference_demo inputs reach {demo_max_px} px, not original 1920-px pixels")
+
+    # --- times (each with the card's name and power limit in `card`)
+    datas = []
+    for i in range(min(64, len(ds))):  # 640 x 480 files
+        with open(ds.image_path(i), "rb") as f:
+            datas.append(f.read())
+
+    def fused(data):
+        return decode_jpeg_i420(data, INPUT_SIZE, 114, reduce_target=INPUT_SIZE)
+
+    def plain_chain(data):
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            out = letterbox(decode_image(data), INPUT_SIZE)[0]
+            return rgb_batch_to_i420_packed(out[None])
+        finally:
+            torch.set_num_threads(n)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    decode_times = {}
+    for name, fn in (("fused_jpeg_to_i420", fused), ("decode_letterbox_rgb_to_i420", plain_chain)):
+        fn(datas[0])
+        t0 = time.perf_counter()
+        for data in datas:
+            fn(data)
+        one = len(datas) / (time.perf_counter() - t0)
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(fn, datas[:8]))
+            t0 = time.perf_counter()
+            list(pool.map(fn, datas * 2))
+            four = 2 * len(datas) / (time.perf_counter() - t0)
+        decode_times[name] = {"img_s_1_thread": one, "img_s_4_threads": four}
+    u8 = torch.from_numpy(np.stack([letterbox(a, INPUT_SIZE)[0] for a in first] * 4))
+    h2d = {}
+    for tag, host_batch in (("i420_batch32", torch.from_numpy(batch["images"])),
+                            ("rgb_batch32", u8)):
+        pinned = host_batch.pin_memory()
+        ms = cuda_ms(lambda p=pinned: p.to(dev, non_blocking=True), reps=20)
+        h2d[tag] = {"bytes": pinned.numel(), "bytes_per_image": pinned.numel() // I420_BATCH,
+                    "ms": ms, "mb_s": pinned.numel() / 1e3 / ms}
+    u8_dev = u8.to(dev)
+    program_ms = {"i420": cuda_ms(lambda: det.infer(packed_dev), reps=10),
+                  "rgb": cuda_ms(lambda: det_rgb.infer(u8_dev), reps=10),
+                  "i420_to_rgb_decode": cuda_ms(
+                      lambda: i420_packed_to_rgb(packed_dev, det.dtype), reps=20)}
+    letterbox_ms = {
+        "device_batch8_canvas640": cuda_ms(lambda: letterbox_batch(c_dev, s_dev, INPUT_SIZE,
+                                                                   dtype=det.dtype), reps=20),
+        "host_batch8": 1e3 * host_s(lambda: [letterbox(a, INPUT_SIZE) for a in arrs], reps=5)}
+    emit("i420", card=smi, model="YOLOv3 Darknet-53, 80 classes, full width, bf16, random "
+         "weights (seed 0), BN from 8 of the phase's images", input_size=INPUT_SIZE,
+         batch=I420_BATCH, data={"jpegs": len(ds), "shapes": "256 x 480x640, 16 x 720x1280, "
+                                 "8 x 1080x1920, 4 x 480x640 with EXIF orientation 6",
+                                 "recipe": "7x7-blurred seeded noise, baseline 4:2:0 q90",
+                                 "encode_s": data_s},
+         native_oracles=oracles,
+         predict_dataset={k: {f: r[f] for f in ("seconds", "img_s", "launches", "fallbacks")}
+                          for k, r in runs.items()},
+         w0_equals_w4=True, boxes=rgb_vs_i420,
+         fp32_card_vs_cpu={"head_max_abs_over_std": head_rel, "head_tolerance": 1e-3,
+                           "decoded_max_abs_over_field_std": decoded_rel},
+         device_letterbox={"card_vs_cpu_max_abs": lb_card_vs_cpu, "vs_host_max_abs": lb_vs_host,
+                           "predict_batch_launches": lb_launches, "ms": letterbox_ms},
+         evaluate={"tta": {**tta, "seconds": tta_s, "launches": tta_l},
+                   "plain_i420": {**plain, "seconds": plain_s, "launches": plain_l},
+                   "reference_demo_pad0": {**demo, "seconds": demo_s, "launches": demo_l}},
+         kernel_vs_plain=vs_plain, reference_demo_max_coordinate_px=demo_max_px,
+         decode=decode_times, h2d=h2d, device_program_ms=program_ms,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"launches": {k: r["launches"] for k, r in runs.items()}
+            | {"i420_device_letterbox": lb_launches, "i420_evaluate_tta": tta_l,
+               "i420_evaluate": plain_l, "i420_evaluate_reference_demo": demo_l},
+            "mismatches": mismatches}
+
+
+def main_only_i420(dev: torch.device, device: dict, t_start: float) -> int:
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        i420 = phase_i420(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    check(i420["mismatches"] == 0, "kernel mismatches")
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(i420["launches"].values()), "launches_by_path": i420["launches"],
+        "mismatches": i420["mismatches"]}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def main() -> int:
     # cuBLAS reads its workspace layout once; this one (of the two that
     # PyTorch documents) lets phase_ckpt_resume run its matmuls deterministically
@@ -2805,6 +3177,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     device = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--only", "i420"]:
+        return main_only_i420(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -2842,6 +3216,8 @@ def main() -> int:
         serve = phase_serve(dev, device["smi"])
         torch.cuda.empty_cache()
         cli_run = phase_cli(dev, device["smi"], workdir, cls["root"], video["root"])
+        torch.cuda.empty_cache()
+        i420 = phase_i420(dev, device["smi"], workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -2853,7 +3229,8 @@ def main() -> int:
                "frcnn_eval_step": feval["launches"],
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
-               **evaluate["launches"], **serve["launches"], **cli_run["launches"]}
+               **evaluate["launches"], **serve["launches"], **cli_run["launches"],
+               **i420["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"]])
@@ -2868,7 +3245,7 @@ def main() -> int:
         "paths_expected_at_zero": zero_paths,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
         "mismatches": (kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"]
-                       + serve["mismatches"]),
+                       + serve["mismatches"] + i420["mismatches"]),
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -37,7 +37,10 @@ cv2 for them; video files need cv2. ``serve`` answers HTTP requests
 (`infer.serving`) with the JAX package's serving preset: multi-label NMS at
 conf 0.001 / IoU 0.6 unless ``nms.*`` is given, batch buckets (1, 2, 4)
 below the batch size, micro-batched concurrent requests; SIGTERM drains
-the queue and exits.
+the queue and exits. ``data.i420=true`` sends packed YUV 4:2:0 batches to the
+card (train and eval loaders, the detector of ``eval`` / ``infer`` /
+``serve``); ``eval --tta`` adds horizontal-flip test-time augmentation;
+``--fast-decode`` decodes JPEGs at least 2x larger than the input reduced.
 Subcommands and flags the port does not have yet exit naming their ROADMAP
 item.
 """
@@ -73,7 +76,6 @@ def _check_ported(cfg) -> None:
             (cfg.fsdp, "fsdp", 17),
             (cfg.multihost, "multihost", 17),
             (bool(cfg.data.host_shard), "data.host_shard", 17),
-            (cfg.data.i420, "data.i420 (packed YUV 4:2:0 batches)", 6),
             (bool(cfg.compile_cache), "compile_cache (the JAX package's XLA cache)", 10)):
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
@@ -208,7 +210,8 @@ def cmd_train(args, overrides):
     val_ds = DetectionDataset(d.data_root, d.val_dir, d.cache)
     aug = (build_augmentation(d.augment)
            or Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)]))
-    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
+    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend,
+                   emit="i420" if d.i420 else "rgb")
     train_loader = DetectionLoader(train_ds, d.input_size, d.batch_size, d.max_boxes,
                                    train=True, augmentation=aug, mosaic_prob=0.5,
                                    seed=cfg.train.seed, on_corrupt=d.on_corrupt, **workers)
@@ -286,7 +289,8 @@ def _train_faster_rcnn(cfg, args):
     optimizer = build_optimizer(cfg.train.optimizer, model, weight_decay=cfg.train.weight_decay,
                                 momentum=cfg.train.momentum,
                                 grad_clip_norm=cfg.train.grad_clip_norm or 10.0)
-    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
+    workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend,
+                   emit="i420" if d.i420 else "rgb")
     train_loader = DetectionLoader(
         DetectionDataset(d.data_root, d.train_dir, d.cache), d.input_size, d.batch_size,
         d.max_boxes, train=True, seed=cfg.train.seed, on_corrupt=d.on_corrupt,
@@ -435,7 +439,7 @@ def cmd_train_video(args, overrides):
     return _run_closing(fit, train_loader, val_loader)
 
 
-def _detector_from_cfg(cfg, ckpt: str, device, batch_buckets=()):
+def _detector_from_cfg(cfg, ckpt: str, device, batch_buckets=(), fast_decode: bool = False):
     from .core.checkpoint import restore_inference_weights
     from .infer import Detector
 
@@ -449,6 +453,7 @@ def _detector_from_cfg(cfg, ckpt: str, device, batch_buckets=()):
                     conf_thres=cfg.nms.conf_thres, iou_thres=cfg.nms.iou_thres,
                     max_det=cfg.nms.max_det, class_names=cfg.data.categories or None,
                     dtype=_dtype(cfg), multi_label=cfg.nms.multi_label,
+                    input_format="i420" if cfg.data.i420 else "rgb", fast_decode=fast_decode,
                     batch_buckets=batch_buckets, device=device)
 
 
@@ -491,7 +496,7 @@ def _eval_classifier(cfg, args) -> dict:
 
 def cmd_eval(args, overrides):
     """-> the evaluate result, or the sweep's rows."""
-    for flag, item in (("int8", 15), ("int8_percentile", 15), ("tta", 6), ("fast_decode", 6)):
+    for flag, item in (("int8", 15), ("int8_percentile", 15)):
         if getattr(args, flag):
             raise _exit_not_ported("--" + flag.replace("_", "-"), item)
     cfg = _load_config(args, overrides)
@@ -500,7 +505,7 @@ def cmd_eval(args, overrides):
     from .data import DetectionDataset
     from .infer.predictor import REFERENCE_SWEEP
 
-    det = _detector_from_cfg(cfg, args.ckpt, args.device)
+    det = _detector_from_cfg(cfg, args.ckpt, args.device, fast_decode=args.fast_decode)
     ds = DetectionDataset(cfg.data.data_root, cfg.data.val_dir)
     if args.sweep:
         points = (REFERENCE_SWEEP if args.sweep == "reference"
@@ -517,8 +522,9 @@ def cmd_eval(args, overrides):
     res = det.evaluate(
         ds, metric_file=args.metric_file or None,
         config_note=f"conf {cfg.nms.conf_thres} iou {cfg.nms.iou_thres} "
-                    f"size {cfg.data.input_size}",
-        max_images=args.max_images, save_json=args.save_json or None, coco_ids=args.coco_ids)
+                    f"size {cfg.data.input_size}" + (" tta" if args.tta else ""),
+        max_images=args.max_images, tta=args.tta, save_json=args.save_json or None,
+        coco_ids=args.coco_ids)
     print(f"mAP@0.5 {res['map50']:.4f}  mAP@0.5:0.95 {res['map']:.4f}  "
           f"({res['images']} imgs, {res['img_per_sec']:.1f} img/s)")
     if args.save_json:
@@ -529,15 +535,13 @@ def cmd_eval(args, overrides):
 def cmd_infer(args, overrides):
     """Draw the detections of an image or a directory into ``--out``
     (same file names). -> {path: result}."""
-    if args.fast_decode:
-        raise _exit_not_ported("--fast-decode", 6)
     if args.source.lower().endswith((".mp4", ".avi", ".mov", ".mkv")):
         raise _exit_not_ported("infer on a video (Detector.predict_video)", 6)
     cfg = _load_config(args, overrides)
     from .data.dataset import imread_rgb, imwrite_rgb
     from .viz import draw_detections
 
-    det = _detector_from_cfg(cfg, args.ckpt, args.device)
+    det = _detector_from_cfg(cfg, args.ckpt, args.device, fast_decode=args.fast_decode)
     os.makedirs(args.out, exist_ok=True)
     if os.path.isdir(args.source):
         results = dict(det.predict_dir(args.source))
@@ -558,12 +562,11 @@ def cmd_serve(args, overrides):
     conf 0.001 / IoU 0.6) and `SERVE_BUCKETS`."""
     if args.int8 or args.calib_dir:
         raise _exit_not_ported("int8 serving (--int8, --calib-dir)", 15)
-    if args.fast_decode:
-        raise _exit_not_ported("--fast-decode", 6)
     cfg = _load_config(args, [*SERVE_PRESET, *overrides])
     from .infer.serving import VisionService, serve
 
-    det = _detector_from_cfg(cfg, args.ckpt, args.device, batch_buckets=SERVE_BUCKETS)
+    det = _detector_from_cfg(cfg, args.ckpt, args.device, batch_buckets=SERVE_BUCKETS,
+                             fast_decode=args.fast_decode)
     window = args.batch_window if args.batch_window == "adaptive" else float(args.batch_window)
     serve(VisionService(det), host=args.host, port=args.port, batch_window_ms=window)
 
@@ -595,12 +598,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--metric-file", default="")
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--tta", action="store_true",
-                   help="horizontal-flip test-time augmentation (not ported)")
+                   help="horizontal-flip test-time augmentation")
     p.add_argument("--int8", action="store_true", help="int8 w8a8 PTQ inference (not ported)")
     p.add_argument("--int8-percentile", action="store_true",
                    help="calibrate at the 99.9th percentile of |x| (not ported)")
     p.add_argument("--fast-decode", action="store_true",
-                   help="reduced JPEG decode for >=2x oversized images (not ported)")
+                   help="reduced JPEG decode for >=2x oversized images")
     p.add_argument("--sweep", nargs="?", const="reference", default=None,
                    metavar="C:I,C:I,...",
                    help="conf:iou threshold sweep in one data pass; bare --sweep runs the "
@@ -615,7 +618,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", required=True)
     p.add_argument("--out", default="./outputs")
     p.add_argument("--fast-decode", action="store_true",
-                   help="reduced JPEG decode for >=2x oversized images (not ported)")
+                   help="reduced JPEG decode for >=2x oversized images")
     p = common(sub.add_parser(
         "serve", help="HTTP serving: POST /predict (an image body), POST /predict_stream "
                       "(NDJSON), GET /healthz; multi-label NMS at conf 0.001 / IoU 0.6 "
@@ -629,7 +632,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true", help="int8 serving (not ported)")
     p.add_argument("--calib-dir", default="", help="int8 calibration images (not ported)")
     p.add_argument("--fast-decode", action="store_true",
-                   help="reduced JPEG decode for >=2x oversized images (not ported)")
+                   help="reduced JPEG decode for >=2x oversized images")
     sub.add_parser("doctor", help="environment triage (not ported)")
     p = sub.add_parser("convert")
     p.add_argument("--kind", choices=["coco", "voc"], required=True)

@@ -124,7 +124,9 @@ class DataConfig:
     # the command's default recipe
     augment: list = field(default_factory=list)
     cache: bool = False
-    i420: bool = False  # not ported: packed YUV 4:2:0 batches
+    # packed YUV 4:2:0 batches (half the host -> device bytes), decoded on
+    # the card; eval reads JPEGs with the fused JPEG -> I420 decode
+    i420: bool = False
     num_frames: int = 16
     frame_strategy: str = "average"
     # corrupt-file policy for TRAIN loaders ('skip' | 'raise'); val and

@@ -24,11 +24,36 @@
 // replication where libjpeg falls back to it), and the fixed-point
 // YCbCr -> RGB tables of jdcolor.c.
 //
+// Reduced decodes (scale 1/2, 1/4, 1/8: libjpeg's scale_denom, what cv2's
+// IMREAD_REDUCED_COLOR_{2,4,8} asks for) run libjpeg-turbo's scaled IDCTs
+// (jidctred.c: 4x4, 2x2, 1x1, with the coefficients they skip) at the
+// per-component sizes jdmaster.c picks (a chroma component is decoded at a
+// larger IDCT while that spares its upsampling), then jdsample.c's upsampler
+// choice on what is left (no fancy upsampling when the smallest IDCT is 1x1).
+//
+// The fused JPEG -> letterboxed packed I420 decode is the port's copy of
+// fastvision_tpu/native/jpeg_i420.cpp, which reads libjpeg's raw planes
+// (jpeg_read_raw_data: the stored YCbCr at each component's scaled size, no
+// upsampling, no colour conversion): the same planes come from the IDCTs
+// above, then its resize_affine and letterbox geometry, copied exactly. The
+// JAX package builds that file with -march=native, where GCC contracts a
+// multiply and an add into one fused multiply-add: the copy writes those
+// fmaf calls out and the library is built with -ffp-contract=off, so every
+// host computes what an FMA host's build of the original computes. Unlike
+// the original, it applies the EXIF orientation to each plane before the
+// letterbox (as the RGB decode does), so both paths see the same frame.
+//
 // C interface (returns 0, or 1 with a message in `err`):
-//   fvj_dims(data, n, dims[2], err, errlen)   -> output height, width
-//   fvj_decode(data, n, out, out_bytes, err, errlen) -> RGB uint8 HWC
+//   fvj_dims_reduced(data, n, denom, dims[2], err, errlen) -> output height, width
+//   fvj_decode_reduced(data, n, denom, out, out_bytes, err, errlen) -> RGB uint8 HWC
+//     at scale 1/denom (denom 1 for the full image, 2, 4 or 8)
+//   fvj_decode_i420_letterbox(data, n, out_size, pad_y, reduce_target, out,
+//     scale, pads, dims, err, errlen) -> 0; 1 where the JAX package falls
+//     back to its plain chain (colour space or sampling it does not take);
+//     2 with a message for data this decoder refuses
 #include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstdarg>
 #include <cstdint>
 #include <cstdio>
@@ -175,12 +200,14 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int cw = 0, ch = 0;  // downsampled size in samples (libjpeg's downsampled_width/height)
   int bw = 0, bh = 0;  // blocks per row / column of the MCU-padded grid
+  int dct = 8;         // the IDCT's output size a block side (libjpeg's DCT_scaled_size)
+  int sw = 0, sh = 0;  // downsampled size at that IDCT size
   int td = 0, ta = 0;  // Huffman tables of the current scan
   int dc_pred = 0;
   bool coded = false;
   int16_t qt[64];  // latched at the component's first scan, natural order
   std::vector<int16_t> coef;
-  std::vector<uint8_t> plane;  // (bh * 8) x (bw * 8)
+  std::vector<uint8_t> plane;  // (bh * dct) x (bw * dct)
 };
 
 // ---- ISLOW IDCT (jidctint.c) ----
@@ -293,6 +320,111 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
   }
 }
 
+// ---- reduced-size IDCTs (jidctred.c: 4x4, 2x2 and 1x1 outputs of an 8x8 block) ----
+constexpr int64_t R0_211 = 1730, R0_509 = 4176, R0_601 = 4926, R0_720 = 5906, R0_765 = 6270,
+                  R0_850 = 6967, R0_899 = 7373, R1_061 = 8697, R1_272 = 10426, R1_451 = 11893,
+                  R1_847 = 15137, R2_172 = 17799, R2_562 = 20995, R3_624 = 29692;
+
+inline int64_t deq(const int16_t* in, const int16_t* q, int k) { return int64_t(in[k]) * q[k]; }
+
+void idct_4x4(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int ws[32];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 4) continue;  // the second pass does not read column 4
+    const int16_t* ip = in + c;
+    const int16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[40] && !ip[48] && !ip[56]) {
+      int dc = int(deq(ip, qp, 0) * (1 << kPass1Bits));
+      for (int r = 0; r < 4; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t tmp0 = deq(ip, qp, 0) * (int64_t(1) << (kConstBits + 1));
+    int64_t tmp2 = deq(ip, qp, 16) * R1_847 + deq(ip, qp, 48) * -R0_765;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = deq(ip, qp, 56), z2 = deq(ip, qp, 40), z3 = deq(ip, qp, 24), z4 = deq(ip, qp, 8);
+    tmp0 = z1 * -R0_211 + z2 * R1_451 + z3 * -R2_172 + z4 * R1_061;
+    tmp2 = z1 * -R0_509 + z2 * -R0_601 + z3 * R0_899 + z4 * R2_562;
+    constexpr int s = kConstBits - kPass1Bits + 1;
+    wp[0] = int(descale(tmp10 + tmp2, s));
+    wp[24] = int(descale(tmp10 - tmp2, s));
+    wp[8] = int(descale(tmp12 + tmp0, s));
+    wp[16] = int(descale(tmp12 - tmp0, s));
+  }
+  constexpr int s2 = kConstBits + kPass1Bits + 3 + 1;
+  for (int r = 0; r < 4; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    if (!wp[1] && !wp[2] && !wp[3] && !wp[5] && !wp[6] && !wp[7]) {
+      uint8_t dc = clamp_u8(int(descale(wp[0], kPass1Bits + 3)) + 128);
+      for (int c = 0; c < 4; ++c) op[c] = dc;
+      continue;
+    }
+    int64_t tmp0 = int64_t(wp[0]) * (int64_t(1) << (kConstBits + 1));
+    int64_t tmp2 = int64_t(wp[2]) * R1_847 + int64_t(wp[6]) * -R0_765;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = wp[7], z2 = wp[5], z3 = wp[3], z4 = wp[1];
+    tmp0 = z1 * -R0_211 + z2 * R1_451 + z3 * -R2_172 + z4 * R1_061;
+    tmp2 = z1 * -R0_509 + z2 * -R0_601 + z3 * R0_899 + z4 * R2_562;
+    op[0] = clamp_u8(int(descale(tmp10 + tmp2, s2)) + 128);
+    op[3] = clamp_u8(int(descale(tmp10 - tmp2, s2)) + 128);
+    op[1] = clamp_u8(int(descale(tmp12 + tmp0, s2)) + 128);
+    op[2] = clamp_u8(int(descale(tmp12 - tmp0, s2)) + 128);
+  }
+}
+
+void idct_2x2(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int ws[16];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 2 || c == 4 || c == 6) continue;  // not read by the second pass
+    const int16_t* ip = in + c;
+    const int16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[24] && !ip[40] && !ip[56]) {
+      wp[0] = wp[8] = int(deq(ip, qp, 0) * (1 << kPass1Bits));
+      continue;
+    }
+    int64_t tmp10 = deq(ip, qp, 0) * (int64_t(1) << (kConstBits + 2));
+    int64_t tmp0 = deq(ip, qp, 56) * -R0_720 + deq(ip, qp, 40) * R0_850 +
+                   deq(ip, qp, 24) * -R1_272 + deq(ip, qp, 8) * R3_624;
+    constexpr int s = kConstBits - kPass1Bits + 2;
+    wp[0] = int(descale(tmp10 + tmp0, s));
+    wp[8] = int(descale(tmp10 - tmp0, s));
+  }
+  constexpr int s2 = kConstBits + kPass1Bits + 3 + 2;
+  for (int r = 0; r < 2; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    if (!wp[1] && !wp[3] && !wp[5] && !wp[7]) {
+      op[0] = op[1] = clamp_u8(int(descale(wp[0], kPass1Bits + 3)) + 128);
+      continue;
+    }
+    int64_t tmp10 = int64_t(wp[0]) * (int64_t(1) << (kConstBits + 2));
+    int64_t tmp0 = int64_t(wp[7]) * -R0_720 + int64_t(wp[5]) * R0_850 +
+                   int64_t(wp[3]) * -R1_272 + int64_t(wp[1]) * R3_624;
+    op[0] = clamp_u8(int(descale(tmp10 + tmp0, s2)) + 128);
+    op[1] = clamp_u8(int(descale(tmp10 - tmp0, s2)) + 128);
+  }
+}
+
+// jpeg_idct_1x1: the block's mean, through libjpeg's post-IDCT range-limit
+// table (which wraps outside [-512, 511]; it has no SIMD version to saturate)
+void idct_1x1(const int16_t* in, const int16_t* q, uint8_t* out, int) {
+  int x = int(descale(int64_t(in[0]) * q[0], 3)) & 1023;
+  out[0] = static_cast<uint8_t>(x < 128 ? x + 128 : (x < 512 ? 255 : (x < 896 ? 0 : x - 896)));
+}
+
+using IdctFn = void (*)(const int16_t*, const int16_t*, uint8_t*, int);
+
+IdctFn idct_for(int size) {
+  switch (size) {
+    case 8: return idct_islow;
+    case 4: return idct_4x4;
+    case 2: return idct_2x2;
+    default: return idct_1x1;
+  }
+}
+
 // ---- YCbCr -> RGB tables (jdcolor.c build_ycc_rgb_table) ----
 struct ColorTables {
   int cr_r[256], cb_b[256];
@@ -315,6 +447,102 @@ const ColorTables& color_tables() {
   return t;
 }
 
+// OpenCV's ExifTransform: 2 flip x, 3 flip both, 4 flip y, 5 transpose,
+// 6 transpose + flip x, 7 transpose + flip both, 8 transpose + flip y. `in` is
+// H x W pixels of `ch` bytes, rows `stride` bytes apart; `out` is packed, W x H
+// when o >= 5.
+void orient_image(const uint8_t* in, int H, int W, size_t stride, int ch, int o, uint8_t* out) {
+  const int oh = o >= 5 ? W : H, ow = o >= 5 ? H : W;
+  for (int y = 0; y < oh; ++y)
+    for (int x = 0; x < ow; ++x) {
+      int sy, sx;
+      switch (o) {
+        case 2: sy = y; sx = W - 1 - x; break;
+        case 3: sy = H - 1 - y; sx = W - 1 - x; break;
+        case 4: sy = H - 1 - y; sx = x; break;
+        case 5: sy = x; sx = y; break;
+        case 6: sy = H - 1 - x; sx = y; break;
+        case 7: sy = H - 1 - x; sx = W - 1 - y; break;
+        default: sy = x; sx = W - 1 - y; break;  // 8
+      }
+      std::memcpy(out + (size_t(y) * ow + x) * ch, in + size_t(sy) * stride + size_t(sx) * ch, ch);
+    }
+}
+
+// ---- fastvision_tpu/native/jpeg_i420.cpp, copied: resize_affine and the letterbox ----
+// Bilinear resize (cv2 INTER_LINEAR half-pixel mapping) of one plane with a
+// fused affine range conversion out = a*in + b, clamped to [0,255]; 7-bit
+// fixed-point taps. The fmaf calls are the multiply-adds that GCC contracts
+// in the original's -march=native build.
+void resize_affine(const uint8_t* src, int sh, int sw, int sstride, uint8_t* dst, int dh, int dw,
+                   int dstride, float a, float b) {
+  if (dh <= 0 || dw <= 0) return;
+  if (sh == dh && sw == dw) {  // no resize: affine copy
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* s = src + size_t(y) * sstride;
+      uint8_t* d = dst + size_t(y) * dstride;
+      for (int x = 0; x < dw; ++x) {
+        float v = std::fmaf(a, float(s[x]), b) + 0.5f;
+        d[x] = uint8_t(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+      }
+    }
+    return;
+  }
+  std::vector<int> x0(dw), x1(dw);
+  std::vector<uint16_t> wx1(dw), wx0(dw);
+  const float rx = float(sw) / dw, ry = float(sh) / dh;
+  for (int x = 0; x < dw; ++x) {
+    float sx = std::fmaf(x + 0.5f, rx, -0.5f);
+    if (sx < 0) sx = 0;
+    if (sx > sw - 1) sx = float(sw - 1);
+    x0[x] = int(sx);
+    x1[x] = x0[x] + 1 < sw ? x0[x] + 1 : sw - 1;
+    int w = int((sx - x0[x]) * 128.f + 0.5f);
+    wx1[x] = uint16_t(w);
+    wx0[x] = uint16_t(128 - w);
+  }
+  std::vector<uint16_t> h0(dw), h1(dw);
+  int h0_row = -1, h1_row = -1;
+  auto hpass = [&](int sy, std::vector<uint16_t>& out) {
+    const uint8_t* s = src + size_t(sy) * sstride;
+    for (int x = 0; x < dw; ++x) out[x] = uint16_t(s[x0[x]] * wx0[x] + s[x1[x]] * wx1[x]);
+  };
+  const float inv = a / (128.f * 128.f);
+  for (int y = 0; y < dh; ++y) {
+    float sy = std::fmaf(y + 0.5f, ry, -0.5f);
+    if (sy < 0) sy = 0;
+    if (sy > sh - 1) sy = float(sh - 1);
+    int y0 = int(sy);
+    int y1 = y0 + 1 < sh ? y0 + 1 : sh - 1;
+    int wy = int((sy - y0) * 128.f + 0.5f);
+    if (h0_row != y0) {
+      if (h1_row == y0) {  // downscale walks forward: reuse the y1 row
+        std::swap(h0, h1);
+        h0_row = y0;
+        h1_row = -1;
+      } else {
+        hpass(y0, h0);
+        h0_row = y0;
+      }
+    }
+    if (h1_row != y1) {
+      if (y1 == y0) {
+        h1_row = y0;
+        std::copy(h0.begin(), h0.end(), h1.begin());
+      } else {
+        hpass(y1, h1);
+        h1_row = y1;
+      }
+    }
+    uint8_t* d = dst + size_t(y) * dstride;
+    const int w1 = wy, w0 = 128 - wy;
+    for (int x = 0; x < dw; ++x) {
+      float v = std::fmaf(inv, float(h0[x] * w0 + h1[x] * w1), b) + 0.5f;
+      d[x] = uint8_t(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+    }
+  }
+}
+
 uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
 
 class Decoder {
@@ -324,22 +552,111 @@ class Decoder {
   // Parses the markers up to the first scan: size and orientation.
   void read_header() { parse(true); }
 
-  int out_h() const { return orientation_ >= 5 ? width_ : height_; }
-  int out_w() const { return orientation_ >= 5 ? height_ : width_; }
+  // the output's height and width at scale 1/denom, in the oriented frame
+  int out_h(int denom = 1) const { return ceil_div(orientation_ >= 5 ? width_ : height_, denom); }
+  int out_w(int denom = 1) const { return ceil_div(orientation_ >= 5 ? height_ : width_, denom); }
 
-  void decode(uint8_t* out) {
-    parse(false);
-    for (auto& c : comps_)
-      if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+  // RGB uint8 HWC at scale 1/denom (1, 2, 4 or 8), oriented
+  void decode(uint8_t* out, int denom = 1) {
+    decode_planes(denom);
     std::vector<uint8_t> rgb;
     bool direct = orientation_ <= 1;
     uint8_t* dst = out;
     if (!direct) {
-      rgb.resize(size_t(height_) * width_ * 3);
+      rgb.resize(size_t(oh_) * ow_ * 3);
       dst = rgb.data();
     }
     to_rgb(dst);
-    if (!direct) orient(rgb.data(), out);
+    if (!direct) orient_image(rgb.data(), oh_, ow_, size_t(ow_) * 3, 3, orientation_, out);
+  }
+
+  // libjpeg's colour space for three components (jdapimin.c): RGB rather than YCbCr
+  bool rgb_coded() const {
+    if (jfif_) return false;
+    if (adobe_) return adobe_transform_ == 0;
+    return comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+  }
+
+  // What fastvision_tpu/native/jpeg_i420.cpp takes (after the header): gray,
+  // or YCbCr with luma sampling (1|2) x (1|2) and 1x1 chroma
+  bool i420_eligible() const {
+    const Component& y = comps_[0];
+    bool ok = y.h >= 1 && y.h <= 2 && y.v >= 1 && y.v <= 2;
+    if (comps_.size() == 3)
+      ok = ok && !rgb_coded() && comps_[1].h == 1 && comps_[1].v == 1 && comps_[2].h == 1 &&
+           comps_[2].v == 1;
+    return ok;
+  }
+
+  // After the header: the reduction jpeg_i420.cpp takes for `reduce_target`
+  // (the largest f in {8, 4, 2} with max(h, w) >= f * target, else 1), the
+  // rule of data/dataset.py::imread_rgb_scaled
+  int reduction(int reduce_target) const {
+    if (reduce_target > 0)
+      for (int f : {8, 4, 2})
+        if (std::max(height_, width_) >= f * reduce_target) return f;
+    return 1;
+  }
+
+  // jpeg_i420.cpp's jpeg_decode_i420_letterbox on this decoder's planes, each
+  // oriented first, decoded at scale 1/denom. out: [S*3/2, S]; scale:
+  // letterbox scale in the decoded frame; pads {left, top}; dims {orig_h,
+  // orig_w, decoded_h, decoded_w}
+  void decode_i420(int S, uint8_t pad_y, int denom, uint8_t* out, float* scale, int32_t* pads,
+                   int32_t* dims) {
+    decode_planes(denom);
+    const int n = int(comps_.size());
+    std::vector<uint8_t> turned[3];
+    const uint8_t* pp[3];
+    int ph[3], pw[3], pst[3];
+    for (int i = 0; i < n; ++i) {
+      const Component& c = comps_[i];
+      const int o = orientation_;
+      if (o > 1) {
+        ph[i] = o >= 5 ? c.sw : c.sh;
+        pw[i] = o >= 5 ? c.sh : c.sw;
+        turned[i].resize(size_t(c.sw) * c.sh);
+        orient_image(c.plane.data(), c.sh, c.sw, size_t(c.bw) * c.dct, 1, o, turned[i].data());
+        pp[i] = turned[i].data();
+        pst[i] = pw[i];
+      } else {
+        ph[i] = c.sh;
+        pw[i] = c.sw;
+        pp[i] = c.plane.data();
+        pst[i] = c.bw * c.dct;
+      }
+    }
+    const int dh = ph[0], dw = pw[0];
+    dims[0] = out_h();
+    dims[1] = out_w();
+    dims[2] = dh;
+    dims[3] = dw;
+    // letterbox geometry as data/dataset.py::letterbox (banker's rounding)
+    const double sc = double(S) / (dh > dw ? dh : dw);
+    const int nh = int(std::nearbyint(dh * sc));
+    const int nw = int(std::nearbyint(dw * sc));
+    const int top = (S - nh) / 2, left = (S - nw) / 2;
+    *scale = float(sc);
+    pads[0] = left;
+    pads[1] = top;
+    uint8_t* Y = out;
+    uint8_t* U = out + size_t(S) * S;
+    uint8_t* V = U + size_t(S / 2) * (S / 2);
+    std::memset(Y, pad_y, size_t(S) * S);
+    std::memset(U, 128, size_t(S / 2) * (S / 2));
+    std::memset(V, 128, size_t(S / 2) * (S / 2));
+    // full-range JFIF -> studio-swing BT.601 (cv2's RGB2YUV_I420 convention)
+    const float ay = 219.f / 255.f, by = 16.f;
+    const float ac = 224.f / 255.f, bc = 128.f * (1.f - 224.f / 255.f);
+    resize_affine(pp[0], dh, dw, pst[0], Y + size_t(top) * S + left, nh, nw, S, ay, by);
+    if (n == 3) {  // chroma: the canvas region covering the luma's at half resolution
+      const int ctop = top >> 1, cleft = left >> 1;
+      const int cbh = ((top + nh + 1) >> 1) - ctop;
+      const int cbw = ((left + nw + 1) >> 1) - cleft;
+      const int cs = S / 2;
+      resize_affine(pp[1], ph[1], pw[1], pst[1], U + size_t(ctop) * cs + cleft, cbh, cbw, cs, ac, bc);
+      resize_affine(pp[2], ph[2], pw[2], pst[2], V + size_t(ctop) * cs + cleft, cbh, cbw, cs, ac, bc);
+    }
   }
 
  private:
@@ -348,6 +665,7 @@ class Decoder {
   const uint8_t* p_ = nullptr;
   int width_ = 0, height_ = 0;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int min_dct_ = 8, oh_ = 0, ow_ = 0;  // the smallest IDCT size; the output before orientation
   int restart_interval_ = 0;
   int orientation_ = 1;
   bool jfif_ = false, adobe_ = false;
@@ -641,18 +959,40 @@ class Decoder {
     p_ = bits.p;  // the marker parser finds what follows the entropy-coded data
   }
 
-  // IDCT every block, then upsample and convert into a height x width RGB image.
-  void to_rgb(uint8_t* out) {
+  static int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+  // Decode every scan, then IDCT every block at scale 1/denom: each
+  // component's IDCT size as jdmaster.c picks it (the smallest, 8 / denom,
+  // doubled for a subsampled component while its upsampling ratio allows).
+  void decode_planes(int denom) {
+    parse(false);
+    for (auto& c : comps_)
+      if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+    min_dct_ = 8 / denom;
+    oh_ = ceil_div(height_, denom);
+    ow_ = ceil_div(width_, denom);
     for (auto& c : comps_) {
-      int stride = c.bw * 8;
-      c.plane.assign(size_t(stride) * c.bh * 8, 0);
+      int ss = min_dct_;
+      while (ss < 8 && (hmax_ * min_dct_) % (c.h * ss * 2) == 0 &&
+             (vmax_ * min_dct_) % (c.v * ss * 2) == 0)
+        ss *= 2;
+      c.dct = ss;
+      c.sw = int((int64_t(width_) * c.h * ss + hmax_ * 8 - 1) / (hmax_ * 8));
+      c.sh = int((int64_t(height_) * c.v * ss + vmax_ * 8 - 1) / (vmax_ * 8));
+      const int stride = c.bw * ss;
+      c.plane.assign(size_t(stride) * c.bh * ss, 0);
+      const IdctFn idct = idct_for(ss);
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.qt,
-                     &c.plane[size_t(by) * 8 * stride + bx * 8], stride);
+          idct(&c.coef[(size_t(by) * c.bw + bx) * 64], c.qt,
+               &c.plane[size_t(by) * ss * stride + size_t(bx) * ss], stride);
       std::vector<int16_t>().swap(c.coef);
     }
-    const int W = width_, H = height_;
+  }
+
+  // Upsample and convert the decoded planes into an oh_ x ow_ RGB image.
+  void to_rgb(uint8_t* out) {
+    const int W = ow_, H = oh_;
     std::vector<uint8_t> full[3];
     for (size_t i = 0; i < comps_.size(); ++i) full[i] = upsample(comps_[i]);
     if (comps_.size() == 1) {
@@ -660,10 +1000,7 @@ class Decoder {
       for (size_t i = 0; i < size_t(W) * H; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
       return;
     }
-    bool rgb;
-    if (jfif_) rgb = false;
-    else if (adobe_) rgb = adobe_transform_ == 0;
-    else rgb = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+    const bool rgb = rgb_coded();
     const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
     if (rgb) {
       for (size_t i = 0; i < size_t(W) * H; ++i) {
@@ -682,16 +1019,20 @@ class Decoder {
     }
   }
 
-  // One component at the full width x height, as jdsample.c upsamples it.
+  // One component at the output's width x height, as jdsample.c upsamples it:
+  // the ratios count the component's samples after its IDCT, and libjpeg
+  // upsamples plainly (no fancy filter) when the smallest IDCT is 1x1.
   std::vector<uint8_t> upsample(const Component& c) {
-    const int W = width_, H = height_, S = c.bw * 8;
-    const int hf = hmax_ / c.h, vf = vmax_ / c.v, cw = c.cw, ch = c.ch;
+    const int W = ow_, H = oh_, S = c.bw * c.dct;
+    const int hf = hmax_ / (c.h * c.dct / min_dct_), vf = vmax_ / (c.v * c.dct / min_dct_);
+    const int cw = c.sw, ch = c.sh;
+    const bool fancy = min_dct_ > 1;
     const uint8_t* in = c.plane.data();
     std::vector<uint8_t> out(size_t(W) * H);
     auto row = [&](int r) { return in + size_t(r) * S; };
     if (hf == 1 && vf == 1) {
       for (int y = 0; y < H; ++y) std::memcpy(&out[size_t(y) * W], row(y), W);
-    } else if (hf == 2 && vf == 1 && cw > 2) {  // h2v1_fancy_upsample
+    } else if (hf == 2 && vf == 1 && fancy && cw > 2) {  // h2v1_fancy_upsample
       for (int y = 0; y < H; ++y) {
         const uint8_t* ip = row(y);
         uint8_t* op = &out[size_t(y) * W];
@@ -701,7 +1042,7 @@ class Decoder {
                           : uint8_t((3 * ip[k] + ip[std::max(k - 1, 0)] + 1) >> 2);
         }
       }
-    } else if (hf == 1 && vf == 2) {  // h1v2_fancy_upsample
+    } else if (hf == 1 && vf == 2 && fancy) {  // h1v2_fancy_upsample
       for (int y = 0; y < H; ++y) {
         int r = y >> 1;
         const uint8_t* near = row(r);
@@ -710,7 +1051,7 @@ class Decoder {
         uint8_t* op = &out[size_t(y) * W];
         for (int x = 0; x < W; ++x) op[x] = uint8_t((3 * near[x] + far[x] + bias) >> 2);
       }
-    } else if (hf == 2 && vf == 2 && cw > 2) {  // h2v2_fancy_upsample
+    } else if (hf == 2 && vf == 2 && fancy && cw > 2) {  // h2v2_fancy_upsample
       std::vector<int> sum(cw);
       for (int y = 0; y < H; ++y) {
         int r = y >> 1;
@@ -733,27 +1074,6 @@ class Decoder {
     }
     return out;
   }
-
-  // OpenCV's ExifTransform: 2 flip x, 3 flip both, 4 flip y, 5 transpose,
-  // 6 transpose + flip x, 7 transpose + flip both, 8 transpose + flip y.
-  void orient(const uint8_t* in, uint8_t* out) {
-    const int H = height_, W = width_, o = orientation_;
-    const int oh = out_h(), ow = out_w();
-    for (int y = 0; y < oh; ++y)
-      for (int x = 0; x < ow; ++x) {
-        int sy, sx;
-        switch (o) {
-          case 2: sy = y; sx = W - 1 - x; break;
-          case 3: sy = H - 1 - y; sx = W - 1 - x; break;
-          case 4: sy = H - 1 - y; sx = x; break;
-          case 5: sy = x; sx = y; break;
-          case 6: sy = H - 1 - x; sx = y; break;
-          case 7: sy = H - 1 - x; sx = W - 1 - y; break;
-          default: sy = x; sx = W - 1 - y; break;  // 8
-        }
-        std::memcpy(out + (size_t(y) * ow + x) * 3, in + (size_t(sy) * W + sx) * 3, 3);
-      }
-  }
 };
 
 int report(const char* msg, char* err, int errlen) {
@@ -765,12 +1085,15 @@ int report(const char* msg, char* err, int errlen) {
 
 extern "C" {
 
-int fvj_dims(const uint8_t* data, int64_t n, int32_t* dims, char* err, int errlen) {
+int fvj_dims_reduced(const uint8_t* data, int64_t n, int denom, int32_t* dims, char* err,
+                     int errlen) {
   try {
+    if (denom != 1 && denom != 2 && denom != 4 && denom != 8)
+      return report("the reduction must be 1, 2, 4 or 8", err, errlen);
     Decoder d(data, size_t(n));
     d.read_header();
-    dims[0] = d.out_h();
-    dims[1] = d.out_w();
+    dims[0] = d.out_h(denom);
+    dims[1] = d.out_w(denom);
     return 0;
   } catch (const DecodeError& e) {
     return report(e.msg.c_str(), err, errlen);
@@ -779,20 +1102,45 @@ int fvj_dims(const uint8_t* data, int64_t n, int32_t* dims, char* err, int errle
   }
 }
 
-int fvj_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_bytes, char* err,
-               int errlen) {
+int fvj_decode_reduced(const uint8_t* data, int64_t n, int denom, uint8_t* out, int64_t out_bytes,
+                       char* err, int errlen) {
   try {
+    if (denom != 1 && denom != 2 && denom != 4 && denom != 8)
+      return report("the reduction must be 1, 2, 4 or 8", err, errlen);
     Decoder d(data, size_t(n));
     d.read_header();
-    if (int64_t(d.out_h()) * d.out_w() * 3 != out_bytes)
+    if (int64_t(d.out_h(denom)) * d.out_w(denom) * 3 != out_bytes)
       return report("output buffer does not match the image size", err, errlen);
     Decoder full(data, size_t(n));
-    full.decode(out);
+    full.decode(out, denom);
     return 0;
   } catch (const DecodeError& e) {
     return report(e.msg.c_str(), err, errlen);
   } catch (const std::bad_alloc&) {
     return report("out of memory decoding a JPEG", err, errlen);
+  }
+}
+
+int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int out_size, uint8_t pad_y,
+                              int reduce_target, uint8_t* out, float* scale, int32_t* pads,
+                              int32_t* dims, char* err, int errlen) {
+  try {
+    if (out_size < 2 || (out_size & 1)) {
+      report("the I420 size must be even and at least 2", err, errlen);
+      return 2;
+    }
+    Decoder d(data, size_t(n));
+    d.read_header();
+    if (!d.i420_eligible()) return 1;
+    Decoder full(data, size_t(n));
+    full.decode_i420(out_size, pad_y, d.reduction(reduce_target), out, scale, pads, dims);
+    return 0;
+  } catch (const DecodeError& e) {
+    report(e.msg.c_str(), err, errlen);
+    return 2;
+  } catch (const std::bad_alloc&) {
+    report("out of memory decoding a JPEG", err, errlen);
+    return 2;
   }
 }
 

@@ -1,6 +1,6 @@
 """Builds the port's native sources into shared libraries: the CUDA
 kernels (``csrc/*.cu``) with ``nvcc``, and the host code (``csrc/*.cpp``,
-the JPEG decoder) with the host C++ compiler.
+the JPEG decoder and the letterbox) with the host C++ compiler.
 
 Each source is compiled at first use into a shared library with a plain C
 interface, loaded with ``ctypes``. The library's name carries a hash of the
@@ -14,7 +14,9 @@ CUDA flags: ``sm_90a`` (Hopper), ``--fmad=false`` because the kernels must
 round every intermediate as the plain PyTorch versions do, and
 ``-Xptxas -v`` so the build log records registers and shared memory. Host
 flags: ``-O3 -std=c++17``, no ``-march=native`` (a library built on one
-host may be loaded on another).
+host may be loaded on another), ``-ffp-contract=off`` (a float multiply
+and add fuse only where the source calls ``fmaf``, so the result does not
+depend on the host's instruction set), ``-pthread``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-pthread", "-shared", "-fPIC")
 
 
 @dataclass(frozen=True)

@@ -21,6 +21,15 @@ progressive, arithmetic-coded, 12-bit, lossless or CMYK JPEG, an interlaced
 PNG and truncated or corrupt data raise ``ValueError`` naming what is
 missing. Nothing falls back to cv2. The output is RGB uint8 HWC; grayscale
 is repeated to 3 channels.
+
+The same library gives the port's counterparts of the JAX package's
+``fastvision_tpu.native`` and of cv2's reduced reads:
+
+- `decode_jpeg_reduced`: ``cv2.IMREAD_REDUCED_COLOR_{2,4,8}``, bit for bit;
+- `decode_jpeg_i420`: ``native.decode_jpeg_i420``, the fused JPEG ->
+  letterboxed packed-I420 decode (bit-equal to the JAX package's build on
+  the files both take), except that it applies the EXIF orientation;
+- `letterbox_batch_native`: ``native.letterbox_batch`` (``csrc/letterbox.cpp``).
 """
 from __future__ import annotations
 
@@ -42,28 +51,125 @@ def jpeg_library() -> ctypes.CDLL:
     be built). Call it before forking workers, so they inherit it."""
     lib = cuda_build.load("jpeg_decode")
     if not getattr(lib, "_fv_typed", False):
-        for fn in (lib.fvj_dims, lib.fvj_decode):
-            fn.restype = ctypes.c_int
-        lib.fvj_dims.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                 ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
-        lib.fvj_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-                                   ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+        c_int, c_i64, c_ptr, c_str = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p
+        for fn in (lib.fvj_dims_reduced, lib.fvj_decode_reduced, lib.fvj_decode_i420_letterbox):
+            fn.restype = c_int
+        lib.fvj_dims_reduced.argtypes = [c_str, c_i64, c_int, ctypes.POINTER(ctypes.c_int32),
+                                         c_str, c_int]
+        lib.fvj_decode_reduced.argtypes = [c_str, c_i64, c_int, c_ptr, c_i64, c_str, c_int]
+        lib.fvj_decode_i420_letterbox.argtypes = [
+            c_str, c_i64, c_int, ctypes.c_uint8, c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_str, c_int]
         lib._fv_typed = True
     return lib
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG -> RGB uint8 HWC, EXIF orientation applied."""
+def jpeg_size(data: bytes, factor: int = 1) -> tuple[int, int]:
+    """A baseline JPEG's (height, width) as `decode_jpeg_reduced` gives it
+    at 1/``factor``: EXIF orientation applied, ceil(side / factor)."""
     data = bytes(data)
-    lib = jpeg_library()
     err = ctypes.create_string_buffer(_ERR_LEN)
     dims = (ctypes.c_int32 * 2)()
-    if lib.fvj_dims(data, len(data), dims, err, _ERR_LEN):
+    if jpeg_library().fvj_dims_reduced(data, len(data), factor, dims, err, _ERR_LEN):
         raise ValueError(err.value.decode())
-    out = np.empty((dims[0], dims[1], 3), np.uint8)
-    if lib.fvj_decode(data, len(data), out.ctypes.data, out.nbytes, err, _ERR_LEN):
+    return int(dims[0]), int(dims[1])
+
+
+def decode_jpeg_reduced(data: bytes, factor: int = 1) -> np.ndarray:
+    """A baseline JPEG -> RGB uint8 HWC at 1/``factor`` (1, 2, 4 or 8),
+    EXIF orientation applied: cv2's ``IMREAD_REDUCED_COLOR_{factor}``
+    (libjpeg-turbo's scaled IDCTs and its upsampler choice), bit for bit."""
+    data = bytes(data)
+    h, w = jpeg_size(data, factor)
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if jpeg_library().fvj_decode_reduced(data, len(data), factor, out.ctypes.data, out.nbytes,
+                                         err, _ERR_LEN):
         raise ValueError(err.value.decode())
     return out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline JPEG -> RGB uint8 HWC, EXIF orientation applied."""
+    return decode_jpeg_reduced(data, 1)
+
+
+def decode_jpeg_i420(data: bytes, size: int, pad_value: int = 114, reduce_target: int = 0):
+    """Fused JPEG decode -> letterboxed packed I420 [S*3/2, S] uint8, the
+    port of ``fastvision_tpu.native.decode_jpeg_i420``: the file's stored
+    YCbCr planes, no chroma upsampling and no RGB round trip, converted to
+    cv2's studio-swing convention (what `ops.image.i420_packed_to_rgb`
+    inverts) and letterboxed plane by plane with `data.dataset.letterbox`'s
+    geometry. ``reduce_target`` > 0 decodes at 1/f for the largest f in
+    {8, 4, 2} with max(h, w) >= f * reduce_target (``imread_rgb_scaled``'s
+    rule). The EXIF orientation is applied to the planes first.
+
+    -> (packed, scale (float32, decoded frame), (pad_left, pad_top),
+    (orig_h, orig_w), (decoded_h, decoded_w)), or None where the JAX package
+    falls back to its plain chain: not a JPEG, an RGB-coded JPEG, or a
+    sampling other than luma (1|2) x (1|2) with 1x1 chroma. A JPEG this
+    decoder refuses (progressive, CMYK, truncated, ...) raises ValueError."""
+    if size % 2:
+        raise ValueError(f"i420 needs an even input_size, got {size}")
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        return None
+    out = np.empty((size * 3 // 2, size), np.uint8)
+    scale = np.empty(1, np.float32)
+    pads = np.empty(2, np.int32)
+    dims = np.empty(4, np.int32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    # the studio-swing luma of RGB gray(pad_value); chroma pads with 128
+    pad_y = int(np.clip(np.round(16 + 219 * pad_value / 255), 0, 255))
+    rc = jpeg_library().fvj_decode_i420_letterbox(
+        data, len(data), size, pad_y, reduce_target, out.ctypes.data,
+        scale.ctypes.data, pads.ctypes.data, dims.ctypes.data, err, _ERR_LEN)
+    if rc == 1:
+        return None
+    if rc:
+        raise ValueError(err.value.decode())
+    return (out, float(scale[0]), (int(pads[0]), int(pads[1])), (int(dims[0]), int(dims[1])),
+            (int(dims[2]), int(dims[3])))
+
+
+def letterbox_library() -> ctypes.CDLL:
+    """``csrc/letterbox.cpp``, built on first use (raises if it cannot be built)."""
+    lib = cuda_build.load("letterbox")
+    if not getattr(lib, "_fv_typed", False):
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.letterbox_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), i32p, i32p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_uint8, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
+        lib.letterbox_batch.restype = None
+        lib._fv_typed = True
+    return lib
+
+
+def letterbox_batch_native(images: list[np.ndarray], size: int, pad_value: int = 114,
+                           num_threads: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batched letterbox of HWC uint8 RGB images in ``csrc/letterbox.cpp``
+    (``fastvision_tpu.native.letterbox_batch``, bit for bit). -> (batch
+    [N, size, size, 3] uint8, scales [N] float32, pads [N, 2] int32 (x, y)).
+    ``num_threads`` <= 0: min(cores, 8)."""
+    import os
+
+    images = [np.ascontiguousarray(im, np.uint8) for im in images]
+    for im in images:
+        if im.ndim != 3 or im.shape[2] != 3:
+            raise ValueError(f"expected HWC RGB uint8, got {im.shape}")
+    n = len(images)
+    srcs = (ctypes.c_void_p * n)(*[im.ctypes.data for im in images])
+    hs = np.asarray([im.shape[0] for im in images], np.int32)
+    ws = np.asarray([im.shape[1] for im in images], np.int32)
+    out = np.empty((n, size, size, 3), np.uint8)
+    scales = np.empty(n, np.float32)
+    pads = np.empty((n, 2), np.int32)
+    if num_threads <= 0:
+        num_threads = min(os.cpu_count() or 1, 8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    letterbox_library().letterbox_batch(
+        srcs, hs.ctypes.data_as(i32p), ws.ctypes.data_as(i32p), n, size, pad_value,
+        out.ctypes.data, scales.ctypes.data, pads.ctypes.data, num_threads)
+    return out, scales, pads
 
 
 def decode_bmp(buf: bytes, name: str = "BMP payload") -> np.ndarray:

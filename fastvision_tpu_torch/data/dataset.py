@@ -15,8 +15,13 @@ read by the port's own decoders (`codec.decode_image`: baseline JPEG, PNG and
 BMP, bit-equal to cv2's ``IMREAD_COLOR``), so no reader needs cv2;
 ``imwrite_rgb`` writes ``.bmp`` with numpy and other formats with cv2.
 
-Not ported yet: the reduced-size JPEG decode (``decode_size``,
-``imread_rgb_scaled``) and ``sample_i420``.
+`imread_rgb_scaled` decodes an oversized JPEG at 1/2, 1/4 or 1/8 in the DCT
+domain (`codec.decode_jpeg_reduced`, cv2's ``IMREAD_REDUCED_COLOR_*``), and
+`DetectionDataset.sample_i420` runs the fused JPEG -> letterboxed I420
+decode (`codec.decode_jpeg_i420`). Both report the original size in the
+EXIF-oriented frame the pixels are in; the JAX package reports the SOF
+header's size there and its fused decode ignores the orientation (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .codec import decode_bmp, decode_image
+from .codec import decode_bmp, decode_image, decode_jpeg_i420, decode_jpeg_reduced, jpeg_size
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
@@ -108,6 +113,57 @@ def letterbox(image: np.ndarray, size: int, pad_value: int = 114,
     return out, scale, (left, top)
 
 
+# SOF markers that carry frame dimensions (all but DHT C4, JPG C8 and DAC CC)
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_dimensions(path: str, max_header: int = 262144) -> tuple[int, int] | None:
+    """(height, width) from the JPEG SOF header without decoding pixels (the
+    stored frame: no EXIF orientation). None for a non-JPEG file or a header
+    longer than ``max_header`` bytes."""
+    with open(path, "rb") as f:
+        data = f.read(max_header)
+    if data[:2] != b"\xff\xd8":
+        return None
+    i, n = 2, len(data)
+    while i + 9 < n:
+        if data[i] != 0xFF:
+            i += 1
+            continue
+        marker = data[i + 1]
+        if marker == 0xFF:  # fill byte
+            i += 1
+            continue
+        if marker in _JPEG_SOF:
+            return (int.from_bytes(data[i + 5 : i + 7], "big"),
+                    int.from_bytes(data[i + 7 : i + 9], "big"))
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:  # standalone markers
+            i += 2
+            continue
+        i += 2 + int.from_bytes(data[i + 2 : i + 4], "big")
+    return None
+
+
+def imread_rgb_scaled(path: str, target_size: int) -> tuple[np.ndarray, tuple[int, int]]:
+    """Read an image, decoding a JPEG at 1/2, 1/4 or 1/8 in the DCT domain
+    when its long side is at least 2x, 4x, 8x ``target_size``
+    (the largest such f; cv2's ``IMREAD_REDUCED_COLOR_*`` pixels).
+    -> (RGB image, possibly reduced to ceil(side / f); the original (h, w)
+    in the image's EXIF-oriented frame). Other files: `imread_rgb`."""
+    dims = jpeg_dimensions(path) if path.lower().endswith((".jpg", ".jpeg")) else None
+    if dims is not None:
+        factor = next((f for f in (8, 4, 2) if max(dims) >= f * target_size), 1)
+        if factor > 1:
+            with open(path, "rb") as f:
+                data = f.read()
+            try:
+                return decode_jpeg_reduced(data, factor), jpeg_size(data)
+            except ValueError as e:
+                raise ValueError(f"cannot decode image {path}: {e}") from None
+    img = imread_rgb(path)
+    return img, img.shape[:2]
+
+
 def read_label_file(path: str) -> np.ndarray:
     """labels/<id>.txt -> [N, 5] float32 (cls, x1, y1, x2, y2) pixels; a
     missing file is an image without boxes."""
@@ -142,20 +198,31 @@ def pad_labels(cls: np.ndarray, xywhn: np.ndarray, max_boxes: int) -> np.ndarray
     return out
 
 
+def _rescale_labels(labels: np.ndarray, decoded_hw, orig_hw) -> np.ndarray:
+    """Pixel-xyxy labels of the original image -> the decoded (reduced) one's."""
+    (dh, dw), (oh, ow) = decoded_hw, orig_hw
+    if (dh, dw) != (oh, ow) and len(labels):
+        labels = labels.copy()
+        labels[:, [1, 3]] *= dw / ow
+        labels[:, [2, 4]] *= dh / oh
+    return labels
+
+
 class DetectionDataset:
     """Detection samples from disk: (RGB uint8 image, [N, 5] pixel-xyxy
     labels, id), decoded by `imread_rgb`. The id scan is cached to
-    ``<split_dir>/.samples.json`` when ``cache=True``."""
+    ``<split_dir>/.samples.json`` when ``cache=True``.
+
+    ``decode_size``: a JPEG at least 2x larger than it is decoded reduced
+    (`imread_rgb_scaled`) and its labels rescaled into the reduced image's
+    pixels, so everything downstream stays consistent, only cheaper."""
 
     def __init__(self, root: str, split: str = "train", cache: bool = False,
                  decode_size: int | None = None):
-        if decode_size:
-            raise NotImplementedError(
-                "decode_size (reduced-size JPEG decode) is not ported yet "
-                "(ROADMAP Queue 1, item 11)")
         self.dir = os.path.join(root, split)
         self.images_dir = os.path.join(self.dir, "images")
         self.labels_dir = os.path.join(self.dir, "labels")
+        self.decode_size = decode_size
         self.ids = self._scan(cache)
 
     def _scan(self, cache: bool) -> list[str]:
@@ -185,7 +252,37 @@ class DetectionDataset:
 
     def __getitem__(self, idx: int):
         labels = read_label_file(os.path.join(self.labels_dir, self.ids[idx] + ".txt"))
-        return imread_rgb(self.image_path(idx)), labels, self.ids[idx]
+        if self.decode_size:
+            image, orig_hw = imread_rgb_scaled(self.image_path(idx), self.decode_size)
+            labels = _rescale_labels(labels, image.shape[:2], orig_hw)
+        else:
+            image = imread_rgb(self.image_path(idx))
+        return image, labels, self.ids[idx]
+
+    def sample_i420(self, idx: int, input_size: int, pad_value: int = 114):
+        """The fused JPEG -> letterboxed packed-I420 sample
+        (`codec.decode_jpeg_i420`), with ``decode_size``'s reduction and
+        its label rescale. -> (packed [S*3/2, S] uint8, labels [N, 5] in
+        decoded pixels, id, scale, (pad_left, pad_top), (decoded_h,
+        decoded_w)), or None where the JAX package takes its plain chain
+        (not a JPEG file, an RGB-coded JPEG, other sampling)."""
+        path = self.image_path(idx)
+        if not path.lower().endswith((".jpg", ".jpeg")):
+            return None
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            r = decode_jpeg_i420(data, input_size, pad_value, reduce_target=self.decode_size or 0)
+        except ValueError as e:
+            raise ValueError(f"cannot decode image {path}: {e}") from None
+        if r is None:
+            return None
+        packed, _, pad, orig_hw, (dh, dw) = r
+        # the scale in float64, so the label arithmetic is the letterbox path's
+        scale = input_size / max(dh, dw)
+        labels = read_label_file(os.path.join(self.labels_dir, self.ids[idx] + ".txt"))
+        return (packed, _rescale_labels(labels, (dh, dw), orig_hw), self.ids[idx], scale, pad,
+                (dh, dw))
 
 
 class ClassificationDataset:

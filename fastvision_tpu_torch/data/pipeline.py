@@ -1,5 +1,5 @@
 """Input pipeline: host decode / augment -> fixed-shape batches -> device
-(port of fastvision_tpu/data/pipeline.py, RGB path).
+(port of fastvision_tpu/data/pipeline.py).
 
   - deterministic per-epoch sampling: the order from a numpy Generator
     seeded by (seed, epoch), each sample's mosaic and augmentation from one
@@ -9,14 +9,15 @@
   - worker pools (``num_workers`` > 1): a thread pool per batch, or forked
     processes writing into shared memory (`decode_pool.DecodePool`);
   - fixed-shape batches: `DetectionLoader` gives images uint8 [B, S, S, 3]
-    NHWC and labels [B, M, 5] normalized xywh with class == -1 padding,
-    `ClassificationLoader` images and int32 labels [B];
+    NHWC, or with ``emit='i420'`` packed YUV 4:2:0 [B, S*3/2, S] (half the
+    bytes to the card), and labels [B, M, 5] normalized xywh with class == -1
+    padding, `ClassificationLoader` images and int32 labels [B];
   - `prefetch_to_device`: background threads that load the next batches
     and copy them to the card from pinned memory on a side stream;
-  - `normalize_images`: uint8 -> float on the device, inside the step.
+  - `normalize_images`: uint8 -> float on the device, inside the step (a
+    packed I420 batch is colour-decoded there first).
 
-Not ported yet: the native letterbox (``use_native``), packed-I420 output
-(``emit='i420'``, ``native_jpeg``) and multi-host sharding (``host_shard``).
+Not ported yet: multi-host sharding (``host_shard``).
 """
 from __future__ import annotations
 
@@ -31,7 +32,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.image import i420_packed_to_rgb, rgb_batch_to_i420_packed
 from .augment import Augmentation
+from .codec import letterbox_batch_native
 from .dataset import boxes_to_normalized_xywh, letterbox, pad_labels, resize_bilinear
 from .decode_pool import DecodePool
 from .mosaic import mosaic4
@@ -45,8 +48,17 @@ def normalize_images(images: torch.Tensor, dtype=torch.float32,
     """uint8 (or float pixel) NHWC images [B, H, W, 3] or NDHWC clips
     [B, T, H, W, 3] -> ``dtype`` in [0, 1], optionally imagenet-standardized
     over the last axis. Casts first, then divides in ``dtype``, as the JAX
-    package does."""
-    if images.ndim not in (4, 5) or images.shape[-1] != 3:
+    package does. A rank-3 input is a packed I420 batch [B, S*3/2, S]
+    (``DetectionLoader(emit='i420')``), colour-decoded first
+    (`ops.image.i420_packed_to_rgb`, in ``dtype``)."""
+    if images.ndim == 3:
+        if images.shape[-1] == 3:
+            raise ValueError(
+                f"normalize_images got a single unbatched RGB image {tuple(images.shape)}; "
+                "add a batch dimension (images[None]): it takes NHWC [B, H, W, 3], NDHWC "
+                "[B, T, H, W, 3] and packed I420 [B, S*3/2, S]")
+        images = i420_packed_to_rgb(images, dtype)
+    elif images.ndim not in (4, 5) or images.shape[-1] != 3:
         raise ValueError("normalize_images expects RGB NHWC [B, H, W, 3] or NDHWC "
                          f"[B, T, H, W, 3], got {tuple(images.shape)}")
     x = images.to(dtype) / 255.0
@@ -218,6 +230,19 @@ class DetectionLoader(_PooledLoader):
     pixel-space GT) for unscaling and mAP. ``input_size`` may be changed
     between epochs (multi-scale training). ``num_workers`` /
     ``worker_backend``: the worker pools of `_PooledLoader`.
+
+    ``emit='i420'`` gives packed I420 images [B, S*3/2, S]: each batch
+    converted after letterbox (and mosaic / augmentation) by
+    `ops.image.rgb_batch_to_i420_packed`, or, with ``native_jpeg``, each
+    JPEG decoded straight to letterboxed I420 by the dataset's
+    ``sample_i420`` (`codec.decode_jpeg_i420`). ``native_jpeg=None`` turns
+    that on where it applies: emit='i420', train=False, no augmentation or
+    mosaic, a dataset with ``sample_i420``. A file it does not take (not a
+    JPEG, an RGB-coded JPEG, other sampling) takes the plain chain, as in
+    the JAX package; meta's ``i420_fallback`` says which did, and
+    `fallbacks` counts them. ``use_native``: the letterbox of
+    ``csrc/letterbox.cpp`` (`codec.letterbox_batch_native`) in place of
+    `dataset.letterbox`.
     """
 
     def __init__(
@@ -240,10 +265,15 @@ class DetectionLoader(_PooledLoader):
         on_corrupt: str = "raise",
         host_shard=None,
     ):
-        if use_native:
-            raise _not_ported("the native letterbox (use_native)", 11)
-        if emit != "rgb" or native_jpeg:
-            raise _not_ported("packed-I420 output (emit='i420', native_jpeg)", 6)
+        if emit not in ("rgb", "i420"):
+            raise ValueError(f"emit must be 'rgb' or 'i420', got {emit!r}")
+        eligible = (emit == "i420" and not train and augmentation is None and mosaic_prob == 0
+                    and hasattr(dataset, "sample_i420"))
+        if native_jpeg is None:
+            native_jpeg = eligible
+        elif native_jpeg and not eligible:
+            raise ValueError("native_jpeg=True needs emit='i420', train=False, no "
+                             "augmentation/mosaic, and a dataset with sample_i420")
         if host_shard not in (None, ""):
             raise _not_ported("multi-host input sharding (host_shard)", 17)
         if on_corrupt not in ("raise", "skip"):
@@ -259,11 +289,19 @@ class DetectionLoader(_PooledLoader):
         self.drop_last = train if drop_last is None else drop_last
         self.pad_value = pad_value
         self.on_corrupt = on_corrupt
+        self.emit = emit
+        self.native_jpeg = bool(native_jpeg)
+        self.use_native = use_native
+        self.fallbacks = 0  # native_jpeg samples that took the plain chain
         self._init_workers(num_workers, worker_backend)
 
     def __len__(self) -> int:
         n = len(self.ds)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _slot_shape(self) -> tuple:
+        s = self.input_size
+        return (s * 3 // 2, s) if self.native_jpeg else (s, s, 3)
 
     def _fetch(self, fn, idx: int):
         return fetch_with_corrupt_policy(self.ds, self.on_corrupt, fn, idx)
@@ -292,12 +330,37 @@ class DetectionLoader(_PooledLoader):
             return pad_labels(lab[:, 0], xywhn, self.max_boxes)
         return pad_labels(np.zeros(0), np.zeros((0, 4)), self.max_boxes)
 
+    def _letterbox(self, image: np.ndarray):
+        if self.use_native:
+            out, scales, pads = letterbox_batch_native([image], self.input_size, self.pad_value,
+                                                       num_threads=1)
+            return out[0], scales[0], (int(pads[0, 0]), int(pads[0, 1]))
+        return letterbox(image, self.input_size, self.pad_value)
+
+    def _sample_i420(self, idx: int):
+        """One eval sample through the fused JPEG -> I420 decode, or the plain
+        chain (decode, letterbox, RGB -> I420) for a file it does not take."""
+        r = self.ds.sample_i420(idx, self.input_size, self.pad_value)
+        if r is not None:
+            packed, lab, sid, scale, (px, py), dhw = r
+        else:
+            image, lab, sid = self.ds[idx]
+            out, scale, (px, py) = self._letterbox(image)
+            packed = rgb_batch_to_i420_packed(out[None])[0]
+            dhw = image.shape[:2]
+        meta = {"id": sid, "scale": scale, "pad": (px, py), "orig_hw": dhw, "gt_pixels": lab,
+                "i420_fallback": r is None}
+        return packed, (self._finalize(lab, scale, px, py), meta)
+
     def _sample_work(self, item):
         """(position, dataset index, epoch) -> (letterboxed uint8 [S, S, 3],
-        (padded labels, meta)): one sample's whole host pipeline."""
+        or packed I420 [S*3/2, S] with ``native_jpeg``, (padded labels,
+        meta)): one sample's whole host pipeline."""
         pos, idx, epoch_idx = item
+        if self.native_jpeg:
+            return self._fetch(self._sample_i420, idx)
         image, lab, sid = self._load_raw(idx, np.random.default_rng((self.seed, epoch_idx, pos)))
-        out, scale, (px, py) = letterbox(image, self.input_size, self.pad_value)
+        out, scale, (px, py) = self._letterbox(image)
         meta = {"id": sid, "scale": scale, "pad": (px, py), "orig_hw": image.shape[:2],
                 "gt_pixels": lab}
         return out, (self._finalize(lab, scale, px, py), meta)
@@ -306,10 +369,18 @@ class DetectionLoader(_PooledLoader):
         """-> batches {'images', 'labels', 'num_real', 'meta'}, from batch
         ``start_batch`` of the epoch on (the earlier ones are not loaded)."""
         empty = np.full((self.max_boxes, 5), -1, np.float32)
-        return ({"images": images,
-                 "labels": np.stack([a[0] for a in aux] + [empty] * (self.batch_size - real)),
-                 "num_real": real, "meta": [a[1] for a in aux]}
-                for images, aux, real in self._batched(epoch_idx, start_batch))
+
+        def batch(images, aux, real):
+            metas = [a[1] for a in aux]
+            if self.native_jpeg:
+                self.fallbacks += sum(m["i420_fallback"] for m in metas)
+            elif self.emit == "i420":
+                images = rgb_batch_to_i420_packed(images)
+            return {"images": images,
+                    "labels": np.stack([a[0] for a in aux] + [empty] * (self.batch_size - real)),
+                    "num_real": real, "meta": metas}
+
+        return (batch(*b) for b in self._batched(epoch_idx, start_batch))
 
     def __iter__(self):
         return self.epoch(0)

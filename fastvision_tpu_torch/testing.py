@@ -181,6 +181,73 @@ def write_detection_dataset(root: str, n: int,
     return root
 
 
+def blurred_noise(h: int, w: int, seed: int, ksize: int = 7) -> np.ndarray:
+    """Seeded uniform noise [h, w, 3] uint8 under a ``ksize`` Gaussian blur
+    (sigma as cv2 picks it for sigma 0): ``bench.py``'s COCO-like JPEG
+    content, in numpy."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8).astype(np.float32)
+    sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float32) - (ksize - 1) / 2
+    k = np.exp(-x * x / (2 * sigma * sigma))
+    k /= k.sum()
+    r = ksize // 2
+    for axis in (0, 1):
+        pad = [(r, r) if a == axis else (0, 0) for a in range(3)]
+        p = np.pad(img, pad, mode="reflect")
+        n = img.shape[axis]
+        img = sum(k[i] * np.take(p, np.arange(i, i + n), axis=axis) for i in range(ksize))
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def with_exif_orientation(jpeg: bytes, orientation: int) -> bytes:
+    """A JPEG with an EXIF APP1 segment carrying ``orientation`` after SOI."""
+    return jpeg[:2] + _exif_app1(orientation, False) + jpeg[2:]
+
+
+def _jpeg_sample(args):
+    path, h, w, seed, quality, orientation = args
+    data = encode_baseline_jpeg(blurred_noise(h, w, seed), *standard_jpeg_tables(quality))
+    with open(path, "wb") as f:
+        f.write(with_exif_orientation(data, orientation) if orientation > 1 else data)
+
+
+def write_jpeg_detection_dataset(root: str, shapes, split: str = "val", seed: int = 0,
+                                 num_classes: int = 80, quality: int = 90, orientations=None,
+                                 workers: int = 0) -> str:
+    """Write one baseline 4:2:0 JPEG (`encode_baseline_jpeg` with libjpeg's
+    tables at ``quality``; no cv2) of `blurred_noise` per (h, w) of
+    ``shapes`` as ``<root>/<split>/images/<i>.jpg``, with 1-4 random boxes
+    in ``labels/<i>.txt`` (pixels of the image as shown: an EXIF
+    ``orientations[i]`` of 5-8 turns it to w x h). ``workers`` > 1 encodes
+    in that many forked processes. -> root."""
+    images, labels = (os.path.join(root, split, d) for d in ("images", "labels"))
+    os.makedirs(images, exist_ok=True)
+    os.makedirs(labels, exist_ok=True)
+    orientations = list(orientations or [1] * len(shapes))
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for i, (h, w) in enumerate(shapes):
+        o = orientations[i]
+        jobs.append((os.path.join(images, f"{i:05d}.jpg"), h, w, seed * 100003 + i, quality, o))
+        sh, sw = (w, h) if o >= 5 else (h, w)
+        with open(os.path.join(labels, f"{i:05d}.txt"), "w") as f:
+            for _ in range(int(rng.integers(1, 5))):
+                bw, bh = rng.uniform(0.1, 0.5) * sw, rng.uniform(0.1, 0.5) * sh
+                x1, y1 = rng.uniform(0, sw - bw), rng.uniform(0, sh - bh)
+                f.write(f"{int(rng.integers(num_classes))} {x1:.2f} {y1:.2f} "
+                        f"{x1 + bw:.2f} {y1 + bh:.2f}\n")
+    if workers > 1:
+        import multiprocessing
+
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            pool.map(_jpeg_sample, jobs, chunksize=4)
+    else:
+        for job in jobs:
+            _jpeg_sample(job)
+    return root
+
+
 def write_classification_dataset(root: str, n: int, num_classes: int = 10,
                                  sizes=((224, 224), (240, 320), (320, 180), (150, 200),
                                         (300, 260)),
@@ -283,6 +350,41 @@ def jpeg_tables(buf: bytes) -> tuple[dict, dict]:
             dht[(seg[0] >> 4, seg[0] & 15)] = (counts, bytes(seg[17:17 + sum(counts)]))
             seg = seg[17 + sum(counts):]
     return dqt, dht
+
+
+# JPEG Annex K: the quantization tables at quality 50 (natural order) and the
+# typical Huffman tables, as libjpeg (and so cv2) writes them without
+# optimization
+_ANNEX_K_LUMA_Q50 = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69,
+    56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+    104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_ANNEX_K_CHROMA_Q50 = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4
+                               + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38)
+_ANNEX_K_HUFFMAN = {
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], bytes(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125], bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16171819"
+        "1a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a7374757677"
+        "78797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+        "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119], bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f1"
+        "1718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a73747576"
+        "7778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4"
+        "c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+
+
+def standard_jpeg_tables(quality: int = 90) -> tuple[dict, dict]:
+    """The tables libjpeg writes at ``quality`` (Annex K, scaled by
+    jpeg_quality_scaling, clamped to 1..255) in `jpeg_tables`' form, so
+    `encode_baseline_jpeg` runs where cv2 is absent."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    dqt = {i: np.clip((base * scale + 50) // 100, 1, 255).astype(np.int64)
+           for i, base in enumerate((_ANNEX_K_LUMA_Q50, _ANNEX_K_CHROMA_Q50))}
+    return dqt, dict(_ANNEX_K_HUFFMAN)
 
 
 class _BitWriter:
@@ -389,20 +491,16 @@ def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
                 bits.put(*dc[cat])
                 if cat:
                     bits.put(diff if diff > 0 else diff + (1 << cat) - 1, cat)
-                run = 0
-                for v in z[1:]:
-                    v = int(v)
-                    if v == 0:
-                        run += 1
-                        continue
+                last = 0  # zigzag index of the last nonzero coefficient coded
+                for k in np.flatnonzero(z[1:]) + 1:
+                    run, v, last = int(k) - last - 1, int(z[k]), int(k)
                     while run > 15:
                         bits.put(*ac[0xF0])
                         run -= 16
                     cat = abs(v).bit_length()
                     bits.put(*ac[(run << 4) | cat])
                     bits.put(v if v > 0 else v + (1 << cat) - 1, cat)
-                    run = 0
-                if run:
+                if last != 63:  # trailing zeros
                     bits.put(*ac[0x00])
         bits.flush()
         ids = b"".join(bytes((c["id"], th << 4 | th)) for c, th in zip(members, sel))
@@ -618,6 +716,12 @@ def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
         manifest["files"].append(entry)
     np.savez_compressed(os.path.join(out_dir, "cv2_decodes.npz"), **decodes)
     manifest["written_with"] = {"cv2": cv2.__version__, "PIL": Image.__version__}
-    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+    path = os.path.join(out_dir, "manifest.json")
+    if os.path.exists(path):  # the oracles' entry is written with the oracles
+        with open(path) as f:
+            old = json.load(f)
+        if "oracles" in old:
+            manifest["oracles"] = old["oracles"]
+    with open(path, "w") as f:
         json.dump(manifest, f, indent=1)
     return manifest

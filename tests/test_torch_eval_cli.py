@@ -147,15 +147,20 @@ def test_save_json_and_detections_to_coco_match_jax(detectors, root, tmp_path):
 
 
 def test_detector_rejects_what_is_not_ported(detectors, root):
+    # the input paths are ported; what stays refused is what the JAX
+    # package refuses (its Detector's mutual exclusions)
     tdet, _ = detectors
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdet.evaluate(DetectionDataset(root, "val"), tta=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        next(tdet.predict_dataset(DetectionDataset(root, "val"), fast_decode=True))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Detector(tdet.model, ANCHORS, postprocess_mode="reference_demo", device="cpu")
-    with pytest.raises(ValueError):
-        Detector(tdet.model, ANCHORS, postprocess_mode="other", device="cpu")
+    with pytest.raises(ValueError, match="without TTA"):
+        tdet.evaluate(DetectionDataset(root, "val"), tta=True, device_matching=True)
+    demo = Detector(tdet.model, ANCHORS, postprocess_mode="reference_demo", device="cpu")
+    with pytest.raises(ValueError, match="fast_decode"):
+        next(demo.predict_dataset(DetectionDataset(root, "val"), fast_decode=True))
+    for kw in (dict(postprocess_mode="reference_demo", input_format="i420"),
+               dict(postprocess_mode="reference_demo", device_letterbox=True),
+               dict(input_format="i420", device_letterbox=True), dict(input_format="yuv"),
+               dict(postprocess_mode="other")):
+        with pytest.raises(ValueError):
+            Detector(tdet.model, ANCHORS, device="cpu", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -327,17 +332,15 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
     for argv, item in ((["serve", "--int8"], 15), (["serve", "--calib-dir", "d"], 15),
-                       (["serve", "--fast-decode"], 6),
                        (["export", "--task", "video", "--out", "x"], 16),
                        (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
                        (["generate", "--out", "x"], 10),
                        (["convert", "--kind", "coco", "--out", "x"], 11),
-                       (["eval", "--tta"], 6), (["eval", "--int8"], 15),
-                       (["eval", "--fast-decode"], 6), (["infer", "--source", "a.mp4"], 6)):
+                       (["eval", "--int8"], 15), (["infer", "--source", "a.mp4"], 6)):
         with pytest.raises(SystemExit, match=f"item {item}\\)"):
             cli.main(argv)
     common = [f"data.data_root={root}", "--device", "cpu"]
-    for override, item in (("mesh_model=2", 17), ("fsdp=true", 17), ("data.i420=true", 6),
+    for override, item in (("mesh_model=2", 17), ("fsdp=true", 17),
                            ("compile_cache=cache", 10), ("data.host_shard=auto", 17)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             cli.main(["eval", override, *common])

@@ -808,3 +808,125 @@ def test_vision_service_round_trip_on_card():
     pred = card.detector.predecode(u8).float()
     for x, y in zip(card.detector.nms(pred), card.detector.nms(pred.cpu())):
         assert torch.equal(x.cpu(), y)
+
+
+# --- the jpeg -> boxes input paths: packed I420, the fused decode, the device
+# letterbox, reference_demo ---------------------------------------------------
+
+_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_codec_fixtures")
+
+
+def test_native_decodes_equal_the_stored_oracles():
+    """The fused JPEG -> I420 decode and the reduced RGB decode on this
+    machine against the JAX package's and cv2's outputs stored with the
+    corpus (sha256): host code, but built here by this machine's compiler."""
+    import hashlib
+    import json
+
+    from fastvision_tpu_torch.data import codec
+
+    _cuda()
+    with open(os.path.join(_FIXTURES, "native_oracles.json")) as f:
+        oracles = json.load(f)
+
+    def read(name):
+        with open(os.path.join(_FIXTURES, name), "rb") as f:
+            return f.read()
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for e in oracles["fused_i420"]:
+        packed, scale, pads, orig, dec = codec.decode_jpeg_i420(
+            read(e["file"]), e["size"], oracles["i420_pad_value"], e["reduce_target"])
+        assert (digest(packed), float(np.float32(scale)), list(pads), list(orig), list(dec)) == (
+            e["sha256"], e["scale"], e["pads"], e["orig_hw"], e["decoded_hw"]), e
+    for e in oracles["cv2_reduced"]:
+        rgb = codec.decode_jpeg_reduced(read(e["file"]), e["factor"])
+        assert [list(rgb.shape), digest(rgb)] == [e["shape"], e["sha256"]], e
+
+
+def test_i420_and_letterbox_on_card_equal_cpu():
+    """i420_packed_to_rgb and letterbox_batch on the card vs the CPU (float32,
+    TF32 off inside letterbox_batch): 1e-3 on the 0-255 scale."""
+    from fastvision_tpu_torch.ops.image import (
+        i420_packed_to_rgb,
+        letterbox_batch,
+        pack_canvas,
+        rgb_batch_to_i420_packed,
+    )
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    packed = torch.from_numpy(rgb_batch_to_i420_packed(
+        rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)))
+    card = i420_packed_to_rgb(packed.to(dev)).cpu()
+    assert (card - i420_packed_to_rgb(packed)).abs().max() <= 1e-3
+    arrs = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+            for hw in ((480, 640), (375, 500), (640, 427), (100, 90))]
+    canvas, sizes = (torch.from_numpy(a) for a in pack_canvas(arrs, 640, 640))
+    on_card = letterbox_batch(canvas.to(dev), sizes.to(dev), 416)
+    on_cpu = letterbox_batch(canvas, sizes, 416)
+    assert (on_card[0].cpu() - on_cpu[0]).abs().max() <= 1e-3
+    for a, b in zip(on_card[1:], on_cpu[1:]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode", ["i420", "device_letterbox", "reference_demo", "tta"])
+def test_input_paths_on_card_equal_cpu(mode):
+    """A shallow YOLOv3's Detector in float32 (TF32 off) on each input path:
+    the model's raw heads on the card against the CPU's from the same input
+    (max|d| / std <= 1e-3), and the kernel's Detections on the card equal
+    to the plain version's on the CPU from the same device predictions."""
+    from fastvision_tpu_torch.data import normalize_images
+    from fastvision_tpu_torch.infer import preprocess_batch
+    from fastvision_tpu_torch.infer.postprocess import reference_demo_unscale
+    from fastvision_tpu_torch.ops.image import letterbox_batch, pack_canvas, rgb_batch_to_i420_packed
+
+    dev = _cuda()
+    model = YOLOv3(num_classes=3, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(0))
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy() / 4
+    card = Detector(model, anchors, input_size=128, batch_size=4, conf_thres=0.01,
+                    dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+            for hw in ((128, 96), (100, 128), (64, 64), (128, 128))]
+    u8, metas = preprocess_batch(imgs, 128, pad_value=0 if mode == "reference_demo" else 114)
+    x = torch.from_numpy(rgb_batch_to_i420_packed(u8) if mode == "i420" else u8)
+    if mode == "device_letterbox":
+        canvas, sizes = (torch.from_numpy(a) for a in pack_canvas(imgs, 160, 160))
+        x = letterbox_batch(canvas, sizes, 128)[0]
+        assert (letterbox_batch(canvas.to(dev), sizes.to(dev), 128)[0].cpu() - x).abs().max() <= 1e-3
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            xn = normalize_images(x, torch.float32)
+            if mode == "tta":
+                xn = torch.cat([xn, xn.flip(2)])
+            heads_card = [h.cpu() for h in card.model(xn.to(dev))]
+            model_cpu = YOLOv3(num_classes=3, stage_sizes=(1, 1, 1, 1, 1),
+                               generator=torch.Generator().manual_seed(0)).eval()
+            heads_cpu = model_cpu(xn)
+        pred = card.predecode_tta(x.to(dev)) if mode == "tta" else card.predecode(x.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for a, b in zip(heads_card, heads_cpu):
+        assert float((a - b).abs().max() / b.std()) <= 1e-3
+    kw = dict(conf_thres=card.conf_thres, iou_thres=card.iou_thres, max_det=card.max_det,
+              class_offset=card.class_offset)
+    if mode == "reference_demo":
+        ratios = torch.tensor([m["scale"] for m in metas], dtype=torch.float32, device=dev)
+        pads = torch.tensor([m["pad"] for m in metas], dtype=torch.float32, device=dev)
+        ori = torch.tensor([m["orig_hw"][::-1] for m in metas], dtype=torch.float32, device=dev)
+        pred = reference_demo_unscale(pred.float(), ratios, pads[:, 0], pads[:, 1], ori[:, 0],
+                                      ori[:, 1])
+        kw.update(box_format="xyxy", score_mode="obj")
+    launches = suppression_mask_cuda.launches
+    on_card = batched_non_max_suppression(pred.float(), **kw)
+    assert suppression_mask_cuda.launches > launches
+    on_cpu = batched_non_max_suppression(pred.float().cpu(), **kw)
+    assert int(on_cpu.valid.sum()) > 0
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)

@@ -115,8 +115,11 @@ def test_normalize_images_exact(imagenet, rng):
 
 
 def test_normalize_rejects_non_rgb():
-    with pytest.raises(ValueError):
-        normalize_images(torch.zeros(2, 6, 4, dtype=torch.uint8))
+    # rank 3 is a packed I420 batch [B, S*3/2, S] (as in the JAX package):
+    # [2, 6, 4] is one (S = 4), so the non-RGB inputs here are other shapes
+    for shape in ((2, 5, 4), (2, 6, 4, 2), (6, 4, 3), (2, 6, 5)):
+        with pytest.raises(ValueError):
+            normalize_images(torch.zeros(shape, dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("hw", [(100, 80), (80, 100), (64, 64), (30, 50), (417, 333)])

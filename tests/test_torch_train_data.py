@@ -159,15 +159,17 @@ def test_dataset_and_label_helpers_match_jax(det_root, tmp_path):
     xywhn = boxes_to_normalized_xywh(boxes, 80, 100)
     np.testing.assert_array_equal(pad_labels(np.array([1, 2]), xywhn, 4),
                                   jd.dataset.pad_labels(np.array([1, 2]), xywhn, 4))
-    with pytest.raises(NotImplementedError):
-        DetectionDataset(det_root, "val", decode_size=64)
+    assert DetectionDataset(det_root, "val", decode_size=64).decode_size == 64  # ported
 
 
 def test_loader_rejects_what_is_not_ported():
     ds = SyntheticDetectionDataset(4, 3)
-    for kw in (dict(use_native=True), dict(emit="i420"), dict(native_jpeg=True),
-               dict(host_shard="0/2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DetectionLoader(ds, host_shard="0/2")
+    # use_native and emit='i420' are ported; refused as the JAX package refuses
+    for kw in (dict(emit="bgr"), dict(emit="i420", native_jpeg=True),
+               dict(emit="rgb", native_jpeg=True, train=False)):
+        with pytest.raises(ValueError):
             DetectionLoader(ds, **kw)
     # the worker pools are ported: the config's default builds, bad backends raise
     DetectionLoader(ds, num_workers=4, worker_backend="process").close()
