@@ -205,14 +205,38 @@ exits non-zero before a result is printed:
               decode against decode + letterbox + RGB -> I420 (1 and 4
               threads), H2D of an i420 and an rgb batch of 32, device
               programs, device vs host letterbox, TTA eval images/s;
-              then the run's total seconds.
+  24. int8    int8 w8a8 PTQ: ``Detector.quantize`` of a full-width
+              YOLOv3-416 (bf16, batch 32, BN from the phase's images) on 8
+              images, one ``predict_batch`` with the launches of the NMS
+              kernel and of ``csrc/int8.cu``'s two kernels (quantize +
+              patches, epilogue: one each a conv) counted; on every
+              quantized conv's own input the int32 accumulators of the card
+              route (patches + ``torch._int_mm``) bit-equal to the plain
+              version (float64 conv), the patches kernel bit-equal and the
+              epilogue kernel within INT8_EPILOGUE_ULPS of their plain
+              versions; float32 card vs CPU conv by conv on the card's
+              inputs (INT8_LAYER_TOL) and for the whole model (correlation,
+              INT8_HEADS_MIN_CORR: last-bit differences of silu flip int8
+              roundings, which random weights amplify); the bf16 int8 heads
+              against the bf16 float model; the int8 forward's profile (72
+              ``_int_mm`` and the 3 float pred convs a call, the top
+              kernels); the int8 and bf16 device programs at batch 32 and
+              256 (img/s, peak memory); the int8 convs' split (patches
+              kernel and plain, GEMM, epilogue kernel and plain, each with
+              its bound); ``eval --int8`` and ``serve --int8 --calib-dir``
+              through ``cli.main`` at full width; Faster R-CNN-VGG16 at 512
+              with an int8 backbone, ResNet-50 (batch 128) and ResNeXt-50
+              32x4d (batch 32) at 224 against bf16, and a small ResNeXt in
+              float32 card vs CPU; then the run's total seconds.
 
-``python3 chip_smoke.py --only i420`` runs the device, build and i420 phases
-alone (a quick check of this path; the full run takes no arguments).
+``python3 chip_smoke.py --only i420`` (or ``--only int8``) runs the device,
+build and i420 (int8) phases alone (a quick check of this path; the full run
+takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
-port, with its launches on every path (the classification and video paths
-counted and required at 0: they run no NMS); the last line is {"ok": true,
+port: the NMS kernel with its launches on every path (the classification
+and video paths counted and required at 0: they run no NMS), then the two
+int8 kernels with their launches on the int8 main path; the last line is {"ok": true,
 "device": {...}}. Without a CUDA card the script exits 1 at once.
 """
 from __future__ import annotations
@@ -261,12 +285,14 @@ from fastvision_tpu_torch.infer import (
 )
 from fastvision_tpu_torch.infer.postprocess import reference_demo_unscale
 from fastvision_tpu_torch.infer.predictor import _Subset
+from fastvision_tpu_torch.infer.quantize import quant_state, quantize_model
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.classification import (
     Bottleneck,
     ResNet,
     darknet53,
     resnet50,
+    resnext50_32x4d,
     vgg16,
     vit_base_patch16,
 )
@@ -289,11 +315,22 @@ from fastvision_tpu_torch.ops import (
     roi_align,
     roi_align_mxu,
 )
+from fastvision_tpu_torch.nn.layers import Int8Conv, conv_bn_pairs
 from fastvision_tpu_torch.ops.image import (
     i420_packed_to_rgb,
     letterbox_batch,
     pack_canvas,
     rgb_batch_to_i420_packed,
+)
+from fastvision_tpu_torch.ops.int8 import (
+    epilogue_cuda,
+    epilogue_plain,
+    int8_conv2d,
+    int8_conv2d_plain,
+    int8_gemm,
+    quantize_activation,
+    quantize_patches_cuda,
+    quantize_patches_plain,
 )
 from fastvision_tpu_torch.ops.nms_kernel import (
     MAX_K,
@@ -3144,6 +3181,517 @@ def phase_i420(dev: torch.device, smi: str, workdir: str) -> dict:
             "mismatches": mismatches}
 
 
+# ---------------------------------------------------------------------------
+# int8 w8a8 post-training quantization (Detector.quantize, eval / serve --int8)
+# ---------------------------------------------------------------------------
+INT8_CALIB = 8  # the CLI's calibration images
+INT8_BATCHES = (32, 256)  # bench.py's int8 lane runs batch 256
+# float32 card vs CPU, int8 model. Each quantized conv on the card's own
+# input: the CPU's output within 1e-6 of the output's max (silu's exp
+# differs by an ulp between the card and the CPU; the int32 sums and the
+# rest of the epilogue are exact). The whole model: such an ulp flips an
+# activation's int8 rounding now and then, the flip is one int8 step and
+# random weights amplify it down 72 layers, so the heads are held by
+# their correlation (>= 0.98) and their max|d|/std reported.
+INT8_LAYER_TOL = 1e-6
+# the epilogue kernel against its plain version on the card: silu's expf
+# may round its last bit apart from PyTorch's build, which can move the
+# bfloat16 result by one ulp; everything else rounds identically
+INT8_EPILOGUE_ULPS = 1.0
+INT8_HEADS_MIN_CORR = 0.98
+INT8_SMALL_TOL = 1e-2  # the small ResNeXt (ReLU, 17 convs): max|d|/std of its logits
+INT8_CLI_IMAGES = 16
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores (H100 SXM data sheet, at 700 W)
+
+
+def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype) -> dict:
+    """One forward of ``model`` on ``x`` (under ``dtype`` autocast) with, on
+    each quantized conv's own input: the int32 accumulators of the card route
+    (the patches kernel on the int8 input, ``_int_mm``) against the plain
+    version (float64 conv); the patches kernel on the float input against
+    `quantize_patches_plain` (bytes); the epilogue kernel against
+    `epilogue_plain` on that conv's accumulators (max |d|, elements that
+    differ, the worst in output-dtype ulps of the value)."""
+    held = []
+
+    def hold(mod, args):
+        inp, act = args
+        k = mod.w_q.shape[-1]
+        with torch.autocast("cuda", enabled=False):
+            xq = quantize_activation(inp, mod.in_scale)
+            card = int8_conv2d(xq, mod.w_q, mod.stride, mod.padding, mod.groups, mod.w_mat)
+            plain = int8_conv2d_plain(xq, mod.w_q, mod.stride, mod.padding, mod.groups)
+            nhwc = inp.permute(0, 2, 3, 1).contiguous()
+            a = quantize_patches_cuda(nhwc, mod.in_scale, k, mod.stride, mod.padding,
+                                      mod.w_mat.shape[1])
+            a_plain = quantize_patches_plain(nhwc, mod.in_scale, k, mod.stride, mod.padding,
+                                             mod.w_mat.shape[1])
+            acc = int8_gemm(a, mod.w_mat)
+            n = mod.w_q.shape[0]
+            y = epilogue_cuda(acc, n, mod.scale, mod.bias, act, dtype).float()
+            y_plain = epilogue_plain(acc, n, mod.scale, mod.bias, act, dtype).float()
+            d = (y - y_plain).abs()
+            ulp = torch.finfo(dtype).eps * y_plain.abs().clamp_min(torch.finfo(dtype).tiny)
+            held.append((int((card != plain).sum()), int(card.abs().max()),
+                         int((a != a_plain).sum()), float(d.max()), int((d > 0).sum()),
+                         float((d / ulp).max())))
+
+    hooks = [m.register_forward_pre_hook(hold) for m in model.modules()
+             if isinstance(m, Int8Conv)]
+    try:
+        with torch.inference_mode(), torch.autocast("cuda", dtype=dtype,
+                                                    enabled=dtype != torch.float32):
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"convs": len(held), "mismatches": sum(h[0] for h in held),
+            "max_abs_accumulator": max(h[1] for h in held),
+            "patches_kernel_mismatching_bytes": sum(h[2] for h in held),
+            "epilogue_kernel_max_abs_err": max(h[3] for h in held),
+            "epilogue_kernel_differing": sum(h[4] for h in held),
+            "epilogue_kernel_max_ulps": max(h[5] for h in held)}
+
+
+def layerwise_card_vs_cpu(model: torch.nn.Module, cpu_model: torch.nn.Module,
+                          x: torch.Tensor) -> dict:
+    """float32 (TF32 off): each quantized conv of ``model`` on the input it
+    gets in a card forward of ``x``, against the same conv of ``cpu_model``
+    (the plain route) on that input. -> the worst max|d| / max|out|."""
+    names = {m: n for n, m in model.named_modules() if isinstance(m, Int8Conv)}
+    cpu_mods = dict(cpu_model.named_modules())
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(
+        (names[mod], args[0].cpu(), args[1], out.cpu()))) for m in names]
+    try:
+        with no_tf32(), torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, differing = 0.0, 0
+    with torch.inference_mode():
+        for name, inp, act, out in seen:
+            ref = cpu_mods[name](inp, act)
+            worst = max(worst, float((out - ref).abs().max() / ref.abs().max()))
+            differing += int((out != ref).sum())
+    return {"convs": len(seen), "max_abs_over_max": worst, "differing_elements": differing,
+            "tolerance": INT8_LAYER_TOL}
+
+
+def heads_vs(a: list, b: list) -> dict:
+    """max|a - b| / std(b) per head, and the correlation of all heads."""
+    fa = torch.cat([h.float().flatten().cpu() for h in a])
+    fb = torch.cat([h.float().flatten().cpu() for h in b])
+    return {"max_abs_over_std": [float((x.float().cpu() - y.float().cpu()).abs().max()
+                                       / y.float().cpu().std()) for x, y in zip(a, b)],
+            "corr": float(torch.corrcoef(torch.stack([fa, fb]))[0, 1])}
+
+
+def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``: the top device kernels
+    (ms per call; ``int8_gemm`` marks those launched under ``aten::_int_mm``),
+    the int8 GEMMs' share of device time, and per call the ``_int_mm`` and
+    float convolution ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    gemm = {k.name for e in events if e.name == "aten::_int_mm" for k in e.kernels}
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type.name == "CUDA" and not _is_range(ev):
+            kernels[ev.key] = us / 1e3 / reps
+    total = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    return {"device_ms": total,
+            "top_kernels": [{"name": k[:100], "ms": v, "int8_gemm": k in gemm}
+                            for k, v in ranked[:top]],
+            "int8_gemm_kernels": sorted(k[:100] for k in gemm),
+            "int8_gemm_share": (sum(v for k, v in kernels.items() if k in gemm) / total
+                                if total else None),
+            "top_kernel_is_int8_gemm": bool(ranked) and ranked[0][0] in gemm,
+            "int_mm_per_call": sum(e.name == "aten::_int_mm" for e in events) / reps,
+            "convolutions_per_call": sum(e.name == "aten::convolution" for e in events) / reps}
+
+
+def int8_split(model: torch.nn.Module, x: torch.Tensor) -> dict:
+    """The int8 convs of one bf16 forward, step by step over all layers on
+    the layers' own inputs (ms between CUDA events): the patches kernel and
+    its plain version, the GEMMs, the epilogue kernel and its plain version;
+    each step's bound: the bytes it must move (inputs read once, outputs
+    written once) over HBM's rate against its operations (int8 tensor-core
+    ones for the GEMMs; float32 ones, 4 an input element quantized once and
+    7 an epilogue output, for the kernels) over the peak for their type."""
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.append((mod, *args)))
+             for m in model.modules() if isinstance(m, Int8Conv)]
+    try:
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def bound(n_bytes, ops, peak):
+        t_b, t_o = n_bytes / PEAK_BYTES_S, ops / peak
+        return {"bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bytes": n_bytes, "ops": ops}
+
+    with torch.inference_mode():
+        nhwc = [inp.permute(0, 2, 3, 1).contiguous() for _, inp, _ in inputs]
+        args = [(m.in_scale, m.w_q.shape[-1], m.stride, m.padding, m.w_mat.shape[1])
+                for m, _, _ in inputs]
+        a = [quantize_patches_cuda(xn, *ar) for xn, ar in zip(nhwc, args)]
+        accs = [int8_gemm(ai, m.w_mat) for ai, (m, _, _) in zip(a, inputs)]
+        epi = [(acc, m.w_q.shape[0], m.scale, m.bias, act, torch.bfloat16)
+               for acc, (m, _, act) in zip(accs, inputs)]
+        out = {"layers": len(inputs), "patches": {
+            "ms": cuda_ms(lambda: [quantize_patches_cuda(xn, *ar) for xn, ar in zip(nhwc, args)],
+                          reps=5),
+            "plain_ms": cuda_ms(lambda: [quantize_patches_plain(xn, *ar)
+                                         for xn, ar in zip(nhwc, args)], reps=3),
+            **bound(sum(xn.numel() * xn.element_size() + ai.numel() for xn, ai in zip(nhwc, a)),
+                    4 * sum(xn.numel() for xn in nhwc), PEAK_FP32_FLOPS)},
+            "gemm": {
+            "ms": cuda_ms(lambda: [int8_gemm(ai, m.w_mat) for ai, (m, _, _) in zip(a, inputs)],
+                          reps=5),
+            **bound(sum(ai.numel() + m.w_mat.numel() + 4 * acc.numel()
+                        for ai, acc, (m, _, _) in zip(a, accs, inputs)),
+                    sum(2 * ai.shape[0] * ai.shape[1] * m.w_mat.shape[0]
+                        for ai, (m, _, _) in zip(a, inputs)), PEAK_INT8_OPS)},
+            "epilogue": {
+            "ms": cuda_ms(lambda: [epilogue_cuda(*e) for e in epi], reps=5),
+            "plain_ms": cuda_ms(lambda: [epilogue_plain(*e) for e in epi], reps=3),
+            **bound(sum(4 * acc.numel() + 8 * n + 2 * acc.shape[0] * n
+                        for acc, n, *_ in epi),
+                    7 * sum(acc.shape[0] * n for acc, n, *_ in epi), PEAK_FP32_FLOPS)}}
+    del inputs, nhwc, a, accs, epi
+    return out
+
+
+def int8_cli(dev: torch.device, workdir: str, n_int8: int) -> dict:
+    """``eval --int8`` over a BMP dataset and ``serve --int8 --calib-dir``
+    answering a few requests, through ``cli.main`` in this process at full
+    width (YOLOv3-416, 80 classes, bf16, random weights), launches counted."""
+    import threading
+
+    from fastvision_tpu_torch import cli
+    from fastvision_tpu_torch.infer import serving
+
+    root = write_detection_dataset(os.path.join(workdir, "int8_ds"), INT8_CLI_IMAGES,
+                                   seed=SEED + 52)
+    out = {}
+    suppression_mask_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(["eval", "--int8", f"data.data_root={root}", "data.num_workers=0"])
+    out["eval_int8"] = {"seconds": time.perf_counter() - t0, "images": res["images"],
+                        "map50": res["map50"], "launches": suppression_mask_cuda.launches}
+    check(res["images"] == INT8_CLI_IMAGES and out["eval_int8"]["launches"] >= 1,
+          f"eval --int8: {out['eval_int8']}")
+
+    servers, services, port = [], [], free_port()
+    real_make_server = serving.make_server
+
+    def capture(service, *a, **kw):
+        services.append(service)
+        servers.append(real_make_server(service, *a, **kw))
+        return servers[-1]
+
+    serving.make_server = capture
+    calib = os.path.join(root, "val", "images")
+    argv = ["serve", "--int8", "--calib-dir", calib, "--host", "127.0.0.1", "--port", str(port)]
+    thread = threading.Thread(target=cli.main, args=(argv,), daemon=True)
+    suppression_mask_cuda.launches = 0
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            check(time.monotonic() < deadline and thread.is_alive(), "serve --int8 never came up")
+            if servers:
+                try:
+                    if _http(port, "GET", "/healthz")[0] == 200:
+                        break
+                except ConnectionRefusedError:
+                    pass
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        answers = []
+        for body in full_size_jpegs():
+            status, reply = _http(port, "POST", "/predict", body)
+            check(status == 200, f"serve --int8 answered {status}")
+            answers.append(len(json.loads(reply)["detection_scores"]))
+    finally:
+        serving.make_server = real_make_server
+        if servers:
+            servers[0].batcher.shutdown()
+            servers[0].shutdown()
+        thread.join(60)
+    check(not thread.is_alive(), "serve --int8 did not stop")
+    out["serve_int8"] = {"up_s": up_s, "requests": len(answers), "detections": answers,
+                         "launches": suppression_mask_cuda.launches,
+                         "int8_convs": len(quant_state(services[0].detector.model))}
+    check(suppression_mask_cuda.launches >= len(answers)
+          and out["serve_int8"]["int8_convs"] == n_int8,
+          f"serve --int8: {out['serve_int8']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def int8_other_models(dev: torch.device) -> dict:
+    """Faster R-CNN-VGG16 at 512 (batch 8): an eval step with the backbone
+    quantized (RPN and heads float) against float; ResNet-50 and
+    ResNeXt-50 32x4d at 224 (batch 128 / 32): int8 forwards against bf16
+    and their images/s; a small ResNeXt (32 groups) in float32 card vs CPU
+    with its grouped convs' accumulators held."""
+    out = {}
+    # --- Faster R-CNN, backbone int8
+    model = frcnn_model().to(dev, memory_format=torch.channels_last).eval()
+    u8 = frcnn_u8(dev)
+    x = normalize_images(u8, torch.float32, imagenet=True)
+    state = TrainState(model, None)
+    eval_step = make_frcnn_eval_step(dtype=torch.bfloat16)
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feat_f = model.features(x.to(torch.bfloat16))
+    det_f = [t.cpu() for t in eval_step(state, {"images": u8})]
+    float_ms = cuda_ms(lambda: eval_step(state, {"images": u8}), reps=5)
+    quantize_model(model, [x])
+    names = sorted(quant_state(model))
+    check(names and all(n.startswith("backbone.") for n in names),
+          f"Faster R-CNN quantized outside its backbone: {names}")
+    suppression_mask_cuda.launches = 0
+    det_q = [t.cpu() for t in eval_step(state, {"images": u8})]
+    torch.cuda.synchronize()
+    launches = suppression_mask_cuda.launches
+    check(launches == 2, f"the int8 eval step launched the nms kernel {launches} times")
+    check(bool(torch.isfinite(det_q[0]).all() and torch.isfinite(det_q[1]).all()),
+          "int8 Faster R-CNN: non-finite output")
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feat_q = model.features(x.to(torch.bfloat16))
+    out["faster_rcnn_vgg16_512_b8"] = {
+        "int8_convs": len(names), "launches": launches,
+        "backbone_features_vs_bf16": heads_vs([feat_q], [feat_f]),
+        "detections": {"bf16": int(det_f[3].sum()), "int8": int(det_q[3].sum())},
+        "eval_step_ms": {"bf16": float_ms,
+                         "int8": cuda_ms(lambda: eval_step(state, {"images": u8}), reps=5)}}
+    del model, state, u8, x, feat_f, feat_q
+    torch.cuda.empty_cache()
+
+    # --- ResNet-50 and ResNeXt-50 32x4d: int8 against bf16
+    for tag, make, bs in ((f"resnet50_{CLS_SIZE}_b{CLS_BATCH}", resnet50, CLS_BATCH),
+                          (f"resnext50_32x4d_{CLS_SIZE}_b{EVAL_BATCH}", resnext50_32x4d,
+                           EVAL_BATCH)):
+        model = make(num_classes=CLS_CLASSES, generator=torch.Generator().manual_seed(SEED))
+        model = model.to(dev, memory_format=torch.channels_last)
+        u8 = torch.from_numpy(np.stack([letterbox(a, CLS_SIZE)[0]
+                                        for a in images(SEED + 53, bs)])).to(dev)
+        x32 = normalize_images(u8, torch.float32, imagenet=True)
+        calibrate_bn_(model, x32[:EVAL_BATCH])
+        float_model = copy.deepcopy(model).eval()
+        quantize_model(model, [x32[:INT8_CALIB]])
+        model.eval()
+
+        def logits(m):
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return m(normalize_images(u8, torch.bfloat16, imagenet=True))
+
+        lq, lf = logits(model), logits(float_model)
+        out[tag] = {"int8_convs": len(quant_state(model)), **heads_vs([lq], [lf]),
+                    "top1_agreement": float((lq.argmax(1) == lf.argmax(1)).float().mean()),
+                    "img_s": {"bf16": bs / cuda_ms(lambda: logits(float_model), reps=5) * 1e3,
+                              "int8": bs / cuda_ms(lambda: logits(model), reps=5) * 1e3}}
+        del model, float_model, u8, x32
+        torch.cuda.empty_cache()
+
+    # --- a small ResNeXt: the group path, float32 card vs CPU
+    small = ResNet(Bottleneck, (1, 1, 1, 1), num_classes=10, groups=32, base_width=4,
+                   generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    x = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    calibrate_bn_(small, x)
+    quantize_model(small, [x])
+    held = held_accumulators(small, x, torch.float32)
+    cpu = copy.deepcopy(small).cpu()
+    with no_tf32(), torch.inference_mode():
+        rel = heads_vs([small(x)], [cpu(x.cpu())])
+    out["resnext_small_64_b4"] = {"accumulators": held, "fp32_card_vs_cpu": rel,
+                                  "tolerance": INT8_SMALL_TOL}
+    check(held["mismatches"] == 0, f"grouped int8 accumulators card vs plain: {held}")
+    check(max(rel["max_abs_over_std"]) <= INT8_SMALL_TOL,
+          f"small ResNeXt int8 fp32 card vs cpu: {rel}")
+    return out
+
+
+def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
+    """int8 w8a8 PTQ on the card: ``Detector.quantize`` of a full-width
+    YOLOv3-416 (80 classes, random weights, BN from the phase's images),
+    the main path counted, (a) every quantized conv's int32 accumulators
+    card route vs plain version (bit-equal), (b) the float32 int8 model card
+    vs CPU (plain route) and the bf16 int8 model against the float one, (c)
+    the int8 forward's profile, (d) device-program images/s at batch 32 and
+    256 (int8 and bf16), the int8 convs' split and peak memory, (e) ``eval
+    --int8`` and ``serve --int8 --calib-dir`` through the CLI, (f) Faster
+    R-CNN, ResNet-50, ResNeXt-50 and a small ResNeXt."""
+    t_phase = time.perf_counter()
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = yolo_model().to(dev)
+    calib_imgs = images(SEED + 50, INT8_CALIB)
+    batch, _ = preprocess_batch(calib_imgs, INPUT_SIZE)
+    x8 = normalize_images(torch.from_numpy(batch), torch.float32).to(dev)
+    calibrate_bn_(model, x8)
+    float_model = copy.deepcopy(model)
+    det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=EVAL_BATCH)
+    det_f = Detector(float_model, anchors, input_size=INPUT_SIZE, batch_size=EVAL_BATCH)
+    t0 = time.perf_counter()
+    det.quantize(calib_imgs)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    n_int8 = len(quant_state(det.model))
+    n_pairs = sum(1 for _ in conv_bn_pairs(det.model))  # YOLOv3: 72 (Darknet-53 52, neck 20)
+    check(n_int8 == n_pairs, f"{n_int8} quantized convs of {n_pairs} ConvBNs")
+
+    # --- the main path, counted
+    imgs = images(SEED + 51, 8)
+    suppression_mask_cuda.launches = quantize_patches_cuda.launches = epilogue_cuda.launches = 0
+    results = det.predict_batch(imgs)
+    launches = suppression_mask_cuda.launches
+    int8_launches = {"patches": quantize_patches_cuda.launches,
+                     "epilogue": epilogue_cuda.launches}
+    check(launches >= 1, "the int8 predict_batch never launched the nms kernel")
+    n_launch = n_int8 * -(-len(imgs) // det.batch_size)  # a launch of each a conv a forward
+    check(int8_launches == {"patches": n_launch, "epilogue": n_launch},
+          f"the int8 predict_batch launched {int8_launches}, not {n_launch} of each kernel")
+    for r, im in zip(results, imgs):
+        h, w = im.shape[:2]
+        bx = r["boxes"]
+        check(np.isfinite(bx).all() and np.isfinite(r["scores"]).all(), "int8: non-finite output")
+        check((bx >= 0).all() and (bx[:, [0, 2]] <= w).all() and (bx[:, [1, 3]] <= h).all(),
+              "int8: a box lies outside its image")
+
+    # --- (a) accumulators, card route vs plain, every quantized conv
+    u8_8 = torch.from_numpy(preprocess_batch(imgs, INPUT_SIZE)[0]).to(dev)
+    acc = held_accumulators(det.model, normalize_images(u8_8, torch.bfloat16), torch.bfloat16)
+    check(acc["convs"] == n_int8 and acc["mismatches"] == 0
+          and acc["patches_kernel_mismatching_bytes"] == 0,
+          f"int8 accumulators or patches, kernel vs plain version: {acc}")
+    check(acc["epilogue_kernel_max_ulps"] <= INT8_EPILOGUE_ULPS,
+          f"int8 epilogue kernel vs plain version: {acc}")
+
+    # --- (b) float32 card vs CPU, layer by layer and whole; bf16 int8 vs bf16 float
+    cpu_model = copy.deepcopy(det.model).cpu()
+    layers = layerwise_card_vs_cpu(det.model, cpu_model, x8[:2])
+    check(layers["convs"] == n_int8 and layers["max_abs_over_max"] <= INT8_LAYER_TOL,
+          f"int8 convs fp32 card vs cpu on the same input: {layers}")
+    with no_tf32(), torch.inference_mode():
+        heads_dev = det.model(x8[:2])
+        heads_cpu = cpu_model(x8[:2].cpu())
+    del cpu_model
+    fp32 = {**heads_vs(heads_dev, heads_cpu), "min_corr": INT8_HEADS_MIN_CORR, "layers": layers}
+    check(fp32["corr"] >= INT8_HEADS_MIN_CORR, f"int8 fp32 heads card vs cpu: {fp32}")
+    x_bf = normalize_images(u8_8, torch.bfloat16)
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        bf16_vs_float = heads_vs(det.model(x_bf), det_f.model(x_bf))
+
+    # --- (c) profile of the int8 device program at batch 32
+    u8_32 = torch.from_numpy(np.concatenate([batch, preprocess_batch(
+        images(SEED + 54, EVAL_BATCH - INT8_CALIB), INPUT_SIZE)[0]])).to(dev)
+    prof = int8_profile(lambda: det.infer(u8_32))
+    check(prof["int_mm_per_call"] == n_int8 and prof["convolutions_per_call"] == 3,
+          f"int8 forward: {prof['int_mm_per_call']} int8 GEMMs and "
+          f"{prof['convolutions_per_call']} float convs per call (want {n_int8} and the 3 "
+          "pred convs)")
+    check(bool(prof["int8_gemm_kernels"]), "no device kernel ran under aten::_int_mm")
+    check(prof["top_kernel_is_int8_gemm"],
+          f"the int8 forward's top kernel is not an int8 GEMM: {prof['top_kernels'][:3]}")
+
+    # --- (d) device-program images/s, the split, peak memory
+    times = {}
+    for bs in INT8_BATCHES:
+        u8 = u8_32.repeat(bs // EVAL_BATCH, 1, 1, 1)
+        row = {}
+        for tag, d in (("int8", det), ("bf16", det_f)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda d=d: d.infer(u8), reps=10 if bs <= 32 else 3)
+            row[tag] = {"ms": ms, "img_s": bs / ms * 1e3,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        row["int8_over_bf16"] = row["int8"]["img_s"] / row["bf16"]["img_s"]
+        times[f"batch{bs}"] = row
+        del u8
+    split = int8_split(det.model, normalize_images(u8_32, torch.bfloat16))
+    torch.cuda.empty_cache()
+    emit("int8", card=smi, model="YOLOv3 Darknet-53, 80 classes, full width, random weights "
+         "(seed 0), BN from 8 of the phase's images, Detector.quantize on those 8",
+         input_size=INPUT_SIZE, int8_convs=n_int8, quantize_s=quantize_s,
+         predict_batch_launches={"nms": launches, **int8_launches},
+         accumulators_and_kernels=acc,
+         fp32_card_vs_cpu=fp32,
+         bf16_int8_vs_bf16_float=bf16_vs_float, profile_batch32=prof,
+         device_program=times, int8_conv_split_batch32=split)
+
+    # --- (e) the CLI, (f) other models
+    del det, det_f, model, float_model
+    torch.cuda.empty_cache()
+    cli_out = int8_cli(dev, workdir, n_int8)
+    torch.cuda.empty_cache()
+    others = int8_other_models(dev)
+    emit("int8_cli_and_models", card=smi, cli=cli_out, models=others,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"launches": {"int8_detector_predict_batch": launches,
+                         "int8_cli_eval": cli_out["eval_int8"]["launches"],
+                         "int8_cli_serve": cli_out["serve_int8"]["launches"],
+                         "int8_frcnn_eval_step": others["faster_rcnn_vgg16_512_b8"]["launches"]},
+            "mismatches": acc["mismatches"], "kernels": int8_kernel_entries(
+                int8_launches, acc, split)}
+
+
+def int8_kernel_entries(launches: dict, held: dict, split: dict) -> list:
+    """The int8 path's kernels as the smoke's last-but-one line lists them:
+    launches on the main path (one int8 predict_batch), the error against
+    the plain version over every layer of a forward, and the times of one
+    forward's worth of launches at batch 32 (the split)."""
+    return [{
+        "name": name, "route": "cuda", "source": "fastvision_tpu_torch/csrc/int8.cu",
+        "replaces": replaces, "launches": launches[key], "max_abs_err": err,
+        "ms": split[key]["ms"], "plain_ms": split[key]["plain_ms"],
+        "bound_ms": split[key]["bound_ms"], "bound_by": split[key]["bound_by"],
+        "library_ms": None, "shape": f"one int8 YOLOv3-{INPUT_SIZE} forward at batch "
+                                     f"{EVAL_BATCH}, {split['layers']} convs"}
+        for name, key, replaces, err in (
+            ("int8_quantize_patches", "patches",
+             "fastvision_tpu/nn/layers.py:110 (XLA, no Pallas kernel)",
+             held["patches_kernel_mismatching_bytes"]),
+            ("int8_epilogue", "epilogue",
+             "fastvision_tpu/nn/layers.py:120 (XLA, no Pallas kernel)",
+             held["epilogue_kernel_max_abs_err"]))]
+
+
+def main_only_int8(dev: torch.device, device: dict, t_start: float) -> int:
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        int8 = phase_int8(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(int8["launches"].values()), "launches_by_path": int8["launches"]},
+        *int8["kernels"]]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def main_only_i420(dev: torch.device, device: dict, t_start: float) -> int:
     workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
     try:
@@ -3179,6 +3727,8 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--only", "i420"]:
         return main_only_i420(dev, device, t_start)
+    if sys.argv[1:] == ["--only", "int8"]:
+        return main_only_int8(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -3218,6 +3768,8 @@ def main() -> int:
         cli_run = phase_cli(dev, device["smi"], workdir, cls["root"], video["root"])
         torch.cuda.empty_cache()
         i420 = phase_i420(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
+        int8 = phase_int8(dev, device["smi"], workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -3230,7 +3782,7 @@ def main() -> int:
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
                **evaluate["launches"], **serve["launches"], **cli_run["launches"],
-               **i420["launches"]}
+               **i420["launches"], **int8["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"]])
@@ -3250,7 +3802,7 @@ def main() -> int:
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
                                             "bound_by")} for tag, r in regimes.items()},
-    }]}), flush=True)
+    }, *int8["kernels"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
     return 0

@@ -8,6 +8,7 @@ fastvision_tpu/cli.py).
     python -m fastvision_tpu_torch train --config cfg.yaml model.name=faster_rcnn \\
         data.input_size=512
     python -m fastvision_tpu_torch eval  --config cfg.yaml --ckpt ckpts/ [--sweep]
+    python -m fastvision_tpu_torch eval  --config cfg.yaml --ckpt ckpts/ --int8 [--int8-percentile]
     python -m fastvision_tpu_torch infer --config cfg.yaml --ckpt ckpts/ --source img_or_dir
     python -m fastvision_tpu_torch train-cls model.backbone=resnet50 model.num_classes=1000 \\
         data.input_size=224 data.data_root=imagenet/ [--resume]
@@ -16,6 +17,7 @@ fastvision_tpu/cli.py).
         model.num_classes=400 data.num_frames=32 data.input_size=224 data.data_root=k400/
     python -m fastvision_tpu_torch eval --task video --ckpt ckpts/ data.eval_clips=4 ...
     python -m fastvision_tpu_torch serve --config cfg.yaml --ckpt ckpts/ --port 8080
+    python -m fastvision_tpu_torch serve --config cfg.yaml --ckpt ckpts/ --int8 --calib-dir imgs/
 
 Config = dataclass tree <- YAML <- dotted overrides (`core.config`); dataset
 descriptors use the reference's flat YAML schema. Every command runs on
@@ -41,8 +43,11 @@ the queue and exits. ``data.i420=true`` sends packed YUV 4:2:0 batches to the
 card (train and eval loaders, the detector of ``eval`` / ``infer`` /
 ``serve``); ``eval --tta`` adds horizontal-flip test-time augmentation;
 ``--fast-decode`` decodes JPEGs at least 2x larger than the input reduced.
-Subcommands and flags the port does not have yet exit naming their ROADMAP
-item.
+``eval --int8`` and ``serve --int8`` run the detector in int8
+(`Detector.quantize`, calibrated on the first 8 val images, or on the first
+8 image files of ``--calib-dir`` for ``serve``); ``eval --task cls|video``
+refuses ``--int8``, which the JAX package ignores there. Subcommands and
+flags the port does not have yet exit naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -494,11 +499,19 @@ def _eval_classifier(cfg, args) -> dict:
     return res
 
 
+def _quantize_detector(det, ds, n_calib: int = 8, percentile: bool = False) -> None:
+    """int8 PTQ with activation calibration on the first val images."""
+    imgs = [ds[i][0] for i in range(min(n_calib, len(ds)))]
+    det.quantize(imgs, percentile=percentile)
+    kind = "99.9th-percentile" if percentile else "absmax"
+    print(f"int8: quantized with {len(imgs)} calibration images ({kind})")
+
+
 def cmd_eval(args, overrides):
     """-> the evaluate result, or the sweep's rows."""
-    for flag, item in (("int8", 15), ("int8_percentile", 15)):
-        if getattr(args, flag):
-            raise _exit_not_ported("--" + flag.replace("_", "-"), item)
+    if args.task in ("cls", "video") and (args.int8 or args.int8_percentile):
+        raise SystemExit(f"eval --task {args.task}: --int8 quantizes the detector only "
+                         "(the JAX package ignores it here)")
     cfg = _load_config(args, overrides)
     if args.task in ("cls", "video"):
         return _eval_classifier(cfg, args)
@@ -507,6 +520,8 @@ def cmd_eval(args, overrides):
 
     det = _detector_from_cfg(cfg, args.ckpt, args.device, fast_decode=args.fast_decode)
     ds = DetectionDataset(cfg.data.data_root, cfg.data.val_dir)
+    if args.int8:
+        _quantize_detector(det, ds, percentile=args.int8_percentile)
     if args.sweep:
         points = (REFERENCE_SWEEP if args.sweep == "reference"
                   else [tuple(map(float, p.split(":"))) for p in args.sweep.split(",")])
@@ -559,14 +574,35 @@ def cmd_infer(args, overrides):
 def cmd_serve(args, overrides):
     """Serve YOLOv3 over HTTP until SIGTERM / SIGINT (`infer.serving.serve`),
     with `SERVE_PRESET` ahead of the user's overrides (multi-label NMS at
-    conf 0.001 / IoU 0.6) and `SERVE_BUCKETS`."""
-    if args.int8 or args.calib_dir:
-        raise _exit_not_ported("int8 serving (--int8, --calib-dir)", 15)
+    conf 0.001 / IoU 0.6) and `SERVE_BUCKETS`. ``--int8`` quantizes the
+    detector first, calibrated on the first 8 sorted image files of
+    ``--calib-dir``, or on the val split's first 8 images without it."""
     cfg = _load_config(args, [*SERVE_PRESET, *overrides])
     from .infer.serving import VisionService, serve
 
     det = _detector_from_cfg(cfg, args.ckpt, args.device, batch_buckets=SERVE_BUCKETS,
                              fast_decode=args.fast_decode)
+    if args.int8:
+        if args.calib_dir:
+            from .data.dataset import IMG_EXTS
+
+            paths = sorted(os.path.join(args.calib_dir, f) for f in os.listdir(args.calib_dir)
+                           if f.lower().endswith(IMG_EXTS))[:8]
+            if not paths:
+                raise SystemExit(f"--calib-dir {args.calib_dir!r} contains no images")
+            det.quantize(paths)
+            print(f"int8: quantized with {len(paths)} calibration images")
+        else:
+            from .data import DetectionDataset
+
+            try:
+                ds = DetectionDataset(cfg.data.data_root, cfg.data.val_dir)
+            except FileNotFoundError as e:
+                raise SystemExit(
+                    "int8 serving needs calibration images: the training dataset "
+                    f"({cfg.data.data_root}/{cfg.data.val_dir}) is not on this host — pass "
+                    "--calib-dir DIR with a few representative images instead") from e
+            _quantize_detector(det, ds)
     window = args.batch_window if args.batch_window == "adaptive" else float(args.batch_window)
     serve(VisionService(det), host=args.host, port=args.port, batch_window_ms=window)
 
@@ -599,9 +635,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--tta", action="store_true",
                    help="horizontal-flip test-time augmentation")
-    p.add_argument("--int8", action="store_true", help="int8 w8a8 PTQ inference (not ported)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 w8a8 PTQ inference (calibrated on the first 8 val images)")
     p.add_argument("--int8-percentile", action="store_true",
-                   help="calibrate at the 99.9th percentile of |x| (not ported)")
+                   help="with --int8: calibrate at the 99.9th percentile of |x|")
     p.add_argument("--fast-decode", action="store_true",
                    help="reduced JPEG decode for >=2x oversized images")
     p.add_argument("--sweep", nargs="?", const="reference", default=None,
@@ -629,8 +666,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-window", default="adaptive",
                    help="'adaptive' (flush after an idle 2 ms, at most 20 ms) or a fixed "
                         "window in ms")
-    p.add_argument("--int8", action="store_true", help="int8 serving (not ported)")
-    p.add_argument("--calib-dir", default="", help="int8 calibration images (not ported)")
+    p.add_argument("--int8", action="store_true", help="int8 w8a8 PTQ serving")
+    p.add_argument("--calib-dir", default="",
+                   help="with --int8: calibrate on the first 8 images of this directory "
+                        "(default: the val split)")
     p.add_argument("--fast-decode", action="store_true",
                    help="reduced JPEG decode for >=2x oversized images")
     sub.add_parser("doctor", help="environment triage (not ported)")

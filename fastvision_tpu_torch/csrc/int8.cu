@@ -1,0 +1,371 @@
+// The int8 conv's two passes around the int8 GEMM, for Hopper (sm_90a).
+//
+// The JAX package's quantized ConvBN (fastvision_tpu/nn/layers.py:100-122)
+// is an XLA program, not a Pallas kernel: quantize the input (:110-112), an
+// int8 x int8 -> int32 conv (:114-119), dequantize (:120-122), which XLA
+// fuses around its conv. In the port the product is torch._int_mm
+// (cuBLASLt's int8 tensor-core GEMM) over the conv's patches; these two
+// kernels are the passes around it, each one pass over memory where eager
+// PyTorch needs five to seven:
+//
+//   1. patches_kernel: NHWC activations [B, H, W, C] (bfloat16 or float32,
+//      quantized here as clip(rint(x / in_scale), -127, 127), half to even
+//      and an IEEE division, as the plain version rounds; or int8, copied)
+//      -> the conv's patches, int8 [B * Ho * Wo, K_pad], columns in
+//      (kh, kw, cin) order (the JAX package's HWIO flatten), zero in the
+//      padding (spatial and past K = k * k * C). A k x k conv of a float
+//      input with C a multiple of 8 runs it twice: quantize into an int8
+//      copy of the input (k = 1), then gather from that, so each element is
+//      divided once and not once per tap (the division is most of the work
+//      of a fused pass: ~10 instructions an element);
+//   2. epilogue_kernel: int32 accumulators [M, N_pad] (the GEMM's output)
+//      -> act((float(acc) * scale[n] + bias[n]) rounded to the output type)
+//      [M, N] in bfloat16 or float32, the activation computed in float32 on
+//      the rounded value and rounded again, as PyTorch's kernels do.
+//
+// What bounds them on an H100: bytes. The patches kernel writes K_pad bytes
+// a row (9x the input for a 3x3 conv) and reads each input element up to
+// k^2 times, mostly from L2; the epilogue reads 4 bytes of accumulator and
+// writes 2 (bfloat16) an output. Where C (N) is a multiple of 8, every
+// layer but an RGB stem, a thread moves 8 channels (outputs) with 16-byte
+// accesses and decomposes its index once for them; the patches kernel's
+// blocks take one tap of a run of rows, the taps of a run side by side, so
+// the k^2 reads of an input pixel mostly hit L2. Other shapes take a
+// plainer path (4 or 1 channels a thread). Nothing is shared between
+// threads.
+//
+// Exactness: every float operation is an explicit _rn intrinsic (the build
+// passes --fmad=false too), so the quantized bytes and the epilogue equal
+// the plain version's; silu calls expf, whose last bit may differ from
+// PyTorch's build of the same libdevice function.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ int8_t quantize(T v, float scale) {
+  float q = rintf(__fdiv_rn(to_float(v), scale));
+  q = fminf(fmaxf(q, -127.f), 127.f);
+  return (int8_t)(int)q;
+}
+__device__ __forceinline__ int8_t quantize(int8_t v, float) { return v; }
+
+// The other layers (an RGB stem: C = 3): a thread builds one row of K_pad
+// bytes, tap by tap, and stores it 4 bytes at a time; its row is decomposed
+// once (M < 2^31 rows: the host checks).
+template <typename T>
+__global__ void patches_row_kernel(const T* __restrict__ x, const float* __restrict__ in_scale,
+                                   int8_t* __restrict__ out, int H, int W, int C, int Ho, int Wo,
+                                   int k, int stride, int pad, int K_pad, int M) {
+  const float scale = in_scale ? *in_scale : 1.f;
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += gridDim.x * blockDim.x) {
+    const int ow = row % Wo;
+    const int t = row / Wo;
+    const int oh = t % Ho;
+    const long long b = t / Ho;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (long long)row * K_pad);
+    uint32_t word = 0;
+    int col = 0;
+    for (int kh = 0; kh < k; ++kh) {
+      const int ih = oh * stride - pad + kh;
+      for (int kw = 0; kw < k; ++kw) {
+        const int iw = ow * stride - pad + kw;
+        const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+        const T* src = x + ((b * H + (in ? ih : 0)) * W + (in ? iw : 0)) * (long long)C;
+        for (int c = 0; c < C; ++c, ++col) {
+          const uint32_t q = in ? (uint8_t)quantize(src[c], scale) : 0u;
+          word |= q << (8 * (col & 3));
+          if ((col & 3) == 3) {
+            dst[col >> 2] = word;
+            word = 0;
+          }
+        }
+      }
+    }
+    for (; col < K_pad; ++col)  // zero past K, flushing the last partial word
+      if ((col & 3) == 3) {
+        dst[col >> 2] = word;
+        word = 0;
+      }
+  }
+}
+
+// The layers whose C is a multiple of 8 (all but an RGB stem; then K_pad ==
+// K): a thread moves 8 channels of one (row, tap) segment, one 16-byte load
+// (bfloat16; two for float32, one 8-byte for int8) and one 8-byte store, and
+// decomposes its row once per 8 outputs. Each block handles one tap of a
+// run of rows; the taps of a run are neighbouring blocks, so the k^2 reads
+// of an input pixel mostly hit L2.
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<__nv_bfloat16> {
+  __device__ static void load(const __nv_bfloat16* p, float* v) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(h[i]);
+  }
+};
+template <>
+struct Vec8<float> {
+  __device__ static void load(const float* p, float* v) {
+    float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+template <typename T>
+__global__ void patches8_kernel(const T* __restrict__ x, const float* __restrict__ in_scale,
+                                int8_t* __restrict__ out, int H, int W, int C, int Ho, int Wo,
+                                int k, int stride, int pad, int K_pad) {
+  const int taps = k * k;
+  const int tap = blockIdx.x % taps;  // a block: one output line (b, oh) and one tap
+  const int line = blockIdx.x / taps;
+  const int kh = tap / k, kw = tap - kh * k;
+  const int oh = line % Ho;
+  const long long b = line / Ho;
+  const int ih = oh * stride - pad + kh;
+  const int cps = C / 8;  // chunks of 8 channels a segment
+  const int n = Wo * cps;
+  int8_t* line_out = out + (long long)line * Wo * K_pad + tap * C;
+  if (ih < 0 || ih >= H) {  // the whole line is padding at this tap
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int ow = e / cps;
+      *reinterpret_cast<uint2*>(line_out + (long long)ow * K_pad + (e - ow * cps) * 8) =
+          make_uint2(0u, 0u);
+    }
+    return;
+  }
+  const T* line_in = x + (b * H + ih) * (long long)W * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int ow = e / cps;
+    const int c = (e - ow * cps) * 8;
+    const int iw = ow * stride - pad + kw;
+    uint2 packed = make_uint2(0u, 0u);
+    if (iw >= 0 && iw < W) {
+      const T* src = line_in + (long long)iw * C + c;
+      if constexpr (sizeof(T) == 1) {
+        packed = *reinterpret_cast<const uint2*>(src);
+      } else {
+        const float scale = *in_scale;
+        float v[8];
+        int8_t* q = reinterpret_cast<int8_t*>(&packed);
+        Vec8<T>::load(src, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) q[i] = quantize(v[i], scale);
+      }
+    }
+    *reinterpret_cast<uint2*>(line_out + (long long)ow * K_pad + c) = packed;
+  }
+}
+
+// activation codes: 0 none, 1 relu, 2 leaky_relu (0.1), 3 silu
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case 1: return v > 0.f ? v : 0.f;
+    case 2: return v > 0.f ? v : __fmul_rn(v, 0.1f);
+    case 3: return __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
+    default: return v;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// acc [M, N_pad] -> out [M, N]
+template <typename O, typename I>
+__global__ void epilogue_kernel(const int32_t* __restrict__ acc, const float* __restrict__ scale,
+                                const float* __restrict__ bias, O* __restrict__ out, I M, int N,
+                                int N_pad, int act) {
+  const I total = M * N;
+  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += (I)gridDim.x * blockDim.x) {
+    const I m = i / N;
+    const int n = (int)(i - m * N);
+    float v = __fadd_rn(__fmul_rn((float)acc[m * N_pad + n], scale[n]), bias[n]);
+    v = round_to(v, out);  // the dequantized value in the output type, then the activation
+    store(out + i, activate(v, act));
+  }
+}
+
+// N a multiple of 8 and N_pad == N: a thread dequantizes 8 outputs of a
+// row (two 16-byte loads of accumulators, one 16- or 32-byte store)
+template <typename O, typename I>
+__global__ void epilogue8_kernel(const int32_t* __restrict__ acc, const float* __restrict__ scale,
+                                 const float* __restrict__ bias, O* __restrict__ out, I units,
+                                 int N, int act) {
+  const int cpr = N / 8;
+  for (I u = (I)blockIdx.x * blockDim.x + threadIdx.x; u < units; u += (I)gridDim.x * blockDim.x) {
+    const I m = u / cpr;
+    const int n = (int)(u - m * cpr) * 8;
+    const I base = m * N + n;
+    const int4 a0 = reinterpret_cast<const int4*>(acc + base)[0];
+    const int4 a1 = reinterpret_cast<const int4*>(acc + base)[1];
+    const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    O y[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = __fadd_rn(__fmul_rn((float)a[i], scale[n + i]), bias[n + i]);
+      v = round_to(v, out);
+      float r = activate(v, act);
+      if constexpr (sizeof(O) == 2) y[i] = __float2bfloat16_rn(r); else y[i] = r;
+    }
+    if constexpr (sizeof(O) == 2) {
+      *reinterpret_cast<uint4*>(out + base) = *reinterpret_cast<const uint4*>(y);
+    } else {
+      reinterpret_cast<float4*>(out + base)[0] = reinterpret_cast<const float4*>(y)[0];
+      reinterpret_cast<float4*>(out + base)[1] = reinterpret_cast<const float4*>(y)[1];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_patches(const void* x, const float* in_scale, int8_t* out, int B, int H,
+                           int W, int C, int k, int stride, int pad, int K_pad, int n_sm,
+                           cudaStream_t st) {
+  const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
+  const long long M = (long long)B * Ho * Wo;
+  const int K = k * k * C;
+  if (M == 0) return cudaSuccess;
+  if (M >= (1LL << 30)) return cudaErrorInvalidValue;  // 32-bit rows, strides included
+  if (C % 8 == 0 && K_pad == K && (reinterpret_cast<uintptr_t>(x) % 16) == 0) {
+    const long long blocks = (long long)B * Ho * k * k;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    patches8_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const T*)x, in_scale, out, H, W, C, Ho, Wo, k, stride, pad, K_pad);
+  } else {
+    long long blocks = (M + kThreads - 1) / kThreads;
+    if (blocks > 32LL * n_sm) blocks = 32LL * n_sm;  // a grid-stride loop past ~32 blocks an SM
+    patches_row_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const T*)x, in_scale, out, H, W, C, Ho, Wo, k, stride, pad, K_pad, (int)M);
+  }
+  return cudaGetLastError();
+}
+
+int sm_count(int device, cudaError_t* err) {
+  static int counts[64];
+  int n = device >= 0 && device < 64 ? counts[device] : 0;
+  if (n == 0) {
+    *err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (*err == cudaSuccess && device >= 0 && device < 64) counts[device] = n;
+  }
+  return n;
+}
+
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16, 2 int8 (then in_scale is null: a copy).
+// x NHWC [B, H, W, C] contiguous, out [B * Ho * Wo, K_pad] int8. With a
+// float input, a k > 1 conv and C a multiple of 8, `scratch` (int8, B * H *
+// W * C bytes, 16-byte aligned, or null) takes the quantized input first,
+// and the patches are gathered from it: each input element is then divided
+// once, not once per tap (the division is most of the fused pass's work).
+// Returns the first non-zero cudaError_t of the launches, 0 on success.
+int fv_int8_patches(const void* x, int dtype, const float* in_scale, void* scratch, void* out,
+                    int B, int H, int W, int C, int k, int stride, int pad, int K_pad,
+                    int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (K_pad < k * k * C || K_pad % 4) return (int)cudaErrorInvalidValue;
+  const int n_sm = sm_count(device, &err);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  int8_t* o = (int8_t*)out;
+  if (scratch && dtype != 2 && k > 1 && C % 8 == 0 && K_pad == k * k * C &&
+      reinterpret_cast<uintptr_t>(scratch) % 16 == 0) {
+    int8_t* q = (int8_t*)scratch;
+    err = dtype == 0 ? launch_patches<float>(x, in_scale, q, B, H, W, C, 1, 1, 0, C, n_sm, st)
+                     : launch_patches<__nv_bfloat16>(x, in_scale, q, B, H, W, C, 1, 1, 0, C,
+                                                     n_sm, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_patches<int8_t>(q, nullptr, o, B, H, W, C, k, stride, pad, K_pad, n_sm,
+                                       st);
+  }
+  switch (dtype) {
+    case 0: err = launch_patches<float>(x, in_scale, o, B, H, W, C, k, stride, pad, K_pad, n_sm, st); break;
+    case 1: err = launch_patches<__nv_bfloat16>(x, in_scale, o, B, H, W, C, k, stride, pad, K_pad, n_sm, st); break;
+    case 2: err = launch_patches<int8_t>(x, nullptr, o, B, H, W, C, k, stride, pad, K_pad, n_sm, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// acc [M, N_pad] int32 contiguous, scale / bias [N] float32, out [M, N]
+// (out_dtype 0 float32, 1 bfloat16), act 0 none / 1 relu / 2 leaky / 3 silu.
+int fv_int8_epilogue(const int32_t* acc, const float* scale, const float* bias, void* out,
+                     long long M, int N, int N_pad, int out_dtype, int act, int device,
+                     void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0 || N <= 0) return 0;
+  if (N > N_pad || act < 0 || act > 3) return (int)cudaErrorInvalidValue;
+  const int n_sm = sm_count(device, &err);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N % 8 == 0 && N_pad == N && (reinterpret_cast<uintptr_t>(acc) % 16) == 0 &&
+      (reinterpret_cast<uintptr_t>(out) % 16) == 0) {
+    const long long units = M * (N / 8);
+    long long blocks = (units + kThreads - 1) / kThreads;
+    if (blocks > 32LL * n_sm) blocks = 32LL * n_sm;  // a grid-stride loop past ~32 blocks an SM
+    const bool narrow = M * N < (1LL << 30);
+    if (out_dtype == 0 && narrow)
+      epilogue8_kernel<float, int><<<(unsigned)blocks, kThreads, 0, st>>>(
+          acc, scale, bias, (float*)out, (int)units, N, act);
+    else if (out_dtype == 0)
+      epilogue8_kernel<float, long long><<<(unsigned)blocks, kThreads, 0, st>>>(
+          acc, scale, bias, (float*)out, units, N, act);
+    else if (out_dtype == 1 && narrow)
+      epilogue8_kernel<__nv_bfloat16, int><<<(unsigned)blocks, kThreads, 0, st>>>(
+          acc, scale, bias, (__nv_bfloat16*)out, (int)units, N, act);
+    else if (out_dtype == 1)
+      epilogue8_kernel<__nv_bfloat16, long long><<<(unsigned)blocks, kThreads, 0, st>>>(
+          acc, scale, bias, (__nv_bfloat16*)out, units, N, act);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  const long long total = M * N;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 32LL * n_sm) blocks = 32LL * n_sm;  // a grid-stride loop past ~32 blocks an SM
+  const bool narrow = M * N_pad < (1LL << 30);  // 32-bit index arithmetic, strides included
+  if (out_dtype == 0 && narrow)
+    epilogue_kernel<float, int><<<(unsigned)blocks, kThreads, 0, st>>>(
+        acc, scale, bias, (float*)out, (int)M, N, N_pad, act);
+  else if (out_dtype == 0)
+    epilogue_kernel<float, long long><<<(unsigned)blocks, kThreads, 0, st>>>(
+        acc, scale, bias, (float*)out, M, N, N_pad, act);
+  else if (out_dtype == 1 && narrow)
+    epilogue_kernel<__nv_bfloat16, int><<<(unsigned)blocks, kThreads, 0, st>>>(
+        acc, scale, bias, (__nv_bfloat16*)out, (int)M, N, N_pad, act);
+  else if (out_dtype == 1)
+    epilogue_kernel<__nv_bfloat16, long long><<<(unsigned)blocks, kThreads, 0, st>>>(
+        acc, scale, bias, (__nv_bfloat16*)out, M, N, N_pad, act);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+const char* fv_int8_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

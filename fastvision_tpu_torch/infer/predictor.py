@@ -39,7 +39,9 @@ Input paths, as in the JAX package:
   image's boxes unscaled to original pixels and filtered (sides >
   ``min_box_px``) before an NMS ranked by objectness.
 
-Not ported yet: quantize (ROADMAP Queue 1, item 15).
+`Detector.quantize` switches the detector to int8 (w8a8 post-training
+quantization, `infer.quantize`) in place: every path above then runs the
+model's ConvBN convs as int8 GEMMs on the card, and the NMS kernel as before.
 """
 from __future__ import annotations
 
@@ -369,6 +371,25 @@ class Detector:
                                       metas[i]["orig_hw"]),
                 "scores": scores[i][v], "classes": classes[i][v]})
         return out
+
+    def quantize(self, calib_images: Sequence[np.ndarray | str], skip: Sequence[str] = (),
+                 percentile: bool = False) -> None:
+        """Switch this detector to int8 (w8a8 PTQ) inference in place.
+
+        ``calib_images`` (a handful of representative images or paths) are
+        letterboxed, normalized to float32 and run through the float model
+        (no autocast) to calibrate each ConvBN's input scale; the weights are
+        BN-folded and quantized per output channel (`infer.quantize`). Later
+        calls run the ConvBN convs as int8 x int8 -> int32 GEMMs (the CPU:
+        the plain float64 version). ``skip`` and ``percentile``: as in
+        `infer.quantize.quantize_variables`."""
+        from .quantize import quantize_model
+
+        arrs = [imread_rgb(im) if isinstance(im, str) else im for im in calib_images]
+        batch, _ = preprocess_batch(arrs, self.input_size)
+        x = normalize_images(torch.from_numpy(batch).to(self.device), torch.float32,
+                             imagenet=self.imagenet)
+        quantize_model(self.model, [x], skip=skip, percentile=percentile)
 
     def _demo_inputs(self, metas: list[dict], pad_to: int):
         """reference_demo's per-image (ratio, pads, original (w, h)) tensors,

@@ -5,6 +5,7 @@ from .import_jax import (
     darknet53_classifier_state_dict_from_jax,
     darknet53_state_dict_from_jax,
     faster_rcnn_state_dict_from_jax,
+    quant_state_from_jax,
     resnet3d_state_dict_from_jax,
     resnet_state_dict_from_jax,
     slowfast_state_dict_from_jax,
@@ -20,7 +21,7 @@ from .import_torch import (
 
 __all__ = ["VGG", "Darknet53", "ResNet", "ViT", "FasterRCNN", "YOLOv3", "faster_rcnn",
            "c3d_state_dict_from_jax", "darknet53_classifier_state_dict_from_jax",
-           "darknet53_state_dict_from_jax", "faster_rcnn_state_dict_from_jax",
+           "darknet53_state_dict_from_jax", "faster_rcnn_state_dict_from_jax", "quant_state_from_jax",
            "resnet3d_state_dict_from_jax", "resnet_state_dict_from_jax",
            "slowfast_state_dict_from_jax", "vgg_state_dict_from_jax", "vit_state_dict_from_jax",
            "yolov3_state_dict_from_jax", "c3d_state_dict_from_reference",

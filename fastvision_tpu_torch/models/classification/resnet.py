@@ -7,6 +7,11 @@ stride 2 is torch's own padding and not XLA's right-biased SAME; the stem's
 3x3 max pool pads 1 with -inf. A block gets a 1x1 projection shortcut
 (``downsample``) where its stride or width changes.
 
+Each conv + BN pair (the JAX package's ConvBNs: the stem, every block conv
+and the projection) runs through `conv_bn_act` and is listed by
+``conv_bn_names()``, so int8 quantization (`infer.quantize`) folds and
+runs them as it does the detectors' ConvBNs.
+
 The ``state_dict`` keys are torchvision's (``conv1``, ``bn1``,
 ``layer{i}.{j}.conv{k}`` / ``bn{k}`` / ``downsample.{0,1}``, ``fc``), so a
 torchvision checkpoint loads as it is, and the JAX package's
@@ -27,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import BatchNorm, global_avg_pool, init_weights_, max_pool
+from ...nn.layers import BatchNorm, conv_bn_act, global_avg_pool, init_weights_, max_pool
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -40,10 +45,27 @@ def _downsample(cin: int, cout: int, stride: int) -> nn.Module | None:
     return nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm(cout))
 
 
-class BasicBlock(nn.Module):
+class _Block(nn.Module):
+    """A residual block's conv + BN pairs (``conv{k}`` / ``bn{k}``, then the
+    projection) and its shortcut."""
+
+    n_convs = 0
+
+    def conv_bn_names(self) -> list[tuple[str, str]]:
+        names = [(f"conv{k}", f"bn{k}") for k in range(1, self.n_convs + 1)]
+        return names + ([("downsample.0", "downsample.1")] if self.downsample is not None else [])
+
+    def shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        if self.downsample is None:
+            return x
+        return conv_bn_act(self.downsample[0], self.downsample[1], x, "none")
+
+
+class BasicBlock(_Block):
     """3x3 -> 3x3 + shortcut."""
 
     expansion = 1
+    n_convs = 2
 
     def __init__(self, cin: int, features: int, stride: int = 1, groups: int = 1,
                  base_width: int = 64):
@@ -53,15 +75,16 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, features, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + (x if self.downsample is None else self.downsample(x)))
+        y = conv_bn_act(self.conv1, self.bn1, x, "relu")
+        y = conv_bn_act(self.conv2, self.bn2, y, "none")
+        return F.relu(y + self.shortcut(x))
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_Block):
     """1x1 -> grouped 3x3 (the stride) -> 1x1 expanded x4, + shortcut."""
 
     expansion = 4
+    n_convs = 3
 
     def __init__(self, cin: int, features: int, stride: int = 1, groups: int = 1,
                  base_width: int = 64):
@@ -74,10 +97,10 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, out, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + (x if self.downsample is None else self.downsample(x)))
+        y = conv_bn_act(self.conv1, self.bn1, x, "relu")
+        y = conv_bn_act(self.conv2, self.bn2, y, "relu")
+        y = conv_bn_act(self.conv3, self.bn3, y, "none")
+        return F.relu(y + self.shortcut(x))
 
 
 class ResNet(nn.Module):
@@ -107,10 +130,13 @@ class ResNet(nn.Module):
             self.fc = nn.Linear(cin, num_classes)
         init_weights_(self, generator, he_convs=True)
 
+    def conv_bn_names(self) -> list[tuple[str, str]]:
+        return [("conv1", "bn1")]
+
     def forward(self, x: torch.Tensor):
         if self.including_top:
             x = x.permute(0, 3, 1, 2)
-        x = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, padding=1)
+        x = max_pool(conv_bn_act(self.conv1, self.bn1, x, "relu"), 3, 2, padding=1)
         feats = []
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)

@@ -24,6 +24,13 @@ mapping is the inverse of ``fastvision_tpu/models/import_torch.py``:
     package's (t, h, w, c) flatten to the port's (c, t, h, w).
 
 Depths are read from the variables, so shallow nets bridge too.
+
+`quant_state_from_jax` carries the int8 state of a quantized model (the
+JAX package's ``quant`` collection: ``w_q`` HWIO int8 -> OIHW, ``w_scale``,
+``in_scale``, ``bias``), or its calibration tree (``amax``, ``q999``),
+through the same bridges, keyed by the port's conv module names, for
+`infer.quantize.install_quant` (YOLOv3 / Darknet-53, VGG / Faster R-CNN,
+ResNet / ResNeXt).
 """
 from __future__ import annotations
 
@@ -48,6 +55,16 @@ def _bn(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _quant(out: dict, conv: str, params: Mapping) -> None:
+    """A ConvBN's int8 (or calibration) leaves, merged into its params by
+    `quant_state_from_jax`, -> ``{conv}.quant.*`` entries."""
+    for k, v in params.get("quant", {}).items():
+        out[f"{conv}.quant.{k}"] = (
+            torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(v, np.int8),
+                                                               (3, 2, 0, 1))))
+            if k == "w_q" else _t(v))
+
+
 def _convbn(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
     conv = params["conv"]
     out[f"{prefix}.conv.weight"] = _t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
@@ -55,6 +72,7 @@ def _convbn(out: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
         out[f"{prefix}.conv.bias"] = _t(conv["bias"])
     if "bn" in params:
         _bn(out, f"{prefix}.bn", params, stats)
+    _quant(out, f"{prefix}.conv", params)
 
 
 def darknet53_state_dict_from_jax(variables: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -127,6 +145,34 @@ def _conv_bn(out: dict, conv: str, bn: str, params: Mapping, stats: Mapping) -> 
     """A JAX ConvBN -> torchvision-style separate ``conv`` / ``bn`` names."""
     out[f"{conv}.weight"] = _t(np.transpose(params["conv"]["kernel"], (3, 2, 0, 1)))
     _bn(out, bn, params, stats)
+    _quant(out, conv, params)
+
+
+def _merge_leaves(params: Mapping, tree: Mapping) -> Mapping:
+    """``params`` with each ConvBN's leaves of ``tree`` (a collection that
+    mirrors the module tree: ``quant``, ``quant_calib``) under its "quant" key."""
+    if not isinstance(tree, Mapping) or not isinstance(params, Mapping):
+        return params
+    if tree and not any(isinstance(v, Mapping) for v in tree.values()):
+        return {**params, "quant": tree}
+    return {k: _merge_leaves(v, tree.get(k, {})) for k, v in params.items()}
+
+
+def quant_state_from_jax(variables: Mapping, state_dict_from_jax,
+                         collection: str = "quant") -> dict[str, dict[str, torch.Tensor]]:
+    """The ``collection`` of the JAX package's variables (``quant`` from its
+    ``quantize_variables``, or a ``calibrate`` tree put there) -> {the port's
+    conv module name: {leaf: tensor}}, through the model's bridge
+    ``state_dict_from_jax`` (e.g. `yolov3_state_dict_from_jax`). ``w_q``
+    becomes OIHW int8, every other leaf a float32 tensor."""
+    merged = {**variables, "params": _merge_leaves(variables["params"],
+                                                   variables.get(collection, {}))}
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for key, v in state_dict_from_jax(merged).items():
+        if ".quant." in key:
+            name, leaf = key.split(".quant.")
+            out.setdefault(name, {})[leaf] = v
+    return out
 
 
 def resnet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:

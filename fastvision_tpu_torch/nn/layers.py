@@ -15,24 +15,27 @@ Conventions carried over from the JAX package:
 `max_pool` is flax's ``max_pool`` (VALID windows, or explicit -inf
 padding); `init_weights_` also gives ``nn.Linear`` flax ``Dense``'s init,
 and `Dense` is the JAX package's he-normal ``Dense``. `global_avg_pool` and
-`adaptive_avg_pool` are the JAX package's pools on NCHW tensors. The int8
-quantized forward and its calibration hooks are not ported yet.
+`adaptive_avg_pool` are the JAX package's pools on NCHW tensors.
+
+int8 inference (w8a8 post-training quantization, `infer.quantize`): every
+conv + BN pair of `conv_bn_pairs` (each `ConvBN`, and the torchvision-named
+pairs of the ResNet) may carry an `Int8Conv` as its conv's ``quant``
+submodule: the BN-folded int8 kernel, its per-channel scales, the
+calibrated input scale and the folded bias, as non-persistent buffers (they
+move with the model and stay out of its ``state_dict``). `conv_bn_act` runs
+the pair: in eval mode through the `Int8Conv` where there is one, else (and
+always in train mode) through the float conv and BN.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "silu": F.silu,
-    "relu": F.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.1),
-    "none": lambda x: x,
-}
+from ..ops.int8 import ACTIVATIONS, gemm_weight, quantized_conv
 
 
 def memory_format_for(model: nn.Module) -> torch.memory_format:
@@ -89,12 +92,77 @@ class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
 
+class Int8Conv(nn.Module):
+    """The quantized state of one conv + BN pair and its eval forward (the
+    JAX package's ``quant`` collection of a ConvBN and its
+    ``_quantized_forward``): ``w_q`` the BN-folded OIHW int8 kernel,
+    ``w_scale`` [N] its per-output-channel scales, ``in_scale`` the input's
+    scale, ``bias`` [N] the folded bias (float32 each), and derived from them
+    ``scale = in_scale * w_scale`` and the card route's weight matrix
+    ``w_mat`` (`ops.int8.gemm_weight`). All are non-persistent buffers."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, in_scale: torch.Tensor,
+                 bias: torch.Tensor, stride: int, padding: int, groups: int):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        w_scale = w_scale.float()
+        in_scale = torch.as_tensor(in_scale, dtype=torch.float32, device=w_scale.device)
+        for name, t in (("w_q", w_q.to(torch.int8)), ("w_scale", w_scale),
+                        ("in_scale", in_scale.reshape(())), ("bias", bias.float()),
+                        ("scale", in_scale * w_scale), ("w_mat", gemm_weight(w_q, groups))):
+            self.register_buffer(name, t.contiguous(), persistent=False)
+
+    def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
+        """x [B, C, H, W] -> ``act`` of the dequantized int8 conv, in the
+        dtype the float conv would return (autocast's, where it is on)."""
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+        with torch.autocast(dev, enabled=False):
+            return quantized_conv(x, self.in_scale, self.w_q, self.w_mat, self.scale, self.bias,
+                                  self.stride, self.padding, self.groups, act, dtype)
+
+
+def conv_bn_act(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(bn(conv(x)))``; in eval mode the conv's `Int8Conv`
+    (``conv.quant``) instead, where it has one."""
+    quant = conv._modules.get("quant")
+    if quant is not None and not conv.training:
+        return quant(x, act)
+    return ACTIVATIONS[act](bn(conv(x)))
+
+
+def conv_bn_pairs(model: nn.Module) -> Iterator[tuple[str, nn.Conv2d, nn.Module | None]]:
+    """The conv + BN pairs that int8 quantization folds, in module order:
+    (the conv's module name, the conv, its BN or None for a BN-free
+    `ConvBN`). Each `ConvBN`, and each (conv, BN) name pair that a module
+    lists in its ``conv_bn_names()`` (the ResNet's torchvision-named ones)."""
+    for name, m in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(m, ConvBN):
+            yield prefix + "conv", m.conv, m.bn if isinstance(m.bn, nn.BatchNorm2d) else None
+        elif hasattr(m, "conv_bn_names"):
+            for c, b in m.conv_bn_names():
+                yield prefix + c, m.get_submodule(c), m.get_submodule(b)
+
+
+def record_input_range(store: dict, x: torch.Tensor) -> None:
+    """Calibration: fold the input's absmax and the 99.9th percentile of
+    |x| into ``store`` (running maxima, from 0), as the JAX package's ConvBN
+    sows them: |x| flattened in NHWC order, subsampled with the step
+    ``max(1, size // 65536)``, linear-interpolated quantile."""
+    ax = x.detach().float().abs()
+    f = ax.permute(0, 2, 3, 1).reshape(-1)
+    f = f[::max(1, f.numel() // 65536)]
+    for key, v in (("amax", ax.max()), ("q999", torch.quantile(f, 0.999))):
+        store[key] = torch.maximum(store.get(key, torch.zeros_like(v)), v)
+
+
 class ConvBN(nn.Module):
     """Conv2d + BatchNorm + activation, the detector's basic block.
 
     State-dict names: ``conv.weight`` (+ ``conv.bias`` without BN) and
     ``bn.{weight,bias,running_mean,running_var}``, the reference demo's
-    torch naming."""
+    torch naming. Quantized, its eval forward is the conv's `Int8Conv`."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  strides: int = 1, groups: int = 1, use_bn: bool = True,
@@ -109,7 +177,7 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ACTIVATIONS[self.act](self.bn(self.conv(x)))
+        return conv_bn_act(self.conv, self.bn, x, self.act)
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2, padding: int = 0) -> torch.Tensor:

@@ -1,0 +1,308 @@
+"""int8 w8a8 convolution: the counterpart of the JAX package's quantized
+ConvBN conv (fastvision_tpu/nn/layers.py:100-122), an XLA
+``conv_general_dilated`` with int32 accumulation there, not a Pallas kernel.
+
+One quantized conv is three steps, on [M, K] / [M, N] matrices over the
+NHWC rows (M = B * Ho * Wo):
+
+  1. quantize + patches (`quantize_patches`): per-tensor symmetric int8,
+     ``clip(round(x.float() / in_scale), -127, 127)`` rounding half to even
+     as ``jnp.round`` does, gathered into the conv's patches, int8 [M, K_pad]
+     with columns in (kh, kw, cin) order (the JAX package's HWIO flatten of
+     ``w_q``), zero past K = k * k * Cin. Patches are never built in a float
+     type: at batch 256 Darknet-53's 208 x 208, K = 288 layers need 3.2 GB of
+     them in int8 (6.4 / 12.8 GB in fp16 / fp32);
+  2. the int8 x int8 -> int32 product with the weight matrix
+     (`gemm_weight`: K and N zero-padded to multiples of 8; a grouped conv is
+     ONE block-diagonal GEMM, zero outside each group's block, which costs
+     ``groups`` times the grouped conv's operations but one launch a layer):
+     ``torch._int_mm``, cuBLASLt's int8 tensor-core GEMM on the card (it
+     takes M > 16 and K, N multiples of 8: M is padded with zero rows for
+     tiny maps);
+  3. the epilogue (`epilogue`): ``act((acc * (in_scale * w_scale) + bias)
+     rounded to the activation dtype)``, a float32 multiply and add each
+     rounded, as the JAX package computes them.
+
+Steps 1 and 3 are CUDA kernels (``csrc/int8.cu``) on the card,
+`quantize_patches_cuda` and `epilogue_cuda`, one pass over memory each (two
+for a k x k conv's patches: quantize, then gather) where eager PyTorch
+takes five to seven; their plain PyTorch versions
+(`quantize_patches_plain`, `epilogue_plain`) run on CPU tensors and are the
+kernels' yardstick of correctness. A CUDA tensor launches the kernel or
+raises. What bounds both on an H100 is bytes (int8 patches written,
+int32 accumulators read), and at YOLOv3's widths the GEMM too: its K and N
+are small, and C is 4 bytes an output.
+
+`int8_conv2d` is the whole int8 x int8 -> int32 conv: on the card the
+patches of the int8 input and ``_int_mm`` (`int8_conv2d_gemm`); on the CPU
+the plain version `int8_conv2d_plain`, a float64 ``F.conv2d`` on the int8
+values cast to int32, exact since every partial sum is an integer below
+2^53 (at most 127^2 * 9 * 2048 ~ 3e8 here). A float conv never stands in
+for the int8 one on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from .. import cuda_build
+
+QMAX = 127
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    "relu": F.relu,
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "none": lambda x: x,
+}
+_ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3}  # csrc/int8.cu's
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def out_hw(h: int, w: int, k: int, stride: int, padding: int) -> tuple[int, int]:
+    return (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("int8")
+    lib.fv_int8_patches.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fv_int8_patches.restype = ctypes.c_int
+    lib.fv_int8_epilogue.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fv_int8_epilogue.restype = ctypes.c_int
+    lib.fv_int8_error_string.argtypes = [ctypes.c_int]
+    lib.fv_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_lib().fv_int8_error_string(err).decode()} ({err})")
+
+
+def quantize_activation(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
+    """Any float tensor -> int8 of the same shape (and memory format):
+    ``clip(round(x.float() / in_scale), -127, 127)``, half to even."""
+    q = torch.div(x.float(), in_scale)
+    return q.round_().clamp_(-QMAX, QMAX).to(torch.int8)
+
+
+def conv_patches(xq: torch.Tensor, k: int, stride: int, padding: int,
+                 k_pad: int) -> torch.Tensor:
+    """NHWC int8 [B, H, W, C] -> the conv's patches, int8 [B * Ho * Wo,
+    k_pad], in PyTorch operations (a 1x1 stride-1 conv: the NHWC rows as
+    they are; else the padded tensor's k^2 strided slices concatenated)."""
+    b, h, w, c = xq.shape
+    ho, wo = out_hw(h, w, k, stride, padding)
+    kk = k * k * c
+    if k == 1 and padding == 0:
+        cols = [xq if stride == 1 else xq[:, ::stride, ::stride]]
+    else:
+        xp = F.pad(xq, (0, 0, padding, padding, padding, padding))
+        cols = [xp[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+                for i in range(k) for j in range(k)]
+    if k_pad > kk:
+        cols.append(xq.new_zeros(b, ho, wo, k_pad - kk))
+    a = cols[0] if len(cols) == 1 else torch.cat(cols, dim=3)
+    return a.reshape(b * ho * wo, k_pad)
+
+
+def quantize_patches_plain(x: torch.Tensor, in_scale: torch.Tensor | None, k: int, stride: int,
+                           padding: int, k_pad: int) -> torch.Tensor:
+    """NHWC [B, H, W, C] float (quantized with ``in_scale``) or int8 (with
+    ``in_scale=None``) -> int8 patches [B * Ho * Wo, k_pad]."""
+    xq = x if x.dtype == torch.int8 else quantize_activation(x, in_scale)
+    return conv_patches(xq, k, stride, padding, k_pad)
+
+
+def quantize_patches_cuda(x: torch.Tensor, in_scale: torch.Tensor | None, k: int, stride: int,
+                          padding: int, k_pad: int) -> torch.Tensor:
+    """`quantize_patches_plain` in one call of ``csrc/int8.cu`` (one grid;
+    two for a k x k conv of a float input with C a multiple of 8, which
+    quantizes into scratch, then gathers): ``x`` contiguous NHWC float32 /
+    bfloat16 (``in_scale`` a float32 scalar on its device) or int8
+    (``in_scale=None``), on a CUDA device."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_patches_cuda needs a CUDA tensor, got {dev}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"quantize_patches_cuda takes float32, bfloat16 or int8, got {x.dtype}")
+    if (x.dtype == torch.int8) != (in_scale is None):
+        raise ValueError("in_scale goes with a float input, and only with one")
+    if in_scale is not None and (in_scale.device != dev or in_scale.dtype != torch.float32
+                                 or in_scale.numel() != 1):
+        raise ValueError("in_scale must be one float32 value on the input's device")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"expected contiguous NHWC [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if k_pad < k * k * c:
+        raise ValueError(f"k_pad {k_pad} < k * k * C = {k * k * c}")
+    ho, wo = out_hw(h, w, k, stride, padding)
+    out = torch.empty(b * ho * wo, k_pad, dtype=torch.int8, device=dev)
+    # a k x k conv of a float input quantizes into scratch first (csrc/int8.cu)
+    scratch = (torch.empty(x.shape, dtype=torch.int8, device=dev)
+               if in_scale is not None and k > 1 and c % 8 == 0 and k_pad == k * k * c else None)
+    err = _lib().fv_int8_patches(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], None if in_scale is None else in_scale.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), b, h, w, c, k, stride,
+        padding, k_pad, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8 patches kernel")
+    quantize_patches_cuda.launches += 1
+    return out
+
+
+quantize_patches_cuda.launches = 0
+
+
+def quantize_patches(x: torch.Tensor, in_scale: torch.Tensor | None, k: int, stride: int,
+                     padding: int, k_pad: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return quantize_patches_plain(x, in_scale, k, stride, padding, k_pad)
+    return quantize_patches_cuda(x.contiguous(), in_scale, k, stride, padding, k_pad)
+
+
+def epilogue_plain(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Tensor,
+                   act: str, dtype: torch.dtype) -> torch.Tensor:
+    """int32 accumulators [M, >= n] -> ``act((acc * scale + bias).to(dtype))``
+    [M, n], ``scale = in_scale * w_scale`` and ``bias`` [n] float32."""
+    y = torch.mul(acc[:, :n], scale)  # int32 -> float32 inside the multiply
+    return ACTIVATIONS[act](y.add_(bias).to(dtype))
+
+
+def epilogue_cuda(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Tensor,
+                  act: str, dtype: torch.dtype) -> torch.Tensor:
+    """`epilogue_plain` in one launch of ``csrc/int8.cu``: ``acc`` contiguous
+    int32 [M, N_pad] on a CUDA device, ``dtype`` float32 or bfloat16."""
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError(f"epilogue_cuda needs a CUDA tensor, got {dev}")
+    if acc.dtype != torch.int32 or acc.ndim != 2 or not acc.is_contiguous():
+        raise ValueError(f"expected contiguous int32 [M, N_pad], got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"epilogue_cuda writes float32 or bfloat16, not {dtype}")
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    for t in (scale, bias):
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+            raise ValueError("scale and bias must be contiguous float32 [n] on acc's device")
+    m, n_pad = acc.shape
+    if n > n_pad:
+        raise ValueError(f"n {n} > the accumulators' {n_pad} columns")
+    out = torch.empty(m, n, dtype=dtype, device=dev)
+    err = _lib().fv_int8_epilogue(
+        acc.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, n_pad,
+        _DTYPE_CODES[dtype], _ACT_CODES[act], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8 epilogue kernel")
+    epilogue_cuda.launches += 1
+    return out
+
+
+epilogue_cuda.launches = 0
+
+
+def epilogue(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Tensor, act: str,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if acc.device.type == "cpu":
+        return epilogue_plain(acc, n, scale, bias, act, dtype)
+    return epilogue_cuda(acc, n, scale, bias, act, dtype)
+
+
+def gemm_weight(w_q: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """OIHW int8 [N, Cin / groups, k, k] -> the card route's weight matrix,
+    int8 [N_pad, K_pad] (K = k * k * Cin in (kh, kw, cin) order, block
+    diagonal over the groups), K and N zero-padded to multiples of 8."""
+    n, cg, kh, kw = w_q.shape
+    cin = cg * groups
+    full = w_q.new_zeros(n, kh, kw, cin)
+    ng = n // groups
+    for g in range(groups):
+        full[g * ng:(g + 1) * ng, :, :, g * cg:(g + 1) * cg] = \
+            w_q[g * ng:(g + 1) * ng].permute(0, 2, 3, 1)
+    k = kh * kw * cin
+    mat = w_q.new_zeros(_round_up(n, 8), _round_up(k, 8))
+    mat[:n, :k] = full.reshape(n, k)
+    return mat
+
+
+def int8_gemm(a: torch.Tensor, w_mat: torch.Tensor) -> torch.Tensor:
+    """int8 patches [M, K_pad] x `gemm_weight`'s [N_pad, K_pad] -> int32
+    [M, N_pad] through ``torch._int_mm`` (zero rows added below M = 17)."""
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
+    acc = torch._int_mm(a, w_mat.t())
+    return acc if acc.shape[0] == m else acc[:m]
+
+
+def int8_conv2d_gemm(xq: torch.Tensor, w_mat: torch.Tensor, n: int, kernel_size: int,
+                     stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """The card route: int8 [B, C, H, W] (any memory format; channels_last
+    needs no copy) and `gemm_weight`'s matrix -> int32 accumulators
+    [B, n, Ho, Wo] in channels_last memory."""
+    b, _, h, w = xq.shape
+    ho, wo = out_hw(h, w, kernel_size, stride, padding)
+    a = quantize_patches(xq.permute(0, 2, 3, 1), None, kernel_size, stride, padding,
+                         w_mat.shape[1])
+    acc = int8_gemm(a, w_mat)
+    return acc[:, :n].reshape(b, ho, wo, n).permute(0, 3, 1, 2)
+
+
+def int8_conv2d_plain(xq: torch.Tensor, w_q: torch.Tensor, stride: int = 1, padding: int = 0,
+                      groups: int = 1) -> torch.Tensor:
+    """The plain version: int8 [B, C, H, W] and OIHW int8 ``w_q`` -> int32
+    [B, N, Ho, Wo], a float64 conv on the int8 values (exact)."""
+    with torch.autocast(xq.device.type, enabled=False):
+        y = F.conv2d(xq.double(), w_q.double(), stride=stride, padding=padding, groups=groups)
+    return y.to(torch.int32)
+
+
+def int8_conv2d(xq: torch.Tensor, w_q: torch.Tensor, stride: int = 1, padding: int = 0,
+                groups: int = 1, w_mat: torch.Tensor | None = None) -> torch.Tensor:
+    """int8 activations and OIHW int8 weights -> int32 accumulators: the card
+    route on a CUDA tensor (``w_mat``: `gemm_weight`'s matrix, built here
+    when not given), the plain version on a CPU tensor."""
+    if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"int8_conv2d takes int8 tensors, got {xq.dtype} and {w_q.dtype}")
+    if xq.device.type == "cpu":
+        return int8_conv2d_plain(xq, w_q, stride, padding, groups)
+    if w_mat is None:
+        w_mat = gemm_weight(w_q, groups)
+    return int8_conv2d_gemm(xq, w_mat, w_q.shape[0], w_q.shape[-1], stride, padding)
+
+
+def quantized_conv(x: torch.Tensor, in_scale: torch.Tensor, w_q: torch.Tensor,
+                   w_mat: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int,
+                   padding: int, groups: int, act: str, dtype: torch.dtype) -> torch.Tensor:
+    """The whole quantized conv: x [B, C, H, W] float -> ``act`` of the
+    dequantized int8 conv, [B, N, Ho, Wo] in ``dtype``, channels_last. On
+    the card: the patches kernel, ``_int_mm``, the epilogue kernel; on the
+    CPU: `quantize_activation`, the float64 plain conv, `epilogue_plain`."""
+    b, _, h, w = x.shape
+    n, k = w_q.shape[0], w_q.shape[-1]
+    ho, wo = out_hw(h, w, k, stride, padding)
+    if x.device.type == "cpu":
+        acc = int8_conv2d_plain(quantize_activation(x, in_scale), w_q, stride, padding, groups)
+        acc = acc.permute(0, 2, 3, 1).reshape(b * ho * wo, n)
+    else:
+        a = quantize_patches(x.permute(0, 2, 3, 1), in_scale, k, stride, padding,
+                             w_mat.shape[1])
+        acc = int8_gemm(a, w_mat)
+    y = epilogue(acc, n, scale, bias, act, dtype)
+    return y.reshape(b, ho, wo, n).permute(0, 3, 1, 2)

@@ -17,6 +17,10 @@ which the port reads without cv2, in the layout `DetectionDataset` reads.
 the layout `ClassificationDataset` reads; `write_video_dataset` a
 folder-per-class tree of clips stored as directories of ``.bmp`` frames,
 the layout `VideoFolderDataset` reads.
+
+`INT8_CONV_CASES` and `int8_conv_case` are the shapes and seeded inputs on
+which the int8 conv's card route, its plain version (and on the CPU the JAX
+package's int32 conv) are held bit-equal.
 """
 from __future__ import annotations
 
@@ -155,6 +159,40 @@ class SyntheticDetectionDataset:
             image[y1 : y1 + bh, x1 : x1 + bw] = self.colours[c]
             labels.append([c, x1, y1, x1 + bw, y1 + bh])
         return image, np.asarray(labels, np.float32).reshape(-1, 5), f"synthetic_{idx}"
+
+
+# (id, batch, Cin, H, W, N, kernel, stride, groups) of the int8 conv's
+# exactness checks: 1x1 and 3x3 at stride 1 and 2, the ResNet's 7x7 stem,
+# Cin = 3 (K = 27, padded to 32), K and N not multiples of 8, ResNeXt's 32
+# groups of 4 channels, a map with fewer than 17 output pixels
+INT8_CONV_CASES = (
+    ("1x1", 2, 16, 9, 7, 24, 1, 1, 1),
+    ("1x1_s2", 2, 16, 9, 7, 32, 1, 2, 1),
+    ("1x1_k12", 2, 12, 5, 5, 8, 1, 1, 1),
+    ("3x3", 2, 8, 9, 7, 16, 3, 1, 1),
+    ("3x3_s2", 2, 8, 10, 10, 16, 3, 2, 1),
+    ("7x7_stem", 2, 3, 20, 18, 16, 7, 2, 1),
+    ("cin3", 2, 3, 12, 12, 32, 3, 1, 1),
+    ("n12", 2, 8, 7, 7, 12, 3, 1, 1),
+    ("groups32", 1, 128, 6, 5, 128, 3, 1, 32),
+    ("groups32_s2", 2, 128, 6, 6, 256, 3, 2, 32),
+    ("tiny_map", 1, 16, 3, 3, 16, 3, 2, 1),
+)
+
+
+def int8_conv_case(case: tuple, extreme: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    """-> (activations int8 [B, Cin, H, W], OIHW weights int8 [N, Cin /
+    groups, k, k]) for an `INT8_CONV_CASES` entry, seeded by its id;
+    ``extreme``: a quarter of the values at +-127, the largest sums."""
+    name, b, cin, h, w, n, k, _, groups = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)
+    wq = rng.integers(-127, 128, (n, cin // groups, k, k)).astype(np.int8)
+    if extreme:
+        for a in (x, wq):
+            sel = rng.random(a.shape) < 0.25
+            a[sel] = np.where(rng.random(a.shape) < 0.5, 127, -127)[sel]
+    return x, wq
 
 
 def write_detection_dataset(root: str, n: int,

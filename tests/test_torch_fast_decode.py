@@ -5,6 +5,12 @@ and ``DetectionLoader(emit='i420')`` eval batches (fused decode, and the
 plain chain for the files it does not take) on the serial and the process
 backends, plus ``use_native``.
 
+The tests that hold the port against the JAX package's native JPEG -> I420
+decode take the `jax_native_jpeg` fixture: it builds that library into the
+worker's own temporary directory where this process's first build fell back
+to the letterbox-only one (the JAX package's concurrent first builds share
+one temporary file name, and a worker that loses keeps the fallback).
+
 The data: JPEGs written by cv2 at sizes whose decoded long side is the input
 size or a power-of-two multiple of it (so the RGB letterbox only pads and
 both packages' pixels agree), a 4:1:1 JPEG and a BMP (the plain chain), and
@@ -13,12 +19,14 @@ metas included; the letterboxed RGB of `preprocess_image` within 1 (the
 port resizes with torch, the JAX package with cv2).
 """
 import os
+import tempfile
 
 import cv2
 import numpy as np
 import pytest
 
 import fastvision_tpu.data as jd
+import fastvision_tpu.native as jnative
 from fastvision_tpu.infer import preprocess as jpre
 from fastvision_tpu_torch.data import DetectionDataset, DetectionLoader
 from fastvision_tpu_torch.data import dataset as tds
@@ -60,6 +68,22 @@ def root(tmp_path_factory):
     return _write(str(tmp_path_factory.mktemp("fast_decode")))
 
 
+@pytest.fixture(scope="module")
+def jax_native_jpeg(tmp_path_factory):
+    """The JAX package's native JPEG -> I420 decode, loaded in this process.
+    Where its first build lost the race for the shared temporary file and
+    fell back to the letterbox-only library, build it again, alone, in a
+    directory of this worker's own; skip only on a host without libjpeg."""
+    if not jnative.jpeg_i420_available():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tempfile, "gettempdir",
+                       lambda d=str(tmp_path_factory.mktemp("jax_native")): d)
+            jnative._TRIED, jnative._LIB, jnative._HAS_JPEG = False, None, False
+            jnative._build_and_load()
+    if not jnative.jpeg_i420_available():
+        pytest.skip("native jpeg kernel unavailable")
+
+
 def _paths(root):
     d = os.path.join(root, "val", "images")
     return [os.path.join(d, f) for f in sorted(os.listdir(d))]
@@ -74,7 +98,7 @@ def test_imread_rgb_scaled_matches_jax(root):
             assert tuple(orig) == tuple(jorig)
 
 
-def test_dataset_decode_size_and_sample_i420_match_jax(root):
+def test_dataset_decode_size_and_sample_i420_match_jax(root, jax_native_jpeg):
     for decode_size in (None, SIZE):
         ds = DetectionDataset(root, "val", decode_size=decode_size)
         jds = jd.DetectionDataset(root, "val", decode_size=decode_size)
@@ -115,7 +139,7 @@ def _same_batches(got, want):
 
 
 @pytest.mark.parametrize("decode_size", [None, SIZE])
-def test_i420_eval_batches_byte_equal_to_jax(root, decode_size):
+def test_i420_eval_batches_byte_equal_to_jax(root, decode_size, jax_native_jpeg):
     ds = DetectionDataset(root, "val", decode_size=decode_size)
     jds = jd.DetectionDataset(root, "val", decode_size=decode_size)
     want = list(jd.DetectionLoader(jds, SIZE, 3, max_boxes=5, train=False, emit="i420").epoch(0))

@@ -4,7 +4,10 @@ and Faster R-CNN's kernel paths against their CPU paths, device-side mAP
 matching, checkpoints of CUDA tensors, Detector.evaluate on the card, and
 the classification path (a train step with the mix and the zoo's forwards
 card vs CPU, process-pool loaders forked after CUDA initialised, the
-classification evaluator).
+classification evaluator), and int8 inference (the int8 conv's card route,
+int8 patches + ``torch._int_mm``, bit-equal to its plain version on
+`testing.INT8_CONV_CASES`; a quantized Detector on the card against the CPU,
+with no float conv on a quantized layer).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -21,6 +24,7 @@ Tolerance: keep masks and Detections bit-equal. The kernel rounds every
 float32 intermediate as the plain version does (no FMA contraction, IEEE
 division), and everything around it is the same PyTorch code on both sides.
 """
+import copy
 import os
 
 import numpy as np
@@ -36,7 +40,7 @@ from fastvision_tpu_torch.ops.nms_kernel import (
     suppression_mask_cuda,
     suppression_mask_plain,
 )
-from fastvision_tpu_torch.testing import nms_case, rpn_nms_case
+from fastvision_tpu_torch.testing import INT8_CONV_CASES, int8_conv_case, nms_case, rpn_nms_case
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -930,3 +934,136 @@ def test_input_paths_on_card_equal_cpu(mode):
     assert int(on_cpu.valid.sum()) > 0
     for a, b in zip(on_card, on_cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", INT8_CONV_CASES, ids=[c[0] for c in INT8_CONV_CASES])
+def test_int8_conv_card_route_equals_plain(case):
+    """The card route's int32 accumulators bit-equal to the plain version's
+    (float64 conv) on the card and on the CPU, from channels_last input."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    _, _, _, _, _, n, k, stride, groups = case
+    x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+    xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+    got = ti.int8_conv2d(xd, w.to(dev), stride, k // 2, groups)
+    on_card = ti.int8_conv2d_plain(xd, w.to(dev), stride, k // 2, groups)
+    torch.cuda.synchronize()
+    want = ti.int8_conv2d_plain(x, w, stride, k // 2, groups)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want) and torch.equal(on_card.cpu(), want)
+    with pytest.raises(TypeError, match="int8"):
+        ti.int8_conv2d(xd.float(), w.to(dev), stride, k // 2, groups)
+    # the patches kernel on a float input against its plain version: bit-equal
+    g = torch.Generator().manual_seed(len(case[0]))
+    for dtype in (torch.float32, torch.bfloat16):
+        xf = (torch.randn(x.permute(0, 2, 3, 1).shape, generator=g) * 3).to(dtype).to(dev)
+        s = torch.tensor(0.0217, device=dev)
+        k_pad = ti.gemm_weight(w, groups).shape[1]
+        before = ti.quantize_patches_cuda.launches
+        got = ti.quantize_patches(xf, s, k, stride, k // 2, k_pad)
+        assert ti.quantize_patches_cuda.launches == before + 1
+        assert torch.equal(got, ti.quantize_patches_plain(xf, s, k, stride, k // 2, k_pad))
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu", "silu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_epilogue_kernel_equals_plain(act, dtype):
+    """The epilogue kernel against its plain version: equal, but for silu's
+    expf, whose last bit may differ from PyTorch's build (<= 1 ulp of the
+    output type)."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    for m, n, n_pad in ((17, 12, 16), (4099, 64, 64), (1000, 1000, 1000)):
+        acc = torch.randint(-2 ** 26, 2 ** 26, (m, n_pad), generator=g, dtype=torch.int32).to(dev)
+        scale = (torch.rand(n, generator=g) * 1e-6).to(dev)
+        bias = torch.randn(n, generator=g).to(dev)
+        before = ti.epilogue_cuda.launches
+        got = ti.epilogue(acc, n, scale, bias, act, dtype)
+        assert ti.epilogue_cuda.launches == before + 1
+        want = ti.epilogue_plain(acc, n, scale, bias, act, dtype)
+        assert got.dtype == dtype and got.shape == (m, n)
+        if act == "silu":
+            ulp = torch.finfo(dtype).eps * want.float().abs().clamp_min(torch.finfo(dtype).tiny)
+            assert float(((got.float() - want.float()).abs() / ulp).max()) <= 1.0
+        else:
+            assert torch.equal(got, want)
+
+
+def test_int8_kernel_wrappers_reject_what_they_do_not_take():
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    x = torch.zeros(1, 8, 8, 16, device=dev)
+    s = torch.tensor(1.0, device=dev)
+    with pytest.raises(TypeError):
+        ti.quantize_patches_cuda(x.half(), s, 3, 1, 1, 144)
+    with pytest.raises(ValueError, match="contiguous"):
+        ti.quantize_patches_cuda(x.permute(0, 2, 1, 3), s, 3, 1, 1, 144)
+    with pytest.raises(ValueError, match="k_pad"):
+        ti.quantize_patches_cuda(x, s, 3, 1, 1, 128)
+    with pytest.raises(ValueError, match="in_scale"):
+        ti.quantize_patches_cuda(x.to(torch.int8), s, 3, 1, 1, 144)
+    acc = torch.zeros(20, 16, dtype=torch.int32, device=dev)
+    scale = torch.ones(16, device=dev)
+    with pytest.raises(TypeError):
+        ti.epilogue_cuda(acc, 16, scale, scale, "silu", torch.float16)
+    with pytest.raises(ValueError):
+        ti.epilogue_cuda(acc.float(), 16, scale, scale, "silu", torch.float32)
+    with pytest.raises(ValueError, match="activation"):
+        ti.epilogue_cuda(acc, 16, scale, scale, "gelu", torch.float32)
+
+
+def test_quantized_detector_on_card_equals_cpu_and_runs_int8_gemms():
+    """A shallow YOLOv3 quantized by Detector.quantize on the card: float32
+    heads card vs CPU (plain int8 route) within 1e-2 of their std (the int32
+    sums are exact on both; a float rounding that differs flips an int8
+    step); the forward's profile holds ``_int_mm`` and only the 3 float pred
+    convs; the NMS kernel still runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvision_tpu_torch.infer.quantize import quant_state
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(11))
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    det = Detector(model, anchors, input_size=96, batch_size=4, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+            for hw in ((96, 96), (120, 80), (50, 96), (200, 300))]
+    det.quantize(imgs)
+    assert len(quant_state(det.model)) == 36
+    assert all(t.device.type == "cuda" for q in quant_state(det.model).values()
+               for t in q.values())
+    before = suppression_mask_cuda.launches
+    out = det.predict_batch(imgs)
+    assert suppression_mask_cuda.launches == before + 1 and all(
+        np.isfinite(r["boxes"]).all() for r in out)
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(3))
+    cpu_model = copy.deepcopy(det.model).cpu()
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            on_card = [h.cpu() for h in det.model(x.to(dev))]
+            on_cpu = cpu_model(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for a, b in zip(on_card, on_cpu):
+        assert float((a - b).abs().max() / b.std()) <= 1e-2
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        det.model(x.to(dev))
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts.get("aten::_int_mm", 0) == 36
+    assert counts.get("aten::convolution", 0) == 3  # the float pred convs alone
+    before = (ti.quantize_patches_cuda.launches, ti.epilogue_cuda.launches)
+    with torch.inference_mode():
+        det.model(x.to(dev))
+    assert (ti.quantize_patches_cuda.launches, ti.epilogue_cuda.launches) == (
+        before[0] + 36, before[1] + 36)

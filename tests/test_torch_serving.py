@@ -378,8 +378,8 @@ def test_cli_serve_on_the_cpu(monkeypatch):
     servers[0].batcher.shutdown()
     servers[0].shutdown()
     assert done.wait(30) and not t.is_alive()
-    with pytest.raises(SystemExit, match="item 15"):
-        cli.main(["serve", "--int8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="int8 serving needs calibration images"):
+        cli.main(["serve", "--int8", "--device", "cpu", "data.data_root=/nonexistent"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["serve", "data.input_size=64"])

@@ -34,7 +34,7 @@ from fastvision_tpu_torch.data import DetectionDataset, DetectionLoader
 from fastvision_tpu_torch.infer import Detector
 from fastvision_tpu_torch.models import YOLOv3
 from fastvision_tpu_torch.ops.image import letterbox_batch, pack_canvas
-from test_torch_fast_decode import _write
+from test_torch_fast_decode import _write, jax_native_jpeg  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 C, SIZE = 3, 64
@@ -106,7 +106,7 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / b.std())
 
 
-def test_i420_matches_jax(models, root):
+def test_i420_matches_jax(models, root, jax_native_jpeg):
     tdet, jdet = pair(models, input_format="i420")
     ds, jds = DetectionDataset(root, "val"), jd.DetectionDataset(root, "val")
     batch = next(iter(DetectionLoader(ds, SIZE, 2, train=False, emit="i420").epoch(0)))
@@ -150,7 +150,7 @@ def test_reference_demo_matches_jax(models, root):
 
 
 @pytest.mark.parametrize("mode", ["tta", "reference_demo", "i420_device_matching"])
-def test_evaluate_matches_jax(models, root, tmp_path, mode):
+def test_evaluate_matches_jax(models, root, tmp_path, mode, jax_native_jpeg):
     kw = {"tta": dict(), "reference_demo": dict(postprocess_mode="reference_demo", pad_value=0),
           "i420_device_matching": dict(input_format="i420")}[mode]
     tdet, jdet = pair(models, **kw)
