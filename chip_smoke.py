@@ -208,26 +208,35 @@ exits non-zero before a result is printed:
   24. int8    int8 w8a8 PTQ: ``Detector.quantize`` of a full-width
               YOLOv3-416 (bf16, batch 32, BN from the phase's images) on 8
               images, one ``predict_batch`` with the launches of the NMS
-              kernel and of ``csrc/int8.cu``'s two kernels (quantize +
-              patches, epilogue: one each a conv) counted; on every
+              kernel and of the int8 kernels counted: ``int8_conv``
+              (``csrc/int8_conv.cu``, the implicit-GEMM conv with its
+              epilogue fused) and its quantize pass on the 71 convs it
+              takes, ``csrc/int8.cu``'s patches and epilogue kernels on the
+              RGB stem, one launch each a conv; at batch 32 on every
               quantized conv's own input the int32 accumulators of the card
-              route (patches + ``torch._int_mm``) bit-equal to the plain
-              version (float64 conv), the patches kernel bit-equal and the
-              epilogue kernel within INT8_EPILOGUE_ULPS of their plain
-              versions; float32 card vs CPU conv by conv on the card's
-              inputs (INT8_LAYER_TOL) and for the whole model (correlation,
-              INT8_HEADS_MIN_CORR: last-bit differences of silu flip int8
-              roundings, which random weights amplify); the bf16 int8 heads
-              against the bf16 float model; the int8 forward's profile (72
-              ``_int_mm`` and the 3 float pred convs a call, the top
-              kernels); the int8 and bf16 device programs at batch 32 and
-              256 (img/s, peak memory); the int8 convs' split (patches
-              kernel and plain, GEMM, epilogue kernel and plain, each with
-              its bound); ``eval --int8`` and ``serve --int8 --calib-dir``
-              through ``cli.main`` at full width; Faster R-CNN-VGG16 at 512
-              with an int8 backbone, ResNet-50 (batch 128) and ResNeXt-50
-              32x4d (batch 32) at 224 against bf16, and a small ResNeXt in
-              float32 card vs CPU; then the run's total seconds.
+              route bit-equal to the plain version (float64 conv), the
+              patches kernel bit-equal and the epilogue kernel within
+              INT8_EPILOGUE_ULPS of their plain versions, and on the 71
+              ``int8_conv`` in mode (b) bit-equal to the plain accumulators
+              and in mode (a) byte-equal to the GEMM route (patches,
+              ``_int_mm``, epilogue) in bf16 and float32, and on
+              ``testing.INT8_IMPLICIT_CASES``; float32 card vs CPU conv by
+              conv on the card's inputs (INT8_LAYER_TOL) and for the whole
+              model (correlation, INT8_HEADS_MIN_CORR: last-bit differences
+              of silu flip int8 roundings, which random weights amplify);
+              the bf16 int8 heads against the bf16 float model; the int8
+              forward's profile (71 ``int8_conv`` launches, one ``_int_mm``
+              and the 3 float pred convs a call, the top kernels); the int8
+              and bf16 device programs at batch 32 and 256 (img/s, peak
+              memory); the int8 convs' split at both batches (the quantize
+              pass and ``int8_conv`` against the GEMM route's three steps on the
+              same layers, ``_int_mm`` alone as the library yardstick, plain
+              versions at 32, each with its bound); ``eval --int8`` and
+              ``serve --int8 --calib-dir`` through ``cli.main`` at full
+              width; Faster R-CNN-VGG16 at 512 with an int8 backbone,
+              ResNet-50 (batch 128) and ResNeXt-50 32x4d (batch 32) at 224
+              against bf16 (``int8_conv`` launches counted), and a small
+              ResNeXt in float32 card vs CPU; then the run's total seconds.
 
 ``python3 chip_smoke.py --only i420`` (or ``--only int8``) runs the device,
 build and i420 (int8) phases alone (a quick check of this path; the full run
@@ -235,9 +244,11 @@ takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port: the NMS kernel with its launches on every path (the classification
-and video paths counted and required at 0: they run no NMS), then the two
-int8 kernels with their launches on the int8 main path; the last line is {"ok": true,
-"device": {...}}. Without a CUDA card the script exits 1 at once.
+and video paths counted and required at 0: they run no NMS), then the int8
+kernels (``int8_conv``, its quantize pass, the patches and epilogue
+kernels) with their launches on the int8 main path; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card the script exits 1 at
+once.
 """
 from __future__ import annotations
 
@@ -323,12 +334,19 @@ from fastvision_tpu_torch.ops.image import (
     rgb_batch_to_i420_packed,
 )
 from fastvision_tpu_torch.ops.int8 import (
+    ACTIVATIONS,
     epilogue_cuda,
     epilogue_plain,
+    gemm_weight,
+    implicit_gemm_eligible,
     int8_conv2d,
     int8_conv2d_plain,
+    int8_conv_cuda,
+    int8_conv_plain,
     int8_gemm,
+    out_hw,
     quantize_activation,
+    quantize_activation_cuda,
     quantize_patches_cuda,
     quantize_patches_plain,
 )
@@ -338,7 +356,9 @@ from fastvision_tpu_torch.ops.nms_kernel import (
     suppression_mask_plain,
 )
 from fastvision_tpu_torch.testing import (
+    INT8_IMPLICIT_CASES,
     SyntheticDetectionDataset,
+    int8_conv_case,
     nms_case,
     rpn_nms_case,
     state_max_rel_diff,
@@ -3204,19 +3224,31 @@ INT8_CLI_IMAGES = 16
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores (H100 SXM data sheet, at 700 W)
 
 
+def differing_bytes(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of two same-shaped tensors whose bytes differ."""
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return int((a.view(as_int) != b.view(as_int)).sum())
+
+
 def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype) -> dict:
     """One forward of ``model`` on ``x`` (under ``dtype`` autocast) with, on
     each quantized conv's own input: the int32 accumulators of the card route
-    (the patches kernel on the int8 input, ``_int_mm``) against the plain
-    version (float64 conv); the patches kernel on the float input against
+    (`int8_conv2d`: the implicit GEMM in mode (b) where it takes the shape,
+    else the patches kernel and ``_int_mm``) against the plain version
+    (float64 conv); the patches kernel on the float input against
     `quantize_patches_plain` (bytes); the epilogue kernel against
     `epilogue_plain` on that conv's accumulators (max |d|, elements that
-    differ, the worst in output-dtype ulps of the value)."""
-    held = []
+    differ, the worst in output-dtype ulps of the value). On each conv that
+    `implicit_gemm_eligible` takes: the quantize pass against
+    `quantize_activation` (bytes), ``int8_conv`` in mode (b) against the
+    plain accumulators and in mode (a), in bfloat16 and float32, against
+    the GEMM route (patches kernel, ``_int_mm``, epilogue kernel) byte for
+    byte."""
+    held, implicit = [], []
 
     def hold(mod, args):
         inp, act = args
-        k = mod.w_q.shape[-1]
+        n, k = mod.w_q.shape[0], mod.w_q.shape[-1]
         with torch.autocast("cuda", enabled=False):
             xq = quantize_activation(inp, mod.in_scale)
             card = int8_conv2d(xq, mod.w_q, mod.stride, mod.padding, mod.groups, mod.w_mat)
@@ -3227,7 +3259,6 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
             a_plain = quantize_patches_plain(nhwc, mod.in_scale, k, mod.stride, mod.padding,
                                              mod.w_mat.shape[1])
             acc = int8_gemm(a, mod.w_mat)
-            n = mod.w_q.shape[0]
             y = epilogue_cuda(acc, n, mod.scale, mod.bias, act, dtype).float()
             y_plain = epilogue_plain(acc, n, mod.scale, mod.bias, act, dtype).float()
             d = (y - y_plain).abs()
@@ -3235,6 +3266,18 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
             held.append((int((card != plain).sum()), int(card.abs().max()),
                          int((a != a_plain).sum()), float(d.max()), int((d > 0).sum()),
                          float((d / ulp).max())))
+            if implicit_gemm_eligible(nhwc.shape[3], n, k, mod.stride, mod.padding, mod.groups):
+                xk = quantize_activation_cuda(nhwc, mod.in_scale)
+                mode_b = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride)
+                row = [differing_bytes(xk, quantize_activation(nhwc, mod.in_scale)),
+                       int((mode_b != plain.permute(0, 2, 3, 1).reshape(-1, n)).sum())]
+                for dt in (torch.bfloat16, torch.float32):
+                    new = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride, mod.scale, mod.bias,
+                                         act, dt)
+                    old = epilogue_cuda(acc, n, mod.scale, mod.bias, act, dt)
+                    row += [differing_bytes(new, old),
+                            float((new.float() - old.float()).abs().max())]
+                implicit.append(row)
 
     hooks = [m.register_forward_pre_hook(hold) for m in model.modules()
              if isinstance(m, Int8Conv)]
@@ -3251,7 +3294,49 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
             "patches_kernel_mismatching_bytes": sum(h[2] for h in held),
             "epilogue_kernel_max_abs_err": max(h[3] for h in held),
             "epilogue_kernel_differing": sum(h[4] for h in held),
-            "epilogue_kernel_max_ulps": max(h[5] for h in held)}
+            "epilogue_kernel_max_ulps": max(h[5] for h in held),
+            "implicit_gemm_convs": len(implicit),
+            "quantize_pass_mismatching_bytes": sum(r[0] for r in implicit),
+            "int8_conv_mode_b_mismatches": sum(r[1] for r in implicit),
+            "int8_conv_mode_a_differing": {"bf16": sum(r[2] for r in implicit),
+                                           "f32": sum(r[4] for r in implicit)},
+            "int8_conv_mode_a_max_abs_err": max([r[3] for r in implicit]
+                                                + [r[5] for r in implicit] + [0.0])}
+
+
+def on_implicit_gemm(q: Int8Conv) -> bool:
+    """Whether the card runs this quantized conv on ``int8_conv``."""
+    return implicit_gemm_eligible(q.w_q.shape[1] * q.groups, q.w_q.shape[0], q.w_q.shape[-1],
+                                  q.stride, q.padding, q.groups)
+
+
+def int8_conv_edge_cases(dev: torch.device) -> dict:
+    """`testing.INT8_IMPLICIT_CASES` on the card: ``int8_conv`` in mode (b)
+    against `int8_conv_plain`, and in mode (a), in every activation and both
+    output types, against the GEMM route on the same int8 input (patches
+    kernel, ``_int_mm``, epilogue kernel), byte for byte."""
+    out = {"cases": [], "mode_b_mismatches": 0, "mode_a_differing": 0}
+    for case in INT8_IMPLICIT_CASES:
+        name, _, _, _, _, n, k, stride, _ = case
+        x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+        xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
+        mat = gemm_weight(w).to(dev)
+        acc = int8_conv_cuda(xq, mat, n, k, stride)
+        bad_b = int((acc != int8_conv_plain(xq, mat, n, k, stride)).sum())
+        g = torch.Generator().manual_seed(n)
+        scale = (torch.rand(n, generator=g) * 2e-5 + 1e-6).to(dev)
+        bias = torch.randn(n, generator=g).to(dev)
+        acc10 = int8_gemm(quantize_patches_cuda(xq, None, k, stride, k // 2, mat.shape[1]), mat)
+        bad_a = sum(differing_bytes(int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dt),
+                                    epilogue_cuda(acc10, n, scale, bias, act, dt))
+                    for dt in (torch.bfloat16, torch.float32) for act in ACTIVATIONS)
+        out["cases"].append({"case": name, "M": acc.shape[0], "N": n, "K": mat.shape[1],
+                             "max_abs_accumulator": int(acc.abs().max()),
+                             "mode_b_mismatches": bad_b, "mode_a_differing": bad_a})
+        out["mode_b_mismatches"] += bad_b
+        out["mode_a_differing"] += bad_a
+    torch.cuda.synchronize()
+    return out
 
 
 def layerwise_card_vs_cpu(model: torch.nn.Module, cpu_model: torch.nn.Module,
@@ -3292,8 +3377,12 @@ def heads_vs(a: list, b: list) -> dict:
 def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
     """torch.profiler over ``reps`` calls of ``fn``: the top device kernels
     (ms per call; ``int8_gemm`` marks those launched under ``aten::_int_mm``),
-    the int8 GEMMs' share of device time, and per call the ``_int_mm`` and
-    float convolution ops."""
+    the int8 GEMMs' share of device time, per call the ``_int_mm`` and
+    float convolution ops, and the launches of the port's int8 kernels by
+    name (``int8_conv_kernel``, ``patches8_kernel`` (the quantize pass, and
+    the patches of a conv whose C is a multiple of 8), ``patches_row_kernel``,
+    the two epilogue kernels) and their device ms, as the profiler's device
+    records give them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3304,12 +3393,17 @@ def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
         torch.cuda.synchronize()
     events = prof.events()
     gemm = {k.name for e in events if e.name == "aten::_int_mm" for k in e.kernels}
-    kernels = {}
+    kernels, counts = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0 and ev.device_type.name == "CUDA" and not _is_range(ev):
             kernels[ev.key] = us / 1e3 / reps
+            counts[ev.key] = ev.count / reps
     total = sum(kernels.values())
+    ours = {tag: {"launches": sum(c for k, c in counts.items() if tag in k),
+                  "ms": sum(v for k, v in kernels.items() if tag in k)}
+            for tag in ("int8_conv_kernel", "patches8_kernel", "patches_row_kernel",
+                        "epilogue8_kernel", "::epilogue_kernel")}
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"device_ms": total,
             "top_kernels": [{"name": k[:100], "ms": v, "int8_gemm": k in gemm}
@@ -3318,63 +3412,97 @@ def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
             "int8_gemm_share": (sum(v for k, v in kernels.items() if k in gemm) / total
                                 if total else None),
             "top_kernel_is_int8_gemm": bool(ranked) and ranked[0][0] in gemm,
+            "int8_kernels_per_call": ours,
             "int_mm_per_call": sum(e.name == "aten::_int_mm" for e in events) / reps,
             "convolutions_per_call": sum(e.name == "aten::convolution" for e in events) / reps}
 
 
-def int8_split(model: torch.nn.Module, x: torch.Tensor) -> dict:
-    """The int8 convs of one bf16 forward, step by step over all layers on
-    the layers' own inputs (ms between CUDA events): the patches kernel and
-    its plain version, the GEMMs, the epilogue kernel and its plain version;
-    each step's bound: the bytes it must move (inputs read once, outputs
-    written once) over HBM's rate against its operations (int8 tensor-core
-    ones for the GEMMs; float32 ones, 4 an input element quantized once and
-    7 an epilogue output, for the kernels) over the peak for their type."""
-    inputs = []
-    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.append((mod, *args)))
-             for m in model.modules() if isinstance(m, Int8Conv)]
+def int8_split(model: torch.nn.Module, x: torch.Tensor, plain: bool) -> dict:
+    """The int8 convs of one bf16 forward of ``model`` on ``x``, timed layer
+    by layer on each layer's own input inside a forward pre-hook (ms between
+    CUDA events, summed over the layers): on the convs that
+    `implicit_gemm_eligible` takes, the quantize pass and ``int8_conv`` (the
+    path's route), and on the same layers the GEMM route's three steps (the patches
+    kernel, ``_int_mm``, the epilogue kernel); on the others (YOLOv3's RGB
+    stem) the GEMM route, which the path runs there (keys ``other_*``). With
+    ``plain``, each kernel's plain version too. Each step's bound: the bytes
+    it must move (inputs read once, outputs written once) over HBM's rate
+    against its operations over the peak for their type (int8 tensor-core
+    ones, 2 M N K, for ``int8_conv`` and ``_int_mm``; float32 ones, 4 an
+    input element quantized, 7 an epilogue output, for the others)."""
+    steps: dict = {}
+    n_layers = {"implicit": 0, "other": 0}
+
+    def add(key, fn, n_bytes, ops, peak, plain_fn=None):
+        st = steps.setdefault(key, {"ms": 0.0, "bytes": 0, "ops": 0.0, "bound_ms": 0.0,
+                                    "bytes_ms": 0.0, "ops_ms": 0.0})
+        st["ms"] += cuda_ms(fn, reps=5)
+        st["bytes"] += n_bytes
+        st["ops"] += ops
+        st["bytes_ms"] += 1e3 * n_bytes / PEAK_BYTES_S
+        st["ops_ms"] += 1e3 * ops / peak
+        st["bound_ms"] += 1e3 * max(n_bytes / PEAK_BYTES_S, ops / peak)
+        if plain_fn is not None:
+            st["plain_ms"] = st.get("plain_ms", 0.0) + cuda_ms(plain_fn, reps=1, warmup=1)
+
+    def timed(mod, args):
+        inp, act = args
+        n, k = mod.w_q.shape[0], mod.w_q.shape[-1]
+        sc, stride, pad, k_pad = mod.in_scale, mod.stride, mod.padding, mod.w_mat.shape[1]
+        bf = torch.bfloat16
+        with torch.autocast("cuda", enabled=False):
+            nhwc = inp.permute(0, 2, 3, 1).contiguous()
+            elems, in_bytes = nhwc.numel(), nhwc.numel() * nhwc.element_size()
+            eligible = implicit_gemm_eligible(nhwc.shape[3], n, k, stride, pad, mod.groups)
+            pre = "" if eligible else "other_"
+            n_layers["implicit" if eligible else "other"] += 1
+            if eligible:
+                xk = quantize_activation_cuda(nhwc, sc)
+                ho, wo = out_hw(xk.shape[1], xk.shape[2], k, stride, pad)
+                m = xk.shape[0] * ho * wo
+                add("quantize", lambda: quantize_activation_cuda(nhwc, sc), in_bytes + elems,
+                    4 * elems, PEAK_FP32_FLOPS,
+                    (lambda: quantize_activation(nhwc, sc)) if plain else None)
+                add("int8_conv",
+                    lambda: int8_conv_cuda(xk, mod.w_mat, n, k, stride, mod.scale, mod.bias, act,
+                                           bf),
+                    elems + mod.w_mat.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k_pad,
+                    PEAK_INT8_OPS,
+                    (lambda: int8_conv_plain(xk, mod.w_mat, n, k, stride, mod.scale, mod.bias,
+                                             act, bf)) if plain else None)
+            a = quantize_patches_cuda(nhwc, sc, k, stride, pad, k_pad)
+            acc = int8_gemm(a, mod.w_mat)
+            m, n_pad = acc.shape
+            add(pre + "patches", lambda: quantize_patches_cuda(nhwc, sc, k, stride, pad, k_pad),
+                in_bytes + a.numel(), 4 * elems, PEAK_FP32_FLOPS,
+                (lambda: quantize_patches_plain(nhwc, sc, k, stride, pad, k_pad))
+                if plain else None)
+            add(pre + "gemm", lambda: int8_gemm(a, mod.w_mat),
+                a.numel() + mod.w_mat.numel() + 4 * acc.numel(), 2.0 * m * k_pad * n_pad,
+                PEAK_INT8_OPS)
+            add(pre + "epilogue", lambda: epilogue_cuda(acc, n, mod.scale, mod.bias, act, bf),
+                4 * acc.numel() + 8 * n + 2 * m * n, 7.0 * m * n, PEAK_FP32_FLOPS,
+                (lambda: epilogue_plain(acc, n, mod.scale, mod.bias, act, bf))
+                if plain else None)
+            del a, acc
+
+    hooks = [m.register_forward_pre_hook(timed) for m in model.modules()
+             if isinstance(m, Int8Conv)]
     try:
         with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
             model(x)
     finally:
         for h in hooks:
             h.remove()
-
-    def bound(n_bytes, ops, peak):
-        t_b, t_o = n_bytes / PEAK_BYTES_S, ops / peak
-        return {"bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-                "bytes": n_bytes, "ops": ops}
-
-    with torch.inference_mode():
-        nhwc = [inp.permute(0, 2, 3, 1).contiguous() for _, inp, _ in inputs]
-        args = [(m.in_scale, m.w_q.shape[-1], m.stride, m.padding, m.w_mat.shape[1])
-                for m, _, _ in inputs]
-        a = [quantize_patches_cuda(xn, *ar) for xn, ar in zip(nhwc, args)]
-        accs = [int8_gemm(ai, m.w_mat) for ai, (m, _, _) in zip(a, inputs)]
-        epi = [(acc, m.w_q.shape[0], m.scale, m.bias, act, torch.bfloat16)
-               for acc, (m, _, act) in zip(accs, inputs)]
-        out = {"layers": len(inputs), "patches": {
-            "ms": cuda_ms(lambda: [quantize_patches_cuda(xn, *ar) for xn, ar in zip(nhwc, args)],
-                          reps=5),
-            "plain_ms": cuda_ms(lambda: [quantize_patches_plain(xn, *ar)
-                                         for xn, ar in zip(nhwc, args)], reps=3),
-            **bound(sum(xn.numel() * xn.element_size() + ai.numel() for xn, ai in zip(nhwc, a)),
-                    4 * sum(xn.numel() for xn in nhwc), PEAK_FP32_FLOPS)},
-            "gemm": {
-            "ms": cuda_ms(lambda: [int8_gemm(ai, m.w_mat) for ai, (m, _, _) in zip(a, inputs)],
-                          reps=5),
-            **bound(sum(ai.numel() + m.w_mat.numel() + 4 * acc.numel()
-                        for ai, acc, (m, _, _) in zip(a, accs, inputs)),
-                    sum(2 * ai.shape[0] * ai.shape[1] * m.w_mat.shape[0]
-                        for ai, (m, _, _) in zip(a, inputs)), PEAK_INT8_OPS)},
-            "epilogue": {
-            "ms": cuda_ms(lambda: [epilogue_cuda(*e) for e in epi], reps=5),
-            "plain_ms": cuda_ms(lambda: [epilogue_plain(*e) for e in epi], reps=3),
-            **bound(sum(4 * acc.numel() + 8 * n + 2 * acc.shape[0] * n
-                        for acc, n, *_ in epi),
-                    7 * sum(acc.shape[0] * n for acc, n, *_ in epi), PEAK_FP32_FLOPS)}}
-    del inputs, nhwc, a, accs, epi
-    return out
+    for st in steps.values():
+        st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
+    new = [steps[k] for k in ("quantize", "int8_conv")]
+    old = [steps[k] for k in ("patches", "gemm", "epilogue")]
+    return {"batch": x.shape[0], "layers": n_layers, "steps": steps,
+            "implicit_gemm_route": {"ms": sum(s["ms"] for s in new),
+                                    "bound_ms": sum(s["bound_ms"] for s in new)},
+            "gemm_route_same_layers": {"ms": sum(s["ms"] for s in old),
+                                       "bound_ms": sum(s["bound_ms"] for s in old)}}
 
 
 def int8_cli(dev: torch.device, workdir: str, n_int8: int) -> dict:
@@ -3467,17 +3595,19 @@ def int8_other_models(dev: torch.device) -> dict:
     names = sorted(quant_state(model))
     check(names and all(n.startswith("backbone.") for n in names),
           f"Faster R-CNN quantized outside its backbone: {names}")
-    suppression_mask_cuda.launches = 0
+    suppression_mask_cuda.launches = int8_conv_cuda.launches = 0
     det_q = [t.cpu() for t in eval_step(state, {"images": u8})]
     torch.cuda.synchronize()
-    launches = suppression_mask_cuda.launches
+    launches, conv_launches = suppression_mask_cuda.launches, int8_conv_cuda.launches
     check(launches == 2, f"the int8 eval step launched the nms kernel {launches} times")
+    check(conv_launches == len(names) - 1,  # all but the RGB stem on the implicit GEMM
+          f"the int8 eval step launched int8_conv {conv_launches} times, {len(names)} convs")
     check(bool(torch.isfinite(det_q[0]).all() and torch.isfinite(det_q[1]).all()),
           "int8 Faster R-CNN: non-finite output")
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
         feat_q = model.features(x.to(torch.bfloat16))
     out["faster_rcnn_vgg16_512_b8"] = {
-        "int8_convs": len(names), "launches": launches,
+        "int8_convs": len(names), "launches": launches, "int8_conv_launches": conv_launches,
         "backbone_features_vs_bf16": heads_vs([feat_q], [feat_f]),
         "detections": {"bf16": int(det_f[3].sum()), "int8": int(det_q[3].sum())},
         "eval_step_ms": {"bf16": float_ms,
@@ -3503,8 +3633,13 @@ def int8_other_models(dev: torch.device) -> dict:
             with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
                 return m(normalize_images(u8, torch.bfloat16, imagenet=True))
 
+        int8_conv_cuda.launches = 0
         lq, lf = logits(model), logits(float_model)
-        out[tag] = {"int8_convs": len(quant_state(model)), **heads_vs([lq], [lf]),
+        n_implicit = sum(on_implicit_gemm(q) for q in model.modules() if isinstance(q, Int8Conv))
+        check(int8_conv_cuda.launches == n_implicit > 0,
+              f"{tag}: int8_conv launched {int8_conv_cuda.launches} times, {n_implicit} convs")
+        out[tag] = {"int8_convs": len(quant_state(model)), "int8_conv_launches": n_implicit,
+                    **heads_vs([lq], [lf]),
                     "top1_agreement": float((lq.argmax(1) == lf.argmax(1)).float().mean()),
                     "img_s": {"bf16": bs / cuda_ms(lambda: logits(float_model), reps=5) * 1e3,
                               "int8": bs / cuda_ms(lambda: logits(model), reps=5) * 1e3}}
@@ -3532,13 +3667,21 @@ def int8_other_models(dev: torch.device) -> dict:
 def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     """int8 w8a8 PTQ on the card: ``Detector.quantize`` of a full-width
     YOLOv3-416 (80 classes, random weights, BN from the phase's images),
-    the main path counted, (a) every quantized conv's int32 accumulators
-    card route vs plain version (bit-equal), (b) the float32 int8 model card
-    vs CPU (plain route) and the bf16 int8 model against the float one, (c)
-    the int8 forward's profile, (d) device-program images/s at batch 32 and
-    256 (int8 and bf16), the int8 convs' split and peak memory, (e) ``eval
-    --int8`` and ``serve --int8 --calib-dir`` through the CLI, (f) Faster
-    R-CNN, ResNet-50, ResNeXt-50 and a small ResNeXt."""
+    the main path counted (every kernel's launches: ``int8_conv`` and the
+    quantize pass on the 71 convs `implicit_gemm_eligible` takes, the GEMM route's
+    patches and epilogue kernels on the RGB stem), (a) at batch 32, on every
+    quantized conv's own input, the int32 accumulators card route vs plain
+    version (bit-equal), the GEMM route's kernels vs their plain versions, and on the
+    71: ``int8_conv`` mode (b) vs the plain accumulators and mode (a) vs PR
+    10's route in bf16 and float32 (byte-equal); ``int8_conv`` on the seeded
+    edge cases, (b) the float32 int8 model card vs CPU (plain route) and the
+    bf16 int8 model against the float one, (c) the int8 forward's profile
+    (71 ``int8_conv`` launches, one ``_int_mm``), (d) device-program
+    images/s at batch 32 and 256 (int8 and bf16), peak memory, and the int8
+    convs' split at both batches (the path's route against the GEMM route on the
+    same layers, ``_int_mm`` the library yardstick), (e) ``eval --int8`` and
+    ``serve --int8 --calib-dir`` through the CLI, (f) Faster R-CNN,
+    ResNet-50, ResNeXt-50 and a small ResNeXt."""
     t_phase = time.perf_counter()
     anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
     model = yolo_model().to(dev)
@@ -3556,18 +3699,25 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     n_int8 = len(quant_state(det.model))
     n_pairs = sum(1 for _ in conv_bn_pairs(det.model))  # YOLOv3: 72 (Darknet-53 52, neck 20)
     check(n_int8 == n_pairs, f"{n_int8} quantized convs of {n_pairs} ConvBNs")
+    n_implicit = sum(on_implicit_gemm(q) for q in det.model.modules() if isinstance(q, Int8Conv))
+    check(n_implicit == n_int8 - 1, f"{n_implicit} convs on the implicit GEMM, want all but "
+                                    f"the RGB stem of {n_int8}")
 
     # --- the main path, counted
     imgs = images(SEED + 51, 8)
-    suppression_mask_cuda.launches = quantize_patches_cuda.launches = epilogue_cuda.launches = 0
+    int8_kernels = {"patches": quantize_patches_cuda, "epilogue": epilogue_cuda,
+                    "int8_conv": int8_conv_cuda, "quantize": quantize_activation_cuda}
+    suppression_mask_cuda.launches = 0
+    for f in int8_kernels.values():
+        f.launches = 0
     results = det.predict_batch(imgs)
     launches = suppression_mask_cuda.launches
-    int8_launches = {"patches": quantize_patches_cuda.launches,
-                     "epilogue": epilogue_cuda.launches}
+    int8_launches = {k: f.launches for k, f in int8_kernels.items()}
     check(launches >= 1, "the int8 predict_batch never launched the nms kernel")
-    n_launch = n_int8 * -(-len(imgs) // det.batch_size)  # a launch of each a conv a forward
-    check(int8_launches == {"patches": n_launch, "epilogue": n_launch},
-          f"the int8 predict_batch launched {int8_launches}, not {n_launch} of each kernel")
+    n_fwd = -(-len(imgs) // det.batch_size)  # a launch of each a conv a forward
+    want = {"patches": (n_int8 - n_implicit) * n_fwd, "epilogue": (n_int8 - n_implicit) * n_fwd,
+            "int8_conv": n_implicit * n_fwd, "quantize": n_implicit * n_fwd}
+    check(int8_launches == want, f"the int8 predict_batch launched {int8_launches}, not {want}")
     for r, im in zip(results, imgs):
         h, w = im.shape[:2]
         bx = r["boxes"]
@@ -3575,14 +3725,23 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
         check((bx >= 0).all() and (bx[:, [0, 2]] <= w).all() and (bx[:, [1, 3]] <= h).all(),
               "int8: a box lies outside its image")
 
-    # --- (a) accumulators, card route vs plain, every quantized conv
+    # --- (a) accumulators, card route vs plain, every quantized conv at batch 32
     u8_8 = torch.from_numpy(preprocess_batch(imgs, INPUT_SIZE)[0]).to(dev)
-    acc = held_accumulators(det.model, normalize_images(u8_8, torch.bfloat16), torch.bfloat16)
+    u8_32 = torch.from_numpy(np.concatenate([batch, preprocess_batch(
+        images(SEED + 54, EVAL_BATCH - INT8_CALIB), INPUT_SIZE)[0]])).to(dev)
+    acc = held_accumulators(det.model, normalize_images(u8_32, torch.bfloat16), torch.bfloat16)
     check(acc["convs"] == n_int8 and acc["mismatches"] == 0
           and acc["patches_kernel_mismatching_bytes"] == 0,
           f"int8 accumulators or patches, kernel vs plain version: {acc}")
     check(acc["epilogue_kernel_max_ulps"] <= INT8_EPILOGUE_ULPS,
           f"int8 epilogue kernel vs plain version: {acc}")
+    check(acc["implicit_gemm_convs"] == n_implicit and acc["quantize_pass_mismatching_bytes"] == 0
+          and acc["int8_conv_mode_b_mismatches"] == 0
+          and acc["int8_conv_mode_a_differing"] == {"bf16": 0, "f32": 0},
+          f"int8_conv vs the plain accumulators or the GEMM route: {acc}")
+    edges = int8_conv_edge_cases(dev)
+    check(edges["mode_b_mismatches"] == 0 and edges["mode_a_differing"] == 0,
+          f"int8_conv on the edge cases: {edges}")
 
     # --- (b) float32 card vs CPU, layer by layer and whole; bf16 int8 vs bf16 float
     cpu_model = copy.deepcopy(det.model).cpu()
@@ -3599,20 +3758,22 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
         bf16_vs_float = heads_vs(det.model(x_bf), det_f.model(x_bf))
 
-    # --- (c) profile of the int8 device program at batch 32
-    u8_32 = torch.from_numpy(np.concatenate([batch, preprocess_batch(
-        images(SEED + 54, EVAL_BATCH - INT8_CALIB), INPUT_SIZE)[0]])).to(dev)
-    prof = int8_profile(lambda: det.infer(u8_32))
-    check(prof["int_mm_per_call"] == n_int8 and prof["convolutions_per_call"] == 3,
-          f"int8 forward: {prof['int_mm_per_call']} int8 GEMMs and "
-          f"{prof['convolutions_per_call']} float convs per call (want {n_int8} and the 3 "
-          "pred convs)")
+    # --- (c) profile of the int8 device program at batch 32 (4 calls: a warm-up and 3
+    # profiled). int8_conv's launches are read from its wrapper's count: late in a long
+    # process the profiler's device records of a run can come back short
+    conv_before = int8_conv_cuda.launches
+    prof = int8_profile(lambda: det.infer(u8_32), reps=3)
+    prof["int8_conv_launches_per_call"] = (int8_conv_cuda.launches - conv_before) / 4
+    check(prof["int_mm_per_call"] == n_int8 - n_implicit and prof["convolutions_per_call"] == 3
+          and prof["int8_conv_launches_per_call"] == n_implicit,
+          f"int8 forward: {prof['int_mm_per_call']} int8 GEMMs, "
+          f"{prof['int8_conv_launches_per_call']} int8_conv launches and "
+          f"{prof['convolutions_per_call']} float convs per call (want {n_int8 - n_implicit}, "
+          f"{n_implicit} and the 3 pred convs)")
     check(bool(prof["int8_gemm_kernels"]), "no device kernel ran under aten::_int_mm")
-    check(prof["top_kernel_is_int8_gemm"],
-          f"the int8 forward's top kernel is not an int8 GEMM: {prof['top_kernels'][:3]}")
 
     # --- (d) device-program images/s, the split, peak memory
-    times = {}
+    times, split = {}, {}
     for bs in INT8_BATCHES:
         u8 = u8_32.repeat(bs // EVAL_BATCH, 1, 1, 1)
         row = {}
@@ -3624,17 +3785,19 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         row["int8_over_bf16"] = row["int8"]["img_s"] / row["bf16"]["img_s"]
         times[f"batch{bs}"] = row
+        split[f"batch{bs}"] = int8_split(det.model, normalize_images(u8, torch.bfloat16),
+                                         plain=bs == EVAL_BATCH)
         del u8
-    split = int8_split(det.model, normalize_images(u8_32, torch.bfloat16))
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     emit("int8", card=smi, model="YOLOv3 Darknet-53, 80 classes, full width, random weights "
          "(seed 0), BN from 8 of the phase's images, Detector.quantize on those 8",
          input_size=INPUT_SIZE, int8_convs=n_int8, quantize_s=quantize_s,
+         implicit_gemm_convs=n_implicit,
          predict_batch_launches={"nms": launches, **int8_launches},
-         accumulators_and_kernels=acc,
+         accumulators_and_kernels_batch32=acc, int8_conv_edge_cases=edges,
          fp32_card_vs_cpu=fp32,
          bf16_int8_vs_bf16_float=bf16_vs_float, profile_batch32=prof,
-         device_program=times, int8_conv_split_batch32=split)
+         device_program=times, int8_conv_split=split)
 
     # --- (e) the CLI, (f) other models
     del det, det_f, model, float_model
@@ -3649,28 +3812,45 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
                          "int8_cli_serve": cli_out["serve_int8"]["launches"],
                          "int8_frcnn_eval_step": others["faster_rcnn_vgg16_512_b8"]["launches"]},
             "mismatches": acc["mismatches"], "kernels": int8_kernel_entries(
-                int8_launches, acc, split)}
+                int8_launches, acc, split[f"batch{EVAL_BATCH}"])}
 
 
 def int8_kernel_entries(launches: dict, held: dict, split: dict) -> list:
     """The int8 path's kernels as the smoke's last-but-one line lists them:
     launches on the main path (one int8 predict_batch), the error against
-    the plain version over every layer of a forward, and the times of one
-    forward's worth of launches at batch 32 (the split)."""
-    return [{
-        "name": name, "route": "cuda", "source": "fastvision_tpu_torch/csrc/int8.cu",
-        "replaces": replaces, "launches": launches[key], "max_abs_err": err,
-        "ms": split[key]["ms"], "plain_ms": split[key]["plain_ms"],
-        "bound_ms": split[key]["bound_ms"], "bound_by": split[key]["bound_by"],
-        "library_ms": None, "shape": f"one int8 YOLOv3-{INPUT_SIZE} forward at batch "
-                                     f"{EVAL_BATCH}, {split['layers']} convs"}
-        for name, key, replaces, err in (
-            ("int8_quantize_patches", "patches",
-             "fastvision_tpu/nn/layers.py:110 (XLA, no Pallas kernel)",
-             held["patches_kernel_mismatching_bytes"]),
-            ("int8_epilogue", "epilogue",
-             "fastvision_tpu/nn/layers.py:120 (XLA, no Pallas kernel)",
-             held["epilogue_kernel_max_abs_err"]))]
+    the plain version (the GEMM route for ``int8_conv``'s mode (a)) over every
+    layer of a forward at batch 32, and the times of one forward's worth of
+    launches at batch 32 (the split), each on the layers the path gives it:
+    ``int8_conv`` and the quantize pass on the 71 implicit-GEMM convs,
+    the GEMM route's kernels on the stem (their time on the 71, where they ran before,
+    beside it). ``int8_conv``'s library yardstick is ``torch._int_mm`` of
+    the same [M, K] x [K, N] products alone (the GEMM route's product)."""
+    steps = split["steps"]
+    shape = (f"one int8 YOLOv3-{INPUT_SIZE} forward at batch {split['batch']}: "
+             f"{split['layers']['implicit']} implicit-GEMM convs, "
+             f"{split['layers']['other']} other (the stem)")
+    xla = "fastvision_tpu/nn/layers.py:{} (XLA, no Pallas kernel)"
+    entries = []
+    for name, source, key, replaces, err, library in (
+            ("int8_conv", "int8_conv.cu", "int8_conv", xla.format("100-122"),
+             held["int8_conv_mode_a_max_abs_err"], steps["gemm"]["ms"]),
+            ("int8_quantize_activation", "int8.cu", "quantize", xla.format(110),
+             held["quantize_pass_mismatching_bytes"], None),
+            ("int8_quantize_patches", "int8.cu", "other_patches", xla.format(110),
+             held["patches_kernel_mismatching_bytes"], None),
+            ("int8_epilogue", "int8.cu", "other_epilogue", xla.format(120),
+             held["epilogue_kernel_max_abs_err"], None)):
+        st = steps[key]
+        entry = {"name": name, "route": "cuda", "source": f"fastvision_tpu_torch/csrc/{source}",
+                 "replaces": replaces, "launches": launches[key.replace("other_", "")],
+                 "max_abs_err": err, "ms": st["ms"], "plain_ms": st["plain_ms"],
+                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": library,
+                 "shape": shape}
+        if key.startswith("other_"):
+            entry["on_the_implicit_gemm_layers"] = {
+                f: steps[key[len("other_"):]][f] for f in ("ms", "plain_ms", "bound_ms")}
+        entries.append(entry)
+    return entries
 
 
 def main_only_int8(dev: torch.device, device: dict, t_start: float) -> int:

@@ -59,9 +59,19 @@ def partial_load(model: nn.Module, source: Mapping[str, Any],
 
 
 def trainable_mask(model: nn.Module, freeze_substrings) -> dict[str, bool]:
-    """Parameter name -> False where the name contains any frozen substring
-    (the ``trainable`` map of `train.build_optimizer`)."""
-    return {name: not any(s in name for s in freeze_substrings)
+    """Parameter name -> False where the name, or the JAX package's name of
+    the same leaf (``backbone/stem/conv/kernel`` for
+    ``backbone.conv0.conv.weight``, `models.import_jax.jax_paths`), contains
+    any frozen substring (the ``trainable`` map of `train.build_optimizer`),
+    so a JAX ``model.freeze`` list freezes the same leaves here."""
+    from ..models.import_jax import jax_paths
+
+    jax = jax_paths(model) if freeze_substrings else {}
+
+    def names(name):
+        return (name, *(p[len("params/"):] for p in jax.get(name, ()) if p.startswith("params/")))
+
+    return {name: not any(s in n for s in freeze_substrings for n in names(name))
             for name, _ in model.named_parameters()}
 
 

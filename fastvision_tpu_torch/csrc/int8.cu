@@ -37,13 +37,23 @@
 // Exactness: every float operation is an explicit _rn intrinsic (the build
 // passes --fmad=false too), so the quantized bytes and the epilogue equal
 // the plain version's; silu calls expf, whose last bit may differ from
-// PyTorch's build of the same libdevice function.
+// PyTorch's build of the same libdevice function. The epilogue's arithmetic
+// is int8_common.cuh's, which csrc/int8_conv.cu shares.
+//
+// Since the implicit-GEMM conv (csrc/int8_conv.cu) took the eligible convs
+// (C a multiple of 32, k 1 or 3, groups 1), these passes run on the others
+// (an RGB stem, grouped convs) and, as the k = 1 float case of
+// fv_int8_patches, as the quantize pass before the implicit GEMM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_common.cuh"
+
 namespace {
+
+using fv_int8::dequantize;
 
 constexpr int kThreads = 256;
 
@@ -168,23 +178,6 @@ __global__ void patches8_kernel(const T* __restrict__ x, const float* __restrict
   }
 }
 
-// activation codes: 0 none, 1 relu, 2 leaky_relu (0.1), 3 silu
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 1: return v > 0.f ? v : 0.f;
-    case 2: return v > 0.f ? v : __fmul_rn(v, 0.1f);
-    case 3: return __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
-    default: return v;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // acc [M, N_pad] -> out [M, N]
 template <typename O, typename I>
 __global__ void epilogue_kernel(const int32_t* __restrict__ acc, const float* __restrict__ scale,
@@ -194,9 +187,7 @@ __global__ void epilogue_kernel(const int32_t* __restrict__ acc, const float* __
   for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += (I)gridDim.x * blockDim.x) {
     const I m = i / N;
     const int n = (int)(i - m * N);
-    float v = __fadd_rn(__fmul_rn((float)acc[m * N_pad + n], scale[n]), bias[n]);
-    v = round_to(v, out);  // the dequantized value in the output type, then the activation
-    store(out + i, activate(v, act));
+    out[i] = dequantize<O>(acc[m * N_pad + n], scale[n], bias[n], act);
   }
 }
 
@@ -216,12 +207,7 @@ __global__ void epilogue8_kernel(const int32_t* __restrict__ acc, const float* _
     const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     O y[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float v = __fadd_rn(__fmul_rn((float)a[i], scale[n + i]), bias[n + i]);
-      v = round_to(v, out);
-      float r = activate(v, act);
-      if constexpr (sizeof(O) == 2) y[i] = __float2bfloat16_rn(r); else y[i] = r;
-    }
+    for (int i = 0; i < 8; ++i) y[i] = dequantize<O>(a[i], scale[n + i], bias[n + i], act);
     if constexpr (sizeof(O) == 2) {
       *reinterpret_cast<uint4*>(out + base) = *reinterpret_cast<const uint4*>(y);
     } else {

@@ -4,7 +4,8 @@ the JPEG decoder and the letterbox) with the host C++ compiler.
 
 Each source is compiled at first use into a shared library with a plain C
 interface, loaded with ``ctypes``. The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
+source, of the CUDA headers beside it (``csrc/*.cuh``, for a ``.cu``) and
+of the flags, so an edited source is rebuilt and an unchanged one is
 loaded from ``_build/`` (listed in ``.gitignore``). Each build writes a
 temporary file and renames it, so that several processes (pytest workers,
 forked loader workers) can build the same library at once. A failed build
@@ -85,8 +86,12 @@ def _command(src: str, out: str) -> list[str]:
 
 def _target(src: str, name: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # a CUDA source's hash covers the headers beside it (csrc/*.cuh), which it may include
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh")) if src.endswith(".cu") else []
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS if src.endswith(".cu") else HOST_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

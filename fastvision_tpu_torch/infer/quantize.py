@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ..nn.layers import Int8Conv, conv_bn_pairs, record_input_range
+from ..models.import_jax import jax_module_path, jax_paths
 
 BN_EPS = 1e-5  # nn/layers.py::BatchNorm's default
 
@@ -129,16 +130,21 @@ def quantize_variables(model: nn.Module, calib: Mapping[str, Mapping[str, torch.
                        skip: Sequence[str] = (), eps: float = BN_EPS,
                        percentile: bool = False) -> nn.Module:
     """``model`` + `calibrate`'s tree -> ``model``, its int8 state installed
-    in place on every conv + BN pair whose "/"-joined module path (e.g.
-    ``backbone/conv0/conv``) no ``skip`` substring matches.
+    in place on every conv + BN pair that no ``skip`` substring matches. A
+    substring matches a pair when it is in the pair's "/"-joined module path
+    (``backbone/conv0/conv``) or in the JAX package's path of the same layer
+    (``backbone/stem``, `models.import_jax.jax_paths`), so a JAX ``skip``
+    list skips the same layers here.
 
     ``percentile=True`` scales the activations by the calibrated 99.9th
     percentile of |x| instead of the absmax: rare outliers then do not
     widen the int8 grid. The float parameters stay untouched."""
+    jax = jax_paths(model) if skip else {}
     state = {}
     for name, conv, bn in conv_bn_pairs(model):
         path = name.replace(".", "/")
-        if any(k in path for k in skip):
+        jax_path = jax_module_path(jax, name) or ""
+        if any(k in path or k in jax_path for k in skip):
             continue
         c = calib.get(name, {})
         if "amax" not in c:

@@ -31,13 +31,21 @@ JAX package's ``quant`` collection: ``w_q`` HWIO int8 -> OIHW, ``w_scale``,
 through the same bridges, keyed by the port's conv module names, for
 `infer.quantize.install_quant` (YOLOv3 / Darknet-53, VGG / Faster R-CNN,
 ResNet / ResNeXt).
+
+`jax_paths` runs the same bridges backwards: for a port model it gives each
+``state_dict`` key the JAX variable path it is read from (e.g.
+``backbone.conv0.conv.weight`` <- ``params/backbone/stem/conv/kernel``), so
+that options naming JAX paths (``quantize(skip=)``, ``model.freeze``) match
+the same layers in both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+import functools
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from .detection.yolov3 import LEVELS
 
@@ -348,3 +356,150 @@ def slowfast_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             _conv3d(out, f"fast_pathway.{ref}.conv", p[ours]["conv"])
     _dense(out, "fc", p["fc"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The bridges run backwards: which JAX variable each port key is read from
+# ---------------------------------------------------------------------------
+class _Probe(Mapping):
+    """A stand-in for the JAX variables that a bridge reads. Every key exists
+    when indexed; ``key in probe`` is answered from `_Trace.answers` (the
+    search's current guess of the tree's shape). Read as a leaf, a probe is
+    a one-element float32 array holding its leaf number, so each tensor the
+    bridge builds carries the numbers of the leaves it was made from."""
+
+    def __init__(self, trace: "_Trace", path: tuple):
+        self._trace, self._path = trace, path
+
+    def __getitem__(self, key):
+        return _Probe(self._trace, self._path + (key,))
+
+    def get(self, key, default=None):
+        return self[key]
+
+    def __contains__(self, key) -> bool:
+        return self._trace.answer(self._path + (key,))
+
+    def __iter__(self):
+        return iter(())
+
+    def __len__(self) -> int:
+        return 0
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        self._trace.leaves.append("/".join(map(str, self._path)))
+        return np.full(1, len(self._trace.leaves), np.float32)
+
+    def transpose(self, *axes):
+        return self
+
+    def reshape(self, *shape, **kw):
+        return self
+
+    T = property(lambda self: self)
+    shape = (1, 1, 1, 1)
+
+
+class _Trace:
+    """One run of a bridge over a `_Probe`: the ``in`` queries it asked, in
+    order (a query not in ``answers`` is answered False and added), and the
+    leaves it read."""
+
+    def __init__(self, answers: dict):
+        self.answers, self.asked, self.leaves = answers, [], []
+
+    def answer(self, query: tuple) -> bool:
+        self.asked.append(query)
+        return self.answers.setdefault(query, False)
+
+
+def _run(bridge: Callable, answers: dict, port_keys: frozenset):
+    """-> ({port key: its JAX leaf paths} or None when the guess is wrong: the
+    bridge failed or built a key the model lacks, the queries asked)."""
+    trace = _Trace(answers)
+    try:
+        out = bridge(_Probe(trace, ()))
+    except (KeyError, TypeError, ValueError, AttributeError, IndexError):
+        return None, trace.asked  # a wrong guess fails in the bridge's own way
+    if not set(out) <= port_keys:
+        return None, trace.asked
+    paths = {k: tuple(trace.leaves[int(i) - 1] for i in v.reshape(-1).tolist())
+             for k, v in out.items() if v.is_floating_point()}
+    return paths, list(dict.fromkeys(trace.asked))
+
+
+def _flip(bridge: Callable, answers: dict, query: tuple, n: int, port_keys: frozenset,
+          depth: int):
+    """``answers`` with ``query`` True, when that builds more than ``n`` of
+    the model's keys; a query that builds nothing by itself (a block whose
+    convs are asked for inside it) is given ``depth`` more of the queries it
+    opens. -> (answers, paths, asked) or None."""
+    trial = {**answers, query: True}
+    paths, asked = _run(bridge, trial, port_keys)
+    if paths is None:
+        return None
+    if len(paths) > n:
+        return trial, paths, asked
+    for q in asked if depth else ():
+        if q not in answers and q != query:
+            found = _flip(bridge, trial, q, n, port_keys, depth - 1)
+            if found:
+                return found
+    return None
+
+
+def _search(bridge: Callable, port_keys: frozenset) -> dict | None:
+    """Find the JAX tree's shape that the bridge maps onto ``port_keys``:
+    start with every ``in`` query False, then turn each query True, in the
+    order asked, where that builds more of the model's keys and none it
+    lacks. -> {port key: JAX leaf paths}, or None if the bridge builds a
+    key the model lacks whatever the answers."""
+    answers: dict = {}
+    best, asked = _run(bridge, answers, port_keys)
+    if best is None:
+        return None
+    tried = set()
+    while True:
+        query = next((q for q in asked if not answers[q] and q not in tried), None)
+        if query is None:
+            return best
+        tried.add(query)
+        found = _flip(bridge, answers, query, len(best), port_keys, depth=2)
+        if found:
+            answers, best, asked = found
+
+
+BRIDGES = (yolov3_state_dict_from_jax, faster_rcnn_state_dict_from_jax,
+           resnet_state_dict_from_jax, vgg_state_dict_from_jax,
+           darknet53_classifier_state_dict_from_jax, darknet53_state_dict_from_jax,
+           vit_state_dict_from_jax, c3d_state_dict_from_jax, resnet3d_state_dict_from_jax,
+           slowfast_state_dict_from_jax)
+
+
+@functools.lru_cache(maxsize=16)
+def _paths_for(port_keys: frozenset) -> dict:
+    found = [p for p in (_search(b, port_keys) for b in BRIDGES) if p]
+    return max(found, key=len) if found else {}
+
+
+def jax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """Each ``state_dict`` key of ``model`` -> the "/"-joined paths of the
+    JAX package's variables that its bridge (the one of `BRIDGES` that
+    builds the most of the model's keys) reads it from, e.g.
+    ``backbone.conv0.conv.weight`` -> ``("params/backbone/stem/conv/kernel",)``;
+    ViT's ``qkv`` weight has three. Found by running the bridges over
+    stand-in variables, so the names come from the bridges alone. Keys no
+    bridge builds (``num_batches_tracked``), and every key of a model no
+    bridge maps, have no entry (C3D's: its bridge reshapes fc6 by the
+    kernel's values, which a stand-in does not have)."""
+    return _paths_for(frozenset(model.state_dict()))
+
+
+def jax_module_path(paths: Mapping[str, tuple[str, ...]], conv: str) -> str | None:
+    """The JAX ConvBN path (``backbone/stem``) of the port conv module named
+    ``conv`` (``backbone.conv0.conv``), from `jax_paths`: its kernel's path
+    without ``params/`` and ``/conv/kernel``; None when it has none."""
+    for p in paths.get(f"{conv}.weight", ()):
+        if p.startswith("params/") and p.endswith("/conv/kernel"):
+            return p[len("params/"):-len("/conv/kernel")]
+    return None

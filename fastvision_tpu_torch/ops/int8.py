@@ -33,12 +33,25 @@ raises. What bounds both on an H100 is bytes (int8 patches written,
 int32 accumulators read), and at YOLOv3's widths the GEMM too: its K and N
 are small, and C is 4 bytes an output.
 
+On the card a conv that `implicit_gemm_eligible` takes (groups 1, C a
+multiple of 32, k 1 or 3, N a multiple of 8: every conv of YOLOv3 but its
+RGB stem, of ResNet-50 but its stem, of VGG16 but its first) runs instead
+as two launches: `quantize_activation_cuda` (the k = 1 float case of the
+patches kernel: the input quantized once, int8 NHWC) and `int8_conv_cuda`
+(``csrc/int8_conv.cu``), an implicit-GEMM tensor-core kernel that gathers
+the patches into shared memory, never into device memory, and runs the
+epilogue from its registers (mode (a)), or writes the int32 accumulators
+(mode (b)). Its plain version `int8_conv_plain` is the plain conv and
+epilogue on the same inputs. This is a dispatch by shape: a build or
+launch failure of the kernel raises.
+
 `int8_conv2d` is the whole int8 x int8 -> int32 conv: on the card the
-patches of the int8 input and ``_int_mm`` (`int8_conv2d_gemm`); on the CPU
-the plain version `int8_conv2d_plain`, a float64 ``F.conv2d`` on the int8
-values cast to int32, exact since every partial sum is an integer below
-2^53 (at most 127^2 * 9 * 2048 ~ 3e8 here). A float conv never stands in
-for the int8 one on the card.
+implicit GEMM in mode (b), or for the other shapes the patches of the int8
+input and ``_int_mm`` (`int8_conv2d_gemm`); on the CPU the plain version
+`int8_conv2d_plain`, a float64 ``F.conv2d`` on the int8 values cast to
+int32, exact since every partial sum is an integer below 2^53 (at most
+127^2 * 9 * 2048 ~ 3e8 here). A float conv never stands in for the int8
+one on the card.
 """
 from __future__ import annotations
 
@@ -58,8 +71,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.1),
     "none": lambda x: x,
 }
-_ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3}  # csrc/int8.cu's
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3}  # csrc/int8_common.cuh's
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -87,10 +100,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
+@functools.cache
+def _conv_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("int8_conv")
+    lib.fv_int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.fv_int8_conv.restype = ctypes.c_int
+    lib.fv_int8_conv_error_string.argtypes = [ctypes.c_int]
+    lib.fv_int8_conv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str, error_string=None) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{_lib().fv_int8_error_string(err).decode()} ({err})")
+        text = (error_string or _lib().fv_int8_error_string)(err).decode()
+        raise RuntimeError(f"{what} launch failed: {text} ({err})")
 
 
 def quantize_activation(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
@@ -98,6 +121,34 @@ def quantize_activation(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor
     ``clip(round(x.float() / in_scale), -127, 127)``, half to even."""
     q = torch.div(x.float(), in_scale)
     return q.round_().clamp_(-QMAX, QMAX).to(torch.int8)
+
+
+def quantize_activation_cuda(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
+    """`quantize_activation` of a contiguous NHWC float32 / bfloat16 tensor
+    with C a multiple of 8, on a CUDA device, in one launch of
+    ``csrc/int8.cu`` (the patches kernel at k = 1: one IEEE division an
+    element) -> int8 NHWC, the implicit GEMM's input."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_activation_cuda needs a CUDA tensor, got {dev}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_activation_cuda takes float32 or bfloat16, got {x.dtype}")
+    if in_scale.device != dev or in_scale.dtype != torch.float32 or in_scale.numel() != 1:
+        raise ValueError("in_scale must be one float32 value on the input's device")
+    if x.ndim != 4 or not x.is_contiguous() or x.shape[3] % 8:
+        raise ValueError(f"expected contiguous NHWC [B, H, W, C], C % 8 == 0, got "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    out = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    err = _lib().fv_int8_patches(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], in_scale.data_ptr(), None, out.data_ptr(), b, h, w,
+        c, 1, 1, 0, c, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8 quantize kernel")
+    quantize_activation_cuda.launches += 1
+    return out
+
+
+quantize_activation_cuda.launches = 0
 
 
 def conv_patches(xq: torch.Tensor, k: int, stride: int, padding: int,
@@ -251,16 +302,96 @@ def int8_gemm(a: torch.Tensor, w_mat: torch.Tensor) -> torch.Tensor:
     return acc if acc.shape[0] == m else acc[:m]
 
 
+def implicit_gemm_eligible(c: int, n: int, k: int, stride: int, padding: int,
+                           groups: int) -> bool:
+    """Whether ``csrc/int8_conv.cu`` takes the conv: groups 1, C (input
+    channels) a multiple of 32, k 1 or 3 with padding k // 2, stride 1 or 2,
+    N (output channels) a multiple of 8. The others (an RGB stem, grouped
+    convs) take the patches + ``_int_mm`` + epilogue route on the card."""
+    return (groups == 1 and c % 32 == 0 and k in (1, 3) and padding == k // 2
+            and stride in (1, 2) and n % 8 == 0 and n > 0)
+
+
+def int8_conv_plain(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride: int,
+                    scale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                    act: str = "none", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain version of `int8_conv_cuda` on its inputs: int8 NHWC ``xq``
+    and `gemm_weight`'s ``w_mat`` -> [B * Ho * Wo, n]: the int32
+    accumulators of `int8_conv2d_plain` (mode (b), ``scale=None``), or
+    `epilogue_plain` of them (mode (a))."""
+    b, h, w, c = xq.shape
+    w_q = w_mat[:n, :k * k * c].reshape(n, k, k, c).permute(0, 3, 1, 2)
+    acc = int8_conv2d_plain(xq.permute(0, 3, 1, 2), w_q, stride, k // 2)
+    acc = acc.permute(0, 2, 3, 1).reshape(-1, n)
+    return acc if scale is None else epilogue_plain(acc, n, scale, bias, act, dtype)
+
+
+def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride: int,
+                   scale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                   act: str = "none", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The implicit-GEMM int8 conv in one launch of ``csrc/int8_conv.cu``:
+    ``xq`` contiguous int8 NHWC [B, H, W, C] (16-byte aligned) and
+    ``w_mat`` int8 [n, k * k * C] on a CUDA device, a shape that
+    `implicit_gemm_eligible` takes (padding k // 2) -> [B * Ho * Wo, n]:
+    with ``scale`` and ``bias`` (float32 [n]) ``act`` of the dequantized
+    conv in ``dtype`` (bfloat16 or float32), without them the int32
+    accumulators."""
+    dev = xq.device
+    if xq.dtype != torch.int8 or w_mat.dtype != torch.int8:
+        raise TypeError(f"int8_conv_cuda takes int8 tensors, got {xq.dtype} and {w_mat.dtype}")
+    if xq.ndim != 4 or not xq.is_contiguous() or xq.data_ptr() % 16:
+        raise ValueError(f"expected contiguous 16-byte-aligned NHWC [B, H, W, C], got "
+                         f"{tuple(xq.shape)}")
+    b, h, w, c = xq.shape
+    if not implicit_gemm_eligible(c, n, k, stride, k // 2, 1):
+        raise ValueError(f"int8_conv_cuda does not take C={c}, N={n}, k={k}, stride={stride}")
+    if (w_mat.device != dev or not w_mat.is_contiguous() or w_mat.data_ptr() % 16
+            or tuple(w_mat.shape) != (n, k * k * c)):
+        raise ValueError(f"w_mat must be contiguous int8 [{n}, {k * k * c}] on {dev}, got "
+                         f"{tuple(w_mat.shape)} on {w_mat.device}")
+    if (scale is None) != (bias is None):
+        raise ValueError("scale and bias go together")
+    if scale is not None:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"int8_conv_cuda writes float32 or bfloat16, not {dtype}")
+        if act not in _ACT_CODES:
+            raise ValueError(f"unknown activation {act!r}")
+        for t in (scale, bias):
+            if t.device != dev or t.dtype != torch.float32 or t.numel() != n \
+                    or not t.is_contiguous():
+                raise ValueError("scale and bias must be contiguous float32 [n] on xq's device")
+    if dev.type != "cuda":
+        raise ValueError(f"int8_conv_cuda needs a CUDA tensor, got {dev}")
+    out_dtype = torch.int32 if scale is None else dtype
+    ho, wo = out_hw(h, w, k, stride, k // 2)
+    out = torch.empty(b * ho * wo, n, dtype=out_dtype, device=dev)
+    err = _conv_lib().fv_int8_conv(
+        xq.data_ptr(), w_mat.data_ptr(), None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, c, n, k, stride,
+        _DTYPE_CODES[out_dtype], _ACT_CODES[act] if scale is not None else 0, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8 implicit-GEMM conv kernel", _conv_lib().fv_int8_conv_error_string)
+    int8_conv_cuda.launches += 1
+    return out
+
+
+int8_conv_cuda.launches = 0
+
+
 def int8_conv2d_gemm(xq: torch.Tensor, w_mat: torch.Tensor, n: int, kernel_size: int,
-                     stride: int = 1, padding: int = 0) -> torch.Tensor:
+                     stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
     """The card route: int8 [B, C, H, W] (any memory format; channels_last
     needs no copy) and `gemm_weight`'s matrix -> int32 accumulators
-    [B, n, Ho, Wo] in channels_last memory."""
-    b, _, h, w = xq.shape
+    [B, n, Ho, Wo] in channels_last memory: `int8_conv_cuda` (mode (b)) on a
+    CUDA tensor of a shape it takes, else the patches and ``_int_mm``."""
+    b, c, h, w = xq.shape
     ho, wo = out_hw(h, w, kernel_size, stride, padding)
-    a = quantize_patches(xq.permute(0, 2, 3, 1), None, kernel_size, stride, padding,
-                         w_mat.shape[1])
-    acc = int8_gemm(a, w_mat)
+    if xq.is_cuda and implicit_gemm_eligible(c, n, kernel_size, stride, padding, groups):
+        acc = int8_conv_cuda(xq.permute(0, 2, 3, 1).contiguous(), w_mat, n, kernel_size, stride)
+    else:
+        a = quantize_patches(xq.permute(0, 2, 3, 1), None, kernel_size, stride, padding,
+                             w_mat.shape[1])
+        acc = int8_gemm(a, w_mat)
     return acc[:, :n].reshape(b, ho, wo, n).permute(0, 3, 1, 2)
 
 
@@ -284,7 +415,7 @@ def int8_conv2d(xq: torch.Tensor, w_q: torch.Tensor, stride: int = 1, padding: i
         return int8_conv2d_plain(xq, w_q, stride, padding, groups)
     if w_mat is None:
         w_mat = gemm_weight(w_q, groups)
-    return int8_conv2d_gemm(xq, w_mat, w_q.shape[0], w_q.shape[-1], stride, padding)
+    return int8_conv2d_gemm(xq, w_mat, w_q.shape[0], w_q.shape[-1], stride, padding, groups)
 
 
 def quantized_conv(x: torch.Tensor, in_scale: torch.Tensor, w_q: torch.Tensor,
@@ -292,14 +423,20 @@ def quantized_conv(x: torch.Tensor, in_scale: torch.Tensor, w_q: torch.Tensor,
                    padding: int, groups: int, act: str, dtype: torch.dtype) -> torch.Tensor:
     """The whole quantized conv: x [B, C, H, W] float -> ``act`` of the
     dequantized int8 conv, [B, N, Ho, Wo] in ``dtype``, channels_last. On
-    the card: the patches kernel, ``_int_mm``, the epilogue kernel; on the
-    CPU: `quantize_activation`, the float64 plain conv, `epilogue_plain`."""
-    b, _, h, w = x.shape
+    the card: `quantize_activation_cuda` and `int8_conv_cuda` where
+    `implicit_gemm_eligible`, else the patches kernel, ``_int_mm``, the
+    epilogue kernel; on the CPU: `quantize_activation`, the float64 plain
+    conv, `epilogue_plain`."""
+    b, c, h, w = x.shape
     n, k = w_q.shape[0], w_q.shape[-1]
     ho, wo = out_hw(h, w, k, stride, padding)
     if x.device.type == "cpu":
         acc = int8_conv2d_plain(quantize_activation(x, in_scale), w_q, stride, padding, groups)
         acc = acc.permute(0, 2, 3, 1).reshape(b * ho * wo, n)
+    elif implicit_gemm_eligible(c, n, k, stride, padding, groups):
+        xq = quantize_activation_cuda(x.permute(0, 2, 3, 1).contiguous(), in_scale)
+        y = int8_conv_cuda(xq, w_mat, n, k, stride, scale, bias, act, dtype)
+        return y.reshape(b, ho, wo, n).permute(0, 3, 1, 2)
     else:
         a = quantize_patches(x.permute(0, 2, 3, 1), in_scale, k, stride, padding,
                              w_mat.shape[1])

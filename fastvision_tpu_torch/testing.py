@@ -20,7 +20,9 @@ the layout `VideoFolderDataset` reads.
 
 `INT8_CONV_CASES` and `int8_conv_case` are the shapes and seeded inputs on
 which the int8 conv's card route, its plain version (and on the CPU the JAX
-package's int32 conv) are held bit-equal.
+package's int32 conv) are held bit-equal; `INT8_IMPLICIT_CASES` the edge
+cases of the implicit-GEMM kernel (``csrc/int8_conv.cu``), drawn by the
+same function.
 """
 from __future__ import annotations
 
@@ -180,15 +182,41 @@ INT8_CONV_CASES = (
 )
 
 
+# the implicit-GEMM kernel's edge cases, in INT8_CONV_CASES' layout (groups
+# 1): a partial last tile of rows (B = 1 at 13 x 13: M = 169) with N = 1024;
+# N = 32; C = 1024 at 3 x 3 (K = 9216); stride 2 at 3 x 3 and at 1 x 1
+# (ResNet-50's downsample); C = 32 and C = 96 (32-byte chunks of K), N = 40
+# and N = 200 (partial tiles of columns); "saturated": every value +-127,
+# two output channels reaching the largest accumulators, +-127^2 * 9216 ~
+# +-1.5e8
+INT8_IMPLICIT_CASES = (
+    ("m169_n1024", 1, 512, 13, 13, 1024, 3, 1, 1),
+    ("n32", 2, 64, 20, 18, 32, 1, 1, 1),
+    ("c1024_3x3", 1, 1024, 13, 13, 512, 3, 1, 1),
+    ("s2_3x3", 2, 32, 33, 31, 64, 3, 2, 1),
+    ("s2_1x1", 2, 256, 14, 14, 512, 1, 2, 1),
+    ("c32_n40", 2, 32, 9, 7, 40, 3, 1, 1),
+    ("c96_n200", 1, 96, 11, 12, 200, 3, 1, 1),
+    ("saturated", 1, 1024, 5, 6, 64, 3, 1, 1),
+)
+
+
 def int8_conv_case(case: tuple, extreme: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """-> (activations int8 [B, Cin, H, W], OIHW weights int8 [N, Cin /
-    groups, k, k]) for an `INT8_CONV_CASES` entry, seeded by its id;
-    ``extreme``: a quarter of the values at +-127, the largest sums."""
+    groups, k, k]) for an `INT8_CONV_CASES` or `INT8_IMPLICIT_CASES` entry,
+    seeded by its id; ``extreme``: a quarter of the values at +-127, the
+    largest sums (the id "saturated": every value, signs aligned so that
+    output channels 0 and 1 sum to +-127^2 * K inside the halo)."""
     name, b, cin, h, w, n, k, _, groups = case
     rng = np.random.default_rng(sum(map(ord, name)))
     x = rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)
     wq = rng.integers(-127, 128, (n, cin // groups, k, k)).astype(np.int8)
-    if extreme:
+    if name == "saturated":  # output channels 0 and 1 meet the input's signs: +-127^2 * K
+        sign = np.where(rng.random(cin) < 0.5, 127, -127).astype(np.int8)
+        x[:] = sign[None, :, None, None]
+        wq[:] = np.where(rng.random(wq.shape) < 0.5, 127, -127)
+        wq[0], wq[1] = sign[:, None, None], -sign[:, None, None]
+    elif extreme:
         for a in (x, wq):
             sel = rng.random(a.shape) < 0.25
             a[sel] = np.where(rng.random(a.shape) < 0.5, 127, -127)[sel]

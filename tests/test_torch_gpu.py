@@ -6,8 +6,10 @@ the classification path (a train step with the mix and the zoo's forwards
 card vs CPU, process-pool loaders forked after CUDA initialised, the
 classification evaluator), and int8 inference (the int8 conv's card route,
 int8 patches + ``torch._int_mm``, bit-equal to its plain version on
-`testing.INT8_CONV_CASES`; a quantized Detector on the card against the CPU,
-with no float conv on a quantized layer).
+`testing.INT8_CONV_CASES`; the implicit-GEMM kernel ``csrc/int8_conv.cu``
+bit-equal to the plain version and byte-equal to that route on
+`testing.INT8_IMPLICIT_CASES`; a quantized Detector on the card against the
+CPU, with no float conv on a quantized layer).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -40,7 +42,13 @@ from fastvision_tpu_torch.ops.nms_kernel import (
     suppression_mask_cuda,
     suppression_mask_plain,
 )
-from fastvision_tpu_torch.testing import INT8_CONV_CASES, int8_conv_case, nms_case, rpn_nms_case
+from fastvision_tpu_torch.testing import (
+    INT8_CONV_CASES,
+    INT8_IMPLICIT_CASES,
+    int8_conv_case,
+    nms_case,
+    rpn_nms_case,
+)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -1016,12 +1024,117 @@ def test_int8_kernel_wrappers_reject_what_they_do_not_take():
         ti.epilogue_cuda(acc, 16, scale, scale, "gelu", torch.float32)
 
 
+INT8_ACTS = ("none", "relu", "leaky_relu", "silu")
+
+
+@pytest.mark.parametrize("case", INT8_IMPLICIT_CASES, ids=[c[0] for c in INT8_IMPLICIT_CASES])
+def test_int8_conv_kernel_equals_plain_and_the_gemm_route(case):
+    """The implicit-GEMM kernel: mode (b) bit-equal to the plain version
+    (float64 conv), mode (a) byte-equal to the patches + ``_int_mm`` +
+    epilogue route in every activation and both output types (the same
+    arithmetic, int8_common.cuh's, on the same exact sums)."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    _, _, _, _, _, n, k, stride, _ = case
+    x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+    xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
+    mat = ti.gemm_weight(w).to(dev)
+    before = ti.int8_conv_cuda.launches
+    acc = ti.int8_conv_cuda(xq, mat, n, k, stride)
+    assert ti.int8_conv_cuda.launches == before + 1
+    want = ti.int8_conv_plain(xq.cpu(), mat.cpu(), n, k, stride)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), want)
+    assert torch.equal(ti.int8_conv2d(x.to(dev), w.to(dev), stride, k // 2).cpu(),
+                       ti.int8_conv2d_plain(x, w, stride, k // 2))
+    if case[0] == "saturated":
+        assert int(want.max()) == -int(want.min()) == 127 ** 2 * 9 * 1024
+    g = torch.Generator().manual_seed(n)
+    scale = (torch.rand(n, generator=g) * 2e-5 + 1e-6).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    acc10 = ti.int8_gemm(ti.quantize_patches_cuda(xq, None, k, stride, k // 2, mat.shape[1]), mat)
+    for dtype in (torch.float32, torch.bfloat16):
+        for act in INT8_ACTS:
+            got = ti.int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dtype)
+            ref = ti.epilogue_cuda(acc10, n, scale, bias, act, dtype)
+            assert got.dtype == dtype and torch.equal(got, ref), (dtype, act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_quantize_pass_and_quantized_conv_on_the_implicit_gemm(dtype):
+    """`quantize_activation_cuda` bit-equal to `quantize_activation`;
+    `quantized_conv` of an eligible conv takes the quantize pass and the
+    implicit GEMM (one launch each, no ``_int_mm``) and gives the bytes of
+    the patches + ``_int_mm`` + epilogue route."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(2, 64, 17, 15, generator=g) * 3).to(dtype).to(dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    s = torch.tensor(0.0217, device=dev)
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    xq = ti.quantize_activation_cuda(nhwc, s)
+    assert torch.equal(xq, ti.quantize_activation(nhwc, s))
+    w_q = torch.randint(-127, 128, (96, 64, 3, 3), generator=g, dtype=torch.int8).to(dev)
+    mat = ti.gemm_weight(w_q)
+    scale = (torch.rand(96, generator=g) * 1e-4).to(dev)
+    bias = torch.randn(96, generator=g).to(dev)
+    before = (ti.quantize_activation_cuda.launches, ti.int8_conv_cuda.launches,
+              ti.quantize_patches_cuda.launches)
+    y = ti.quantized_conv(x, s, w_q, mat, scale, bias, 2, 1, 1, "silu", dtype)
+    assert (ti.quantize_activation_cuda.launches, ti.int8_conv_cuda.launches,
+            ti.quantize_patches_cuda.launches) == (before[0] + 1, before[1] + 1, before[2])
+    acc = ti.int8_gemm(ti.quantize_patches_cuda(nhwc, s, 3, 2, 1, mat.shape[1]), mat)
+    ref = ti.epilogue_cuda(acc, 96, scale, bias, "silu", dtype)
+    assert y.shape == (2, 96, 9, 8) and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y.permute(0, 2, 3, 1).reshape(-1, 96), ref)
+
+
+def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take():
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    xq = torch.zeros(1, 8, 8, 64, dtype=torch.int8, device=dev)
+    mat = torch.zeros(32, 9 * 64, dtype=torch.int8, device=dev)
+    one = torch.ones(32, device=dev)
+    before = ti.int8_conv_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.int8_conv_cuda(xq.cpu(), mat.cpu(), 32, 3, 1)
+    with pytest.raises(TypeError, match="int8"):
+        ti.int8_conv_cuda(xq.float(), mat, 32, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ti.int8_conv_cuda(xq.permute(0, 2, 1, 3), mat, 32, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):  # 16-byte aligned
+        ti.int8_conv_cuda(torch.zeros(8 * 8 * 64 + 1, dtype=torch.int8, device=dev)[1:].view(
+            1, 8, 8, 64), mat, 32, 3, 1)
+    with pytest.raises(ValueError, match="does not take"):
+        ti.int8_conv_cuda(xq[..., :48].contiguous(), mat[:, :9 * 48].contiguous(), 32, 3, 1)
+    with pytest.raises(ValueError, match="does not take"):
+        ti.int8_conv_cuda(xq, mat, 32, 5, 1)
+    with pytest.raises(ValueError, match="w_mat"):
+        ti.int8_conv_cuda(xq, mat[:, :64].contiguous(), 32, 3, 1)
+    with pytest.raises(ValueError, match="together"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, scale=one)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.float16)
+    with pytest.raises(ValueError, match="activation"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "gelu", torch.float32)
+    assert ti.int8_conv_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.quantize_activation_cuda(torch.zeros(1, 4, 4, 8), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="C % 8"):
+        ti.quantize_activation_cuda(torch.zeros(1, 4, 4, 3, device=dev),
+                                    torch.tensor(1.0, device=dev))
+
+
 def test_quantized_detector_on_card_equals_cpu_and_runs_int8_gemms():
     """A shallow YOLOv3 quantized by Detector.quantize on the card: float32
     heads card vs CPU (plain int8 route) within 1e-2 of their std (the int32
     sums are exact on both; a float rounding that differs flips an int8
-    step); the forward's profile holds ``_int_mm`` and only the 3 float pred
-    convs; the NMS kernel still runs."""
+    step); the forward runs 35 of its 36 int8 convs on the implicit GEMM
+    (``int8_conv``) and the RGB stem on ``_int_mm``, and only the 3 float
+    pred convs; the NMS kernel still runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastvision_tpu_torch.infer.quantize import quant_state
@@ -1060,10 +1173,11 @@ def test_quantized_detector_on_card_equals_cpu_and_runs_int8_gemms():
         det.model(x.to(dev))
         torch.cuda.synchronize()
     counts = {e.key: e.count for e in prof.key_averages()}
-    assert counts.get("aten::_int_mm", 0) == 36
+    assert counts.get("aten::_int_mm", 0) == 1  # the RGB stem (C = 3)
     assert counts.get("aten::convolution", 0) == 3  # the float pred convs alone
-    before = (ti.quantize_patches_cuda.launches, ti.epilogue_cuda.launches)
+    kernels = (ti.int8_conv_cuda, ti.quantize_activation_cuda, ti.quantize_patches_cuda,
+               ti.epilogue_cuda)
+    before = [f.launches for f in kernels]
     with torch.inference_mode():
         det.model(x.to(dev))
-    assert (ti.quantize_patches_cuda.launches, ti.epilogue_cuda.launches) == (
-        before[0] + 36, before[1] + 36)
+    assert [f.launches - b for f, b in zip(kernels, before)] == [35, 35, 1, 1]
