@@ -210,28 +210,36 @@ exits non-zero before a result is printed:
               images, one ``predict_batch`` with the launches of the NMS
               kernel and of the int8 kernels counted: ``int8_conv``
               (``csrc/int8_conv.cu``, the implicit-GEMM conv with its
-              epilogue fused) and its quantize pass on the 71 convs it
-              takes, ``csrc/int8.cu``'s patches and epilogue kernels on the
-              RGB stem, one launch each a conv; at batch 32 on every
+              epilogue fused) on the 71 convs it takes, 66 of them writing
+              their consumer's int8 input (Darknet's residual added there
+              too: no residual add runs outside it), the quantize pass on
+              the other 5 (INT8_QUANTIZE_PASSES), ``csrc/int8.cu``'s
+              patches and epilogue kernels on the RGB stem; at batch 32 on every
               quantized conv's own input the int32 accumulators of the card
               route bit-equal to the plain version (float64 conv), the
               patches kernel bit-equal and the epilogue kernel within
               INT8_EPILOGUE_ULPS of their plain versions, and on the 71
               ``int8_conv`` in mode (b) bit-equal to the plain accumulators
               and in mode (a) byte-equal to the GEMM route (patches,
-              ``_int_mm``, epilogue) in bf16 and float32, and on
-              ``testing.INT8_IMPLICIT_CASES``; float32 card vs CPU conv by
+              ``_int_mm``, epilogue) in bf16 and float32, its fused
+              epilogue byte-equal to mode (a) + PyTorch's add + the
+              quantize pass, and on ``testing.INT8_IMPLICIT_CASES``; the
+              linked forward's heads byte-equal to the unlinked forward's;
+              the stems' patches kernel (YOLOv3, VGG16, ResNet-50) byte-equal
+              to its plain version and timed; float32 card vs CPU conv by
               conv on the card's inputs (INT8_LAYER_TOL) and for the whole
               model (correlation, INT8_HEADS_MIN_CORR: last-bit differences
               of silu flip int8 roundings, which random weights amplify);
               the bf16 int8 heads against the bf16 float model; the int8
-              forward's profile (71 ``int8_conv`` launches, one ``_int_mm``
-              and the 3 float pred convs a call, the top kernels); the int8
-              and bf16 device programs at batch 32 and 256 (img/s, peak
-              memory); the int8 convs' split at both batches (the quantize
-              pass and ``int8_conv`` against the GEMM route's three steps on the
-              same layers, ``_int_mm`` alone as the library yardstick, plain
-              versions at 32, each with its bound); ``eval --int8`` and
+              forward's profile (71 ``int8_conv`` launches, 5 quantize
+              passes, one ``_int_mm`` and the 3 float pred convs a call, the
+              top kernels); the int8 and bf16 device programs at batch 32
+              and 256 (img/s, peak memory); the int8 convs' split at both
+              batches (``int8_conv`` in each layer's linked mode, summed by
+              mode, and the 5 quantize passes, against what the links took
+              away and the GEMM route's three steps on the same layers,
+              ``_int_mm`` alone as the library yardstick, plain versions at
+              32, each with its bound); ``eval --int8`` and
               ``serve --int8 --calib-dir`` through ``cli.main`` at full
               width; Faster R-CNN-VGG16 at 512 with an int8 backbone,
               ResNet-50 (batch 128) and ResNeXt-50 32x4d (batch 32) at 224
@@ -296,7 +304,7 @@ from fastvision_tpu_torch.infer import (
 )
 from fastvision_tpu_torch.infer.postprocess import reference_demo_unscale
 from fastvision_tpu_torch.infer.predictor import _Subset
-from fastvision_tpu_torch.infer.quantize import quant_state, quantize_model
+from fastvision_tpu_torch.infer.quantize import link_int8, quant_state, quantize_model
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.classification import (
     Bottleneck,
@@ -335,6 +343,7 @@ from fastvision_tpu_torch.ops.image import (
 )
 from fastvision_tpu_torch.ops.int8 import (
     ACTIVATIONS,
+    add_residual,
     epilogue_cuda,
     epilogue_plain,
     gemm_weight,
@@ -359,6 +368,7 @@ from fastvision_tpu_torch.testing import (
     INT8_IMPLICIT_CASES,
     SyntheticDetectionDataset,
     int8_conv_case,
+    quantize_tie_cases,
     nms_case,
     rpn_nms_case,
     state_max_rel_diff,
@@ -3222,6 +3232,10 @@ INT8_HEADS_MIN_CORR = 0.98
 INT8_SMALL_TOL = 1e-2  # the small ResNeXt (ReLU, 17 convs): max|d|/std of its logits
 INT8_CLI_IMAGES = 16
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores (H100 SXM data sheet, at 700 W)
+# YOLOv3's int8 convs whose input no producer's epilogue writes: the first
+# downsample conv (after the RGB stem, which runs off the implicit GEMM), the
+# first conv of the P4 and P3 blocks (a concat's input) and the two laterals
+INT8_QUANTIZE_PASSES = 5
 
 
 def differing_bytes(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -3230,9 +3244,44 @@ def differing_bytes(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(as_int) != b.view(as_int)).sum())
 
 
+def fused_vs_composed(xk: torch.Tensor, mat: torch.Tensor, n: int, k: int, stride: int,
+                      scale: torch.Tensor, bias: torch.Tensor, act: str, residual,
+                      out_scale: torch.Tensor) -> dict:
+    """``int8_conv`` with the residual add and its consumer's quantize fused
+    into the epilogue, against the composed route on the same card: the
+    kernel in mode (a), PyTorch's add, `quantize_activation_cuda` at
+    ``out_scale``; ``residual(dtype, y)`` gives the residual, [M, n]
+    contiguous. -> {"bf16" | "f32": {fused mode: bytes that differ, the
+    float and the int8 output summed}}."""
+    def quantized(t):
+        return quantize_activation_cuda(t.view(1, t.shape[0], 1, n), out_scale).view(t.shape)
+
+    out = {}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        y, _ = int8_conv_cuda(xk, mat, n, k, stride, scale, bias, act, dt)
+        res = residual(dt, y)
+        total = res + y
+        q_y, q_s = quantized(y), quantized(total)
+        row = {}
+        for mode, r, keep in (("int8_only", None, False), ("dual", None, True),
+                              ("int8_only_residual", res, False), ("dual_residual", res, True)):
+            got, q = int8_conv_cuda(xk, mat, n, k, stride, scale, bias, act, dt, r, out_scale, keep)
+            want = y if r is None else total
+            row[mode] = differing_bytes(q, q_y if r is None else q_s) + (
+                differing_bytes(got, want) if keep else int(got is not None))
+        out[tag] = row
+    return out
+
+
+def sum_fused(rows: list) -> dict:
+    return {tag: {mode: sum(r[tag][mode] for r in rows) for mode in rows[0][tag]}
+            for tag in rows[0]} if rows else {}
+
+
 def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype) -> dict:
-    """One forward of ``model`` on ``x`` (under ``dtype`` autocast) with, on
-    each quantized conv's own input: the int32 accumulators of the card route
+    """One forward of ``model`` on ``x`` (under ``dtype`` autocast), with its
+    int8 links off so that each quantized conv sees its float input (and its
+    residual), with, on each: the int32 accumulators of the card route
     (`int8_conv2d`: the implicit GEMM in mode (b) where it takes the shape,
     else the patches kernel and ``_int_mm``) against the plain version
     (float64 conv); the patches kernel on the float input against
@@ -3243,11 +3292,16 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
     `quantize_activation` (bytes), ``int8_conv`` in mode (b) against the
     plain accumulators and in mode (a), in bfloat16 and float32, against
     the GEMM route (patches kernel, ``_int_mm``, epilogue kernel) byte for
-    byte."""
-    held, implicit = [], []
+    byte; and its fused epilogue (`fused_vs_composed`) at the input scale
+    of the conv its link feeds (its own where it has none), with the
+    residual the model adds there (the mode (a) output shifted by a row
+    where it adds none). The links are put back after."""
+    held, implicit, fused = [], [], []
+    links = {m: m.link for m in model.modules() if isinstance(m, Int8Conv) and m.link}
 
     def hold(mod, args):
-        inp, act = args
+        inp, act = args[:2]
+        model_res = args[2] if len(args) > 2 else None
         n, k = mod.w_q.shape[0], mod.w_q.shape[-1]
         with torch.autocast("cuda", enabled=False):
             xq = quantize_activation(inp, mod.in_scale)
@@ -3268,19 +3322,30 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
                          float((d / ulp).max())))
             if implicit_gemm_eligible(nhwc.shape[3], n, k, mod.stride, mod.padding, mod.groups):
                 xk = quantize_activation_cuda(nhwc, mod.in_scale)
-                mode_b = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride)
+                mode_b, _ = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride)
                 row = [differing_bytes(xk, quantize_activation(nhwc, mod.in_scale)),
                        int((mode_b != plain.permute(0, 2, 3, 1).reshape(-1, n)).sum())]
                 for dt in (torch.bfloat16, torch.float32):
-                    new = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride, mod.scale, mod.bias,
-                                         act, dt)
+                    new, _ = int8_conv_cuda(xk, mod.w_mat, n, k, mod.stride, mod.scale, mod.bias,
+                                            act, dt)
                     old = epilogue_cuda(acc, n, mod.scale, mod.bias, act, dt)
                     row += [differing_bytes(new, old),
                             float((new.float() - old.float()).abs().max())]
                 implicit.append(row)
 
+                def residual(dt, y_dt):
+                    if model_res is None:
+                        return y_dt.roll(1, 0).contiguous()
+                    return model_res.permute(0, 2, 3, 1).reshape(-1, n).to(dt).contiguous()
+
+                to = links.get(mod)
+                fused.append(fused_vs_composed(
+                    xk, mod.w_mat, n, k, mod.stride, mod.scale, mod.bias, act, residual,
+                    mod.in_scale if to is None else to[0].in_scale))
+
     hooks = [m.register_forward_pre_hook(hold) for m in model.modules()
              if isinstance(m, Int8Conv)]
+    link_int8(model, enabled=False)
     try:
         with torch.inference_mode(), torch.autocast("cuda", dtype=dtype,
                                                     enabled=dtype != torch.float32):
@@ -3289,6 +3354,7 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
     finally:
         for h in hooks:
             h.remove()
+        link_int8(model)
     return {"convs": len(held), "mismatches": sum(h[0] for h in held),
             "max_abs_accumulator": max(h[1] for h in held),
             "patches_kernel_mismatching_bytes": sum(h[2] for h in held),
@@ -3301,66 +3367,99 @@ def held_accumulators(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtyp
             "int8_conv_mode_a_differing": {"bf16": sum(r[2] for r in implicit),
                                            "f32": sum(r[4] for r in implicit)},
             "int8_conv_mode_a_max_abs_err": max([r[3] for r in implicit]
-                                                + [r[5] for r in implicit] + [0.0])}
+                                                + [r[5] for r in implicit] + [0.0]),
+            "fused_epilogue_convs": len(fused),
+            "fused_epilogue_differing": sum_fused(fused)}
 
 
-def on_implicit_gemm(q: Int8Conv) -> bool:
-    """Whether the card runs this quantized conv on ``int8_conv``."""
-    return implicit_gemm_eligible(q.w_q.shape[1] * q.groups, q.w_q.shape[0], q.w_q.shape[-1],
-                                  q.stride, q.padding, q.groups)
+def fused_clean(differing: dict) -> bool:
+    return bool(differing) and all(v == 0 for row in differing.values() for v in row.values())
 
 
 def int8_conv_edge_cases(dev: torch.device) -> dict:
     """`testing.INT8_IMPLICIT_CASES` on the card: ``int8_conv`` in mode (b)
-    against `int8_conv_plain`, and in mode (a), in every activation and both
+    against `int8_conv_plain`, in mode (a), in every activation and both
     output types, against the GEMM route on the same int8 input (patches
-    kernel, ``_int_mm``, epilogue kernel), byte for byte."""
-    out = {"cases": [], "mode_b_mismatches": 0, "mode_a_differing": 0}
+    kernel, ``_int_mm``, epilogue kernel), and its fused epilogue in every
+    activation against the composed route (`fused_vs_composed`, a seeded
+    residual), byte for byte; the quantize pass against `quantize_activation`
+    on `testing.quantize_tie_cases` (values at and around half-integer
+    multiples of the scale, where only the IEEE division's rounding gives
+    the plain version's integer)."""
+    out = {"cases": [], "mode_b_mismatches": 0, "mode_a_differing": 0, "fused_differing": 0}
     for case in INT8_IMPLICIT_CASES:
         name, _, _, _, _, n, k, stride, _ = case
         x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
         xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
         mat = gemm_weight(w).to(dev)
-        acc = int8_conv_cuda(xq, mat, n, k, stride)
-        bad_b = int((acc != int8_conv_plain(xq, mat, n, k, stride)).sum())
+        acc, _ = int8_conv_cuda(xq, mat, n, k, stride)
+        bad_b = int((acc != int8_conv_plain(xq, mat, n, k, stride)[0]).sum())
         g = torch.Generator().manual_seed(n)
         scale = (torch.rand(n, generator=g) * 2e-5 + 1e-6).to(dev)
         bias = torch.randn(n, generator=g).to(dev)
+        y0, _ = int8_conv_cuda(xq, mat, n, k, stride, scale, bias, "none", torch.float32)
+        spread = float(y0.std())  # a residual and a consumer's scale of the output's size
+        res = (torch.randn(acc.shape, generator=g) * spread).to(dev)
+        out_scale = torch.tensor(spread / 40, device=dev)
         acc10 = int8_gemm(quantize_patches_cuda(xq, None, k, stride, k // 2, mat.shape[1]), mat)
-        bad_a = sum(differing_bytes(int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dt),
-                                    epilogue_cuda(acc10, n, scale, bias, act, dt))
-                    for dt in (torch.bfloat16, torch.float32) for act in ACTIVATIONS)
+        bad_a = sum(differing_bytes(
+            int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dt)[0],
+            epilogue_cuda(acc10, n, scale, bias, act, dt))
+            for dt in (torch.bfloat16, torch.float32) for act in ACTIVATIONS)
+        fused = sum_fused([fused_vs_composed(xq, mat, n, k, stride, scale, bias, act,
+                                             lambda dt, _y: res.to(dt).contiguous(),
+                                             out_scale)
+                           for act in ACTIVATIONS])
+        bad_f = sum(v for row in fused.values() for v in row.values())
         out["cases"].append({"case": name, "M": acc.shape[0], "N": n, "K": mat.shape[1],
                              "max_abs_accumulator": int(acc.abs().max()),
-                             "mode_b_mismatches": bad_b, "mode_a_differing": bad_a})
+                             "mode_b_mismatches": bad_b, "mode_a_differing": bad_a,
+                             "fused_differing": bad_f})
         out["mode_b_mismatches"] += bad_b
         out["mode_a_differing"] += bad_a
+        out["fused_differing"] += bad_f
+    # the quantize's reciprocal product against the division, at and around
+    # the half-integer multiples of 24 scales, float32 and bfloat16 inputs
+    values, scales = quantize_tie_cases()
+    out["quantize_tie_values"] = values.size
+    out["quantize_ties_differing"] = 0
+    for row, sc in zip(torch.from_numpy(values), torch.from_numpy(scales)):
+        s_dev = sc.to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            v = row.to(dev, dt).view(1, 1, -1, 8)
+            out["quantize_ties_differing"] += differing_bytes(quantize_activation_cuda(v, s_dev),
+                                                              quantize_activation(v, s_dev))
     torch.cuda.synchronize()
     return out
 
 
 def layerwise_card_vs_cpu(model: torch.nn.Module, cpu_model: torch.nn.Module,
                           x: torch.Tensor) -> dict:
-    """float32 (TF32 off): each quantized conv of ``model`` on the input it
-    gets in a card forward of ``x``, against the same conv of ``cpu_model``
-    (the plain route) on that input. -> the worst max|d| / max|out|."""
+    """float32 (TF32 off): each quantized conv of ``model`` on the input (and
+    residual) it gets in a card forward of ``x`` with the links off, against
+    the same conv of ``cpu_model`` (the plain route) on that input. -> the
+    worst max|d| / max|out|."""
     names = {m: n for n, m in model.named_modules() if isinstance(m, Int8Conv)}
     cpu_mods = dict(cpu_model.named_modules())
     seen = []
     hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(
-        (names[mod], args[0].cpu(), args[1], out.cpu()))) for m in names]
+        (names[mod], [a.cpu() if torch.is_tensor(a) else a for a in args], out.cpu())))
+        for m in names]
+    worst, differing = 0.0, 0
+    for m in (model, cpu_model):  # each conv's float input (and residual) and output
+        link_int8(m, enabled=False)
     try:
         with no_tf32(), torch.inference_mode():
             model(x)
+            for name, args, out in seen:
+                ref = cpu_mods[name](*args)
+                worst = max(worst, float((out - ref).abs().max() / ref.abs().max()))
+                differing += int((out != ref).sum())
     finally:
         for h in hooks:
             h.remove()
-    worst, differing = 0.0, 0
-    with torch.inference_mode():
-        for name, inp, act, out in seen:
-            ref = cpu_mods[name](inp, act)
-            worst = max(worst, float((out - ref).abs().max() / ref.abs().max()))
-            differing += int((out != ref).sum())
+        for m in (model, cpu_model):
+            link_int8(m)
     return {"convs": len(seen), "max_abs_over_max": worst, "differing_elements": differing,
             "tolerance": INT8_LAYER_TOL}
 
@@ -3380,9 +3479,9 @@ def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
     the int8 GEMMs' share of device time, per call the ``_int_mm`` and
     float convolution ops, and the launches of the port's int8 kernels by
     name (``int8_conv_kernel``, ``patches8_kernel`` (the quantize pass, and
-    the patches of a conv whose C is a multiple of 8), ``patches_row_kernel``,
-    the two epilogue kernels) and their device ms, as the profiler's device
-    records give them."""
+    the patches of a conv whose C is a multiple of 8), ``patches_line_kernel``
+    (an RGB stem's patches), the two epilogue kernels) and their device ms,
+    as the profiler's device records give them, and PyTorch's adds a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3402,7 +3501,7 @@ def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
     total = sum(kernels.values())
     ours = {tag: {"launches": sum(c for k, c in counts.items() if tag in k),
                   "ms": sum(v for k, v in kernels.items() if tag in k)}
-            for tag in ("int8_conv_kernel", "patches8_kernel", "patches_row_kernel",
+            for tag in ("int8_conv_kernel", "patches8_kernel", "patches_line_kernel",
                         "epilogue8_kernel", "::epilogue_kernel")}
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     return {"device_ms": total,
@@ -3414,39 +3513,52 @@ def int8_profile(fn, reps: int = 3, top: int = 12) -> dict:
             "top_kernel_is_int8_gemm": bool(ranked) and ranked[0][0] in gemm,
             "int8_kernels_per_call": ours,
             "int_mm_per_call": sum(e.name == "aten::_int_mm" for e in events) / reps,
+            "adds_per_call": sum(e.name in ("aten::add", "aten::add_") for e in events) / reps,
             "convolutions_per_call": sum(e.name == "aten::convolution" for e in events) / reps}
 
 
 def int8_split(model: torch.nn.Module, x: torch.Tensor, plain: bool) -> dict:
     """The int8 convs of one bf16 forward of ``model`` on ``x``, timed layer
-    by layer on each layer's own input inside a forward pre-hook (ms between
-    CUDA events, summed over the layers): on the convs that
-    `implicit_gemm_eligible` takes, the quantize pass and ``int8_conv`` (the
-    path's route), and on the same layers the GEMM route's three steps (the patches
-    kernel, ``_int_mm``, the epilogue kernel); on the others (YOLOv3's RGB
-    stem) the GEMM route, which the path runs there (keys ``other_*``). With
-    ``plain``, each kernel's plain version too. Each step's bound: the bytes
-    it must move (inputs read once, outputs written once) over HBM's rate
-    against its operations over the peak for their type (int8 tensor-core
-    ones, 2 M N K, for ``int8_conv`` and ``_int_mm``; float32 ones, 4 an
-    input element quantized, 7 an epilogue output, for the others)."""
+    by layer on each layer's own input inside a forward pre-hook (the links
+    off for the forward, so that each layer sees its float input; ms between
+    CUDA events, summed over the layers). On the convs that
+    `implicit_gemm_eligible` takes, the path's route: ``int8_conv`` in the
+    mode the link plan gives the layer (its consumer's int8 output, the
+    float output kept or not, Darknet's residual added; ``fused_modes``
+    sums them by mode) and the quantize pass on the layers whose input no
+    producer writes (``quantize``); beside it, what the links took away
+    (``quantize_linked_away``: the pass on the other layers;
+    ``int8_conv_unfused``: the kernel's float-only launch, also by mode;
+    ``residual_add``: PyTorch's add of the skip) and on the same layers the
+    GEMM route's three steps (the patches kernel, ``_int_mm``, the epilogue
+    kernel). On the others (YOLOv3's RGB stem) the GEMM route, which the
+    path runs there (keys ``other_*``). With ``plain``, each kernel's plain
+    version too. Each step's bound: the bytes it must move (inputs read
+    once, outputs written once) over HBM's rate against its operations over
+    the peak for their type (int8 tensor-core ones, 2 M N K, for
+    ``int8_conv`` and ``_int_mm``; float32 ones, 4 an input element
+    quantized, 7 an epilogue output, 1 an add, for the others)."""
     steps: dict = {}
+    modes: dict = {}
     n_layers = {"implicit": 0, "other": 0}
+    links = {m: m.link for m in model.modules() if isinstance(m, Int8Conv) and m.link}
+    consumers = {id(link[0]) for link in links.values()}
 
-    def add(key, fn, n_bytes, ops, peak, plain_fn=None):
-        st = steps.setdefault(key, {"ms": 0.0, "bytes": 0, "ops": 0.0, "bound_ms": 0.0,
-                                    "bytes_ms": 0.0, "ops_ms": 0.0})
-        st["ms"] += cuda_ms(fn, reps=5)
-        st["bytes"] += n_bytes
-        st["ops"] += ops
-        st["bytes_ms"] += 1e3 * n_bytes / PEAK_BYTES_S
-        st["ops_ms"] += 1e3 * ops / peak
-        st["bound_ms"] += 1e3 * max(n_bytes / PEAK_BYTES_S, ops / peak)
+    def add(key, fn, n_bytes, ops, peak, plain_fn=None) -> dict:
+        bytes_ms, ops_ms = 1e3 * n_bytes / PEAK_BYTES_S, 1e3 * ops / peak
+        layer = {"ms": cuda_ms(fn, reps=5), "bytes": n_bytes, "ops": ops, "bytes_ms": bytes_ms,
+                 "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+        st = steps.setdefault(key, {"layers": 0, **dict.fromkeys(layer, 0.0)})
+        st["layers"] += 1
+        for f, v in layer.items():
+            st[f] += v
         if plain_fn is not None:
             st["plain_ms"] = st.get("plain_ms", 0.0) + cuda_ms(plain_fn, reps=1, warmup=1)
+        return layer
 
     def timed(mod, args):
-        inp, act = args
+        inp, act = args[:2]
+        res_nchw = args[2] if len(args) > 2 else None
         n, k = mod.w_q.shape[0], mod.w_q.shape[-1]
         sc, stride, pad, k_pad = mod.in_scale, mod.stride, mod.padding, mod.w_mat.shape[1]
         bf = torch.bfloat16
@@ -3460,16 +3572,38 @@ def int8_split(model: torch.nn.Module, x: torch.Tensor, plain: bool) -> dict:
                 xk = quantize_activation_cuda(nhwc, sc)
                 ho, wo = out_hw(xk.shape[1], xk.shape[2], k, stride, pad)
                 m = xk.shape[0] * ho * wo
-                add("quantize", lambda: quantize_activation_cuda(nhwc, sc), in_bytes + elems,
+                add("quantize_linked_away" if id(mod) in consumers else "quantize",
+                    lambda: quantize_activation_cuda(nhwc, sc), in_bytes + elems,
                     4 * elems, PEAK_FP32_FLOPS,
                     (lambda: quantize_activation(nhwc, sc)) if plain else None)
-                add("int8_conv",
-                    lambda: int8_conv_cuda(xk, mod.w_mat, n, k, stride, mod.scale, mod.bias, act,
-                                           bf),
-                    elems + mod.w_mat.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k_pad,
-                    PEAK_INT8_OPS,
-                    (lambda: int8_conv_plain(xk, mod.w_mat, n, k, stride, mod.scale, mod.bias,
-                                             act, bf)) if plain else None)
+                to, keep = links.get(mod, (None, True))
+                out_scale = None if to is None else to.in_scale
+                res = (None if res_nchw is None
+                       else res_nchw.permute(0, 2, 3, 1).reshape(-1, n).contiguous())
+                mode = ("float_only" if out_scale is None else "dual" if keep else "int8_only") \
+                    + ("" if res is None else "_residual")
+                fixed = elems + mod.w_mat.numel() + 8 * n
+                out_bytes = (2 * m * n if keep else 0) + (0 if out_scale is None else m * n) \
+                    + (0 if res is None else 2 * m * n)
+                conv_ops = 2.0 * m * n * k_pad
+                fused = (xk, mod.w_mat, n, k, stride, mod.scale, mod.bias, act, bf, res,
+                         out_scale, keep)
+                layer = add("int8_conv", lambda: int8_conv_cuda(*fused), fixed + out_bytes,
+                            conv_ops, PEAK_INT8_OPS,
+                            (lambda: int8_conv_plain(*fused)) if plain else None)
+                unfused = (xk, mod.w_mat, n, k, stride, mod.scale, mod.bias, act, bf)
+                before = add("int8_conv_unfused", lambda: int8_conv_cuda(*unfused),
+                             fixed + 2 * m * n, conv_ops, PEAK_INT8_OPS)
+                md = modes.setdefault(mode, {"layers": 0, "ms": 0.0, "bound_ms": 0.0,
+                                             "unfused_ms": 0.0})
+                md["layers"] += 1
+                md["ms"] += layer["ms"]
+                md["bound_ms"] += layer["bound_ms"]
+                md["unfused_ms"] += before["ms"]
+                if res is not None:
+                    y = int8_conv_cuda(*unfused)[0]
+                    add("residual_add", lambda: res + y, 6 * m * n, m * n, PEAK_FP32_FLOPS)
+                    del y
             a = quantize_patches_cuda(nhwc, sc, k, stride, pad, k_pad)
             acc = int8_gemm(a, mod.w_mat)
             m, n_pad = acc.shape
@@ -3488,21 +3622,70 @@ def int8_split(model: torch.nn.Module, x: torch.Tensor, plain: bool) -> dict:
 
     hooks = [m.register_forward_pre_hook(timed) for m in model.modules()
              if isinstance(m, Int8Conv)]
+    link_int8(model, enabled=False)
     try:
         with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
             model(x)
     finally:
         for h in hooks:
             h.remove()
+        link_int8(model)
     for st in steps.values():
         st["bound_by"] = "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations"
-    new = [steps[k] for k in ("quantize", "int8_conv")]
-    old = [steps[k] for k in ("patches", "gemm", "epilogue")]
-    return {"batch": x.shape[0], "layers": n_layers, "steps": steps,
-            "implicit_gemm_route": {"ms": sum(s["ms"] for s in new),
-                                    "bound_ms": sum(s["bound_ms"] for s in new)},
-            "gemm_route_same_layers": {"ms": sum(s["ms"] for s in old),
-                                       "bound_ms": sum(s["bound_ms"] for s in old)}}
+
+    def total(keys):
+        return {f: sum(steps[k][f] for k in keys if k in steps) for f in ("ms", "bound_ms")}
+
+    return {"batch": x.shape[0], "layers": n_layers, "steps": steps, "fused_modes": modes,
+            "path_route": total(("quantize", "int8_conv")),
+            "unlinked_route": total(("quantize", "quantize_linked_away", "int8_conv_unfused",
+                                     "residual_add")),
+            "gemm_route_same_layers": total(("patches", "gemm", "epilogue"))}
+
+
+def stem_patches(dev: torch.device, yolo_x: torch.Tensor, yolo_scale: torch.Tensor) -> dict:
+    """The patches kernel's line kernel on the RGB stems it serves, against
+    its plain version on the card (bytes that differ, float32 and bfloat16
+    inputs) and timed in bfloat16 (ms between CUDA events; the plain
+    version's; the bound: the input read once and the patches written once
+    over HBM's rate, against 4 float32 operations an input element): the
+    YOLOv3-416 stem at batch 32 on the phase's own normalized images and
+    stem scale, the VGG16 (Faster R-CNN) stem at 512 and batch 8, the
+    ResNet-50 7 x 7 stride-2 stem at 224 and batch 128, on normalized noise
+    images."""
+    g = torch.Generator().manual_seed(SEED + 55)
+    cases = (("yolov3_416_b32", yolo_x, yolo_scale, 3, 1, 32),
+             (f"vgg16_{FRCNN_SIZE}_b{FRCNN_BATCH}",
+              torch.randn(FRCNN_BATCH, FRCNN_SIZE, FRCNN_SIZE, 3, generator=g), None, 3, 1, 32),
+             (f"resnet50_{CLS_SIZE}_b{CLS_BATCH}",
+              torch.randn(CLS_BATCH, CLS_SIZE, CLS_SIZE, 3, generator=g), None, 7, 2, 152))
+    out = {"differing": 0}
+    for name, x, scale, k, stride, k_pad in cases:
+        x = x.to(dev, torch.bfloat16).contiguous()
+        if scale is None:
+            scale = (x.float().abs().amax() / 127).reshape(())
+        row = {"k": k, "stride": stride, "k_pad": k_pad, "differing": 0}
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = quantize_patches_cuda(xd, scale, k, stride, k // 2, k_pad)
+            row["differing"] += differing_bytes(
+                got, quantize_patches_plain(xd, scale, k, stride, k // 2, k_pad))
+            del got
+        ho, wo = out_hw(x.shape[1], x.shape[2], k, stride, k // 2)
+        n_bytes = x.numel() * x.element_size() + x.shape[0] * ho * wo * k_pad
+        bytes_ms, ops_ms = 1e3 * n_bytes / PEAK_BYTES_S, 1e3 * 4 * x.numel() / PEAK_FP32_FLOPS
+        row.update(ms=cuda_ms(lambda: quantize_patches_cuda(x, scale, k, stride, k // 2, k_pad),
+                              reps=10),
+                   plain_ms=cuda_ms(lambda: quantize_patches_plain(x, scale, k, stride, k // 2,
+                                                                   k_pad), reps=2, warmup=1),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+        out["differing"] += row["differing"]
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def int8_cli(dev: torch.device, workdir: str, n_int8: int) -> dict:
@@ -3635,7 +3818,7 @@ def int8_other_models(dev: torch.device) -> dict:
 
         int8_conv_cuda.launches = 0
         lq, lf = logits(model), logits(float_model)
-        n_implicit = sum(on_implicit_gemm(q) for q in model.modules() if isinstance(q, Int8Conv))
+        n_implicit = sum(q.on_implicit_gemm for q in model.modules() if isinstance(q, Int8Conv))
         check(int8_conv_cuda.launches == n_implicit > 0,
               f"{tag}: int8_conv launched {int8_conv_cuda.launches} times, {n_implicit} convs")
         out[tag] = {"int8_convs": len(quant_state(model)), "int8_conv_launches": n_implicit,
@@ -3664,17 +3847,46 @@ def int8_other_models(dev: torch.device) -> dict:
     return out
 
 
+def linked_vs_unlinked(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype) -> dict:
+    """The heads of ``model`` on ``x`` (under ``dtype`` autocast) with its
+    int8 links and without them: bytes that differ, and the quantize passes
+    each forward launched."""
+    def heads():
+        before = quantize_activation_cuda.launches
+        with torch.inference_mode(), torch.autocast("cuda", dtype=dtype,
+                                                    enabled=dtype != torch.float32):
+            out = model(x)
+        return out, quantize_activation_cuda.launches - before
+
+    linked, n_linked = heads()
+    link_int8(model, enabled=False)
+    try:
+        unlinked, n_unlinked = heads()
+    finally:
+        link_int8(model)
+    return {"differing": sum(differing_bytes(a, b) for a, b in zip(linked, unlinked)),
+            "elements": sum(a.numel() for a in linked),
+            "quantize_launches": {"linked": n_linked, "unlinked": n_unlinked}}
+
+
 def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     """int8 w8a8 PTQ on the card: ``Detector.quantize`` of a full-width
     YOLOv3-416 (80 classes, random weights, BN from the phase's images),
-    the main path counted (every kernel's launches: ``int8_conv`` and the
-    quantize pass on the 71 convs `implicit_gemm_eligible` takes, the GEMM route's
-    patches and epilogue kernels on the RGB stem), (a) at batch 32, on every
-    quantized conv's own input, the int32 accumulators card route vs plain
-    version (bit-equal), the GEMM route's kernels vs their plain versions, and on the
+    the main path counted (every kernel's launches: ``int8_conv`` on the 71
+    convs `implicit_gemm_eligible` takes, each writing its consumer's int8
+    input where the link plan says (66), the quantize pass on the other 5,
+    the GEMM route's patches and epilogue kernels on the RGB stem, and no
+    residual add outside ``int8_conv``), (a) at batch 32, on every quantized
+    conv's own input, the int32 accumulators card route vs plain version
+    (bit-equal), the GEMM route's kernels vs their plain versions, and on the
     71: ``int8_conv`` mode (b) vs the plain accumulators and mode (a) vs PR
-    10's route in bf16 and float32 (byte-equal); ``int8_conv`` on the seeded
-    edge cases, (b) the float32 int8 model card vs CPU (plain route) and the
+    10's route in bf16 and float32, its fused epilogue (int8 only, int8 and
+    float, each with a residual and without) vs mode (a) + PyTorch's add +
+    the quantize pass (byte-equal); ``int8_conv`` on the seeded edge cases;
+    the linked forward's heads vs the unlinked forward's (byte-equal, bf16
+    at 32 and float32 at 2); the stems' patches kernel vs its plain version
+    and its time (YOLOv3, VGG16, ResNet-50), (b) the float32 int8 model card
+    vs CPU (plain route) and the
     bf16 int8 model against the float one, (c) the int8 forward's profile
     (71 ``int8_conv`` launches, one ``_int_mm``), (d) device-program
     images/s at batch 32 and 256 (int8 and bf16), peak memory, and the int8
@@ -3699,25 +3911,33 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     n_int8 = len(quant_state(det.model))
     n_pairs = sum(1 for _ in conv_bn_pairs(det.model))  # YOLOv3: 72 (Darknet-53 52, neck 20)
     check(n_int8 == n_pairs, f"{n_int8} quantized convs of {n_pairs} ConvBNs")
-    n_implicit = sum(on_implicit_gemm(q) for q in det.model.modules() if isinstance(q, Int8Conv))
+    n_implicit = sum(q.on_implicit_gemm for q in det.model.modules() if isinstance(q, Int8Conv))
     check(n_implicit == n_int8 - 1, f"{n_implicit} convs on the implicit GEMM, want all but "
                                     f"the RGB stem of {n_int8}")
+    plan = link_int8(det.model)  # what Detector.quantize installed, read back
+    n_quantize = n_implicit - len(plan)  # convs whose int8 input no producer writes
+    check(n_quantize == INT8_QUANTIZE_PASSES,
+          f"the link plan leaves {n_quantize} quantize passes of {n_implicit}, want "
+          f"{INT8_QUANTIZE_PASSES}")
 
     # --- the main path, counted
     imgs = images(SEED + 51, 8)
     int8_kernels = {"patches": quantize_patches_cuda, "epilogue": epilogue_cuda,
                     "int8_conv": int8_conv_cuda, "quantize": quantize_activation_cuda}
-    suppression_mask_cuda.launches = 0
+    suppression_mask_cuda.launches = add_residual.runs = 0
     for f in int8_kernels.values():
         f.launches = 0
     results = det.predict_batch(imgs)
     launches = suppression_mask_cuda.launches
     int8_launches = {k: f.launches for k, f in int8_kernels.items()}
+    residual_adds = add_residual.runs
     check(launches >= 1, "the int8 predict_batch never launched the nms kernel")
     n_fwd = -(-len(imgs) // det.batch_size)  # a launch of each a conv a forward
     want = {"patches": (n_int8 - n_implicit) * n_fwd, "epilogue": (n_int8 - n_implicit) * n_fwd,
-            "int8_conv": n_implicit * n_fwd, "quantize": n_implicit * n_fwd}
+            "int8_conv": n_implicit * n_fwd, "quantize": n_quantize * n_fwd}
     check(int8_launches == want, f"the int8 predict_batch launched {int8_launches}, not {want}")
+    check(residual_adds == 0, f"the int8 predict_batch ran {residual_adds} residual adds outside "
+                              "int8_conv's epilogue, want 0 (Darknet's 23 are fused)")
     for r, im in zip(results, imgs):
         h, w = im.shape[:2]
         bx = r["boxes"]
@@ -3739,9 +3959,20 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
           and acc["int8_conv_mode_b_mismatches"] == 0
           and acc["int8_conv_mode_a_differing"] == {"bf16": 0, "f32": 0},
           f"int8_conv vs the plain accumulators or the GEMM route: {acc}")
+    check(acc["fused_epilogue_convs"] == n_implicit and fused_clean(acc["fused_epilogue_differing"]),
+          f"int8_conv's fused epilogue vs mode (a) + add + the quantize pass: {acc}")
     edges = int8_conv_edge_cases(dev)
-    check(edges["mode_b_mismatches"] == 0 and edges["mode_a_differing"] == 0,
+    check(edges["mode_b_mismatches"] == 0 and edges["mode_a_differing"] == 0
+          and edges["fused_differing"] == 0 and edges["quantize_ties_differing"] == 0,
           f"int8_conv on the edge cases: {edges}")
+    x32 = normalize_images(u8_32, torch.bfloat16)
+    links = {"bf16_batch32": linked_vs_unlinked(det.model, x32, torch.bfloat16),
+             "f32_batch2": linked_vs_unlinked(det.model, x8[:2], torch.float32)}
+    check(all(r["differing"] == 0 and r["quantize_launches"] == {
+        "linked": n_quantize, "unlinked": n_implicit} for r in links.values()),
+        f"the linked int8 forward against the unlinked one: {links}")
+    stems = stem_patches(dev, x32, det.model.backbone.conv0.conv.quant.in_scale)
+    check(stems["differing"] == 0, f"the stems' patches kernel vs its plain version: {stems}")
 
     # --- (b) float32 card vs CPU, layer by layer and whole; bf16 int8 vs bf16 float
     cpu_model = copy.deepcopy(det.model).cpu()
@@ -3761,15 +3992,21 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
     # --- (c) profile of the int8 device program at batch 32 (4 calls: a warm-up and 3
     # profiled). int8_conv's launches are read from its wrapper's count: late in a long
     # process the profiler's device records of a run can come back short
-    conv_before = int8_conv_cuda.launches
+    before = (int8_conv_cuda.launches, quantize_activation_cuda.launches, add_residual.runs)
     prof = int8_profile(lambda: det.infer(u8_32), reps=3)
-    prof["int8_conv_launches_per_call"] = (int8_conv_cuda.launches - conv_before) / 4
+    prof["int8_conv_launches_per_call"] = (int8_conv_cuda.launches - before[0]) / 4
+    prof["quantize_launches_per_call"] = (quantize_activation_cuda.launches - before[1]) / 4
+    prof["residual_adds_per_call"] = (add_residual.runs - before[2]) / 4
     check(prof["int_mm_per_call"] == n_int8 - n_implicit and prof["convolutions_per_call"] == 3
-          and prof["int8_conv_launches_per_call"] == n_implicit,
+          and prof["int8_conv_launches_per_call"] == n_implicit
+          and prof["quantize_launches_per_call"] == n_quantize
+          and prof["residual_adds_per_call"] == 0,
           f"int8 forward: {prof['int_mm_per_call']} int8 GEMMs, "
-          f"{prof['int8_conv_launches_per_call']} int8_conv launches and "
+          f"{prof['int8_conv_launches_per_call']} int8_conv launches, "
+          f"{prof['quantize_launches_per_call']} quantize passes, "
+          f"{prof['residual_adds_per_call']} residual adds and "
           f"{prof['convolutions_per_call']} float convs per call (want {n_int8 - n_implicit}, "
-          f"{n_implicit} and the 3 pred convs)")
+          f"{n_implicit}, {n_quantize}, 0 and the 3 pred convs)")
     check(bool(prof["int8_gemm_kernels"]), "no device kernel ran under aten::_int_mm")
 
     # --- (d) device-program images/s, the split, peak memory
@@ -3793,11 +4030,15 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
          "(seed 0), BN from 8 of the phase's images, Detector.quantize on those 8",
          input_size=INPUT_SIZE, int8_convs=n_int8, quantize_s=quantize_s,
          implicit_gemm_convs=n_implicit,
+         link_plan={"edges": len(plan), "int8_only": sum(not k for *_, k in plan),
+                    "int8_and_float": sum(k for *_, k in plan), "quantize_passes": n_quantize},
          predict_batch_launches={"nms": launches, **int8_launches},
+         predict_batch_residual_adds=residual_adds,
          accumulators_and_kernels_batch32=acc, int8_conv_edge_cases=edges,
-         fp32_card_vs_cpu=fp32,
+         linked_vs_unlinked=links, stem_patches=stems, fp32_card_vs_cpu=fp32,
          bf16_int8_vs_bf16_float=bf16_vs_float, profile_batch32=prof,
-         device_program=times, int8_conv_split=split)
+         device_program=times, fused_epilogue_split={
+             b: sp["fused_modes"] for b, sp in split.items()}, int8_conv_split=split)
 
     # --- (e) the CLI, (f) other models
     del det, det_f, model, float_model
@@ -3812,32 +4053,38 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
                          "int8_cli_serve": cli_out["serve_int8"]["launches"],
                          "int8_frcnn_eval_step": others["faster_rcnn_vgg16_512_b8"]["launches"]},
             "mismatches": acc["mismatches"], "kernels": int8_kernel_entries(
-                int8_launches, acc, split[f"batch{EVAL_BATCH}"])}
+                int8_launches, acc, split[f"batch{EVAL_BATCH}"], stems)}
 
 
-def int8_kernel_entries(launches: dict, held: dict, split: dict) -> list:
+def int8_kernel_entries(launches: dict, held: dict, split: dict, stems: dict) -> list:
     """The int8 path's kernels as the smoke's last-but-one line lists them:
     launches on the main path (one int8 predict_batch), the error against
-    the plain version (the GEMM route for ``int8_conv``'s mode (a)) over every
-    layer of a forward at batch 32, and the times of one forward's worth of
-    launches at batch 32 (the split), each on the layers the path gives it:
-    ``int8_conv`` and the quantize pass on the 71 implicit-GEMM convs,
-    the GEMM route's kernels on the stem (their time on the 71, where they ran before,
-    beside it). ``int8_conv``'s library yardstick is ``torch._int_mm`` of
-    the same [M, K] x [K, N] products alone (the GEMM route's product)."""
+    the plain version (for ``int8_conv`` the larger of mode (a) against the
+    GEMM route and the fused epilogue's bytes that differ from mode (a) + add
+    + the quantize pass) over every layer of a forward at batch 32, and the
+    times of one forward's worth of launches at batch 32 (the split), each
+    on the layers the path gives it: ``int8_conv`` in its linked modes on
+    the 71 implicit-GEMM convs (its float-only launches beside it), the
+    quantize pass on the 5 whose input no producer writes (the 66 the links
+    took away beside it), the GEMM route's kernels on the stem (their time
+    on the 71, where they ran before, beside it; the patches kernel on the
+    three stems it serves too). ``int8_conv``'s library yardstick is
+    ``torch._int_mm`` of the same [M, K] x [K, N] products alone (the GEMM
+    route's product)."""
     steps = split["steps"]
     shape = (f"one int8 YOLOv3-{INPUT_SIZE} forward at batch {split['batch']}: "
              f"{split['layers']['implicit']} implicit-GEMM convs, "
              f"{split['layers']['other']} other (the stem)")
     xla = "fastvision_tpu/nn/layers.py:{} (XLA, no Pallas kernel)"
+    fused_bytes = sum(v for row in held["fused_epilogue_differing"].values() for v in row.values())
     entries = []
     for name, source, key, replaces, err, library in (
             ("int8_conv", "int8_conv.cu", "int8_conv", xla.format("100-122"),
-             held["int8_conv_mode_a_max_abs_err"], steps["gemm"]["ms"]),
+             max(held["int8_conv_mode_a_max_abs_err"], float(fused_bytes)), steps["gemm"]["ms"]),
             ("int8_quantize_activation", "int8.cu", "quantize", xla.format(110),
              held["quantize_pass_mismatching_bytes"], None),
             ("int8_quantize_patches", "int8.cu", "other_patches", xla.format(110),
-             held["patches_kernel_mismatching_bytes"], None),
+             max(held["patches_kernel_mismatching_bytes"], stems["differing"]), None),
             ("int8_epilogue", "int8.cu", "other_epilogue", xla.format(120),
              held["epilogue_kernel_max_abs_err"], None)):
         st = steps[key]
@@ -3845,11 +4092,16 @@ def int8_kernel_entries(launches: dict, held: dict, split: dict) -> list:
                  "replaces": replaces, "launches": launches[key.replace("other_", "")],
                  "max_abs_err": err, "ms": st["ms"], "plain_ms": st["plain_ms"],
                  "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": library,
-                 "shape": shape}
+                 "layers": st["layers"], "shape": shape}
         if key.startswith("other_"):
             entry["on_the_implicit_gemm_layers"] = {
                 f: steps[key[len("other_"):]][f] for f in ("ms", "plain_ms", "bound_ms")}
         entries.append(entry)
+    entries[0]["fused_modes"] = split["fused_modes"]
+    entries[0]["unfused"] = {f: steps["int8_conv_unfused"][f] for f in ("ms", "bound_ms")}
+    entries[1]["linked_away"] = {f: steps["quantize_linked_away"][f]
+                                 for f in ("layers", "ms", "bound_ms")}
+    entries[2]["stems"] = {k: v for k, v in stems.items() if k != "differing"}
     return entries
 
 

@@ -15,15 +15,21 @@
 //
 // What it computes, for a conv with C a multiple of 32, k in {1, 3},
 // stride in {1, 2}, padding k / 2, groups 1, N a multiple of 8:
-//   x  int8 NHWC [B, H, W, C] (the input quantized by one pass before it),
+//   x  int8 NHWC [B, H, W, C] (written by its producer's epilogue, below,
+//      or by one quantize pass),
 //   w  int8 [N, K], K = k * k * C in (kh, kw, cin) order (ops/int8.py::
 //      gemm_weight: already K-major, the only layout 8-bit wgmma takes for
 //      either operand),
 //   out [M, N], M = B * Ho * Wo, in one of two modes:
-//   (a) act((float(acc) * scale[n] + bias[n]) rounded to the output type)
-//       in bfloat16 or float32, int8_common.cuh's arithmetic, the one the
-//       epilogue pass of csrc/int8.cu runs, so both routes give the same
-//       bytes;
+//   (a) y = act((float(acc) * scale[n] + bias[n]) rounded to the output
+//       type) in bfloat16 or float32, int8_common.cuh's arithmetic, the one
+//       the epilogue pass of csrc/int8.cu runs, so both routes give the
+//       same bytes; and with it, as the caller asks: s = residual + y
+//       rounded to the output type (Darknet's skip, PyTorch's add), and
+//       the int8 input of the conv that consumes this one, quantize(s or y)
+//       at that conv's input scale (read from the device), so the consumer
+//       needs no quantize pass; y (or s) itself may be left unwritten when
+//       only int8 convs read it;
 //   (b) the int32 accumulators themselves.
 // The integer sums are exact in any order: |acc| <= 127^2 * 9 * 1024 ~
 // 1.5e8 < 2^31 here.
@@ -41,7 +47,11 @@
 // of bank conflicts. The math is wgmma.mma_async m64nNk32 s8 x s8 -> s32,
 // one 64-row half of the tile per warpgroup, the accumulators in
 // registers. The epilogue runs from the registers, writes the tile in the
-// output type into shared memory, and stores it as 16-byte coalesced rows.
+// output type into shared memory, and stores it as 16-byte coalesced rows;
+// the residual add and the consumer's quantize run in that store loop, on
+// each 16-byte chunk (every value is in a register there, and the loop is
+// coalesced both ways), the residual's tile copied into the free ring by
+// cp.async while the epilogue's arithmetic runs.
 //
 // What bounds it on an H100: int8 operations (2 M N K at 1,979 TOP/s) for
 // the 3x3 layers, bytes (int8 in once, the output once) for the 1x1 ones;
@@ -56,6 +66,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "int8_common.cuh"
 
 namespace {
@@ -68,7 +80,10 @@ struct Conv {
   const int8_t* w;
   const float* scale;
   const float* bias;
-  void* out;
+  void* out;             // [M, N] in the output type, or null: int8 only
+  const void* residual;  // [M, N] in the output type, added after the activation, or null
+  const float* out_scale;  // the consumer's input scale (one float32), with out_q
+  int8_t* out_q;         // [M, N] int8: the sum (or the output) quantized at *out_scale, or null
   long long M;
   int H, W, C, N, k, stride, pad, Ho, Wo, act, n_tiles;
 };
@@ -226,6 +241,8 @@ struct Tile {
   static constexpr int kORow = BN * (int)sizeof(O) + 16;  // staged output row
   static constexpr int kSmem =
       (STAGES * kStageBytes > kBM * kORow ? STAGES * kStageBytes : kBM * kORow) + 1024;
+  // the residual's tile staged beside the output's, where the ring holds both
+  static constexpr bool kStageResidual = 2 * kBM * kORow <= STAGES * kStageBytes;
   static_assert(kABytes % 1024 == 0 && (BN * BK) % 1024 == 0, "1024-byte swizzle atoms");
   static_assert(2 * (kSmem + 1024) <= 232448, "two blocks an SM");
 };
@@ -316,6 +333,24 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Conv p) {
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the tile is staged there
 
+  constexpr bool kFloat = !std::is_same<O, int32_t>::value;
+  constexpr int kPerChunk = 16 / (int)sizeof(O);
+  constexpr int kChunksOut = BN / kPerChunk;
+  uint8_t* res_tile = smem + kBM * T::kORow;
+  if constexpr (kFloat && T::kStageResidual) {
+    if (p.residual) {  // the residual's tile by cp.async, in flight while the epilogue computes
+      for (int idx = tid; idx < kBM * kChunksOut; idx += kThreads) {
+        const int row = idx / kChunksOut, ch = idx - row * kChunksOut;
+        const long long m = m0 + row;
+        const int n = n0 + ch * kPerChunk;
+        if (m < p.M && n < p.N)
+          cp_async16(res_tile + row * T::kORow + ch * 16,
+                     reinterpret_cast<const O*>(p.residual) + m * p.N + n, 16);
+      }
+      cp_async_commit();
+    }
+  }
+
   // the epilogue from the registers: in each warp's 16 rows, thread (g, tg)
   // holds rows g and g + 8, columns 8 j + 2 tg and 8 j + 2 tg + 1
   const int g = lane >> 2, tg = lane & 3;
@@ -337,16 +372,43 @@ __global__ void __launch_bounds__(kThreads, 2) int8_conv_kernel(const Conv p) {
            acc[4 * j + 2 * h + 1], s0, s1, b0, b1, p.act);
     }
   }
+  cp_async_wait<0>();  // this thread's copies of the residual's tile have landed
   __syncthreads();
-  constexpr int kPerChunk = 16 / (int)sizeof(O);
-  constexpr int kChunksOut = BN / kPerChunk;
+  // the staged tile to memory, 16-byte chunks of a row, neighbouring threads
+  // on neighbouring chunks; on the way, in mode (a), the residual's matching
+  // chunk added and the consumer's int8 input written (kPerChunk bytes)
+  const fv_int8::QScale q_scale = fv_int8::qscale(kFloat && p.out_q ? *p.out_scale : 1.f);
   for (int idx = tid; idx < kBM * kChunksOut; idx += kThreads) {
     const int row = idx / kChunksOut, ch = idx - row * kChunksOut;
     const long long m = m0 + row;
     const int n = n0 + ch * kPerChunk;
-    if (m < p.M && n < p.N)
-      *reinterpret_cast<uint4*>(reinterpret_cast<O*>(p.out) + m * p.N + n) =
-          *reinterpret_cast<const uint4*>(smem + row * T::kORow + ch * 16);
+    if (m >= p.M || n >= p.N) continue;
+    const long long off = m * p.N + n;
+    uint4 v = *reinterpret_cast<const uint4*>(smem + row * T::kORow + ch * 16);
+    if constexpr (kFloat) {
+      O* vals = reinterpret_cast<O*>(&v);
+      if (p.residual) {
+        const uint4 r =
+            T::kStageResidual
+                ? *reinterpret_cast<const uint4*>(res_tile + row * T::kORow + ch * 16)
+                : *reinterpret_cast<const uint4*>(reinterpret_cast<const O*>(p.residual) + off);
+        const O* res = reinterpret_cast<const O*>(&r);
+#pragma unroll
+        for (int i = 0; i < kPerChunk; ++i) vals[i] = fv_int8::add(res[i], vals[i]);
+      }
+      if (p.out_q) {  // kPerChunk int8 values, packed into 32-bit words in registers
+        float f[kPerChunk];
+#pragma unroll
+        for (int i = 0; i < kPerChunk; ++i) f[i] = fv_int8::to_float(vals[i]);
+        uint32_t q[kPerChunk / 4];
+        fv_int8::quantize_pack(f, q_scale, q);
+        if constexpr (kPerChunk == 8)
+          *reinterpret_cast<uint2*>(p.out_q + off) = make_uint2(q[0], q[1]);
+        else
+          *reinterpret_cast<uint32_t*>(p.out_q + off) = q[0];
+      }
+    }
+    if (p.out) *reinterpret_cast<uint4*>(reinterpret_cast<O*>(p.out) + off) = v;
   }
 }
 
@@ -390,28 +452,37 @@ cudaError_t use_device(int device) {
 
 extern "C" {
 
-// x int8 NHWC [B, H, W, C] contiguous, w int8 [N, k * k * C] contiguous,
-// both 16-byte aligned; out [B * Ho * Wo, N] contiguous: out_dtype 0
-// float32 or 1 bfloat16 (mode (a): scale, bias float32 [N], act 0 none / 1
-// relu / 2 leaky_relu / 3 silu) or 3 int32 (mode (b): scale, bias unused).
-// C % 32 == 0, N % 8 == 0, k 1 or 3, stride 1 or 2, padding k / 2.
+// x int8 NHWC [B, H, W, C] contiguous, w int8 [N, k * k * C] contiguous;
+// out [B * Ho * Wo, N] contiguous: out_dtype 0 float32 or 1 bfloat16 (mode
+// (a): scale, bias float32 [N], act 0 none / 1 relu / 2 leaky_relu / 3
+// silu) or 3 int32 (mode (b): scale, bias unused). In mode (a) also:
+// residual (out_dtype, [M, N], or null) added to the output; out_q (int8
+// [M, N], or null) the result quantized at *out_scale (a float32 on the
+// device); out null when only out_q is wanted. Every pointer 16-byte
+// aligned. C % 32 == 0, N % 8 == 0, k 1 or 3, stride 1 or 2, padding k / 2.
 // Returns the launch's cudaError_t, 0 on success.
 int fv_int8_conv(const void* x, const void* w, const float* scale, const float* bias, void* out,
-                 int B, int H, int W, int C, int N, int k, int stride, int out_dtype, int act,
-                 int device, void* stream) {
+                 const void* residual, const float* out_scale, void* out_q, int B, int H, int W,
+                 int C, int N, int k, int stride, int out_dtype, int act, int device,
+                 void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
+  auto misaligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 != 0; };
+  const bool mode_b = out_dtype == 3;
   if (C <= 0 || C % 32 || N <= 0 || N % 8 || (k != 1 && k != 3) || (stride != 1 && stride != 2) ||
-      act < 0 || act > 3 || (out_dtype != 3 && (!scale || !bias)) ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16)
+      act < 0 || act > 3 || (!mode_b && (!scale || !bias)) || (!out && !out_q) ||
+      (mode_b && (residual || out_q || !out)) || (out_q && !out_scale) || misaligned(x) ||
+      misaligned(w) || misaligned(out) || misaligned(residual) || misaligned(out_q))
     return (int)cudaErrorInvalidValue;
   Conv p;
   p.x = (const int8_t*)x;
   p.w = (const int8_t*)w;
-  p.scale = out_dtype == 3 ? nullptr : scale;
-  p.bias = out_dtype == 3 ? nullptr : bias;
+  p.scale = mode_b ? nullptr : scale;
+  p.bias = mode_b ? nullptr : bias;
   p.out = out;
+  p.residual = residual;
+  p.out_scale = out_q ? out_scale : nullptr;
+  p.out_q = (int8_t*)out_q;
   p.H = H;
   p.W = W;
   p.C = C;

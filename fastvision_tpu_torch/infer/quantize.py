@@ -23,6 +23,13 @@ The scheme (the JAX package's, number for number):
     calibration batches, or with ``percentile=True`` its 99.9th percentile
     of |x| (``q999``).
 
+Where a model declares which conv feeds which (``int8_edges``: Darknet-53's
+blocks and stages, YOLOv3's neck), `link_int8` links the pairs that both
+run on the card's implicit-GEMM kernel: the producer's epilogue writes the
+consumer's int8 input (and adds Darknet's residual), so the consumer runs
+no quantize pass. The linked forward gives the same bytes as the unlinked
+one.
+
 Usage::
 
     calib = calibrate(model, batches)           # {conv name: {amax, q999}}
@@ -109,7 +116,9 @@ def fold_and_quantize(conv: nn.Conv2d, bn: nn.Module | None,
 def install_quant(model: nn.Module, state: Mapping[str, Mapping[str, torch.Tensor]]) -> int:
     """Put ``state`` ({conv module name: {w_q, w_scale, in_scale, bias}}) on
     the model's pairs as `Int8Conv`s, on each conv's device; every other
-    pair's int8 state is removed. -> the number of quantized convs."""
+    pair's int8 state is removed; then the link plan is built anew
+    (`link_int8`). Every route to an int8 model comes through here. -> the
+    number of quantized convs."""
     pairs = {name: conv for name, conv, _ in conv_bn_pairs(model)}
     unknown = sorted(set(state) - set(pairs))
     if unknown:
@@ -122,8 +131,42 @@ def install_quant(model: nn.Module, state: Mapping[str, Mapping[str, torch.Tenso
             dev = conv.weight.device
             conv.quant = Int8Conv(*(torch.as_tensor(q[k]).to(dev) for k in (
                 "w_q", "w_scale", "in_scale", "bias")), conv.stride[0], conv.padding[0],
-                conv.groups)
+                conv.groups).train(conv.training)
+    link_int8(model)
     return len(state)
+
+
+def link_int8(model: nn.Module, enabled: bool = True) -> list[tuple[str, str, bool]]:
+    """Build the link plan of ``model``'s int8 convs (with ``enabled=False``,
+    clear it): each edge a module declares (``int8_edges()``: ``(producer,
+    consumer, keep_float)``, names of its `ConvBN`s) links the producer's
+    `Int8Conv` to the consumer's where both are quantized and both run on
+    the implicit GEMM (`Int8Conv.on_implicit_gemm`): the producer's kernel
+    then writes the consumer's int8 input, and no quantize pass runs on it.
+    A float conv at either end (a ``skip``) leaves the edge unlinked. The
+    plan depends on the structure and the shapes alone, so it is the same on
+    the CPU and on the card. -> the edges linked, [(producer, consumer,
+    keep_float)] by module name."""
+    for m in model.modules():
+        if isinstance(m, Int8Conv):
+            m.link = None
+    plan: list[tuple[str, str, bool]] = []
+    if not enabled:
+        return plan
+    for name, mod in model.named_modules():
+        declare = getattr(mod, "int8_edges", None)
+        if declare is None:
+            continue
+        prefix = f"{name}." if name else ""
+        for producer, consumer, keep_float in declare():
+            p, c = (mod.get_submodule(n).conv._modules.get("quant") for n in (producer, consumer))
+            if p is None or c is None or not (p.on_implicit_gemm and c.on_implicit_gemm):
+                continue
+            if p.link is not None:
+                raise ValueError(f"{prefix + producer} is declared to feed two int8 convs")
+            p.link = (c, keep_float)
+            plan.append((prefix + producer, prefix + consumer, keep_float))
+    return plan
 
 
 def quantize_variables(model: nn.Module, calib: Mapping[str, Mapping[str, torch.Tensor]],

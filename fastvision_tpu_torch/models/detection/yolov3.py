@@ -19,7 +19,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ...nn.layers import ConvBN, init_weights_
+from ...nn.layers import Carried, ConvBN, float_of, init_weights_
 from ..classification.darknet53 import Darknet53
 
 LEVELS = ("small", "medium", "large")  # strides 32, 16, 8
@@ -35,40 +35,60 @@ class Upsample2x(nn.Module):
         return upsample2x(x)
 
 
-def yolo_block(in_features: int, features: int, act: str) -> nn.Sequential:
-    """The 5-conv (1-3-1-3-1) refinement block."""
-    f = features
-    return nn.Sequential(
-        ConvBN(in_features, f, 1, act=act), ConvBN(f, f * 2, 3, act=act),
-        ConvBN(f * 2, f, 1, act=act), ConvBN(f, f * 2, 3, act=act),
-        ConvBN(f * 2, f, 1, act=act),
-    )
+class YoloBlock(nn.Sequential):
+    """The 5-conv (1-3-1-3-1) refinement block; int8, each conv hands its
+    output to the next in int8 only."""
+
+    def __init__(self, in_features: int, features: int, act: str):
+        f = features
+        super().__init__(
+            ConvBN(in_features, f, 1, act=act), ConvBN(f, f * 2, 3, act=act),
+            ConvBN(f * 2, f, 1, act=act), ConvBN(f, f * 2, 3, act=act),
+            ConvBN(f * 2, f, 1, act=act),
+        )
+
+    def forward(self, x: torch.Tensor | Carried) -> torch.Tensor | Carried:
+        for conv in self:
+            x = conv(x)
+        return x
+
+    def int8_edges(self) -> list[tuple[str, str, bool]]:
+        return [(str(i), str(i + 1), False) for i in range(len(self) - 1)]
 
 
 class YOLOv3Neck(nn.Module):
     """Top-down FPN over [P5, P4, P3]: per level a YoloBlock on
-    ``cat([x, up(lateral(carry))])`` and a 3x3 ConvBN out."""
+    ``cat([x, up(lateral(carry))])`` and a 3x3 ConvBN out. int8, each
+    block's last conv hands its output to the level's out conv (and keeps
+    the float for the lateral where there is one); the concat and the
+    laterals take float inputs."""
 
     def __init__(self, in_channels: Sequence[int] = (1024, 512, 256),
                  channels: Sequence[int] = (1024, 512, 256), act: str = "silu"):
         super().__init__()
+        self.levels = LEVELS[:len(channels)]
         for i, (lvl, cin, ch) in enumerate(zip(LEVELS, in_channels, channels)):
             block_in = cin if i == 0 else cin + ch // 2
-            setattr(self, f"neck_{lvl}", yolo_block(block_in, ch // 2, act))
+            setattr(self, f"neck_{lvl}", YoloBlock(block_in, ch // 2, act))
             setattr(self, f"neck_out_{lvl}", ConvBN(ch // 2, ch, 3, act=act))
             if i + 1 < len(channels):
                 setattr(self, f"up_sampling_{lvl}", nn.Sequential(
                     ConvBN(ch // 2, channels[i + 1] // 2, 1, act=act), Upsample2x()))
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    def forward(self, feats: Sequence[torch.Tensor | Carried]) -> list[torch.Tensor]:
         outs = []
         carry = None
         for i, (lvl, x) in enumerate(zip(LEVELS, feats)):
             if carry is not None:
-                x = torch.cat([x, getattr(self, f"up_sampling_{LEVELS[i - 1]}")(carry)], dim=1)
+                lateral = getattr(self, f"up_sampling_{LEVELS[i - 1]}")(float_of(carry))
+                x = torch.cat([x, lateral], dim=1)
             carry = getattr(self, f"neck_{lvl}")(x)
             outs.append(getattr(self, f"neck_out_{lvl}")(carry))
         return outs
+
+    def int8_edges(self) -> list[tuple[str, str, bool]]:
+        return [(f"neck_{lvl}.4", f"neck_out_{lvl}", hasattr(self, f"up_sampling_{lvl}"))
+                for lvl in self.levels]
 
 
 class YOLOv3Head(nn.Module):
@@ -113,3 +133,7 @@ class YOLOv3(nn.Module):
         """x: NHWC [B, H, W, 3] -> [P5, P4, P3] heads, each [B, H, W, A, 5 + C]."""
         feats = self.backbone(x.permute(0, 3, 1, 2))
         return self.head(self.neck(feats))
+
+    def int8_edges(self) -> list[tuple[str, str, bool]]:
+        """P5 to the neck's first conv, in int8 beside the float."""
+        return [(f"backbone.{self.backbone.last_conv}", "neck.neck_small.0", True)]

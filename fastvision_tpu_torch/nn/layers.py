@@ -24,18 +24,24 @@ submodule: the BN-folded int8 kernel, its per-channel scales, the
 calibrated input scale and the folded bias, as non-persistent buffers (they
 move with the model and stay out of its ``state_dict``). `conv_bn_act` runs
 the pair: in eval mode through the `Int8Conv` where there is one, else (and
-always in train mode) through the float conv and BN.
+always in train mode) through the float conv and BN. A model may declare
+which conv hands its output to which (``int8_edges``, read by
+`infer.quantize.link_int8`): a linked `Int8Conv` writes its consumer's
+int8 input itself and hands it on as a `Carried`; a residual passed to
+`conv_bn_act` is added after the activation, in the conv's epilogue where
+the card's kernel takes it.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8 import ACTIVATIONS, gemm_weight, quantized_conv
+from ..ops.int8 import (ACTIVATIONS, add_residual, gemm_weight, implicit_gemm_eligible,
+                        quantized_conv)
 
 
 def memory_format_for(model: nn.Module) -> torch.memory_format:
@@ -92,6 +98,29 @@ class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
 
+class Carried(NamedTuple):
+    """An activation as a linked `Int8Conv` hands it on: ``value`` the float
+    tensor [B, C, H, W] (channels_last), None where only int8 convs read it;
+    ``q`` its int8 copy (same shape and memory) at the input scale of
+    ``to``, the `Int8Conv` it was written for; ``dtype`` the float type the
+    producer computed in. Only ``to`` reads ``q``; every other reader takes
+    ``value`` (`float_of`)."""
+    value: torch.Tensor | None
+    q: torch.Tensor
+    to: nn.Module
+    dtype: torch.dtype
+
+
+def float_of(x: torch.Tensor | Carried) -> torch.Tensor:
+    """A module's input as a float tensor: ``x``, or a `Carried`'s ``value``."""
+    if not isinstance(x, Carried):
+        return x
+    if x.value is None:
+        raise RuntimeError("a float reader got an activation handed on in int8 only: its "
+                           "producer's link (infer.quantize.link_int8) drops the float output")
+    return x.value
+
+
 class Int8Conv(nn.Module):
     """The quantized state of one conv + BN pair and its eval forward (the
     JAX package's ``quant`` collection of a ConvBN and its
@@ -99,7 +128,14 @@ class Int8Conv(nn.Module):
     ``w_scale`` [N] its per-output-channel scales, ``in_scale`` the input's
     scale, ``bias`` [N] the folded bias (float32 each), and derived from them
     ``scale = in_scale * w_scale`` and the card route's weight matrix
-    ``w_mat`` (`ops.int8.gemm_weight`). All are non-persistent buffers."""
+    ``w_mat`` (`ops.int8.gemm_weight`). All are non-persistent buffers.
+
+    ``link`` (set by `infer.quantize.link_int8`, None otherwise): ``(the
+    consuming Int8Conv, keep_float)``. A linked conv writes its consumer's
+    int8 input from its own epilogue, at the consumer's ``in_scale``, and
+    returns a `Carried` (its float output too where ``keep_float``), so the
+    consumer runs no quantize pass. The link is structural and fixed at
+    install time; nothing carries over from one call to the next."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, in_scale: torch.Tensor,
                  bias: torch.Tensor, stride: int, padding: int, groups: int):
@@ -111,24 +147,48 @@ class Int8Conv(nn.Module):
                         ("in_scale", in_scale.reshape(())), ("bias", bias.float()),
                         ("scale", in_scale * w_scale), ("w_mat", gemm_weight(w_q, groups))):
             self.register_buffer(name, t.contiguous(), persistent=False)
+        self.link: tuple[Int8Conv, bool] | None = None
 
-    def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
-        """x [B, C, H, W] -> ``act`` of the dequantized int8 conv, in the
-        dtype the float conv would return (autocast's, where it is on)."""
-        dev = x.device.type
+    @property
+    def on_implicit_gemm(self) -> bool:
+        """Whether the card runs this conv on ``int8_conv`` (the dispatch by
+        shape, `ops.int8.implicit_gemm_eligible`)."""
+        n, cg, k, _ = self.w_q.shape
+        return implicit_gemm_eligible(cg * self.groups, n, k, self.stride, self.padding,
+                                      self.groups)
+
+    def forward(self, x: torch.Tensor | Carried, act: str,
+                residual: torch.Tensor | Carried | None = None) -> torch.Tensor | Carried:
+        """x [B, C, H, W] float, or a `Carried` (its int8 copy read where it
+        was written for this conv) -> ``act`` of the dequantized int8 conv,
+        plus ``residual`` where one is given (Darknet's skip, added after the
+        activation), in the dtype the float conv would return (autocast's,
+        where it is on); a `Carried` where the conv is linked."""
+        xq = x.q if isinstance(x, Carried) and x.to is self else None
+        inp = float_of(x) if xq is None else xq
+        dev = inp.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+        to, keep = self.link if self.link is not None and not self.link[0].training \
+            else (None, True)
         with torch.autocast(dev, enabled=False):
-            return quantized_conv(x, self.in_scale, self.w_q, self.w_mat, self.scale, self.bias,
-                                  self.stride, self.padding, self.groups, act, dtype)
+            y, q = quantized_conv(inp, self.in_scale, self.w_q, self.w_mat, self.scale,
+                                  self.bias, self.stride, self.padding, self.groups, act, dtype,
+                                  None if residual is None else float_of(residual),
+                                  None if to is None else to.in_scale, keep)
+        return y if q is None else Carried(y, q, to, dtype)
 
 
-def conv_bn_act(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
-    """``act(bn(conv(x)))``; in eval mode the conv's `Int8Conv`
-    (``conv.quant``) instead, where it has one."""
+def conv_bn_act(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor | Carried, act: str,
+                residual: torch.Tensor | Carried | None = None) -> torch.Tensor | Carried:
+    """``act(bn(conv(x)))``, plus ``residual`` where one is given (added
+    after the activation); in eval mode the conv's `Int8Conv`
+    (``conv.quant``) instead, where it has one, which may hand its output on
+    as a `Carried`."""
     quant = conv._modules.get("quant")
     if quant is not None and not conv.training:
-        return quant(x, act)
-    return ACTIVATIONS[act](bn(conv(x)))
+        return quant(x, act, residual)
+    y = ACTIVATIONS[act](bn(conv(float_of(x))))
+    return y if residual is None else add_residual(float_of(residual), y)
 
 
 def conv_bn_pairs(model: nn.Module) -> Iterator[tuple[str, nn.Conv2d, nn.Module | None]]:
@@ -176,8 +236,9 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(features) if use_bn else nn.Identity()
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_act(self.conv, self.bn, x, self.act)
+    def forward(self, x: torch.Tensor | Carried,
+                residual: torch.Tensor | Carried | None = None) -> torch.Tensor | Carried:
+        return conv_bn_act(self.conv, self.bn, x, self.act, residual)
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2, padding: int = 0) -> torch.Tensor:
@@ -224,6 +285,8 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator | Non
     are drawn again, only those (``nn.init.trunc_normal_`` redraws the whole
     tensor each round, seconds for a 100M-element Linear on the CPU)."""
     flat = w.view(-1).normal_(0.0, std, generator=generator)
+    if w.is_meta:  # no values to redraw
+        return
     idx = (flat.abs() > 2 * std).nonzero().squeeze(1)
     while idx.numel():
         vals = torch.empty(idx.numel(), dtype=w.dtype, device=w.device).normal_(

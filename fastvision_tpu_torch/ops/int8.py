@@ -25,8 +25,9 @@ NHWC rows (M = B * Ho * Wo):
 
 Steps 1 and 3 are CUDA kernels (``csrc/int8.cu``) on the card,
 `quantize_patches_cuda` and `epilogue_cuda`, one pass over memory each (two
-for a k x k conv's patches: quantize, then gather) where eager PyTorch
-takes five to seven; their plain PyTorch versions
+for a k x k conv's patches of a C % 8 == 0 input: quantize, then gather;
+an RGB stem's in one line kernel that stages the quantized input lines in
+shared memory) where eager PyTorch takes five to seven; their plain PyTorch versions
 (`quantize_patches_plain`, `epilogue_plain`) run on CPU tensors and are the
 kernels' yardstick of correctness. A CUDA tensor launches the kernel or
 raises. What bounds both on an H100 is bytes (int8 patches written,
@@ -41,9 +42,14 @@ patches kernel: the input quantized once, int8 NHWC) and `int8_conv_cuda`
 (``csrc/int8_conv.cu``), an implicit-GEMM tensor-core kernel that gathers
 the patches into shared memory, never into device memory, and runs the
 epilogue from its registers (mode (a)), or writes the int32 accumulators
-(mode (b)). Its plain version `int8_conv_plain` is the plain conv and
-epilogue on the same inputs. This is a dispatch by shape: a build or
-launch failure of the kernel raises.
+(mode (b)). In mode (a) its epilogue can also add a residual (Darknet's
+skip, rounded as PyTorch's add rounds) and write the int8 input of the conv
+that consumes its output, quantized at that conv's ``in_scale``, so the
+consumer runs no quantize pass (`infer.quantize.link_int8` decides where);
+the float output may then be left unwritten. Its plain version
+`int8_conv_plain` is the plain conv, epilogue, add and quantize on the same
+inputs. This is a dispatch by shape: a build or launch failure of the
+kernel raises.
 
 `int8_conv2d` is the whole int8 x int8 -> int32 conv: on the card the
 implicit GEMM in mode (b), or for the other shapes the patches of the int8
@@ -103,7 +109,7 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _conv_lib() -> ctypes.CDLL:
     lib = cuda_build.load("int8_conv")
-    lib.fv_int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.fv_int8_conv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.fv_int8_conv.restype = ctypes.c_int
     lib.fv_int8_conv_error_string.argtypes = [ctypes.c_int]
     lib.fv_int8_conv_error_string.restype = ctypes.c_char_p
@@ -114,6 +120,11 @@ def _raise_on(err: int, what: str, error_string=None) -> None:
     if err != 0:
         text = (error_string or _lib().fv_int8_error_string)(err).decode()
         raise RuntimeError(f"{what} launch failed: {text} ({err})")
+
+
+def _scalar_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
+    if t.device != dev or t.dtype != torch.float32 or t.numel() != 1:
+        raise ValueError(f"{what} must be one float32 value on {dev}")
 
 
 def quantize_activation(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
@@ -133,8 +144,7 @@ def quantize_activation_cuda(x: torch.Tensor, in_scale: torch.Tensor) -> torch.T
         raise ValueError(f"quantize_activation_cuda needs a CUDA tensor, got {dev}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize_activation_cuda takes float32 or bfloat16, got {x.dtype}")
-    if in_scale.device != dev or in_scale.dtype != torch.float32 or in_scale.numel() != 1:
-        raise ValueError("in_scale must be one float32 value on the input's device")
+    _scalar_on(in_scale, dev, "in_scale")
     if x.ndim != 4 or not x.is_contiguous() or x.shape[3] % 8:
         raise ValueError(f"expected contiguous NHWC [B, H, W, C], C % 8 == 0, got "
                          f"{tuple(x.shape)}")
@@ -193,14 +203,13 @@ def quantize_patches_cuda(x: torch.Tensor, in_scale: torch.Tensor | None, k: int
         raise TypeError(f"quantize_patches_cuda takes float32, bfloat16 or int8, got {x.dtype}")
     if (x.dtype == torch.int8) != (in_scale is None):
         raise ValueError("in_scale goes with a float input, and only with one")
-    if in_scale is not None and (in_scale.device != dev or in_scale.dtype != torch.float32
-                                 or in_scale.numel() != 1):
-        raise ValueError("in_scale must be one float32 value on the input's device")
+    if in_scale is not None:
+        _scalar_on(in_scale, dev, "in_scale")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError(f"expected contiguous NHWC [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    if k_pad < k * k * c:
-        raise ValueError(f"k_pad {k_pad} < k * k * C = {k * k * c}")
+    if k_pad < k * k * c or k_pad % 8:
+        raise ValueError(f"k_pad {k_pad} must be a multiple of 8, >= k * k * C = {k * k * c}")
     ho, wo = out_hw(h, w, k, stride, padding)
     out = torch.empty(b * ho * wo, k_pad, dtype=torch.int8, device=dev)
     # a k x k conv of a float input quantizes into scratch first (csrc/int8.cu)
@@ -314,28 +323,46 @@ def implicit_gemm_eligible(c: int, n: int, k: int, stride: int, padding: int,
 
 def int8_conv_plain(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride: int,
                     scale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
-                    act: str = "none", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    act: str = "none", dtype: torch.dtype = torch.bfloat16,
+                    residual: torch.Tensor | None = None, out_scale: torch.Tensor | None = None,
+                    keep_float: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """The plain version of `int8_conv_cuda` on its inputs: int8 NHWC ``xq``
-    and `gemm_weight`'s ``w_mat`` -> [B * Ho * Wo, n]: the int32
-    accumulators of `int8_conv2d_plain` (mode (b), ``scale=None``), or
-    `epilogue_plain` of them (mode (a))."""
+    and `gemm_weight`'s ``w_mat`` -> ``(y, q)``, each [B * Ho * Wo, n] or
+    None: in mode (b) (``scale=None``) ``y`` the int32 accumulators of
+    `int8_conv2d_plain`; in mode (a) ``y`` = `epilogue_plain` of them,
+    ``residual + y`` (PyTorch's add) where a ``residual`` is given, and
+    ``q`` = `quantize_activation` of that at ``out_scale`` where one is
+    given; ``y`` None with ``keep_float=False``."""
     b, h, w, c = xq.shape
     w_q = w_mat[:n, :k * k * c].reshape(n, k, k, c).permute(0, 3, 1, 2)
     acc = int8_conv2d_plain(xq.permute(0, 3, 1, 2), w_q, stride, k // 2)
     acc = acc.permute(0, 2, 3, 1).reshape(-1, n)
-    return acc if scale is None else epilogue_plain(acc, n, scale, bias, act, dtype)
+    if scale is None:
+        return acc, None
+    y = epilogue_plain(acc, n, scale, bias, act, dtype)
+    if residual is not None:
+        y = residual + y
+    q = None if out_scale is None else quantize_activation(y, out_scale)
+    return (y if keep_float else None), q
 
 
 def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride: int,
                    scale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
-                   act: str = "none", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                   act: str = "none", dtype: torch.dtype = torch.bfloat16,
+                   residual: torch.Tensor | None = None, out_scale: torch.Tensor | None = None,
+                   keep_float: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """The implicit-GEMM int8 conv in one launch of ``csrc/int8_conv.cu``:
     ``xq`` contiguous int8 NHWC [B, H, W, C] (16-byte aligned) and
     ``w_mat`` int8 [n, k * k * C] on a CUDA device, a shape that
-    `implicit_gemm_eligible` takes (padding k // 2) -> [B * Ho * Wo, n]:
-    with ``scale`` and ``bias`` (float32 [n]) ``act`` of the dequantized
-    conv in ``dtype`` (bfloat16 or float32), without them the int32
-    accumulators."""
+    `implicit_gemm_eligible` takes (padding k // 2) -> ``(y, q)``, each
+    [B * Ho * Wo, n] or None. Without ``scale`` and ``bias`` (mode (b)):
+    ``y`` the int32 accumulators. With them (float32 [n], mode (a)): ``y`` =
+    ``act`` of the dequantized conv in ``dtype`` (bfloat16 or float32), plus
+    ``residual`` (contiguous [B * Ho * Wo, n] in ``dtype``) where one is
+    given, rounded as PyTorch's add rounds; ``q`` that value quantized at
+    ``out_scale`` (one float32 on the device: the consumer's input scale)
+    where one is given, the consumer's int8 NHWC input; ``keep_float=False``
+    leaves ``y`` unwritten (None)."""
     dev = xq.device
     if xq.dtype != torch.int8 or w_mat.dtype != torch.int8:
         raise TypeError(f"int8_conv_cuda takes int8 tensors, got {xq.dtype} and {w_mat.dtype}")
@@ -351,7 +378,12 @@ def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride
                          f"{tuple(w_mat.shape)} on {w_mat.device}")
     if (scale is None) != (bias is None):
         raise ValueError("scale and bias go together")
-    if scale is not None:
+    ho, wo = out_hw(h, w, k, stride, k // 2)
+    m = b * ho * wo
+    if scale is None:
+        if residual is not None or out_scale is not None or not keep_float:
+            raise ValueError("a residual or an int8 output needs mode (a): scale and bias")
+    else:
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"int8_conv_cuda writes float32 or bfloat16, not {dtype}")
         if act not in _ACT_CODES:
@@ -360,22 +392,46 @@ def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride
             if t.device != dev or t.dtype != torch.float32 or t.numel() != n \
                     or not t.is_contiguous():
                 raise ValueError("scale and bias must be contiguous float32 [n] on xq's device")
+        if residual is not None and (
+                residual.dtype != dtype or residual.device != dev or tuple(residual.shape) != (m, n)
+                or not residual.is_contiguous() or residual.data_ptr() % 16):
+            raise ValueError(f"residual must be contiguous 16-byte-aligned {dtype} [{m}, {n}] on "
+                             f"{dev}, got {residual.dtype} {tuple(residual.shape)}")
+        if out_scale is not None:
+            _scalar_on(out_scale, dev, "out_scale")
+        elif not keep_float:
+            raise ValueError("keep_float=False leaves nothing to write without out_scale")
     if dev.type != "cuda":
         raise ValueError(f"int8_conv_cuda needs a CUDA tensor, got {dev}")
     out_dtype = torch.int32 if scale is None else dtype
-    ho, wo = out_hw(h, w, k, stride, k // 2)
-    out = torch.empty(b * ho * wo, n, dtype=out_dtype, device=dev)
+    out = torch.empty(m, n, dtype=out_dtype, device=dev) if keep_float else None
+    q = torch.empty(m, n, dtype=torch.int8, device=dev) if out_scale is not None else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _conv_lib().fv_int8_conv(
-        xq.data_ptr(), w_mat.data_ptr(), None if scale is None else scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, c, n, k, stride,
-        _DTYPE_CODES[out_dtype], _ACT_CODES[act] if scale is not None else 0, dev.index,
+        xq.data_ptr(), w_mat.data_ptr(), ptr(scale), ptr(bias), ptr(out), ptr(residual),
+        ptr(out_scale), ptr(q), b, h, w, c, n, k, stride, _DTYPE_CODES[out_dtype],
+        _ACT_CODES[act] if scale is not None else 0, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "int8 implicit-GEMM conv kernel", _conv_lib().fv_int8_conv_error_string)
     int8_conv_cuda.launches += 1
-    return out
+    return out, q
 
 
 int8_conv_cuda.launches = 0
+
+
+def add_residual(residual: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``residual + y``, PyTorch's add, where no conv's epilogue takes the
+    add (a float conv, train mode, a conv off the implicit GEMM); counted in
+    ``add_residual.runs``."""
+    add_residual.runs += 1
+    return residual + y
+
+
+add_residual.runs = 0
 
 
 def int8_conv2d_gemm(xq: torch.Tensor, w_mat: torch.Tensor, n: int, kernel_size: int,
@@ -387,7 +443,8 @@ def int8_conv2d_gemm(xq: torch.Tensor, w_mat: torch.Tensor, n: int, kernel_size:
     b, c, h, w = xq.shape
     ho, wo = out_hw(h, w, kernel_size, stride, padding)
     if xq.is_cuda and implicit_gemm_eligible(c, n, kernel_size, stride, padding, groups):
-        acc = int8_conv_cuda(xq.permute(0, 2, 3, 1).contiguous(), w_mat, n, kernel_size, stride)
+        acc, _ = int8_conv_cuda(xq.permute(0, 2, 3, 1).contiguous(), w_mat, n, kernel_size,
+                                stride)
     else:
         a = quantize_patches(xq.permute(0, 2, 3, 1), None, kernel_size, stride, padding,
                              w_mat.shape[1])
@@ -420,26 +477,57 @@ def int8_conv2d(xq: torch.Tensor, w_q: torch.Tensor, stride: int = 1, padding: i
 
 def quantized_conv(x: torch.Tensor, in_scale: torch.Tensor, w_q: torch.Tensor,
                    w_mat: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int,
-                   padding: int, groups: int, act: str, dtype: torch.dtype) -> torch.Tensor:
-    """The whole quantized conv: x [B, C, H, W] float -> ``act`` of the
-    dequantized int8 conv, [B, N, Ho, Wo] in ``dtype``, channels_last. On
-    the card: `quantize_activation_cuda` and `int8_conv_cuda` where
-    `implicit_gemm_eligible`, else the patches kernel, ``_int_mm``, the
-    epilogue kernel; on the CPU: `quantize_activation`, the float64 plain
-    conv, `epilogue_plain`."""
+                   padding: int, groups: int, act: str, dtype: torch.dtype,
+                   residual: torch.Tensor | None = None, out_scale: torch.Tensor | None = None,
+                   keep_float: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The whole quantized conv: x [B, C, H, W], float (quantized here at
+    ``in_scale``) or int8 (its producer quantized it at ``in_scale``) ->
+    ``(y, q)``, [B, N, Ho, Wo] each in channels_last memory or None: ``y``
+    ``act`` of the dequantized int8 conv in ``dtype`` (+ ``residual``, of
+    ``dtype``, as PyTorch adds), None with ``keep_float=False``; ``q`` that
+    value quantized at ``out_scale`` (its consumer's input scale) where one
+    is given. On the card: where `implicit_gemm_eligible`,
+    `quantize_activation_cuda` (for a float input) and `int8_conv_cuda`,
+    which adds the residual and writes ``q`` in its epilogue; else the
+    patches kernel, ``_int_mm``, the epilogue kernel and `add_residual`. On
+    the CPU the plain versions of the same steps. Only a conv on the
+    implicit GEMM writes ``q``."""
     b, c, h, w = x.shape
     n, k = w_q.shape[0], w_q.shape[-1]
     ho, wo = out_hw(h, w, k, stride, padding)
-    if x.device.type == "cpu":
-        acc = int8_conv2d_plain(quantize_activation(x, in_scale), w_q, stride, padding, groups)
+    implicit = implicit_gemm_eligible(c, n, k, stride, padding, groups)
+    if (out_scale is not None or not keep_float) and not implicit:
+        raise ValueError("only a conv on the implicit GEMM writes its consumer's int8 input")
+    if residual is not None and residual.dtype != dtype:
+        raise ValueError(f"the residual is {residual.dtype}, the conv writes {dtype}")
+    cpu = x.device.type == "cpu"
+    given = x.dtype == torch.int8
+
+    def nchw(t: torch.Tensor | None) -> torch.Tensor | None:
+        return None if t is None else t.reshape(b, ho, wo, n).permute(0, 3, 1, 2)
+
+    if implicit:
+        nhwc = x.permute(0, 2, 3, 1)
+        res = None if residual is None else residual.permute(0, 2, 3, 1).reshape(-1, n)
+        if cpu:
+            xq = nhwc if given else quantize_activation(nhwc, in_scale)
+            y, q = int8_conv_plain(xq, w_mat, n, k, stride, scale, bias, act, dtype, res,
+                                   out_scale, keep_float)
+        else:
+            xq = nhwc.contiguous()
+            if not given:
+                xq = quantize_activation_cuda(xq, in_scale)
+            y, q = int8_conv_cuda(xq, w_mat, n, k, stride, scale, bias, act, dtype,
+                                  None if res is None else res.contiguous(), out_scale,
+                                  keep_float)
+        return nchw(y), nchw(q)
+    if cpu:
+        xq = x if given else quantize_activation(x, in_scale)
+        acc = int8_conv2d_plain(xq, w_q, stride, padding, groups)
         acc = acc.permute(0, 2, 3, 1).reshape(b * ho * wo, n)
-    elif implicit_gemm_eligible(c, n, k, stride, padding, groups):
-        xq = quantize_activation_cuda(x.permute(0, 2, 3, 1).contiguous(), in_scale)
-        y = int8_conv_cuda(xq, w_mat, n, k, stride, scale, bias, act, dtype)
-        return y.reshape(b, ho, wo, n).permute(0, 3, 1, 2)
     else:
-        a = quantize_patches(x.permute(0, 2, 3, 1), in_scale, k, stride, padding,
-                             w_mat.shape[1])
+        a = quantize_patches(x.permute(0, 2, 3, 1), None if given else in_scale, k, stride,
+                             padding, w_mat.shape[1])
         acc = int8_gemm(a, w_mat)
-    y = epilogue(acc, n, scale, bias, act, dtype)
-    return y.reshape(b, ho, wo, n).permute(0, 3, 1, 2)
+    y = nchw(epilogue(acc, n, scale, bias, act, dtype))
+    return (y if residual is None else add_residual(residual, y)), None

@@ -186,9 +186,9 @@ INT8_CONV_CASES = (
 # 1): a partial last tile of rows (B = 1 at 13 x 13: M = 169) with N = 1024;
 # N = 32; C = 1024 at 3 x 3 (K = 9216); stride 2 at 3 x 3 and at 1 x 1
 # (ResNet-50's downsample); C = 32 and C = 96 (32-byte chunks of K), N = 40
-# and N = 200 (partial tiles of columns); "saturated": every value +-127,
-# two output channels reaching the largest accumulators, +-127^2 * 9216 ~
-# +-1.5e8
+# and N = 200 (partial tiles of columns); N = 8 at stride 2 on odd H and W
+# (M = 168); "saturated": every value +-127, two output channels reaching
+# the largest accumulators, +-127^2 * 9216 ~ +-1.5e8
 INT8_IMPLICIT_CASES = (
     ("m169_n1024", 1, 512, 13, 13, 1024, 3, 1, 1),
     ("n32", 2, 64, 20, 18, 32, 1, 1, 1),
@@ -197,6 +197,7 @@ INT8_IMPLICIT_CASES = (
     ("s2_1x1", 2, 256, 14, 14, 512, 1, 2, 1),
     ("c32_n40", 2, 32, 9, 7, 40, 3, 1, 1),
     ("c96_n200", 1, 96, 11, 12, 200, 3, 1, 1),
+    ("n8_s2_odd", 3, 64, 15, 13, 8, 3, 2, 1),
     ("saturated", 1, 1024, 5, 6, 64, 3, 1, 1),
 )
 
@@ -221,6 +222,31 @@ def int8_conv_case(case: tuple, extreme: bool = True) -> tuple[np.ndarray, np.nd
             sel = rng.random(a.shape) < 0.25
             a[sel] = np.where(rng.random(a.shape) < 0.5, 127, -127)[sel]
     return x, wq
+
+
+def quantize_tie_cases(seed: int = 0, n_scales: int = 24) -> tuple[np.ndarray, np.ndarray]:
+    """Activation values at and around the half-integer multiples of a
+    scale, where a quantize that rounds v / scale in any way but the IEEE
+    division's could pick the other integer: for each scale (powers of two,
+    thirds, YOLOv3-like 0.0217 and log-uniform draws in [1e-3, 10]) the
+    float32 values nearest (j + 1/2) * scale for j in [-130, 129] and 1 to
+    4 ulps either side, and the integer multiples. -> (values float32
+    [n_scales, V], scales float32 [n_scales])."""
+    rng = np.random.default_rng(seed)
+    fixed = [2.0 ** -7, 1.0 / 3.0, 0.1, 0.0217, 0.75]
+    scales = np.array(fixed + list(10.0 ** rng.uniform(-3, 1, n_scales - len(fixed))),
+                      np.float32)
+    j = np.arange(-130, 130, dtype=np.float64)
+    rows = []
+    for s in scales.astype(np.float64):
+        mids = ((j + 0.5) * s).astype(np.float32)
+        near = [mids]
+        up, down = mids, mids
+        for _ in range(4):
+            up, down = np.nextafter(up, np.float32(np.inf)), np.nextafter(down, np.float32(-np.inf))
+            near += [up, down]
+        rows.append(np.concatenate(near + [(j * s).astype(np.float32)]))
+    return np.stack(rows), scales
 
 
 def write_detection_dataset(root: str, n: int,

@@ -8,8 +8,10 @@ classification evaluator), and int8 inference (the int8 conv's card route,
 int8 patches + ``torch._int_mm``, bit-equal to its plain version on
 `testing.INT8_CONV_CASES`; the implicit-GEMM kernel ``csrc/int8_conv.cu``
 bit-equal to the plain version and byte-equal to that route on
-`testing.INT8_IMPLICIT_CASES`; a quantized Detector on the card against the
-CPU, with no float conv on a quantized layer).
+`testing.INT8_IMPLICIT_CASES`, its fused epilogue (residual add, the
+consumer's int8 input) byte-equal to the composed route; the patches line
+kernel on the stems; a quantized Detector on the card against the CPU,
+linked and unlinked, with no float conv on a quantized layer).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -1041,9 +1043,9 @@ def test_int8_conv_kernel_equals_plain_and_the_gemm_route(case):
     xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
     mat = ti.gemm_weight(w).to(dev)
     before = ti.int8_conv_cuda.launches
-    acc = ti.int8_conv_cuda(xq, mat, n, k, stride)
-    assert ti.int8_conv_cuda.launches == before + 1
-    want = ti.int8_conv_plain(xq.cpu(), mat.cpu(), n, k, stride)
+    acc, none = ti.int8_conv_cuda(xq, mat, n, k, stride)
+    assert ti.int8_conv_cuda.launches == before + 1 and none is None
+    want, _ = ti.int8_conv_plain(xq.cpu(), mat.cpu(), n, k, stride)
     assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), want)
     assert torch.equal(ti.int8_conv2d(x.to(dev), w.to(dev), stride, k // 2).cpu(),
                        ti.int8_conv2d_plain(x, w, stride, k // 2))
@@ -1055,9 +1057,51 @@ def test_int8_conv_kernel_equals_plain_and_the_gemm_route(case):
     acc10 = ti.int8_gemm(ti.quantize_patches_cuda(xq, None, k, stride, k // 2, mat.shape[1]), mat)
     for dtype in (torch.float32, torch.bfloat16):
         for act in INT8_ACTS:
-            got = ti.int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dtype)
+            got, _ = ti.int8_conv_cuda(xq, mat, n, k, stride, scale, bias, act, dtype)
             ref = ti.epilogue_cuda(acc10, n, scale, bias, act, dtype)
             assert got.dtype == dtype and torch.equal(got, ref), (dtype, act)
+
+
+@pytest.mark.parametrize("case", INT8_IMPLICIT_CASES, ids=[c[0] for c in INT8_IMPLICIT_CASES])
+def test_int8_conv_fused_epilogue_equals_the_composed_route(case):
+    """The kernel with the residual add and its consumer's quantize in its
+    epilogue, every combination (int8 only, int8 and float, each with a
+    residual and without), byte-equal to mode (a) + PyTorch's add +
+    `quantize_activation_cuda`, in both output types, and on the CPU
+    `int8_conv_plain` gives the same bytes."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    _, _, _, _, _, n, k, stride, _ = case
+    x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+    xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
+    mat = ti.gemm_weight(w).to(dev)
+    g = torch.Generator().manual_seed(n + 1)
+    scale = (torch.rand(n, generator=g) * 2e-5 + 1e-6).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        y, _ = ti.int8_conv_cuda(xq, mat, n, k, stride, scale, bias, "silu", dtype)
+        spread = float(y.float().std())
+        res = (torch.randn(y.shape, generator=g) * spread).to(dev, dtype)
+        out_scale = torch.tensor(spread / 40, device=dev)
+        total = res + y
+
+        def quantized(t):
+            return ti.quantize_activation_cuda(t.view(1, t.shape[0], 1, n), out_scale).view(t.shape)
+
+        for r, keep in ((None, False), (None, True), (res, False), (res, True)):
+            before = ti.int8_conv_cuda.launches
+            got, q = ti.int8_conv_cuda(xq, mat, n, k, stride, scale, bias, "silu", dtype, r,
+                                       out_scale, keep)
+            assert ti.int8_conv_cuda.launches == before + 1
+            want = y if r is None else total
+            assert q.dtype == torch.int8 and torch.equal(q, quantized(want)), (dtype, keep)
+            assert (got is None) if not keep else torch.equal(got, want), (dtype, keep)
+            assert int((q.abs() == 127).sum()) < q.numel() // 4  # not saturated throughout
+            p_y, p_q = ti.int8_conv_plain(xq.cpu(), mat.cpu(), n, k, stride, scale.cpu(),
+                                          bias.cpu(), "silu", dtype,
+                                          None if r is None else r.cpu(), out_scale.cpu(), keep)
+            assert torch.equal(p_q, q.cpu()) and (p_y is None) == (got is None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1082,7 +1126,8 @@ def test_int8_quantize_pass_and_quantized_conv_on_the_implicit_gemm(dtype):
     bias = torch.randn(96, generator=g).to(dev)
     before = (ti.quantize_activation_cuda.launches, ti.int8_conv_cuda.launches,
               ti.quantize_patches_cuda.launches)
-    y = ti.quantized_conv(x, s, w_q, mat, scale, bias, 2, 1, 1, "silu", dtype)
+    y, q = ti.quantized_conv(x, s, w_q, mat, scale, bias, 2, 1, 1, "silu", dtype)
+    assert q is None
     assert (ti.quantize_activation_cuda.launches, ti.int8_conv_cuda.launches,
             ti.quantize_patches_cuda.launches) == (before[0] + 1, before[1] + 1, before[2])
     acc = ti.int8_gemm(ti.quantize_patches_cuda(nhwc, s, 3, 2, 1, mat.shape[1]), mat)
@@ -1120,7 +1165,21 @@ def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take():
         ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.float16)
     with pytest.raises(ValueError, match="activation"):
         ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "gelu", torch.float32)
+    res = torch.zeros(64, 32, dtype=torch.bfloat16, device=dev)
+    s = torch.tensor(0.5, device=dev)
+    with pytest.raises(ValueError, match="mode \\(a\\)"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, residual=res)
+    with pytest.raises(ValueError, match="residual"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.float32, res)
+    with pytest.raises(ValueError, match="residual"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.bfloat16, res.cpu())
+    with pytest.raises(ValueError, match="out_scale"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.bfloat16, None, s.cpu())
+    with pytest.raises(ValueError, match="keep_float"):
+        ti.int8_conv_cuda(xq, mat, 32, 3, 1, one, one, "relu", torch.bfloat16, keep_float=False)
     assert ti.int8_conv_cuda.launches == before
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ti.quantize_patches_cuda(torch.zeros(1, 8, 8, 3, device=dev), s, 3, 1, 1, 28)
     with pytest.raises(ValueError, match="CUDA"):
         ti.quantize_activation_cuda(torch.zeros(1, 4, 4, 8), torch.tensor(1.0))
     with pytest.raises(ValueError, match="C % 8"):
@@ -1133,11 +1192,13 @@ def test_quantized_detector_on_card_equals_cpu_and_runs_int8_gemms():
     heads card vs CPU (plain int8 route) within 1e-2 of their std (the int32
     sums are exact on both; a float rounding that differs flips an int8
     step); the forward runs 35 of its 36 int8 convs on the implicit GEMM
-    (``int8_conv``) and the RGB stem on ``_int_mm``, and only the 3 float
-    pred convs; the NMS kernel still runs."""
+    (``int8_conv``), 30 of them writing their consumer's int8 input (5
+    quantize passes, Darknet's residual adds in the epilogue), and the RGB
+    stem on ``_int_mm``, and only the 3 float pred convs; the linked bf16
+    heads equal the unlinked ones; the NMS kernel still runs."""
     from torch.profiler import ProfilerActivity, profile
 
-    from fastvision_tpu_torch.infer.quantize import quant_state
+    from fastvision_tpu_torch.infer.quantize import link_int8, quant_state
     from fastvision_tpu_torch.ops import int8 as ti
 
     dev = _cuda()
@@ -1177,7 +1238,80 @@ def test_quantized_detector_on_card_equals_cpu_and_runs_int8_gemms():
     assert counts.get("aten::convolution", 0) == 3  # the float pred convs alone
     kernels = (ti.int8_conv_cuda, ti.quantize_activation_cuda, ti.quantize_patches_cuda,
                ti.epilogue_cuda)
-    before = [f.launches for f in kernels]
+    before = [f.launches for f in kernels] + [ti.add_residual.runs]
     with torch.inference_mode():
         det.model(x.to(dev))
-    assert [f.launches - b for f, b in zip(kernels, before)] == [35, 35, 1, 1]
+    # 30 convs write their consumer's int8 input: 5 quantize passes, no residual add
+    assert [f.launches - b for f, b in zip(kernels, before)] == [35, 5, 1, 1]
+    assert ti.add_residual.runs == before[-1]
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        linked = det.model(x.to(dev))
+        link_int8(det.model, enabled=False)
+        unlinked = det.model(x.to(dev))
+        link_int8(det.model)
+    assert all(torch.equal(a, b) for a, b in zip(linked, unlinked))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_quantize_kernels_round_as_the_division_at_half_integers(dtype):
+    """The kernels' quantize (csrc/int8_common.cuh: a product with the
+    reciprocal, the division near a half-integer) byte-equal to
+    `quantize_activation` on values at and around the half-integer
+    multiples of 24 scales: in the quantize pass and in `int8_conv`'s fused
+    epilogue (a 1x1 conv whose weight copies its input, scale 1, bias 0)."""
+    from fastvision_tpu_torch.ops import int8 as ti
+    from fastvision_tpu_torch.testing import quantize_tie_cases
+
+    dev = _cuda()
+    values, scales = quantize_tie_cases()
+    eye = torch.eye(32, dtype=torch.int8, device=dev)
+    one, zero = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+    for row, sc in zip(torch.from_numpy(values), torch.from_numpy(scales)):
+        s = sc.to(dev)
+        v = row.to(dev, dtype).view(1, 1, -1, 8)
+        assert torch.equal(ti.quantize_activation_cuda(v, s), ti.quantize_activation(v, s))
+        # the fused epilogue's quantize: y = the residual, the conv's own output 0
+        res = row[:row.numel() // 32 * 32].to(dev, dtype).view(-1, 32)
+        xq = torch.zeros(1, res.shape[0], 1, 32, dtype=torch.int8, device=dev)
+        _, q = ti.int8_conv_cuda(xq, eye, 32, 1, 1, one, zero, "none", dtype, res, s, False)
+        assert torch.equal(q, ti.quantize_activation(res, s))
+
+
+@pytest.mark.parametrize("name,shape,k,stride,k_pad,dtype", [
+    ("yolov3_vgg16_stem", (3, 61, 67, 3), 3, 1, 32, torch.bfloat16),
+    ("yolov3_stem_f32", (2, 45, 38, 3), 3, 1, 32, torch.float32),
+    ("resnet50_stem", (2, 59, 63, 3), 7, 2, 152, torch.bfloat16),
+    ("wide_line_tiled", (1, 5, 6001, 3), 3, 1, 32, torch.bfloat16),
+    ("c5_k_pad_past_k", (2, 17, 19, 5), 3, 2, 56, torch.float32),
+    ("c12_7x7", (1, 23, 29, 12), 7, 1, 592, torch.bfloat16),
+    ("int8_input", (2, 33, 35, 3), 3, 1, 32, torch.int8),
+    ("c100_rows_wider_than_the_block", (1, 9, 10, 100), 7, 1, 4904, torch.float32),
+    ("f32_ends_mid_chunk", (1, 5, 7, 3), 3, 1, 32, torch.float32),
+    ("bf16_ends_mid_chunk", (1, 5, 7, 3), 3, 1, 32, torch.bfloat16),
+])
+def test_patches_line_kernel_equals_plain(name, shape, k, stride, k_pad, dtype):
+    """The line kernel (the shapes the implicit GEMM refuses: an RGB stem, C
+    not a multiple of 8, K_pad past K) byte-equal to its plain version: the
+    stems of YOLOv3 / VGG16 (3 x 3) and ResNet-50 (7 x 7 stride 2, K_pad 152:
+    8-byte units), a line wider than the shared memory holds (tiles of
+    columns), rows of more units than the block has threads, odd H and W,
+    float32, bfloat16 and int8 inputs, inputs whose size is no multiple of
+    16 bytes (x's last 16-byte chunk, cut short by its end, is read element
+    by element: no load reaches past x)."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(len(name))
+    if dtype == torch.int8:
+        x, s = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev), None
+    else:
+        x = (torch.randn(shape, generator=g) * 2).to(dev, dtype)
+        s = torch.tensor(0.019, device=dev)
+    if name.endswith("ends_mid_chunk"):
+        assert x.numel() * x.element_size() % 16 and x.data_ptr() % 16 == 0
+    before = ti.quantize_patches_cuda.launches
+    got = ti.quantize_patches_cuda(x, s, k, stride, k // 2, k_pad)
+    assert ti.quantize_patches_cuda.launches == before + 1
+    want = ti.quantize_patches_plain(x, s, k, stride, k // 2, k_pad)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert int((want != 0).sum()) > want.numel() // 4

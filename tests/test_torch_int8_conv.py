@@ -123,8 +123,9 @@ def test_int8_conv_plain_equals_jax_int32_conv(case):
     `gemm_weight`'s matrix), bit-equal to the JAX package's int32 conv."""
     _, _, _, _, _, n, k, stride, _ = case
     x, w = int8_conv_case(case)
-    got = ti.int8_conv_plain(torch.from_numpy(x.transpose(0, 2, 3, 1).copy()),
-                             ti.gemm_weight(torch.from_numpy(w)), n, k, stride)
+    got, q = ti.int8_conv_plain(torch.from_numpy(x.transpose(0, 2, 3, 1).copy()),
+                                ti.gemm_weight(torch.from_numpy(w)), n, k, stride)
+    assert q is None
     want = lax.conv_general_dilated(
         jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(w.transpose(2, 3, 1, 0)),
         (stride, stride), ((k // 2, k // 2),) * 2, dimension_numbers=("NHWC", "HWIO", "NHWC"),
