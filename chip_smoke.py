@@ -244,17 +244,37 @@ exits non-zero before a result is printed:
               width; Faster R-CNN-VGG16 at 512 with an int8 backbone,
               ResNet-50 (batch 128) and ResNeXt-50 32x4d (batch 32) at 224
               against bf16 (``int8_conv`` launches counted), and a small
-              ResNeXt in float32 card vs CPU; then the run's total seconds.
+              ResNeXt in float32 card vs CPU;
+  25. export  ``torch.export`` programs (`infer.export`) of YOLOv3-416 at full
+              width (80 classes, bf16, K = 1024, BN from the phase's images)
+              at batch 8 and 32, float and after ``Detector.quantize``, of
+              ResNet-50 (224) and SlowFast-R50 (32 x 224) at batch 8, each
+              loaded in a fresh process (``run_loaded_programs``) and run
+              on the phase's images under ``deterministic_algorithms``:
+              outputs bit-equal to the eager programs' (Detections, or
+              probabilities); the float graphs hold one
+              ``fastvision::nms_suppression_mask`` node and bf16 convs, the
+              int8 ones 71 ``int8_conv``, 6 ``int8_patches`` (the 5 quantize
+              passes and the stem's patches) and 1 ``int8_epilogue`` node,
+              the classifiers none; the loaded programs' kernel launches
+              counted; export and load seconds, file bytes, node counts, and
+              the loaded and the eager programs' ms in turns (eager, loaded,
+              loaded, eager), between events over back-to-back calls and as
+              one call captured in a CUDA graph and replayed (``graph_ms``:
+              the device's time);
+  26. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
+              matmul chain's TFLOP/s; then the run's total seconds.
 
-``python3 chip_smoke.py --only i420`` (or ``--only int8``) runs the device,
-build and i420 (int8) phases alone (a quick check of this path; the full run
-takes no arguments).
+``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``)
+runs the device and build phases and the i420 (int8; doctor and export)
+phases alone (a quick check of this path; the full run takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port: the NMS kernel with its launches on every path (the classification
 and video paths counted and required at 0: they run no NMS), then the int8
 kernels (``int8_conv``, its quantize pass, the patches and epilogue
-kernels) with their launches on the int8 main path; the last line is
+kernels) with their launches on the int8 main path and the exported int8
+programs; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 at
 once.
 """
@@ -302,6 +322,15 @@ from fastvision_tpu_torch.infer import (
     preprocess_batch,
     scale_coords,
 )
+from fastvision_tpu_torch.infer.export import (
+    classifier_program,
+    detector_program,
+    export_program,
+    load_exported,
+    load_program,
+    node_count,
+    op_counts,
+)
 from fastvision_tpu_torch.infer.postprocess import reference_demo_unscale
 from fastvision_tpu_torch.infer.predictor import _Subset
 from fastvision_tpu_torch.infer.quantize import link_int8, quant_state, quantize_model
@@ -334,7 +363,7 @@ from fastvision_tpu_torch.ops import (
     roi_align,
     roi_align_mxu,
 )
-from fastvision_tpu_torch.nn.layers import Int8Conv, conv_bn_pairs
+from fastvision_tpu_torch.nn.layers import Int8Conv, conv_bn_pairs, memory_format_for
 from fastvision_tpu_torch.ops.image import (
     i420_packed_to_rgb,
     letterbox_batch,
@@ -4056,6 +4085,221 @@ def phase_int8(dev: torch.device, smi: str, workdir: str) -> dict:
                 int8_launches, acc, split[f"batch{EVAL_BATCH}"], stems)}
 
 
+EXPORT_BATCHES = (8, 32)
+EXPORT_REPS = 10
+# the graph's op names of the port's custom ops
+NMS_OP = "fastvision.nms_suppression_mask.default"
+INT8_OPS = {"int8_conv": "fastvision.int8_conv.default",
+            "patches": "fastvision.int8_patches.default",
+            "epilogue": "fastvision.int8_epilogue.default"}
+CONV_OPS = ("aten.conv2d.default", "aten.conv3d.default", "aten.convolution.default")
+# the int8 kernels' entries of the kernels line -> their launch counters' keys
+INT8_ENTRY_KEYS = {"int8_conv": "int8_conv", "int8_quantize_activation": "quantize",
+                   "int8_quantize_patches": "patches", "int8_epilogue": "epilogue"}
+
+
+def _program_kernels() -> dict:
+    return {"nms": suppression_mask_cuda, "int8_conv": int8_conv_cuda,
+            "quantize": quantize_activation_cuda, "patches": quantize_patches_cuda,
+            "epilogue": epilogue_cuda}
+
+
+def conv_dtypes(program) -> dict:
+    """Output dtype -> conv nodes of a program's graphs (its autocast
+    regions included)."""
+    out: dict = collections.Counter()
+    for gm in program.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for n in gm.graph.nodes:
+                if n.op == "call_function" and str(n.target) in CONV_OPS:
+                    out[str(n.meta["val"].dtype).replace("torch.", "")] += 1
+    return dict(out)
+
+
+def run_loaded_programs(spec_path: str) -> None:
+    """The fresh process of phase_export: for each entry of the JSON list at
+    ``spec_path`` ({path, inputs, outputs, graph}), `load_exported` the program,
+    read its graph, run it once on the saved inputs under
+    ``deterministic_algorithms`` with every kernel's launches counted, save
+    its outputs, and time it (``cuda_ms``, ``graph_ms``); prints one JSON
+    list of the results."""
+    torch.cuda.set_device(0)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    kernels = _program_kernels()
+    results = []
+    for item in spec:
+        t0 = time.perf_counter()
+        exported = load_exported(item["path"])
+        program = exported.module()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        x = torch.load(item["inputs"]).cuda()
+        before = {k: f.launches for k, f in kernels.items()}
+        with deterministic_algorithms() as found, torch.inference_mode():
+            out = program(x)
+            torch.cuda.synchronize()
+        launches = {k: f.launches - before[k] for k, f in kernels.items()}
+        torch.save({k: v.cpu() for k, v in out.items()}, item["outputs"])
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: program(x), reps=EXPORT_REPS)
+            device_ms = (graph_ms(lambda: program(x), reps=2 * EXPORT_REPS)
+                         if item["graph"] else None)
+        counts = op_counts(exported)
+        results.append({
+            "path": item["path"], "load_s": load_s, "ms": ms, "graph_ms": device_ms,
+            "launches": launches,
+            "nondeterministic_ops": found, "nodes": node_count(exported),
+            "custom_op_nodes": {k: v for k, v in counts.items() if k.startswith("fastvision.")},
+            "select_nodes": counts.get("aten.select.int", 0), "conv_dtypes": conv_dtypes(exported)})
+        del exported, program, out
+        torch.cuda.empty_cache()
+    print(json.dumps(results), flush=True)
+
+
+def load_in_fresh_process(items: list[dict], workdir: str) -> list[dict]:
+    """`run_loaded_programs` in a new Python process on the card."""
+    spec = os.path.join(workdir, "programs.json")
+    with open(spec, "w") as f:
+        json.dump(items, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.run_loaded_programs({spec!r})"],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"the fresh process that loads the programs failed "
+                                f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_export(dev: torch.device, smi: str, workdir: str) -> dict:
+    """The export path: YOLOv3-416 (full width, 80 classes, bf16, K = 1024,
+    BN from 8 of the phase's images) through `detector_program` at batch 8
+    and 32, float and after ``Detector.quantize`` on 8 images, ResNet-50 at
+    224 and SlowFast-R50 at 32 x 224 through `classifier_program` at batch 8,
+    each exported to a ``.pt2``, loaded and run in a fresh process; eager and
+    loaded outputs compared bit for bit, both under ``deterministic_algorithms``."""
+    t_phase = time.perf_counter()
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = yolo_model(SEED + 60).to(dev)
+    batch, _ = preprocess_batch(images(SEED + 60, INT8_CALIB), INPUT_SIZE)
+    calibrate_bn_(model, normalize_images(torch.from_numpy(batch), torch.float32).to(dev))
+    det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=max(EXPORT_BATCHES))
+    u8 = torch.from_numpy(preprocess_batch(images(SEED + 61, max(EXPORT_BATCHES)),
+                                           INPUT_SIZE)[0]).to(dev)
+    programs: list[dict] = []  # path, inputs, outputs, and the eager side's numbers
+
+    def export(tag: str, fn, eager, x: torch.Tensor, graph: bool = True) -> None:
+        path = os.path.join(workdir, f"{tag}.pt2")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_program(fn, [torch.zeros_like(x)], path)
+        export_s = time.perf_counter() - t0
+        with deterministic_algorithms() as found, torch.inference_mode():
+            want = {k: v.cpu() for k, v in eager(x).items()}
+        inputs = os.path.join(workdir, f"{tag}_inputs.pt")
+        torch.save(x.cpu(), inputs)
+        # eager and the loaded program in turns (eager, loaded, loaded, eager):
+        # ms between events over back-to-back calls, and with ``graph`` one
+        # call captured as a CUDA graph and replayed (the device's time, no
+        # host cost; the eager classifiers copy the ImageNet mean and std to
+        # the card each call, which a capture refuses)
+        loaded = load_program(path)
+        timing: dict = collections.defaultdict(list)
+        with torch.inference_mode():
+            for who, f in (("eager", eager), ("loaded", loaded), ("loaded", loaded),
+                           ("eager", eager)):
+                timing[f"{who}_ms"].append(cuda_ms(lambda: f(x), reps=EXPORT_REPS))
+                if graph:
+                    timing[f"{who}_graph_ms"].append(graph_ms(lambda: f(x),
+                                                              reps=2 * EXPORT_REPS))
+        del loaded
+        programs.append({"tag": tag, "path": path, "inputs": inputs, "graph": graph,
+                         "outputs": os.path.join(workdir, f"{tag}_outputs.pt"), "want": want,
+                         "export_s": export_s, "bytes": os.path.getsize(path),
+                         "in_turns": dict(timing), "eager_nondeterministic_ops": found})
+
+    def det_eager(x):
+        return det.infer(x)._asdict()
+
+    for bs in EXPORT_BATCHES:
+        export(f"yolov3_float_b{bs}", detector_program(det), det_eager, u8[:bs])
+    t0 = time.perf_counter()
+    det.quantize(images(SEED + 50, INT8_CALIB))
+    quantize_s = time.perf_counter() - t0
+    for bs in EXPORT_BATCHES:
+        export(f"yolov3_int8_b{bs}", detector_program(det), det_eager, u8[:bs])
+    del det, model
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(SEED + 62)
+    for tag, build, shape in (
+            ("resnet50_b8", lambda: resnet50(num_classes=CLS_CLASSES, generator=torch.Generator(
+                ).manual_seed(SEED)), (8, CLS_SIZE, CLS_SIZE, 3)),
+            ("slowfast_r50_b8", lambda: slowfast_resnet50(
+                num_classes=VID_CLASSES, generator=torch.Generator().manual_seed(SEED)),
+             (VID_BATCH, VID_T, VID_SIZE, VID_SIZE, 3))):
+        net = build()
+        net = net.to(dev, memory_format=memory_format_for(net)).eval()
+        fn = classifier_program(net, torch.bfloat16)
+        export(tag, fn, fn, torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(dev),
+               graph=False)
+        del net, fn
+        torch.cuda.empty_cache()
+
+    loaded = load_in_fresh_process(
+        [{k: p[k] for k in ("path", "inputs", "outputs", "graph")} for p in programs], workdir)
+    rows, launches = {}, {}
+    int8_launches: dict = {key: {} for key in INT8_ENTRY_KEYS.values()}
+    for p, r in zip(programs, loaded):
+        got = torch.load(p["outputs"])
+        differing = {k: int((got[k] != v).sum()) for k, v in p["want"].items()}
+        tag = p["tag"]
+        rows[tag] = {**{k: v for k, v in p.items() if k not in ("want", "path", "inputs",
+                                                                  "outputs", "graph")},
+                     **{k: v for k, v in r.items() if k != "path"}, "differing": differing}
+        check(sorted(got) == sorted(p["want"]) and sum(differing.values()) == 0,
+              f"{tag}: the loaded program differs from eager: {differing}")
+        nodes = r["custom_op_nodes"]
+        if tag.startswith("yolov3"):
+            int8 = "int8" in tag
+            want_nodes = {NMS_OP: 1, **({INT8_OPS["int8_conv"]: 71, INT8_OPS["patches"]: 6,
+                                         INT8_OPS["epilogue"]: 1} if int8 else {})}
+            want_launches = {"nms": 1, "int8_conv": 71 if int8 else 0,
+                             "quantize": INT8_QUANTIZE_PASSES if int8 else 0,
+                             "patches": int(int8), "epilogue": int(int8)}
+            launches[f"export_{tag}"] = r["launches"]["nms"]
+            if int8:
+                for key, by_path in int8_launches.items():
+                    by_path[f"export_{tag}"] = r["launches"][key]
+            else:
+                check(set(r["conv_dtypes"]) == {"bfloat16"},
+                      f"{tag}: the program's convs are {r['conv_dtypes']}, not bf16")
+        else:
+            want_nodes, want_launches = {}, {k: 0 for k in r["launches"]}
+            launches[f"export_{tag}"] = r["launches"]["nms"]
+        check(nodes == want_nodes, f"{tag}: custom-op nodes {nodes}, want {want_nodes}")
+        check(r["launches"] == want_launches,
+              f"{tag}: the loaded program launched {r['launches']}, want {want_launches}")
+        check(r["select_nodes"] < 100, f"{tag}: {r['select_nodes']} select nodes: an unrolled "
+                                       "loop in the graph")
+    emit("export", card=smi, model="YOLOv3 Darknet-53 (80 classes, 416, bf16, random weights "
+         "seed 60, BN from 8 of the phase's images; int8: Detector.quantize on 8), ResNet-50 "
+         "(1000 classes, 224, bf16), SlowFast-R50 (400 classes, 32 x 224, bf16)",
+         quantize_s=quantize_s, programs=rows, phase_seconds=time.perf_counter() - t_phase)
+    zero = [p for p in launches if not p.startswith("export_yolov3")]
+    return {"launches": launches, "zero": zero, "int8_launches": int8_launches}
+
+
+def phase_doctor() -> dict:
+    """``cli.main(["doctor"])`` on the card: its report."""
+    from fastvision_tpu_torch import cli
+
+    report = cli.main(["doctor"])
+    check(report["cuda_devices"] and report["matmul_tflops_bf16"] > 0,
+          f"doctor: {report}")
+    emit("doctor", **report)
+    return report
+
+
 def int8_kernel_entries(launches: dict, held: dict, split: dict, stems: dict) -> list:
     """The int8 path's kernels as the smoke's last-but-one line lists them:
     launches on the main path (one int8 predict_batch), the error against
@@ -4124,6 +4368,44 @@ def main_only_int8(dev: torch.device, device: dict, t_start: float) -> int:
     return 0
 
 
+def with_export_launches(entries: list, export: dict) -> list:
+    """The int8 kernels' entries with the exported int8 programs' launches
+    added: ``launches`` over both, ``launches_by_path`` each."""
+    out = []
+    for e in entries:
+        key = INT8_ENTRY_KEYS[e["name"]]
+        by_path = {"int8_detector_predict_batch": e["launches"], **export["int8_launches"][key]}
+        out.append({**e, "launches": sum(by_path.values()), "launches_by_path": by_path})
+    return out
+
+
+def main_only_export(dev: torch.device, device: dict, t_start: float) -> int:
+    phase_doctor()
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        export = phase_export(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    check(all(export["launches"][p] == 0 for p in export["zero"]),
+          f"a classifier program launched nms: {export['launches']}")
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(export["launches"].values()), "launches_by_path": export["launches"],
+        "paths_expected_at_zero": export["zero"]}, *[{
+            "name": name, "route": "cuda",
+            "source": f"fastvision_tpu_torch/csrc/{'int8_conv' if key == 'int8_conv' else 'int8'}.cu",
+            "launches": sum(export["int8_launches"][key].values()),
+            "launches_by_path": export["int8_launches"][key]}
+            for name, key in INT8_ENTRY_KEYS.items()]]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def main_only_i420(dev: torch.device, device: dict, t_start: float) -> int:
     workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
     try:
@@ -4161,6 +4443,8 @@ def main() -> int:
         return main_only_i420(dev, device, t_start)
     if sys.argv[1:] == ["--only", "int8"]:
         return main_only_int8(dev, device, t_start)
+    if sys.argv[1:] == ["--only", "export"]:
+        return main_only_export(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -4202,6 +4486,10 @@ def main() -> int:
         i420 = phase_i420(dev, device["smi"], workdir)
         torch.cuda.empty_cache()
         int8 = phase_int8(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
+        export = phase_export(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
+        phase_doctor()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
@@ -4214,10 +4502,11 @@ def main() -> int:
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
                **evaluate["launches"], **serve["launches"], **cli_run["launches"],
-               **i420["launches"], **int8["launches"]}
+               **i420["launches"], **int8["launches"], **export["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
-    zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"]])
+    zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"],
+                         *export["zero"]])
     check(all(by_path[p] == 0 for p in zero_paths),
           f"classification or video launched nms: {by_path}")
     print(device["smi"], flush=True)
@@ -4234,7 +4523,7 @@ def main() -> int:
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
                                             "bound_by")} for tag, r in regimes.items()},
-    }, *int8["kernels"]]}), flush=True)
+    }, *with_export_launches(int8["kernels"], export)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
     return 0

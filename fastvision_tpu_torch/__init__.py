@@ -5,19 +5,16 @@ file layout so each module has an obvious counterpart, and imports neither
 JAX nor anything of the JAX package. Entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 
-Ported so far: the YOLOv3 `Detector` inference chain (letterbox ->
-normalize -> Darknet-53 + YOLOv3 neck/head -> decode -> class-offset greedy
-NMS -> unscale) and the YOLOv3 training path (`train.Fit` over
-`data.DetectionLoader` with `train.YOLOv3Loss`, SGD / Adam, schedules, EMA
-and `train.detection_evaluator`), and Faster R-CNN (VGG16 + RPN + RoI-align
-head, `models.FasterRCNN`) for evaluation and training through `Fit`
-(`train.make_frcnn_train_step`, `train.make_frcnn_eval_step`); checkpoints
-and resume (`core.CheckpointManager`, `Fit(ckpt_dir=..., resume=True)`),
-the config (`core.config`), `infer.Detector.evaluate` / `evaluate_sweep`,
-and the ``python -m fastvision_tpu_torch train|eval|infer`` command line
-(`cli`). Greedy NMS suppression runs as a hand-written CUDA kernel
-(`csrc/nms.cu`) on CUDA tensors and as its plain PyTorch version on CPU
-tensors.
+Ported: the YOLOv3 and Faster R-CNN detectors, the classification and
+video zoos, the data pipeline and its worker pools, the losses, `train.Fit`
+with checkpoints and resume, `infer.Detector` (its input paths, evaluation
+and int8 quantization), serving, program export (`infer.export`: a
+``torch.export`` program with its weights), the host tools (anchors,
+converters, plots, telemetry), and every subcommand of the command line
+(`cli`). The hand-written CUDA kernels (``csrc/``: greedy NMS, the int8
+conv, patches and epilogue) run on CUDA tensors, as ``fastvision::``
+custom ops, and their plain PyTorch versions on CPU tensors. Parallelism
+(meshes, FSDP, multi-host) is not ported yet.
 """
 
 __version__ = "0.1.0"

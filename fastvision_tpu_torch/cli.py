@@ -1,7 +1,7 @@
-"""CLI of the port: train / eval / infer / serve for YOLOv3 and Faster
-R-CNN, train-cls / eval --task cls for the classification zoo and
-train-video / eval --task video for the video zoo (port of
-fastvision_tpu/cli.py).
+"""CLI of the port: train / eval / infer / serve / export for YOLOv3 and
+Faster R-CNN, train-cls / eval --task cls for the classification zoo and
+train-video / eval --task video for the video zoo, and the host tools
+convert / anchors / generate / doctor (port of fastvision_tpu/cli.py).
 
     python -m fastvision_tpu_torch train --config cfg.yaml
     python -m fastvision_tpu_torch train --config cfg.yaml --resume
@@ -18,6 +18,12 @@ fastvision_tpu/cli.py).
     python -m fastvision_tpu_torch eval --task video --ckpt ckpts/ data.eval_clips=4 ...
     python -m fastvision_tpu_torch serve --config cfg.yaml --ckpt ckpts/ --port 8080
     python -m fastvision_tpu_torch serve --config cfg.yaml --ckpt ckpts/ --int8 --calib-dir imgs/
+    python -m fastvision_tpu_torch export --config cfg.yaml --ckpt ckpts/ --out det.pt2 [--int8]
+    python -m fastvision_tpu_torch export --task cls --ckpt ckpts/ --out cls.pt2 model.backbone=...
+    python -m fastvision_tpu_torch convert --kind coco --ann ann.json --images imgs/ --out data/
+    python -m fastvision_tpu_torch anchors --config cfg.yaml -k 9 [--plot anchors.png]
+    python -m fastvision_tpu_torch generate --out project/
+    python -m fastvision_tpu_torch doctor
 
 Config = dataclass tree <- YAML <- dotted overrides (`core.config`); dataset
 descriptors use the reference's flat YAML schema. Every command runs on
@@ -46,8 +52,17 @@ card (train and eval loaders, the detector of ``eval`` / ``infer`` /
 ``eval --int8`` and ``serve --int8`` run the detector in int8
 (`Detector.quantize`, calibrated on the first 8 val images, or on the first
 8 image files of ``--calib-dir`` for ``serve``); ``eval --task cls|video``
-refuses ``--int8``, which the JAX package ignores there. Subcommands and
-flags the port does not have yet exit naming their ROADMAP item.
+refuses ``--int8``, which the JAX package ignores there. ``export`` writes a
+``torch.export`` program with its weights (`infer.export`: ``--stablehlo``
+or an ``--out`` ending in ``.pt2`` or ``.stablehlo``, the JAX package's
+StableHLO artifact's counterpart): the detector's normalize + forward +
+decode + NMS on uint8 NHWC (``--int8``: quantized first, as ``eval --int8``),
+or with ``--task cls|video`` a zoo model's normalize + forward + softmax;
+a SavedModel or ``--tflite`` (jax2tf and TensorFlow in the JAX package)
+exits naming why. ``doctor`` reports the CUDA card, nvcc, the kernels'
+builds and a bf16 matmul rate, and exits non-zero without a card. What the
+port does not have yet (``infer`` on a video, the mesh options) exits
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -62,11 +77,6 @@ import torch
 # below the batch size, so that a lone request runs a batch of 1
 SERVE_PRESET = ("nms.multi_label=true", "nms.conf_thres=0.001", "nms.iou_thres=0.6")
 SERVE_BUCKETS = (1, 2, 4)
-
-# ROADMAP Queue 1 items of the JAX package's subcommands that are not ported
-_NOT_PORTED_COMMANDS = {"convert": 11,
-                        "anchors": 2, "export": 16, "generate": 10, "doctor": 10}
-
 
 def _exit_not_ported(what: str, item: int) -> SystemExit:
     return SystemExit(f"fastvision_tpu_torch: {what} is not ported yet "
@@ -607,6 +617,257 @@ def cmd_serve(args, overrides):
     serve(VisionService(det), host=args.host, port=args.port, batch_window_ms=window)
 
 
+def cmd_convert(args, overrides):
+    """COCO JSON or a VOC devkit -> the fastvision layout (`data.converters`).
+    -> the number of images converted."""
+    from .data.converters import coco_to_fastvision, voc_to_fastvision
+
+    if args.kind == "coco":
+        n = coco_to_fastvision(args.ann, args.images, args.out, split=args.split)
+    else:
+        n = voc_to_fastvision(args.voc_root, args.out, image_set=args.split)
+    print(f"converted {n} images -> {args.out}")
+    return n
+
+
+def cmd_anchors(args, overrides):
+    """k-means anchors over the train split's boxes (`ops.anchors`), with
+    ``--plot`` the (w, h) scatter by cluster. -> anchors [k, 2]."""
+    cfg = _load_config(args, overrides)
+    from .data import DetectionDataset
+    from .ops.anchors import AnchorGenerator, kmeans_anchors
+
+    ds = DetectionDataset(cfg.data.data_root, cfg.data.train_dir)
+    gen = AnchorGenerator(datasets=[ds], k=args.k, cache_dir=args.cache_dir, init=args.init)
+    if args.plot:
+        from .core.plots import plot_anchors
+
+        wh = gen._scan_wh()
+        anchors, assign = kmeans_anchors(wh, k=args.k, init=args.init)
+        print(f"anchor plot -> {plot_anchors(wh, anchors, assign, args.plot)}")
+    else:
+        anchors = gen.get_anchors()
+    print("anchors (w, h), area-ascending:")
+    for w, h in anchors:
+        print(f"  {w:.1f} {h:.1f}")
+    return anchors
+
+
+def _export_classifier(cfg, args) -> str:
+    """``export --task cls|video``: a zoo model's program (uint8 images or
+    clips -> {"probs"}, `infer.export.classifier_program`), weights from
+    ``--ckpt`` where given, else seeded by ``train.seed``."""
+    from .core.checkpoint import restore_inference_weights
+    from .device import resolve_device
+    from .infer.export import classifier_program, export_program
+    from .nn.layers import memory_format_for
+
+    model = _build_zoo_model(cfg, args.task)
+    if args.ckpt:
+        restore_inference_weights(args.ckpt, model)
+    dev = resolve_device(args.device)
+    model = model.to(dev, memory_format=memory_format_for(model)).eval()
+    s = cfg.data.input_size
+    shape = ((args.batch, cfg.data.num_frames, s, s, 3) if args.task == "video"
+             else (args.batch, s, s, 3))
+    example = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    path = export_program(classifier_program(model, _dtype(cfg)), [example], args.out)
+    print(f"torch.export program ({cfg.model.backbone}, {'x'.join(map(str, shape))} uint8 in, "
+          f"probs [B,{cfg.model.num_classes}] out) -> {path}")
+    return path
+
+
+def cmd_export(args, overrides):
+    """Export the detector's program (normalize + forward + decode + NMS;
+    ``--int8``: quantized on the first 8 val images first) or, with
+    ``--task cls|video``, a zoo model's, as a ``torch.export`` program with
+    its weights (`infer.export.export_program`). -> the file written."""
+    tflite = args.tflite or args.out.endswith(".tflite")
+    program = args.stablehlo or args.out.endswith((".pt2", ".stablehlo"))
+    if tflite and program:
+        raise SystemExit("export: --tflite and --stablehlo (or conflicting --out suffixes) are "
+                         "mutually exclusive — pick one format")
+    if tflite:
+        raise SystemExit("export --tflite: the JAX package writes TFLite through jax2tf and "
+                         "TensorFlow's converter; the port has no route from PyTorch to it — "
+                         "pass --stablehlo (or an --out ending in .pt2) for a torch.export "
+                         "program")
+    if not program:
+        raise SystemExit(f"export --out {args.out}: the JAX package writes a SavedModel through "
+                         "jax2tf and TensorFlow; the port has no route from PyTorch to it — pass "
+                         "--stablehlo (or an --out ending in .pt2) for a torch.export program")
+    if args.task != "detect" and args.int8:
+        raise SystemExit("export --int8 is detector-only (w8a8 ConvBN path)")
+    cfg = _load_config(args, overrides)
+    if args.task != "detect":
+        return _export_classifier(cfg, args)
+    from .infer.export import detector_program, export_program
+
+    det = _detector_from_cfg(cfg, args.ckpt, args.device)
+    if args.int8:
+        from .data import DetectionDataset
+
+        _quantize_detector(det, DetectionDataset(cfg.data.data_root, cfg.data.val_dir))
+    s = cfg.data.input_size
+    example = torch.zeros((args.batch, s, s, 3), dtype=torch.uint8, device=det.device)
+    path = export_program(detector_program(det), [example], args.out)
+    print(f"torch.export program (batch {args.batch}, {s}px, uint8 NHWC in, "
+          f"boxes/scores/classes/valid out{', int8' if args.int8 else ''}) -> {path}")
+    return path
+
+
+_GENERATED_TRAIN = """\
+\"\"\"Training entry for this project; edit freely. The CLI equivalent is
+`python -m fastvision_tpu_torch train --config cfg.yaml`.\"\"\"
+import sys
+
+from fastvision_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    main(["train", "--config", "cfg.yaml", *sys.argv[1:]])
+"""
+
+_GENERATED_README = """\
+# {name}: a fastvision_tpu_torch project
+
+1. Put your dataset at `data.data_root` from `cfg.yaml`
+   (`<root>/{{train,val}}/images/*.jpg` + `labels/*.txt`,
+   one `cls xmin ymin xmax ymax` pixel-coord line per object), or build it:
+
+       python -m fastvision_tpu_torch convert --kind coco --ann ann.json \\
+           --images imgs/ --out data/ --split train
+
+2. Edit `cfg.yaml` (every field is the framework default; any key can
+   also be overridden on the command line as `section.key=value`).
+
+3. Run:
+
+       python train.py                    # or: python -m fastvision_tpu_torch train --config cfg.yaml
+       python -m fastvision_tpu_torch anchors --config cfg.yaml -k 9
+       python -m fastvision_tpu_torch eval   --config cfg.yaml --ckpt checkpoints/
+       python -m fastvision_tpu_torch infer  --config cfg.yaml --ckpt checkpoints/ --source img/
+       python -m fastvision_tpu_torch serve  --config cfg.yaml --ckpt checkpoints/ --port 8080
+       python -m fastvision_tpu_torch export --config cfg.yaml --ckpt checkpoints/ --out det.pt2
+"""
+
+
+def cmd_generate(args, overrides):
+    """Scaffold a project directory: ``cfg.yaml`` (the whole defaulted
+    config, with ``model.name`` and the overrides), ``train.py`` calling
+    this CLI, a README. Needs PyYAML. -> the directory."""
+    import yaml
+
+    from .core.config import Config, apply_overrides, to_dict
+
+    cfg = apply_overrides(Config(), [f"model.name={args.model}", *overrides])
+    out = args.out
+    os.makedirs(out, exist_ok=True)
+    cfg_path = os.path.join(out, "cfg.yaml")
+    if os.path.exists(cfg_path) and not args.force:
+        raise SystemExit(f"{cfg_path} exists — pass --force to overwrite")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(to_dict(cfg), f, sort_keys=False)
+    with open(os.path.join(out, "train.py"), "w") as f:
+        f.write(_GENERATED_TRAIN)
+    with open(os.path.join(out, "README.md"), "w") as f:
+        f.write(_GENERATED_README.format(name=os.path.basename(os.path.abspath(out))))
+    print(f"project scaffold -> {out}/ (cfg.yaml, train.py, README.md)")
+    return out
+
+
+def _ptxas_summary(log: str) -> dict:
+    """A ``-Xptxas -v`` report -> the kernels' count, their largest register
+    count and spill stores."""
+    import re
+
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "max_spill_store_bytes": max(spills, default=0)}
+
+
+def cmd_doctor(args, overrides):
+    """Environment triage of a host for the port: Python and PyTorch, the
+    optional packages (cv2, PyYAML, matplotlib), the loaders' start method,
+    the CUDA devices (name and power limit from nvidia-smi), nvcc, every
+    ``csrc`` library built through `cuda_build` (seconds, ptxas registers
+    and spills), and the bf16 rate of a chain of 4096^3 matmuls. One line a
+    check, then one JSON line. Exits non-zero without a CUDA card or nvcc.
+    -> the report."""
+    import importlib.util
+    import json
+    import platform
+    import shutil
+    import subprocess
+    import time
+
+    from . import cuda_build
+    from .core.config import Config
+    from .data.pipeline import parse_worker_backend
+
+    report: dict = {}
+
+    def line(key, value, hint=""):
+        report[key] = value
+        print(f"[doctor] {key:<22} {value}" + (f"   ({hint})" if hint else ""))
+
+    line("python", platform.python_version())
+    line("cores", os.cpu_count())
+    line("torch", torch.__version__, f"CUDA {torch.version.cuda}")
+    for mod in ("cv2", "yaml", "matplotlib"):
+        line(f"has_{mod}", importlib.util.find_spec(mod) is not None)
+    backend = Config().data.worker_backend
+    line("worker_start_method", parse_worker_backend(backend)[1],
+         f"data.worker_backend={backend!r}; 'process:spawn' or 'process:forkserver' to change")
+
+    def fail(why: str):
+        print(json.dumps(report))
+        raise SystemExit(f"doctor: {why}")
+
+    if not torch.cuda.is_available():
+        line("cuda_devices", 0)
+        fail("no CUDA card is visible (torch.cuda.is_available() is False); the port's entry "
+             "points need one (or --device cpu)")
+    line("cuda_devices", [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())])
+    smi = shutil.which("nvidia-smi")
+    line("nvidia_smi", subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+        text=True, check=False).stdout.strip().splitlines() if smi else "not found",
+        "name, power limit")
+    try:
+        nvcc = cuda_build.nvcc()
+    except RuntimeError as e:
+        line("nvcc", "not found")
+        fail(str(e))
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=False)
+    line("nvcc", nvcc, version.stdout.strip().splitlines()[-1] if version.stdout else "")
+    t0 = time.perf_counter()
+    builds = cuda_build.build_all()
+    for b in builds:
+        line(f"build_{b.name}", {"seconds": round(b.seconds, 2), **_ptxas_summary(b.log)}
+             if b.seconds else "reused from _build/", b.source)
+    line("build_all_s", round(time.perf_counter() - t0, 2), "every csrc source, at once")
+
+    iters, n = 128, 4096
+    dev = torch.device("cuda", torch.cuda.current_device())
+    a = torch.full((n, n), 0.5, dtype=torch.bfloat16, device=dev)
+
+    def chain(x):
+        for _ in range(iters):  # rescaled each round: data-dependent, finite in bf16
+            x = (x @ x) * 1e-4
+        return x
+
+    chain(a)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    chain(a)
+    torch.cuda.synchronize(dev)
+    line("matmul_tflops_bf16", round(iters * 2 * n ** 3 / (time.perf_counter() - t0) / 1e12, 1),
+         "H100 SXM dense bf16 peak 989 at 700 W (NVIDIA data sheet)")
+    print(json.dumps(report))
+    return report
+
+
 def make_parser() -> argparse.ArgumentParser:
     """The JAX package's CLI surface, every subcommand and flag, plus
     ``--device``; unknown key=value arguments are dotted config overrides."""
@@ -672,7 +933,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "(default: the val split)")
     p.add_argument("--fast-decode", action="store_true",
                    help="reduced JPEG decode for >=2x oversized images")
-    sub.add_parser("doctor", help="environment triage (not ported)")
+    sub.add_parser("doctor", help="environment triage: the CUDA card, nvcc, the kernels' "
+                                  "builds, a bf16 matmul rate")
     p = sub.add_parser("convert")
     p.add_argument("--kind", choices=["coco", "voc"], required=True)
     p.add_argument("--ann", default="")
@@ -690,10 +952,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--task", choices=["detect", "cls", "video"], default="detect")
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--tflite", action="store_true")
-    p.add_argument("--stablehlo", action="store_true")
-    p = sub.add_parser("generate", help="scaffold a new project dir (not ported)")
+    p.add_argument("--int8", action="store_true",
+                   help="quantize the detector first (int8 w8a8, calibrated on the first 8 "
+                        "val images)")
+    p.add_argument("--tflite", action="store_true",
+                   help="a TFLite flatbuffer: not available in the port (jax2tf / TensorFlow)")
+    p.add_argument("--stablehlo", action="store_true",
+                   help="write a torch.export program with its weights (.pt2; load with "
+                        "infer.load_program); also taken from an --out ending in .pt2 or "
+                        ".stablehlo")
+    p = sub.add_parser("generate", help="scaffold a new project dir (cfg.yaml + train.py + "
+                                        "README)")
     p.add_argument("--out", required=True)
     p.add_argument("--model", default="yolov3", choices=["yolov3", "faster_rcnn"])
     p.add_argument("--force", action="store_true")
@@ -705,10 +974,10 @@ def main(argv=None):
     parser = make_parser()
     args, overrides = parser.parse_known_args(argv)
     overrides = [o for o in overrides if "=" in o]
-    if args.cmd in _NOT_PORTED_COMMANDS:
-        raise _exit_not_ported(f"the {args.cmd!r} subcommand", _NOT_PORTED_COMMANDS[args.cmd])
     return {"train": cmd_train, "train-cls": cmd_train_cls, "train-video": cmd_train_video,
-            "eval": cmd_eval, "infer": cmd_infer, "serve": cmd_serve}[args.cmd](args, overrides)
+            "eval": cmd_eval, "infer": cmd_infer, "serve": cmd_serve, "convert": cmd_convert,
+            "anchors": cmd_anchors, "export": cmd_export, "generate": cmd_generate,
+            "doctor": cmd_doctor}[args.cmd](args, overrides)
 
 
 if __name__ == "__main__":

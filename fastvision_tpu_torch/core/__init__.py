@@ -1,4 +1,4 @@
-"""Core utilities of the port: config, seeding, checkpoints, metric logging."""
+"""Core utilities of the port: config, seeding, checkpoints, telemetry."""
 from .checkpoint import (
     CheckpointManager,
     load_torch_state,
@@ -18,11 +18,11 @@ from .config import (
     update_dataclass,
 )
 from .rng import set_random_seeds, step_seed
-from .telemetry import MetricLogger
+from .telemetry import MetricLogger, StepTimer, flops_of, trace
 
 __all__ = [
     "CheckpointManager", "load_torch_state", "partial_load", "restore_inference_weights",
     "trainable_mask", "Config", "DataConfig", "ModelConfig", "NMSConfig", "TrainConfig",
     "apply_overrides", "from_yaml", "to_dict", "update_dataclass", "set_random_seeds", "step_seed",
-    "MetricLogger",
+    "MetricLogger", "StepTimer", "flops_of", "trace",
 ]

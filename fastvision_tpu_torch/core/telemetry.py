@@ -1,15 +1,25 @@
-"""Structured metric logging (port of fastvision_tpu/core/telemetry.py's
-``MetricLogger``): one JSON line per record in ``<log_dir>/<name>.jsonl``
-and a ``[fastvision]`` line on stdout.
+"""Telemetry (port of fastvision_tpu/core/telemetry.py):
 
-Not ported yet: ``StepTimer``, ``trace`` and the MFU helpers.
+  - `MetricLogger`: one JSON line per record in ``<log_dir>/<name>.jsonl``
+    and a ``[fastvision]`` line on stdout;
+  - `StepTimer`: wall-clock time per step, warm-up steps skipped, waiting
+    for the step's CUDA work where the JAX package blocks on its result;
+  - `trace`: a ``torch.profiler`` region written as a Chrome trace;
+  - `flops_of`: the floating-point operations of one call, counted by
+    ``torch.utils.flop_counter.FlopCounterMode`` from the operators' shapes.
+
+The JAX package's TPU peak rates have no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import tempfile
 import time
-from typing import Any
+from typing import Any, Callable
+
+import torch
 
 
 class MetricLogger:
@@ -43,3 +53,73 @@ class MetricLogger:
     def close(self):
         if self._fh:
             self._fh.close()
+
+
+def _synchronize(result: Any) -> None:
+    """Wait for the CUDA devices that hold a tensor of ``result`` (a tensor
+    or a nest of them)."""
+    devices = {t.device for t in torch.utils._pytree.tree_leaves(result)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+class StepTimer:
+    """Per-step timing: `start`, then `tick(result)` once a step; `mean`
+    over the steps after the first ``warmup``."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self.count = 0
+        self.total = 0.0
+        self._last = None
+
+    def start(self) -> None:
+        self._last = time.perf_counter()
+
+    def tick(self, result: Any = None) -> float:
+        """End a step: wait for ``result``'s CUDA work (where it holds CUDA
+        tensors), then -> the seconds since the last tick (or `start`)."""
+        if result is not None:
+            _synchronize(result)
+        now = time.perf_counter()
+        dt = now - (self._last if self._last is not None else now)
+        self._last = now
+        self.count += 1
+        if self.count > self.warmup:
+            self.total += dt
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return self.total / max(self.count - self.warmup, 1)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profile the region (the CPU, and the CUDA devices where there is a
+    card) and write ``<log_dir>/trace.json``, a Chrome trace (default
+    directory: ``fastvision_trace`` in the temporary directory). Yields
+    ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "fastvision_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def flops_of(fn: Callable, *args) -> float | None:
+    """Floating-point operations of ``fn(*args)`` (one call, run here), as
+    ``FlopCounterMode`` counts them from the operators' shapes (a conv or
+    a matmul: 2 per multiply-add); None where it counts none."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    total = counter.get_total_flops()
+    return float(total) if total else None

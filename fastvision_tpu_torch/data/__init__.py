@@ -21,6 +21,13 @@ from .dataset import (
     read_label_file,
     write_bmp,
 )
+from .class_names import categories_for, make_descriptor
+from .converters import (
+    coco_80_to_91_ids,
+    coco_90_to_80_map,
+    coco_to_fastvision,
+    voc_to_fastvision,
+)
 from .mosaic import mosaic4
 from .decode_pool import DecodePool
 from .video_dataset import VideoClipLoader, VideoFolderDataset
@@ -40,4 +47,6 @@ __all__ = [
     "write_bmp", "mosaic4", "DecodePool", "ClassificationLoader", "DetectionLoader",
     "normalize_images", "parse_worker_backend", "prefetch_to_device", "VideoClipLoader",
     "VideoFolderDataset", "load_clip", "sample_clip_from_array", "sample_indices",
+    "categories_for", "make_descriptor", "coco_80_to_91_ids", "coco_90_to_80_map",
+    "coco_to_fastvision", "voc_to_fastvision",
 ]

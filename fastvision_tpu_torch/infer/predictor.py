@@ -56,6 +56,7 @@ import torch
 from torch import nn
 
 from ..data.augment import Augmentation, HorizontalFlip
+from ..data.converters import coco_80_to_91_ids
 from ..data.dataset import IMG_EXTS, imread_rgb, imread_rgb_scaled, resize_bilinear
 from ..data.pipeline import DetectionLoader, normalize_images, prefetch_to_device
 from ..device import resolve_device
@@ -78,13 +79,6 @@ REFERENCE_SWEEP = [
     (0.25, 0.65), (0.25, 0.45), (0.25, 0.35), (0.25, 0.25), (0.25, 0.15),
     (0.35, 0.25), (0.45, 0.25), (0.55, 0.25), (0.65, 0.25),
 ]
-
-
-def coco_80_to_91_ids() -> list[int]:
-    """The 80 contiguous class indices -> COCO annotation category ids
-    (1..90 with gaps), as the official evaluator expects them."""
-    missing = {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}
-    return [cid for cid in range(1, 91) if cid not in missing]
 
 
 def detections_to_coco(image_id, boxes, scores, classes, coco_ids: bool = False) -> list[dict]:

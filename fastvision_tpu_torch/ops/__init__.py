@@ -1,7 +1,7 @@
 """Box geometry, IoU, NMS, mAP and accuracy on torch tensors (port of
 fastvision_tpu.ops)."""
 from .accuracy import Accuracy, accuracy
-from .anchors import COCO_ANCHORS
+from .anchors import COCO_ANCHORS, AnchorGenerator, kmeans_anchors
 from .box import box_area, clip_boxes, xywh2xyxy, xywhn2xyxy, xyxy2xywh, xyxy2xywhn
 from .box_coder import decode_boxes, encode_boxes
 from .grid import grid
@@ -30,7 +30,7 @@ from .one_hot import one_hot
 from .roi_align import roi_align, roi_align_mxu, roi_align_single
 
 __all__ = [
-    "Accuracy", "accuracy", "COCO_ANCHORS", "box_area", "clip_boxes", "xywh2xyxy", "xywhn2xyxy",
+    "Accuracy", "accuracy", "COCO_ANCHORS", "AnchorGenerator", "kmeans_anchors", "box_area", "clip_boxes", "xywh2xyxy", "xywhn2xyxy",
     "xyxy2xywh", "xyxy2xywhn", "grid", "hflip_boxes_xywhn", "hflip_images", "letterbox_batch",
     "pack_canvas", "box_iou", "box_iou_matrix", "cal_iou",
     "cal_iou_batch", "wh_iou", "wh_iou_matrix", "CLASS_OFFSET", "Detections",

@@ -51,6 +51,16 @@ the float output may then be left unwritten. Its plain version
 inputs. This is a dispatch by shape: a build or launch failure of the
 kernel raises.
 
+Each kernel is a custom op, CUDA only, with a fake that gives its outputs'
+shapes and types: ``fastvision::int8_patches`` (the patches kernel: the
+quantize pass and the patches), ``fastvision::int8_epilogue`` and
+``fastvision::int8_conv`` (whose missing outputs are empty tensors, which
+its wrapper maps back to None), so that ``torch.export`` records one node
+for each launch where it cannot trace a ``ctypes`` call, and a loaded
+program launches the kernels (and counts the launches) as eager code does.
+The wrappers (`quantize_activation_cuda`, `quantize_patches_cuda`,
+`epilogue_cuda`, `int8_conv_cuda`) check their inputs and call the ops.
+
 `int8_conv2d` is the whole int8 x int8 -> int32 conv: on the card the
 implicit GEMM in mode (b), or for the other shapes the patches of the int8
 input and ``_int_mm`` (`int8_conv2d_gemm`); on the CPU the plain version
@@ -63,7 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -148,17 +158,41 @@ def quantize_activation_cuda(x: torch.Tensor, in_scale: torch.Tensor) -> torch.T
     if x.ndim != 4 or not x.is_contiguous() or x.shape[3] % 8:
         raise ValueError(f"expected contiguous NHWC [B, H, W, C], C % 8 == 0, got "
                          f"{tuple(x.shape)}")
-    b, h, w, c = x.shape
-    out = torch.empty(x.shape, dtype=torch.int8, device=dev)
-    err = _lib().fv_int8_patches(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], in_scale.data_ptr(), None, out.data_ptr(), b, h, w,
-        c, 1, 1, 0, c, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "int8 quantize kernel")
-    quantize_activation_cuda.launches += 1
-    return out
+    c = x.shape[3]
+    return torch.ops.fastvision.int8_patches(x, in_scale, 1, 1, 0, c, True).view(x.shape)
 
 
 quantize_activation_cuda.launches = 0
+
+
+@torch.library.custom_op("fastvision::int8_patches", mutates_args=(), device_types="cuda")
+def int8_patches(x: torch.Tensor, in_scale: Optional[torch.Tensor], k: int, stride: int,
+                 padding: int, k_pad: int, quantize_pass: bool) -> torch.Tensor:
+    """One launch of ``csrc/int8.cu``'s patches kernel on checked inputs:
+    NHWC ``x`` -> int8 patches [B * Ho * Wo, k_pad] (`quantize_patches_cuda`);
+    ``quantize_pass`` marks the k = 1 launch of `quantize_activation_cuda`
+    (the NHWC rows as they are), which is counted there."""
+    dev = x.device
+    b, h, w, c = x.shape
+    ho, wo = out_hw(h, w, k, stride, padding)
+    out = torch.empty(b * ho * wo, k_pad, dtype=torch.int8, device=dev)
+    # a k x k conv of a float input quantizes into scratch first (csrc/int8.cu)
+    scratch = (torch.empty(x.shape, dtype=torch.int8, device=dev)
+               if in_scale is not None and k > 1 and c % 8 == 0 and k_pad == k * k * c else None)
+    err = _lib().fv_int8_patches(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], None if in_scale is None else in_scale.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), b, h, w, c, k, stride,
+        padding, k_pad, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8 quantize kernel" if quantize_pass else "int8 patches kernel")
+    (quantize_activation_cuda if quantize_pass else quantize_patches_cuda).launches += 1
+    return out
+
+
+@int8_patches.register_fake
+def _(x, in_scale, k, stride, padding, k_pad, quantize_pass):
+    b, h, w, _ = x.shape
+    ho, wo = out_hw(h, w, k, stride, padding)
+    return x.new_empty((b * ho * wo, k_pad), dtype=torch.int8)
 
 
 def conv_patches(xq: torch.Tensor, k: int, stride: int, padding: int,
@@ -210,18 +244,7 @@ def quantize_patches_cuda(x: torch.Tensor, in_scale: torch.Tensor | None, k: int
     b, h, w, c = x.shape
     if k_pad < k * k * c or k_pad % 8:
         raise ValueError(f"k_pad {k_pad} must be a multiple of 8, >= k * k * C = {k * k * c}")
-    ho, wo = out_hw(h, w, k, stride, padding)
-    out = torch.empty(b * ho * wo, k_pad, dtype=torch.int8, device=dev)
-    # a k x k conv of a float input quantizes into scratch first (csrc/int8.cu)
-    scratch = (torch.empty(x.shape, dtype=torch.int8, device=dev)
-               if in_scale is not None and k > 1 and c % 8 == 0 and k_pad == k * k * c else None)
-    err = _lib().fv_int8_patches(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], None if in_scale is None else in_scale.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(), b, h, w, c, k, stride,
-        padding, k_pad, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "int8 patches kernel")
-    quantize_patches_cuda.launches += 1
-    return out
+    return torch.ops.fastvision.int8_patches(x, in_scale, k, stride, padding, k_pad, False)
 
 
 quantize_patches_cuda.launches = 0
@@ -260,9 +283,21 @@ def epilogue_cuda(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Te
     for t in (scale, bias):
         if t.device != dev or t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
             raise ValueError("scale and bias must be contiguous float32 [n] on acc's device")
+    if n > acc.shape[1]:
+        raise ValueError(f"n {n} > the accumulators' {acc.shape[1]} columns")
+    return torch.ops.fastvision.int8_epilogue(acc, n, scale, bias, act, dtype)
+
+
+epilogue_cuda.launches = 0
+
+
+@torch.library.custom_op("fastvision::int8_epilogue", mutates_args=(), device_types="cuda")
+def int8_epilogue(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Tensor, act: str,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One launch of ``csrc/int8.cu``'s epilogue kernel on checked inputs
+    (`epilogue_cuda`) -> [M, n] in ``dtype``."""
+    dev = acc.device
     m, n_pad = acc.shape
-    if n > n_pad:
-        raise ValueError(f"n {n} > the accumulators' {n_pad} columns")
     out = torch.empty(m, n, dtype=dtype, device=dev)
     err = _lib().fv_int8_epilogue(
         acc.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, n_pad,
@@ -273,7 +308,9 @@ def epilogue_cuda(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Te
     return out
 
 
-epilogue_cuda.launches = 0
+@int8_epilogue.register_fake
+def _(acc, n, scale, bias, act, dtype):
+    return acc.new_empty((acc.shape[0], n), dtype=dtype)
 
 
 def epilogue(acc: torch.Tensor, n: int, scale: torch.Tensor, bias: torch.Tensor, act: str,
@@ -366,13 +403,12 @@ def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride
     dev = xq.device
     if xq.dtype != torch.int8 or w_mat.dtype != torch.int8:
         raise TypeError(f"int8_conv_cuda takes int8 tensors, got {xq.dtype} and {w_mat.dtype}")
-    if xq.ndim != 4 or not xq.is_contiguous() or xq.data_ptr() % 16:
-        raise ValueError(f"expected contiguous 16-byte-aligned NHWC [B, H, W, C], got "
-                         f"{tuple(xq.shape)}")
+    if xq.ndim != 4 or not xq.is_contiguous():
+        raise ValueError(f"expected contiguous NHWC [B, H, W, C], got {tuple(xq.shape)}")
     b, h, w, c = xq.shape
     if not implicit_gemm_eligible(c, n, k, stride, k // 2, 1):
         raise ValueError(f"int8_conv_cuda does not take C={c}, N={n}, k={k}, stride={stride}")
-    if (w_mat.device != dev or not w_mat.is_contiguous() or w_mat.data_ptr() % 16
+    if (w_mat.device != dev or not w_mat.is_contiguous()
             or tuple(w_mat.shape) != (n, k * k * c)):
         raise ValueError(f"w_mat must be contiguous int8 [{n}, {k * k * c}] on {dev}, got "
                          f"{tuple(w_mat.shape)} on {w_mat.device}")
@@ -394,33 +430,70 @@ def int8_conv_cuda(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride
                 raise ValueError("scale and bias must be contiguous float32 [n] on xq's device")
         if residual is not None and (
                 residual.dtype != dtype or residual.device != dev or tuple(residual.shape) != (m, n)
-                or not residual.is_contiguous() or residual.data_ptr() % 16):
-            raise ValueError(f"residual must be contiguous 16-byte-aligned {dtype} [{m}, {n}] on "
-                             f"{dev}, got {residual.dtype} {tuple(residual.shape)}")
+                or not residual.is_contiguous()):
+            raise ValueError(f"residual must be contiguous {dtype} [{m}, {n}] on {dev}, got "
+                             f"{residual.dtype} {tuple(residual.shape)}")
         if out_scale is not None:
             _scalar_on(out_scale, dev, "out_scale")
         elif not keep_float:
             raise ValueError("keep_float=False leaves nothing to write without out_scale")
     if dev.type != "cuda":
         raise ValueError(f"int8_conv_cuda needs a CUDA tensor, got {dev}")
-    out_dtype = torch.int32 if scale is None else dtype
-    out = torch.empty(m, n, dtype=out_dtype, device=dev) if keep_float else None
-    q = torch.empty(m, n, dtype=torch.int8, device=dev) if out_scale is not None else None
+    y, q = torch.ops.fastvision.int8_conv(xq, w_mat, n, k, stride, scale, bias, act, dtype,
+                                          residual, out_scale, keep_float)
+    return (y if keep_float else None), (None if out_scale is None else q)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+
+int8_conv_cuda.launches = 0
+
+
+def _int8_conv_outputs(xq: torch.Tensor, n: int, k: int, stride: int,
+                       scale: Optional[torch.Tensor], dtype: torch.dtype,
+                       out_scale: Optional[torch.Tensor], keep_float: bool):
+    """`int8_conv`'s two outputs, allocated: [M, n] each, or empty where
+    the mode writes nothing (no [M, n] buffer that nothing fills)."""
+    b, h, w, _ = xq.shape
+    ho, wo = out_hw(h, w, k, stride, k // 2)
+    m = b * ho * wo
+    out_dtype = torch.int32 if scale is None else dtype
+    return (xq.new_empty((m, n) if keep_float else (0,), dtype=out_dtype),
+            xq.new_empty((m, n) if out_scale is not None else (0,), dtype=torch.int8))
+
+
+@torch.library.custom_op("fastvision::int8_conv", mutates_args=(), device_types="cuda")
+def int8_conv(xq: torch.Tensor, w_mat: torch.Tensor, n: int, k: int, stride: int,
+              scale: Optional[torch.Tensor], bias: Optional[torch.Tensor], act: str,
+              dtype: torch.dtype, residual: Optional[torch.Tensor],
+              out_scale: Optional[torch.Tensor], keep_float: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/int8_conv.cu`` on inputs `int8_conv_cuda` has
+    checked -> ``(y, q)``, each [M, n], or an empty tensor where the mode
+    writes nothing (``keep_float=False``; no ``out_scale``). ``xq``,
+    ``w_mat`` and ``residual`` must be 16-byte aligned."""
+    for name, t in (("xq", xq), ("w_mat", w_mat), ("residual", residual)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"int8_conv: {name} must be contiguous and 16-byte aligned (the "
+                             "kernel reads it in 16-byte chunks)")
+    dev = xq.device
+    b, h, w, c = xq.shape
+    out, q = _int8_conv_outputs(xq, n, k, stride, scale, dtype, out_scale, keep_float)
+
+    def ptr(t, present=True):
+        return None if t is None or not present else t.data_ptr()
 
     err = _conv_lib().fv_int8_conv(
-        xq.data_ptr(), w_mat.data_ptr(), ptr(scale), ptr(bias), ptr(out), ptr(residual),
-        ptr(out_scale), ptr(q), b, h, w, c, n, k, stride, _DTYPE_CODES[out_dtype],
-        _ACT_CODES[act] if scale is not None else 0, dev.index,
+        xq.data_ptr(), w_mat.data_ptr(), ptr(scale), ptr(bias), ptr(out, keep_float),
+        ptr(residual), ptr(out_scale), ptr(q, out_scale is not None), b, h, w, c, n, k, stride,
+        _DTYPE_CODES[out.dtype], _ACT_CODES[act] if scale is not None else 0, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "int8 implicit-GEMM conv kernel", _conv_lib().fv_int8_conv_error_string)
     int8_conv_cuda.launches += 1
     return out, q
 
 
-int8_conv_cuda.launches = 0
+@int8_conv.register_fake
+def _(xq, w_mat, n, k, stride, scale, bias, act, dtype, residual, out_scale, keep_float):
+    return _int8_conv_outputs(xq, n, k, stride, scale, dtype, out_scale, keep_float)
 
 
 def add_residual(residual: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

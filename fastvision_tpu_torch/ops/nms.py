@@ -10,7 +10,8 @@ dimension instead of ``vmap``:
      wholly inside letterbox padding give bit-identical scores),
   3. class-aware suppression via the class-offset trick,
   4. greedy suppression (`suppression_mask`): the hand-written CUDA kernel
-     for CUDA tensors, its plain PyTorch version for CPU tensors,
+     (the custom op ``fastvision::nms_suppression_mask``) for CUDA tensors,
+     its plain PyTorch version for CPU tensors,
   5. fixed ``max_det`` outputs + validity mask.
 
 `non_max_suppression_multilabel` is the serving variant: every (box, class)
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .box import xywh2xyxy
-from .nms_kernel import suppression_mask_cuda, suppression_mask_plain
+from .nms_kernel import nms_suppression_mask, suppression_mask_plain
 
 # Default per-class coordinate offset (the JAX package's constant). It must
 # exceed every box coordinate magnitude or classes' regions overlap; derive a
@@ -58,10 +59,7 @@ def suppression_mask(boxes: torch.Tensor, scores: torch.Tensor,
     if single:
         boxes, scores = boxes[None], scores[None]
     if boxes.device.type == "cuda":
-        boxes = boxes.contiguous()
-        if boxes.data_ptr() % 16:  # a view at an odd offset: the kernel reads float4s
-            boxes = boxes.clone()
-        keep = suppression_mask_cuda(boxes, scores.contiguous(), iou_thres)
+        keep = nms_suppression_mask(boxes, scores, iou_thres)
     elif boxes.device.type == "cpu":
         keep = suppression_mask_plain(boxes, scores, iou_thres)
     else:

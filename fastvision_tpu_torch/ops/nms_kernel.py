@@ -26,6 +26,12 @@ OR the kept rows into the removed set, which lives in shared memory, so
 any K up to ``MAX_K`` works. The TPU kernel's one-hot reductions (a
 workaround for Mosaic's lack of dynamic scalar reads) have no counterpart
 here.
+
+The kernel is also the custom op ``fastvision::nms_suppression_mask``
+(`nms_suppression_mask`, CUDA only, with a fake that gives bool [B, K]), so
+that ``torch.export`` records one node for it where it cannot trace a
+``ctypes`` call, and a loaded program launches it (and counts the launch)
+as eager code does.
 """
 from __future__ import annotations
 
@@ -121,3 +127,20 @@ def suppression_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 suppression_mask_cuda.launches = 0  # kernel launches (one mask + one scan each)
+
+
+@torch.library.custom_op("fastvision::nms_suppression_mask", mutates_args=(), device_types="cuda")
+def nms_suppression_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                         iou_thres: float) -> torch.Tensor:
+    """`suppression_mask_cuda` on any float32 boxes [B, K, 4] and scores
+    [B, K] of one CUDA device: made contiguous, and boxes at an offset that
+    is not 16-byte aligned (a view) copied, first."""
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads one float4 per box
+        boxes = boxes.clone()
+    return suppression_mask_cuda(boxes, scores.contiguous(), iou_thres)
+
+
+@nms_suppression_mask.register_fake
+def _(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    return scores.new_empty(scores.shape, dtype=torch.bool)

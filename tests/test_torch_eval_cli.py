@@ -331,14 +331,8 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=match):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
-    for argv, item in ((["export", "--int8", "--out", "x"], 16),
-                       (["export", "--task", "video", "--out", "x"], 16),
-                       (["export", "--out", "x"], 16), (["anchors"], 2), (["doctor"], 10),
-                       (["generate", "--out", "x"], 10),
-                       (["convert", "--kind", "coco", "--out", "x"], 11),
-                       (["infer", "--source", "a.mp4"], 6)):
-        with pytest.raises(SystemExit, match=f"item {item}\\)"):
-            cli.main(argv)
+    with pytest.raises(SystemExit, match="item 6\\)"):
+        cli.main(["infer", "--source", "a.mp4"])
     common = [f"data.data_root={root}", "--device", "cpu"]
     for override, item in (("mesh_model=2", 17), ("fsdp=true", 17),
                            ("compile_cache=cache", 10), ("data.host_shard=auto", 17)):

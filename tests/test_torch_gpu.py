@@ -1315,3 +1315,109 @@ def test_patches_line_kernel_equals_plain(name, shape, k, stride, k_pad, dtype):
     want = ti.quantize_patches_plain(x, s, k, stride, k // 2, k_pad)
     assert got.shape == want.shape and torch.equal(got, want)
     assert int((want != 0).sum()) > want.numel() // 4
+
+
+def _opcheck_cases(op: str, dev: torch.device) -> list[tuple]:
+    """Seeded argument tuples of a ``fastvision::`` custom op on the card:
+    the NMS kernel on `nms_case`s, the patches kernel (quantize pass, float
+    and int8 patches, an RGB stem) and the epilogue on `INT8_CONV_CASES`,
+    ``int8_conv`` in every mode on `INT8_IMPLICIT_CASES`."""
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    g = torch.Generator().manual_seed(len(op))
+    s = torch.tensor(0.0217, device=dev)
+    cases = []
+    if op == "nms_suppression_mask":
+        for seed, (b, k) in enumerate(((1, 37), (8, 1024), (2, 2049))):
+            boxes, scores = nms_case(seed, b, k, clusters=None if seed else 20)
+            cases.append((torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev), 0.45))
+    for case in INT8_CONV_CASES[:6] if op in ("int8_patches", "int8_epilogue") else ():
+        _, _, _, _, _, n, k, stride, groups = case
+        x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+        xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
+        xf = (torch.randn(xq.shape, generator=g) * 3).to(dev)
+        k_pad = ti.gemm_weight(w, groups).shape[1]
+        if op == "int8_patches":
+            cases += [(xf, s, k, stride, k // 2, k_pad, False),
+                      (xq, None, k, stride, k // 2, k_pad, False)]
+            if xf.shape[3] % 8 == 0:
+                cases.append((xf.to(torch.bfloat16), s, 1, 1, 0, xf.shape[3], True))
+        else:
+            m, n_pad = xq.shape[0] * xq.shape[1] * xq.shape[2], -(-n // 8) * 8
+            acc = torch.randint(-2 ** 26, 2 ** 26, (m, n_pad), generator=g,
+                                dtype=torch.int32).to(dev)
+            scale, bias = (torch.rand(n, generator=g) * 1e-6).to(dev), torch.randn(n).to(dev)
+            cases.append((acc, n, scale, bias, ("silu", "leaky_relu")[len(cases) % 2],
+                          (torch.bfloat16, torch.float32)[len(cases) % 2]))
+    for case in INT8_IMPLICIT_CASES[:4] if op == "int8_conv" else ():
+        _, _, _, _, _, n, k, stride, _ = case
+        x, w = (torch.from_numpy(a) for a in int8_conv_case(case))
+        xq = x.permute(0, 2, 3, 1).contiguous().to(dev)
+        mat = ti.gemm_weight(w).to(dev)
+        ho, wo = ti.out_hw(xq.shape[1], xq.shape[2], k, stride, k // 2)
+        m = xq.shape[0] * ho * wo
+        scale = (torch.rand(n, generator=g) * 2e-5 + 1e-6).to(dev)
+        bias = torch.randn(n, generator=g).to(dev)
+        res = torch.randn(m, n, generator=g).to(dev, torch.bfloat16)
+        half = torch.tensor(0.05, device=dev)
+        cases += [(xq, mat, n, k, stride, None, None, "none", torch.bfloat16, None, None, True),
+                  (xq, mat, n, k, stride, scale, bias, "silu", torch.float32, None, None, True),
+                  (xq, mat, n, k, stride, scale, bias, "silu", torch.bfloat16, res, half, True),
+                  (xq, mat, n, k, stride, scale, bias, "leaky_relu", torch.bfloat16, None, half,
+                   False)]
+    return cases
+
+
+@pytest.mark.parametrize("op", ["nms_suppression_mask", "int8_patches", "int8_epilogue",
+                                "int8_conv"])
+def test_custom_op_opcheck(op):
+    """``torch.library.opcheck`` on each ``fastvision::`` op over seeded
+    cases: its schema, its fake against the kernel's outputs, and its
+    dispatch under tracing."""
+    import fastvision_tpu_torch.ops.int8  # noqa: F401 (registers the int8 ops)
+
+    dev = _cuda()
+    cases = _opcheck_cases(op, dev)
+    assert cases
+    for args in cases:
+        torch.library.opcheck(getattr(torch.ops.fastvision, op).default, args)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_exported_detector_on_card_runs_the_kernels_and_equals_eager(tmp_path, int8):
+    """A shallow YOLOv3's Detector program exported on the card: one
+    ``fastvision::nms_suppression_mask`` node (no unrolled loop), and with
+    ``Detector.quantize`` first the int8 kernels' nodes (35 ``int8_conv``, 5
+    quantize passes and the stem's patches, 1 epilogue); the loaded program
+    bit-equal to eager ``Detector.infer``, its launches counted."""
+    from fastvision_tpu_torch.infer import (detector_program, export_program, load_exported,
+                                            op_counts)
+    from fastvision_tpu_torch.ops import int8 as ti
+
+    dev = _cuda()
+    model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(12))
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    det = Detector(model, anchors, input_size=96, batch_size=4, device=dev, conf_thres=0.01)
+    rng = np.random.default_rng(12)
+    u8 = torch.from_numpy(rng.integers(0, 256, (4, 96, 96, 3), dtype=np.uint8)).to(dev)
+    if int8:
+        det.quantize(list(u8.cpu().numpy()))
+    path = export_program(detector_program(det), [torch.zeros_like(u8)], str(tmp_path / "d.pt2"))
+    program = load_exported(path)
+    counts = op_counts(program)
+    assert counts["fastvision.nms_suppression_mask.default"] == 1
+    assert counts["aten.select.int"] < 100  # the greedy loop is the kernel's, not unrolled
+    want_int8 = {"fastvision.int8_conv.default": 35, "fastvision.int8_patches.default": 6,
+                 "fastvision.int8_epilogue.default": 1} if int8 else {}
+    assert {k: v for k, v in counts.items() if "int8" in k} == want_int8
+    kernels = (suppression_mask_cuda, ti.int8_conv_cuda, ti.quantize_activation_cuda,
+               ti.quantize_patches_cuda, ti.epilogue_cuda)
+    before = [f.launches for f in kernels]
+    got = program.module()(u8)
+    launched = [f.launches - b for f, b in zip(kernels, before)]
+    assert launched == ([1, 35, 5, 1, 1] if int8 else [1, 0, 0, 0, 0])
+    want = det.infer(u8)._asdict()
+    assert want["valid"].any()
+    for k, t in want.items():
+        assert torch.equal(got[k], t), k

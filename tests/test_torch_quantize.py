@@ -602,5 +602,5 @@ def test_cli_serve_int8_calib_dir(root, tmp_path, monkeypatch, capsys):
 def test_cli_eval_int8_refuses_classifiers_and_export_int8_stays_unported(task):
     with pytest.raises(SystemExit, match=f"eval --task {task}: --int8 quantizes the detector"):
         cli.main(["eval", "--task", task, "--int8", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 16\\)"):
-        cli.main(["export", "--int8", "--out", "x"])
+    with pytest.raises(SystemExit, match="export --int8 is detector-only"):
+        cli.main(["export", "--task", task, "--int8", "--out", "x.pt2"])
