@@ -262,12 +262,28 @@ exits non-zero before a result is printed:
               loaded, eager), between events over back-to-back calls and as
               one call captured in a CUDA graph and replayed (``graph_ms``:
               the device's time);
-  26. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
+  26. recipe  the training recipe's options on YOLOv3-416 at full width
+              (bf16, K = 1024): ``cli.main(["train", ...])`` with every
+              augmentation op the process pools take (all but
+              'normalization') at p < 1 and ``train.accum_steps: 2`` for 2
+              epochs, the validations' NMS launches counted and their inputs
+              held against the plain version; ``train-cls`` (ResNet-50-224)
+              with random_crop, center_crop, resize and hflip;
+              ``YOLOv3LossPerCell`` (bce_mse, ciou) one float32 step card vs
+              CPU and a bf16 ``Fit`` at batch 32, the train step's img/s and
+              the loss's ms beside ``YOLOv3Loss``'s; accum_steps 2 through
+              ``Fit`` cut after call 3 (mid-cycle) and resumed, against the
+              uncut run under deterministic algorithms; the loader's img/s at
+              0 and 4 workers with the full op list against the default
+              recipe (and with 'normalization' on 4 threads), each op's host
+              ms on a 640 x 480 image;
+  27. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
               matmul chain's TFLOP/s; then the run's total seconds.
 
-``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``)
-runs the device and build phases and the i420 (int8; doctor and export)
-phases alone (a quick check of this path; the full run takes no arguments).
+``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``,
+``--only recipe``) runs the device and build phases and the i420 (int8;
+doctor and export; recipe) phases alone (a quick check of this path; the
+full run takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port: the NMS kernel with its launches on every path (the classification
@@ -283,7 +299,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -306,10 +324,12 @@ from fastvision_tpu_torch.data import (
     ClassificationLoader,
     DetectionDataset,
     DetectionLoader,
+    OP_REGISTRY,
     HorizontalFlip,
     HSVJitter,
     VideoClipLoader,
     VideoFolderDataset,
+    build_augmentation,
     normalize_images,
 )
 from fastvision_tpu_torch.data.codec import decode_image, decode_jpeg_i420, decode_jpeg_reduced
@@ -410,6 +430,7 @@ from fastvision_tpu_torch.train import (
     Fit,
     TrainState,
     YOLOv3Loss,
+    YOLOv3LossPerCell,
     build_optimizer,
     classification_evaluator,
     constant_lr,
@@ -428,6 +449,7 @@ from fastvision_tpu_torch.train import (
     video_multiclip_evaluator,
     warmup_cosine_lr,
 )
+from fastvision_tpu_torch.train.optim import MultiSteps
 
 SEED = 0
 INPUT_SIZE = 416
@@ -915,35 +937,12 @@ def phase_train(dev: torch.device) -> dict:
     loss_fn, postprocess = train_parts(anchors)
 
     # --- 1. one float32 SGD step, TF32 off: the card against the CPU
-    small = YOLOv3(num_classes=NUM_CLASSES, stage_sizes=(1, 1, 1, 1, 1),
-                   generator=torch.Generator().manual_seed(SEED))
-    small_cpu = copy.deepcopy(small)
-    start = {k: v.clone() for k, v in small.state_dict().items()}
-    batch = next(iter(DetectionLoader(SyntheticDetectionDataset(4, NUM_CLASSES, seed=SEED + 1),
-                                      256, 4, max_boxes=16, seed=SEED)))
-    step32 = make_train_step(loss_fn)
-    with no_tf32():
-        card = TrainState.create(small, build_optimizer("sgd", small), dev)
-        cpu = TrainState.create(small_cpu, build_optimizer("sgd", small_cpu), "cpu")
-        _, m_card = step32(card, {k: torch.from_numpy(batch[k]).to(dev)
-                                  for k in ("images", "labels")}, 1e-2)
-        _, m_cpu = step32(cpu, {k: torch.from_numpy(batch[k]) for k in ("images", "labels")},
-                          1e-2)
-        torch.cuda.synchronize()
     # tolerances: see tests/test_torch_gpu.py::test_train_step_on_card_equals_cpu
     card_vs_cpu = {"model": "YOLOv3 stage_sizes (1,1,1,1,1), 80 classes, 256 px, batch 4, "
                             "float32, TF32 off, one SGD step at lr 1e-2",
-                   "loss_rel": abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1),
-                   "grad_norm_rel": abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1),
-                   "state_max_rel": state_max_rel_diff(small.state_dict(),
-                                                       small_cpu.state_dict(), start),
-                   "tolerances": {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}}
+                   **card_vs_cpu_step(dev, loss_fn)}
     emit("train_card_vs_cpu", **card_vs_cpu)
-    check(card_vs_cpu["loss_rel"] <= 1e-4, f"train step card vs cpu: {card_vs_cpu}")
-    check(card_vs_cpu["state_max_rel"]["kernels"][0] <= 1e-3
-          and card_vs_cpu["state_max_rel"]["others"][0] <= 1e-2,
-          f"train step card vs cpu: {card_vs_cpu}")
-    del small, small_cpu, card, cpu
+    check(card_vs_cpu["within"], f"train step card vs cpu: {card_vs_cpu}")
 
     # --- 2. full-width Fit in bf16, validation counted through the NMS kernel
     model = YOLOv3(num_classes=NUM_CLASSES, generator=torch.Generator().manual_seed(SEED))
@@ -2161,8 +2160,9 @@ def counted(evaluate, sink: list):
     return run
 
 
-def yolo_resume_fit(dev, ckpt_dir: str, resume: bool, sink: list) -> Fit:
-    """The train phase's full-width YOLOv3-416 bf16 Fit (EMA on), checkpointed."""
+def yolo_resume_fit(dev, ckpt_dir: str, resume: bool, sink: list, accum_steps: int = 1) -> Fit:
+    """The train phase's full-width YOLOv3-416 bf16 Fit (EMA on), checkpointed;
+    ``accum_steps`` > 1 averages that many calls' gradients per update."""
     anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
     loss_fn, postprocess = train_parts(anchors, NUM_CLASSES)
     model = yolo_model()
@@ -2170,7 +2170,8 @@ def yolo_resume_fit(dev, ckpt_dir: str, resume: bool, sink: list) -> Fit:
                              INPUT_SIZE, TRAIN_BATCH, max_boxes=32, seed=SEED)
     val = DetectionLoader(SyntheticDetectionDataset(VAL_IMAGES, NUM_CLASSES, seed=SEED + 2),
                           INPUT_SIZE, VAL_BATCH, max_boxes=32, train=False)
-    return Fit(model, loss_fn, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937),
+    return Fit(model, loss_fn, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937,
+                                               accum_steps=accum_steps),
                loader, val, epochs=2,
                schedule=warmup_cosine_lr(1e-2, 1e-4, 2 * len(loader), warmup_steps=1),
                evaluator=counted(detection_evaluator(make_eval_step(postprocess,
@@ -2258,6 +2259,7 @@ def resume_case(dev, build, workdir: str) -> dict:
            "copy_gb_s": mgr.last_save["bytes"] / max(mgr.last_save["host_copy_s"], 1e-9) / 1e9,
            "restore_s": restore_s, "fit_build_and_restore_s": build_restore_s,
            "restored_bit_equal": bit_equal_restore,
+           "optimizer_mini_step_at_save": at_save["optimizer"].get("mini_step"),
            "start_epoch": fit3.start_epoch, "global_step_at_resume": steps + 1,
            "final_bit_equal_to_uncut": same_state(final1, final3),
            "final_max_rel_vs_uncut": worst, "tolerances": RESUME_TOLERANCES,
@@ -4289,6 +4291,346 @@ def phase_export(dev: torch.device, smi: str, workdir: str) -> dict:
     return {"launches": launches, "zero": zero, "int8_launches": int8_launches}
 
 
+# the recipe phase: the training recipe's options at full width. Every
+# augmentation op the detection loader takes on the config's process pools,
+# at p < 1 (the ops with draws too); 'normalization', whose float32 output
+# the process pools refuse, runs in the loader readings on threads.
+RECIPE_DET_OPS = [
+    "bgr2rgb:0.5", {"op": "jitter", "ratio": 0.3, "p": 0.5},
+    {"op": "resize_by_max", "size": 512, "p": 0.5}, {"op": "padding", "size": 512, "p": 0.5},
+    {"op": "random_crop", "size": 448, "p": 0.5}, {"op": "center_crop", "size": 416, "p": 0.5},
+    {"op": "resize", "size": 416, "p": 0.3}, "hflip:0.5", "vflip:0.5", "hsv:0.5",
+    "hist_equalize:0.5", {"op": "blur", "kind": "box", "p": 0.3},
+    {"op": "blur", "kind": "gaussian", "ksize": 5, "p": 0.3},
+    {"op": "blur", "kind": "median", "ksize": 5, "p": 0.3}, "channel_shuffle:0.5"]
+RECIPE_CLS_OPS = [{"op": "random_crop", "size": 240}, {"op": "center_crop", "size": 224},
+                  {"op": "resize", "size": CLS_SIZE}, "hflip:0.5"]
+RECIPE_ACCUM = 2
+RECIPE_OP_HW = (480, 640)
+RECIPE_WORKERS = (0, 4)
+
+
+@contextlib.contextmanager
+def recorded_nms_inputs():
+    """Records (boxes, scores, iou) of every NMS kernel call the block's
+    paths make, for holding the kernel against its plain version after."""
+    nms_mod = importlib.import_module("fastvision_tpu_torch.ops.nms")
+    real, sink = nms_mod.nms_suppression_mask, []
+
+    def recording(boxes, scores, iou_thres):
+        sink.append((boxes.clone(), scores.clone(), iou_thres))
+        return real(boxes, scores, iou_thres)
+
+    nms_mod.nms_suppression_mask = recording
+    try:
+        yield sink
+    finally:
+        nms_mod.nms_suppression_mask = real
+
+
+def kernel_vs_plain_recorded(recorded: list) -> dict:
+    """The NMS kernel against its plain version on recorded inputs."""
+    mismatches = 0
+    for boxes, scores, iou in recorded:
+        keep = suppression_mask_cuda(boxes, scores, iou)
+        mismatches += int((keep != suppression_mask_plain(boxes, scores, iou)).sum())
+    return {"calls": len(recorded), "shapes": sorted({tuple(s.shape) for _, s, _ in recorded}),
+            "mismatches": mismatches}
+
+
+def small_step(dev, loss_fn, dtype: torch.dtype = torch.float32) -> tuple[dict, dict, dict]:
+    """One SGD step (lr 1e-2, TF32 off) of a shallow YOLOv3 (80 classes,
+    256 px, batch 4, seeded) in ``dtype`` on ``dev``: (start state, state
+    after, metrics)."""
+    model = YOLOv3(num_classes=NUM_CLASSES, stage_sizes=(1, 1, 1, 1, 1),
+                   generator=torch.Generator().manual_seed(SEED)).to(dtype)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = next(iter(DetectionLoader(SyntheticDetectionDataset(4, NUM_CLASSES, seed=SEED + 1),
+                                      256, 4, max_boxes=16, seed=SEED)))
+    with no_tf32():
+        state = TrainState.create(model, build_optimizer("sgd", model), dev)
+        _, metrics = make_train_step(loss_fn, dtype=dtype)(
+            state, {k: torch.from_numpy(batch[k]).to(dev) for k in ("images", "labels")}, 1e-2)
+        metrics = {k: float(v) for k, v in metrics.items()}
+    return start, {k: v.cpu() for k, v in model.state_dict().items()}, metrics
+
+
+def step_diff(a: tuple, b: tuple) -> dict:
+    """Two `small_step` results: relative loss and grad-norm differences, and
+    `state_max_rel_diff` of the states (b the reference)."""
+    return {"loss_rel": abs(a[2]["loss"] / b[2]["loss"] - 1),
+            "grad_norm_rel": abs(a[2]["grad_norm"] / b[2]["grad_norm"] - 1),
+            "state_max_rel": state_max_rel_diff(a[1], b[1], b[0])}
+
+
+def card_vs_cpu_step(dev: torch.device, loss_fn) -> dict:
+    """One float32 step (`small_step`), the card against the CPU: loss, grad
+    norm and state, within phase_train's tolerances (``within``)."""
+    out = {**step_diff(small_step(dev, loss_fn), small_step("cpu", loss_fn)),
+           "tolerances": {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}}
+    out["within"] = (out["loss_rel"] <= 1e-4 and out["state_max_rel"]["kernels"][0] <= 1e-3
+                     and out["state_max_rel"]["others"][0] <= 1e-2)
+    return out
+
+
+def card_vs_cpu_per_cell(dev: torch.device, loss_fn) -> dict:
+    """`YOLOv3LossPerCell`'s step card vs CPU. Its one-step update is up to
+    ~4 times the kernels' std (bce_mse's MSE on raw wh logits; YOLOv3Loss's
+    ~0.3), and phase_train's tolerances are relative to the tensors' std:
+    the CPU's float32 step, whose train-mode BN backward rounds to ~1e-3
+    of the update, sits 6e-3 of the std from the CPU's float64 step. So the
+    reference is the CPU in float64 (the loss itself computes in float32
+    in both): the card's float32 and float64 states within phase_train's
+    tolerances of it, the float32 loss within 1e-4 of the CPU's float32
+    loss. The CPU's own float32 distance is reported beside them."""
+    cpu64 = small_step("cpu", loss_fn, torch.float64)
+    card32, cpu32 = small_step(dev, loss_fn), small_step("cpu", loss_fn)
+    out = {"float32": step_diff(card32, cpu32),
+           "card_float32_vs_cpu_float64": step_diff(card32, cpu64),
+           "float64": step_diff(small_step(dev, loss_fn, torch.float64), cpu64),
+           "cpu_float32_vs_cpu_float64": step_diff(cpu32, cpu64),
+           "tolerances": {"loss_rel": 1e-4, "kernels": 1e-3, "others": 1e-2}}
+    out["within"] = out["float32"]["loss_rel"] <= 1e-4 and all(
+        out[k]["loss_rel"] <= 1e-4 and out[k]["state_max_rel"]["kernels"][0] <= 1e-3
+        and out[k]["state_max_rel"]["others"][0] <= 1e-2
+        for k in ("card_float32_vs_cpu_float64", "float64"))
+    return out
+
+
+def per_cell_parts(anchors: np.ndarray, box_loss: str):
+    loss = YOLOv3LossPerCell(anchors, num_classes=NUM_CLASSES, box_loss=box_loss)
+
+    def loss_fn(heads, batch):
+        out = loss(heads, batch["labels"])
+        return out.total, {"box": out.box, "obj": out.obj, "cls": out.cls}
+
+    return loss_fn
+
+
+def loader_img_s(root: str, specs, workers: int, backend: str = "process") -> dict:
+    """A DetectionLoader over the phase's BMP files (416, batch 32, mosaic
+    0.5 as the CLI's): one epoch to start the pool, one timed."""
+    loader = DetectionLoader(DetectionDataset(root, "train"), INPUT_SIZE, TRAIN_BATCH,
+                             max_boxes=32, train=True, seed=SEED, mosaic_prob=0.5,
+                             augmentation=build_augmentation(specs), num_workers=workers,
+                             worker_backend=backend)
+    try:
+        dtypes = {str(b["images"].dtype) for b in loader.epoch(0)}
+        t0 = time.perf_counter()
+        n = sum(b["num_real"] for b in loader.epoch(1))
+        return {"workers": workers, "backend": backend, "img_s": n / (time.perf_counter() - t0),
+                "batch_dtypes": sorted(dtypes)}
+    finally:
+        loader.close()
+
+
+def op_host_ms(reps: int = 5) -> dict:
+    """Each augmentation op applied (p = 1) to one 640 x 480 image of the
+    synthetic set: median host ms over ``reps`` on one thread."""
+    image, labels, _ = SyntheticDetectionDataset(1, NUM_CLASSES, seed=SEED + 7,
+                                                 sizes=(RECIPE_OP_HW,))[0]
+    specs = {"bgr2rgb": {}, "jitter": {"ratio": 0.3}, "resize_by_max": {"size": 512},
+             "padding": {"size": 704}, "random_crop": {"size": 448}, "center_crop": {"size": 416},
+             "resize": {"size": 416}, "hflip": {}, "vflip": {}, "hsv": {}, "hist_equalize": {},
+             "blur_box_3": {"kind": "box"}, "blur_gaussian_5": {"kind": "gaussian", "ksize": 5},
+             "blur_median_3": {"kind": "median"}, "blur_median_5": {"kind": "median", "ksize": 5},
+             "channel_shuffle": {}, "normalization": {}}
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the loaders run them
+    try:
+        for tag, kw in specs.items():
+            op = OP_REGISTRY[tag.split("_")[0] if tag.startswith("blur") else tag](**kw)
+            times = []
+            for i in range(reps):
+                decision = op.sample(np.random.default_rng(i), image)
+                t0 = time.perf_counter()
+                out_image, _ = op.apply(image, labels, decision)
+                np.ascontiguousarray(out_image)
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[tag] = float(np.median(times))
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def phase_recipe(dev: torch.device, smi: str, workdir: str) -> dict:
+    """The training recipe's options at full width (YOLOv3-416, Darknet-53,
+    80 classes, bf16, channels_last, K = 1024): (a) ``cli.main(["train",
+    ...])`` with every augmentation op at p < 1 and ``train.accum_steps:
+    2`` for 2 epochs on the process pools, validated each epoch (the NMS
+    kernel's launches counted, its inputs recorded and held against the
+    plain version), then ``train-cls`` (ResNet-50-224) with random_crop,
+    center_crop, resize and hflip; (b) ``YOLOv3LossPerCell`` (bce_mse,
+    ciou): one float32 step card vs CPU, a bf16 ``Fit`` at batch 32, and
+    the train step's img/s and the loss's ms beside ``YOLOv3Loss``'s;
+    (c) accum_steps = 2 through ``Fit``, cut after an odd call and resumed,
+    against the uncut run; (d) the loader's img/s with the full op list
+    against the default recipe at 0 and 4 workers, and each op's host ms."""
+    from fastvision_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    launches: dict = {}
+    report: dict = {"card": smi}
+
+    # --- (a) the CLI: train with every op and accum_steps 2, train-cls with the cls ops
+    root = write_detection_dataset(os.path.join(workdir, "recipe_ds"), TRAIN_IMAGES,
+                                   sizes=SIZES, seed=SEED + 11, num_classes=NUM_CLASSES)
+    cfg = os.path.join(workdir, "recipe.yaml")
+    with open(cfg, "w") as f:
+        json.dump({"data": {"augment": RECIPE_DET_OPS},
+                   "train": {"accum_steps": RECIPE_ACCUM}}, f)  # JSON is YAML
+    ckpt = os.path.join(workdir, "recipe_ckpt")
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        fit = cli.main(["train", "--config", cfg, f"data.data_root={root}",
+                        f"data.input_size={INPUT_SIZE}", f"data.batch_size={TRAIN_BATCH}",
+                        "train.epochs=2", f"train.ckpt_dir={ckpt}", "train.ema_decay=0.9999"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches["recipe_cli_train"] = suppression_mask_cuda.launches
+    opt = fit.state.optimizer
+    check(isinstance(opt, MultiSteps) and opt.every_k == RECIPE_ACCUM and opt.mini_step == 0,
+          f"cli train: optimizer {type(opt).__name__}")
+    check(fit.global_step == 2 * len(fit.train_loader) and not fit.interrupted, "cli train steps")
+    check(len(fit.train_loader.augmentation.ops) == len(RECIPE_DET_OPS)
+          and fit.train_loader.worker_backend == "process", "cli train augmentation")
+    with open(os.path.join(ckpt, "train.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "train_loss" in r]
+    check(len(epochs) == 2 and all(np.isfinite(r["train_loss"]) for r in epochs),
+          f"cli train epochs {epochs}")
+    held = kernel_vs_plain_recorded(recorded)
+    del fit, opt, recorded
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    check(launches["recipe_cli_train"] > 0 and held["calls"] == launches["recipe_cli_train"],
+          f"cli train: {launches['recipe_cli_train']} launches, {held['calls']} recorded")
+    report["cli_train"] = {
+        "argv": "train --config recipe.yaml (data.augment: 15 specs, the 13 ops but "
+                "normalization, blur in its 3 kinds; train.accum_steps: 2) at 416, batch 32, "
+                "2 epochs",
+        "seconds": cli_s, "epochs": [{k: r[k] for k in ("epoch", "train_loss", "epoch_img_s",
+                                                          "map50")} for r in epochs],
+        "nms_launches": launches["recipe_cli_train"], "nms_vs_plain": held}
+
+    cls_root = write_classification_dataset(os.path.join(workdir, "recipe_cls"), CLS_IMAGES,
+                                            num_classes=CLS_FOLDERS, sizes=CLS_HW,
+                                            seed=SEED + 12)
+    cls_cfg = os.path.join(workdir, "recipe_cls.yaml")
+    with open(cls_cfg, "w") as f:
+        json.dump({"data": {"augment": RECIPE_CLS_OPS}}, f)
+    suppression_mask_cuda.launches = 0
+    t0 = time.perf_counter()
+    fit = cli.main(["train-cls", "--config", cls_cfg, f"data.data_root={cls_root}",
+                    "model.backbone=resnet50", f"model.num_classes={CLS_CLASSES}",
+                    f"data.input_size={CLS_SIZE}", f"data.batch_size={CLS_BATCH}",
+                    "train.epochs=1", f"train.lr={CLS_LR}", "train.warmup_epochs=0",
+                    f"train.ckpt_dir={os.path.join(workdir, 'recipe_cls_ckpt')}"])
+    torch.cuda.synchronize()
+    launches["recipe_cli_train_cls"] = suppression_mask_cuda.launches
+    check([type(op).__name__ for op in fit.train_loader.augmentation.ops]
+          == ["RandomCrop", "CenterCrop", "Resize", "HorizontalFlip"]
+          and fit.global_step == len(fit.train_loader), "cli train-cls with the cls ops")
+    report["cli_train_cls"] = {"seconds": time.perf_counter() - t0,
+                               "global_step": fit.global_step}
+    del fit
+    shutil.rmtree(os.path.join(workdir, "recipe_cls_ckpt"))
+    torch.cuda.empty_cache()
+
+    # --- (b) YOLOv3LossPerCell: card vs CPU, a bf16 Fit at batch 32, step rates
+    loss_fns = {"yolov3_loss": train_parts(anchors)[0],
+                **{f"per_cell_{m}": per_cell_parts(anchors, m) for m in ("bce_mse", "ciou")}}
+    postprocess = train_parts(anchors)[1]
+    per_cell = {}
+    for tag in ("per_cell_bce_mse", "per_cell_ciou"):
+        cmp = card_vs_cpu_per_cell(dev, loss_fns[tag])
+        emit("recipe_card_vs_cpu", loss=tag, **cmp)
+        check(cmp["within"], f"{tag} card vs cpu: {cmp}")
+        sink: list = []
+        model = yolo_model(SEED + 13)
+        fit = Fit(model, loss_fns[tag], build_optimizer("sgd", model, weight_decay=5e-4,
+                                                        momentum=0.937),
+                  DetectionLoader(SyntheticDetectionDataset(TRAIN_IMAGES, NUM_CLASSES, seed=SEED),
+                                  INPUT_SIZE, TRAIN_BATCH, max_boxes=32, seed=SEED),
+                  DetectionLoader(SyntheticDetectionDataset(VAL_IMAGES, NUM_CLASSES,
+                                                            seed=SEED + 2),
+                                  INPUT_SIZE, VAL_BATCH, max_boxes=32, train=False),
+                  epochs=1, schedule=constant_lr(1e-2), ema_decay=0.9999,
+                  evaluator=counted(detection_evaluator(make_eval_step(
+                      postprocess, dtype=torch.bfloat16)), sink),
+                  dtype=torch.bfloat16, metric_key="map50", metric_mode="max",
+                  logger=quiet_logger(), device=dev)
+        fit.run()
+        check(fit.global_step == len(fit.train_loader) and sink and min(sink) > 0,
+              f"{tag} Fit: {fit.global_step} steps, validation launches {sink}")
+        launches[f"recipe_{tag}_fit_validation"] = sum(sink)
+        per_cell[tag] = {"card_vs_cpu": cmp, "fit_global_step": fit.global_step}
+        del fit, model
+        torch.cuda.empty_cache()
+    model = yolo_model(SEED + 14).to(dev, memory_format=torch.channels_last)
+    state = TrainState(model, build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937))
+    batch = device_batch_of(DetectionLoader(
+        SyntheticDetectionDataset(TRAIN_BATCH, NUM_CLASSES, seed=SEED + 3), INPUT_SIZE,
+        TRAIN_BATCH, max_boxes=32, seed=SEED), dev)
+    with torch.autocast(dev.type, dtype=torch.bfloat16):
+        heads = [h.detach() for h in model(normalize_images(batch["images"], torch.bfloat16))]
+    rates = {}
+    for tag, loss_fn in loss_fns.items():
+        step_s = step_rate(make_train_step(loss_fn, dtype=torch.bfloat16), state, batch)
+        leaves = [h.clone().requires_grad_() for h in heads]
+
+        def loss_and_backward():
+            loss_fn(leaves, batch)[0].backward()
+
+        rates[tag] = {"train_step_img_s": TRAIN_BATCH / step_s, "train_step_ms": 1e3 * step_s,
+                      "loss_forward_backward_ms": cuda_ms(loss_and_backward, reps=10)}
+    report["per_cell"] = per_cell
+    report["bf16_batch32"] = rates
+    del model, state, batch, heads
+    torch.cuda.empty_cache()
+
+    # --- (c) accum_steps 2 through Fit, cut after an odd call and resumed
+    with deterministic_algorithms() as nondeterministic:
+        accum = resume_case(dev, functools.partial(yolo_resume_fit, accum_steps=RECIPE_ACCUM),
+                            os.path.join(workdir, "recipe_accum"))
+        shutil.rmtree(os.path.join(workdir, "recipe_accum"))
+    torch.cuda.empty_cache()
+    check(accum["optimizer_mini_step_at_save"] == 1, f"not cut mid-cycle: {accum}")
+    if not nondeterministic:
+        check(accum["final_bit_equal_to_uncut"], "accum_steps 2: the resumed run's final state "
+              f"differs from the uncut run's: {accum['final_max_rel_vs_uncut']}")
+    else:
+        worst = accum["final_max_rel_vs_uncut"]
+        check(worst["kernels"][0] <= RESUME_TOLERANCES["kernels"]
+              and worst["others"][0] <= RESUME_TOLERANCES["others"],
+              f"accum_steps 2: resumed run's final weights vs the uncut run's: {worst}")
+    launches["recipe_accum_resume_validation"] = sum(accum["val_launches"])
+    report["accum_resume"] = {
+        "model": "YOLOv3-416 full width, bf16, EMA, batch 32, SGD, accum_steps 2", **accum,
+        "deterministic_algorithms": {"ops_without_deterministic_implementation":
+                                     nondeterministic}}
+
+    # --- (d) the loader with the full op list against the default recipe, each op's host ms
+    default = ["hflip:0.5", "hsv:0.5"]
+    full = RECIPE_DET_OPS + [{"op": "normalization", "p": 0.5}]
+    loaders = {f"{tag}_w{w}": loader_img_s(root, specs, w)
+               for tag, specs in (("default", default), ("full", RECIPE_DET_OPS))
+               for w in RECIPE_WORKERS}
+    loaders["full_with_normalization_threads_w4"] = loader_img_s(root, full, 4, "thread")
+    check("float32" in loaders["full_with_normalization_threads_w4"]["batch_dtypes"],
+          f"normalization gave no float32 batch: {loaders}")
+    report["loader_img_s"] = loaders
+    report["op_host_ms_640x480"] = op_host_ms()
+    shutil.rmtree(root)
+    shutil.rmtree(cls_root)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit("recipe", **report)
+    return {"launches": launches, "zero": ["recipe_cli_train_cls"],
+            "mismatches": held["mismatches"]}
+
+
 def phase_doctor() -> dict:
     """``cli.main(["doctor"])`` on the card: its report."""
     from fastvision_tpu_torch import cli
@@ -4406,6 +4748,29 @@ def main_only_export(dev: torch.device, device: dict, t_start: float) -> int:
     return 0
 
 
+def main_only_recipe(dev: torch.device, device: dict, t_start: float) -> int:
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        recipe = phase_recipe(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    check(all(recipe["launches"][p] == 0 for p in recipe["zero"]),
+          f"train-cls launched nms: {recipe['launches']}")
+    check(recipe["mismatches"] == 0, "kernel mismatches")
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(recipe["launches"].values()), "launches_by_path": recipe["launches"],
+        "paths_expected_at_zero": recipe["zero"], "mismatches": recipe["mismatches"]}]}),
+        flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def main_only_i420(dev: torch.device, device: dict, t_start: float) -> int:
     workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
     try:
@@ -4445,6 +4810,8 @@ def main() -> int:
         return main_only_int8(dev, device, t_start)
     if sys.argv[1:] == ["--only", "export"]:
         return main_only_export(dev, device, t_start)
+    if sys.argv[1:] == ["--only", "recipe"]:
+        return main_only_recipe(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -4489,6 +4856,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         export = phase_export(dev, device["smi"], workdir)
         torch.cuda.empty_cache()
+        recipe = phase_recipe(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
         phase_doctor()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4502,11 +4871,12 @@ def main() -> int:
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
                **evaluate["launches"], **serve["launches"], **cli_run["launches"],
-               **i420["launches"], **int8["launches"], **export["launches"]}
+               **i420["launches"], **int8["launches"], **export["launches"],
+               **recipe["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"],
-                         *export["zero"]])
+                         *export["zero"], *recipe["zero"]])
     check(all(by_path[p] == 0 for p in zero_paths),
           f"classification or video launched nms: {by_path}")
     print(device["smi"], flush=True)
@@ -4518,7 +4888,7 @@ def main() -> int:
         "paths_expected_at_zero": zero_paths,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
         "mismatches": (kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"]
-                       + serve["mismatches"] + i420["mismatches"]),
+                       + serve["mismatches"] + i420["mismatches"] + recipe["mismatches"]),
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -52,7 +52,10 @@ card (train and eval loaders, the detector of ``eval`` / ``infer`` /
 ``eval --int8`` and ``serve --int8`` run the detector in int8
 (`Detector.quantize`, calibrated on the first 8 val images, or on the first
 8 image files of ``--calib-dir`` for ``serve``); ``eval --task cls|video``
-refuses ``--int8``, which the JAX package ignores there. ``export`` writes a
+refuses ``--int8``, which the JAX package ignores there; ``train.accum_steps``
+> 1 (gradients averaged over that many batches per update) drives the
+YOLOv3 ``train`` only, and the Faster R-CNN ``train``, ``train-cls`` and
+``train-video``, whose JAX counterparts ignore it, refuse it. ``export`` writes a
 ``torch.export`` program with its weights (`infer.export`: ``--stablehlo``
 or an ``--out`` ending in ``.pt2`` or ``.stablehlo``, the JAX package's
 StableHLO artifact's counterpart): the detector's normalize + forward +
@@ -192,6 +195,17 @@ def _preempt_signals(cfg):
     return (signal.SIGTERM,) if cfg.train.preempt_save else ()
 
 
+def _refuse_accum_steps(cfg, command: str) -> None:
+    """The JAX package applies ``train.accum_steps`` in the YOLOv3 ``train``
+    alone and ignores it elsewhere: refuse it there rather than train
+    otherwise than it does, or silently not at all."""
+    if cfg.train.accum_steps > 1:
+        raise SystemExit(
+            f"{command}: train.accum_steps={cfg.train.accum_steps} accumulates gradients in the "
+            "YOLOv3 train only; the JAX package ignores it here, so the port refuses it "
+            "(set train.accum_steps=1; train.microbatch splits each batch instead)")
+
+
 def cmd_train(args, overrides):
     """-> the finished (or preempted) `train.Fit`."""
     cfg = _load_config(args, overrides)
@@ -293,6 +307,7 @@ def _train_faster_rcnn(cfg, args):
         step_decay_lr,
     )
 
+    _refuse_accum_steps(cfg, "train (faster_rcnn)")
     set_random_seeds(cfg.train.seed)
     d, dtype = cfg.data, _dtype(cfg)
     model = FasterRCNN(
@@ -354,6 +369,7 @@ def cmd_train_cls(args, overrides):
         warmup_cosine_lr,
     )
 
+    _refuse_accum_steps(cfg, "train-cls")
     set_random_seeds(cfg.train.seed)
     d, t, dtype = cfg.data, cfg.train, _dtype(cfg)
     model = _build_zoo_model(cfg)
@@ -370,7 +386,7 @@ def cmd_train_cls(args, overrides):
         mix = make_classification_mix(cfg.model.num_classes, mixup_alpha=t.mixup_alpha,
                                       cutmix_alpha=t.cutmix_alpha, smoothing=t.label_smoothing)
     optimizer = build_optimizer(t.optimizer, model, weight_decay=t.weight_decay,
-                                momentum=t.momentum, accum_steps=t.accum_steps)
+                                momentum=t.momentum)
     workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend)
     cats = d.categories or None
     train_loader = ClassificationLoader(
@@ -427,6 +443,7 @@ def cmd_train_video(args, overrides):
     from .core import MetricLogger, set_random_seeds
     from .train import Fit, build_optimizer, cross_entropy, make_train_step, warmup_cosine_lr
 
+    _refuse_accum_steps(cfg, "train-video")
     set_random_seeds(cfg.train.seed)
     t, dtype = cfg.train, _dtype(cfg)
     model = _build_zoo_model(cfg, task="video")

@@ -1,8 +1,22 @@
 from .augment import (
+    BGR2RGB,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    OP_REGISTRY,
     Augmentation,
+    Blur,
+    CenterCrop,
+    ChannelShuffle,
+    HistEqualize,
     HorizontalFlip,
     HSVJitter,
+    Jitter,
+    Normalization,
     Op,
+    Padding,
+    RandomCrop,
+    Resize,
+    ResizeByMax,
     VerticalFlip,
     build_augmentation,
     hsv_to_rgb,
@@ -41,8 +55,10 @@ from .pipeline import (
 )
 
 __all__ = [
-    "Augmentation", "HorizontalFlip", "HSVJitter", "Op", "VerticalFlip", "build_augmentation",
-    "hsv_to_rgb", "rgb_to_hsv", "IMG_EXTS", "ClassificationDataset", "DetectionDataset",
+    "BGR2RGB", "IMAGENET_MEAN", "IMAGENET_STD", "OP_REGISTRY", "Augmentation", "Blur",
+    "CenterCrop", "ChannelShuffle", "HistEqualize", "HorizontalFlip", "HSVJitter", "Jitter",
+    "Normalization", "Op", "Padding", "RandomCrop", "Resize", "ResizeByMax", "VerticalFlip",
+    "build_augmentation", "hsv_to_rgb", "rgb_to_hsv", "IMG_EXTS", "ClassificationDataset", "DetectionDataset",
     "boxes_to_normalized_xywh", "imread_rgb", "imwrite_rgb", "letterbox", "pad_labels", "read_bmp", "read_label_file",
     "write_bmp", "mosaic4", "DecodePool", "ClassificationLoader", "DetectionLoader",
     "normalize_images", "parse_worker_backend", "prefetch_to_device", "VideoClipLoader",

@@ -51,6 +51,11 @@ def _worker(work_fn, task_q, result_q, shm_name, slot_shape):
             pos, slot, item = task
             try:
                 out, aux = work_fn(item)
+                if out.dtype != np.uint8:  # the JAX package's pool casts unchecked
+                    raise ValueError(
+                        f"the process pool's slots hold uint8; a sample came out {out.dtype} "
+                        "(an augmentation ending in 'normalization' needs "
+                        "worker_backend='thread' or num_workers <= 1)")
                 view = np.ndarray(
                     slot_shape, np.uint8,
                     buffer=shm.buf[slot * slot_bytes : (slot + 1) * slot_bytes])

@@ -33,7 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.image import i420_packed_to_rgb, rgb_batch_to_i420_packed
-from .augment import Augmentation
+from .augment import Augmentation, uint8_only
 from .codec import letterbox_batch_native
 from .dataset import boxes_to_normalized_xywh, letterbox, pad_labels, resize_bilinear
 from .decode_pool import DecodePool
@@ -179,21 +179,25 @@ class _PooledLoader:
 
     def _batched(self, epoch_idx: int, start_batch: int) -> Iterator[tuple]:
         """-> (images uint8 [B, S, S, 3], the samples' aux, real count) per
-        batch; a ragged last batch repeats its last image up to B. A process
+        batch; a ragged last batch repeats its last image up to B. A batch
+        holding a float sample (an augmentation ending in 'normalization')
+        is float32, as the JAX package's np.stack makes it. A process
         pool is built at this call, in the caller's thread (the loaders'
         ``epoch`` is not a generator function), not in the thread that
         consumes the batches."""
         samples = self._samples(self._epoch_items(epoch_idx, start_batch))
 
         def batches():
-            batch = np.empty((self.batch_size, *self._slot_shape()), np.uint8)
-            aux = []
+            empty = np.empty((self.batch_size, *self._slot_shape()), np.uint8)
+            batch, aux = empty, []
             for image, a in samples:
+                if image.dtype != batch.dtype:  # a float sample ('normalization'):
+                    batch = batch.astype(np.result_type(batch, image))  # as np.stack
                 batch[len(aux)] = image
                 aux.append(a)
                 if len(aux) == self.batch_size:
                     yield batch.copy(), aux, len(aux)
-                    aux = []
+                    batch, aux = empty, []
             if aux:
                 batch[len(aux):] = batch[len(aux) - 1]
                 yield batch.copy(), aux, len(aux)
@@ -332,6 +336,7 @@ class DetectionLoader(_PooledLoader):
 
     def _letterbox(self, image: np.ndarray):
         if self.use_native:
+            uint8_only(image, "use_native")  # the JAX package casts unchecked
             out, scales, pads = letterbox_batch_native([image], self.input_size, self.pad_value,
                                                        num_threads=1)
             return out[0], scales[0], (int(pads[0, 0]), int(pads[0, 1]))
@@ -375,6 +380,7 @@ class DetectionLoader(_PooledLoader):
             if self.native_jpeg:
                 self.fallbacks += sum(m["i420_fallback"] for m in metas)
             elif self.emit == "i420":
+                uint8_only(images, "emit='i420'")  # the JAX package casts unchecked
                 images = rgb_batch_to_i420_packed(images)
             return {"images": images,
                     "labels": np.stack([a[0] for a in aux] + [empty] * (self.batch_size - real)),

@@ -91,6 +91,17 @@ def letterbox_batch(images: torch.Tensor, sizes_hw: torch.Tensor, out_size: int,
     return out.to(dtype), scales_xy, pads_xy
 
 
+def letterbox_single(image: torch.Tensor, size_hw, out_size: int, pad_value: float,
+                     dtype: torch.dtype = torch.float32):
+    """One image of a fixed canvas -> letterboxed [S, S, C] (`letterbox_batch`
+    of a batch of one). image: [Hmax, Wmax, C], its content in the top-left
+    (h, w) corner; size_hw: int [2] true (h, w). -> (out [S, S, C]
+    ``dtype``, scale_xy [2] float32, pad_xy [2] int32)."""
+    sizes = torch.as_tensor(size_hw, device=image.device)[None]
+    out, scales, pads = letterbox_batch(image[None], sizes, out_size, pad_value, dtype)
+    return out[0], scales[0], pads[0]
+
+
 def i420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """I420 planes -> RGB [B, S, S, 3] ``dtype`` in [0, 255]: y [B, S, S],

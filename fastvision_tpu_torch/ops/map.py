@@ -256,3 +256,7 @@ class MeanAveragePrecision:
             prec[ci], rec[ci] = precision[best, 0], recall[best, 0]
 
         return MAPResult(ap.mean(axis=0), ap, seen, prec, rec, self.iou_thresholds)
+
+
+# the reference's class name, as the JAX package keeps it
+CalculateMAP = MeanAveragePrecision

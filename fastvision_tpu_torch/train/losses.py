@@ -1,6 +1,7 @@
 """Losses (port of fastvision_tpu/train/losses.py): cross-entropy, soft
-cross-entropy, BCE, focal and binary focal, smooth-L1, the dense YOLOv3
-target assignment and ``YOLOv3Loss``.
+cross-entropy, BCE (on logits or probabilities), focal and binary focal, the
+IoU-family loss, smooth-L1, the dense YOLOv3 target assignment,
+``YOLOv3Loss`` and the per-cell ``YOLOv3LossPerCell``.
 
 Labels arrive padded [B, M, 5] = (class, cx, cy, w, h) with NORMALIZED xywh
 and class == -1 marking padding. Targets are built by a dense scatter into
@@ -14,9 +15,6 @@ port picks the winner explicitly, the candidate with the highest flat index
 (GT-major, then anchor, then candidate cell), and gathers its whole row:
 box, class and positive flag always come from one GT. XLA's CPU scatter
 applies updates in order, so the last (highest) index is also its winner.
-
-Not ported yet: ``iou_loss``, ``YOLOv3LossPerCell``, and BCE on
-probabilities (``from_logits=False``).
 """
 from __future__ import annotations
 
@@ -25,7 +23,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..ops.iou import box_iou, wh_iou_matrix
+from ..ops.grid import grid as make_grid
+from ..ops.iou import box_iou, box_iou_matrix, wh_iou_matrix
 from ..ops.one_hot import one_hot
 
 _EPS = 1e-8
@@ -43,12 +42,17 @@ def _reduce(loss: torch.Tensor, weights, reduction: str) -> torch.Tensor:
     return loss
 
 
-def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, weights=None,
-                         reduction: str = "mean") -> torch.Tensor:
-    """Elementwise BCE on logits, in the stable form
-    max(x, 0) - x * t + log(1 + exp(-|x|))."""
-    targets = targets.to(logits.dtype)
-    loss = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+def binary_cross_entropy(preds: torch.Tensor, targets: torch.Tensor, from_logits: bool = True,
+                         weights=None, reduction: str = "mean") -> torch.Tensor:
+    """Elementwise BCE. On logits in the stable form max(x, 0) - x * t +
+    log(1 + exp(-|x|)); ``from_logits=False`` takes probabilities, clipped
+    to [1e-8, 1 - 1e-8] in their dtype first (float32: the upper clip is 1)."""
+    targets = targets.to(preds.dtype)
+    if from_logits:
+        loss = preds.clamp(min=0) - preds * targets + torch.log1p(torch.exp(-preds.abs()))
+    else:
+        p = preds.clamp(_EPS, 1 - _EPS)
+        loss = -targets * torch.log(p) - (1 - targets) * torch.log(1 - p)
     return _reduce(loss, weights, reduction)
 
 
@@ -89,6 +93,14 @@ def binary_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float 
     loss = (1 - p_t) ** gamma * ce
     if alpha is not None:
         loss = loss * (alpha * targets + (1 - alpha) * (1 - targets))
+    return _reduce(loss, weights, reduction)
+
+
+def iou_loss(pred_boxes: torch.Tensor, target_boxes: torch.Tensor, kind: str = "ciou",
+             fmt: str = "xyxy", weights=None, reduction: str = "mean") -> torch.Tensor:
+    """1 - IoU-family (`ops.iou.box_iou`: 'iou', 'giou', 'diou', 'ciou';
+    boxes 'xyxy' or 'xywh') between paired boxes [..., 4]."""
+    loss = 1.0 - box_iou(pred_boxes, target_boxes, kind=kind, fmt=fmt)
     return _reduce(loss, weights, reduction)
 
 
@@ -291,3 +303,90 @@ class YOLOv3Loss:
         return YoloLossOutput(total, self.ratio_box * loss_box * batch,
                               self.ratio_conf * loss_obj * batch,
                               self.ratio_cls * loss_cls * batch)
+
+
+class YOLOv3LossPerCell:
+    """The demo recipe's loss: the best anchor per GT by wh-IoU; the box term
+    BCE of the sigmoid-xy offsets plus MSE of log(wh / anchor), the xy part
+    weighted by ``lambda_xy`` ('bce_mse'), or CIoU of the decoded boxes
+    ('ciou'); objectness BCE over every cell except the negatives whose
+    decoded box overlaps a GT above ``ignore_iou_thres`` (the ignore mask);
+    class BCE at positives. The parts are per-level means summed over the
+    levels, not scaled by the batch. Heads are taken in float32."""
+
+    def __init__(
+        self,
+        anchors,
+        strides: Sequence[int] = (32, 16, 8),
+        num_classes: int = 80,
+        box_loss: str = "bce_mse",  # 'bce_mse' | 'ciou'
+        ignore_iou_thres: float = 0.5,
+        lambda_xy: float = 2.0,
+        lambda_wh: float = 1.0,
+        lambda_conf: float = 1.0,
+        lambda_cls: float = 1.0,
+    ):
+        if box_loss not in ("bce_mse", "ciou"):
+            raise ValueError("box_loss must be 'bce_mse' or 'ciou'")
+        self.anchors = np.asarray(anchors, np.float32)
+        self.strides = tuple(strides)
+        self.num_classes = num_classes
+        self.box_loss = box_loss
+        self.ignore_iou_thres = ignore_iou_thres
+        self.lams = (lambda_xy, lambda_wh, lambda_conf, lambda_cls)
+        self._anchors_feat: dict[torch.device, torch.Tensor] = {}
+
+    anchors_feat = YOLOv3Loss.anchors_feat
+
+    def _ignore(self, pred_xywh: torch.Tensor, t: dict) -> torch.Tensor:
+        """[B, H, W, A] bool: the decoded box overlaps a valid GT above the
+        threshold. A comparison: no gradient flows through it."""
+        b, h, w, a, _ = pred_xywh.shape
+        with torch.no_grad():
+            iou = box_iou_matrix(pred_xywh.detach().reshape(b, h * w * a, 4),
+                                 t["gt_xywh_feat"], kind="iou", fmt="xywh")  # [B, HWA, M]
+            iou = torch.where(t["gt_valid"][:, None, :], iou, 0.0)
+            return (iou.amax(dim=-1) > self.ignore_iou_thres).reshape(b, h, w, a)
+
+    def __call__(self, heads: Sequence[torch.Tensor], labels: torch.Tensor) -> YoloLossOutput:
+        """heads: per-level [B, H, W, A, 5 + C]; labels: [B, M, 5] padded."""
+        lam_xy, lam_wh, lam_conf, lam_cls = self.lams
+        anchors = self.anchors_feat(heads[0].device)
+        labels = labels.to(torch.float32)
+        loss_box = loss_obj = loss_cls = 0.0
+        for li, head in enumerate(heads):
+            head = head.float()
+            b, h, w, a, _ = head.shape
+            t = _dense_targets(labels, anchors[li], (h, w), ratio_thres=None)
+            pos = t["pos"]
+
+            # decoded predictions in feature units (the v3 decode)
+            offsets = make_grid(h, w, "xy", head.dtype, head.device)[None, :, :, None, :]
+            pxy_cell = torch.sigmoid(head[..., 0:2])
+            pwh = torch.exp(head[..., 2:4].clamp(-9.0, 9.0)) * t["anchor"]
+            pred_xywh = torch.cat([pxy_cell + offsets, pwh], dim=-1)
+
+            if self.box_loss == "bce_mse":
+                # per-element means over positives
+                xy_bce = binary_cross_entropy(head[..., 0:2], t["box"][..., 0:2],
+                                              reduction="none")
+                loss_box = loss_box + lam_xy * _masked_mean(xy_bce.mean(dim=-1), pos)
+                # empty cells: log(eps / anchor) * 0, finite
+                t_wh_raw = torch.log(t["box"][..., 2:4].clamp(min=_EPS) / t["anchor"]) * pos[..., None]
+                wh_mse = (head[..., 2:4] - t_wh_raw) ** 2
+                loss_box = loss_box + lam_wh * _masked_mean(wh_mse.mean(dim=-1), pos)
+            else:
+                t_xywh_abs = torch.cat([t["box"][..., 0:2] + offsets * pos[..., None],
+                                        t["box"][..., 2:4]], dim=-1)
+                ciou = box_iou(pred_xywh, t_xywh_abs, kind="ciou", fmt="xywh")
+                loss_box = loss_box + _masked_mean(1.0 - ciou, pos)
+
+            obj_weight = torch.where((pos == 0) & self._ignore(pred_xywh, t), 0.0, 1.0)
+            obj_bce = binary_cross_entropy(head[..., 4], pos, reduction="none")
+            loss_obj = loss_obj + lam_conf * _masked_mean(obj_bce, obj_weight)
+
+            cls_bce = binary_cross_entropy(head[..., 5:], one_hot(t["cls"], self.num_classes),
+                                           reduction="none")
+            loss_cls = loss_cls + lam_cls * _masked_mean(cls_bce.mean(dim=-1), pos)
+
+        return YoloLossOutput(loss_box + loss_obj + loss_cls, loss_box, loss_obj, loss_cls)

@@ -15,7 +15,10 @@ left out of the optimizer: they still get gradients, but never move.
 
 The learning rate is set per step from the host (`set_lr`).
 
-Not ported yet: ``accum_steps > 1`` (optax.MultiSteps).
+``accum_steps = k > 1`` wraps the optimizer in `MultiSteps`, optax's
+``MultiSteps(every_k_schedule=k)``: each call adds its gradients into a
+running mean, and every k-th call applies the optimizer (the clip, the decay
+and the momentum included) to that mean once; the other calls move nothing.
 """
 from __future__ import annotations
 
@@ -52,15 +55,13 @@ def build_optimizer(
     grad_clip_norm: float = 0.0,
     trainable: Mapping[str, bool] | None = None,
     accum_steps: int = 1,
-) -> torch.optim.Optimizer:
+) -> "torch.optim.Optimizer | MultiSteps":
     """SGD (nesterov momentum) or Adam over ``model``'s parameters, with
     weight decay on kernels only, optional global-norm clipping, and an
     optional ``trainable`` map (parameter name -> bool) whose False entries
-    are frozen. The learning rate starts at 0: set it with `set_lr`."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 (optax.MultiSteps) is not ported yet (ROADMAP Queue 1, item 9); "
-            "make_train_step(accum_steps=...) accumulates within a step")
+    are frozen, and with ``accum_steps > 1`` the gradients of that many
+    calls averaged before each update (`MultiSteps`). The learning rate
+    starts at 0: set it with `set_lr`."""
     mask = decay_mask(model)
     groups: dict[bool, list] = {True: [], False: []}
     for pname, p in model.named_parameters():
@@ -79,15 +80,84 @@ def build_optimizer(
         params = groups[True] + groups[False]
         opt.register_step_pre_hook(
             lambda *_: clip_grads_by_global_norm_(params, grad_clip_norm))
-    return opt
+    return MultiSteps(opt, accum_steps) if accum_steps > 1 else opt
 
 
-def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+class MultiSteps:
+    """Gradient accumulation across calls around a torch optimizer, with
+    optax ``MultiSteps(every_k_schedule=k, use_grad_mean=True)``'s
+    semantics. Each `step` folds the parameters' ``.grad`` into float32
+    running means, ``acc += (grad - acc) / (n + 1)`` at the n-th call of a
+    cycle (a missing ``.grad`` counts as zero, as the JAX package's zero
+    gradient of an unused parameter). The k-th call sets each ``.grad`` to
+    its mean, steps the inner optimizer (its pre-hooks, the clip, run once,
+    on the mean) and resets the means; the other calls leave the parameters
+    and the inner state as they are. Parameters the inner optimizer does
+    not hold (frozen ones) are not accumulated. ``param_groups`` are the
+    inner optimizer's (`set_lr` reaches them; the learning rate of the k-th
+    call is the one applied); the state dict carries the means and the
+    position in the cycle, so a resume mid-cycle continues it."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.params = [p for g in inner.param_groups for p in g["params"]]
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+
+    @property
+    def param_groups(self) -> list[dict]:
+        return self.inner.param_groups
+
+    def _follow_params(self) -> None:
+        """Moves the means to their parameters' device: a model moved after
+        the optimizer was built (`TrainState.create`) keeps its Parameter
+        objects, whose data now lives elsewhere."""
+        if any(a.device != p.device for a, p in zip(self.acc, self.params)):
+            self.acc = [a.to(p.device) for a, p in zip(self.acc, self.params)]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self._follow_params()
+        n = self.mini_step
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is None:
+                acc.sub_(acc / (n + 1))
+            else:
+                acc.add_((p.grad.float() - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.to(p.dtype, copy=True)
+        self.inner.step()
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "every_k": self.every_k,
+                "mini_step": self.mini_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("every_k") != self.every_k:
+            raise ValueError(f"optimizer state accumulates over {state.get('every_k')} calls, "
+                             f"this optimizer over {self.every_k}")
+        self.inner.load_state_dict(state["inner"])
+        self._follow_params()
+        for acc, saved in zip(self.acc, state["acc"], strict=True):
+            acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
+
+
+def set_lr(optimizer: "torch.optim.Optimizer | MultiSteps", lr: float) -> None:
     """Set the learning rate of every param group."""
     for group in optimizer.param_groups:
         group["lr"] = lr
 
 
-def get_lr(optimizer: torch.optim.Optimizer) -> float:
+def get_lr(optimizer: "torch.optim.Optimizer | MultiSteps") -> float:
     """The learning rate last set (for logging)."""
     return float(optimizer.param_groups[0]["lr"])

@@ -526,8 +526,8 @@ def test_build_augmentation():
                                                      "VerticalFlip"]
     assert aug.ops[0].p == 0.5 and aug.ops[1].gains[1] == 0.6 and aug.ops[2].p == 1.0
     assert build_augmentation([]) is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_augmentation(["blur"])
+    blur = build_augmentation(["blur:0.25"]).ops[0]  # every JAX op is ported
+    assert type(blur).__name__ == "Blur" and blur.p == 0.25 and blur.ksize == 3
     with pytest.raises(ValueError):
         build_augmentation(["nope"])
     with pytest.raises(ValueError):

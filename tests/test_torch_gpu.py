@@ -216,6 +216,37 @@ def test_train_step_on_card_equals_cpu():
     assert worst["kernels"][0] <= 1e-3 and worst["others"][0] <= 1e-2, worst
 
 
+def test_multisteps_follows_a_model_moved_to_the_card():
+    """`build_optimizer(accum_steps=2)` over a model still on the CPU, then
+    `TrainState.create` moves it: the means follow the parameters to the
+    card, and 4 calls match the same calls on the CPU; a state dict saved
+    mid-cycle on the card loads into a CPU optimizer."""
+    from fastvision_tpu_torch.train import TrainState, build_optimizer, set_lr
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(0)
+    card_model = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Conv2d(4, 2, 1))
+    cpu_model = copy.deepcopy(card_model)
+    card = TrainState.create(card_model, build_optimizer("adam", card_model, accum_steps=2,
+                                                         grad_clip_norm=1.0), dev)
+    cpu = TrainState.create(cpu_model, build_optimizer("adam", cpu_model, accum_steps=2,
+                                                       grad_clip_norm=1.0), "cpu")
+    for call in range(4):
+        grads = [torch.randn(p.shape, generator=gen) for p in cpu_model.parameters()]
+        for state in (card, cpu):
+            for p, g in zip(state.model.parameters(), grads):
+                p.grad = g.to(p.device)
+            set_lr(state.optimizer, 1e-2)
+            state.optimizer.step()
+        if call == 2:
+            saved = card.optimizer.state_dict()
+    for a, b in zip(card_model.parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-6, atol=1e-7)
+    other = build_optimizer("adam", copy.deepcopy(cpu_model), accum_steps=2, grad_clip_norm=1.0)
+    other.load_state_dict(saved)
+    assert other.mini_step == 1 and all(a.device.type == "cpu" for a in other.acc)
+
+
 def test_fit_on_card_validates_through_the_nms_kernel():
     """bf16 Fit of 2 steps with EMA, then validation: one NMS kernel launch
     per validation batch, finite loss, map in [0, 1]."""

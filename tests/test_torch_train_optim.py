@@ -27,6 +27,7 @@ from fastvision_tpu_torch.train import (
     set_lr,
 )
 from fastvision_tpu_torch.train import schedulers as port_sched
+from fastvision_tpu_torch.train.optim import MultiSteps
 
 torch.set_num_threads(2)
 LRS = (1e-2, 5e-3, 2e-2, 1e-3, 7e-3)
@@ -65,6 +66,9 @@ CASES = {
     "sgd_frozen_conv": dict(name="sgd", trainable={"conv.weight": False}),
     "adam_frozen_head": dict(name="adam", trainable={"head.weight": False, "head.bias": False}),
     "adam_no_decay": dict(name="adam", weight_decay=0.0),
+    "sgd_accum_2": dict(name="sgd", accum_steps=2),
+    "adam_accum_2_clip_frozen": dict(name="adam", accum_steps=2, grad_clip_norm=1.0,
+                                     trainable={"conv.weight": False}),
 }
 
 
@@ -128,8 +132,10 @@ def test_decay_mask_matches_jax():
 
 
 def test_build_optimizer_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MultiSteps"):
-        build_optimizer("sgd", _tiny(), accum_steps=2)
+    """Every option is ported: accum_steps > 1 wraps the optimizer, whose
+    param groups stay the inner optimizer's; unknown names are refused."""
+    accum = build_optimizer("sgd", _tiny(), accum_steps=2)
+    assert isinstance(accum, MultiSteps) and accum.param_groups is accum.inner.param_groups
     with pytest.raises(ValueError, match="unknown optimizer"):
         build_optimizer("lamb", _tiny())
     opt = build_optimizer("adam", _tiny())
