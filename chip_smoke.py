@@ -146,11 +146,12 @@ exits non-zero before a result is printed:
               (equal rows), images/s and kernel launches of each;
   20. codec   the port's image decoder (``data/codec.py``, JPEG through
               ``csrc/jpeg_decode.cpp``) over the committed corpus in
-              ``tests/torch_codec_fixtures``: every file's decode against the
-              cv2 pixels (or sha256) stored beside it, 0 differing bytes; the
-              progressive, truncated and interlaced files must raise; then
-              ``decode_image`` ms per full-size JPEG (640 x 480 to 1280 x
-              720) on one thread and images/s on 4;
+              ``tests/torch_codec_fixtures``: every image's decode against
+              the cv2 pixels (or sha256) stored beside it, 0 differing
+              bytes; the truncated file and the progressive one without
+              Huffman tables must raise; then ``decode_image`` ms per
+              full-size JPEG (640 x 480 to 1280 x 720) on one thread and
+              images/s on 4;
   21. serve   the serving path: the serving preset's ``Detector`` built by
               the CLI's ``_detector_from_cfg`` (full-width YOLOv3-416, 80
               classes, bf16, random weights, batch 8, buckets 1 / 2 / 4,
@@ -277,13 +278,37 @@ exits non-zero before a result is printed:
               0 and 4 workers with the full op list against the default
               recipe (and with 'normalization' on 4 threads), each op's host
               ms on a 640 x 480 image;
-  27. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
+  27. decode  the decode leftovers: the corpus's progressive (cv2, PIL, every
+              sampling, restarts, EOB runs, successive approximation, a
+              script stopping at Al = 1 and one of DC scans only: block
+              smoothing), CMYK, YCCK, table-less and Adam7 files against the
+              stored cv2 pixels at full size and at 1/2, 1/4, 1/8, the fused
+              I420 decode against the JAX package's stored outputs (None on
+              CMYK / YCCK), and the Motion-JPEG AVIs (cv2's frame counts, each
+              frame's ``cv2.imdecode`` pixels); bench.py's jpeg -> boxes
+              corpus (DECODE_SHAPES) encoded twice by
+              ``testing.encode_progressive_jpeg`` from the same quantized
+              coefficients, progressive and sequential: every decode (full,
+              fused I420 at 416, reduced) of the pair bit-equal; the times of
+              both (1 and 4 threads, the fused decode); a 640 x 480, 64-frame
+              MJPEG AVI (every other frame without DHT) read by ``load_clip``,
+              ``VideoFolderDataset`` and a ``VideoClipLoader`` epoch (4 process
+              workers) feeding the full-width SlowFast-R50 (32 x 224, bf16)
+              eval step (NMS launches counted: 0), and
+              ``Detector.predict_video`` with full-width YOLOv3-416 (80
+              classes, bf16, batch 8, K = 1024, BN from the smoke's images):
+              each frame's result bit-equal to ``predict_batch`` on the same
+              frames decoded one by one, the NMS kernel's launches counted
+              and each keep mask bit-equal to the plain version, the kernel
+              timed on this path's inputs; demux + decode and predict_video
+              frames/s;
+  28. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
               matmul chain's TFLOP/s; then the run's total seconds.
 
 ``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``,
-``--only recipe``) runs the device and build phases and the i420 (int8;
-doctor and export; recipe) phases alone (a quick check of this path; the
-full run takes no arguments).
+``--only recipe``, ``--only decode``) runs the device and build phases and
+the i420 (int8; doctor and export; recipe; decode) phases alone (a quick
+check of this path; the full run takes no arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
 port: the NMS kernel with its launches on every path (the classification
@@ -332,8 +357,10 @@ from fastvision_tpu_torch.data import (
     build_augmentation,
     normalize_images,
 )
+from fastvision_tpu_torch.data import avi
 from fastvision_tpu_torch.data.codec import decode_image, decode_jpeg_i420, decode_jpeg_reduced
-from fastvision_tpu_torch.data.dataset import imread_rgb_scaled, letterbox
+from fastvision_tpu_torch.data.video_sampler import count_real_frames, load_clip, sample_indices
+from fastvision_tpu_torch.data.dataset import imread_rgb_scaled, letterbox, resize_bilinear
 from fastvision_tpu_torch.infer import (
     REFERENCE_SWEEP,
     Detector,
@@ -416,6 +443,11 @@ from fastvision_tpu_torch.ops.nms_kernel import (
 from fastvision_tpu_torch.testing import (
     INT8_IMPLICIT_CASES,
     SyntheticDetectionDataset,
+    blurred_noise,
+    encode_progressive_jpeg,
+    mjpeg_avi,
+    standard_jpeg_tables,
+    with_exif_orientation,
     int8_conv_case,
     quantize_tie_cases,
     nms_case,
@@ -2449,6 +2481,8 @@ def phase_codec(smi: str) -> dict:
     manifest, pixels = codec_fixtures()
     differing, raised, checked = 0, [], 0
     for e in manifest:
+        if "video" in e:  # the Motion-JPEG AVIs: phase_decode
+            continue
         if "raises" in e:
             try:
                 decode_image(e["data"])
@@ -4631,6 +4665,253 @@ def phase_recipe(dev: torch.device, smi: str, workdir: str) -> dict:
             "mismatches": held["mismatches"]}
 
 
+# ---------------------------------------------------------------------------
+# The decode leftovers: progressive / CMYK / YCCK / table-less JPEG, Adam7
+# PNG, Motion-JPEG AVI files without cv2, Detector.predict_video
+# ---------------------------------------------------------------------------
+DECODE_SHAPES, DECODE_ORIENTATIONS = I420_SHAPES, I420_ORIENTATIONS  # bench.py's corpus recipe
+DECODE_AVI_FRAMES, DECODE_AVI_HW, DECODE_AVI_FPS = 64, (480, 640), 25.0
+DECODE_BATCH = 8
+DECODE_SMOOTHED = ("prog_own_al1.jpg", "prog_cv2_dc_only.jpg")
+
+
+def _decode_twins(job):
+    """(h, w, seed, orientation) -> the same quantized coefficients of a
+    `blurred_noise` image as a sequential and a progressive JPEG (4:2:0,
+    libjpeg's q90 tables)."""
+    h, w, seed, orientation = job
+    img, (dqt, dht) = blurred_noise(h, w, seed), standard_jpeg_tables(90)
+    pair = (encode_progressive_jpeg(img, dqt, dht, progressive=False),
+            encode_progressive_jpeg(img, dqt, dht))
+    return tuple(with_exif_orientation(b, orientation) if orientation > 1 else b for b in pair)
+
+
+def _avi_frame(job) -> bytes:
+    """(t, (h, w)) -> frame ``t`` of the phase's MJPEG AVI: a sequential
+    JPEG, odd frames without DHT (the Motion-JPEG convention)."""
+    t, hw = job
+    dqt, dht = standard_jpeg_tables(85)
+    return encode_progressive_jpeg(blurred_noise(*hw, SEED + 7000 + t), dqt, dht,
+                                   progressive=False, tables=t % 2 == 0)
+
+
+def _pool_map(fn, jobs: list) -> list:
+    """``fn`` over ``jobs`` on a worker per core (spawned: this process has
+    CUDA and intra-op threads)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
+        return pool.map(fn, jobs, chunksize=4)
+
+
+def check_decode_corpus() -> dict:
+    """The corpus's progressive, CMYK / YCCK, table-less, Adam7 and AVI
+    files on every path: full and reduced decodes against cv2's stored
+    pixels and digests, the fused decode against the JAX package's stored
+    outputs (check_native_oracles), None on CMYK / YCCK, the AVIs against
+    cv2's counts and frame digests."""
+    manifest, pixels = codec_fixtures()
+    with open(os.path.join(FIXTURES, "native_oracles.json")) as f:
+        reduced = {(e["file"], e["factor"]): e for e in json.load(f)["cv2_reduced"]}
+    kinds = ("prog", "cmyk", "ycck", "tableless", "png_adam7", "png_interlaced", "video",
+             "progressive")
+    differing, files, by_kind = 0, 0, collections.Counter()
+    for e in manifest:
+        name = e["file"]
+        if not name.startswith(kinds) or "raises" in e:
+            continue
+        files += 1
+        by_kind[name.split("_")[0]] += 1
+        if "video" in e:
+            want = e["video"]
+            path = os.path.join(FIXTURES, name)
+            video = avi.open_video(path)
+            check(isinstance(video, avi.MJPEGAvi), f"{name}: not read as Motion-JPEG")
+            got = [video.frame_count, count_real_frames(path), avi.open_video(path).walk_count(),
+                   video.fps]
+            check(got == [want["frame_count"], want["real_frames"], want["read_loop_frames"],
+                          want["fps"]], f"{name}: counts {got} != cv2's {want}")
+            digests = [hashlib.sha256(f.tobytes()).hexdigest() for f in video.frames()]
+            check(digests == want["frames_sha256"], f"{name}: a frame differs from cv2.imdecode's")
+            continue
+        got = decode_image(e["data"])
+        if name in pixels:
+            differing += int((got != pixels[name]).sum())
+        check(hashlib.sha256(got.tobytes()).hexdigest() == e["sha256"],
+              f"{name}: the decode's sha256 differs from cv2's")
+        if name.endswith(".jpg"):
+            for f in (2, 4, 8):
+                r = decode_jpeg_reduced(e["data"], f)
+                check([list(r.shape), hashlib.sha256(r.tobytes()).hexdigest()] ==
+                      [reduced[(name, f)]["shape"], reduced[(name, f)]["sha256"]],
+                      f"{name}: the 1/{f} decode differs from cv2's")
+            if name.startswith(("cmyk", "ycck")):
+                check(decode_jpeg_i420(e["data"], 416) is None, f"{name}: fused decode not None")
+    check(differing == 0, f"the decoder differs from cv2 in {differing} bytes")
+    return {"files": files, "by_kind": dict(by_kind), "differing_bytes": differing,
+            "native_oracles": check_native_oracles()}
+
+
+def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
+    """The decode leftovers, with no cv2 call: the corpus, the
+    progressive twins of bench.py's JPEG corpus, their times, and a
+    640 x 480 MJPEG AVI through load_clip, VideoFolderDataset, a
+    VideoClipLoader feeding SlowFast-R50's eval step and
+    Detector.predict_video (YOLOv3-416)."""
+    t_phase = time.perf_counter()
+    corpus = check_decode_corpus()
+
+    # (b) bench.py's corpus recipe, progressive and sequential from the same coefficients
+    t0 = time.perf_counter()
+    jobs = [(h, w, SEED * 100003 + i, o)
+            for i, ((h, w), o) in enumerate(zip(DECODE_SHAPES, DECODE_ORIENTATIONS))]
+    twins = _pool_map(_decode_twins, jobs)
+    encode_s = time.perf_counter() - t0
+    pair_checks = collections.Counter()
+    for (base, prog), (h, w, _, o) in zip(twins, jobs):
+        check(prog[prog.index(b"\xff\xc2"):][:2] == b"\xff\xc2", "not a progressive file")
+        check(np.array_equal(decode_image(prog), decode_image(base)),
+              f"progressive {h}x{w} decodes otherwise than its sequential twin")
+        a, b = decode_jpeg_i420(prog, INPUT_SIZE, 114, INPUT_SIZE), \
+            decode_jpeg_i420(base, INPUT_SIZE, 114, INPUT_SIZE)
+        check(np.array_equal(a[0], b[0]) and a[1:] == b[1:], f"fused decode differs at {h}x{w}")
+        pair_checks["full_and_fused"] += 1
+        if max(h, w) > 640:
+            for f in (2, 4, 8):
+                check(np.array_equal(decode_jpeg_reduced(prog, f), decode_jpeg_reduced(base, f)),
+                      f"1/{f} decode differs at {h}x{w}")
+            pair_checks["reduced_2_4_8"] += 1
+
+    # (c) progressive against sequential decode times (full size, 1 and 4 threads)
+    from concurrent.futures import ThreadPoolExecutor
+
+    manifest = {e["file"]: e["data"] for e in codec_fixtures()[0]}
+    times = {}
+    for h, w in ((480, 640), (640, 480), (375, 500), (720, 1280)):
+        row = {}
+        for kind, name in (("sequential", f"full_{h}x{w}.jpg"), ("progressive", f"prog_full_{h}x{w}.jpg")):
+            data = manifest[name]
+            row[f"{kind}_ms"] = 1e3 * host_s(lambda: decode_image(data), reps=20)
+            row[f"{kind}_fused_i420_ms"] = 1e3 * host_s(
+                lambda: decode_jpeg_i420(data, INPUT_SIZE, 114, INPUT_SIZE), reps=20)
+            row[f"{kind}_bytes"] = len(data)
+        times[f"{h}x{w}"] = row
+    threads4 = {}
+    for kind, k in (("sequential", 0), ("progressive", 1)):
+        datas = [t[k] for t in twins]
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(decode_image, datas[:8]))
+            t0 = time.perf_counter()
+            list(pool.map(decode_image, datas))
+            threads4[f"{kind}_img_s"] = len(datas) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for d in datas[:64]:
+            decode_image(d)
+        threads4[f"{kind}_1_thread_img_s"] = 64 / (time.perf_counter() - t0)
+    del twins
+
+    # (d) a 640 x 480, 64-frame MJPEG AVI
+    t0 = time.perf_counter()
+    frames_jpeg = _pool_map(_avi_frame, [(t, DECODE_AVI_HW) for t in range(DECODE_AVI_FRAMES)])
+    clip_dir = os.path.join(workdir, "decode_video", "val", "class_000")
+    os.makedirs(clip_dir)
+    path = os.path.join(clip_dir, "clip.avi")
+    with open(path, "wb") as f:
+        f.write(mjpeg_avi(frames_jpeg, DECODE_AVI_HW[1], DECODE_AVI_HW[0], DECODE_AVI_FPS))
+    write_s = time.perf_counter() - t0
+    video = avi.open_video(path)
+    check(isinstance(video, avi.MJPEGAvi) and video.frame_count == DECODE_AVI_FRAMES
+          and video.walk_count() == DECODE_AVI_FRAMES, "the AVI's frame count")
+    t0 = time.perf_counter()
+    frames = list(avi.open_video(path).frames())
+    demux_decode_fps = len(frames) / (time.perf_counter() - t0)
+    one_by_one = [decode_image(b) for b in frames_jpeg]
+    check(all(np.array_equal(a, b) for a, b in zip(frames, one_by_one)), "AVI frames differ")
+    idx = sample_indices(DECODE_AVI_FRAMES, VID_T, "average", np.random.default_rng(SEED))
+    clip = load_clip(path, VID_T, "average", VID_SIZE, np.random.default_rng(SEED))
+    want = np.stack([resize_bilinear(one_by_one[i], VID_SIZE, VID_SIZE) for i in np.sort(idx)])
+    check(np.array_equal(clip, want), "load_clip differs from the frames decoded one by one")
+    ds = VideoFolderDataset(os.path.join(workdir, "decode_video"), "val")
+    check(ds.clip_length(0) == DECODE_AVI_FRAMES, "VideoFolderDataset's clip length")
+    ds_clip, _ = ds.load_clip(0, VID_T, "average", VID_SIZE, np.random.default_rng(SEED))
+    check(np.array_equal(ds_clip, clip), "VideoFolderDataset's clip differs from load_clip's")
+    loader = VideoClipLoader(ds, num_frames=VID_T, size=VID_SIZE, batch_size=VID_BATCH,
+                             strategy="average", train=False, seed=SEED, num_workers=4,
+                             worker_backend="process")
+    slowfast = vid_model()
+    slowfast = slowfast.to(dev, memory_format=memory_format_for(slowfast))
+    eval_step = make_eval_step(dtype=torch.bfloat16, imagenet=True)
+    state = type("State", (), {"model": slowfast})()
+    suppression_mask_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        batches = [{k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                    for k, v in b.items()} for b in loader.epoch(0)]
+        logits = [eval_step(state, b) for b in batches]
+        torch.cuda.synchronize()
+        loader_eval_s = time.perf_counter() - t0
+    finally:
+        loader.close()
+    slowfast_launches = suppression_mask_cuda.launches
+    check(len(batches) == 1 and batches[0]["num_real"] == 1
+          and tuple(logits[0].shape) == (VID_BATCH, VID_CLASSES)
+          and bool(torch.isfinite(logits[0].float()).all()), "SlowFast eval on the AVI")
+    del slowfast, batches, logits
+    torch.cuda.empty_cache()
+
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    model = yolo_model()
+    calibrate_bn_(model.to(dev), normalize_images(
+        torch.from_numpy(preprocess_batch(images(SEED, DECODE_BATCH), INPUT_SIZE)[0]),
+        torch.float32).to(dev))
+    det = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=DECODE_BATCH, device=dev)
+    det.predict_video(path, max_frames=DECODE_BATCH)  # warm-up: cuDNN's choices
+    seen = []
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        n = det.predict_video(path, frame_callback=lambda rgb, res: seen.append(res))
+        torch.cuda.synchronize()
+        predict_video_s = time.perf_counter() - t0
+        video_launches = suppression_mask_cuda.launches
+    check(n == len(seen) == DECODE_AVI_FRAMES, f"predict_video processed {n} frames")
+    want = [r for i in range(0, DECODE_AVI_FRAMES, DECODE_BATCH)
+            for r in det.predict_batch(one_by_one[i:i + DECODE_BATCH])]
+    same = all(all(np.array_equal(a[k], b[k]) for k in ("boxes", "scores", "classes"))
+               for a, b in zip(seen, want))
+    check(same, "predict_video's results differ from predict_batch on the same frames")
+    kernel = kernel_vs_plain_recorded(recorded)
+    check(kernel["mismatches"] == 0, f"nms kernel vs plain on predict_video's inputs: {kernel}")
+    check(video_launches == DECODE_AVI_FRAMES // DECODE_BATCH,
+          f"predict_video launched the NMS kernel {video_launches} times")
+    boxes, scores, iou = recorded[-1]
+    keep = suppression_mask_cuda(boxes, scores, iou)
+    bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
+    nms = {"shape": list(scores.shape),
+           "ms": cuda_ms(lambda: suppression_mask_cuda(boxes, scores, iou), reps=50),
+           "graph_ms": graph_ms(lambda: suppression_mask_cuda(boxes, scores, iou), reps=50),
+           "plain_ms": cuda_ms(lambda: suppression_mask_plain(boxes, scores, iou), reps=3),
+           "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    detections = sum(len(r["boxes"]) for r in seen)
+    out = {"corpus": corpus, "twins": {"images": len(jobs), "checks": dict(pair_checks),
+                                       "encode_s": encode_s},
+           "decode_times_1_thread": times, "decode_corpus_img_s": threads4,
+           "avi": {"frames": DECODE_AVI_FRAMES, "hw": list(DECODE_AVI_HW), "write_s": write_s,
+                   "bytes": os.path.getsize(path), "demux_decode_fps": demux_decode_fps,
+                   "slowfast_loader_eval_s": loader_eval_s,
+                   "predict_video_fps": DECODE_AVI_FRAMES / predict_video_s,
+                   "predict_video_s": predict_video_s, "detections": detections},
+           "nms_kernel_predict_video": nms, "kernel_vs_plain": kernel,
+           "launches": {"detector_predict_video": video_launches,
+                        "video_clip_loader_slowfast_eval": slowfast_launches},
+           "host_cpus": os.cpu_count(), "seconds": time.perf_counter() - t_phase}
+    emit("decode", card=smi, **out)
+    del det, model
+    torch.cuda.empty_cache()
+    return {"launches": out["launches"], "zero": ["video_clip_loader_slowfast_eval"],
+            "mismatches": kernel["mismatches"], "kernel": nms}
+
+
 def phase_doctor() -> dict:
     """``cli.main(["doctor"])`` on the card: its report."""
     from fastvision_tpu_torch import cli
@@ -4771,6 +5052,32 @@ def main_only_recipe(dev: torch.device, device: dict, t_start: float) -> int:
     return 0
 
 
+def main_only_decode(dev: torch.device, device: dict, t_start: float) -> int:
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        decode = phase_decode(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    check(all(decode["launches"][p] == 0 for p in decode["zero"]),
+          f"video recognition launched nms: {decode['launches']}")
+    check(decode["mismatches"] == 0, "kernel mismatches")
+    k = decode["kernel"]
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(decode["launches"].values()), "launches_by_path": decode["launches"],
+        "paths_expected_at_zero": decode["zero"], "mismatches": decode["mismatches"],
+        "max_abs_err": int(decode["mismatches"] > 0), "ms": k["ms"], "graph_ms": k["graph_ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def main_only_i420(dev: torch.device, device: dict, t_start: float) -> int:
     workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
     try:
@@ -4812,6 +5119,8 @@ def main() -> int:
         return main_only_export(dev, device, t_start)
     if sys.argv[1:] == ["--only", "recipe"]:
         return main_only_recipe(dev, device, t_start)
+    if sys.argv[1:] == ["--only", "decode"]:
+        return main_only_decode(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -4852,6 +5161,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         i420 = phase_i420(dev, device["smi"], workdir)
         torch.cuda.empty_cache()
+        decode = phase_decode(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
         int8 = phase_int8(dev, device["smi"], workdir)
         torch.cuda.empty_cache()
         export = phase_export(dev, device["smi"], workdir)
@@ -4864,19 +5175,20 @@ def main() -> int:
     emit("total", seconds=time.perf_counter() - t_start)
 
     main_nms = times["nms_kernel"]["B8_main_path"]
-    regimes = {"yolo_B8_main_path": main_nms, "yolo_serve_multilabel_B8": serve["kernel"], **{
+    regimes = {"yolo_B8_main_path": main_nms, "yolo_serve_multilabel_B8": serve["kernel"],
+               "yolo_predict_video_B8": decode["kernel"], **{
         f"frcnn_{tag}": ftimes["nms_kernel"][tag] for tag in ("rpn_eval", "rpn_train", "head")}}
     by_path = {"detector_predict_batch": e2e["launches"], "fit_validation": train["val_launches"],
                "frcnn_eval_step": feval["launches"],
                "frcnn_fit_validation": ftrain["val_launches"],
                **cls["launches"], **video["launches"], **resume["launches"],
                **evaluate["launches"], **serve["launches"], **cli_run["launches"],
-               **i420["launches"], **int8["launches"], **export["launches"],
-               **recipe["launches"]}
+               **i420["launches"], **decode["launches"], **int8["launches"],
+               **export["launches"], **recipe["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"],
-                         *export["zero"], *recipe["zero"]])
+                         *export["zero"], *recipe["zero"], *decode["zero"]])
     check(all(by_path[p] == 0 for p in zero_paths),
           f"classification or video launched nms: {by_path}")
     print(device["smi"], flush=True)
@@ -4888,7 +5200,8 @@ def main() -> int:
         "paths_expected_at_zero": zero_paths,
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
         "mismatches": (kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"]
-                       + serve["mismatches"] + i420["mismatches"] + recipe["mismatches"]),
+                       + serve["mismatches"] + i420["mismatches"] + recipe["mismatches"]
+                       + decode["mismatches"]),
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

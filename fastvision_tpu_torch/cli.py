@@ -10,6 +10,7 @@ convert / anchors / generate / doctor (port of fastvision_tpu/cli.py).
     python -m fastvision_tpu_torch eval  --config cfg.yaml --ckpt ckpts/ [--sweep]
     python -m fastvision_tpu_torch eval  --config cfg.yaml --ckpt ckpts/ --int8 [--int8-percentile]
     python -m fastvision_tpu_torch infer --config cfg.yaml --ckpt ckpts/ --source img_or_dir
+    python -m fastvision_tpu_torch infer --config cfg.yaml --ckpt ckpts/ --source clip.avi
     python -m fastvision_tpu_torch train-cls model.backbone=resnet50 model.num_classes=1000 \\
         data.input_size=224 data.data_root=imagenet/ [--resume]
     python -m fastvision_tpu_torch eval --task cls --ckpt ckpts/ model.backbone=resnet50 ...
@@ -63,9 +64,10 @@ decode + NMS on uint8 NHWC (``--int8``: quantized first, as ``eval --int8``),
 or with ``--task cls|video`` a zoo model's normalize + forward + softmax;
 a SavedModel or ``--tflite`` (jax2tf and TensorFlow in the JAX package)
 exits naming why. ``doctor`` reports the CUDA card, nvcc, the kernels'
-builds and a bf16 matmul rate, and exits non-zero without a card. What the
-port does not have yet (``infer`` on a video, the mesh options) exits
-naming its ROADMAP item.
+builds and a bf16 matmul rate, and exits non-zero without a card. ``infer``
+on a video writes ``--out``/annotated.mp4 with cv2's mp4v writer (without
+cv2 it exits naming ROADMAP item 6). What the port does not have yet (the
+mesh options) exits naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -576,15 +578,25 @@ def cmd_eval(args, overrides):
 
 def cmd_infer(args, overrides):
     """Draw the detections of an image or a directory into ``--out``
-    (same file names). -> {path: result}."""
-    if args.source.lower().endswith((".mp4", ".avi", ".mov", ".mkv")):
-        raise _exit_not_ported("infer on a video (Detector.predict_video)", 6)
+    (same file names), or of a video into ``--out``/annotated.mp4 (cv2's
+    mp4v writer). -> {path: result}, or the video's frames processed."""
+    video = args.source.lower().endswith((".mp4", ".avi", ".mov", ".mkv"))
+    if video:
+        try:
+            import cv2  # noqa: F401  (the annotated video's writer)
+        except ImportError:
+            raise _exit_not_ported("infer on a video without cv2 (the annotated video's mp4v "
+                                   "writer)", 6) from None
     cfg = _load_config(args, overrides)
     from .data.dataset import imread_rgb, imwrite_rgb
     from .viz import draw_detections
 
     det = _detector_from_cfg(cfg, args.ckpt, args.device, fast_decode=args.fast_decode)
     os.makedirs(args.out, exist_ok=True)
+    if video:
+        n = det.predict_video(args.source, os.path.join(args.out, "annotated.mp4"))
+        print(f"{n} frames -> {args.out}/annotated.mp4")
+        return n
     if os.path.isdir(args.source):
         results = dict(det.predict_dir(args.source))
     else:

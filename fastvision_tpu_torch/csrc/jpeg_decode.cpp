@@ -6,14 +6,23 @@
 // (cuda_build.load("jpeg_decode")) and called through ctypes, which releases the
 // GIL, so the loaders' thread backend decodes in parallel.
 //
-// Scope: sequential Huffman JPEG at 8 bits (SOF0, SOF1), 1 or 3
-// components, any integral sampling factors, restart intervals, tables
-// (re)defined anywhere before a scan, 16-bit quantization tables,
-// interleaved and non-interleaved scans, the Adobe APP14 transform flag and
-// the EXIF orientation tag, applied as OpenCV applies it. Everything else
-// (progressive, arithmetic-coded, lossless, 12-bit, CMYK / YCCK) and every
-// truncated or corrupt stream fails with a message; nothing returns a
-// partial image.
+// Scope: Huffman-coded JPEG at 8 bits, sequential (SOF0, SOF1) or
+// progressive (SOF2: spectral selection, successive approximation, EOB
+// runs; jdphuff.c's four block decoders and its scan-header checks), 1, 3
+// or 4 components (CMYK, or YCCK under an Adobe transform but 0, as
+// jdcolor.c and OpenCV's icvCvt_CMYK2BGR do), any integral sampling
+// factors, restart intervals, tables (re)defined anywhere before a scan,
+// 16-bit quantization tables, interleaved and non-interleaved scans, the
+// Adobe APP14 transform flag and the EXIF orientation, applied as OpenCV
+// applies it. A sequential scan that names Huffman table 0 or 1 where no
+// DHT defined it gets the standard tables of T.81 Annex K.3, as
+// libjpeg-turbo installs them (jstdhuff.c; Motion-JPEG frames leave them
+// out); a progressive one fails there, as in libjpeg. A progressive file
+// whose scans leave any of a component's coefficients 1-9 short of full
+// precision is block-smoothed before its IDCT, as jdcoefct.c does by
+// default. Everything else (arithmetic-coded, lossless, hierarchical,
+// 12-bit, DNL) and every truncated or corrupt stream fails with a message;
+// nothing returns a partial image.
 //
 // The pixels are libjpeg-turbo's defaults, bit for bit: the ISLOW integer
 // IDCT (jidctint.c: 13-bit constants, DESCALE rounding; the output clamped
@@ -91,6 +100,7 @@ constexpr int kNatural[80] = {
 
 struct Huffman {
   bool defined = false;
+  bool standard = false;  // T.81 Annex K's table, installed where no DHT defined one
   uint16_t fast[512];  // (length << 8) | symbol for codes of <= 9 bits, else 0
   int32_t maxcode[18];
   int32_t valoff[17];
@@ -98,6 +108,7 @@ struct Huffman {
   int nvals = 0;
 
   void build(const uint8_t* counts, const uint8_t* symbols, int n, bool dc) {
+    standard = false;
     std::memcpy(vals, symbols, n);
     nvals = n;
     std::fill(fast, fast + 512, 0);
@@ -123,6 +134,62 @@ struct Huffman {
     defined = true;
   }
 };
+
+// T.81 Annex K.3: the standard Huffman tables, which libjpeg-turbo's
+// sequential decoder installs (jstdhuff.c, from jinit_huff_decoder) in slots
+// 0 (luminance) and 1 (chrominance) where no DHT defined them before it
+// starts; a later DHT replaces them. Its progressive decoder installs none.
+constexpr uint8_t kDCLumaCounts[16] = {
+    0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+constexpr uint8_t kDCLumaSymbols[12] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+constexpr uint8_t kDCChromaCounts[16] = {
+    0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+constexpr uint8_t kDCChromaSymbols[12] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+constexpr uint8_t kACLumaCounts[16] = {
+    0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125};
+constexpr uint8_t kACLumaSymbols[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kACChromaCounts[16] = {
+    0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119};
+constexpr uint8_t kACChromaSymbols[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct StandardTables {
+  Huffman dc[2], ac[2];
+  StandardTables() {
+    dc[0].build(kDCLumaCounts, kDCLumaSymbols, 12, true);
+    dc[1].build(kDCChromaCounts, kDCChromaSymbols, 12, true);
+    ac[0].build(kACLumaCounts, kACLumaSymbols, 162, false);
+    ac[1].build(kACChromaCounts, kACChromaSymbols, 162, false);
+  }
+};
+
+const StandardTables& standard_tables() {
+  static const StandardTables t;
+  return t;
+}
 
 // Entropy-coded data: byte stuffing removed, a marker or the end of the
 // data feeds zero bits, and consuming one of those is a truncation.
@@ -205,7 +272,11 @@ struct Component {
   int td = 0, ta = 0;  // Huffman tables of the current scan
   int dc_pred = 0;
   bool coded = false;
-  int16_t qt[64];  // latched at the component's first scan, natural order
+  int16_t qt[64];     // latched at the component's first scan, natural order, as the IDCT
+                      // multiplies (jddctmgr.c's ISLOW_MULT_TYPE: 16 bits)
+  uint16_t qraw[64];  // the same table as stored, which block smoothing divides by
+  int coef_bits[64];  // progressive: each coefficient's point transform Al so far, -1 while
+                      // no scan has coded it (jdinput.c's coef_bits)
   std::vector<int16_t> coef;
   std::vector<uint8_t> plane;  // (bh * dct) x (bw * dct)
 };
@@ -547,7 +618,14 @@ uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : data_(data), end_(data + n) {}
+  Decoder(const uint8_t* data, size_t n) : data_(data), end_(data + n) {
+    const StandardTables& t = standard_tables();
+    for (int i = 0; i < 2; ++i) {
+      dc_[i] = t.dc[i];
+      ac_[i] = t.ac[i];
+      dc_[i].standard = ac_[i].standard = true;
+    }
+  }
 
   // Parses the markers up to the first scan: size and orientation.
   void read_header() { parse(true); }
@@ -578,10 +656,11 @@ class Decoder {
   }
 
   // What fastvision_tpu/native/jpeg_i420.cpp takes (after the header): gray,
-  // or YCbCr with luma sampling (1|2) x (1|2) and 1x1 chroma
+  // or YCbCr with luma sampling (1|2) x (1|2) and 1x1 chroma, sequential or
+  // progressive; not CMYK / YCCK
   bool i420_eligible() const {
     const Component& y = comps_[0];
-    bool ok = y.h >= 1 && y.h <= 2 && y.v >= 1 && y.v <= 2;
+    bool ok = comps_.size() != 4 && y.h >= 1 && y.h <= 2 && y.v >= 1 && y.v <= 2;
     if (comps_.size() == 3)
       ok = ok && !rgb_coded() && comps_[1].h == 1 && comps_[1].v == 1 && comps_[2].h == 1 &&
            comps_[2].v == 1;
@@ -670,7 +749,8 @@ class Decoder {
   int orientation_ = 1;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
-  bool frame_ = false;
+  bool frame_ = false, progressive_ = false;
+  int eobrun_ = 0;  // progressive AC scans: blocks left in the current end-of-band run
   std::vector<Component> comps_;
   uint16_t qtables_[4][64];
   bool qdefined_[4] = {false, false, false, false};
@@ -717,22 +797,22 @@ class Decoder {
       switch (marker) {
         case 0xC0:
         case 0xC1:
-          read_sof(seg, seg_len);
-          break;
         case 0xC2:
-        case 0xC6:
-        case 0xCA:
-        case 0xCE:
-          fail("progressive JPEG is not supported %s", kItem);
+          read_sof(seg, seg_len);
+          progressive_ = marker == 0xC2;
+          break;
         case 0xC3:
         case 0xC7:
         case 0xCB:
         case 0xCF:
           fail("lossless JPEG is not supported %s", kItem);
         case 0xC5:
+        case 0xC6:
           fail("hierarchical JPEG is not supported %s", kItem);
         case 0xC9:
+        case 0xCA:
         case 0xCD:
+        case 0xCE:
         case 0xCC:
           fail("arithmetic-coded JPEG is not supported %s", kItem);
         case 0xC4:
@@ -780,8 +860,8 @@ class Decoder {
     if (height_ == 0 || width_ == 0) fail("JPEG without a frame height (DNL) is not supported %s", kItem);
     if (int64_t(width_) * height_ > kMaxPixels)
       fail("JPEG of %d x %d exceeds %lld pixels", width_, height_, (long long)kMaxPixels);
-    if (nc == 4) fail("CMYK / YCCK JPEG is not supported %s", kItem);
-    if (nc != 1 && nc != 3) fail("JPEG with %d components is not supported %s", nc, kItem);
+    if (nc != 1 && nc != 3 && nc != 4)
+      fail("JPEG with %d components is not supported %s", nc, kItem);
     if (n < 6 + 3 * nc) fail("corrupt JPEG data: SOF length");
     comps_.resize(nc);
     for (int i = 0; i < nc; ++i) {
@@ -790,6 +870,7 @@ class Decoder {
       c.h = s[7 + 3 * i] >> 4;
       c.v = s[7 + 3 * i] & 15;
       c.tq = s[8 + 3 * i];
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
         fail("corrupt JPEG data: component %d sampling %dx%d table %d", c.id, c.h, c.v, c.tq);
       hmax_ = std::max(hmax_, c.h);
@@ -892,10 +973,103 @@ class Decoder {
     }
   }
 
+  // ---- progressive block decoders (jdphuff.c) ----
+  void dc_first(Bits& b, Component& c, int16_t* blk, int al) {
+    int s = decode_symbol(b, dc_[c.td]);
+    int64_t pred = int64_t(c.dc_pred) + (s ? extend(b.get(s), s) : 0);
+    if (pred > INT32_MAX || pred < INT32_MIN) fail("corrupt JPEG data: DC coefficient overflows");
+    c.dc_pred = int(pred);
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+  }
+
+  static void dc_refine(Bits& b, int16_t* blk, int al) {
+    if (b.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  void ac_first(Bits& b, const Component& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {  // a block of the current end-of-band run: nothing coded
+      --eobrun_;
+      return;
+    }
+    const Huffman& h = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(b, h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(b.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {    // EOBr: this block and 2^r - 1 + r bits' worth more end here
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += b.get(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // One refinement bit for each coefficient already nonzero; newly nonzero
+  // ones are +-2^al. A correction bit of 1 grows the magnitude.
+  static void refine(Bits& b, int16_t* coef, int p1) {
+    if (b.get(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : -p1));
+  }
+
+  void ac_refine(Bits& b, const Component& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun_ == 0) {
+      const Huffman& h = ac_[c.ta];
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(b, h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a size other than 1 is a warning in libjpeg, read as 1
+          s = b.get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += b.get(r);
+          break;  // the rest of the block is the end-of-band run's
+        }
+        // pass r zero coefficients (and every nonzero one, refining it)
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            refine(b, coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) refine(b, coef, p1);
+      }
+      --eobrun_;
+    }
+  }
+
   void read_scan(const uint8_t* s, int n) {
     if (n < 1) fail("corrupt JPEG data: SOS length");
     int ns = s[0];
     if (ns < 1 || ns > 4 || n < 4 + 2 * ns) fail("corrupt JPEG data: SOS length");
+    const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
+              al = s[3 + 2 * ns] & 15;
+    if (progressive_) {  // jdphuff.c's start_pass_phuff_decoder
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) fail("corrupt JPEG data: progressive scan Ss %d Se %d Ah %d Al %d", ss, se, ah, al);
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+      fail("corrupt JPEG data: spectral selection %d-%d in a sequential scan", ss, se);
+    }
+    // the tables this kind of scan reads (jdhuff.c: both; jdphuff.c: the
+    // first DC scan its DC table, an AC scan its AC table, a DC refinement none)
+    const bool uses_dc = !progressive_ || (ss == 0 && ah == 0);
+    const bool uses_ac = !progressive_ || ss != 0;
+    auto usable = [&](const Huffman& h) { return h.defined && !(progressive_ && h.standard); };
     std::vector<Component*> sc;
     for (int i = 0; i < ns; ++i) {
       int id = s[1 + 2 * i];
@@ -905,20 +1079,24 @@ class Decoder {
       if (!c) fail("corrupt JPEG data: scan names component %d", id);
       c->td = s[2 + 2 * i] >> 4;
       c->ta = s[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined || !ac_[c->ta].defined)
+      if ((uses_dc && (c->td > 3 || !usable(dc_[c->td]))) ||
+          (uses_ac && (c->ta > 3 || !usable(ac_[c->ta]))))
         fail("corrupt JPEG data: a scan uses an undefined Huffman table");
       if (!c->coded) {  // the quantization table is latched at the first scan
         if (!qdefined_[c->tq]) fail("corrupt JPEG data: undefined quantization table %d", c->tq);
-        for (int k = 0; k < 64; ++k) c->qt[k] = static_cast<int16_t>(qtables_[c->tq][k]);
+        for (int k = 0; k < 64; ++k) {
+          c->qraw[k] = qtables_[c->tq][k];
+          c->qt[k] = static_cast<int16_t>(qtables_[c->tq][k]);
+        }
         c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
       }
       c->coded = true;
       c->dc_pred = 0;
+      if (progressive_)  // out-of-order refinements are only warnings in libjpeg
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
       sc.push_back(c);
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-    if (ss != 0 || se != 63 || ah != 0 || al != 0)
-      fail("corrupt JPEG data: spectral selection %d-%d in a sequential scan", ss, se);
+    eobrun_ = 0;
 
     Bits bits{p_, end_};
     int64_t total;
@@ -932,6 +1110,12 @@ class Decoder {
       if (blocks > 10) fail("corrupt JPEG data: %d blocks in an MCU", blocks);
       total = int64_t(mcux_) * mcuy_;
     }
+    auto unit = [&](Component& c, int16_t* blk) {
+      if (!progressive_) decode_block(bits, c, blk);
+      else if (ss == 0) ah == 0 ? dc_first(bits, c, blk, al) : dc_refine(bits, blk, al);
+      else if (ah == 0) ac_first(bits, c, blk, ss, se, al);
+      else ac_refine(bits, c, blk, ss, se, al);
+    };
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
@@ -941,18 +1125,19 @@ class Decoder {
         bits.reset(q + 2);
         next_rst = (next_rst + 1) & 7;
         for (auto* c : sc) c->dc_pred = 0;
+        eobrun_ = 0;
       }
       if (ns == 1) {
         Component& c = *sc[0];
         int by = int(m / nbx), bx = int(m % nbx);
-        decode_block(bits, c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+        unit(c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
       } else {
         int my = int(m / mcux_), mx = int(m % mcux_);
         for (auto* c : sc)
           for (int y = 0; y < c->v; ++y)
             for (int x = 0; x < c->h; ++x) {
               size_t by = size_t(my) * c->v + y, bx = size_t(mx) * c->h + x;
-              decode_block(bits, *c, &c->coef[(by * c->bw + bx) * 64]);
+              unit(*c, &c->coef[(by * c->bw + bx) * 64]);
             }
       }
     }
@@ -968,6 +1153,7 @@ class Decoder {
     parse(false);
     for (auto& c : comps_)
       if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+    const bool smooth = smoothing_on();
     min_dct_ = 8 / denom;
     oh_ = ceil_div(height_, denom);
     ow_ = ceil_div(width_, denom);
@@ -986,22 +1172,162 @@ class Decoder {
         for (int bx = 0; bx < c.bw; ++bx)
           idct(&c.coef[(size_t(by) * c.bw + bx) * 64], c.qt,
                &c.plane[size_t(by) * ss * stride + size_t(bx) * ss], stride);
-      std::vector<int16_t>().swap(c.coef);
+      if (smooth) idct_smoothed(c, idct);
+    }
+    for (auto& c : comps_) std::vector<int16_t>().swap(c.coef);
+  }
+
+  // jdcoefct.c's smoothing_ok: a progressive file in which some component
+  // has one of its coefficients 1-9 short of full precision (coef_bits not
+  // 0, never-coded ones included) and every component its DC
+  bool smoothing_on() const {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (const auto& c : comps_) {
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.qraw[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful = useful || c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+  // block of the component's output grid is transformed again after
+  // estimating its coefficients 1-5 that are still 0 and not known exact
+  // from the DC values of its 5 x 5 neighbourhood (the Annex K.8 idea), and,
+  // when no AC coefficient was ever coded, also its coefficients 6-9 and a
+  // smoothed DC. The rows at the image's edges are replicated by its
+  // iMCU-row rule, copied as it stands (the last iMCU row counts its block
+  // rows from the component's height).
+  void idct_smoothed(Component& c, IdctFn idct) {
+    const int ss = c.dct, stride = c.bw * ss;
+    const int wib = (c.cw + 7) / 8, hib = (c.ch + 7) / 8, total = mcuy_, last = total - 1;
+    const int* cb = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
+    const int64_t Q00 = c.qraw[0], Q01 = c.qraw[1], Q10 = c.qraw[8], Q20 = c.qraw[16],
+                  Q11 = c.qraw[9], Q02 = c.qraw[2], Q03 = c.qraw[3], Q12 = c.qraw[10],
+                  Q21 = c.qraw[17], Q30 = c.qraw[24];
+    auto dc_at = [&](int by, int bx) { return int(c.coef[(size_t(by) * c.bw + bx) * 64]); };
+    // the estimate for one coefficient, limited below 2^Al when Al > 0
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred = int(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return num >= 0 ? pred : -pred;
+    };
+    int16_t ws[64];
+    for (int r = 0; r < total; ++r) {
+      const int block_rows = r < last ? c.v : (hib % c.v ? hib % c.v : c.v);
+      const int image_block_rows = block_rows * total;
+      for (int br = 0; br < block_rows; ++br) {
+        const int y = r * c.v + br, iy = r * block_rows + br;
+        const int yp = iy > 0 ? y - 1 : y, ypp = iy > 1 ? y - 2 : yp;
+        const int yn = iy < image_block_rows - 1 ? y + 1 : y;
+        const int ynn = iy < image_block_rows - 2 ? y + 2 : yn;
+        const int rows[5] = {ypp, yp, y, yn, ynn};
+        int D[5][5];  // D[i][j] is libjpeg's DC(5 i + j + 1): rows top to bottom
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) D[i][j] = dc_at(rows[i], 0);
+        for (int bx = 0; bx < wib; ++bx) {
+          std::memcpy(ws, &c.coef[(size_t(y) * c.bw + bx) * 64], sizeof ws);
+          if (bx == 0 && bx < wib - 1)
+            for (int i = 0; i < 5; ++i) D[i][3] = D[i][4] = dc_at(rows[i], 1);
+          if (bx + 1 < wib - 1)
+            for (int i = 0; i < 5; ++i) D[i][4] = dc_at(rows[i], bx + 2);
+          const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2], DC04 = D[0][3], DC05 = D[0][4],
+                    DC06 = D[1][0], DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3], DC10 = D[1][4],
+                    DC11 = D[2][0], DC12 = D[2][1], DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4],
+                    DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2], DC19 = D[3][3], DC20 = D[3][4],
+                    DC21 = D[4][0], DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3], DC25 = D[4][4];
+          if (cb[1] != 0 && ws[1] == 0)
+            ws[1] = int16_t(estimate(Q00 * (change_dc ?
+                (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+                 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+                (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), Q01, cb[1]));
+          if (cb[2] != 0 && ws[8] == 0)
+            ws[8] = int16_t(estimate(Q00 * (change_dc ?
+                (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), Q10, cb[2]));
+          if (cb[3] != 0 && ws[16] == 0)
+            ws[16] = int16_t(estimate(Q00 * (change_dc ?
+                (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+                 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+                (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)), Q20, cb[3]));
+          if (cb[4] != 0 && ws[9] == 0)
+            ws[9] = int16_t(estimate(Q00 * (change_dc ?
+                (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+                (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 -
+                 DC06 + 10 * DC07 - 10 * DC09)), Q11, cb[4]));
+          if (cb[5] != 0 && ws[2] == 0)
+            ws[2] = int16_t(estimate(Q00 * (change_dc ?
+                (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 +
+                 DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19) :
+                (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)), Q02, cb[5]));
+          if (change_dc) {
+            if (cb[6] != 0 && ws[3] == 0)
+              ws[3] = int16_t(estimate(
+                  Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, cb[6]));
+            if (cb[7] != 0 && ws[10] == 0)
+              ws[10] = int16_t(estimate(
+                  Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, cb[7]));
+            if (cb[8] != 0 && ws[17] == 0)
+              ws[17] = int16_t(estimate(
+                  Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, cb[8]));
+            if (cb[9] != 0 && ws[24] == 0)
+              ws[24] = int16_t(estimate(
+                  Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, cb[9]));
+            ws[0] = int16_t(estimate(Q00 *
+                (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), Q00, 0));
+          }
+          idct(ws, c.qt, &c.plane[size_t(y) * ss * stride + size_t(bx) * ss], stride);
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) D[i][j] = D[i][j + 1];
+        }
+      }
     }
   }
 
   // Upsample and convert the decoded planes into an oh_ x ow_ RGB image.
   void to_rgb(uint8_t* out) {
     const int W = ow_, H = oh_;
-    std::vector<uint8_t> full[3];
+    std::vector<uint8_t> full[4];
     for (size_t i = 0; i < comps_.size(); ++i) full[i] = upsample(comps_[i]);
     if (comps_.size() == 1) {
       const uint8_t* y = full[0].data();
       for (size_t i = 0; i < size_t(W) * H; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
       return;
     }
-    const bool rgb = rgb_coded();
     const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
+    const ColorTables& t = color_tables();
+    if (comps_.size() == 4) {
+      // libjpeg's 4-component colour space (jdapimin.c): YCCK under any Adobe
+      // transform but 0, else CMYK as stored; YCCK -> CMYK by jdcolor.c's
+      // ycck_cmyk_convert; then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+      const bool ycck = adobe_ && adobe_transform_ != 0;
+      const uint8_t* k3 = full[3].data();
+      for (size_t i = 0; i < size_t(W) * H; ++i) {
+        int cc = c0[i], mm = c1[i], yy = c2[i];
+        const int k = k3[i];
+        if (ycck) {
+          const int y = c0[i], cb = c1[i], cr = c2[i];
+          cc = clamp_u8(255 - (y + t.cr_r[cr]));
+          mm = clamp_u8(255 - (y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          yy = clamp_u8(255 - (y + t.cb_b[cb]));
+        }
+        out[3 * i] = uint8_t(k - (((255 - cc) * k) >> 8));
+        out[3 * i + 1] = uint8_t(k - (((255 - mm) * k) >> 8));
+        out[3 * i + 2] = uint8_t(k - (((255 - yy) * k) >> 8));
+      }
+      return;
+    }
+    const bool rgb = rgb_coded();
     if (rgb) {
       for (size_t i = 0; i < size_t(W) * H; ++i) {
         out[3 * i] = c0[i];
@@ -1010,7 +1336,6 @@ class Decoder {
       }
       return;
     }
-    const ColorTables& t = color_tables();
     for (size_t i = 0; i < size_t(W) * H; ++i) {
       int y = c0[i], cb = c1[i], cr = c2[i];
       out[3 * i] = clamp_u8(y + t.cr_r[cr]);

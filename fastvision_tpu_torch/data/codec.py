@@ -6,19 +6,22 @@ image files (fastvision_tpu/data/dataset.py:28-35).
 `decode_image` picks the decoder by the payload's signature:
 
 - JPEG (``FF D8``): ``csrc/jpeg_decode.cpp``, built with the host compiler
-  and called through ctypes (which releases the GIL). Baseline sequential
-  Huffman JPEG at 8 bits, 1 or 3 components, any integral sampling,
-  restart intervals, the Adobe transform flag and the EXIF orientation,
-  bit-equal to libjpeg-turbo's default decode as cv2 runs it;
-- PNG, non-interlaced: gray, RGB, palette, gray + alpha and RGBA at bit
-  depths 1-8 and 16, with numpy and the standard library's ``zlib``; alpha
-  is dropped and 16 bits keep their high byte, as cv2's ``IMREAD_COLOR``
-  does;
+  and called through ctypes (which releases the GIL). Sequential and
+  progressive Huffman JPEG at 8 bits, gray, YCbCr, RGB, CMYK and YCCK, any
+  integral sampling, restart intervals, the standard Huffman tables where
+  a scan names one no DHT defined (Motion-JPEG frames), the Adobe
+  transform flag and the EXIF orientation, bit-equal to libjpeg-turbo
+  3.1's default decode as cv2 5.0 runs it (block smoothing of a
+  progressive file whose scans stop early included);
+- PNG, non-interlaced or Adam7-interlaced: gray, RGB, palette, gray +
+  alpha and RGBA at bit depths 1-8 and 16, with numpy and the standard
+  library's ``zlib``; alpha is dropped and 16 bits keep their high byte, as
+  cv2's ``IMREAD_COLOR`` does;
 - BMP (``BM``): uncompressed 24- and 32-bit, with numpy.
 
-Anything else raises ``ValueError("cannot decode image payload")``; a
-progressive, arithmetic-coded, 12-bit, lossless or CMYK JPEG, an interlaced
-PNG and truncated or corrupt data raise ``ValueError`` naming what is
+Anything else raises ``ValueError("cannot decode image payload")``; an
+arithmetic-coded, 12-bit, lossless or hierarchical JPEG, one with a DNL
+marker, and truncated or corrupt data raise ``ValueError`` naming what is
 missing. Nothing falls back to cv2. The output is RGB uint8 HWC; grayscale
 is repeated to 3 channels.
 
@@ -42,7 +45,6 @@ from .. import cuda_build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 MAX_PIXELS = 1 << 30  # the largest image taken: OpenCV's default CV_IO_MAX_IMAGE_PIXELS
-_ITEM = "(ROADMAP Queue 1, item 11)"
 _ERR_LEN = 256
 
 
@@ -64,7 +66,7 @@ def jpeg_library() -> ctypes.CDLL:
 
 
 def jpeg_size(data: bytes, factor: int = 1) -> tuple[int, int]:
-    """A baseline JPEG's (height, width) as `decode_jpeg_reduced` gives it
+    """A JPEG's (height, width) as `decode_jpeg_reduced` gives it
     at 1/``factor``: EXIF orientation applied, ceil(side / factor)."""
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -75,7 +77,7 @@ def jpeg_size(data: bytes, factor: int = 1) -> tuple[int, int]:
 
 
 def decode_jpeg_reduced(data: bytes, factor: int = 1) -> np.ndarray:
-    """A baseline JPEG -> RGB uint8 HWC at 1/``factor`` (1, 2, 4 or 8),
+    """A JPEG -> RGB uint8 HWC at 1/``factor`` (1, 2, 4 or 8),
     EXIF orientation applied: cv2's ``IMREAD_REDUCED_COLOR_{factor}``
     (libjpeg-turbo's scaled IDCTs and its upsampler choice), bit for bit."""
     data = bytes(data)
@@ -89,7 +91,7 @@ def decode_jpeg_reduced(data: bytes, factor: int = 1) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG -> RGB uint8 HWC, EXIF orientation applied."""
+    """A JPEG -> RGB uint8 HWC, EXIF orientation applied."""
     return decode_jpeg_reduced(data, 1)
 
 
@@ -106,8 +108,9 @@ def decode_jpeg_i420(data: bytes, size: int, pad_value: int = 114, reduce_target
     -> (packed, scale (float32, decoded frame), (pad_left, pad_top),
     (orig_h, orig_w), (decoded_h, decoded_w)), or None where the JAX package
     falls back to its plain chain: not a JPEG, an RGB-coded JPEG, or a
-    sampling other than luma (1|2) x (1|2) with 1x1 chroma. A JPEG this
-    decoder refuses (progressive, CMYK, truncated, ...) raises ValueError."""
+    sampling other than luma (1|2) x (1|2) with 1x1 chroma, or CMYK / YCCK.
+    A JPEG this decoder refuses (arithmetic-coded, truncated, ...) raises
+    ValueError."""
     if size % 2:
         raise ValueError(f"i420 needs an even input_size, got {size}")
     data = bytes(data)
@@ -260,10 +263,34 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7's seven passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int, ctype: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> uint8 samples [h, width, channels]:
+    16 bits to their high byte, 1-4-bit samples unpacked MSB first (gray
+    scaled to 0-255, palette indices kept)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, width, channels, 2)[..., 0]  # the high byte of each sample
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    per_byte = 8 // depth  # 1, 2 or 4 bits, one channel
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    px = vals.reshape(h, rows.shape[1] * per_byte)[:, :width, None]
+    if ctype == 0:  # gray scaled to 0-255, as libpng's expand_gray_1_2_4_to_8
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """A non-interlaced PNG -> RGB uint8 HWC, as cv2's IMREAD_COLOR gives
-    it: palette expanded, gray repeated, alpha dropped, 16 bits to their
-    high byte, 1-4-bit gray scaled to 0-255."""
+    """A PNG, non-interlaced or Adam7-interlaced (each pass unfiltered on
+    its own rows, then scattered into the image) -> RGB uint8 HWC, as cv2's
+    IMREAD_COLOR gives it: palette expanded, gray repeated, alpha dropped,
+    16 bits to their high byte, 1-4-bit gray scaled to 0-255."""
     header, palette, idat = None, None, []
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
@@ -283,30 +310,30 @@ def decode_png(data: bytes) -> np.ndarray:
     if channels is None or depth not in valid_depths or width == 0 or height == 0:
         raise ValueError(f"corrupt PNG data: colour type {ctype} at bit depth {depth}, "
                          f"{width} x {height}")
-    if interlace:
-        raise ValueError(f"interlaced (Adam7) PNG is not supported {_ITEM}")
+    if interlace > 1:
+        raise ValueError(f"corrupt PNG data: interlace method {interlace}")
     if width * height > MAX_PIXELS:
         raise ValueError(f"PNG of {width} x {height} exceeds {MAX_PIXELS} pixels")
     bits_per_pixel = channels * depth
-    stride = (width * bits_per_pixel + 7) // 8
+    bpp = max(1, bits_per_pixel // 8)
+    # (first column, first row, column step, row step, columns, rows) of each
+    # pass; a pass with no pixel has no filter byte either
+    passes = [(0, 0, 1, 1, width, height)] if not interlace else [
+        (x0, y0, dx, dy, -(-(width - x0) // dx), -(-(height - y0) // dy))
+        for x0, y0, dx, dy in ADAM7 if width > x0 and height > y0]
+    sizes = [ph * ((pw * bits_per_pixel + 7) // 8 + 1) for *_, pw, ph in passes]
     try:  # inflate no more than the image needs
-        raw = zlib.decompressobj().decompress(b"".join(idat), height * (stride + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), sum(sizes))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG data: {e}") from None
-    if len(raw) < height * (stride + 1):
+    if len(raw) < sum(sizes):
         raise ValueError("truncated PNG data: the image data ends early")
-    rows = _unfilter(raw[: height * (stride + 1)], height, stride, max(1, bits_per_pixel // 8))
-    if depth == 16:
-        px = rows.reshape(height, width, channels, 2)[..., 0]  # the high byte of each sample
-    elif depth == 8:
-        px = rows.reshape(height, width, channels)
-    else:  # 1, 2 or 4 bits, one channel: unpack MSB first
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        px = vals.reshape(height, stride * per_byte)[:, :width, None]
-        if ctype == 0:  # gray scaled to 0-255, as libpng's expand_gray_1_2_4_to_8
-            px = px * np.uint8(255 // ((1 << depth) - 1))
+    px = np.empty((height, width, channels), np.uint8)
+    at = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        rows = _unfilter(raw[at:at + size], ph, size // ph - 1, bpp)
+        px[y0::dy, x0::dx] = _samples(rows, pw, channels, depth, ctype)
+        at += size
     if ctype == 3:
         if palette is None:
             raise ValueError("corrupt PNG data: a palette image without PLTE")

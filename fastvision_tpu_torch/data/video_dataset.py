@@ -1,7 +1,8 @@
 """Video recognition data (port of fastvision_tpu/data/video_dataset.py).
 
   - `VideoFolderDataset`: ``<root>/<split>/<class_name>/<clip>``, each clip
-    a video file (.mp4 / .avi / ..., decoded with cv2) or a directory of
+    a video file (a Motion-JPEG .avi read without cv2, other videos with
+    cv2; `avi.open_video`) or a directory of
     frame images (JPEG, PNG or BMP, read by `dataset.imread_rgb`); classes
     sorted, or pinned by ``categories``;
   - `VideoClipLoader`: batches {'images' uint8 [B, T, S, S, 3], 'labels'
@@ -24,7 +25,8 @@ import numpy as np
 
 from .dataset import IMG_EXTS, imread_rgb, resize_bilinear
 from .pipeline import _not_ported, _PooledLoader, fetch_with_corrupt_policy
-from .video_sampler import VIDEO_EXTS, import_cv2, load_clip, sample_indices
+from .avi import open_video
+from .video_sampler import VIDEO_EXTS, load_clip, sample_indices
 
 
 class VideoFolderDataset:
@@ -63,10 +65,9 @@ class VideoFolderDataset:
         path, _ = self.samples[idx]
         if os.path.isdir(path):
             return len(self._frames(path))
-        cv2 = import_cv2()
-        cap = cv2.VideoCapture(path)
-        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-        cap.release()
+        video = open_video(path)
+        n = video.frame_count
+        video.release()
         return n
 
     def load_clip(self, idx: int, num_frames: int, strategy: str, size: int,

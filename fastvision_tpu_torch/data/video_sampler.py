@@ -4,47 +4,36 @@ Strategies over a clip of ``total`` frames: consecutive, random, average
 stride and random-within-clips (`sample_indices`, draw for draw the JAX
 package's for the same ``np.random.Generator``); `sample_clip_from_array`
 over pre-decoded frames; `load_clip` and `count_real_frames` over a video
-file. Video files are decoded with cv2, imported where it is called: where
-cv2 is not installed they raise, naming ROADMAP Queue 1 item 11 (the decode
-without cv2), and never return a black clip. Frames are resized with the
-loaders' `resize_bilinear` (within +-1 of cv2's resize per pixel).
+file, through `avi.open_video`: a Motion-JPEG AVI is read without cv2 (its
+frames decoded as ``cv2.imdecode`` decodes them), anything else through
+cv2, imported where it is called (where cv2 is not installed it raises,
+naming ROADMAP Queue 1 item 11, and never returns a black clip). The frame
+count, the seeks and the reads past the end are those of
+``cv2.VideoCapture`` (see `avi`). Frames are resized with the loaders'
+`resize_bilinear` (within +-1 of cv2's resize per pixel).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .avi import open_video
 from .dataset import resize_bilinear
 
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
-def import_cv2():
-    """cv2, or NotImplementedError naming the decode without it."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise NotImplementedError(
-            "decoding video files (.mp4, .avi, ...) without cv2 is not ported yet (ROADMAP "
-            "Queue 1, item 11); use clips stored as directories of .bmp frames") from e
-    return cv2
-
-
 def count_real_frames(path: str) -> int:
-    """The frame count, walking the container when its header is wrong."""
-    cv2 = import_cv2()
-    cap = cv2.VideoCapture(path)
-    header = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-    cap.set(cv2.CAP_PROP_POS_FRAMES, max(header - 1, 0))  # verify by seeking to the end
-    ok, _ = cap.read()
-    if ok:
-        cap.release()
-        return header
-    cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
-    n = 0
-    while cap.read()[0]:
-        n += 1
-    cap.release()
-    return n
+    """The frame count, walking the container when its header is wrong:
+    the header's count if its last frame reads, else the frames a read loop
+    from the start gets."""
+    video = open_video(path)
+    try:
+        header = video.frame_count
+        if video.read_at(max(header - 1, 0)) is not None:  # verify by seeking to the end
+            return header
+        return video.walk_count()
+    finally:
+        video.release()
 
 
 def sample_indices(total: int, num_frames: int, strategy: str = "consecutive",
@@ -77,37 +66,33 @@ def sample_indices(total: int, num_frames: int, strategy: str = "consecutive",
 def load_clip(path: str, num_frames: int = 16, strategy: str = "consecutive",
               size: int | None = None, rng: np.random.Generator | None = None,
               verify_frames: bool = False, indices: np.ndarray | None = None) -> np.ndarray:
-    """Decode a [T, H, W, 3] RGB uint8 clip from a video file (cv2).
+    """Decode a [T, H, W, 3] RGB uint8 clip from a video file.
     ``indices`` overrides ``strategy`` with explicit frame positions
     (clamped to the frame count). A frame past the real end repeats the
-    last good one (headers over-count); a file of which no frame decodes
-    raises ValueError."""
-    cv2 = import_cv2()
+    last good one (headers over-count); a file of which no frame reads
+    raises ValueError, and so does a frame that does not decode."""
     total = count_real_frames(path) if verify_frames else None
-    cap = cv2.VideoCapture(path)
-    if total is None:
-        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-    if total <= 0:
-        cap.release()
-        raise ValueError(f"cannot decode video (no frames): {path}")
-    idx = (np.clip(indices, 0, total - 1) if indices is not None
-           else sample_indices(total, num_frames, strategy, rng))
-    frames, last = [], None
-    for i in np.sort(idx):
-        cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
-        ok, frame = cap.read()
-        if not ok:
-            if last is None:
-                cap.release()
-                raise ValueError(f"cannot decode video: {path}")
-            frame = last
-        else:
-            frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
-            if size is not None:
+    video = open_video(path)
+    try:
+        if total is None:
+            total = video.frame_count
+        if total <= 0:
+            raise ValueError(f"cannot decode video (no frames): {path}")
+        idx = (np.clip(indices, 0, total - 1) if indices is not None
+               else sample_indices(total, num_frames, strategy, rng))
+        frames, last = [], None
+        for i in np.sort(idx):
+            frame = video.read_at(int(i))
+            if frame is None:
+                if last is None:
+                    raise ValueError(f"cannot decode video: {path}")
+                frame = last
+            elif size is not None:
                 frame = resize_bilinear(frame, size, size)
-        frames.append(frame)
-        last = frame
-    cap.release()
+            frames.append(frame)
+            last = frame
+    finally:
+        video.release()
     return np.stack(frames, axis=0)
 
 

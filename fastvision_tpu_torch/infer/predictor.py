@@ -16,6 +16,9 @@ default, and the host only accumulates the correct-matrices.
 data pass: each batch is uploaded and run through the model once, and every
 grid point runs its NMS on the device-resident predictions.
 
+`Detector.predict_video` runs the detector over a video's frames, batch by
+batch, with a reader thread decoding ahead (a Motion-JPEG AVI without cv2,
+`data.avi`), and can write an annotated ``mp4v`` video (with cv2).
 `VideoClassifier` classifies clips with a model of the video zoo.
 
 ``multi_label=True`` runs the serving NMS (`ops.nms.non_max_suppression_multilabel`:
@@ -56,9 +59,10 @@ import torch
 from torch import nn
 
 from ..data.augment import Augmentation, HorizontalFlip
+from ..data.avi import open_video
 from ..data.converters import coco_80_to_91_ids
 from ..data.dataset import IMG_EXTS, imread_rgb, imread_rgb_scaled, resize_bilinear
-from ..data.pipeline import DetectionLoader, normalize_images, prefetch_to_device
+from ..data.pipeline import DetectionLoader, _not_ported, normalize_images, prefetch_to_device
 from ..device import resolve_device
 from ..nn.layers import memory_format_for
 from ..ops.box import xywhn2xyxy
@@ -494,6 +498,92 @@ class Detector:
             self.i420_fallbacks += loader.fallbacks
             loader.close()
 
+    def predict_video(self, video_path: str, out_path: str | None = None,
+                      frame_callback=None, max_frames: int | None = None) -> int:
+        """Batched frame-loop inference over a video file; -> frames processed.
+
+        A reader thread decodes ahead (`data.avi.open_video`: a Motion-JPEG
+        AVI without cv2, other codecs with cv2) into a queue of at most
+        ``2 * batch_size`` RGB frames; the frames run through `predict_batch`
+        up to ``batch_size`` at a time, so decode overlaps the device. Per
+        frame, in order: ``frame_callback(rgb, result)``, and with
+        ``out_path`` the frame with its detections drawn, written by cv2's
+        ``mp4v`` ``VideoWriter`` at the source's fps (25 where it has none).
+        Writing needs cv2: without it ``out_path`` raises before a frame is
+        decoded. A frame that does not decode raises here, after the frames
+        before it were processed."""
+        import queue
+        import threading
+
+        from ..viz import draw_detections
+
+        cv2 = None
+        if out_path is not None:
+            try:
+                import cv2
+            except ImportError:
+                raise _not_ported("writing the annotated video without cv2 (its mp4v "
+                                  "VideoWriter; Detector.predict_video with out_path)", 6) from None
+        video = open_video(video_path)
+        q: queue.Queue = queue.Queue(maxsize=2 * self.batch_size)
+        stop = threading.Event()
+        failed: list[BaseException] = []
+
+        def reader():
+            try:
+                frames, n = video.frames(), 0
+                while not stop.is_set() and (max_frames is None or n < max_frames):
+                    frame = next(frames, None)
+                    if frame is None:
+                        break
+                    q.put(frame)
+                    n += 1
+            except BaseException as e:  # re-raised by the consumer, never swallowed
+                failed.append(e)
+            finally:
+                q.put(None)
+
+        thread = threading.Thread(target=reader, daemon=True)
+        thread.start()
+        writer, count, done = None, 0, False
+        try:
+            while not done:
+                frames = []
+                while len(frames) < self.batch_size:
+                    item = q.get()
+                    if item is None:
+                        done = True
+                        break
+                    frames.append(item)
+                if not frames:
+                    break
+                for rgb, res in zip(frames, self.predict_batch(frames)):
+                    if frame_callback is not None:
+                        frame_callback(rgb, res)
+                    if out_path is not None:
+                        drawn = draw_detections(rgb, res["boxes"], res["scores"], res["classes"],
+                                                self.class_names)
+                        if writer is None:
+                            writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                                     video.fps or 25,
+                                                     (drawn.shape[1], drawn.shape[0]))
+                        writer.write(cv2.cvtColor(drawn, cv2.COLOR_RGB2BGR))
+                    count += 1
+            if failed:
+                raise failed[0]
+        finally:
+            stop.set()
+            try:  # unblock a reader waiting on a full queue
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=10)
+            video.release()
+            if writer is not None:
+                writer.release()
+        return count
+
     def predict_dataset(self, dataset, fast_decode: bool | None = None, num_workers: int = 0,
                         worker_backend: str = "process") -> Iterator[tuple[dict, np.ndarray]]:
         """Prefetch-overlapped inference over a DetectionDataset: the host
@@ -716,8 +806,9 @@ class VideoClassifier:
                 "prob": float(probs[idx]), "probs": probs}
 
     def predict_video(self, path: str, rng: np.random.Generator | None = None) -> dict:
-        """A video file (decoded with cv2; ``data.video_sampler.load_clip``)
-        -> `predict_clip` of ``num_frames`` frames drawn by ``strategy``."""
+        """A video file (``data.video_sampler.load_clip``: a Motion-JPEG AVI
+        without cv2, other codecs with cv2) -> `predict_clip` of
+        ``num_frames`` frames drawn by ``strategy``."""
         from ..data.video_sampler import load_clip
 
         return self.predict_clip(load_clip(path, self.num_frames, self.strategy, self.size, rng))

@@ -500,21 +500,21 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes((0xFF, marker)) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
-                         interleaved: bool = True, restart: int = 0, qt16: bool = False,
-                         redefine: bool = False) -> bytes:
-    """A minimal baseline JPEG encoder for the features cv2's encoder does
-    not write: non-interleaved scans (one per component), 16-bit
-    quantization tables (``qt16``: the luma table x 3, stored at 16 bits),
-    restart intervals in either kind of scan, and tables redefined between
-    scans (``redefine``: Huffman table 0 switches to the chroma tables and
-    quantization table 0 is overwritten after the luma scan, which a decoder
-    must have latched). ``dqt`` / ``dht`` come from `jpeg_tables` of a cv2
-    JPEG; ``rgb`` [H, W, 3] (YCbCr, 3 components) or [H, W] (1 component)."""
+def _jpeg_coefficients(rgb: np.ndarray, dqt: dict, sampling=(2, 2), qt16: bool = False):
+    """The quantized DCT coefficients `encode_baseline_jpeg` codes: -> (h,
+    w, components {id, hv, zz [block rows, block columns, 64] zigzag, bw,
+    bh: the component's own block grid}, MCUs across, MCUs down,
+    quantization tables, each component's table id)."""
     h, w = rgb.shape[:2]
     f = rgb.astype(np.float64)
     if rgb.ndim == 2:
         planes, factors = [f], [(1, 1)]
+    elif rgb.shape[2] == 4:  # CMYK -> YCCK (libjpeg's cmyk_ycck_convert): YCbCr of 255 - CMY, K
+        r, g, b = 255 - f[..., 0], 255 - f[..., 1], 255 - f[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128, f[..., 3]]
+        factors = [tuple(sampling), (1, 1), (1, 1), tuple(sampling)]
     else:
         r, g, b = f[..., 0], f[..., 1], f[..., 2]
         planes = [0.299 * r + 0.587 * g + 0.114 * b,
@@ -527,7 +527,7 @@ def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
     dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
     dct[0] /= np.sqrt(2)
     qts = {0: dqt[0] * (3 if qt16 else 1), 1: dqt[1]}
-    tq = [0, 1, 1]
+    tq = [0, 1, 1, 0]
     comps = []
     for ci, ((hc, vc), p) in enumerate(zip(factors, planes)):
         fx, fy = hmax // hc, vmax // vc
@@ -538,6 +538,21 @@ def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
         q = np.clip(np.round(coef / qts[tq[ci]]), -1023, 1023).astype(np.int64)
         comps.append({"id": ci + 1, "hv": (hc, vc), "zz": q[..., list(ZIGZAG)],
                       "bw": -(-(-(-w * hc // hmax)) // 8), "bh": -(-(-(-h * vc // vmax)) // 8)})
+    return h, w, comps, mcux, mcuy, qts, tq
+
+
+def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
+                         interleaved: bool = True, restart: int = 0, qt16: bool = False,
+                         redefine: bool = False) -> bytes:
+    """A minimal baseline JPEG encoder for the features cv2's encoder does
+    not write: non-interleaved scans (one per component), 16-bit
+    quantization tables (``qt16``: the luma table x 3, stored at 16 bits),
+    restart intervals in either kind of scan, and tables redefined between
+    scans (``redefine``: Huffman table 0 switches to the chroma tables and
+    quantization table 0 is overwritten after the luma scan, which a decoder
+    must have latched). ``dqt`` / ``dht`` come from `jpeg_tables` of a cv2
+    JPEG; ``rgb`` [H, W, 3] (YCbCr, 3 components) or [H, W] (1 component)."""
+    h, w, comps, mcux, mcuy, qts, tq = _jpeg_coefficients(rgb, dqt, sampling, qt16)
 
     def codes(table):
         counts, symbols = table
@@ -625,6 +640,242 @@ def encode_baseline_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
     return bytes(out + b"\xff\xd9")
 
 
+# the progressive scan scripts of libjpeg's jpeg_simple_progression:
+# (components, Ss, Se, Ah, Al); components index the frame's
+_SCRIPT_YCC = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+               ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+               ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+               ((0,), 1, 63, 1, 0))
+
+
+def _script_other(n: int) -> tuple:
+    """jpeg_simple_progression's all-purpose script for ``n`` components."""
+    every = tuple(range(n))
+    return ((every, 0, 0, 0, 1), *(((c,), 1, 5, 0, 2) for c in every),
+            *(((c,), 6, 63, 0, 2) for c in every), *(((c,), 1, 63, 2, 1) for c in every),
+            (every, 0, 0, 1, 0), *(((c,), 1, 63, 1, 0) for c in every))
+
+
+def _code_arrays(table) -> tuple[np.ndarray, np.ndarray]:
+    """A DHT table (counts[16], symbols) -> (code [256], length [256])."""
+    counts, symbols = table
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, i = 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            code_of[symbols[i]], len_of[symbols[i]] = code, length
+            code, i = code + 1, i + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _bit_length(a: np.ndarray) -> np.ndarray:
+    a = np.abs(a)
+    return np.where(a > 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1, 0)
+
+
+def _pack_bits(codes: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Entropy-coded bytes of items (code, length) in order, MSB first, the
+    last byte padded with 1-bits, 0xFF stuffed with 0x00."""
+    total = int(lengths.sum())
+    item = np.repeat(np.arange(len(lengths)), lengths)
+    pos = np.arange(total) - (np.cumsum(lengths) - lengths)[item]
+    bits = (codes[item] >> (lengths[item] - 1 - pos)) & 1
+    out = np.packbits(np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8))
+    return np.insert(out, np.flatnonzero(out == 0xFF) + 1, 0).tobytes()
+
+
+def _scan_items(z: np.ndarray, comp: np.ndarray, ss: int, se: int, ah: int, al: int,
+                dc_tabs, ac_tabs, interval: np.ndarray):
+    """The (sort key, code, length) items of one scan over blocks ``z`` [N,
+    64] (zigzag, in scan order) of components ``comp`` [N]; a DC and an AC
+    part (ss = 0, se = 63) make a sequential scan. EOB runs are of one
+    block. ``interval`` [N]: each block's restart interval (DC predictions
+    reset there). Keys order items by (block, position, part, position of
+    a refined coefficient)."""
+    n = len(z)
+    keys, codes, lens = [], [], []
+
+    def key(b, k, sub, old=0):
+        return ((np.asarray(b, np.int64) * 80 + k) * 16 + sub) * 64 + old
+
+    def add(k, c, ln):
+        keys.append(np.asarray(k, np.int64).ravel())
+        codes.append(np.asarray(c, np.int64).ravel())
+        lens.append(np.asarray(ln, np.int64).ravel())
+
+    blocks = np.arange(n)
+    if ss == 0 and ah == 0:  # DC first (or the DC of a sequential scan)
+        dc = z[:, 0] >> al
+        diff = dc.copy()
+        for c in np.unique(comp):
+            at = np.flatnonzero(comp == c)
+            prev = np.concatenate([[0], dc[at[:-1]]])
+            prev[np.concatenate([[True], interval[at[1:]] != interval[at[:-1]]])] = 0
+            diff[at] = dc[at] - prev
+        cat = _bit_length(diff)
+        dcode = np.stack([_code_arrays(t)[0] for t in dc_tabs])[comp, cat]
+        dlen = np.stack([_code_arrays(t)[1] for t in dc_tabs])[comp, cat]
+        add(key(blocks, 0, 0), dcode, dlen)
+        add(key(blocks, 0, 1), np.where(diff > 0, diff, diff + (1 << cat) - 1) & ((1 << cat) - 1), cat)
+    elif ss == 0:  # DC refinement: one bit a block
+        add(key(blocks, 0, 0), (z[:, 0] >> al) & 1, np.ones(n, np.int64))
+    if se == 0:
+        return keys, codes, lens
+    lo = max(ss, 1)
+    acode = np.stack([_code_arrays(t)[0] for t in ac_tabs])
+    alen = np.stack([_code_arrays(t)[1] for t in ac_tabs])
+    v = z[:, lo:se + 1]
+    a = np.abs(v) >> al
+    band = se - lo + 1
+    if ah == 0:  # AC first (or the AC of a sequential scan)
+        bi, ji = np.nonzero(a)
+        prev = np.concatenate([[-1], ji[:-1]])
+        prev[np.concatenate([[True], bi[1:] != bi[:-1]])] = -1
+        run = ji - prev - 1
+        size = _bit_length(a[bi, ji])
+        c = comp[bi]
+        zrl = np.repeat(np.arange(len(bi)), run // 16)
+        nth = np.arange(len(zrl)) - np.searchsorted(zrl, zrl)
+        add(key(bi[zrl], lo + ji[zrl], nth), acode[c[zrl], 0xF0], alen[c[zrl], 0xF0])
+        sym = ((run % 16) << 4) | size
+        add(key(bi, lo + ji, 8), acode[c, sym], alen[c, sym])
+        val = np.where(v[bi, ji] > 0, a[bi, ji], (1 << size) - 1 - a[bi, ji])
+        add(key(bi, lo + ji, 9), val, size)
+        last = np.full(n, -1)
+        np.maximum.at(last, bi, ji)
+        eob = np.flatnonzero(last < band - 1)
+        add(key(eob, 64, 0), acode[comp[eob], 0], alen[comp[eob], 0])
+        return keys, codes, lens
+    # AC refinement: newly nonzero coefficients (|v| >> al == 1) coded with
+    # their zero runs, correction bits of the ones already nonzero flushed
+    # after the next ZRL, new coefficient or EOB (libjpeg's encode_mcu_AC_refine)
+    new, old, zero = a == 1, a > 1, a == 0
+    jj = np.arange(band)
+    last_new = np.where(new.any(1), band - 1 - np.argmax(new[:, ::-1], 1), -1)
+    zc = np.cumsum(zero, 1) - zero  # zeros before each position
+    base = np.maximum.accumulate(np.where(new, zc, 0), 1)
+    base = np.concatenate([np.zeros((n, 1), np.int64), base[:, :-1]], 1)  # at the last new before
+    g = (zc - base) // 16  # ZRLs due before this position, in its run
+    nz = (new | old) & (jj[None] <= last_new[:, None])
+    bi, ji = np.nonzero(nz)
+    prev = np.concatenate([[-1], ji[:-1]])
+    prev[np.concatenate([[True], bi[1:] != bi[:-1]])] = -1
+    gprev = np.where((prev >= 0) & old[bi, np.maximum(prev, 0)], g[bi, np.maximum(prev, 0)], 0)
+    nzrl = g[bi, ji] - gprev
+    c = comp[bi]
+    zrl = np.repeat(np.arange(len(bi)), nzrl)
+    nth = np.arange(len(zrl)) - np.searchsorted(zrl, zrl)
+    add(key(bi[zrl], lo + ji[zrl], 2 * nth), acode[c[zrl], 0xF0], alen[c[zrl], 0xF0])
+    isnew = new[bi, ji]
+    bn, jn, cn = bi[isnew], ji[isnew], c[isnew]
+    sym = (((zc - base)[bn, jn] % 16) << 4) | 1
+    add(key(bn, lo + jn, 8), acode[cn, sym], alen[cn, sym])
+    add(key(bn, lo + jn, 9), (v[bn, jn] >= 0).astype(np.int64), np.ones(len(bn), np.int64))
+    eob = np.flatnonzero(last_new < band - 1)
+    add(key(eob, 64, 0), acode[comp[eob], 0], alen[comp[eob], 0])
+    # flush events: a position with ZRLs (flush after the first) or a new coefficient
+    ev = (nzrl > 0) | isnew
+    ev_key = np.append(bi[ev] * 80 + ji[ev], 1 << 62)  # a sentinel past every block
+    ev_sub = np.append(np.where(nzrl[ev] > 0, 1, 10), 1)
+    bo, jo = np.nonzero(old)
+    at = np.searchsorted(ev_key, bo * 80 + jo, side="right")
+    hit = ev_key[at] < (bo + 1) * 80
+    fk = np.where(hit, ev_key[at] - bo * 80, 64 - lo)
+    fsub = np.where(hit, ev_sub[at], 1)
+    add(key(bo, lo + fk, fsub, lo + jo), a[bo, jo] & 1, np.ones(len(bo), np.int64))
+    return keys, codes, lens
+
+
+def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
+                            restart: int = 0, script: str = "full", tables: bool = True,
+                            progressive: bool = True) -> bytes:
+    """A progressive JPEG (SOF2) of the quantized coefficients
+    `encode_baseline_jpeg` codes (`_jpeg_coefficients`): libjpeg's
+    jpeg_simple_progression script (spectral selection, successive
+    approximation, an interleaved DC scan), EOB runs of one block, so that
+    the standard tables (`standard_jpeg_tables`) code every symbol.
+    ``script='al1'`` stops before the last refinement of every coefficient
+    (a decoder then block-smooths); ``tables=False`` leaves the DHT segments
+    out (a decoder installs the standard ones, the Motion-JPEG convention);
+    ``progressive=False`` writes the same coefficients as one sequential
+    interleaved scan (SOF0), the twin that decodes to the same pixels.
+    ``rgb`` [H, W, 3] is coded as YCbCr, [H, W] as gray, and [H, W, 4]
+    (CMYK) as YCCK (Adobe transform 2, K sampled as luma).
+    Numpy throughout: a 640 x 480 image in ~0.1 s."""
+    h, w, comps, mcux, mcuy, qts, tq = _jpeg_coefficients(rgb, dqt, sampling)
+    ncomp = len(comps)
+    tsel = [0, 1, 1, 0][:ncomp]
+    dc_tabs = [dht[(0, t)] for t in tsel]
+    ac_tabs = [dht[(1, t)] for t in tsel]
+    if not tables:
+        assert all(dht[k] == _ANNEX_K_HUFFMAN[k] for k in dht if k[1] in tsel), "standard tables"
+
+    def scan(members, ss, se, ah, al):
+        if len(members) == 1:
+            c = comps[members[0]]
+            z = c["zz"][:c["bh"], :c["bw"]].reshape(-1, 64)
+            comp = np.zeros(len(z), np.int64)
+            unit = np.arange(len(z))
+        else:  # MCU order: each component's h x v blocks in turn
+            parts = []
+            for i in members:
+                c = comps[i]
+                hc, vc = c["hv"]
+                zz = c["zz"].reshape(mcuy, vc, mcux, hc, 64).transpose(0, 2, 1, 3, 4)
+                parts.append(zz.reshape(mcuy * mcux, vc * hc, 64))
+            z = np.concatenate(parts, 1).reshape(-1, 64)
+            comp = np.concatenate([np.full(p.shape[1], k) for k, p in enumerate(parts)])
+            comp = np.tile(comp, mcuy * mcux)
+            unit = np.repeat(np.arange(mcuy * mcux), sum(p.shape[1] for p in parts))
+        interval = unit // restart if restart else np.zeros(len(z), np.int64)
+        keys, codes, lens = _scan_items(
+            z, comp, ss, se, ah, al, [dc_tabs[i] for i in members], [ac_tabs[i] for i in members],
+            interval)
+        keys, codes, lens = (np.concatenate(x) for x in (keys, codes, lens))
+        order = np.argsort(keys, kind="stable")
+        codes, lens = codes[order], lens[order]
+        # each item's restart interval, from its block (the key's leading part)
+        item_interval = interval[keys[order] // (80 * 16 * 64)]
+        data = bytearray()
+        cuts = np.flatnonzero(np.diff(item_interval)) + 1
+        for k, (a, b) in enumerate(zip(np.concatenate([[0], cuts]),
+                                       np.concatenate([cuts, [len(codes)]]))):
+            if k:
+                data += bytes((0xFF, 0xD0 + (k - 1) % 8))
+            data += _pack_bits(codes[a:b], lens[a:b])
+        sel = b"".join(bytes((comps[i]["id"], (tsel[i] << 4 if ss == 0 else 0)
+                              | (tsel[i] if se or not progressive else 0))) for i in members)
+        return _segment(0xDA, bytes((len(members),)) + sel + bytes((ss, se, ah << 4 | al))) \
+            + bytes(data)
+
+    out = bytearray(b"\xff\xd8" + (
+        _segment(0xEE, b"Adobe" + (100).to_bytes(2, "big") + bytes(4) + bytes((2,)))  # YCCK
+        if ncomp == 4 else _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")))
+    for tid in sorted(set(tq[:ncomp])):
+        values = qts[tid]
+        out += _segment(0xDB, bytes((tid,)) + values[list(ZIGZAG)].astype(np.uint8).tobytes())
+    out += _segment(0xC2 if progressive else 0xC0,
+                    bytes((8,)) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes((ncomp,))
+                    + b"".join(bytes((c["id"], c["hv"][0] << 4 | c["hv"][1], tq[i]))
+                               for i, c in enumerate(comps)))
+    if tables:
+        for tc in (0, 1):
+            for th in sorted(set(tsel)):
+                table = dht[(tc, th)]
+                out += _segment(0xC4, bytes((tc << 4 | th,)) + bytes(table[0]) + table[1])
+    if restart:
+        out += _segment(0xDD, restart.to_bytes(2, "big"))
+    if not progressive:
+        out += scan(list(range(ncomp)), 0, 63, 0, 0)
+    else:
+        for members, ss, se, ah, al in (_SCRIPT_YCC if ncomp == 3 else _script_other(ncomp)):
+            if script == "al1" and al == 0:
+                continue
+            out += scan(list(members), ss, se, ah, al)
+    return bytes(out + b"\xff\xd9")
+
+
 def _exif_app1(orientation: int, little_endian: bool) -> bytes:
     e = "little" if little_endian else "big"
     tiff = ((b"II" if little_endian else b"MM") + (42).to_bytes(2, e) + (8).to_bytes(4, e)
@@ -633,13 +884,60 @@ def _exif_app1(orientation: int, little_endian: bool) -> bytes:
     return _segment(0xE1, b"Exif\x00\x00" + tiff)
 
 
-def _png(pixels: np.ndarray, ctype: int, depth: int, palette=None, interlace: int = 0) -> bytes:
-    """A PNG of already packed rows (filter 0 on every row)."""
+def _png_filter(row: np.ndarray, prior: np.ndarray, bpp: int, ftype: int) -> bytes:
+    """One scanline filtered with PNG filter ``ftype`` (0-4) against the
+    previous scanline of its pass (zeros for the first)."""
+    x, b = row.astype(np.int64), prior.astype(np.int64)
+    a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]]) if len(x) > bpp else np.zeros_like(x)
+    c = np.concatenate([np.zeros(bpp, np.int64), b[:-bpp]]) if len(b) > bpp else np.zeros_like(b)
+    if ftype == 4:
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        pred = (np.zeros_like(x), a, b, (a + b) >> 1)[ftype]
+    return bytes((ftype,)) + ((x - pred) & 255).astype(np.uint8).tobytes()
+
+
+def _png(pixels: np.ndarray, ctype: int, depth: int, palette=None, interlace: int = 0,
+         filters=(0,)) -> bytes:
+    """A PNG of already packed rows [H, row bytes] (samples MSB first below
+    8 bits, big-endian at 16). ``interlace=1`` writes Adam7: the pixels of
+    each of the 7 passes repacked into rows of their own, a pass without
+    pixels written as nothing. ``filters`` cycles over each pass's rows."""
     import zlib
 
-    h = pixels.shape[0]
-    raw = b"".join(b"\x00" + pixels[y].tobytes() for y in range(h))
-    width = pixels.shape[1] * 8 // depth if depth < 8 else pixels.shape[1]
+    from .data.codec import ADAM7
+
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    bits = channels * depth
+    h, width = pixels.shape[0], pixels.shape[1] * 8 // bits
+    bpp = max(1, bits // 8)
+    if bits < 8:  # one sample a pixel: unpack, so that passes can pick pixels
+        shifts = np.arange(8 - depth, -1, -depth)
+        units = ((pixels[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :width]
+    else:
+        units = pixels.reshape(h, width, bits // 8)
+
+    def packed(sub):  # pixels [ph, pw(, bytes)] -> rows [ph, row bytes]
+        if bits >= 8:
+            return sub.reshape(sub.shape[0], -1).astype(np.uint8)
+        pw = sub.shape[1]
+        padded = np.zeros((sub.shape[0], -(-pw * depth // 8) * 8 // depth), np.int64)
+        padded[:, :pw] = sub
+        grouped = padded.reshape(sub.shape[0], -1, 8 // depth)
+        return (grouped << np.arange(8 - depth, -1, -depth)).sum(-1).astype(np.uint8)
+
+    passes = [units] if not interlace else [units[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+    raw = []
+    for sub in passes:
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        rows = packed(sub)
+        prior = np.zeros(rows.shape[1], np.uint8)
+        for y in range(rows.shape[0]):
+            raw.append(_png_filter(rows[y], prior, bpp, filters[y % len(filters)]))
+            prior = rows[y]
 
     def chunk(kind, body):
         return (len(body).to_bytes(4, "big") + kind + body
@@ -649,7 +947,53 @@ def _png(pixels: np.ndarray, ctype: int, depth: int, palette=None, interlace: in
             + bytes((depth, ctype, 0, 0, interlace)))
     plte = chunk(b"PLTE", palette.tobytes()) if palette is not None else b""
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + plte
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(b"".join(raw))) + chunk(b"IEND", b""))
+
+
+def mjpeg_avi(frames, width: int, height: int, fps: float = 25.0, *,
+              header_frames: int | None = None, index: bool = True, junk: bool = False,
+              rec_lists: bool = False) -> bytes:
+    """A minimal Motion-JPEG AVI (RIFF ``AVI `` / ``LIST hdrl`` with ``avih``
+    and one ``vids`` / ``MJPG`` stream / ``LIST movi`` of ``00dc`` chunks /
+    ``idx1``, offsets from the ``movi`` fourcc) around JPEG ``frames``; an
+    empty frame is a zero-length chunk (a dropped frame). ``header_frames``
+    is the count ``avih`` and ``strh`` claim (default: the frames written);
+    ``index=False`` leaves ``idx1`` out; ``junk`` adds ``JUNK`` chunks
+    inside ``movi``; ``rec_lists`` wraps each frame in a ``LIST rec ``."""
+    import struct
+
+    def chunk(fcc: bytes, body: bytes) -> bytes:
+        return fcc + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+    def lst(kind: bytes, body: bytes) -> bytes:
+        return chunk(b"LIST", kind + body)
+
+    n = len(frames) if header_frames is None else header_frames
+    scale, rate = (1, int(fps)) if float(fps).is_integer() else (1000, int(round(fps * 1000)))
+    largest = max((len(f) for f in frames), default=0)
+    avih = struct.pack("<14I", int(round(1e6 / fps)), 0, 0, 0x10, n, 0, 1, largest, width,
+                       height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0, 0, scale, rate, 0, n,
+                       largest, 0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                       width * height * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh)
+                                                  + chunk(b"strf", strf)))
+    movi, entries = bytearray(b"movi"), []
+    for i, f in enumerate(frames):
+        if junk and i % 2:
+            movi += chunk(b"JUNK", bytes(6))
+        if rec_lists:
+            entries.append((b"rec ", 0, len(movi), 4 + 8 + len(f)))
+            movi += lst(b"rec ", chunk(b"00dc", f))
+            entries[-1] = (b"00dc", 0x10, len(movi) - 8 - len(f) - (len(f) & 1), len(f))
+        else:
+            entries.append((b"00dc", 0x10, len(movi), len(f)))
+            movi += chunk(b"00dc", f)
+    body = b"AVI " + hdrl + chunk(b"LIST", bytes(movi))
+    if index:
+        body += chunk(b"idx1", b"".join(struct.pack("<4sIII", *e) for e in entries))
+    return b"RIFF" + struct.pack("<I", len(body)) + body
 
 
 def _scene(h: int, w: int, seed: int) -> np.ndarray:
@@ -671,6 +1015,202 @@ def _scene(h: int, w: int, seed: int) -> np.ndarray:
         img[mask] = colour
     img += rng.normal(0, 2, img.shape)
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def _strip_dht(jpeg: bytes) -> bytes:
+    """A JPEG with its DHT segments removed (before the first scan)."""
+    out, pos = bytearray(jpeg[:2]), 2
+    while jpeg[pos + 1] != 0xDA:
+        end = pos + 2 + int.from_bytes(jpeg[pos + 2:pos + 4], "big")
+        if jpeg[pos + 1] != 0xC4:
+            out += jpeg[pos:end]
+        pos = end
+    return bytes(out + jpeg[pos:])
+
+
+def _empty_avi_chunk(avi: bytes, k: int) -> bytes:
+    """An MJPEG AVI with its ``k``-th ``00dc`` chunk made zero-length (a
+    dropped frame): the RIFF and movi sizes and the idx1 entries follow."""
+    import struct
+
+    movi = next(i for i in range(len(avi)) if avi[i:i + 4] == b"LIST" and avi[i + 8:i + 12] == b"movi")
+    pos, n = movi + 12, 0
+    while True:
+        size = struct.unpack_from("<I", avi, pos + 4)[0]
+        if avi[pos:pos + 4] == b"00dc":
+            if n == k:
+                break
+            n += 1
+        pos += 8 + size + (size & 1)
+    cut = size + (size & 1)
+    out = bytearray(avi[:pos + 4] + struct.pack("<I", 0) + avi[pos + 8 + cut:])
+    for at in (4, movi + 4):
+        struct.pack_into("<I", out, at, struct.unpack_from("<I", out, at)[0] - cut)
+    idx = out.index(b"idx1", pos)
+    for e in range(struct.unpack_from("<I", out, idx + 4)[0] // 16):
+        p = idx + 8 + 16 * e
+        off = struct.unpack_from("<I", out, p + 8)[0]
+        if movi + 8 + off == pos:
+            struct.pack_into("<I", out, p + 12, 0)
+        elif movi + 8 + off > pos:
+            struct.pack_into("<I", out, p + 8, off - cut)
+    return bytes(out)
+
+
+def _video_oracle(path: str) -> dict:
+    """What cv2 says of an AVI fixture: the frame count, the count
+    `count_real_frames` gives, the frames a read loop gets, and each frame's
+    ``cv2.imdecode`` (RGB) shape and sha256 from its demuxed bytes."""
+    import hashlib
+
+    import cv2
+
+    from .data.avi import MJPEGAvi
+
+    cap = cv2.VideoCapture(path)
+    header = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.set(cv2.CAP_PROP_POS_FRAMES, max(header - 1, 0))
+    real = header if cap.read()[0] else None
+    cap.release()
+    cap, walked = cv2.VideoCapture(path), 0
+    while cap.read()[0]:
+        walked += 1
+    cap.release()
+    if real is None:
+        real = walked
+    avi = MJPEGAvi(path)
+    frames = [cv2.imdecode(np.frombuffer(avi.frame_bytes(i), np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+              for i in range(len(avi._frames))]
+    return {"frame_count": header, "real_frames": real, "read_loop_frames": walked,
+            "fps": float(cv2.VideoCapture(path).get(cv2.CAP_PROP_FPS)),
+            "frame_shape": list(frames[0].shape),
+            "frames_sha256": [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest()
+                              for f in frames]}
+
+
+def _decode_leftover_fixtures(seed: int, jpg, sampling) -> tuple[list, list]:
+    """The corpus's progressive, CMYK / YCCK, table-less, Adam7 and Motion-JPEG
+    AVI files: -> ([(name, bytes, features)], [(name, bytes, features, raises
+    or None)] of the ones to add to ``raising``), drawn from their own seed."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 1)
+    q, s, prog = cv2.IMWRITE_JPEG_QUALITY, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_PROGRESSIVE
+    rst = cv2.IMWRITE_JPEG_RST_INTERVAL
+    files, raising = [], []
+    for i, (samp, restart, hw) in enumerate((("420", 0, (45, 61)), ("420", 2, (37, 50)),
+                                            ("422", 0, (41, 57)), ("422", 1, (29, 70)),
+                                            ("444", 0, (33, 47)), ("444", 3, (26, 39)))):
+        files.append((f"prog_cv2_{samp}{'_rst' if restart else ''}_{hw[0]}x{hw[1]}.jpg",
+                      jpg(_scene(*hw, seed + 200 + i), q, 85, s, sampling[samp], prog, 1,
+                          rst, restart),
+                      f"cv2 progressive {samp}" + (f", restart {restart}" if restart else "")))
+    for restart in (0, 2):
+        files.append((f"prog_cv2_gray{'_rst' if restart else ''}.jpg",
+                      jpg(_scene(38, 53, seed + 210 + restart)[..., 1], q, 80, prog, 1, rst, restart),
+                      "cv2 progressive gray" + (", restart 2" if restart else "")))
+    for sub, name in ((0, "444"), (1, "422"), (2, "420")):
+        bio = io.BytesIO()
+        Image.fromarray(_scene(43, 59, seed + 220 + sub)).save(
+            bio, "JPEG", quality=80, progressive=True, subsampling=sub,
+            restart_marker_blocks=3 if sub == 1 else 0)
+        files.append((f"prog_pil_{name}.jpg", bio.getvalue(),
+                      f"PIL progressive {name}" + (", restart 3 blocks" if sub == 1 else "")))
+    bio = io.BytesIO()
+    Image.fromarray(_scene(31, 45, seed + 223)[..., 0], "L").save(bio, "JPEG", progressive=True)
+    files.append(("prog_pil_gray.jpg", bio.getvalue(), "PIL progressive gray"))
+    for i, (h, w) in enumerate(FULL_SIZE_HW):
+        files.append((f"prog_full_{h}x{w}.jpg",
+                      jpg(_scene(h, w, seed + 100 + i), q, 90, s, sampling["420"], prog, 1),
+                      "full size, cv2 progressive 4:2:0 q90"))
+    dqt, dht = standard_jpeg_tables(85)
+    scene = _scene(47, 66, seed + 230)
+    files.append(("prog_own_al1.jpg", encode_progressive_jpeg(scene, dqt, dht, script="al1"),
+                  "own encoder: progressive script stopping at Al = 1 (block smoothing)"))
+    files.append(("prog_own_full.jpg", encode_progressive_jpeg(scene, dqt, dht),
+                  "own encoder: the same coefficients, complete script"))
+    files.append(("prog_own_422_rst.jpg",
+                  encode_progressive_jpeg(scene, dqt, dht, sampling=(2, 1), restart=4),
+                  "own encoder: progressive 4:2:2, restart 4, EOB runs of 1"))
+    cv_prog = jpg(_scene(52, 44, seed + 231), q, 85, s, sampling["420"], prog, 1)
+    dc_only, pos = bytearray(cv_prog[:2]), 2
+    while cv_prog[pos + 1] != 0xD9:  # keep the DC scans only: no AC coefficient is ever coded
+        end = pos + 2 + int.from_bytes(cv_prog[pos + 2:pos + 4], "big")
+        ac = cv_prog[pos + 1] == 0xDA and cv_prog[pos + 5 + 2 * cv_prog[pos + 4]] != 0  # Ss != 0
+        if cv_prog[pos + 1] == 0xDA:  # the entropy-coded data runs to the next marker
+            while cv_prog[end] != 0xFF or cv_prog[end + 1] in (0, *range(0xD0, 0xD8)):
+                end += 1
+        if not ac:
+            dc_only += cv_prog[pos:end]
+        pos = end
+    files.append(("prog_cv2_dc_only.jpg", bytes(dc_only + b"\xff\xd9"),
+                  "cv2 progressive with its AC scans removed (DC interpolation)"))
+    cmyk = np.concatenate([_scene(35, 49, seed + 240), _scene(35, 49, seed + 241)[..., :1]], -1)
+    for progressive in (False, True):
+        bio = io.BytesIO()
+        Image.fromarray(cmyk, "CMYK").save(bio, "JPEG", quality=85, progressive=progressive)
+        files.append((f"cmyk_pil{'_progressive' if progressive else ''}.jpg", bio.getvalue(),
+                      "PIL CMYK (Adobe, inverted)" + (", progressive" if progressive else "")))
+        files.append((f"ycck_own{'_progressive' if progressive else ''}.jpg",
+                      encode_progressive_jpeg(cmyk, dqt, dht, progressive=progressive),
+                      "own encoder: YCCK (Adobe transform 2) 4:2:0"
+                      + (", progressive" if progressive else "")))
+    files.append(("tableless_cv2_420.jpg",
+                  _strip_dht(jpg(_scene(39, 58, seed + 250), q, 75, s, sampling["420"])),
+                  "cv2 baseline 4:2:0 without its DHT segments"))
+    files.append(("tableless_cv2_gray.jpg", _strip_dht(jpg(_scene(30, 41, seed + 251)[..., 2], q, 75)),
+                  "cv2 baseline gray without its DHT segments"))
+    files.append(("tableless_own_422_rst.jpg",
+                  encode_progressive_jpeg(scene, dqt, dht, sampling=(2, 1), restart=3, tables=False,
+                                          progressive=False),
+                  "own encoder: sequential 4:2:2, restart 3, no DHT"))
+    raising.append(("tableless_progressive.jpg", encode_progressive_jpeg(scene, dqt, dht, tables=False),
+                    "must raise: progressive without DHT (libjpeg installs no tables there)",
+                    "undefined Huffman table"))
+    for ctype, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)), (4, (8, 16)),
+                          (6, (8, 16))):
+        channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+        for depth in depths:
+            h, w = 11, 13
+            rows = rng.integers(0, 256, (h, -(-w * channels * depth // 8)), dtype=np.uint8)
+            pal = rng.integers(0, 256, (2 ** depth, 3), dtype=np.uint8) if ctype == 3 else None
+            kind = {0: "gray", 2: "rgb", 3: "palette", 4: "gray_alpha", 6: "rgba"}[ctype]
+            files.append((f"png_adam7_{kind}{depth}.png",
+                          _png(rows, ctype, depth, pal, interlace=1, filters=(1, 2, 3, 4, 0)),
+                          f"PNG {kind} {depth}-bit, Adam7, filters 1-4 and 0 in turn"))
+    frames = [_scene(32, 48, seed + 260 + t) for t in range(6)]
+    cv_avi = _cv2_mjpeg_avi(frames, 10.0)
+    files.append(("video_cv2_mjpg.avi", cv_avi, "cv2 MJPG AVI, 6 frames 32 x 48, 10 fps"))
+    files.append(("video_cv2_dropped.avi", _empty_avi_chunk(cv_avi, 2),
+                  "the cv2 MJPG AVI with its third frame chunk zero-length (a dropped frame)"))
+    own = [encode_progressive_jpeg(f, dqt, dht, progressive=False, tables=bool(t % 2))
+           for t, f in enumerate(frames)]
+    files.append(("video_header_over.avi", mjpeg_avi(own, 48, 32, 25.0, header_frames=9),
+                  "own MJPEG AVI: 6 frames (half without DHT), headers claim 9"))
+    files.append(("video_header_under.avi", mjpeg_avi(own, 48, 32, 12.5, header_frames=4,
+                                                      index=False, junk=True),
+                  "own MJPEG AVI: 6 frames (half without DHT), headers claim 4, no idx1, JUNK"))
+    return files + [(n, b, f) for n, b, f, _ in raising], raising
+
+
+def _cv2_mjpeg_avi(frames: list, fps: float) -> bytes:
+    """The bytes cv2's MJPG ``VideoWriter`` writes for RGB ``frames``."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "clip.avi")
+        h, w = frames[0].shape[:2]
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, (w, h))
+        for f in frames:
+            writer.write(np.ascontiguousarray(f[..., ::-1]))
+        writer.release()
+        with open(path, "rb") as f:
+            return f.read()
 
 
 def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
@@ -747,8 +1287,7 @@ def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
                       "own encoder: " + name.replace("_", " ")))
     bio = io.BytesIO()
     Image.fromarray(scene).save(bio, "JPEG", quality=85, progressive=True)
-    files.append(("progressive.jpg", bio.getvalue(), "must raise: progressive"))
-    raising["progressive.jpg"] = "progressive JPEG is not supported"
+    files.append(("progressive.jpg", bio.getvalue(), "PIL progressive 4:2:0"))
     whole = jpg(_scene(64, 96, seed + 31), q, 90)
     files.append(("truncated.jpg", whole[: len(whole) * 2 // 3], "must raise: truncated"))
     raising["truncated.jpg"] = "truncated JPEG data"
@@ -782,12 +1321,14 @@ def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
         pal.putpalette(rng.integers(0, 256, 3 * 2 ** depth).tolist())
         files.append((f"png_palette{depth}.png", png_pil(pal, bits=depth), f"PNG palette {depth}-bit"))
     files.append(("png_interlaced.png", _png(rng.integers(0, 256, (8, 8), dtype=np.uint8), 0, 8,
-                                              interlace=1), "must raise: Adam7"))
-    raising["png_interlaced.png"] = "interlaced (Adam7) PNG is not supported"
+                                              interlace=1), "PNG gray 8-bit, Adam7"))
 
     for i, (h, w) in enumerate(FULL_SIZE_HW):
         files.append((f"full_{h}x{w}.jpg", jpg(_scene(h, w, seed + 100 + i), q, 90, s, sampling["420"]),
                       "full size, 4:2:0 q90"))
+    more, must_raise = _decode_leftover_fixtures(seed, jpg, sampling)
+    files += more
+    raising.update({name: why for name, _, _, why in must_raise})
 
     decodes, manifest = {}, {"files": []}
     for name, data, features in files:
@@ -796,6 +1337,8 @@ def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
         entry = {"file": name, "features": features, "bytes": len(data)}
         if name in raising:
             entry["raises"] = raising[name]
+        elif name.endswith(".avi"):
+            entry["video"] = _video_oracle(os.path.join(out_dir, name))
         else:
             bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
             if bgr is None:
@@ -803,7 +1346,7 @@ def write_codec_fixtures(out_dir: str, seed: int = 0) -> dict:
             rgb = np.ascontiguousarray(bgr[..., ::-1])
             entry["shape"] = list(rgb.shape)
             entry["sha256"] = hashlib.sha256(rgb.tobytes()).hexdigest()
-            if not name.startswith("full_"):
+            if "full_" not in name:
                 decodes[name] = rgb
         manifest["files"].append(entry)
     np.savez_compressed(os.path.join(out_dir, "cv2_decodes.npz"), **decodes)

@@ -25,10 +25,10 @@ import pytest
 from PIL import Image
 
 from fastvision_tpu_torch import cuda_build
-from fastvision_tpu_torch.data import codec
+from fastvision_tpu_torch.data import avi, codec, video_sampler
 from fastvision_tpu_torch.data.codec import decode_image
 from fastvision_tpu_torch.data.dataset import imread_rgb
-from fastvision_tpu_torch.testing import encode_baseline_jpeg, jpeg_tables
+from fastvision_tpu_torch.testing import _png, encode_baseline_jpeg, jpeg_tables
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "torch_codec_fixtures")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
@@ -67,17 +67,29 @@ def smooth(rng, h, w):
 def test_committed_corpus_matches_cv2(entry):
     """The corpus the card checks without cv2: each file's decode equals the
     stored cv2 pixels (the small files) or their sha256 (the full-size
-    ones); the files that must raise do."""
-    with open(os.path.join(FIXTURES, entry["file"]), "rb") as f:
+    ones); the files that must raise do; each Motion-JPEG AVI gives cv2's
+    frame counts and, frame by frame, ``cv2.imdecode``'s pixels."""
+    path = os.path.join(FIXTURES, entry["file"])
+    with open(path, "rb") as f:
         data = f.read()
     if "raises" in entry:
         with pytest.raises(ValueError, match=re.escape(entry["raises"])):
             decode_image(data)
         return
+    if "video" in entry:
+        want = entry["video"]
+        video = avi.open_video(path)
+        assert isinstance(video, avi.MJPEGAvi)
+        assert (video.frame_count, video_sampler.count_real_frames(path), video.walk_count()) == \
+            (want["frame_count"], want["real_frames"], want["read_loop_frames"])
+        assert video.fps == want["fps"]
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in avi.open_video(path).frames()]
+        assert got == want["frames_sha256"]
+        return
     got = decode_image(data)
     assert list(got.shape) == entry["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == entry["sha256"]
-    if not entry["file"].startswith("full_"):
+    if "full_" not in entry["file"]:
         with np.load(os.path.join(FIXTURES, "cv2_decodes.npz")) as stored:
             np.testing.assert_array_equal(got, stored[entry["file"]])
 
@@ -170,6 +182,9 @@ def _patched(buf: bytes, at: bytes, offset: int, value: int) -> bytes:
 
 
 def test_jpeg_kinds_not_taken_raise():
+    """Arithmetic-coded (sequential and progressive), lossless,
+    hierarchical and 12-bit JPEG raise naming item 11; the progressive and
+    CMYK files that raised here before decode as cv2 decodes them."""
     rng = np.random.default_rng(8)
     img = smooth(rng, 32, 48)
     base = cv2.imencode(".jpg", img)[1].tobytes()
@@ -177,11 +192,13 @@ def test_jpeg_kinds_not_taken_raise():
     Image.fromarray(img).save(bio, "JPEG", progressive=True)
     cmyk = io.BytesIO()
     Image.fromarray(noise(rng, 16, 16, 4), "CMYK").save(cmyk, "JPEG")
-    for buf, match in ((bio.getvalue(), "progressive JPEG is not supported"),
-                       (_patched(base, b"\xff\xc0", 1, 0xC9), "arithmetic-coded"),
+    for buf, what in ((bio.getvalue(), "progressive"), (cmyk.getvalue(), "CMYK")):
+        assert_same_as_cv2(buf, what)
+    for buf, match in ((_patched(base, b"\xff\xc0", 1, 0xC9), "arithmetic-coded"),
+                       (_patched(base, b"\xff\xc0", 1, 0xCA), "arithmetic-coded"),
                        (_patched(base, b"\xff\xc0", 1, 0xC3), "lossless"),
-                       (_patched(base, b"\xff\xc0", 4, 12), "12-bit"),
-                       (cmyk.getvalue(), "CMYK")):
+                       (_patched(base, b"\xff\xc0", 1, 0xC5), "hierarchical"),
+                       (_patched(base, b"\xff\xc0", 4, 12), "12-bit")):
         with pytest.raises(ValueError, match=match) as e:
             decode_image(buf)
         assert "ROADMAP Queue 1, item 11" in str(e.value)
@@ -236,13 +253,23 @@ def test_png_types_and_depths_match_cv2():
 
 
 def test_png_not_taken_or_corrupt_raises():
+    """An Adam7 file decodes as cv2 decodes it (it raised here before); a
+    non-interlaced file's rows read as Adam7 passes come up short and
+    raise, as does an unknown interlace method; CRC errors and truncation
+    raise."""
     rng = np.random.default_rng(11)
+    adam7 = _png(noise(rng, 16, 16).reshape(16, -1), 2, 8, interlace=1, filters=(4, 3, 1))
+    assert_same_as_cv2(adam7, "Adam7")
     buf = cv2.imencode(".png", noise(rng, 16, 16))[1].tobytes()
     ihdr = bytearray(buf[8:33])  # length, type, 13 bytes, crc
-    ihdr[20] = 1  # interlace method
-    ihdr[21:25] = zlib.crc32(bytes(ihdr[4:21])).to_bytes(4, "big")
-    with pytest.raises(ValueError, match=r"interlaced \(Adam7\).*item 11"):
-        decode_image(buf[:8] + bytes(ihdr) + buf[33:])
+    for method, match in ((1, "truncated PNG data"), (2, "interlace method 2")):
+        ihdr[20] = method
+        ihdr[21:25] = zlib.crc32(bytes(ihdr[4:21])).to_bytes(4, "big")
+        with pytest.raises(ValueError, match=match):
+            decode_image(buf[:8] + bytes(ihdr) + buf[33:])
+    for cut in (60, len(adam7) - 20):
+        with pytest.raises(ValueError):
+            decode_image(adam7[:cut])
     with pytest.raises(ValueError, match="CRC"):
         decode_image(buf[:40] + bytes([buf[40] ^ 1]) + buf[41:])
     for cut in (20, 45, len(buf) - 30, len(buf) - 12):

@@ -22,6 +22,7 @@ import importlib
 import json
 import os
 import signal
+import sys
 import threading
 
 import jax
@@ -43,7 +44,7 @@ from fastvision_tpu_torch.data import DetectionDataset
 from fastvision_tpu_torch.infer import REFERENCE_SWEEP, Detector, detections_to_coco
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.detection.faster_rcnn import FastHead
-from fastvision_tpu_torch.testing import write_detection_dataset
+from fastvision_tpu_torch.testing import mjpeg_avi, write_detection_dataset
 
 torch.set_num_threads(2)
 C, SIZE = 3, 64
@@ -331,8 +332,24 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match=match):
             cli.main(["train", f"model.pretrained={tmp_path / 'pretrained.pth'}",
                       f"data.data_root={root}", "data.num_workers=0", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 6\\)"):
-        cli.main(["infer", "--source", "a.mp4"])
+    # infer on a video runs Detector.predict_video and writes the annotated
+    # video with cv2's mp4v writer; without cv2 it exits naming that writer
+    import cv2
+
+    frames = [np.full((48, 64, 3), 40 * k, np.uint8) for k in range(3)]
+    clip = str(tmp_path / "clip.avi")
+    with open(clip, "wb") as f:
+        f.write(mjpeg_avi([cv2.imencode(".jpg", x)[1].tobytes() for x in frames], 64, 48, 5.0))
+    args = ["infer", "--source", clip, "--out", str(tmp_path / "vid"), f"data.input_size={SIZE}",
+            f"model.num_classes={C}", "--device", "cpu"]
+    assert cli.main(args) == 3
+    cap = cv2.VideoCapture(str(tmp_path / "vid" / "annotated.mp4"))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3 and cap.get(cv2.CAP_PROP_FPS) == 5.0
+    cap.release()
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", None)
+        with pytest.raises(SystemExit, match="mp4v writer.*item 6\\)"):
+            cli.main(args)
     common = [f"data.data_root={root}", "--device", "cpu"]
     for override, item in (("mesh_model=2", 17), ("fsdp=true", 17),
                            ("compile_cache=cache", 10), ("data.host_shard=auto", 17)):

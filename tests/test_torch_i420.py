@@ -11,7 +11,10 @@ the reduce targets that give factors 1 / 2 / 4 / 8, and on files encoded
 here. Where the port departs on purpose (ROADMAP Queue 3), a test pins the
 departure: the port applies the EXIF orientation on the fused path (the JAX
 package's ignores it) and reports the oriented original size from the
-reduced decode (the JAX package's ``imread_rgb_scaled`` reports the SOF's).
+reduced decode (the JAX package's ``imread_rgb_scaled`` reports the SOF's);
+on a progressive file whose scans stop early (block smoothing) the port
+smooths as libjpeg-turbo 3.1 does (cv2 5.0's), the JAX package's fused
+decode as the host's libjpeg does (2.1.5 here, whose smoothing differs).
 
 The card's machine has neither cv2 nor the JAX package: the oracles'
 digests are stored in ``tests/torch_codec_fixtures/native_oracles.json``
@@ -42,7 +45,12 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
 JPEGS = [e["file"] for e in MANIFEST["files"] if e["file"].endswith(".jpg") and "raises" not in e]
 # the files the JAX package's fused decode reads in the stored frame: EXIF
 # orientation 1 or none (it ignores the tag; the port applies it)
-UNROTATED = [f for f in JPEGS if not (f.startswith("exif_orientation_") and f != "exif_orientation_1.jpg")]
+# progressive files whose scans leave coefficients short of full precision:
+# libjpeg block-smooths them, and 2.1.5 (the JAX package's native build here)
+# smooths otherwise than 3.1 (cv2's, which the port follows)
+SMOOTHED = ("prog_own_al1.jpg", "prog_cv2_dc_only.jpg")
+UNROTATED = [f for f in JPEGS if not (f.startswith("exif_orientation_") and f != "exif_orientation_1.jpg")
+             and f not in SMOOTHED]
 CV2_REDUCED = {2: cv2.IMREAD_REDUCED_COLOR_2, 4: cv2.IMREAD_REDUCED_COLOR_4,
                8: cv2.IMREAD_REDUCED_COLOR_8}
 
@@ -160,7 +168,7 @@ def test_native_letterbox_bit_equal_to_jax():
 
 
 def test_jpeg_dimensions_match_jax(tmp_path):
-    for name in JPEGS + ["progressive.jpg", "png_rgb8.png"]:
+    for name in JPEGS + ["png_rgb8.png"]:
         path = os.path.join(FIXTURES, name)
         assert tds.jpeg_dimensions(path) == jds.jpeg_dimensions(path), name
     short = tmp_path / "short.jpg"
@@ -170,13 +178,19 @@ def test_jpeg_dimensions_match_jax(tmp_path):
 
 def test_fallbacks_and_errors():
     """None where the JAX package falls back (not a JPEG, an RGB-coded
-    JPEG, 4:1:1); ValueError where the port's decoder refuses."""
+    JPEG, 4:1:1, CMYK and YCCK); ValueError where the port's decoder
+    refuses; progressive files decode as the JAX package's do."""
     for name in ("png_rgb8.png", "adobe_transform_0.jpg", "component_ids_rgb.jpg",
-                 "cv2_411_q75_58x97_6.jpg"):
+                 "cv2_411_q75_58x97_6.jpg", "cmyk_pil.jpg", "cmyk_pil_progressive.jpg",
+                 "ycck_own.jpg", "ycck_own_progressive.jpg"):
         assert codec.decode_jpeg_i420(_read(name), 64) is None, name
         if name.endswith(".jpg"):
             assert native.decode_jpeg_i420(_read(name), 64) is None, name
-    for name, match in (("progressive.jpg", "item 11"), ("truncated.jpg", "truncated")):
+    for name in ("progressive.jpg", "prog_pil_422.jpg", "tableless_cv2_420.jpg"):
+        assert _fused(codec.decode_jpeg_i420, _read(name), 64, 0) == \
+            _fused(native.decode_jpeg_i420, _read(name), 64, 0), name
+    for name, match in (("truncated.jpg", "truncated"),
+                        ("tableless_progressive.jpg", "undefined Huffman table")):
         with pytest.raises(ValueError, match=match):
             codec.decode_jpeg_i420(_read(name), 64)
     with pytest.raises(ValueError, match="even"):
@@ -214,6 +228,21 @@ def test_exif_departures_pinned(orientation, tmp_path):
     bare = data[:2] + data[4 + int.from_bytes(data[4:6], "big"):]
     assert data[2:4] == b"\xff\xe1" and bare[2:4] != b"\xff\xe1"
     np.testing.assert_array_equal(codec.decode_jpeg_i420(bare, size, 114)[0], jax_i420[0])
+
+
+def test_smoothing_departure_pinned():
+    """A script stopping at Al = 1 and one with DC scans only: the port's
+    RGB decode is cv2's (libjpeg-turbo 3.1) and its fused decode smooths
+    the same planes; the JAX package's fused decode differs (its libjpeg
+    smooths otherwise) while on the complete script of the same
+    coefficients (prog_own_full.jpg) both fused decodes are bit-equal."""
+    for name in SMOOTHED:
+        data = _read(name)
+        np.testing.assert_array_equal(codec.decode_image(data), cv2.imdecode(
+            np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)[..., ::-1])
+        assert _fused(codec.decode_jpeg_i420, data, 64, 0) != _fused(native.decode_jpeg_i420, data, 64, 0)
+    full = _read("prog_own_full.jpg")
+    assert _fused(codec.decode_jpeg_i420, full, 64, 0) == _fused(native.decode_jpeg_i420, full, 64, 0)
 
 
 if __name__ == "__main__" and "--write" in sys.argv:

@@ -10,6 +10,14 @@ resizes with torch's bilinear interpolation, the JAX package with cv2's
 fixed-point one); normalized clips to float32 rounding. Pooled epochs are
 BYTE-equal to the serial one: every clip's draws are seeded by (seed,
 epoch, position).
+
+The port reads a Motion-JPEG AVI without cv2 (`data.avi`) and decodes each
+frame as ``cv2.imdecode`` does (libjpeg-turbo), where the JAX package's
+``cv2.VideoCapture`` decodes with FFmpeg and converts with swscale (ROADMAP
+Queue 3 gives that departure's bound, which tests/test_torch_avi.py
+asserts). So the JAX side here reads through `ImdecodeCapture`: cv2's own
+``VideoCapture`` for the counts, seeks and reads, each frame's pixels
+``cv2.imdecode``'s of the bytes it read.
 """
 import os
 import sys
@@ -23,12 +31,37 @@ import torch
 import fastvision_tpu.data as jd
 from fastvision_tpu.data import video_sampler as jsampler
 from fastvision_tpu_torch.data import VideoClipLoader, VideoFolderDataset, normalize_images
+from fastvision_tpu_torch.data import avi
 from fastvision_tpu_torch.data import video_sampler as tsampler
 from fastvision_tpu_torch.testing import write_video_dataset
 from test_torch_cls_data import _assert_same, _collect, _multithreaded_torch_op
 
 torch.set_num_threads(2)
 T, S = 4, 16
+_CAPTURE = cv2.VideoCapture
+
+
+class ImdecodeCapture:
+    """``cv2.VideoCapture`` with libjpeg's pixels: the frame it reads,
+    decoded by ``cv2.imdecode`` from the file's bytes for that frame."""
+
+    def __init__(self, path, *args):
+        self._cap, self._avi = _CAPTURE(path, *args), avi.MJPEGAvi(path)
+
+    def read(self):
+        ok, frame = self._cap.read()
+        if ok:
+            i = int(self._cap.get(cv2.CAP_PROP_POS_FRAMES)) - 1
+            frame = cv2.imdecode(np.frombuffer(self._avi.frame_bytes(i), np.uint8), cv2.IMREAD_COLOR)
+        return ok, frame
+
+    def __getattr__(self, name):
+        return getattr(self._cap, name)
+
+
+@pytest.fixture
+def imdecode_capture(monkeypatch):
+    monkeypatch.setattr(cv2, "VideoCapture", ImdecodeCapture)
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +106,7 @@ def test_sample_indices_draw_for_draw(strategy):
         tsampler.sample_indices(5, 2, "nearest")
 
 
-def test_load_clip_from_a_video_file(root):
+def test_load_clip_from_a_video_file(root, imdecode_capture):
     path = os.path.join(root, "train", "class_001", "zz_clip.avi")
     for kw in (dict(strategy="average"), dict(indices=np.array([0, 5, 11, 30]))):
         want = jsampler.load_clip(path, T, size=S, rng=np.random.default_rng(3), **kw)
@@ -83,23 +116,38 @@ def test_load_clip_from_a_video_file(root):
     assert tsampler.count_real_frames(path) == jsampler.count_real_frames(path) == 12
 
 
-def test_video_files_without_cv2_raise_naming_item_11(root, monkeypatch):
-    monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
+def test_video_files_without_cv2_raise_naming_item_11(root, tmp_path, monkeypatch):
+    """Without cv2 the Motion-JPEG AVI reads as it
+    reads with cv2; a video of another codec raises naming item 11 and its
+    FourCC, and a loader never skips it as corrupt."""
     ds = VideoFolderDataset(root, "train")
     vid = next(i for i, (p, _) in enumerate(ds.samples) if p.endswith(".avi"))
-    for call in (lambda: ds.load_clip(vid, T, "average", S, np.random.default_rng(0)),
-                 lambda: ds.clip_length(vid),
-                 lambda: tsampler.count_real_frames(ds.samples[vid][0])):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    with_cv2 = (ds.load_clip(vid, T, "average", S, np.random.default_rng(0)), ds.clip_length(vid),
+                tsampler.count_real_frames(ds.samples[vid][0]))
+    xvid = str(tmp_path / "xvid.avi")
+    w = cv2.VideoWriter(xvid, cv2.VideoWriter_fourcc(*"XVID"), 10, (40, 32))
+    for _ in range(3):
+        w.write(np.zeros((32, 40, 3), np.uint8))
+    w.release()
+    monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
+    clip, length, real = (ds.load_clip(vid, T, "average", S, np.random.default_rng(0)),
+                          ds.clip_length(vid), tsampler.count_real_frames(ds.samples[vid][0]))
+    np.testing.assert_array_equal(clip[0], with_cv2[0][0])
+    assert (length, real) == with_cv2[1:] == (12, 12)
+    for call in (lambda: tsampler.load_clip(xvid, T), lambda: tsampler.count_real_frames(xvid)):
+        with pytest.raises(NotImplementedError, match=r"'(XVID|FMP4)' video .*item 11"):
             call()
     clip, _ = ds.load_clip(0, T, "average", S, np.random.default_rng(0))  # BMP frames: numpy
     assert clip.shape == (T, S, S, 3)
-    loader = VideoClipLoader(ds, T, S, batch_size=len(ds), train=False, on_corrupt="skip")
+    os.makedirs(tmp_path / "train" / "class_000")
+    os.replace(xvid, tmp_path / "train" / "class_000" / "xvid.avi")
+    loader = VideoClipLoader(VideoFolderDataset(str(tmp_path), "train"), T, S, batch_size=1,
+                             train=False, on_corrupt="skip")
     with pytest.raises(NotImplementedError, match="item 11"):  # never skipped as corrupt
         next(iter(loader))
 
 
-def test_video_folder_dataset_matches_jax(root):
+def test_video_folder_dataset_matches_jax(root, imdecode_capture):
     for split in ("train", "val"):
         port, jax_ds = VideoFolderDataset(root, split), jd.VideoFolderDataset(root, split)
         assert port.classes == jax_ds.classes == [f"class_{c:03d}" for c in range(3)]
@@ -121,7 +169,7 @@ def test_video_folder_dataset_matches_jax(root):
 
 
 @pytest.mark.parametrize("train", [True, False])
-def test_video_clip_loader_matches_jax(root, train):
+def test_video_clip_loader_matches_jax(root, train, imdecode_capture):
     kw = dict(num_frames=T, size=S, batch_size=4, train=train, seed=5, strategy="clip_random")
     port = VideoClipLoader(VideoFolderDataset(root, "train"), **kw)
     jax_loader = jd.VideoClipLoader(jd.VideoFolderDataset(root, "train"), **kw)
