@@ -302,17 +302,34 @@ exits non-zero before a result is printed:
               and each keep mask bit-equal to the plain version, the kernel
               timed on this path's inputs; demux + decode and predict_video
               frames/s;
-  28. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
+  28. parallel  data parallel over a process group, in subprocesses
+              (``chip_smoke.py --parallel-child ...``, each a fresh TCP
+              port): world size 1 over NCCL at full width, ``cli.main(["train",
+              ..., "multihost=true", "data.host_shard=auto", "mesh_data=1"])``
+              (YOLOv3-416, bf16, batch 32, 2 epochs over 64 BMP images,
+              validated by the sharded ``detection_evaluator``, the NMS
+              kernel's launches counted and its keep masks held against the
+              plain version) under DDP and with ``fsdp=true``; one float32
+              step under DDP bit-equal to the plain ``Fit`` step, under FSDP
+              within 1e-5 of each tensor's std, the FSDP checkpoint restored
+              in this process bit-equal to the gathered state; two ranks on
+              the one card (gloo with CUDA tensors) against one process on
+              the global batch; train img/s plain, DDP and FSDP, the global
+              BN against plain BN over Darknet-53's layers, the evaluator
+              sharded and not;
+  29. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
               matmul chain's TFLOP/s; then the run's total seconds.
 
 ``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``,
-``--only recipe``, ``--only decode``) runs the device and build phases and
-the i420 (int8; doctor and export; recipe; decode) phases alone (a quick
-check of this path; the full run takes no arguments).
+``--only recipe``, ``--only decode``, ``--only parallel``) runs the device
+and build phases and the i420 (int8; doctor and export; recipe; decode;
+parallel) phases alone (a quick check of this path; the full run takes no
+arguments).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of the
-port: the NMS kernel with its launches on every path (the classification
-and video paths counted and required at 0: they run no NMS), then the int8
+port: the NMS kernel with its launches on every path (the data-parallel
+``train`` runs' validations among them; the classification and video paths
+counted and required at 0: they run no NMS), then the int8
 kernels (``int8_conv``, its quantize pass, the patches and epilogue
 kernels) with their launches on the int8 main path and the exported int8
 programs; the last line is
@@ -342,7 +359,8 @@ import numpy as np
 import torch
 
 from fastvision_tpu_torch import cuda_build
-from fastvision_tpu_torch.core import MetricLogger, restore_inference_weights
+from fastvision_tpu_torch.core import (CheckpointManager, MetricLogger,
+                                      restore_inference_weights)
 from fastvision_tpu_torch.data import (
     Augmentation,
     ClassificationDataset,
@@ -410,7 +428,8 @@ from fastvision_tpu_torch.ops import (
     roi_align,
     roi_align_mxu,
 )
-from fastvision_tpu_torch.nn.layers import Int8Conv, conv_bn_pairs, memory_format_for
+from fastvision_tpu_torch.nn.layers import (BatchNorm, Int8Conv, conv_bn_pairs,
+                                            memory_format_for)
 from fastvision_tpu_torch.ops.image import (
     i420_packed_to_rgb,
     letterbox_batch,
@@ -2008,11 +2027,12 @@ def phase_video_train(dev: torch.device, workdir: str) -> dict:
             "launches": {"video_fit_validation": sum(val_launches)}}
 
 
-def step_rate(step, state, batch, lr: float = 1e-3, reps: int = 8) -> float:
-    """Seconds per train step: 1 warm-up, ``reps`` steps, one sync. The
-    step gets a generator for models with dropout (C3D)."""
+def step_rate(step, state, batch, lr: float = 1e-3, reps: int = 8, warmup: int = 1) -> float:
+    """Seconds per train step: ``warmup`` steps, ``reps`` steps, one sync.
+    The step gets a generator for models with dropout (C3D)."""
     rng = torch.Generator(device=state.device).manual_seed(SEED)
-    float(step(state, batch, lr, rng)[1]["loss"])
+    for _ in range(warmup):
+        float(step(state, batch, lr, rng)[1]["loss"])
     t0 = time.perf_counter()
     for _ in range(reps):
         _, metrics = step(state, batch, lr, rng)
@@ -4912,6 +4932,414 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
             "mismatches": kernel["mismatches"], "kernel": nms}
 
 
+PAR_VAL_IMAGES = 32  # one validation batch of 32 per epoch
+PAR_EQ_BATCH = 8  # the float32 equality steps at 416
+PAR_SMALL_SIZE, PAR_SMALL_BATCH = 256, 8  # (b): a global batch of 8 split 2 ways
+PAR_REPS = 6
+PAR_TIMEOUT_S = 600
+
+
+def run_children(roles: list, port: int, workdir: str) -> list[dict]:
+    """``chip_smoke.py --parallel-child <role> <port> <workdir>`` for each
+    role at once; every child must exit 0 (else the smoke fails with its
+    stderr). -> each child's result (its JSON file)."""
+    procs = []
+    for role in roles:
+        log = open(os.path.join(workdir, f"{role}.log"), "w")
+        procs.append((role, log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-child", role, str(port),
+             workdir], stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    try:
+        for role, log, p in procs:
+            try:
+                rc = p.wait(timeout=PAR_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    failed.append(f"{role} exited {rc}:\n{f.read()[-3000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(not failed, "parallel child failed: " + "\n".join(failed))
+    out = []
+    for role in roles:
+        with open(os.path.join(workdir, f"{role}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def par_loss_parts():
+    anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
+    return train_parts(anchors)
+
+
+def par_batch(size: int, n: int, seed: int, dev) -> dict:
+    batch = next(iter(DetectionLoader(SyntheticDetectionDataset(n, NUM_CLASSES, seed=seed),
+                                      size, n, max_boxes=32, seed=seed)))
+    return {k: torch.from_numpy(batch[k]).to(dev) for k in ("images", "labels")}
+
+
+def par_fit(model, loss_fn, kind: str | None, dtype=torch.float32, ckpt_dir=None) -> Fit:
+    """A Fit of ``model`` placed plain (``kind`` None), under DDP or FSDP
+    over the process group."""
+    from fastvision_tpu_torch.core import create_mesh
+
+    opt = build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937)
+    return Fit(model, loss_fn, opt, None, mesh=create_mesh() if kind else None,
+               fsdp=kind == "fsdp", dtype=dtype, ckpt_dir=ckpt_dir, logger=quiet_logger())
+
+
+def par_state(fit: Fit) -> tuple[dict, dict]:
+    """(model state, optimizer state) on the host in the one-process format."""
+    from fastvision_tpu_torch.parallel import full_state
+    from fastvision_tpu_torch.train.steps import parallel_kind, unwrap
+
+    model = unwrap(fit.state.model)
+    if parallel_kind(model) == "fsdp":
+        return full_state(model, fit.state.optimizer)
+    return ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+            _host_copy_state(fit.state.optimizer.state_dict()))
+
+
+def _host_copy_state(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _host_copy_state(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_host_copy_state(v) for v in obj]
+    return obj
+
+
+def max_rel_to_std(got: dict, want: dict) -> float:
+    """The largest max|got - want| / std(want) over the tensors of ``want``
+    (a tensor of zero spread counts its max|d| against 1)."""
+    worst = 0.0
+    for k, w in want.items():
+        if not torch.is_tensor(w) or not w.is_floating_point() or w.numel() < 2:
+            continue
+        d = float((got[k].double() - w.double()).abs().max())
+        worst = max(worst, d / (float(w.double().std()) or 1.0))
+    return worst
+
+
+def darknet_bn_inputs(model: YOLOv3, dev, batch: int) -> list[tuple]:
+    """The shape of every BN input of Darknet-53 at INPUT_SIZE and ``batch``."""
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: shapes.append(tuple(a[0].shape)))
+             for m in model.backbone.modules() if isinstance(m, BATCH_NORMS)]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model.backbone(torch.zeros(batch, 3, INPUT_SIZE, INPUT_SIZE, device=dev).to(
+            memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def global_bn_times(model: YOLOv3, dev) -> dict:
+    """The BN forward + backward over Darknet-53's layers at batch 32, bf16
+    input, channels_last: the plain train-mode BN (cuDNN) against
+    `GlobalBatchNorm` (its two all-reduces over the one-rank group)."""
+    from fastvision_tpu_torch.nn.layers import GlobalBatchNorm
+
+    shapes = darknet_bn_inputs(model, dev, TRAIN_BATCH)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tot = {"plain_ms": 0.0, "global_ms": 0.0}
+    for shape in shapes:
+        x = torch.randn(shape, device=dev, generator=g).to(
+            torch.bfloat16, memory_format=torch.channels_last).requires_grad_(True)
+        dy = torch.randn(shape, device=dev, generator=g).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        bn = BatchNorm(shape[1]).to(dev).train()
+
+        def plain():
+            bn(x).backward(dy)
+
+        def global_bn():
+            GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn.eps)[0].backward(dy)
+
+        tot["plain_ms"] += cuda_ms(plain, reps=PAR_REPS)
+        tot["global_ms"] += cuda_ms(global_bn, reps=PAR_REPS)
+    return {"layers": len(shapes), "batch": TRAIN_BATCH, **tot}
+
+
+def parallel_world1(port: str, workdir: str) -> dict:
+    """The child of (a) and (c): world size 1 over NCCL, full width."""
+    from fastvision_tpu_torch import cli
+    from fastvision_tpu_torch.core import create_mesh
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                      LOCAL_RANK="0")
+    dev = torch.device("cuda", 0)
+    res: dict = {"launches": {}, "cli": {}}
+    mismatches = 0
+    root = os.path.join(workdir, "det")
+    for kind in ("ddp", "fsdp"):
+        ckpt = os.path.join(workdir, f"cli_{kind}")
+        with recorded_nms_inputs() as recorded:
+            suppression_mask_cuda.launches = 0
+            t0 = time.perf_counter()
+            fit = cli.main(["train", f"data.data_root={root}", f"data.input_size={INPUT_SIZE}",
+                            f"data.batch_size={TRAIN_BATCH}", "train.epochs=2",
+                            f"train.ckpt_dir={ckpt}", "multihost=true", "data.host_shard=auto",
+                            "mesh_data=1", *(["fsdp=true"] if kind == "fsdp" else [])])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = suppression_mask_cuda.launches
+        from fastvision_tpu_torch.train.steps import parallel_kind
+
+        held = kernel_vs_plain_recorded(recorded)
+        mismatches += held["mismatches"]
+        check(torch.distributed.get_backend() == "nccl"
+              and torch.distributed.get_world_size() == 1, "world size 1 over NCCL")
+        check(parallel_kind(fit.state.model) == kind, f"cli train placed {kind}?")
+        check(fit.train_loader.host_count == 1 and fit.train_loader.host_shard == "auto",
+              "host_shard=auto")
+        check(fit.global_step == 2 * len(fit.train_loader), f"cli {kind} steps")
+        with open(os.path.join(ckpt, "train.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "train_loss" in r]
+        check(len(epochs) == 2 and all(np.isfinite(r["train_loss"]) and 0 <= r["map50"] <= 1
+                                       for r in epochs), f"cli {kind} epochs {epochs}")
+        check(launches > 0 and held["calls"] == launches,
+              f"cli {kind}: {launches} launches, {held['calls']} recorded")
+        res["launches"][f"parallel_cli_train_{kind}"] = launches
+        res["cli"][kind] = {"seconds": seconds, "nms_vs_plain": held, "epochs": [
+            {k: r[k] for k in ("epoch", "train_loss", "epoch_img_s", "map50")} for r in epochs]}
+        del fit
+        shutil.rmtree(ckpt)
+        torch.cuda.empty_cache()
+    res["mismatches"] = mismatches
+
+    # --- the float32 equality checks, TF32 off, deterministic algorithms
+    loss_fn, postprocess = par_loss_parts()
+    batch = par_batch(INPUT_SIZE, PAR_EQ_BATCH, SEED + 31, dev)
+    states = {}
+    with no_tf32(), deterministic_algorithms() as nondeterministic:
+        for kind in (None, "ddp", "fsdp"):
+            ckpt = os.path.join(workdir, "fsdp_ckpt") if kind == "fsdp" else None
+            fit = par_fit(yolo_model(), loss_fn, kind, ckpt_dir=ckpt)
+            fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+            states[kind] = par_state(fit) + (float(m["loss"]),)
+            if kind == "fsdp":
+                fit._save(0, {"epoch": 0, "global_step": 1})
+                fit.ckpt.wait()
+                torch.save(states[kind][:2], os.path.join(workdir, "fsdp_gathered.pt"))
+            del fit
+            torch.cuda.empty_cache()
+    plain, ddp, fsdp = states[None], states["ddp"], states["fsdp"]
+    res["equality"] = {
+        "model": f"YOLOv3-{INPUT_SIZE}, 80 classes, full width, float32, TF32 off, "
+                 f"deterministic, batch {PAR_EQ_BATCH}, one SGD step at lr 1e-2",
+        "ddp_bit_equal": same_state(ddp[0], plain[0]) and same_state(ddp[1], plain[1]),
+        "ddp_loss": ddp[2], "plain_loss": plain[2], "fsdp_loss": fsdp[2],
+        "fsdp_max_rel_to_std": max(max_rel_to_std(fsdp[0], plain[0]), max_rel_to_std(
+            {i: s["momentum_buffer"] for i, s in fsdp[1]["state"].items()},
+            {i: s["momentum_buffer"] for i, s in plain[1]["state"].items()})),
+        "nondeterministic_ops": nondeterministic}
+    check(res["equality"]["ddp_bit_equal"], f"DDP step != plain step: {res['equality']}")
+    check(res["equality"]["fsdp_max_rel_to_std"] <= 1e-5, f"FSDP step: {res['equality']}")
+
+    # --- (c) times at batch 32, bf16
+    times: dict = {}
+    batch = par_batch(INPUT_SIZE, TRAIN_BATCH, SEED + 32, dev)
+    for kind in (None, "ddp", "fsdp"):
+        fit = par_fit(yolo_model(), loss_fn, kind, dtype=torch.bfloat16)
+        # 3 warm-ups: DDP rebuilds its buckets in its second step
+        s = step_rate(fit.step_fn, fit.state, batch, reps=PAR_REPS, warmup=3)
+        times[f"train_img_s_{kind or 'plain'}"] = TRAIN_BATCH / s
+        times[f"peak_gb_{kind or 'plain'}"] = torch.cuda.max_memory_allocated() / 1e9
+        if kind is None:
+            times["global_bn"] = global_bn_times(fit.state.model, dev)  # plain: unwrapped
+            val = DetectionLoader(SyntheticDetectionDataset(2 * TRAIN_BATCH, NUM_CLASSES,
+                                                            seed=SEED + 33),
+                                  INPUT_SIZE, TRAIN_BATCH, max_boxes=32, train=False)
+            step = make_eval_step(postprocess, dtype=torch.bfloat16)
+            for name, mesh in (("unsharded", None), ("sharded", create_mesh())):
+                evaluate = detection_evaluator(step, mesh=mesh)
+                evaluate(fit.state, val)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                evaluate(fit.state, val)
+                times[f"eval_img_s_{name}"] = 2 * TRAIN_BATCH / (time.perf_counter() - t0)
+        del fit
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res["times"] = times
+    return res
+
+
+def parallel_rank(rank: int, port: str, workdir: str) -> dict:
+    """A child of (b): rank ``rank`` of 2 on the one card, gloo with CUDA
+    tensors (NCCL refuses two ranks on one device): one float32 step of a
+    shallow YOLOv3 on its half of the global batch under DDP."""
+    dev = torch.device("cuda", 0)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         rank=rank, world_size=2)
+    loss_fn, _ = par_loss_parts()
+    from fastvision_tpu_torch.core import create_mesh, shard_batch
+
+    batch = shard_batch(par_batch(PAR_SMALL_SIZE, PAR_SMALL_BATCH, SEED + 34, dev),
+                        create_mesh())
+    out = {"local_batch": int(batch["images"].shape[0]),
+           "backend": torch.distributed.get_backend()}
+    for dtype in (torch.float32, torch.float64):
+        with no_tf32():
+            model = small_yolo(dtype)
+            fit = par_fit(model, loss_fn, "ddp", dtype=dtype)
+            check(fit.device == dev, f"rank {rank} on {fit.device}")
+            fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+        name = str(dtype).split(".")[-1]
+        out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        if rank == 0:
+            torch.save(par_state(fit)[0], os.path.join(workdir, f"two_ranks_{name}.pt"))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def small_yolo(dtype: torch.dtype) -> YOLOv3:
+    return YOLOv3(num_classes=NUM_CLASSES, stage_sizes=(1, 1, 1, 1, 1),
+                  generator=torch.Generator().manual_seed(SEED)).to(dtype)
+
+
+def parallel_child(role: str, port: str, workdir: str) -> int:
+    torch.cuda.set_device(0)
+    out = (parallel_world1(port, workdir) if role == "world1"
+           else parallel_rank(int(role[len("rank"):]), port, workdir))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(workdir, f"{role}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_parallel(dev: torch.device, smi: str, workdir: str) -> dict:
+    """Data parallel over a process group, in subprocesses (each a fresh TCP
+    port): (a) world size 1 over NCCL at full width: ``cli.main(["train",
+    ... "multihost=true", "data.host_shard=auto", "mesh_data=1"])``
+    (YOLOv3-416, 80 classes, bf16, batch 32, 2 epochs over 64 images,
+    validated by the sharded ``detection_evaluator`` with the NMS kernel's
+    launches counted and every keep mask held against the plain version),
+    once under DDP and once with ``fsdp=true``; one float32 step (TF32 off,
+    deterministic) under DDP bit-equal to the plain ``Fit`` step, under
+    FSDP within 1e-5 of each tensor's std, and the FSDP checkpoint restored
+    here (a process without a group) bit-equal to the gathered state;
+    (b) two ranks on the one card (gloo with CUDA tensors): one float32 step
+    of a shallow YOLOv3 (80 classes, 256 px) on a global batch of 8 split 2
+    ways, in float64 against this process's float64 step on the whole batch
+    within 1e-5 (kernels of their std, the tensors that start constant, BN
+    running statistics included, of max(std, their update)), and in float32
+    against the same float64 step within phase train's card-vs-CPU limits
+    (float32's own distance from float64, ~1e-5 of a kernel's std, is at the
+    1e-5 limit; the one-process float32 step's is reported beside it);
+    (c) times at world
+    size 1 (bf16, batch 32): train img/s plain, DDP and FSDP, the global BN's
+    forward + backward against the plain BN's over Darknet-53's layers, and
+    the evaluator's img/s sharded and unsharded."""
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "parallel")
+    write_detection_dataset(os.path.join(root, "det"), TRAIN_IMAGES, sizes=SIZES,
+                            seed=SEED + 30, num_classes=NUM_CLASSES, splits=("train",))
+    write_detection_dataset(os.path.join(root, "det"), PAR_VAL_IMAGES, sizes=SIZES,
+                            seed=SEED + 35, num_classes=NUM_CLASSES, splits=("val",))
+    torch.cuda.empty_cache()
+    (a,) = run_children(["world1"], free_port(), root)
+    emit("parallel_world1", card=smi, **a)
+
+    # the FSDP checkpoint, restored in this process (no group), against the gathered state
+    gathered_model, gathered_opt = torch.load(os.path.join(root, "fsdp_gathered.pt"),
+                                              weights_only=False)
+    restored = CheckpointManager(os.path.join(root, "fsdp_ckpt")).restore(0)
+    model = yolo_model()
+    model.load_state_dict(restored["state"]["model"])
+    opt = build_optimizer("sgd", model, weight_decay=5e-4, momentum=0.937)
+    opt.load_state_dict(restored["state"]["optimizer"])
+    a["fsdp_checkpoint_bit_equal"] = (same_state(model.state_dict(), gathered_model)
+                                      and same_state(opt.state_dict(), gathered_opt))
+    check(a["fsdp_checkpoint_bit_equal"], "FSDP checkpoint != the gathered state")
+    del model, opt, restored, gathered_model, gathered_opt
+
+    # (b) two ranks on the one card, against this process's step on the global batch
+    ranks = run_children(["rank0", "rank1"], free_port(), root)
+    loss_fn, _ = par_loss_parts()
+    batch = par_batch(PAR_SMALL_SIZE, PAR_SMALL_BATCH, SEED + 34, dev)
+    one, start = {}, {k: v.double() for k, v in small_yolo(torch.float32).state_dict().items()}
+    for dtype in (torch.float32, torch.float64):
+        with no_tf32():
+            model = small_yolo(dtype)
+            fit = par_fit(model, loss_fn, None, dtype=dtype)
+            fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+        one[dtype] = ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                      float(m["loss"]), float(m["grad_norm"]))
+    got = {d: torch.load(os.path.join(root, f"two_ranks_{str(d).split('.')[-1]}.pt"),
+                         weights_only=False) for d in (torch.float32, torch.float64)}
+    # kernels against their std; the tensors that start constant (BN scale
+    # and shift, biases, running statistics), whose std one update makes,
+    # against max(std, the update). In float64 the ranks must give the
+    # one-process step; in float32 both sit at float32's own distance from
+    # float64 (train-mode BN amplifies rounding through the backward), so
+    # each is held to the float64 step with phase train's card-vs-CPU limits
+    f64 = torch.float64
+    two = {"model": f"YOLOv3 stage_sizes (1,1,1,1,1), 80 classes, {PAR_SMALL_SIZE} px, TF32 "
+                    f"off, global batch {PAR_SMALL_BATCH} split 2 ways, one SGD step",
+           "backend": ranks[0]["backend"], "local_batch": ranks[0]["local_batch"],
+           "float64": {"state_max_rel": state_max_rel_diff(got[f64], one[f64][0], start),
+                       "loss": [r["float64"]["loss"] for r in ranks],
+                       "one_process_loss": one[f64][1]},
+           "float32": {"vs_one_process_float32": state_max_rel_diff(
+                           got[torch.float32], one[torch.float32][0], start),
+                       "vs_one_process_float64": state_max_rel_diff(
+                           got[torch.float32], one[f64][0], start),
+                       "one_process_float32_vs_float64": state_max_rel_diff(
+                           one[torch.float32][0], one[f64][0], start),
+                       "loss": [r["float32"]["loss"] for r in ranks],
+                       "one_process_loss": one[torch.float32][1]},
+           "tolerances": {"float64": {"loss_rel": 1e-5, "kernels": 1e-5, "others": 1e-5},
+                          "float32_vs_float64": {"loss_rel": 1e-4, "kernels": 1e-3,
+                                                 "others": 1e-2}}}
+    for name in ("float64", "float32"):
+        r = two[name]
+        r["loss_rel"] = abs(r["loss"][0] / r["one_process_loss"] - 1)
+    emit("parallel_two_ranks", **two)
+    w64, w32 = two["float64"]["state_max_rel"], two["float32"]["vs_one_process_float64"]
+    check(w64["kernels"][0] <= 1e-5 and w64["others"][0] <= 1e-5
+          and two["float64"]["loss_rel"] <= 1e-5 and w32["kernels"][0] <= 1e-3
+          and w32["others"][0] <= 1e-2 and two["float32"]["loss_rel"] <= 1e-4
+          and all(len(set(two[n]["loss"])) == 1 for n in ("float32", "float64")),
+          f"two ranks on one card: {two}")
+    del fit, model
+    torch.cuda.empty_cache()
+    emit("parallel", card=smi, cli=a["cli"], equality=a["equality"],
+         fsdp_checkpoint_bit_equal=a["fsdp_checkpoint_bit_equal"], two_ranks_one_card=two,
+         times=a["times"], nms_launches=a["launches"], mismatches=a["mismatches"],
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": a["launches"], "mismatches": a["mismatches"]}
+
+
+def main_only_parallel(dev: torch.device, device: dict, t_start: float) -> int:
+    workdir = tempfile.mkdtemp(prefix="fastvision_smoke_")
+    try:
+        par = phase_parallel(dev, device["smi"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("total", seconds=time.perf_counter() - t_start)
+    check(par["mismatches"] == 0, "kernel mismatches")
+    print(device["smi"], flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppression_mask", "route": "cuda",
+        "source": "fastvision_tpu_torch/csrc/nms.cu",
+        "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
+        "launches": sum(par["launches"].values()), "launches_by_path": par["launches"],
+        "mismatches": par["mismatches"]}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
+    return 0
+
+
 def phase_doctor() -> dict:
     """``cli.main(["doctor"])`` on the card: its report."""
     from fastvision_tpu_torch import cli
@@ -5102,6 +5530,8 @@ def main() -> int:
     # cuBLAS reads its workspace layout once; this one (of the two that
     # PyTorch documents) lets phase_ckpt_resume run its matmuls deterministically
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if sys.argv[1:2] == ["--parallel-child"] and torch.cuda.is_available():
+        return parallel_child(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -5121,6 +5551,8 @@ def main() -> int:
         return main_only_recipe(dev, device, t_start)
     if sys.argv[1:] == ["--only", "decode"]:
         return main_only_decode(dev, device, t_start)
+    if sys.argv[1:] == ["--only", "parallel"]:
+        return main_only_parallel(dev, device, t_start)
     kernel = phase_kernel(dev)
     e2e = phase_e2e(dev)
     times = phase_times(dev, e2e, device["smi"])
@@ -5169,6 +5601,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         recipe = phase_recipe(dev, device["smi"], workdir)
         torch.cuda.empty_cache()
+        par = phase_parallel(dev, device["smi"], workdir)
+        torch.cuda.empty_cache()
         phase_doctor()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5184,7 +5618,7 @@ def main() -> int:
                **cls["launches"], **video["launches"], **resume["launches"],
                **evaluate["launches"], **serve["launches"], **cli_run["launches"],
                **i420["launches"], **decode["launches"], **int8["launches"],
-               **export["launches"], **recipe["launches"]}
+               **export["launches"], **recipe["launches"], **par["launches"]}
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"],
@@ -5201,7 +5635,7 @@ def main() -> int:
         "max_abs_err": max(kernel["max_abs_err"], fkernel["max_abs_err"]),
         "mismatches": (kernel["mismatches"] + fkernel["mismatches"] + evaluate["mismatches"]
                        + serve["mismatches"] + i420["mismatches"] + recipe["mismatches"]
-                       + decode["mismatches"]),
+                       + decode["mismatches"] + par["mismatches"]),
         "ms": main_nms["ms"], "graph_ms": main_nms["graph_ms"], "plain_ms": main_nms["plain_ms"],
         "bound_ms": main_nms["bound_ms"], "bound_by": main_nms["bound_by"], "library_ms": None,
         "regimes": {tag: {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -13,8 +13,13 @@ and int8 quantization), serving, program export (`infer.export`: a
 converters, plots, telemetry), and every subcommand of the command line
 (`cli`). The hand-written CUDA kernels (``csrc/``: greedy NMS, the int8
 conv, patches and epilogue) run on CUDA tensors, as ``fastvision::``
-custom ops, and their plain PyTorch versions on CPU tensors. Parallelism
-(meshes, FSDP, multi-host) is not ported yet.
+custom ops, and their plain PyTorch versions on CPU tensors. Data
+parallelism over a ``torch.distributed`` process group (multi-process and
+multi-host, `core.distributed` / `core.mesh`, with a global-batch BN and
+loss, host-sharded loaders and FSDP, `parallel.fsdp`) runs `train.Fit`, the
+evaluators and the train commands; tensor parallel, time sharding, the
+pipeline and Faster R-CNN over several ranks are not ported yet (ROADMAP
+Queue 1, item 17).
 """
 
 __version__ = "0.1.0"

@@ -66,8 +66,23 @@ a SavedModel or ``--tflite`` (jax2tf and TensorFlow in the JAX package)
 exits naming why. ``doctor`` reports the CUDA card, nvcc, the kernels'
 builds and a bf16 matmul rate, and exits non-zero without a card. ``infer``
 on a video writes ``--out``/annotated.mp4 with cv2's mp4v writer (without
-cv2 it exits naming ROADMAP item 6). What the port does not have yet (the
-mesh options) exits naming its ROADMAP item.
+cv2 it exits naming ROADMAP item 6).
+
+Data parallel: ``multihost=true`` joins the process group torchrun sets up
+(NCCL on CUDA, gloo with ``--device cpu``) and fails when it cannot form;
+``mesh_data`` (0: every rank) must equal the world size; ``fsdp=true``
+shards the parameters and optimizer state (`parallel.fsdp`);
+``data.host_shard=auto`` has each rank's train loader decode its own share
+of every epoch, ``data.batch_size`` then being per rank; without it the
+batch size is the global one, split over the ranks. The train commands and
+``eval --task cls|video`` run over the group:
+
+    torchrun --nproc_per_node 8 -m fastvision_tpu_torch train --config cfg.yaml \
+        multihost=true data.host_shard=auto [fsdp=true]
+
+What the port does not have yet (tensor parallel ``mesh_model`` > 1, time
+sharding ``mesh_time`` > 1, Faster R-CNN over several ranks) exits naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -90,15 +105,26 @@ def _exit_not_ported(what: str, item: int) -> SystemExit:
 
 def _check_ported(cfg) -> None:
     """Config values of work the port does not have raise here."""
-    for bad, what, item in (
-            (cfg.mesh_data not in (0, 1) or cfg.mesh_model != 1 or cfg.mesh_time != 1,
-             "meshes (mesh_data / mesh_model / mesh_time)", 17),
-            (cfg.fsdp, "fsdp", 17),
-            (cfg.multihost, "multihost", 17),
-            (bool(cfg.data.host_shard), "data.host_shard", 17),
-            (bool(cfg.compile_cache), "compile_cache (the JAX package's XLA cache)", 10)):
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
+    from .core.mesh import Mesh
+
+    Mesh(1, cfg.mesh_model, cfg.mesh_time)  # raises for the axes not ported, in any command
+    if cfg.compile_cache:
+        raise NotImplementedError("compile_cache (the JAX package's XLA cache) is not ported "
+                                  "yet (ROADMAP Queue 1, item 10)")
+
+
+def _mesh_from_cfg(cfg, device):
+    """The data-parallel mesh the config asks for (`core.mesh.create_mesh`).
+    ``multihost=true`` first joins the process group (torchrun's
+    environment; NCCL on CUDA, gloo with ``--device cpu``), before any
+    seeding or CUDA call of the command, and raises when it cannot form;
+    ``mesh_data`` (0: every rank) must equal the world size."""
+    from .core.distributed import initialize_multihost
+    from .core.mesh import create_mesh
+
+    if cfg.multihost:
+        initialize_multihost(device=device)
+    return create_mesh(cfg.mesh_data or None, cfg.mesh_model, cfg.mesh_time)
 
 
 def _load_config(args, overrides):
@@ -211,8 +237,9 @@ def _refuse_accum_steps(cfg, command: str) -> None:
 def cmd_train(args, overrides):
     """-> the finished (or preempted) `train.Fit`."""
     cfg = _load_config(args, overrides)
+    mesh = _mesh_from_cfg(cfg, args.device)
     if cfg.model.name == "faster_rcnn":
-        return _train_faster_rcnn(cfg, args)
+        return _train_faster_rcnn(cfg, args, mesh)
     from .core import MetricLogger, set_random_seeds, trainable_mask
     from .data import (
         Augmentation,
@@ -243,14 +270,16 @@ def cmd_train(args, overrides):
            or Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)]))
     workers = dict(num_workers=d.num_workers, worker_backend=d.worker_backend,
                    emit="i420" if d.i420 else "rgb")
+    # host_shard: the train loaders only; every rank reads the whole val batch
     train_loader = DetectionLoader(train_ds, d.input_size, d.batch_size, d.max_boxes,
                                    train=True, augmentation=aug, mosaic_prob=0.5,
-                                   seed=cfg.train.seed, on_corrupt=d.on_corrupt, **workers)
+                                   seed=cfg.train.seed, on_corrupt=d.on_corrupt,
+                                   host_shard=d.host_shard or None, **workers)
     val_loader = DetectionLoader(val_ds, d.input_size, d.batch_size, d.max_boxes, train=False,
                                  **workers)  # eval stays strict (on_corrupt)
     no_aug_loader = DetectionLoader(train_ds, d.input_size, d.batch_size, d.max_boxes,
                                     train=True, seed=cfg.train.seed, on_corrupt=d.on_corrupt,
-                                    **workers)
+                                    host_shard=d.host_shard or None, **workers)
     loss_obj = YOLOv3Loss(anchors, num_classes=cfg.model.num_classes,
                           neighbor_cells=cfg.train.neighbor_cells)
 
@@ -282,7 +311,8 @@ def cmd_train(args, overrides):
         schedule=warmup_cosine_lr(cfg.train.lr, cfg.train.final_lr,
                                   cfg.train.epochs * steps_per_epoch,
                                   warmup_steps=cfg.train.warmup_epochs * steps_per_epoch),
-        evaluator=detection_evaluator(make_eval_step(postprocess, dtype)),
+        evaluator=detection_evaluator(make_eval_step(postprocess, dtype), mesh=mesh),
+        mesh=mesh, fsdp=cfg.fsdp,
         ckpt_dir=cfg.train.ckpt_dir, save_every_epoch=cfg.train.save_every_epoch,
         eval_every=cfg.train.eval_every, no_aug_epochs=cfg.train.no_aug_epochs,
         no_aug_loader=no_aug_loader, no_aug_lr=cfg.train.final_lr,
@@ -294,9 +324,10 @@ def cmd_train(args, overrides):
     return _run_closing(fit, train_loader, val_loader, no_aug_loader)
 
 
-def _train_faster_rcnn(cfg, args):
+def _train_faster_rcnn(cfg, args, mesh):
     """The two-stage recipe: SGD with global-norm clip 10, step decay x0.1
-    every 8 epochs, imagenet-standardized inputs."""
+    every 8 epochs, imagenet-standardized inputs. One rank only: its RPN and
+    head sampling draw over the global batch."""
     from .core import MetricLogger, set_random_seeds
     from .data import DetectionDataset, DetectionLoader, build_augmentation
     from .models import FasterRCNN
@@ -310,6 +341,10 @@ def _train_faster_rcnn(cfg, args):
     )
 
     _refuse_accum_steps(cfg, "train (faster_rcnn)")
+    if mesh.data > 1:
+        raise NotImplementedError(
+            "Faster R-CNN training over several ranks (data parallel) is not ported yet "
+            "(ROADMAP Queue 1, item 17): its RPN and head sampling draw over the global batch")
     set_random_seeds(cfg.train.seed)
     d, dtype = cfg.data, _dtype(cfg)
     model = FasterRCNN(
@@ -351,6 +386,7 @@ def cmd_train_cls(args, overrides):
     top-1 as the best-checkpoint metric. -> the finished (or preempted)
     `train.Fit`."""
     cfg = _load_config(args, overrides)
+    mesh = _mesh_from_cfg(cfg, args.device)
     from .core import MetricLogger, set_random_seeds
     from .data import (
         Augmentation,
@@ -394,7 +430,7 @@ def cmd_train_cls(args, overrides):
     train_loader = ClassificationLoader(
         ClassificationDataset(d.data_root, d.train_dir, cats), d.input_size, d.batch_size,
         augmentation=build_augmentation(d.augment) or Augmentation([HorizontalFlip(p=0.5)]),
-        seed=t.seed, on_corrupt=d.on_corrupt, **workers)
+        seed=t.seed, on_corrupt=d.on_corrupt, host_shard=d.host_shard or None, **workers)
     val_loader = ClassificationLoader(ClassificationDataset(d.data_root, d.val_dir, cats),
                                       d.input_size, d.batch_size, train=False, **workers)
     steps_per_epoch = max(len(train_loader), 1)
@@ -402,7 +438,9 @@ def cmd_train_cls(args, overrides):
         model, loss_fn, optimizer, train_loader, val_loader, epochs=t.epochs,
         schedule=warmup_cosine_lr(t.lr, t.final_lr, t.epochs * steps_per_epoch,
                                   warmup_steps=t.warmup_epochs * steps_per_epoch),
-        evaluator=classification_evaluator(make_eval_step(dtype=dtype, imagenet=True)),
+        evaluator=classification_evaluator(make_eval_step(dtype=dtype, imagenet=True),
+                                           mesh=mesh),
+        mesh=mesh, fsdp=cfg.fsdp,
         ckpt_dir=t.ckpt_dir, logger=MetricLogger(t.ckpt_dir), resume=args.resume,
         metric_key="accuracy", metric_mode="max",
         step_fn=make_train_step(loss_fn, dtype, accum_steps=t.microbatch, remat=t.remat,
@@ -420,18 +458,19 @@ def _video_loader(cfg, split: str, train: bool):
         size=d.input_size, batch_size=d.batch_size, strategy=d.frame_strategy, train=train,
         num_workers=d.num_workers, worker_backend=d.worker_backend,
         # eval draws from seed 0 and stays strict, as in the JAX package
-        **({"seed": cfg.train.seed, "on_corrupt": d.on_corrupt} if train else {}))
+        **({"seed": cfg.train.seed, "on_corrupt": d.on_corrupt,
+            "host_shard": d.host_shard or None} if train else {}))
 
 
-def _video_evaluator(cfg):
+def _video_evaluator(cfg, mesh=None):
     """``data.eval_clips`` > 1: the multi-clip protocol, else one clip per
     video (top-1 over the loader's clips), imagenet-standardized."""
     from .train import classification_evaluator, make_eval_step, video_multiclip_evaluator
 
     step = make_eval_step(dtype=_dtype(cfg), imagenet=True)
     if cfg.data.eval_clips > 1:
-        return video_multiclip_evaluator(step, n_clips=cfg.data.eval_clips)
-    return classification_evaluator(step)
+        return video_multiclip_evaluator(step, n_clips=cfg.data.eval_clips, mesh=mesh)
+    return classification_evaluator(step, mesh=mesh)
 
 
 def cmd_train_video(args, overrides):
@@ -442,6 +481,7 @@ def cmd_train_video(args, overrides):
     validation top-1 as the best-checkpoint metric. -> the finished (or
     preempted) `train.Fit`."""
     cfg = _load_config(args, overrides)
+    mesh = _mesh_from_cfg(cfg, args.device)
     from .core import MetricLogger, set_random_seeds
     from .train import Fit, build_optimizer, cross_entropy, make_train_step, warmup_cosine_lr
 
@@ -464,7 +504,8 @@ def cmd_train_video(args, overrides):
         model, loss_fn, optimizer, train_loader, val_loader, epochs=t.epochs,
         schedule=warmup_cosine_lr(t.lr, t.final_lr, t.epochs * steps_per_epoch,
                                   warmup_steps=t.warmup_epochs * steps_per_epoch),
-        evaluator=_video_evaluator(cfg), ckpt_dir=t.ckpt_dir, logger=MetricLogger(t.ckpt_dir),
+        evaluator=_video_evaluator(cfg, mesh), mesh=mesh, fsdp=cfg.fsdp,
+        ckpt_dir=t.ckpt_dir, logger=MetricLogger(t.ckpt_dir),
         resume=args.resume, metric_key="accuracy", metric_mode="max", eval_every=t.eval_every,
         save_every_epoch=t.save_every_epoch,
         step_fn=make_train_step(loss_fn, dtype, accum_steps=t.microbatch, remat=t.remat,
@@ -504,16 +545,19 @@ def _eval_classifier(cfg, args) -> dict:
 
     if not args.ckpt:
         raise SystemExit(f"eval --task {args.task} needs --ckpt")
+    mesh = _mesh_from_cfg(cfg, args.device)
     model = _build_zoo_model(cfg, args.task)
     restore_inference_weights(args.ckpt, model)
     d = cfg.data
     if args.task == "video":
-        loader, evaluate = _video_loader(cfg, d.val_dir, train=False), _video_evaluator(cfg)
+        loader = _video_loader(cfg, d.val_dir, train=False)
+        evaluate = _video_evaluator(cfg, mesh)
     else:
         loader = ClassificationLoader(
             ClassificationDataset(d.data_root, d.val_dir, d.categories or None), d.input_size,
             d.batch_size, train=False, num_workers=d.num_workers, worker_backend=d.worker_backend)
-        evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True))
+        evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True),
+                                            mesh=mesh)
     state = TrainState.create(model, None, args.device)
     try:
         t0 = time.perf_counter()
@@ -848,6 +892,13 @@ def cmd_doctor(args, overrides):
     backend = Config().data.worker_backend
     line("worker_start_method", parse_worker_backend(backend)[1],
          f"data.worker_backend={backend!r}; 'process:spawn' or 'process:forkserver' to change")
+    from .core.distributed import process_info
+
+    info = process_info()
+    line("world_size", info["process_count"],
+         f"rank {info['process_index']}, backend {info['backend'] or 'none'}; torchrun + "
+         "multihost=true forms a group (NCCL on CUDA)")
+    line("nccl", torch.distributed.is_available() and torch.distributed.is_nccl_available())
 
     def fail(why: str):
         print(json.dumps(report))

@@ -1,4 +1,5 @@
-"""Core utilities of the port: config, seeding, checkpoints, telemetry."""
+"""Core utilities of the port: config, seeding, checkpoints, telemetry, the
+process group and the data-parallel mesh."""
 from .checkpoint import (
     CheckpointManager,
     load_torch_state,
@@ -17,6 +18,8 @@ from .config import (
     to_dict,
     update_dataclass,
 )
+from .distributed import initialize_multihost, process_info, set_visible_devices
+from .mesh import Mesh, MeshConfig, create_mesh, local_batch_size, replicate, shard_batch
 from .rng import set_random_seeds, step_seed
 from .telemetry import MetricLogger, StepTimer, flops_of, trace
 
@@ -24,5 +27,7 @@ __all__ = [
     "CheckpointManager", "load_torch_state", "partial_load", "restore_inference_weights",
     "trainable_mask", "Config", "DataConfig", "ModelConfig", "NMSConfig", "TrainConfig",
     "apply_overrides", "from_yaml", "to_dict", "update_dataclass", "set_random_seeds", "step_seed",
-    "MetricLogger", "StepTimer", "flops_of", "trace",
+    "MetricLogger", "StepTimer", "flops_of", "trace", "initialize_multihost", "process_info",
+    "set_visible_devices", "Mesh", "MeshConfig", "create_mesh", "local_batch_size", "replicate",
+    "shard_batch",
 ]

@@ -133,7 +133,9 @@ class DataConfig:
     # eval loaders always raise
     on_corrupt: str = "skip"
     eval_clips: int = 1
-    host_shard: str = ""  # not ported: multi-host input sharding
+    # 'auto' / 'i/n': each rank's train loader decodes its strided share of
+    # every epoch and batch_size is per rank (data/pipeline.py::resolve_host_shard)
+    host_shard: str = ""
 
 
 @dataclass
@@ -198,8 +200,12 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     nms: NMSConfig = field(default_factory=NMSConfig)
-    # not ported (ROADMAP Queue 1, item 17): meshes, FSDP, multi-host; the
-    # port runs one device, so mesh_data may be 0 or 1 and the rest 1
+    # data parallel over the process group (core/mesh.py): mesh_data (0 =
+    # every rank) must equal the world size; mesh_model / mesh_time > 1
+    # (tensor parallel, time sharding) are not ported yet (ROADMAP Queue 1,
+    # item 17). fsdp=true shards parameters and optimizer state 1/N
+    # (parallel/fsdp.py). multihost=true joins torchrun's process group
+    # (NCCL on CUDA, gloo on the CPU) and fails when it cannot form
     mesh_data: int = 0
     mesh_model: int = 1
     mesh_time: int = 1

@@ -23,10 +23,15 @@ import torch
 
 
 class MetricLogger:
+    """In a process group of several ranks, rank 0 alone writes (every rank
+    logs the same global metrics)."""
+
     def __init__(self, log_dir: str | None = None, name: str = "train", stdout: bool = True):
-        self.stdout = stdout
+        from .distributed import rank
+
+        self.stdout = stdout and rank() == 0
         self._fh = None
-        if log_dir:
+        if log_dir and rank() == 0:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
 

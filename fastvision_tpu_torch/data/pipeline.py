@@ -15,9 +15,10 @@
   - `prefetch_to_device`: background threads that load the next batches
     and copy them to the card from pinned memory on a side stream;
   - `normalize_images`: uint8 -> float on the device, inside the step (a
-    packed I420 batch is colour-decoded there first).
-
-Not ported yet: multi-host sharding (``host_shard``).
+    packed I420 batch is colour-decoded there first);
+  - multi-host input sharding (``host_shard``, `resolve_host_shard`): each
+    rank's loader decodes a disjoint strided 1/P of every epoch, each
+    sample seeded by its position in the single-process epoch.
 """
 from __future__ import annotations
 
@@ -96,6 +97,53 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
 
 
+def resolve_host_shard(host_shard) -> tuple[int, int]:
+    """A loader's ``host_shard`` spec -> ``(index, count)``:
+
+    - ``None`` / ``""``: no sharding, ``(0, 1)``;
+    - ``'auto'``: ``(rank, world size)`` of the process group, ``(0, 1)``
+      without one. Loaders resolve it when an epoch starts, not when they
+      are built, so a loader built before the group forms still shards;
+    - ``'i/n'`` or ``(i, n)``: explicit."""
+    if host_shard is None or host_shard == "":
+        return 0, 1
+    if host_shard == "auto":
+        from ..core.distributed import rank, world_size
+
+        return rank(), world_size()
+    if isinstance(host_shard, str):
+        try:
+            index, count = (int(p) for p in host_shard.split("/"))
+        except ValueError:
+            raise ValueError(
+                f"host_shard string must be 'auto' or 'i/n', got {host_shard!r}") from None
+    else:
+        index, count = (int(p) for p in host_shard)
+    if count < 1 or not 0 <= index < count:
+        raise ValueError(f"host_shard index {index} not in [0, {count})")
+    return index, count
+
+
+def host_shard_order(order: np.ndarray, index: int, count: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """-> ``(local_order, global_positions)``: host ``index``'s strided slice
+    of a global epoch order; the remainder ``len(order) % count`` is dropped
+    so every host yields as many batches (the collectives' lockstep).
+    ``global_positions[p]`` is local sample ``p``'s position in the
+    single-host epoch, which seeds its random draws, so the union of the
+    hosts' samples is byte-equal to the single-host epoch's."""
+    if count == 1:
+        return order, np.arange(len(order))
+    n = len(order) - len(order) % count
+    gpos = np.arange(index, n, count)
+    return order[gpos], gpos
+
+
+def _host_local_len(n: int, count: int) -> int:
+    """Per-host dataset length under host sharding (remainder dropped)."""
+    return n if count == 1 else (n - n % count) // count
+
+
 def parse_worker_backend(worker_backend: str) -> tuple[str, str]:
     """'thread' | 'process' | 'process:fork|forkserver|spawn' -> (backend,
     start method). A bare 'process' forks: the port never imports JAX, whose
@@ -167,14 +215,28 @@ class _PooledLoader:
                     for out in self._pool.map(self._one_thread_work, items[i : i + bs]))
         return map(self._one_thread_work, items)
 
+    @property
+    def host_index(self) -> int:
+        return resolve_host_shard(self.host_shard)[0]
+
+    @property
+    def host_count(self) -> int:
+        return resolve_host_shard(self.host_shard)[1]
+
+    def _local_len(self) -> int:
+        """Samples this host loads per epoch."""
+        return _host_local_len(len(self.ds), self.host_count)
+
     def _epoch_items(self, epoch_idx: int, start_batch: int) -> list:
-        """(position, dataset index, epoch) of every sample the epoch loads
-        from batch ``start_batch`` on: a seeded shuffle per epoch for
-        training, the dataset order otherwise."""
+        """(position in the single-host epoch, dataset index, epoch) of every
+        sample this host loads from its batch ``start_batch`` on: a seeded
+        shuffle per epoch for training, the dataset order otherwise, then
+        this host's strided share (`host_shard_order`)."""
         rng = np.random.default_rng((self.seed, epoch_idx))
         order = rng.permutation(len(self.ds)) if self.train else np.arange(len(self.ds))
+        order, gpos = host_shard_order(order, *resolve_host_shard(self.host_shard))
         end = min(len(self) * self.batch_size, len(order))
-        return [(pos, int(order[pos]), epoch_idx)
+        return [(int(gpos[pos]), int(order[pos]), epoch_idx)
                 for pos in range(start_batch * self.batch_size, end)]
 
     def _batched(self, epoch_idx: int, start_batch: int) -> Iterator[tuple]:
@@ -278,10 +340,10 @@ class DetectionLoader(_PooledLoader):
         elif native_jpeg and not eligible:
             raise ValueError("native_jpeg=True needs emit='i420', train=False, no "
                              "augmentation/mosaic, and a dataset with sample_i420")
-        if host_shard not in (None, ""):
-            raise _not_ported("multi-host input sharding (host_shard)", 17)
         if on_corrupt not in ("raise", "skip"):
             raise ValueError(f"on_corrupt must be 'raise' or 'skip', got {on_corrupt!r}")
+        resolve_host_shard(host_shard)  # a malformed spec fails here
+        self.host_shard = host_shard
         self.ds = dataset
         self.input_size = input_size
         self.batch_size = batch_size
@@ -300,7 +362,7 @@ class DetectionLoader(_PooledLoader):
         self._init_workers(num_workers, worker_backend)
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = self._local_len()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _slot_shape(self) -> tuple:
@@ -407,10 +469,10 @@ class ClassificationLoader(_PooledLoader):
                  augmentation: Augmentation | None = None, seed: int = 0,
                  on_corrupt: str = "raise", num_workers: int = 0,
                  worker_backend: str = "thread", host_shard=None):
-        if host_shard not in (None, ""):
-            raise _not_ported("multi-host input sharding (host_shard)", 17)
         if on_corrupt not in ("raise", "skip"):
             raise ValueError(f"on_corrupt must be 'raise' or 'skip', got {on_corrupt!r}")
+        resolve_host_shard(host_shard)
+        self.host_shard = host_shard
         self.ds = dataset
         self.input_size = input_size
         self.batch_size = batch_size
@@ -421,7 +483,7 @@ class ClassificationLoader(_PooledLoader):
         self._init_workers(num_workers, worker_backend)
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = self._local_len()
         return n // self.batch_size if self.train else -(-n // self.batch_size)
 
     def _sample_work(self, item):
@@ -451,16 +513,25 @@ def prefetch_to_device(
     device: str | torch.device | None = None,
     buffer_size: int = 2,
     device_keys: tuple[str, ...] = ("images", "labels"),
+    mesh=None,
+    per_host: bool = False,
 ) -> Iterator[dict]:
     """Two-stage background prefetch + device placement.
 
     A loader thread pulls host batches from ``iterator``; a transfer thread
-    moves ``device_keys`` to ``device`` (None: CUDA, raising without a card).
+    moves ``device_keys`` to ``device`` (None: CUDA, raising without a card),
+    with a ``mesh`` (`core.mesh.Mesh`) this rank's contiguous share of each
+    global batch only (`core.mesh.shard_batch`); ``per_host=True`` declares
+    the batches host-local already (loaders built with ``host_shard``), and
+    needs a mesh.
     On CUDA the copy is from pinned memory, ``non_blocking``, on a side
     stream, so loading batch k + 2, copying batch k + 1 and computing on
     batch k overlap; the consumer's stream waits for the copy's event
     before the batch is handed out. Other keys (meta, num_real) pass
     through. An exception in either thread re-raises in the consumer."""
+    if per_host and mesh is None:
+        raise ValueError("prefetch_to_device(per_host=True) needs the mesh the host-local "
+                         "batches are slices of")
     dev = resolve_device(device)
     q_host: queue.Queue = queue.Queue(maxsize=buffer_size)
     q_dev: queue.Queue = queue.Queue(maxsize=buffer_size)
@@ -479,6 +550,11 @@ def prefetch_to_device(
                     return False
 
     def to_device(batch: dict):
+        if mesh is not None:
+            from ..core.mesh import shard_batch
+
+            batch = {**batch, **shard_batch({k: batch[k] for k in device_keys if k in batch},
+                                            mesh, per_host)}
         out = dict(batch)
         if stream is None:
             for k in device_keys:

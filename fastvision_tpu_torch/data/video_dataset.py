@@ -24,7 +24,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from .dataset import IMG_EXTS, imread_rgb, resize_bilinear
-from .pipeline import _not_ported, _PooledLoader, fetch_with_corrupt_policy
+from .pipeline import _PooledLoader, fetch_with_corrupt_policy, resolve_host_shard
 from .avi import open_video
 from .video_sampler import VIDEO_EXTS, load_clip, sample_indices
 
@@ -105,16 +105,17 @@ class VideoClipLoader(_PooledLoader):
     batch padded with its last clip and label, ``num_real`` its real count.
     ``num_workers`` / ``worker_backend``: the worker pools of
     `_PooledLoader`; ``on_corrupt='skip'`` substitutes the next clip.
-    Multi-host sharding (``host_shard``) is not ported (item 17)."""
+    ``host_shard``: this host's strided share of every epoch
+    (`pipeline.resolve_host_shard`); ``batch_size`` stays per host."""
 
     def __init__(self, dataset: VideoFolderDataset, num_frames: int = 16, size: int = 112,
                  batch_size: int = 8, strategy: str = "average", train: bool = True,
                  seed: int = 0, num_workers: int = 0, worker_backend: str = "thread",
                  on_corrupt: str = "raise", host_shard=None):
-        if host_shard not in (None, ""):
-            raise _not_ported("multi-host input sharding (host_shard)", 17)
         if on_corrupt not in ("raise", "skip"):
             raise ValueError(f"on_corrupt must be 'raise' or 'skip', got {on_corrupt!r}")
+        resolve_host_shard(host_shard)
+        self.host_shard = host_shard
         self.ds = dataset
         self.num_frames = num_frames
         self.size = size
@@ -126,7 +127,7 @@ class VideoClipLoader(_PooledLoader):
         self._init_workers(num_workers, worker_backend)
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = self._local_len()
         return n // self.batch_size if self.train else -(-n // self.batch_size)
 
     def _slot_shape(self) -> tuple[int, int, int, int]:

@@ -27,7 +27,7 @@ conv{1,2,3}.conv`` / ``bn{1,2,3}`` / ``downsample.0.conv`` /
 ``fc``), so the JAX package's ``slowfast_from_reference`` + ``apply_import``
 load this model's weights. The JAX package's ``time_axis`` (the fast
 pathway sharded over a mesh's time axis) is not ported (ROADMAP Queue 1,
-item 17).
+item 17: time sharding).
 """
 from __future__ import annotations
 

@@ -37,9 +37,11 @@ import math
 from typing import Iterator, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.distributed import dp_world
 from ..ops.int8 import (ACTIVATIONS, add_residual, gemm_weight, implicit_gemm_eligible,
                         quantized_conv)
 
@@ -63,11 +65,17 @@ class _FlaxRunningStats:
     as torch and flax both do, and the running statistics move by
     ``new = (1 - momentum) * old + momentum * batch`` with the BIASED batch
     variance, as flax does; torch alone folds in the unbiased one
-    (n / (n - 1) larger, n = B * H * W, or B * T * H * W)."""
+    (n / (n - 1) larger, n = B * H * W, or B * T * H * W).
+
+    Inside `core.distributed.data_parallel` with more than one rank, a
+    train-mode forward normalizes over the global batch (`GlobalBatchNorm`)
+    and every rank moves its running statistics by the same global ones."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if dp_world() > 1:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
         if m is None:  # torch's cumulative average over the batches seen
@@ -81,6 +89,134 @@ class _FlaxRunningStats:
             # (1 - m) * old + m * biased == var * (n - 1) / n + old * (1 - m) / n
             self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
         return y
+
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.momentum
+        if m is None:
+            self.num_batches_tracked.add_(1)
+            m = 1.0 / int(self.num_batches_tracked)
+        y, mean, var = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+
+def _bn_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a layout the card's BN kernels take: channels_last (3-D)
+    as it is, anything else made contiguous (SyncBatchNorm's rule)."""
+    if (t.is_contiguous(memory_format=torch.channels_last)
+            or t.is_contiguous(memory_format=torch.channels_last_3d)):
+        return t
+    return t.contiguous()
+
+
+def _bn_stats(x: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of this rank's ``x``, float32
+    (float64 for a float64 ``x``): one fused pass on the card
+    (``batch_norm_stats``), torch's ``var_mean`` on the CPU."""
+    if x.is_cuda:
+        mean, invstd = torch.batch_norm_stats(x, eps)
+        return mean, (invstd.pow(-2) - eps).clamp(min=0.0)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    var, mean = torch.var_mean(x.to(acc), [0, *range(2, x.dim())], correction=0)
+    return mean, var
+
+
+def _bn_elemt(x, weight, bias, mean, invstd, eps):
+    """``(x - mean) * invstd * weight + bias`` in ``x``'s dtype."""
+    if x.is_cuda:
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+    if weight is not None:
+        y = y * weight.to(mean.dtype).view(shape)
+    if bias is not None:
+        y = y + bias.to(mean.dtype).view(shape)
+    return y.to(x.dtype)
+
+
+def _bn_backward_reduce(dy, x, mean, invstd, weight, needs):
+    """-> (``sum(dy)``, ``sum(dy * (x - mean))``, weight grad, bias grad)
+    of this rank's share, per channel (the grads None where ``needs`` says
+    no)."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight, *needs)
+    dims = [0, *range(2, x.dim())]
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    g = dy.to(mean.dtype)
+    sum_dy = g.sum(dims)
+    sum_dy_xmu = (g * (x.to(mean.dtype) - mean.view(shape))).sum(dims)
+    gw = (sum_dy_xmu * invstd).to(weight.dtype) if needs[1] else None
+    gb = sum_dy.to(weight.dtype) if needs[2] else None
+    return sum_dy, sum_dy_xmu, gw, gb
+
+
+def _bn_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count):
+    """The input gradient from the global ``sum_dy`` and ``sum_dy_xmu`` over
+    ``count`` elements per channel (an int32 tensor [1])."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sum_dy,
+                                               sum_dy_xmu, count)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    n = float(count.sum())
+    w = weight.to(mean.dtype) if weight is not None else torch.ones_like(mean)
+    dx = (dy.to(mean.dtype) - (sum_dy / n).view(shape)
+          - (x.to(mean.dtype) - mean.view(shape)) * (invstd * invstd * sum_dy_xmu / n).view(shape))
+    return (dx * (w * invstd).view(shape)).to(x.dtype)
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN over a batch split across the ranks of
+    `core.distributed.data_parallel`: the per-channel count, sum and sum of
+    squares are all-reduced in one call and the batch is normalized with the
+    global mean and flax's one-pass biased variance ``E[x^2] - E[x]^2``
+    (clamped at 0); the backward all-reduces ``sum(dy)`` and
+    ``sum(dy * (x - mean))`` the same way. The passes over the tensor are
+    the card's native BN kernels that ``SyncBatchNorm`` runs (one fused
+    statistics pass, one normalize pass; one reduce and one elementwise
+    pass back), or their plain equivalents on the CPU. Statistics in
+    float32 (float64 for a float64 input); the output in the input's dtype.
+    The weight and bias gradients are this rank's share: data parallelism
+    averages them over the ranks, as it does the upstream gradients ``dy``,
+    so every gradient is the global batch's. -> (y, mean, biased var), the
+    last two without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x = _bn_layout(x)
+        mean_r, var_r = _bn_stats(x, eps)
+        # filled on the device: a copy from the host would wait for the card
+        n = torch.full((1,), x.numel() // x.shape[1], dtype=mean_r.dtype, device=x.device)
+        stats = torch.cat([n, mean_r * n, (var_r + mean_r * mean_r) * n])
+        dist.all_reduce(stats)
+        c = x.shape[1]
+        count = stats[0]
+        mean = stats[1:1 + c] / count
+        var = (stats[1 + c:] / count - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = _bn_elemt(x, weight, bias, mean, invstd, eps)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              count.round().to(torch.int32).view(1))
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dy = _bn_layout(dy)
+        needs = (ctx.needs_input_grad[0], weight is not None and ctx.needs_input_grad[1],
+                 weight is not None and ctx.needs_input_grad[2])
+        sum_dy, sum_dy_xmu, dw, db = _bn_backward_reduce(dy, x, mean, invstd, weight, needs)
+        dx = None
+        if needs[0]:
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums)
+            c = x.shape[1]
+            w = weight.to(mean.dtype) if weight is not None else None
+            dx = _bn_backward_elemt(dy, x, mean, invstd, w, sums[:c], sums[c:], count)
+        return dx, dw, db, None
 
 
 class BatchNorm(_FlaxRunningStats, nn.BatchNorm2d):

@@ -9,6 +9,7 @@ from .fit import (
     classification_evaluator,
     detection_evaluator,
     multiclip_windows,
+    replicate_eval_outputs,
     video_multiclip_evaluator,
 )
 from .frcnn_steps import labels_to_pixel_xyxy, make_frcnn_eval_step, make_frcnn_train_step
@@ -47,5 +48,6 @@ __all__ = [
     "smooth_labels", "build_optimizer", "decay_mask", "get_lr",
     "set_lr", "SCHEDULES", "PlateauScheduler", "constant_lr", "cosine_lr", "exponential_lr",
     "linear_lr", "step_decay_lr", "warmup_cosine_lr", "TrainState", "device_batch",
-    "make_eval_step", "make_train_step", "multiclip_windows", "video_multiclip_evaluator",
+    "make_eval_step", "make_train_step", "multiclip_windows", "replicate_eval_outputs",
+    "video_multiclip_evaluator",
 ]

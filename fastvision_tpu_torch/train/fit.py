@@ -23,7 +23,18 @@ positional one named ``rng``; the rules of the JAX package's ``step_fn``
 setter) gets a ``torch.Generator`` on the model's device, seeded from
 (``seed``, global step): the per-step key that dropout needs.
 
-Not ported yet: meshes and FSDP (``mesh``, ``fsdp``).
+Data parallel (``mesh``, a `core.mesh.Mesh`, in a process group): the model
+is wrapped in ``DistributedDataParallel`` or, with ``fsdp=True``, sharded by
+`parallel.fsdp` (the EMA copy too), at any world size, one rank per device.
+Each rank trains on its share of every global batch: a loader built with
+``host_shard`` yields it, any other yields the global batch and the rank
+keeps its contiguous part; the step gives every rank the global batch's BN
+statistics, loss and metrics (`train.steps`). Rank 0 writes the
+checkpoints (FSDP's state gathered first, in the single-process format)
+while the others wait, every rank restores, and the evaluators shard each
+validation batch over the ranks and gather the outputs, so every rank
+computes the metric one process would. Without a process group a mesh has
+one rank and training is the single-process one.
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ import torch
 from torch import nn
 
 from ..core.checkpoint import CheckpointManager
+from ..core.distributed import all_gather_cat, barrier, is_initialized, rank
+from ..core.mesh import Mesh
 from ..core.rng import step_seed
 from ..core.telemetry import MetricLogger
 from ..data.pipeline import prefetch_to_device
@@ -45,11 +58,16 @@ from ..infer.postprocess import scale_coords
 from ..ops.map import MeanAveragePrecision
 from .ema import make_ema_update
 from .schedulers import PlateauScheduler, Schedule, constant_lr
-from .steps import TrainState, make_train_step
+from .steps import TrainState, make_train_step, parallel_kind, unwrap
+
+# steps between the ranks' agreements on a preemption request
+PREEMPT_POLL = 8
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
+def check_mesh(mesh) -> None:
+    """``mesh``: None or a `core.mesh.Mesh` (which refuses the axes not ported)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a core.mesh.Mesh, got {type(mesh).__name__}")
 
 
 class Fit:
@@ -68,7 +86,8 @@ class Fit:
     checkpoint after every epoch (``save_every_epoch``; else after the last
     only) and on preemption; ``resume``: continue from the newest
     checkpoint there. ``seed``: the root of the per-step generators that
-    an rng-taking ``step_fn`` receives."""
+    an rng-taking ``step_fn`` receives. ``mesh`` / ``fsdp``: data parallel
+    placement (module docstring); the optimizer must not have stepped."""
 
     def __init__(
         self,
@@ -103,8 +122,8 @@ class Fit:
         device: str | torch.device | None = None,
         seed: int = 0,
     ):
-        if mesh is not None or fsdp:
-            raise _not_ported("meshes and FSDP (mesh, fsdp)", 17)
+        check_mesh(mesh)
+        self.mesh = mesh
         self.state = TrainState.create(model, optimizer, device)
         self.device = self.state.device
         self.seed = seed
@@ -147,30 +166,79 @@ class Fit:
             # the EMA shadows the parameters; BN statistics are the live
             # model's, copied in at evaluation (`eval_state`)
             self.ema_model = copy.deepcopy(self.state.model).requires_grad_(False)
+            self._ema_update = make_ema_update(ema_decay)
+        # ranks sharing each global batch (1 without a mesh over a process group)
+        self.world = mesh.data if mesh is not None and is_initialized() else 1
+        if mesh is not None and is_initialized():
+            self._place(fsdp)
+        if self.ema_model is not None:
             self._ema_pairs = (list(self.ema_model.parameters()),
                                list(self.state.model.parameters()))
-            self._ema_update = make_ema_update(ema_decay)
         # where a resumed epoch starts: batches already done and their loss sum
         self._resume_batch, self._resume_loss = 0, None
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
             self._restore()
 
+    def _place(self, fsdp: bool) -> None:
+        """Data parallel placement over the process group (one rank per
+        device): FSDP shards the model and the EMA copy and rebinds the
+        optimizer; else DDP wraps the model. Global BN keeps the buffers
+        equal on every rank, so DDP broadcasts none."""
+        model = self.state.model
+        if fsdp:
+            from ..core.mesh import replicate
+            from ..parallel.fsdp import fsdp_shard_module, rebind_optimizer
+
+            replicate(model)  # rank 0's weights everywhere, as DDP starts
+            if self.ema_model is not None:
+                replicate(self.ema_model)
+            names = fsdp_shard_module(model, self.world)
+            rebind_optimizer(self.state.optimizer, names, model)
+            if self.ema_model is not None:
+                fsdp_shard_module(self.ema_model, self.world)
+        else:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # newer torch names the switch forward_sync_buffers (and still
+            # syncs at construction, where the buffers are equal anyway)
+            sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+                    inspect.signature(DistributedDataParallel).parameters
+                    else "broadcast_buffers")
+            self.state.model = DistributedDataParallel(
+                model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                **{sync: False})
+
     def _restore(self) -> None:
         restored = self.ckpt.restore()
         state, meta = restored["state"], restored["meta"]
-        model = self.state.model
-        model.load_state_dict(state["model"])
-        if "optimizer" in state:
-            self.state.optimizer.load_state_dict(state["optimizer"])
-        if self.ema_model is not None:
-            # the EMA shadow; the restored raw weights (not the fresh init)
-            # when the checkpoint has none
-            ema = state.get("ema") or dict(model.named_parameters())
-            with torch.no_grad():
-                for name, p in self.ema_model.named_parameters():
-                    p.copy_(ema[name])
-        self._resume_batch = int(meta.get("epoch_batches_done", 0))
+        model = unwrap(self.state.model)
+        ema = state.get("ema")
+        if parallel_kind(model) == "fsdp":
+            from ..parallel.fsdp import load_full_state
+
+            load_full_state(model, state["model"], self.state.optimizer, state.get("optimizer"))
+            if self.ema_model is not None:
+                # the EMA shadow over the restored model's state (its BN buffers)
+                load_full_state(self.ema_model, {**state["model"], **(ema or {})})
+        else:
+            model.load_state_dict(state["model"])
+            if "optimizer" in state:
+                self.state.optimizer.load_state_dict(state["optimizer"])
+            if self.ema_model is not None:
+                # the EMA shadow; the restored raw weights (not the fresh
+                # init) when the checkpoint has none
+                ema = ema or dict(model.named_parameters())
+                with torch.no_grad():
+                    for name, p in self.ema_model.named_parameters():
+                        p.copy_(ema[name])
+        done = int(meta.get("epoch_batches_done", 0))
+        if done and meta.get("host_count", 1) != getattr(self.train_loader, "host_count", 1):
+            raise ValueError(
+                f"checkpoint cut {done} batches into an epoch over {meta.get('host_count', 1)} "
+                f"host shards; this run has {getattr(self.train_loader, 'host_count', 1)}: "
+                "resume it at the world size it was saved at")
+        self._resume_batch = done
         self._resume_loss = meta.get("epoch_loss_sum")
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.global_step = int(meta.get("global_step", 0)) + self._resume_batch
@@ -178,10 +246,29 @@ class Fit:
         print(f"[fit] resumed from epoch {self.start_epoch}, batch {self._resume_batch}")
 
     def _save(self, step: int, extra: dict, metric: float | None = None) -> None:
-        ema = dict(self.ema_model.named_parameters()) if self.ema_model is not None else None
-        self.ckpt.save(step, self.state.model.state_dict(), self.state.optimizer.state_dict(),
-                       ema=ema, extra={**extra, "state_step": self.state.step}, metric=metric,
-                       higher_is_better=self.metric_mode == "max")
+        """Rank 0 writes; the others wait for the write to be on disk."""
+        model = unwrap(self.state.model)
+        if parallel_kind(model) == "fsdp":
+            from ..parallel.fsdp import full_state
+
+            model_sd, opt_sd = full_state(model, self.state.optimizer)
+            ema = None
+            if self.ema_model is not None:
+                names = dict(self.ema_model.named_parameters())
+                ema = {k: v for k, v in full_state(self.ema_model)[0].items() if k in names}
+        else:
+            model_sd, opt_sd = model.state_dict(), self.state.optimizer.state_dict()
+            ema = (dict(self.ema_model.named_parameters())
+                   if self.ema_model is not None else None)
+        if self.world == 1 or rank() == 0:
+            self.ckpt.save(step, model_sd, opt_sd, ema=ema,
+                           extra={**extra, "state_step": self.state.step,
+                                  "host_count": getattr(self.train_loader, "host_count", 1)},
+                           metric=metric, higher_is_better=self.metric_mode == "max")
+        if self.world > 1:
+            if rank() == 0:
+                self.ckpt.wait()
+            barrier()
 
     @property
     def step_fn(self) -> Callable:
@@ -213,8 +300,29 @@ class Fit:
 
     def request_preempt(self) -> None:
         """Stop after the current step (safe from a signal handler or
-        another thread: the train loop polls the flag between batches)."""
+        another thread: the train loop polls the flag between batches; with
+        several ranks they agree every `PREEMPT_POLL` steps and once more
+        at the end of the epoch, and all stop where one asked)."""
         self._preempt = True
+
+    def _stop_now(self, n_steps: int | None = None) -> bool:
+        """Whether to stop before step ``n_steps`` of the epoch (None: at
+        its end). With several ranks, the answer every rank gets: they
+        agree at every `PREEMPT_POLL`-th step and at the end; elsewhere
+        False. A request is never cleared here, so one that lands after
+        an agreement counts at the next."""
+        if self.world == 1:
+            return self._preempt
+        if n_steps is not None and n_steps % PREEMPT_POLL:
+            return False
+        flag = torch.tensor([float(self._preempt)],
+                            device=self.device if torch.distributed.get_backend() == "nccl"
+                            else "cpu")
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        stop = bool(flag.item())
+        if stop:
+            self._preempt = True
+        return stop
 
     def _lr(self) -> float:
         lr = self.schedule(self.global_step)
@@ -223,8 +331,9 @@ class Fit:
         return lr
 
     def _train_epoch(self, epoch: int, loader, lr_override: float | None = None):
-        """-> (the epoch's mean loss, its images/s); on preemption the
-        batches done and their loss sum are left in ``self._progress``."""
+        """-> (the epoch's mean loss, its images/s); on preemption (the
+        ranks' agreed answer) the batches done and their loss sum are left
+        in ``self._progress``, else it is None."""
         skip, loss0 = self._resume_batch, self._resume_loss
         self._resume_batch, self._resume_loss = 0, None
         # on the device: one read at the end of the epoch
@@ -232,8 +341,13 @@ class Fit:
         n_steps, n_images = skip, 0
         batches = loader.epoch(epoch, start_batch=skip) if skip else loader.epoch(epoch)
         t0 = time.perf_counter()
-        for batch in prefetch_to_device(batches, device=self.device):
-            if self._preempt:
+        # a host-sharded loader yields this rank's share; any other the global batch
+        per_host = self.mesh is not None and getattr(loader, "host_count", 1) > 1
+        stop = False
+        for batch in prefetch_to_device(batches, device=self.device, mesh=self.mesh,
+                                        per_host=per_host):
+            if self._stop_now(n_steps):
+                stop = True
                 break
             lr = lr_override if lr_override is not None else self._lr()
             self.state, metrics = self._step(batch, lr)
@@ -243,13 +357,16 @@ class Fit:
             loss_sum = step_loss if loss_sum is None else loss_sum + step_loss
             n_steps += 1
             self.global_step += 1
-            n_images += batch["images"].shape[0]
+            n_images += batch["images"].shape[0] * self.world  # the global batch
             if self.global_step % self.log_every == 0:
                 dt = time.perf_counter() - t0
                 self.logger.log(self.global_step, epoch=epoch, loss=float(step_loss), lr=lr,
                                 img_per_sec=n_images / max(dt, 1e-9))
         img_s = n_images / max(time.perf_counter() - t0, 1e-9)
-        if self._preempt:
+        # a request after the last agreement: every rank must take the same branch
+        stop = stop or self._stop_now()
+        self._progress = None
+        if stop:
             self._progress = (n_steps, None if loss_sum is None else float(loss_sum))
             return float("nan"), img_s
         if n_steps == 0:
@@ -260,12 +377,14 @@ class Fit:
 
     def eval_state(self) -> TrainState:
         """State for evaluation and serving: the EMA weights, when enabled,
-        with the live model's BN statistics."""
+        with the live model's BN statistics (the model a DDP wrapper holds:
+        evaluation runs no collective of its own)."""
+        model = unwrap(self.state.model)
         if self.ema_model is None:
-            return self.state
+            return (self.state if model is self.state.model
+                    else TrainState(model, self.state.optimizer, self.state.step))
         with torch.no_grad():
-            torch._foreach_copy_(list(self.ema_model.buffers()),
-                                 list(self.state.model.buffers()))
+            torch._foreach_copy_(list(self.ema_model.buffers()), list(model.buffers()))
         return TrainState(self.ema_model, self.state.optimizer, self.state.step)
 
     def _validate(self, epoch: int) -> dict:
@@ -313,7 +432,7 @@ class Fit:
                     self.logger.log(self.global_step, epoch=epoch, img_size=size)
             epoch_start_step = self.global_step - self._resume_batch
             train_loss, img_s = self._train_epoch(epoch, loader, lr_override)
-            if self._preempt:
+            if self._progress is not None:
                 self.interrupted = True
                 if self.ckpt is not None:
                     done, loss_sum = self._progress
@@ -352,6 +471,32 @@ class Fit:
         return self.state
 
 
+def _gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's share of an output, concatenated in rank order."""
+    if t.dtype == torch.bool:  # gloo has no bool collectives
+        return all_gather_cat(t.to(torch.uint8)).bool()
+    return all_gather_cat(t)
+
+
+def replicate_eval_outputs(eval_step: Callable, mesh) -> Callable:
+    """``eval_step`` over this rank's share of a batch (the loader's whole
+    batch on every rank), its outputs (a tensor or a tuple of them)
+    gathered so that every rank holds the whole batch's. Without a mesh, or
+    with one rank, ``eval_step`` itself."""
+    check_mesh(mesh)
+    if mesh is None or mesh.data == 1:
+        return eval_step
+
+    def step(state: TrainState, batch: dict):
+        out = eval_step(state, batch)
+        if isinstance(out, torch.Tensor):
+            return _gather(out)
+        parts = (_gather(t) for t in out)
+        return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)
+
+    return step
+
+
 def detection_evaluator(eval_step: Callable, num_batches: int | None = None,
                         mesh=None) -> Callable:
     """Build ``evaluator(state, loader) -> {'map50', 'map'}``.
@@ -360,16 +505,18 @@ def detection_evaluator(eval_step: Callable, num_batches: int | None = None,
     coordinates (decode + NMS, whose suppression is the CUDA kernel on the
     card). Batches run on the device of ``state``'s model; the kept boxes
     are unscaled to original pixels with the loader's meta and matched on
-    the host against the original-space GT."""
-    if mesh is not None:
-        raise _not_ported("meshes (mesh)", 17)
+    the host against the original-space GT. With a ``mesh`` of several
+    ranks each rank runs its share of every batch and the detections are
+    gathered (`replicate_eval_outputs`): every rank gets the same metric."""
+    step = replicate_eval_outputs(eval_step, mesh)
 
     def evaluate(state: TrainState, loader) -> dict:
         m = MeanAveragePrecision()
-        for bi, batch in enumerate(prefetch_to_device(loader.epoch(0), device=state.device)):
+        for bi, batch in enumerate(prefetch_to_device(loader.epoch(0), device=state.device,
+                                                      mesh=mesh)):
             if num_batches is not None and bi >= num_batches:
                 break
-            det = eval_step(state, batch)
+            det = step(state, batch)
             boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
             for i in range(batch["num_real"]):
                 meta = batch["meta"][i]
@@ -387,16 +534,21 @@ def classification_evaluator(eval_step: Callable, mesh=None) -> Callable:
     """Build ``evaluator(state, loader) -> {'accuracy'}``: top-1 over the
     real images of each batch (``num_real``: a padded last batch counts its
     real ones only). ``eval_step(state, batch)`` returns the logits; the
-    count stays on the device and is read once at the end."""
-    if mesh is not None:
-        raise _not_ported("meshes (mesh)", 17)
+    count stays on the device and is read once at the end. With a ``mesh``
+    of several ranks the logits and labels of each rank's share are
+    gathered (`replicate_eval_outputs`)."""
+
+    def with_labels(state: TrainState, batch: dict):
+        return eval_step(state, batch), batch["labels"]
+
+    step = replicate_eval_outputs(with_labels, mesh)
 
     def evaluate(state: TrainState, loader) -> dict:
         correct, total = torch.zeros((), dtype=torch.int64, device=state.device), 0
-        for batch in prefetch_to_device(loader.epoch(0), device=state.device):
-            n = batch.get("num_real", batch["images"].shape[0])
-            logits = eval_step(state, batch)
-            correct += (logits[:n].argmax(dim=-1) == batch["labels"][:n]).sum()
+        for batch in prefetch_to_device(loader.epoch(0), device=state.device, mesh=mesh):
+            n = batch.get("num_real", batch["images"].shape[0] * (mesh.data if mesh else 1))
+            logits, labels = step(state, batch)
+            correct += (logits[:n].argmax(dim=-1) == labels[:n]).sum()
             total += int(n)
         return {"accuracy": int(correct) / max(total, 1)}
 
@@ -424,9 +576,10 @@ def video_multiclip_evaluator(eval_step: Callable, n_clips: int = 4, mesh=None) 
     read on its workers (`VideoClipLoader.windows`) and stream through
     ``eval_step(state, batch) -> logits`` in batches of its batch size
     ([bs, T, S, S, 3], one shape: the ragged tail repeats its last clip and
-    is ignored). The logits stay on the device until the end."""
-    if mesh is not None:
-        raise _not_ported("meshes (mesh)", 17)
+    is ignored). The logits stay on the device until the end. With a
+    ``mesh`` of several ranks each rank runs its share of every batch and
+    the logits are gathered (`replicate_eval_outputs`)."""
+    step = replicate_eval_outputs(eval_step, mesh)
 
     def evaluate(state: TrainState, loader) -> dict:
         ds, bs = loader.ds, loader.batch_size
@@ -449,8 +602,9 @@ def video_multiclip_evaluator(eval_step: Callable, n_clips: int = 4, mesh=None) 
                     real = 0
 
         logits = []
-        for batch in prefetch_to_device(batches(), device=state.device, device_keys=("images",)):
-            logits.append(eval_step(state, batch)[: batch["num_real"]].float())
+        for batch in prefetch_to_device(batches(), device=state.device, device_keys=("images",),
+                                        mesh=mesh):
+            logits.append(step(state, batch)[: batch["num_real"]].float())
         per_video = torch.cat(logits).view(n_videos, n_clips, -1).sum(dim=1)
         pred = per_video.argmax(dim=-1).cpu().numpy()
         return {"accuracy": float((pred == labels).mean()), "n_clips": n_clips}

@@ -15,6 +15,15 @@ port picks the winner explicitly, the candidate with the highest flat index
 (GT-major, then anchor, then candidate cell), and gathers its whole row:
 box, class and positive flag always come from one GT. XLA's CPU scatter
 applies updates in order, so the last (highest) index is also its winner.
+
+Inside `core.distributed.data_parallel` with W > 1 ranks, each holding an
+equal share of the global batch, a loss is this rank's share of the global
+batch's loss, scaled by W: the denominators that count the batch (the
+positives of a masked mean, the weights of a weighted mean, the batch size
+that ``YOLOv3Loss`` multiplies by) are the global ones, all-reduced without
+gradient, so the ranks' losses average to the global loss and their
+gradients, averaged by data parallelism, to its gradient. A plain mean over
+the local share is already that.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..core.distributed import dp_world, global_sum
 from ..ops.grid import grid as make_grid
 from ..ops.iou import box_iou, box_iou_matrix, wh_iou_matrix
 from ..ops.one_hot import one_hot
@@ -35,7 +45,8 @@ def _reduce(loss: torch.Tensor, weights, reduction: str) -> torch.Tensor:
         loss = loss * weights
     if reduction == "mean":
         if weights is not None:
-            return loss.sum() / (torch.as_tensor(weights).sum() + _EPS)
+            total = global_sum(torch.as_tensor(weights, device=loss.device).sum())
+            return loss.sum() * dp_world() / (total + _EPS)
         return loss.mean()
     if reduction == "sum":
         return loss.sum()
@@ -122,7 +133,9 @@ class YoloLossOutput(NamedTuple):
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (x * mask).sum() / (mask.sum() + _EPS)
+    """Mean of ``x`` where ``mask`` (a target: no gradient) is set, over the
+    global batch's mask under data parallelism."""
+    return (x * mask).sum() * dp_world() / (global_sum(mask.sum().detach()) + _EPS)
 
 
 def _dense_targets(labels: torch.Tensor, anchors_feat: torch.Tensor, grid_hw: tuple[int, int],
@@ -272,7 +285,7 @@ class YOLOv3Loss:
 
     def __call__(self, heads: Sequence[torch.Tensor], labels: torch.Tensor) -> YoloLossOutput:
         """heads: per-level [B, H, W, A, 5 + C]; labels: [B, M, 5] padded."""
-        batch = heads[0].shape[0]
+        batch = heads[0].shape[0] * dp_world()  # the global batch
         anchors = self.anchors_feat(heads[0].device)
         labels = labels.to(torch.float32)
         loss_box = loss_obj = loss_cls = 0.0

@@ -41,6 +41,9 @@ def clip_grads_by_global_norm_(params, max_norm: float) -> None:
         return
     norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    if hasattr(norm, "full_tensor"):  # FSDP's sharded gradients: scale the local shards
+        norm = norm.full_tensor()
+        grads = [g.to_local() for g in grads]
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
 
@@ -77,9 +80,9 @@ def build_optimizer(
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     if grad_clip_norm and grad_clip_norm > 0:
-        params = groups[True] + groups[False]
-        opt.register_step_pre_hook(
-            lambda *_: clip_grads_by_global_norm_(params, grad_clip_norm))
+        # the optimizer's own parameters at each step: FSDP replaces them
+        opt.register_step_pre_hook(lambda o, *_: clip_grads_by_global_norm_(
+            [p for g in o.param_groups for p in g["params"]], grad_clip_norm))
     return MultiSteps(opt, accum_steps) if accum_steps > 1 else opt
 
 
@@ -104,7 +107,13 @@ class MultiSteps:
         self.inner = inner
         self.every_k = int(every_k)
         self.mini_step = 0
-        self.params = [p for g in inner.param_groups for p in g["params"]]
+        self.rebind()
+
+    def rebind(self) -> None:
+        """Follow the inner optimizer's parameters afresh (FSDP replaces a
+        model's parameters; `parallel.fsdp.rebind_optimizer`), with zeroed
+        means."""
+        self.params = [p for g in self.inner.param_groups for p in g["params"]]
         self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
 
     @property

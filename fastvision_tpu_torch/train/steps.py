@@ -11,9 +11,23 @@ device before the forward, with a numpy Generator seeded from
 (``transform_seed``, step); a step called with a ``torch.Generator``
 (`Fit` passes one seeded from (seed, step)) hands it to models that draw
 dropout masks (VGG's classifier).
+
+Data parallel: a model wrapped in ``DistributedDataParallel`` or sharded by
+``fully_shard`` (`Fit` places it, `parallel.fsdp`) trains on this rank's
+share of the global batch. The step runs it inside
+`core.distributed.data_parallel` (global BN statistics and loss
+denominators), averages the logged metrics over the ranks, gathers the
+global batch for a ``batch_transform`` (the mix pairs images across the
+whole batch, as the JAX package's does) or for microbatches (each a
+contiguous slice of the global batch, as the JAX package's) and keeps its
+own share of each, and skips the gradient all-reduce of the accumulation
+passes whose gradients are summed locally first: every microbatch but the
+last, and under DDP every `MultiSteps` call but the k-th, whose running
+means are then averaged over the ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 from typing import Callable
@@ -23,10 +37,66 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.distributed import all_gather_cat, data_parallel, rank, world_size
 from ..data.pipeline import normalize_images
 from ..device import resolve_device
 from ..nn.layers import memory_format_for
-from .optim import set_lr
+from .optim import MultiSteps, set_lr
+
+
+def parallel_kind(model: nn.Module) -> str | None:
+    """'ddp' for a ``DistributedDataParallel`` wrapper, 'fsdp' for a module
+    sharded by ``fully_shard``, else None."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if isinstance(model, DistributedDataParallel):
+        return "ddp"
+    if torch.distributed.is_available():
+        from torch.distributed.fsdp import FSDPModule
+
+        if isinstance(model, FSDPModule):
+            return "fsdp"
+    return None
+
+
+def unwrap(model: nn.Module) -> nn.Module:
+    """The module a ``DistributedDataParallel`` wraps (the model itself
+    otherwise): its names and ``state_dict`` are the plain model's."""
+    return model.module if parallel_kind(model) == "ddp" else model
+
+
+def plain_value(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor (a norm of FSDP's sharded gradients) as a plain tensor."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@contextlib.contextmanager
+def gradient_sync(model: nn.Module, enabled: bool):
+    """Backward passes inside skip (``enabled=False``) or make the data
+    parallel gradient reduction of ``model``."""
+    kind = parallel_kind(model)
+    if enabled or kind is None:
+        yield
+    elif kind == "ddp":
+        with model.no_sync():
+            yield
+    else:
+        model.set_requires_gradient_sync(False)
+        try:
+            yield
+        finally:
+            model.set_requires_gradient_sync(True)
+
+
+def _average_over_ranks_(tensors: list[torch.Tensor]) -> None:
+    """In place: each tensor becomes its mean over the ranks (one
+    all-reduce of their concatenation)."""
+    dtype = torch.float64 if any(t.dtype == torch.float64 for t in tensors) else torch.float32
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+    torch.distributed.all_reduce(flat)
+    flat /= world_size()
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def device_batch(batch: dict) -> dict:
@@ -64,7 +134,7 @@ def _forward(model: nn.Module, images: torch.Tensor, dtype: torch.dtype, remat: 
     x = normalize_images(images, dtype, imagenet=imagenet)
     # only models that draw random numbers take the generator (VGG's dropout)
     kw = ({"generator": generator} if generator is not None
-          and "generator" in inspect.signature(model.forward).parameters else {})
+          and "generator" in inspect.signature(unwrap(model).forward).parameters else {})
     with torch.autocast(x.device.type, dtype=dtype,
                         enabled=dtype in (torch.bfloat16, torch.float16)):
         if remat:
@@ -101,11 +171,18 @@ def make_train_step(
       numpy Generator seeded from (transform_seed, state.step), so the
       draws repeat on resume and match between the card and the CPU;
     - with_grad_norm: add metrics['grad_norm'], the global norm of the
-      gradients before clipping (one extra read of every gradient);
+      gradients before clipping (one extra read of every gradient); NaN for
+      a DDP `MultiSteps` call that skips the all-reduce, whose gradients
+      are the rank's own;
     - imagenet: standardize the images with the ImageNet mean and std
       after scaling them to [0, 1] (the classifiers' input);
     - rng: a ``torch.Generator`` on the model's device for models that draw
       random numbers in their forward (dropout); others ignore it.
+
+    Under data parallelism (see the module docstring) ``batch`` is this
+    rank's share and the metrics are the global batch's; microbatch i is
+    this rank's share of the global batch's i-th slice, as in the JAX
+    package (the global batch is gathered for it).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -130,27 +207,61 @@ def make_train_step(
         parts = {k: v.chunk(accum_steps) for k, v in batch.items()}
         return [{k: parts[k][i] for k in batch} for i in range(accum_steps)]
 
+    def microbatches(batch: dict, parallel: bool, step: int) -> list[dict]:
+        """The transformed batch in ``accum_steps`` parts. Over several
+        ranks with a transform or microbatches, the global batch is
+        gathered first: the transform pairs images across all of it, and
+        microbatch i is this rank's contiguous share of the global batch's
+        i-th contiguous slice, as the JAX package splits the global batch."""
+        draws = (np.random.default_rng((transform_seed, step))
+                 if batch_transform is not None else None)
+        if not parallel or world_size() == 1 or (batch_transform is None and accum_steps == 1):
+            return split(batch if draws is None else batch_transform(batch, draws))
+        split(batch)  # this rank's share must split too
+        full = {k: all_gather_cat(v) for k, v in batch.items()}
+        if draws is not None:
+            full = batch_transform(full, draws)
+        w, r = world_size(), rank()
+        return [{k: v[r * (len(v) // w):(r + 1) * (len(v) // w)] for k, v in mb.items()}
+                for mb in split(full)]
+
     def train_step(state: TrainState, batch: dict, lr: float,
                    rng: torch.Generator | None = None):
         model, opt = state.model, state.optimizer
-        batch = device_batch(batch)
-        if batch_transform is not None:
-            batch = batch_transform(batch, np.random.default_rng((transform_seed, state.step)))
+        kind = parallel_kind(model)
+        mbs = microbatches(device_batch(batch), kind is not None, state.step)
+        # a MultiSteps call that only accumulates: DDP skips its all-reduce
+        # (FSDP keeps unsynchronized gradients out of .grad, so it reduces)
+        local = (kind == "ddp" and isinstance(opt, MultiSteps)
+                 and opt.mini_step + 1 < opt.every_k)
         model.train()
         model.zero_grad(set_to_none=True)
-        if accum_steps == 1:
-            loss, metrics = grads_of(model, batch, rng)
-        else:
-            runs = [grads_of(model, mb, rng) for mb in split(batch)]
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            torch._foreach_div_(grads, float(accum_steps))
-            loss = torch.stack([r[0] for r in runs]).mean()
-            metrics = {k: torch.stack([r[1][k] for r in runs]).mean() for k in runs[0][1]}
+        with data_parallel() if kind else contextlib.nullcontext():
+            if accum_steps == 1:
+                with gradient_sync(model, not local):
+                    loss, metrics = grads_of(model, mbs[0], rng)
+            else:
+                runs = []
+                for i, mb in enumerate(mbs):
+                    with gradient_sync(model, not local and i == accum_steps - 1):
+                        runs.append(grads_of(model, mb, rng))
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                torch._foreach_div_(grads, float(accum_steps))
+                loss = torch.stack([r[0] for r in runs]).mean()
+                metrics = {k: torch.stack([r[1][k] for r in runs]).mean() for k in runs[0][1]}
         metrics["loss"] = loss
-        if with_grad_norm:
+        if kind and world_size() > 1:
+            values = list(metrics.values())
+            _average_over_ranks_(values)
+        if with_grad_norm and local:  # the rank's own gradient: the global norm is unknown
+            metrics["grad_norm"] = torch.tensor(float("nan"), device=loss.device)
+        elif with_grad_norm:
             grads = [p.grad for p in model.parameters() if p.grad is not None]
-            metrics["grad_norm"] = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            metrics["grad_norm"] = plain_value(torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))))
+        if (kind == "ddp" and isinstance(opt, MultiSteps) and opt.every_k > 1
+                and opt.mini_step + 1 == opt.every_k and world_size() > 1):
+            _average_over_ranks_(opt.acc)  # the local means of the calls that skipped DDP
         set_lr(opt, lr)
         opt.step()
         state.step += 1

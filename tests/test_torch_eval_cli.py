@@ -351,10 +351,16 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(SystemExit, match="mp4v writer.*item 6\\)"):
             cli.main(args)
     common = [f"data.data_root={root}", "--device", "cpu"]
-    for override, item in (("mesh_model=2", 17), ("fsdp=true", 17),
-                           ("compile_cache=cache", 10), ("data.host_shard=auto", 17)):
+    for override, item in (("mesh_model=2", 17), ("mesh_time=2", 17),
+                           ("compile_cache=cache", 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             cli.main(["eval", override, *common])
+    # data parallel is ported: a mesh must match the world size (one
+    # process here), and multihost=true without a process group fails
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
+        cli.main(["eval", "--task", "cls", "--ckpt", str(tmp_path), "mesh_data=2", *common])
+    with pytest.raises(RuntimeError, match="no process group to join"):
+        cli.main(["eval", "--task", "cls", "--ckpt", str(tmp_path), "multihost=true", *common])
     with pytest.raises(ValueError, match="YOLOv3"):
         cli.main(["eval", "model.name=faster_rcnn", *common])
     if not torch.cuda.is_available():

@@ -11,7 +11,9 @@ bit-equal to the plain version and byte-equal to that route on
 `testing.INT8_IMPLICIT_CASES`, its fused epilogue (residual add, the
 consumer's int8 input) byte-equal to the composed route; the patches line
 kernel on the stems; a quantized Detector on the card against the CPU,
-linked and unlinked, with no float conv on a quantized layer).
+linked and unlinked, with no float conv on a quantized layer), and data
+parallelism (the global BN on the card against the CPU; a step under DDP
+and FSDP in a one-rank NCCL group against the plain step).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -1452,3 +1454,101 @@ def test_exported_detector_on_card_runs_the_kernels_and_equals_eager(tmp_path, i
     assert want["valid"].any()
     for k, t in want.items():
         assert torch.equal(got[k], t), k
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_global_batchnorm_on_card_equals_cpu():
+    """`GlobalBatchNorm` (forward and backward) on the card against the CPU,
+    in a one-rank gloo group (gloo reduces CUDA and CPU tensors), float32:
+    outputs and gradients within 1e-4 of their largest magnitude."""
+    import torch.distributed as dist
+
+    from fastvision_tpu_torch.nn.layers import GlobalBatchNorm
+
+    dev = _cuda()
+    if dist.is_initialized():
+        pytest.skip("a process group exists already")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        g = np.random.default_rng(5)
+        x, dy = g.normal(1, 2, (8, 32, 13, 13)), g.normal(0, 1, (8, 32, 13, 13))
+        w, b = g.normal(1, 0.2, 32), g.normal(0, 0.2, 32)
+
+        def run(device):
+            xt = torch.tensor(x, dtype=torch.float32, device=device).to(
+                memory_format=torch.channels_last).requires_grad_(True)
+            wt = torch.tensor(w, dtype=torch.float32, device=device, requires_grad=True)
+            bt = torch.tensor(b, dtype=torch.float32, device=device, requires_grad=True)
+            y, mean, var = GlobalBatchNorm.apply(xt, wt, bt, 1e-5)
+            y.backward(torch.tensor(dy, dtype=torch.float32, device=device))
+            return [t.detach().cpu() for t in (y, mean, var, xt.grad, wt.grad, bt.grad)]
+
+        for got, want in zip(run(dev), run("cpu")):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world_size_1_over_nccl_equals_the_plain_step():
+    """One float32 SGD step (TF32 off, cuDNN deterministic) of a shallow
+    YOLOv3 at 256 px, batch 4, under ``Fit(mesh=...)`` in a one-rank NCCL
+    group: DDP bit-equal to the plain ``Fit`` step, FSDP within 1e-5 of
+    each tensor's std (momentum included)."""
+    import torch.distributed as dist
+
+    from fastvision_tpu_torch.core import create_mesh
+    from fastvision_tpu_torch.parallel import full_state
+    from fastvision_tpu_torch.train import Fit, build_optimizer, make_train_step
+
+    dev = _cuda()
+    if dist.is_initialized():
+        pytest.skip("a process group exists already")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    _, loss_fn = _train_parts()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _one_batch(256).items()
+             if k in ("images", "labels")}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    states = {}
+    try:
+        for kind in (None, "ddp", "fsdp"):
+            model = YOLOv3(num_classes=80, stage_sizes=(1, 1, 1, 1, 1),
+                           generator=torch.Generator().manual_seed(7))
+            fit = Fit(model, loss_fn, build_optimizer("sgd", model, momentum=0.9), None,
+                      mesh=create_mesh() if kind else None, fsdp=kind == "fsdp",
+                      step_fn=make_train_step(loss_fn), device=dev)
+            fit.state, _ = fit.step_fn(fit.state, batch, 1e-2)
+            if kind == "fsdp":
+                states[kind] = full_state(model, fit.state.optimizer)
+            else:
+                states[kind] = ({k: v.cpu() for k, v in model.state_dict().items()},
+                                {i: s["momentum_buffer"].cpu() for i, s in
+                                 fit.state.optimizer.state_dict()["state"].items()})
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+        dist.destroy_process_group()
+    plain, ddp = states[None], states["ddp"]
+    for k, v in plain[0].items():
+        assert torch.equal(ddp[0][k], v), k
+    for i, v in plain[1].items():
+        assert torch.equal(ddp[1][i], v), i
+    fsdp_model, fsdp_opt = states["fsdp"]
+    fsdp_mom = {i: s["momentum_buffer"] for i, s in fsdp_opt["state"].items()}
+    for got, want in ((fsdp_model, plain[0]), (fsdp_mom, plain[1])):
+        for k, w in want.items():
+            if w.is_floating_point() and w.numel() > 1:
+                d = float((got[k] - w).abs().max())
+                assert d <= 1e-5 * max(float(w.std()), 1e-12), (k, d)

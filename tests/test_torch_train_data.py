@@ -164,8 +164,11 @@ def test_dataset_and_label_helpers_match_jax(det_root, tmp_path):
 
 def test_loader_rejects_what_is_not_ported():
     ds = SyntheticDetectionDataset(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionLoader(ds, host_shard="0/2")
+    # host sharding is ported: a malformed spec is refused
+    for spec in ("2/2", "x", (0, 0)):
+        with pytest.raises(ValueError, match="host_shard"):
+            DetectionLoader(ds, host_shard=spec)
+    assert len(DetectionLoader(ds, batch_size=1, host_shard="1/2")) == 2
     # use_native and emit='i420' are ported; refused as the JAX package refuses
     for kw in (dict(emit="bgr"), dict(emit="i420", native_jpeg=True),
                dict(emit="rgb", native_jpeg=True, train=False)):

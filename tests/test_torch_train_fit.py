@@ -223,10 +223,14 @@ def test_fit_ema_eval_state_and_preempt(tiny):
 
 
 def test_fit_rejects_what_is_not_ported(tiny, tmp_path):
-    for kw in (dict(mesh=object()), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tiny(**kw)
-    with pytest.raises(NotImplementedError):
+    from fastvision_tpu_torch.core.mesh import Mesh
+
+    for kw, what in ((dict(model=2), "tensor parallel"), (dict(time=2), "time sharding")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.*item 17"):
+            Mesh(1, **kw)  # no such mesh reaches Fit or an evaluator
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
+        tiny(mesh=object())
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tt.detection_evaluator(lambda s, b: None, mesh=object())
 
     class Empty:

@@ -229,5 +229,7 @@ def test_corrupt_frame_raises_then_skips(tmp_path):
     with pytest.raises(ValueError, match="no images"):
         VideoFolderDataset(str(tmp_path), "train").load_clip(3, 4, "average", 8,
                                                              np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        VideoClipLoader(ds, host_shard="0/2")
+    # host sharding is ported: a malformed spec is refused
+    with pytest.raises(ValueError, match="host_shard"):
+        VideoClipLoader(ds, host_shard="2/2")
+    assert len(VideoClipLoader(ds, batch_size=1, host_shard="0/2")) == len(ds) // 2

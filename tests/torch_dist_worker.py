@@ -1,0 +1,541 @@
+"""One rank of the port's data-parallel checks on the CPU (gloo).
+
+    python tests/torch_dist_worker.py <scenario> <rank> <world> <port> <workdir>
+
+Started by tests/test_torch_distributed.py (scenario ``dp``) and
+tests/test_torch_fsdp.py (scenario ``fsdp``), once per rank, on inputs the
+test wrote into ``workdir``; each rank saves what it computed to
+``workdir/<scenario>_rank<rank>.pt`` for the test to compare (the ranks
+but 0 save large tensors as digests). Imports no
+JAX: the JAX side of each comparison runs in the test.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def _load(workdir, name):
+    return torch.load(os.path.join(workdir, name), weights_only=False)
+
+
+def _fit(model, loss_fn, optimizer, mesh, dtype=torch.float64, **kw):
+    from fastvision_tpu_torch.train import Fit, make_train_step
+
+    step = kw.pop("step_fn", None) or make_train_step(loss_fn, dtype)
+    return Fit(model, loss_fn, optimizer, None, mesh=mesh, step_fn=step, device="cpu", **kw)
+
+
+def _plain_state(state):
+    """A TrainState's (model state, optimizer state) in the single-process
+    format (on rank 0; a collective under FSDP)."""
+    from fastvision_tpu_torch.parallel import full_state
+    from fastvision_tpu_torch.train.steps import parallel_kind, unwrap
+
+    model = unwrap(state.model)
+    if parallel_kind(model) == "fsdp":
+        return full_state(model, state.optimizer)
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            state.optimizer.state_dict())
+
+
+def _equal_to_file(workdir, model_sd, opt_sd) -> bool | None:
+    """The gathered state bit-equal to the one-process checkpoint's (None
+    on ranks that hold no gathered state)."""
+    from fastvision_tpu_torch.core import CheckpointManager
+
+    if not model_sd:
+        return None
+    plain = CheckpointManager(os.path.join(workdir, "plain_ckpt")).restore(0)["state"]
+    return (all(torch.equal(model_sd[k], v) for k, v in plain["model"].items())
+            and all(torch.equal(opt_sd["state"][i]["momentum_buffer"], s["momentum_buffer"])
+                    for i, s in plain["optimizer"]["state"].items()))
+
+
+def max_rel_to_std(got: dict, want: dict) -> float:
+    """max over the float tensors of max|got - want| / std(want) (1 for a
+    tensor of no spread)."""
+    worst = 0.0
+    for k, w in want.items():
+        if w.is_floating_point() and w.numel() > 1:
+            d = float((got[k].double() - w.double()).abs().max())
+            worst = max(worst, d / (float(w.double().std()) or 1.0))
+    return worst
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    t = t.detach().cpu().contiguous()
+    return f"{t.dtype}{tuple(t.shape)}" + hashlib.sha1(t.numpy().tobytes()).hexdigest()
+
+
+def _digest_large(obj):
+    """``obj`` with every tensor of more than 10^4 elements replaced by its
+    `digest` (what ranks other than 0 save: enough to hold them bit-equal
+    to rank 0)."""
+    if isinstance(obj, torch.Tensor) and obj.numel() > 10_000:
+        return digest(obj)
+    if isinstance(obj, dict):
+        return {k: _digest_large(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_digest_large(v) for v in obj)
+    return obj
+
+
+def same(a: torch.Tensor, b) -> bool:
+    """Rank 0's tensor ``a`` bit-equal to another rank's ``b`` (a tensor or
+    its `digest`)."""
+    return digest(a) == b if isinstance(b, str) else torch.equal(a, b)
+
+
+def _yolo(workdir, num_classes):
+    from fastvision_tpu_torch.models import YOLOv3
+
+    model = YOLOv3(num_classes=num_classes, stage_sizes=(1, 1, 1, 1, 1))
+    model.load_state_dict(_load(workdir, "yolo_init.pt"))
+    return model.double()
+
+
+def _resnet(state=None, k=10):
+    from fastvision_tpu_torch.models import classification as tz
+
+    model = tz.ResNet(tz.Bottleneck, (1, 1, 1, 1), num_classes=k, groups=4, base_width=4,
+                      generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    return model.double()
+
+
+def _batches(arrays, mesh):
+    from fastvision_tpu_torch.core import shard_batch
+
+    return [shard_batch({k: torch.from_numpy(v[i]) for k, v in arrays.items()}, mesh)
+            for i in range(len(next(iter(arrays.values()))))]
+
+
+def check_global_bn(rank, world, out):
+    """Global BN on this rank's slice vs one process on the global batch."""
+    from fastvision_tpu_torch.core.distributed import data_parallel
+    from fastvision_tpu_torch.nn.layers import BatchNorm
+
+    g = np.random.default_rng(7)
+    # the ranks' slices have different statistics
+    x = g.normal(0, 1, (4, 6, 5, 5)) * np.array([1, 1, 4, 4])[:, None, None, None] + \
+        np.array([0, 0, 3, 3])[:, None, None, None]
+    dy = g.normal(0, 1, x.shape)
+    w, b = g.normal(1, 0.2, 6), g.normal(0, 0.2, 6)
+
+    def run(xs, dys, dp):
+        bn = BatchNorm(6).double()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(w))
+            bn.bias.copy_(torch.from_numpy(b))
+        xt = torch.from_numpy(xs).requires_grad_(True)
+        with data_parallel() if dp else torch.enable_grad():
+            for _ in range(2):  # the running statistics move twice
+                y = bn(xt)
+        (y * torch.from_numpy(dys)).sum().backward()
+        return {"y": y.detach(), "dx": xt.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+                "running_mean": bn.running_mean.clone(), "running_var": bn.running_var.clone()}
+
+    s = slice(rank * 4 // world, (rank + 1) * 4 // world)
+    out["bn_full"] = run(x, dy, False)
+    local = run(x[s], dy[s], True)
+    for k in ("dw", "db"):  # the ranks' shares sum to the global gradient
+        torch.distributed.all_reduce(local[k])
+    out["bn_local"] = local
+    out["bn_slice"] = (s.start, s.stop)
+
+
+def check_yolo_accum(workdir, mesh, out):
+    """The YOLOv3 loss under DDP with MultiSteps(2): two calls, one update;
+    then one step of 2 microbatches."""
+    from fastvision_tpu_torch.train import YOLOv3Loss, build_optimizer, make_train_step
+
+    inputs = _load(workdir, "yolo_inputs.pt")
+    model = _yolo(workdir, inputs["num_classes"])
+    loss_obj = YOLOv3Loss(inputs["anchors"], num_classes=inputs["num_classes"])
+
+    def loss_fn(heads, batch):
+        o = loss_obj(heads, batch["labels"])
+        return o.total, {"box": o.box, "obj": o.obj, "cls": o.cls}
+
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model, accum_steps=2), mesh)
+    metrics = []
+    for batch, lr in zip(_batches(inputs["batches"], mesh), inputs["lrs"]):
+        fit.state, m = fit.step_fn(fit.state, batch, lr)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["yolo"] = {"metrics": metrics, "state": _plain_state(fit.state)[0],
+                   "positives": [int((b["labels"][..., 0] >= 0).sum())
+                                 for b in _batches(inputs["batches"], mesh)]}
+    # in-step microbatches: one step of 2 over the first global batch
+    model = _yolo(workdir, inputs["num_classes"])
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model), mesh,
+               step_fn=make_train_step(loss_fn, torch.float64, accum_steps=2))
+    fit.state, m = fit.step_fn(fit.state, _batches(inputs["batches"], mesh)[0], inputs["lrs"][0])
+    out["yolo_micro"] = {"metrics": {k: float(v) for k, v in m.items()},
+                         "state": _plain_state(fit.state)[0]}
+
+
+def check_cls_mix(workdir, mesh, out):
+    """A classifier step with mixup, then one with cutmix, under DDP."""
+    from fastvision_tpu_torch.train import (build_optimizer, make_classification_mix,
+                                            make_train_step, soft_cross_entropy)
+
+    inputs = _load(workdir, "cls_inputs.pt")
+    model = _resnet(inputs["state"])
+    mix = make_classification_mix(inputs["k"], **inputs["mix"])
+    draws = inputs["draws"]
+    fit = None
+
+    def transform(batch, rng):
+        return mix(batch, draws=draws[fit.state.step])
+
+    def loss_fn(logits, batch):
+        return soft_cross_entropy(logits, batch["soft"]), {}
+
+    step = make_train_step(loss_fn, torch.float64, imagenet=True, batch_transform=transform)
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model), mesh, step_fn=step)
+    metrics, states = [], []
+    for batch in _batches(inputs["batches"], mesh):
+        fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+        metrics.append({k: float(v) for k, v in m.items()})
+        states.append(_plain_state(fit.state)[0])
+    out["cls"] = {"metrics": metrics, "states": states,
+                  "buffers_equal": _buffers_agree(fit.state.model)}
+
+
+def check_preempt(rank, workdir, mesh, out):
+    """Rank 1 asks to stop during the second of an epoch's 3 steps, after
+    the epoch's only agreement (before step 0): both ranks must stop at
+    the epoch's end, before validation, and rank 0 write one checkpoint."""
+    from fastvision_tpu_torch.core.distributed import all_gather_cat
+    from fastvision_tpu_torch.nn.layers import BatchNorm
+    from fastvision_tpu_torch.train import Fit, build_optimizer, cross_entropy, make_train_step
+
+    g = np.random.default_rng(2)
+
+    class Loader:
+        batches = [{"images": torch.from_numpy(g.integers(0, 256, (4, 8, 8, 3), dtype=np.uint8)),
+                    "labels": torch.from_numpy(g.integers(0, 4, 4))} for _ in range(3)]
+
+        def epoch(self, e, start_batch=0):
+            return iter(self.batches[start_batch:])
+
+    def loss_fn(logits, batch):
+        return cross_entropy(logits, batch["labels"]), {}
+
+    inner = make_train_step(loss_fn, torch.float64)
+    fit = None
+
+    def step(state, batch, lr):
+        if rank == 1 and fit.global_step == 1:
+            fit.request_preempt()
+        return inner(state, batch, lr)
+
+    def evaluator(state, loader):  # a collective, as the evaluators run
+        return {"ranks": float(all_gather_cat(torch.ones(1, dtype=torch.float64)).sum())}
+
+    class Tiny(torch.nn.Module):  # NHWC in, as the zoo's models
+        def __init__(self):
+            super().__init__()
+            self.body = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 1), BatchNorm(4),
+                                            torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+                                            torch.nn.Linear(4, 4))
+
+        def forward(self, x):
+            return self.body(x.permute(0, 3, 1, 2))
+
+    model = Tiny().double()
+    ckpt = os.path.join(workdir, "preempt_ckpt")
+    fit = Fit(model, loss_fn, build_optimizer("sgd", model), Loader(), val_loader=Loader(),
+              evaluator=evaluator, epochs=2, mesh=mesh, step_fn=step, ckpt_dir=ckpt,
+              device="cpu")
+    fit.run()
+    out["preempt"] = {"interrupted": fit.interrupted, "global_step": fit.global_step}
+
+
+def _buffers_agree(model) -> bool:
+    """Every BN buffer is the same on every rank (DDP broadcasts none)."""
+    from fastvision_tpu_torch.core.distributed import all_gather_cat
+
+    for b in model.buffers():
+        both = all_gather_cat(b.detach().reshape(1, -1).double())
+        if not torch.equal(both[0], both[-1]):
+            return False
+    return True
+
+
+def check_loaders(workdir, out):
+    """Each loader's host-sharded epochs ('auto': from the group)."""
+    from fastvision_tpu_torch.data import (ClassificationDataset, ClassificationLoader,
+                                           DetectionDataset, DetectionLoader, VideoClipLoader,
+                                           VideoFolderDataset)
+    from fastvision_tpu_torch.data.augment import Augmentation, HorizontalFlip, HSVJitter
+
+    root = os.path.join(workdir, "data")
+    loaders = {
+        "det": DetectionLoader(
+            DetectionDataset(os.path.join(root, "det"), "train"), 64, 2, 8, train=True,
+            augmentation=Augmentation([HorizontalFlip(p=0.5), HSVJitter(p=0.5)]),
+            mosaic_prob=0.5, seed=3, host_shard="auto", num_workers=2),
+        "cls": ClassificationLoader(
+            ClassificationDataset(os.path.join(root, "cls"), "train"), 32, 2,
+            augmentation=Augmentation([HorizontalFlip(p=0.5)]), seed=3, host_shard="auto"),
+        "video": VideoClipLoader(
+            VideoFolderDataset(os.path.join(root, "video"), "train"), num_frames=4, size=16,
+            batch_size=1, seed=3, host_shard="auto", num_workers=2,
+            worker_backend="process"),
+    }
+    res = {}
+    for name, loader in loaders.items():
+        res[name] = {"len": len(loader), "host": (loader.host_index, loader.host_count),
+                     "epochs": [[{"images": b["images"], "labels": b["labels"]}
+                                 for b in loader.epoch(e)] for e in (0, 1)]}
+        loader.close()
+    out["loaders"] = res
+
+
+def check_evaluators(workdir, mesh, out):
+    """The three evaluators with the mesh (each rank its share of every
+    batch) and without (this process alone, every batch whole)."""
+    from fastvision_tpu_torch.data import (ClassificationDataset, ClassificationLoader,
+                                           DetectionDataset, DetectionLoader, VideoClipLoader,
+                                           VideoFolderDataset)
+    from fastvision_tpu_torch.infer import decode_predictions
+    from fastvision_tpu_torch.models.video import SlowFast
+    from fastvision_tpu_torch.ops import batched_non_max_suppression
+    from fastvision_tpu_torch.train import (TrainState, classification_evaluator,
+                                            detection_evaluator, make_eval_step,
+                                            video_multiclip_evaluator)
+
+    root = os.path.join(workdir, "data")
+    inputs = _load(workdir, "yolo_inputs.pt")
+    anchors = torch.from_numpy(inputs["anchors"])
+
+    def postprocess(heads, batch):
+        pred = decode_predictions(heads, anchors, (32, 16, 8), "v5")
+        return batched_non_max_suppression(pred.float(), conf_thres=0.3, iou_thres=0.45,
+                                           max_det=20, pre_nms_top_k=64)
+
+    det_loader = DetectionLoader(DetectionDataset(os.path.join(root, "det"), "val"), 64, 4, 8,
+                                 train=False)
+    cls_loader = ClassificationLoader(ClassificationDataset(os.path.join(root, "cls"), "val"),
+                                      32, 4, train=False)
+    vid_loader = VideoClipLoader(VideoFolderDataset(os.path.join(root, "video"), "val"),
+                                 num_frames=4, size=16, batch_size=4, train=False)
+    g = torch.Generator().manual_seed(1)
+    vid = SlowFast((1, 1, 1, 1), alpha=4, beta_inv=4, expansion=1, num_classes=4,
+                   generator=g).double()
+    cases = {
+        "det": (lambda m: detection_evaluator(make_eval_step(postprocess, torch.float64),
+                                              mesh=m),
+                _yolo(workdir, inputs["num_classes"]), det_loader),
+        "cls": (lambda m: classification_evaluator(
+                    make_eval_step(dtype=torch.float64, imagenet=True), mesh=m),
+                _resnet(k=4), cls_loader),
+        "video": (lambda m: video_multiclip_evaluator(
+                      make_eval_step(dtype=torch.float64, imagenet=True), n_clips=2, mesh=m),
+                  vid, vid_loader),
+    }
+    res = {}
+    for name, (build, model, loader) in cases.items():
+        state = TrainState.create(model, None, "cpu")
+        res[name] = {"mesh": build(mesh)(state, loader), "alone": build(None)(state, loader)}
+        loader.close()
+    out["evaluators"] = res
+
+
+def check_fsdp(rank, workdir, mesh, out):
+    """FSDP vs DDP: two SGD + momentum steps of a small ResNet, the bytes
+    each rank holds, a many-unit sharding of a YOLOv3, and checkpoints."""
+    from fastvision_tpu_torch.parallel import fsdp_shard_module, fsdp_spec
+    from fastvision_tpu_torch.train import build_optimizer, cross_entropy
+
+    inputs = _load(workdir, "fsdp_inputs.pt")
+
+    def loss_fn(logits, batch):
+        return cross_entropy(logits, batch["labels"]), {}
+
+    res = {}
+    for kind in ("ddp", "fsdp"):
+        model = _resnet(inputs["state"])
+        opt = build_optimizer("sgd", model, momentum=0.9)
+        fit = _fit(model, loss_fn, opt, mesh, fsdp=kind == "fsdp",
+                   ckpt_dir=os.path.join(workdir, f"ckpt_{kind}"))
+        metrics = []
+        for batch in _batches(inputs["batches"], mesh):
+            fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if kind == "fsdp":
+            local = sharded = full = 0
+            for p in fit.state.model.parameters():
+                full += p.numel() * p.element_size()
+                if fsdp_spec(p, mesh.data) is not None:
+                    sharded += p.numel() * p.element_size()
+                    local += p.to_local().numel() * p.element_size()
+            res["bytes"] = {"local": local, "sharded": sharded, "full": full,
+                            "placements": {n: str(p.placements[0]) for n, p in
+                                           fit.state.model.named_parameters()}}
+        fit._save(0, {"epoch": 0, "global_step": 2})
+        model_sd, opt_sd = _plain_state(fit.state)
+        res[kind] = {"metrics": metrics, "state": model_sd, "optimizer": opt_sd}
+        # the reverse direction: a one-process checkpoint resumed under this placement
+        model = _resnet(inputs["state"])
+        fit = _fit(model, loss_fn, build_optimizer("sgd", model, momentum=0.9), mesh,
+                   fsdp=kind == "fsdp", ckpt_dir=os.path.join(workdir, "plain_ckpt"),
+                   resume=True)
+        model_sd, opt_sd = _plain_state(fit.state)
+        res[f"{kind}_resumed"] = {"epoch": fit.start_epoch,
+                                  "equal_to_file": _equal_to_file(workdir, model_sd, opt_sd)}
+
+    # many units (each ConvBN / block its own all-gather): the step equals DDP's
+    from fastvision_tpu_torch.train import YOLOv3Loss, make_train_step
+
+    yin = _load(workdir, "yolo_inputs.pt")
+    loss_obj = YOLOv3Loss(yin["anchors"], num_classes=yin["num_classes"])
+
+    def yolo_loss(heads, batch):
+        return loss_obj(heads, batch["labels"]).total, {}
+
+    from fastvision_tpu_torch.parallel import rebind_optimizer
+    from fastvision_tpu_torch.train import TrainState
+
+    batch = _batches({k: v[:1] for k, v in yin["batches"].items()}, mesh)[0]
+    got = {}
+    for kind in ("ddp", "units"):
+        model = _yolo(workdir, yin["num_classes"])
+        opt = build_optimizer("sgd", model, momentum=0.9)
+        if kind == "ddp":
+            state = _fit(model, yolo_loss, opt, mesh).state
+        else:
+            state = TrainState.create(model, opt, "cpu")
+            names = fsdp_shard_module(model, mesh.data, unit_numel=2000)
+            rebind_optimizer(opt, names, model)
+            got["n_units"] = sum(1 for m in model.modules()
+                                 if type(m).__name__.startswith("FSDP"))
+        state, m = make_train_step(yolo_loss, torch.float64)(state, batch, 1e-2)
+        got[kind] = {"loss": float(m["loss"]), "state": _plain_state(state)[0]}
+    if rank == 0:  # the gathered state is rank 0's
+        got["max_rel_to_std"] = max_rel_to_std(got["units"].pop("state"),
+                                               got["ddp"].pop("state"))
+    res["units"] = got
+
+    # microbatches: every backward but the last skips the reduction (DDP's
+    # no_sync, FSDP's set_requires_gradient_sync)
+    micro = {}
+    for kind in ("ddp", "fsdp"):
+        model = _resnet(inputs["state"])
+        fit = _fit(model, loss_fn, build_optimizer("sgd", model, momentum=0.9), mesh,
+                   fsdp=kind == "fsdp",
+                   step_fn=make_train_step(loss_fn, torch.float64, accum_steps=2))
+        for batch in _batches(inputs["batches"], mesh):
+            fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+        micro[kind] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "state": _plain_state(fit.state)[0]}
+    res["microbatch"] = micro
+    out["fsdp"] = res
+
+
+def check_cli_fsdp(workdir, out):
+    """``train-cls ... mesh_data=2 fsdp=true multihost=true`` on this rank."""
+    import json
+
+    from fastvision_tpu_torch import cli
+
+    cli._build_zoo_model = lambda cfg, task="cls": _resnet(k=cfg.model.num_classes).float()
+    ckpt = os.path.join(workdir, "cli_ckpt")
+    fit = cli.main([
+        "train-cls", f"data.data_root={os.path.join(workdir, 'data', 'cls')}",
+        "data.input_size=32", "data.batch_size=4", "data.num_workers=0",
+        "model.num_classes=4", f"train.ckpt_dir={ckpt}", "train.epochs=2",
+        "train.warmup_epochs=0", "train.bf16=false", "train.mixup_alpha=0.2",
+        "mesh_data=2", "fsdp=true", "multihost=true", "data.host_shard=auto",
+        "--device", "cpu"])
+    recs = []
+    if os.path.exists(os.path.join(ckpt, "train.jsonl")):
+        with open(os.path.join(ckpt, "train.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    out["cli"] = {"records": recs, "kind": type(fit.state.model).__name__,
+                  "steps": fit.global_step}
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_ranks(scenario: str, workdir: str, world: int = 2, timeout: float = 300):
+    """Start ``scenario`` on ``world`` ranks (one process each, a fresh TCP
+    port). -> ``collect()``, which waits for them and returns what each rank
+    saved, or raises with a failed rank's stderr."""
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), scenario, str(r),
+                               str(world), str(port), workdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
+             for r in range(world)]
+    return lambda: _collect(procs, scenario, workdir, timeout)
+
+
+def _collect(procs, scenario, workdir, timeout):
+    world = len(procs)
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=timeout)
+            if p.returncode:
+                errors.append(f"rank {r} exited {p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [torch.load(os.path.join(workdir, f"{scenario}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def main():
+    scenario, rank, world, port, workdir = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=port, LOCAL_RANK=str(rank))
+    from fastvision_tpu_torch.core import create_mesh, initialize_multihost
+
+    initialize_multihost(device="cpu", timeout_s=120)
+    mesh = create_mesh()
+    out = {}
+    if scenario == "dp":
+        check_global_bn(rank, world, out)
+        check_yolo_accum(workdir, mesh, out)
+        check_cls_mix(workdir, mesh, out)
+        check_loaders(workdir, out)
+        check_evaluators(workdir, mesh, out)
+        check_preempt(rank, workdir, mesh, out)
+    elif scenario == "fsdp":
+        check_fsdp(rank, workdir, mesh, out)
+        check_cli_fsdp(workdir, out)
+    else:
+        raise SystemExit(f"unknown scenario {scenario!r}")
+    torch.save(out if rank == 0 else _digest_large(out),
+               os.path.join(workdir, f"{scenario}_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
