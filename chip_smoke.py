@@ -4937,6 +4937,20 @@ PAR_EQ_BATCH = 8  # the float32 equality steps at 416
 PAR_SMALL_SIZE, PAR_SMALL_BATCH = 256, 8  # (b): a global batch of 8 split 2 ways
 PAR_REPS = 6
 PAR_TIMEOUT_S = 600
+# (d) Faster R-CNN: full width at world size 1 (VOC's 20 classes, 512 px, bf16,
+# batch 8, one epoch of 2 steps, one validation batch), and a small float64
+# model (the CPU tests' configuration) over two ranks on a global batch of 4
+PAR_FRCNN_IMAGES, PAR_FRCNN_VAL, PAR_FRCNN_SIZE, PAR_FRCNN_CLASSES = 16, 8, 512, 20
+SMALL_FRCNN = dict(num_classes=3, image_size=128, anchor_scales=(2, 4, 6),
+                   rpn_pre_nms_train=128, rpn_post_nms_train=32, rpn_pre_nms_eval=128,
+                   rpn_post_nms_eval=16, roi_pos=4, roi_neg=12)
+# (e) tensor parallel: YOLOv3-416 at mesh_model=2 (bf16, batch 8, 2 steps, one
+# validation batch of 8)
+PAR_TP_IMAGES, PAR_TP_VAL, PAR_TP_BATCH = 16, 8, 8
+# (f) time sharding: SlowFast-R50 at 32 x 224, 400 classes, mesh_time=2 (bf16,
+# batch 2, 2 steps, one validation batch); a small float64 SlowFast at 16 x 64
+PAR_VIDEO_CLIPS, PAR_VIDEO_FRAMES, PAR_VIDEO_SIZE, PAR_VIDEO_BATCH = (4, 2), 32, 224, 2
+SMALL_SLOWFAST = dict(alpha=4, beta_inv=4, expansion=1, num_classes=5)
 
 
 def run_children(roles: list, port: int, workdir: str) -> list[dict]:
@@ -4995,13 +5009,17 @@ def par_fit(model, loss_fn, kind: str | None, dtype=torch.float32, ckpt_dir=None
 
 
 def par_state(fit: Fit) -> tuple[dict, dict]:
-    """(model state, optimizer state) on the host in the one-process format."""
-    from fastvision_tpu_torch.parallel import full_state
+    """(model state, optimizer state) on the host in the one-process format
+    (FSDP's and tensor parallel's gathered)."""
+    from fastvision_tpu_torch.parallel import full_state, tensor_shard
     from fastvision_tpu_torch.train.steps import parallel_kind, unwrap
 
     model = unwrap(fit.state.model)
     if parallel_kind(model) == "fsdp":
         return full_state(model, fit.state.optimizer)
+    if tensor_shard.is_tensor_parallel(model):
+        model_sd, opt_sd = tensor_shard.full_state(model, fit.state.optimizer)
+        return _host_copy_state(model_sd), _host_copy_state(opt_sd)
     return ({k: v.detach().cpu() for k, v in model.state_dict().items()},
             _host_copy_state(fit.state.optimizer.state_dict()))
 
@@ -5114,6 +5132,10 @@ def parallel_world1(port: str, workdir: str) -> dict:
         shutil.rmtree(ckpt)
         torch.cuda.empty_cache()
     res["mismatches"] = mismatches
+    frcnn = par_cli_frcnn(workdir)
+    res["launches"]["parallel_cli_train_frcnn"] = frcnn.pop("launches")
+    res["mismatches"] += frcnn["nms_vs_plain"]["mismatches"]
+    res["cli"]["frcnn"] = frcnn
 
     # --- the float32 equality checks, TF32 off, deterministic algorithms
     loss_fn, postprocess = par_loss_parts()
@@ -5173,6 +5195,285 @@ def parallel_world1(port: str, workdir: str) -> dict:
     return res
 
 
+def par_cli_frcnn(workdir: str) -> dict:
+    """(d) ``cli.main(["train", "model.name=faster_rcnn", ... "multihost=true",
+    "mesh_data=1"])`` at full width (this child's NCCL world of 1): the NMS
+    kernel's launches counted and each keep mask held against the plain
+    version."""
+    from fastvision_tpu_torch import cli
+    from fastvision_tpu_torch.train.steps import parallel_kind
+
+    ckpt = os.path.join(workdir, "cli_frcnn")
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        fit = cli.main(["train", "model.name=faster_rcnn",
+                        f"data.data_root={os.path.join(workdir, 'frcnn')}",
+                        f"data.input_size={PAR_FRCNN_SIZE}", f"data.batch_size={TRAIN_BATCH // 4}",
+                        f"model.num_classes={PAR_FRCNN_CLASSES}", "train.epochs=1",
+                        f"train.ckpt_dir={ckpt}", "multihost=true", "data.host_shard=auto",
+                        "mesh_data=1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = suppression_mask_cuda.launches
+    held = kernel_vs_plain_recorded(recorded)
+    with open(os.path.join(ckpt, "train.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "train_loss" in r]
+    check(parallel_kind(fit.state.model) == "ddp" and fit.global_step == 2,
+          f"cli frcnn: {parallel_kind(fit.state.model)}, {fit.global_step} steps")
+    check(len(epochs) == 1 and np.isfinite(epochs[0]["train_loss"])
+          and 0 <= epochs[0]["map50"] <= 1, f"cli frcnn epochs {epochs}")
+    check(launches > 0 and held["calls"] == launches,
+          f"cli frcnn: {launches} launches, {held['calls']} recorded")
+    del fit
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    return {"model": f"FasterRCNN VGG16, {PAR_FRCNN_CLASSES} classes, {PAR_FRCNN_SIZE} px, "
+                     f"bf16, batch {TRAIN_BATCH // 4}, {PAR_FRCNN_IMAGES} images, 1 epoch",
+            "seconds": seconds, "launches": launches, "nms_vs_plain": held,
+            "epochs": [{k: r[k] for k in ("train_loss", "epoch_img_s", "map50")}
+                       for r in epochs]}
+
+
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
+                  "send_recv", "reduce_scatter_tensor")
+
+
+def gloo_probe(name: str, rank: int, port: str, workdir: str) -> None:
+    """A child of `probe_gloo_on_cuda` (role ``probe:<op>:<rank>``): collective
+    ``name`` over gloo on CUDA tensors (two ranks on the one card, float32):
+    'ok' with a right result, else the error's first line, into
+    ``probe_<op>_<rank>.json``. A collective that gloo runs on a device
+    pointer can abort the process from gloo's own thread, hence one pair of
+    processes per collective."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=20))
+    x = torch.full((4,), float(rank + 1), device=dev)
+    gather = torch.tensor([1.0] * 4 + [2.0] * 4, device=dev)
+
+    def ar():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    def bc():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return y
+
+    def ag_into():
+        y = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return y
+
+    def ag():
+        parts = [torch.empty(4, device=dev) for _ in range(2)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    def sendrecv():
+        y = x.clone()
+        if rank == 0:
+            dist.send(x, 1)
+            dist.recv(y, 1)
+        else:
+            dist.recv(y, 0)
+            dist.send(x, 0)
+        return y
+
+    def rs():
+        y = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(y, torch.arange(4.0, device=dev) + rank)
+        return y
+
+    fn, want = {
+        "all_reduce": (ar, torch.full((4,), 3.0, device=dev)),
+        "broadcast": (bc, torch.full((4,), 1.0, device=dev)),
+        "all_gather_into_tensor": (ag_into, gather), "all_gather": (ag, gather),
+        "send_recv": (sendrecv, torch.full((4,), float(2 - rank), device=dev)),
+        # [0, 1, 2, 3] + [1, 2, 3, 4], halved
+        "reduce_scatter_tensor": (rs, torch.tensor([1.0, 3.0], device=dev) + 4.0 * rank),
+    }[name]
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+        result = "ok" if torch.equal(got, want) else f"wrong result {got.tolist()}"
+    except Exception as e:  # noqa: BLE001 - the probe reports what the backend refuses
+        result = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    with open(os.path.join(workdir, f"probe_{name}_{rank}.json"), "w") as f:
+        json.dump({"result": result}, f)
+    sys.stdout.flush()
+    os._exit(0)  # a refused collective can leave the group unable to shut down
+
+
+def probe_gloo_on_cuda(workdir: str) -> dict:
+    """Which collectives gloo takes on CUDA tensors: every `GLOO_PROBE_OPS`
+    entry in a pair of processes of its own, all pairs at once. ->
+    {op: {rank0: ..., rank1: ...}}, a process that died reported with its
+    exit code and last line of output."""
+    procs = []
+    for name in GLOO_PROBE_OPS:
+        port = free_port()
+        for r in (0, 1):
+            log = open(os.path.join(workdir, f"probe_{name}_{r}.log"), "w")
+            procs.append((name, r, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-child",
+                 f"probe:{name}:{r}", str(port), workdir], stdout=log,
+                stderr=subprocess.STDOUT)))
+    res: dict = {}
+    try:
+        for name, r, log, p in procs:
+            try:
+                rc = p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rc = f"killed after 120 s ({p.wait()})"
+            log.close()
+            path = os.path.join(workdir, f"probe_{name}_{r}.json")
+            if rc == 0 and os.path.exists(path):
+                with open(path) as f:
+                    res.setdefault(name, {})[f"rank{r}"] = json.load(f)["result"]
+            else:
+                with open(log.name) as f:
+                    lines = [ln for ln in f.read().splitlines() if ln.strip()]
+                res.setdefault(name, {})[f"rank{r}"] = (
+                    f"process ended {rc}: {lines[-1][:200] if lines else ''}")
+    finally:
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def mesh_fit(model, loss_fn, mesh, dtype, step_fn=None, **kw) -> Fit:
+    opt = kw.pop("optimizer", None) or build_optimizer("sgd", model, weight_decay=5e-4,
+                                                       momentum=0.937)
+    return Fit(model, loss_fn, opt, None, mesh=mesh, dtype=dtype, step_fn=step_fn,
+               logger=quiet_logger(), **kw)
+
+
+def small_frcnn_step(batch: dict, mesh, dev) -> tuple[dict, dict]:
+    """(d) One float64 SGD step (momentum 0.9, clip 10) of the small Faster
+    R-CNN, seeded, the step's own draws: (state, metrics)."""
+    from fastvision_tpu_torch.core import shard_batch
+
+    model = FasterRCNN(**SMALL_FRCNN, generator=torch.Generator().manual_seed(SEED)).double()
+    opt = build_optimizer("sgd", model, momentum=0.9, grad_clip_norm=10.0)
+    with no_tf32():
+        fit = mesh_fit(model, None, mesh, torch.float64, device=dev, optimizer=opt,
+                       step_fn=make_frcnn_train_step(seed=SEED, dtype=torch.float64))
+        local = shard_batch(batch, mesh) if mesh is not None else batch
+        fit.state, m = fit.step_fn(fit.state, local, 1e-2)
+    return par_state(fit)[0], {k: float(v) for k, v in m.items()}
+
+
+def small_slowfast_step(batch: dict, mesh, dev) -> tuple[dict, dict, torch.Tensor]:
+    """(f) One float64 SGD step of the small SlowFast, its frames sharded
+    over the time axis when ``mesh`` has one, and its eval forward after:
+    (state, metrics, logits)."""
+    model = SlowFast((1, 1, 1, 1), **SMALL_SLOWFAST, generator=torch.Generator().manual_seed(
+        SEED), time_axis="time" if mesh is not None else None).double()
+
+    def loss_fn(logits, b):
+        return cross_entropy(logits, b["labels"]), {}
+
+    with no_tf32():
+        fit = mesh_fit(model, loss_fn, mesh, torch.float64, device=dev,
+                       step_fn=make_train_step(loss_fn, torch.float64, imagenet=True))
+        fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+        logits = make_eval_step(dtype=torch.float64, imagenet=True)(fit.eval_state(), batch)
+    return par_state(fit)[0], {k: float(v) for k, v in m.items()}, logits.cpu()
+
+
+def small_parallel_batches(dev) -> dict:
+    """The float64 steps' global batches: 4 images at 128 px for the small
+    Faster R-CNN, 2 clips of 16 x 64 x 64 for the small SlowFast."""
+    det = next(iter(DetectionLoader(SyntheticDetectionDataset(4, SMALL_FRCNN["num_classes"],
+                                                              seed=SEED + 36),
+                                    SMALL_FRCNN["image_size"], 4, max_boxes=8, seed=SEED)))
+    g = np.random.default_rng(SEED + 37)
+    return {"frcnn": {k: torch.from_numpy(det[k]).to(dev) for k in ("images", "labels")},
+            "video": {"images": torch.from_numpy(g.integers(0, 256, (2, 16, 64, 64, 3),
+                                                            dtype=np.uint8)).to(dev),
+                      "labels": torch.tensor([1, 3], device=dev)}}
+
+
+@contextlib.contextmanager
+def logged_records():
+    """Every record a `MetricLogger` logs in the block, on every rank (rank 0
+    alone writes the file)."""
+    real, sink = MetricLogger.log, []
+
+    def log(self, step, **metrics):
+        sink.append({"step": step, **{k: float(v) if isinstance(v, (int, float, torch.Tensor))
+                                      else v for k, v in metrics.items()}})
+        real(self, step, **metrics)
+
+    MetricLogger.log = log
+    try:
+        yield sink
+    finally:
+        MetricLogger.log = real
+
+
+def rank_cli_runs(rank: int, workdir: str) -> dict:
+    """(e) ``train`` of YOLOv3-416 at ``mesh_model=2`` and (f) ``train-video``
+    of SlowFast-R50 at ``mesh_time=2`` on this rank: NMS launches counted
+    (the video path's must be 0) and each keep mask held."""
+    from fastvision_tpu_torch import cli
+    from fastvision_tpu_torch.parallel import tensor_shard
+    from fastvision_tpu_torch.train.steps import unwrap
+
+    res = {}
+    for name, args in (
+            ("tp", ["train", f"data.data_root={os.path.join(workdir, 'tp')}",
+                    f"data.input_size={INPUT_SIZE}", f"data.batch_size={PAR_TP_BATCH}",
+                    "mesh_model=2"]),
+            ("time", ["train-video", f"data.data_root={os.path.join(workdir, 'video')}",
+                      "model.backbone=slowfast_resnet50", "model.num_classes=400",
+                      f"data.num_frames={PAR_VIDEO_FRAMES}",
+                      f"data.input_size={PAR_VIDEO_SIZE}",
+                      f"data.batch_size={PAR_VIDEO_BATCH}", "mesh_time=2"])):
+        ckpt = os.path.join(workdir, f"cli_{name}_rank{rank}")
+        with recorded_nms_inputs() as recorded, logged_records() as records:
+            suppression_mask_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = cli.main([*args, "train.epochs=1", f"train.ckpt_dir={ckpt}",
+                            "data.num_workers=0", "multihost=true"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = suppression_mask_cuda.launches
+        held = kernel_vs_plain_recorded(recorded)
+        epochs = [r for r in records if "train_loss" in r]
+        model = unwrap(fit.state.model)
+        check(fit.global_step == 2 and len(epochs) == 1 and np.isfinite(epochs[0]["train_loss"]),
+              f"cli {name} on rank {rank}: {fit.global_step} steps, {epochs}")
+        check(held["calls"] == launches, f"cli {name}: {launches} launches, {held}")
+        if name == "tp":
+            check(tensor_shard.is_tensor_parallel(model) and launches > 0,
+                  f"cli tp: sharded {tensor_shard.is_tensor_parallel(model)}, "
+                  f"{launches} NMS launches")
+        else:
+            check(model.time_axis == "time" and launches == 0,
+                  f"cli time: {model.time_axis}, {launches} NMS launches")
+        res[name] = {"seconds": seconds, "launches": launches, "nms_vs_plain": held,
+                     "epochs": [{k: r.get(k) for k in ("train_loss", "epoch_img_s", "map50",
+                                                       "accuracy")} for r in epochs],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del fit, model
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return res
+
+
 def parallel_rank(rank: int, port: str, workdir: str) -> dict:
     """A child of (b): rank ``rank`` of 2 on the one card, gloo with CUDA
     tensors (NCCL refuses two ranks on one device): one float32 step of a
@@ -5183,8 +5484,8 @@ def parallel_rank(rank: int, port: str, workdir: str) -> dict:
     loss_fn, _ = par_loss_parts()
     from fastvision_tpu_torch.core import create_mesh, shard_batch
 
-    batch = shard_batch(par_batch(PAR_SMALL_SIZE, PAR_SMALL_BATCH, SEED + 34, dev),
-                        create_mesh())
+    batch_global = par_batch(PAR_SMALL_SIZE, PAR_SMALL_BATCH, SEED + 34, dev)
+    batch = shard_batch(batch_global, create_mesh())
     out = {"local_batch": int(batch["images"].shape[0]),
            "backend": torch.distributed.get_backend()}
     for dtype in (torch.float32, torch.float64):
@@ -5197,6 +5498,28 @@ def parallel_rank(rank: int, port: str, workdir: str) -> dict:
         out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
         if rank == 0:
             torch.save(par_state(fit)[0], os.path.join(workdir, f"two_ranks_{name}.pt"))
+    del fit, model
+    torch.cuda.empty_cache()
+
+    # (d), (e), (f) in float64 against this process's one-process steps
+    from fastvision_tpu_torch.core import create_mesh
+
+    batches = small_parallel_batches(dev)
+    state, m = small_frcnn_step(batches["frcnn"], create_mesh(2, 1, 1), dev)
+    out["frcnn_float64"] = m
+    with no_tf32():
+        fit = mesh_fit(small_yolo(torch.float64), loss_fn, create_mesh(1, 2, 1), torch.float64)
+        fit.state, mt = fit.step_fn(fit.state, batch_global, 1e-2)
+    out["tp_float64"] = {"loss": float(mt["loss"]), "grad_norm": float(mt["grad_norm"])}
+    tp_state = par_state(fit)[0]
+    del fit
+    sf_state, ms, logits = small_slowfast_step(batches["video"], create_mesh(1, 1, 2), dev)
+    out["time_float64"] = ms
+    if rank == 0:
+        torch.save({"frcnn": state, "tp": tp_state, "time": sf_state, "time_logits": logits},
+                   os.path.join(workdir, "mesh_float64.pt"))
+    torch.cuda.empty_cache()
+    out["cli"] = rank_cli_runs(rank, workdir)
     torch.distributed.destroy_process_group()
     return out
 
@@ -5208,6 +5531,9 @@ def small_yolo(dtype: torch.dtype) -> YOLOv3:
 
 def parallel_child(role: str, port: str, workdir: str) -> int:
     torch.cuda.set_device(0)
+    if role.startswith("probe:"):
+        _, name, rank = role.split(":")
+        gloo_probe(name, int(rank), port, workdir)
     out = (parallel_world1(port, workdir) if role == "world1"
            else parallel_rank(int(role[len("rank"):]), port, workdir))
     if torch.distributed.is_initialized():
@@ -5246,6 +5572,14 @@ def phase_parallel(dev: torch.device, smi: str, workdir: str) -> dict:
                             seed=SEED + 30, num_classes=NUM_CLASSES, splits=("train",))
     write_detection_dataset(os.path.join(root, "det"), PAR_VAL_IMAGES, sizes=SIZES,
                             seed=SEED + 35, num_classes=NUM_CLASSES, splits=("val",))
+    for name, n, val, classes in (("frcnn", PAR_FRCNN_IMAGES, PAR_FRCNN_VAL, PAR_FRCNN_CLASSES),
+                                  ("tp", PAR_TP_IMAGES, PAR_TP_VAL, NUM_CLASSES)):
+        write_detection_dataset(os.path.join(root, name), n, sizes=SIZES, seed=SEED + 38,
+                                num_classes=classes, splits=("train",))
+        write_detection_dataset(os.path.join(root, name), val, sizes=SIZES, seed=SEED + 39,
+                                num_classes=classes, splits=("val",))
+    write_video_dataset(os.path.join(root, "video"), PAR_VIDEO_CLIPS, num_classes=4,
+                        frames=PAR_VIDEO_FRAMES, seed=SEED + 40)
     torch.cuda.empty_cache()
     (a,) = run_children(["world1"], free_port(), root)
     emit("parallel_world1", card=smi, **a)
@@ -5264,7 +5598,9 @@ def phase_parallel(dev: torch.device, smi: str, workdir: str) -> dict:
     del model, opt, restored, gathered_model, gathered_opt
 
     # (b) two ranks on the one card, against this process's step on the global batch
+    probe = probe_gloo_on_cuda(root)
     ranks = run_children(["rank0", "rank1"], free_port(), root)
+    ranks[0]["gloo_probe"] = probe
     loss_fn, _ = par_loss_parts()
     batch = par_batch(PAR_SMALL_SIZE, PAR_SMALL_BATCH, SEED + 34, dev)
     one, start = {}, {k: v.double() for k, v in small_yolo(torch.float32).state_dict().items()}
@@ -5313,11 +5649,69 @@ def phase_parallel(dev: torch.device, smi: str, workdir: str) -> dict:
           f"two ranks on one card: {two}")
     del fit, model
     torch.cuda.empty_cache()
+    mesh_runs = parallel_mesh_results(ranks, root, dev, one[f64], start)
+    launches = {**a["launches"], "parallel_tp_train": ranks[0]["cli"]["tp"]["launches"],
+                "parallel_time_train_video": ranks[0]["cli"]["time"]["launches"]}
+    mismatches = a["mismatches"] + sum(r["cli"][n]["nms_vs_plain"]["mismatches"]
+                                       for r in ranks for n in ("tp", "time"))
     emit("parallel", card=smi, cli=a["cli"], equality=a["equality"],
          fsdp_checkpoint_bit_equal=a["fsdp_checkpoint_bit_equal"], two_ranks_one_card=two,
-         times=a["times"], nms_launches=a["launches"], mismatches=a["mismatches"],
+         mesh=mesh_runs, times=a["times"], nms_launches=launches, mismatches=mismatches,
          seconds=time.perf_counter() - t_phase)
-    return {"launches": a["launches"], "mismatches": a["mismatches"]}
+    return {"launches": launches, "mismatches": mismatches,
+            "zero": ["parallel_time_train_video"]}
+
+
+def parallel_mesh_results(ranks: list, root: str, dev, yolo_f64: tuple, yolo_start: dict) -> dict:
+    """(d)-(f) read back: each two-rank float64 step against this process's
+    one-process step on the global batch (within 1e-5: the losses relative,
+    kernels of their std, the tensors that start constant of max(std, their
+    update)), the ranks' losses equal, the CLI runs' seconds and losses on
+    both ranks (gloo on one card: its host staging sets these times)."""
+    got = torch.load(os.path.join(root, "mesh_float64.pt"), weights_only=False)
+    batches = small_parallel_batches(dev)
+    frcnn_state, frcnn_m = small_frcnn_step(batches["frcnn"], None, dev)
+    frcnn_start = {k: v.double() for k, v in FasterRCNN(
+        **SMALL_FRCNN, generator=torch.Generator().manual_seed(SEED)).state_dict().items()}
+    sf_state, sf_m, sf_logits = small_slowfast_step(batches["video"], None, dev)
+    sf_start = {k: v.double() for k, v in SlowFast(
+        (1, 1, 1, 1), **SMALL_SLOWFAST, generator=torch.Generator().manual_seed(SEED)
+    ).state_dict().items()}
+    res = {
+        "frcnn": {"model": f"FasterRCNN {SMALL_FRCNN}, float64, TF32 off, a global batch of 4 "
+                           "split 2 ways (data axis), one SGD step, the step's own draws",
+                  "state_max_rel": state_max_rel_diff(got["frcnn"], frcnn_state, frcnn_start),
+                  "loss": [r["frcnn_float64"]["loss"] for r in ranks],
+                  "one_process_loss": frcnn_m["loss"]},
+        "tp": {"model": f"YOLOv3 stage_sizes (1,1,1,1,1), 80 classes, {PAR_SMALL_SIZE} px, "
+                        f"float64, mesh_model=2, batch {PAR_SMALL_BATCH}, one SGD step",
+               "state_max_rel": state_max_rel_diff(got["tp"], yolo_f64[0], yolo_start),
+               "loss": [r["tp_float64"]["loss"] for r in ranks],
+               "one_process_loss": yolo_f64[1]},
+        "time": {"model": f"SlowFast (1,1,1,1) {SMALL_SLOWFAST}, 2 clips of 16 x 64 x 64, "
+                          "float64, mesh_time=2, one SGD step and the eval forward after",
+                 "state_max_rel": state_max_rel_diff(got["time"], sf_state, sf_start),
+                 "loss": [r["time_float64"]["loss"] for r in ranks],
+                 "one_process_loss": sf_m["loss"],
+                 "logits_max_rel": float((got["time_logits"] - sf_logits).abs().max()
+                                         / sf_logits.abs().max())},
+        "gloo_probe_cuda": ranks[0]["gloo_probe"],
+        "cli": {name: {"rank0": ranks[0]["cli"][name], "rank1": ranks[1]["cli"][name]}
+                for name in ("tp", "time")},
+        "tolerance": 1e-5}
+    for name in ("frcnn", "tp", "time"):
+        r = res[name]
+        r["loss_rel"] = abs(r["loss"][0] / r["one_process_loss"] - 1)
+        w = r["state_max_rel"]
+        check(w["kernels"][0] <= 1e-5 and w["others"][0] <= 1e-5 and r["loss_rel"] <= 1e-5
+              and len(set(r["loss"])) == 1, f"{name} two ranks vs one process: {r}")
+    check(res["time"]["logits_max_rel"] <= 1e-5, f"time-sharded forward: {res['time']}")
+    for name in ("tp", "time"):
+        losses = [ranks[i]["cli"][name]["epochs"][0]["train_loss"] for i in (0, 1)]
+        check(losses[0] == losses[1], f"cli {name}: the ranks' losses differ: {losses}")
+        check(ranks[0]["cli"][name]["launches"] == ranks[1]["cli"][name]["launches"],
+              f"cli {name}: the ranks' NMS launches differ")
+    return res
 
 
 def main_only_parallel(dev: torch.device, device: dict, t_start: float) -> int:
@@ -5328,13 +5722,15 @@ def main_only_parallel(dev: torch.device, device: dict, t_start: float) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     emit("total", seconds=time.perf_counter() - t_start)
     check(par["mismatches"] == 0, "kernel mismatches")
+    check(all(par["launches"][p] == 0 for p in par["zero"]),
+          f"the video path launched nms: {par['launches']}")
     print(device["smi"], flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppression_mask", "route": "cuda",
         "source": "fastvision_tpu_torch/csrc/nms.cu",
         "replaces": "fastvision_tpu/ops/nms_pallas.py:32",
         "launches": sum(par["launches"].values()), "launches_by_path": par["launches"],
-        "mismatches": par["mismatches"]}]}), flush=True)
+        "paths_expected_at_zero": par["zero"], "mismatches": par["mismatches"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}), flush=True)
     return 0
@@ -5622,7 +6018,7 @@ def main() -> int:
     # classification and video recognition run no NMS: their paths are
     # counted, and hold 0 launches
     zero_paths = sorted([*cls["launches"], *video["launches"], *cli_run["zero"],
-                         *export["zero"], *recipe["zero"], *decode["zero"]])
+                         *export["zero"], *recipe["zero"], *decode["zero"], *par["zero"]])
     check(all(by_path[p] == 0 for p in zero_paths),
           f"classification or video launched nms: {by_path}")
     print(device["smi"], flush=True)

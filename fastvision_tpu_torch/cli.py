@@ -68,21 +68,27 @@ builds and a bf16 matmul rate, and exits non-zero without a card. ``infer``
 on a video writes ``--out``/annotated.mp4 with cv2's mp4v writer (without
 cv2 it exits naming ROADMAP item 6).
 
-Data parallel: ``multihost=true`` joins the process group torchrun sets up
-(NCCL on CUDA, gloo with ``--device cpu``) and fails when it cannot form;
-``mesh_data`` (0: every rank) must equal the world size; ``fsdp=true``
-shards the parameters and optimizer state (`parallel.fsdp`);
-``data.host_shard=auto`` has each rank's train loader decode its own share
-of every epoch, ``data.batch_size`` then being per rank; without it the
-batch size is the global one, split over the ranks. The train commands and
-``eval --task cls|video`` run over the group:
+Parallelism: ``multihost=true`` joins the process group torchrun sets up
+(NCCL on CUDA, gloo with ``--device cpu``) and fails when it cannot form.
+The mesh is ``mesh_data x mesh_model x mesh_time`` ranks (`core.mesh`;
+``mesh_data`` 0 takes every rank the other two leave) and must cover the
+world. ``mesh_model`` > 1 shards every conv's and linear's output channels
+(tensor parallel, `parallel.tensor_shard`; it wins over ``fsdp=true``, as
+in the JAX package); else ``fsdp=true`` shards the parameters and
+optimizer state (`parallel.fsdp`); ``mesh_time`` > 1 shards a SlowFast
+clip's frames (``train-video``, `parallel.time_shard`; another backbone
+exits). ``data.host_shard=auto`` has each data index's train loader decode
+its own share of every epoch, ``data.batch_size`` then being per data
+index; without it the batch size is the global one, split over the data
+axis. The train commands (Faster R-CNN's too) and ``eval --task
+cls|video`` run over the group:
 
     torchrun --nproc_per_node 8 -m fastvision_tpu_torch train --config cfg.yaml \
         multihost=true data.host_shard=auto [fsdp=true]
-
-What the port does not have yet (tensor parallel ``mesh_model`` > 1, time
-sharding ``mesh_time`` > 1, Faster R-CNN over several ranks) exits naming
-its ROADMAP item.
+    torchrun --nproc_per_node 4 -m fastvision_tpu_torch train-cls ... multihost=true \
+        mesh_data=2 mesh_model=2
+    torchrun --nproc_per_node 2 -m fastvision_tpu_torch train-video \
+        model.backbone=slowfast_resnet50 ... multihost=true mesh_time=2
 """
 from __future__ import annotations
 
@@ -105,20 +111,18 @@ def _exit_not_ported(what: str, item: int) -> SystemExit:
 
 def _check_ported(cfg) -> None:
     """Config values of work the port does not have raise here."""
-    from .core.mesh import Mesh
-
-    Mesh(1, cfg.mesh_model, cfg.mesh_time)  # raises for the axes not ported, in any command
     if cfg.compile_cache:
         raise NotImplementedError("compile_cache (the JAX package's XLA cache) is not ported "
                                   "yet (ROADMAP Queue 1, item 10)")
 
 
 def _mesh_from_cfg(cfg, device):
-    """The data-parallel mesh the config asks for (`core.mesh.create_mesh`).
-    ``multihost=true`` first joins the process group (torchrun's
-    environment; NCCL on CUDA, gloo with ``--device cpu``), before any
-    seeding or CUDA call of the command, and raises when it cannot form;
-    ``mesh_data`` (0: every rank) must equal the world size."""
+    """The (data, model, time) mesh the config asks for
+    (`core.mesh.create_mesh`). ``multihost=true`` first joins the process
+    group (torchrun's environment; NCCL on CUDA, gloo with ``--device
+    cpu``), before any seeding or CUDA call of the command, and raises when
+    it cannot form; ``mesh_data`` 0 takes every rank that ``mesh_model x
+    mesh_time`` leaves, and the three must multiply to the world size."""
     from .core.distributed import initialize_multihost
     from .core.mesh import create_mesh
 
@@ -185,13 +189,13 @@ def _build_yolo(cfg):
     return model
 
 
-def _build_zoo_model(cfg, task: str = "cls") -> torch.nn.Module:
+def _build_zoo_model(cfg, task: str = "cls", **extra) -> torch.nn.Module:
     """A zoo model of ``model.backbone`` with ``model.num_classes``, its
     weights seeded by ``train.seed``: for ``task='cls'`` a classifier
     (resnet18 ... resnext101_32x8d, vgg11 ... vgg19_bn, darknet53,
     vit_*_patch16), for ``'video'`` a video model (c3d, c3d_bn,
     resnet18_3d ... resnet152_3d, slowfast_resnet18 ...
-    slowfast_resnet152)."""
+    slowfast_resnet152). ``extra``: further arguments of the factory."""
     if task == "video":
         from .models import video as zoo
     else:
@@ -203,7 +207,7 @@ def _build_zoo_model(cfg, task: str = "cls") -> torch.nn.Module:
                          f"{[n for n in zoo.__all__ if n.islower()]})")
     kw = {"image_size": cfg.data.input_size} if cfg.model.backbone.startswith("vit") else {}
     return factory(num_classes=cfg.model.num_classes,
-                   generator=torch.Generator().manual_seed(cfg.train.seed), **kw)
+                   generator=torch.Generator().manual_seed(cfg.train.seed), **kw, **extra)
 
 
 def _run_closing(fit, *loaders):
@@ -326,8 +330,9 @@ def cmd_train(args, overrides):
 
 def _train_faster_rcnn(cfg, args, mesh):
     """The two-stage recipe: SGD with global-norm clip 10, step decay x0.1
-    every 8 epochs, imagenet-standardized inputs. One rank only: its RPN and
-    head sampling draw over the global batch."""
+    every 8 epochs, imagenet-standardized inputs; over the mesh as the
+    other train commands (each data rank draws the global batch's samples
+    and keeps its rows, `train.frcnn_steps`)."""
     from .core import MetricLogger, set_random_seeds
     from .data import DetectionDataset, DetectionLoader, build_augmentation
     from .models import FasterRCNN
@@ -341,10 +346,6 @@ def _train_faster_rcnn(cfg, args, mesh):
     )
 
     _refuse_accum_steps(cfg, "train (faster_rcnn)")
-    if mesh.data > 1:
-        raise NotImplementedError(
-            "Faster R-CNN training over several ranks (data parallel) is not ported yet "
-            "(ROADMAP Queue 1, item 17): its RPN and head sampling draw over the global batch")
     set_random_seeds(cfg.train.seed)
     d, dtype = cfg.data, _dtype(cfg)
     model = FasterRCNN(
@@ -361,7 +362,7 @@ def _train_faster_rcnn(cfg, args, mesh):
     train_loader = DetectionLoader(
         DetectionDataset(d.data_root, d.train_dir, d.cache), d.input_size, d.batch_size,
         d.max_boxes, train=True, seed=cfg.train.seed, on_corrupt=d.on_corrupt,
-        augmentation=build_augmentation(d.augment), **workers)
+        augmentation=build_augmentation(d.augment), host_shard=d.host_shard or None, **workers)
     val_loader = DetectionLoader(
         DetectionDataset(d.data_root, d.val_dir, d.cache), d.input_size, d.batch_size,
         d.max_boxes, train=False, **workers)
@@ -370,8 +371,9 @@ def _train_faster_rcnn(cfg, args, mesh):
         model, None, optimizer, train_loader, val_loader, epochs=cfg.train.epochs,
         schedule=step_decay_lr(cfg.train.lr, 8 * steps_per_epoch),
         evaluator=detection_evaluator(make_frcnn_eval_step(
-            score_thresh=cfg.nms.conf_thres, nms_thresh=cfg.nms.iou_thres, dtype=dtype)),
-        ckpt_dir=cfg.train.ckpt_dir, eval_every=cfg.train.eval_every,
+            score_thresh=cfg.nms.conf_thres, nms_thresh=cfg.nms.iou_thres, dtype=dtype),
+            mesh=mesh),
+        mesh=mesh, fsdp=cfg.fsdp, ckpt_dir=cfg.train.ckpt_dir, eval_every=cfg.train.eval_every,
         logger=MetricLogger(cfg.train.ckpt_dir), start_epoch=cfg.train.start_epoch,
         resume=args.resume, metric_key="map50", metric_mode="max",
         step_fn=make_frcnn_train_step(cfg.train.seed, dtype),
@@ -488,7 +490,20 @@ def cmd_train_video(args, overrides):
     _refuse_accum_steps(cfg, "train-video")
     set_random_seeds(cfg.train.seed)
     t, dtype = cfg.train, _dtype(cfg)
-    model = _build_zoo_model(cfg, task="video")
+    extra = {}
+    if cfg.mesh_time > 1:
+        import inspect
+
+        from .core.mesh import TIME_AXIS
+        from .models import video as zoo
+
+        factory = getattr(zoo, cfg.model.backbone, None)
+        if factory is not None and "time_axis" not in inspect.signature(factory).parameters:
+            raise SystemExit(
+                f"mesh_time={cfg.mesh_time} needs a time-shardable model "
+                f"(slowfast_*); {cfg.model.backbone!r} has no time_axis")
+        extra["time_axis"] = TIME_AXIS
+    model = _build_zoo_model(cfg, task="video", **extra)
     _maybe_import_pretrained(cfg, model, task="video")
 
     def loss_fn(logits, batch):
@@ -559,6 +574,10 @@ def _eval_classifier(cfg, args) -> dict:
         evaluate = classification_evaluator(make_eval_step(dtype=_dtype(cfg), imagenet=True),
                                             mesh=mesh)
     state = TrainState.create(model, None, args.device)
+    if mesh.model > 1:  # tensor parallel, as the train commands place it
+        from .parallel.tensor_shard import shard_module
+
+        shard_module(model, mesh)
     try:
         t0 = time.perf_counter()
         res = evaluate(state, loader)

@@ -9,19 +9,31 @@ fastvision_tpu/core/distributed.py).
     cannot form raises: nothing carries on as N single-process runs;
   - `set_visible_devices`: ``CUDA_VISIBLE_DEVICES``;
   - `process_info`: rank, world size and device counts;
+  - the mesh's axes (`set_axes`, which `core.mesh.create_mesh` calls;
+    `axis`): the process group of each of ``data``, ``model`` and
+    ``time``, and of ``batch``, the data and time axes together (the ranks
+    of one model index: they share the global batch's BN statistics and
+    average their gradients). Without a mesh the data axis is the world;
   - `data_parallel`: the context in which a train-mode forward is one rank's
-    share of a global batch. Inside it, with more than one rank, BN
-    normalizes over the global batch (`nn.layers`), the losses take their
-    denominators from it (`train.losses`), and `global_sum` /
-    `all_gather_cat` reach the other ranks; outside it, or with one rank,
-    every layer and loss runs as in a single process.
+    share of a global batch. Inside it, with more than one rank on the data
+    (or time) axis, BN normalizes over the global batch and clip (`nn.layers`:
+    the ``batch`` axis), the losses take their denominators from the global
+    batch (`train.losses`: the ``data`` axis), and `global_sum` reaches the
+    data axis; outside it, or with one rank, every layer and loss runs as
+    in a single process;
+  - `all_gather_dim`, `all_gather_cat`: gathers written as an all-reduce
+    of a zero-filled buffer in which each rank writes its part (exact in
+    every dtype), the one form that NCCL, gloo on the CPU and gloo ranks
+    sharing a card all take (PyTorch's backend table lists only
+    ``broadcast`` and ``all_reduce`` for gloo on CUDA tensors; the
+    ``parallel`` phase of chip_smoke.py probes the others there).
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
 import os
-from typing import Iterator, Sequence
+from typing import Any, Iterator, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -100,46 +112,122 @@ def process_info() -> dict:
             "backend": dist.get_backend() if is_initialized() else None}
 
 
-_ACTIVE = {"world": 1}
+class Axis(NamedTuple):
+    """One axis of the mesh as this rank sees it: the process group of the
+    ranks along it (None: the whole world), their number, and this rank's
+    index among them."""
+
+    group: Any
+    size: int
+    index: int
+
+
+_TRIVIAL = Axis(None, 1, 0)
+# the axes of the mesh over the current process group (`set_axes`)
+_MESH: dict = {"world": None, "axes": None}
+
+
+def set_axes(axes: dict[str, Axis]) -> None:
+    """Make ``axes`` (name -> `Axis`) the mesh of the current process
+    group (as process-wide as the group itself: the layers that reach an
+    axis find it here, as JAX code finds the mesh it runs under)."""
+    _MESH["world"] = dist.group.WORLD if is_initialized() else None
+    _MESH["axes"] = axes
+
+
+def axis(name: str) -> Axis:
+    """The `Axis` ``name`` ('data', 'model', 'time' or 'batch') of the mesh
+    set over the current process group; without one the data and batch
+    axes are the world and the others have one rank."""
+    if not is_initialized():
+        return _TRIVIAL
+    axes = _MESH["axes"] if _MESH["world"] is dist.group.WORLD else None
+    if axes is None:
+        return Axis(None, world_size(), rank()) if name in ("data", "batch") else _TRIVIAL
+    return axes[name]
+
+
+_ACTIVE = {"data": _TRIVIAL, "batch": _TRIVIAL}
 
 
 @contextlib.contextmanager
 def data_parallel() -> Iterator[int]:
     """Run the enclosed forward and loss as this rank's share of a global
-    batch split evenly over the process group. -> the world size in force
-    (1 without a group)."""
-    prev = _ACTIVE["world"]
-    _ACTIVE["world"] = world_size()
+    batch split evenly over the data axis (and a clip split over the time
+    axis). -> the data axis's size (1 without a group)."""
+    prev = dict(_ACTIVE)
+    _ACTIVE.update(data=axis("data"), batch=axis("batch"))
     try:
-        yield _ACTIVE["world"]
+        yield _ACTIVE["data"].size
     finally:
-        _ACTIVE["world"] = prev
+        _ACTIVE.update(prev)
 
 
 def dp_world() -> int:
     """The number of ranks sharing the global batch: > 1 only inside
-    `data_parallel` in a group of more than one process."""
-    return _ACTIVE["world"]
+    `data_parallel` with more than one rank on the data axis."""
+    return _ACTIVE["data"].size
+
+
+def batch_axis() -> Axis:
+    """The ranks whose shares make up the global batch and clip (data x
+    time) inside `data_parallel`; one rank outside it."""
+    return _ACTIVE["batch"]
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of ``t`` over the ranks of `data_parallel` (``t`` itself
+    """Sum of ``t`` over the data axis inside `data_parallel` (``t`` itself
     outside), as a new tensor; no gradient flows through the sum."""
-    if dp_world() == 1:
+    ax = _ACTIVE["data"]
+    if ax.size == 1:
         return t
     out = t.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=ax.group)
     return out
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim: int, ax: Axis):
+        ctx.dim, ctx.ax, ctx.n = dim, ax, t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = ctx.n * ax.size
+        buf = torch.empty(shape, dtype=t.dtype, device=t.device,
+                          memory_format=memory_format_of(t)).zero_()
+        buf.narrow(dim, ax.index * ctx.n, ctx.n).copy_(t)
+        dist.all_reduce(buf, group=ax.group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """The ranks' ``t`` (same shape on each) concatenated along ``dim`` in
+    their order on axis ``ax``, on every rank of it: an all-reduce of a
+    zero-filled buffer in which each rank writes its part (in ``t``'s
+    memory format). Its gradient is this rank's part of the output's (the
+    consumers of the whole tensor compute the same on every rank)."""
+    return t if ax.size == 1 else _AllGather.apply(t, dim, ax)
+
+
+def memory_format_of(t: torch.Tensor) -> torch.memory_format:
+    """``channels_last`` (``_3d``) for a 4-D (5-D) tensor laid out so, else
+    the contiguous format."""
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last) \
+            and not t.is_contiguous():
+        return torch.channels_last
+    if t.dim() == 5 and t.is_contiguous(memory_format=torch.channels_last_3d) \
+            and not t.is_contiguous():
+        return torch.channels_last_3d
+    return torch.contiguous_format
+
+
 def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (same shape on each) concatenated along dim 0 in
-    rank order, on every rank (``t`` itself without a group)."""
-    if world_size() == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t.contiguous())
-    return torch.cat(parts)
+    """Every data rank's ``t`` (same shape on each) concatenated along dim 0
+    in their order, on every rank (``t`` itself with one data rank)."""
+    return all_gather_dim(t, 0, axis("data"))
 
 
 def barrier() -> None:

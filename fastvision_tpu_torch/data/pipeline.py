@@ -101,16 +101,20 @@ def resolve_host_shard(host_shard) -> tuple[int, int]:
     """A loader's ``host_shard`` spec -> ``(index, count)``:
 
     - ``None`` / ``""``: no sharding, ``(0, 1)``;
-    - ``'auto'``: ``(rank, world size)`` of the process group, ``(0, 1)``
-      without one. Loaders resolve it when an epoch starts, not when they
-      are built, so a loader built before the group forms still shards;
+    - ``'auto'``: ``(data index, data axis size)`` of the mesh over the
+      process group (`core.distributed.axis`; without a mesh the data axis
+      is the world), ``(0, 1)`` without a group: the ranks of one data index
+      (the model and time axes) read the same share. Loaders resolve it
+      when an epoch starts, not when they are built, so a loader built
+      before the group forms still shards;
     - ``'i/n'`` or ``(i, n)``: explicit."""
     if host_shard is None or host_shard == "":
         return 0, 1
     if host_shard == "auto":
-        from ..core.distributed import rank, world_size
+        from ..core.distributed import axis
 
-        return rank(), world_size()
+        data = axis("data")
+        return data.index, data.size
     if isinstance(host_shard, str):
         try:
             index, count = (int(p) for p in host_shard.split("/"))

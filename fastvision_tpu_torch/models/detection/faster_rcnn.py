@@ -19,7 +19,8 @@ with targets normalized by ``BOX_STD``. What the port changes:
     only valid GTs (padded rows, whose IoUs are all -1, point at anchor 0);
   - under bf16 autocast the losses, proposal scores and postprocess
     softmax run in float32 (the JAX package runs them in the model dtype),
-    and RoI-align's matmul form runs in float32 as in the JAX package.
+    and RoI-align's matmul form runs in float32 (float64 in a float64 model) as
+    in the JAX package.
 
 Modules are NCHW inside; the model takes NHWC images [B, H, W, 3] as the
 JAX package does. The head flattens RoI features in (h, w, c) order, the
@@ -28,6 +29,17 @@ JAX package's, so flax weights bridge with a plain transpose.
 Train (``model.train()``): ``model(images, labels, generator=g)`` -> dict of
 losses {rpn_cls, rpn_reg, cls, reg}; labels padded [B, M, 5] = (class, x1,
 y1, x2, y2) in input pixels, class -1 = padding.
+
+Over several data-parallel ranks (``draw_shard=(i, n)``, the rank's data
+index and the data axis's size) each rank holds images ``i*B .. (i+1)*B``
+of a global batch of ``n*B``: it makes (or is given) the `Draws` of the
+whole global batch, from the same generator seed on every rank, and keeps
+its rows, so its draws are bit-equal to those rows of the one-process
+step's. Sampling is per image, so no proposal, score or IoU of another rank
+is needed: nothing is gathered. The RPN's per-image mean over this rank's
+images, averaged over the ranks by data parallelism, is the global mean;
+the head's weighted means take their denominators over the global batch
+(`train.losses` under `core.distributed.data_parallel`).
 Eval (``model.eval()``): ``model(images)`` -> (class logits [B, P, C + 1],
 boxes [B, P, C, 4], proposals [B, P, 4], valid [B, P]); `fastrcnn_postprocess`
 turns them into Detections.
@@ -329,10 +341,14 @@ class FasterRCNN(nn.Module):
         init_weights_(self, generator)
 
     def anchors(self, feat_h: int, feat_w: int) -> torch.Tensor:
-        """The anchor grid of a feat_h x feat_w map, made once per shape and device."""
+        """The anchor grid of a feat_h x feat_w map, made once per shape and
+        device; float32 whatever the model's dtype (a float64 model's
+        proposals stay float32, the NMS kernel's input, as in the JAX
+        package)."""
         key = (feat_h, feat_w, self.base_anchors.device)
         if key not in self._anchors:
-            self._anchors[key] = anchor_grid(feat_h, feat_w, self.stride, self.base_anchors,
+            self._anchors[key] = anchor_grid(feat_h, feat_w, self.stride,
+                                             self.base_anchors.float(),
                                              offset=0.0 if self.reference_compat else 0.5)
         return self._anchors[key]
 
@@ -372,7 +388,10 @@ class FasterRCNN(nn.Module):
         return cls_logits, boxes
 
     def forward(self, images: torch.Tensor, labels: torch.Tensor | None = None,
-                generator: torch.Generator | None = None, draws: Draws | None = None):
+                generator: torch.Generator | None = None, draws: Draws | None = None,
+                draw_shard: tuple[int, int] = (0, 1)):
+        """``draws``: the global batch's (module docstring); ``draw_shard``:
+        (this rank's data index, the data axis's size)."""
         train = self.training
         if train and labels is None:
             raise ValueError("the training forward needs labels")
@@ -383,10 +402,13 @@ class FasterRCNN(nn.Module):
         if not train:
             return (*self.detect(feat, proposals), proposals, prop_valid)
 
+        b, (index, count) = feat.shape[0], draw_shard
         if draws is None:
-            draws = make_draws(generator, feat.shape[0], anchors.shape[0], proposals.shape[1],
+            draws = make_draws(generator, b * count, anchors.shape[0], proposals.shape[1],
                                self.roi_pos + self.roi_neg, self.head.hidden,
                                self.head.dropout_rate)
+        if count > 1:  # this rank's rows of the global batch's draws
+            draws = Draws(*(d[index * b:(index + 1) * b] for d in draws))
         rpn_cls, rpn_reg = rpn_loss(draws[:2], anchors, obj, deltas, labels)
         rois, cls_t, reg_t, pos_w, all_w = sample_rois(
             draws[2:4], proposals, prop_valid, labels, num_pos=self.roi_pos,

@@ -25,9 +25,31 @@ The ``state_dict`` keys are the reference's
 conv{1,2,3}.conv`` / ``bn{1,2,3}`` / ``downsample.0.conv`` /
 ``downsample.1``, ``fast_pathway.lateral_{pool1,res2,res3,res4}.conv``,
 ``fc``), so the JAX package's ``slowfast_from_reference`` + ``apply_import``
-load this model's weights. The JAX package's ``time_axis`` (the fast
-pathway sharded over a mesh's time axis) is not ported (ROADMAP Queue 1,
-item 17: time sharding).
+load this model's weights.
+
+Time-axis sharding (``time_axis='time'``, the JAX package's switch): over a
+mesh with a ``time`` axis of n ranks (`core.mesh.create_mesh`), each rank
+takes its T/n consecutive frames of the clip (every rank of the axis is
+given the whole clip) and runs both pathways on them: the slow one on its
+every alpha-th frame, which are the slow pathway's frames of that part
+since T/n is a multiple of alpha. Every temporal conv (the fast stem's
+kernel 5, the kernel-3 ``conv1`` of the blocks that have one in either
+pathway, the laterals' kernel 5 of stride alpha) drops its time padding and
+reads ``k // 2`` frames from each neighbour first
+(`parallel.time_shard.halo_exchange_time`: zeros past the clip's ends,
+which is the padding): a lateral's output frame j reads fast frames
+``alpha * j - 2 ... alpha * j + 2``, inside this rank's frames and their
+halo of 2. The head's means over T become sums over the rank's frames,
+summed over the axis (`time_sum`) and divided by the whole clip's T, so
+every rank of the axis gets the whole clip's logits. The JAX package
+shards only the fast pathway (GSPMD pads and exchanges for it) and leaves
+the slow one to GSPMD unconstrained; the port shards both, so that every
+BN normalizes over the data and time ranks alike (`nn.layers`) and every
+parameter before the pooled sum gets a partial gradient per time rank
+(summed by data parallelism over the data and time axes). T must be a
+multiple of ``mesh_time * alpha``; a clip that is not raises (the JAX
+package pads it). The weights, and the ``state_dict``, are the
+unsharded model's.
 """
 from __future__ import annotations
 
@@ -38,7 +60,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.distributed import axis
 from ...nn.layers import BatchNorm3d, init_weights_
+from ...parallel.time_shard import halo_exchange_time, time_sum
 from .resnet3d import Conv, conv3d, stem_pool
 
 
@@ -80,15 +104,27 @@ class Pathway(nn.Module):
             setattr(self, f"res{i + 2}", nn.Sequential(*blocks))
 
 
+class _TimeHalo:
+    """A temporal conv's forward pre-hook under time sharding: its input
+    extended by ``halo`` frames from each neighbour (dim 2 of NCDHW)."""
+
+    def __init__(self, axis_name: str, halo: int):
+        self.axis_name, self.halo = axis_name, halo
+
+    def __call__(self, module, args):
+        return (halo_exchange_time(args[0], self.axis_name, self.halo, dim=2), *args[1:])
+
+
 class SlowFast(nn.Module):
     """``generator`` seeds the initial weights: convs and ``fc``
-    lecun-normal (flax's default for ``Conv`` and ``Dense``)."""
+    lecun-normal (flax's default for ``Conv`` and ``Dense``). ``time_axis``:
+    the mesh axis the clip's time is sharded over (module docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 400, alpha: int = 8,
                  beta_inv: int = 8, expansion: int = 4,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, time_axis: str | None = None):
         super().__init__()
-        self.alpha, self.num_stages = alpha, len(stage_sizes)
+        self.alpha, self.num_stages, self.time_axis = alpha, len(stage_sizes), time_axis
         fast_base = max(64 // beta_inv, 1)
         slow_w = [64 * 2**i for i in range(self.num_stages)]
         fast_w = [max(w // beta_inv, 1) for w in slow_w]
@@ -107,9 +143,34 @@ class SlowFast(nn.Module):
                         Conv(c, lat, (5, 1, 1), (alpha, 1, 1)))  # padding (2, 0, 0)
         self.fc = nn.Linear(fast_w[-1] * expansion + slow_w[-1] * expansion, num_classes)
         init_weights_(self, generator)
+        if time_axis is not None:
+            for m in self.modules():
+                if isinstance(m, nn.Conv3d) and m.kernel_size[0] > 1:
+                    m.padding = (0, *m.padding[1:])
+                    m.register_forward_pre_hook(_TimeHalo(time_axis, m.kernel_size[0] // 2))
+
+    def _time_shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's frames of an NCDHW clip (dim 2) under time sharding."""
+        ax, t = axis(self.time_axis), x.shape[2]
+        if t % (ax.size * self.alpha):
+            raise ValueError(
+                f"time sharding: a clip of {t} frames does not split into {ax.size} parts of a "
+                f"multiple of alpha={self.alpha} frames (T must be a multiple of "
+                f"mesh_time * alpha = {ax.size * self.alpha})")
+        n = t // ax.size
+        return x[:, :, ax.index * n:(ax.index + 1) * n]
+
+    def _pool(self, x: torch.Tensor, frames: int) -> torch.Tensor:
+        """The mean over T, H and W of the whole clip's ``frames`` frames."""
+        if self.time_axis is None:
+            return x.mean(dim=(2, 3, 4))
+        return time_sum(x.mean(dim=(3, 4)).sum(dim=2) / frames, self.time_axis)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 4, 1, 2, 3)
+        t = x.shape[2]
+        if self.time_axis is not None:
+            x = self._time_shard(x)
         sp, fp = self.slow_pathway, self.fast_pathway
         slow = stem_pool(F.relu(sp.conv1(x[:, :, :: self.alpha])))
         fast = stem_pool(F.relu(fp.conv1(x)))
@@ -119,7 +180,8 @@ class SlowFast(nn.Module):
             fast = getattr(fp, f"res{i + 2}")(fast)
             if i < self.num_stages - 1:
                 slow = torch.cat([slow, getattr(fp, f"lateral_res{i + 2}")(fast)], dim=1)
-        return self.fc(torch.cat([fast.mean(dim=(2, 3, 4)), slow.mean(dim=(2, 3, 4))], dim=1))
+        slow_t = -(-t // self.alpha)  # the whole clip's slow frames
+        return self.fc(torch.cat([self._pool(fast, t), self._pool(slow, slow_t)], dim=1))
 
 
 # the reference builds every variant from its own bottleneck (its resnet34

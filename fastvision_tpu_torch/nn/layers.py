@@ -41,7 +41,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.distributed import dp_world
+from ..core.distributed import batch_axis
 from ..ops.int8 import (ACTIVATIONS, add_residual, gemm_weight, implicit_gemm_eligible,
                         quantized_conv)
 
@@ -67,14 +67,15 @@ class _FlaxRunningStats:
     variance, as flax does; torch alone folds in the unbiased one
     (n / (n - 1) larger, n = B * H * W, or B * T * H * W).
 
-    Inside `core.distributed.data_parallel` with more than one rank, a
-    train-mode forward normalizes over the global batch (`GlobalBatchNorm`)
-    and every rank moves its running statistics by the same global ones."""
+    Inside `core.distributed.data_parallel` with more than one rank on the
+    batch axis (data x time), a train-mode forward normalizes over the
+    global batch and clip (`GlobalBatchNorm`) and every rank moves its
+    running statistics by the same global ones."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if dp_world() > 1:
+        if batch_axis().size > 1:
             return self._global_forward(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
@@ -169,9 +170,11 @@ def _bn_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count):
 
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BN over a batch split across the ranks of
-    `core.distributed.data_parallel`: the per-channel count, sum and sum of
-    squares are all-reduced in one call and the batch is normalized with the
-    global mean and flax's one-pass biased variance ``E[x^2] - E[x]^2``
+    `core.distributed.data_parallel` (its batch axis: the data ranks, and
+    the time ranks of a time-sharded clip, `core.distributed.batch_axis`):
+    the per-channel count, sum and sum of squares are all-reduced in one
+    call and the batch is normalized with the global mean and flax's
+    one-pass biased variance ``E[x^2] - E[x]^2``
     (clamped at 0); the backward all-reduces ``sum(dy)`` and
     ``sum(dy * (x - mean))`` the same way. The passes over the tensor are
     the card's native BN kernels that ``SyncBatchNorm`` runs (one fused
@@ -190,7 +193,8 @@ class GlobalBatchNorm(torch.autograd.Function):
         # filled on the device: a copy from the host would wait for the card
         n = torch.full((1,), x.numel() // x.shape[1], dtype=mean_r.dtype, device=x.device)
         stats = torch.cat([n, mean_r * n, (var_r + mean_r * mean_r) * n])
-        dist.all_reduce(stats)
+        group = batch_axis().group
+        dist.all_reduce(stats, group=group)
         c = x.shape[1]
         count = stats[0]
         mean = stats[1:1 + c] / count
@@ -199,6 +203,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         y = _bn_elemt(x, weight, bias, mean, invstd, eps)
         ctx.save_for_backward(x, weight, mean, invstd,
                               count.round().to(torch.int32).view(1))
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -212,7 +217,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         dx = None
         if needs[0]:
             sums = torch.cat([sum_dy, sum_dy_xmu])
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=ctx.group)
             c = x.shape[1]
             w = weight.to(mean.dtype) if weight is not None else None
             dx = _bn_backward_elemt(dy, x, mean, invstd, w, sums[:c], sums[c:], count)

@@ -17,10 +17,10 @@ bin side:
 
 Both are XLA compositions in the JAX package, not Pallas kernels, so plain
 torch is their port. Precision: the matmul form computes its weights and
-both products in float32 whatever the features' dtype, outside autocast, as
-the JAX package does (float32 boxes make float32 weights, and ``jnp``
-promotes bf16 features to them); callers cast the result where they want
-bf16.
+both products in float32 for float32 or narrower features and boxes (float64
+where either is float64), outside autocast, as the JAX package does (float32
+boxes make float32 weights, and ``jnp`` promotes bf16 features to them);
+callers cast the result where they want bf16.
 """
 from __future__ import annotations
 
@@ -92,22 +92,24 @@ def _interp_weights(coords: torch.Tensor, extent: int) -> torch.Tensor:
 def roi_align_mxu(features: torch.Tensor, boxes: torch.Tensor, output_size: int = 7,
                   spatial_scale: float = 1.0 / 16, sampling_ratio: int = 2) -> torch.Tensor:
     """Matmul form: features [B, H, W, C], boxes [B, N, 4] -> float32
-    [B, N, o, o, C] as out[b, n, i, j] = sum_{h, w} Wy[b, n, i, h] Wx[b, n, j, w]
-    feat[b, h, w]: one batched product over H, then one over W."""
+    (float64 from float64 inputs) [B, N, o, o, C] as out[b, n, i, j] =
+    sum_{h, w} Wy[b, n, i, h] Wx[b, n, j, w] feat[b, h, w]: one batched
+    product over H, then one over W."""
     bsz, h, w, c = features.shape
     n = boxes.shape[1]
     o, s = output_size, sampling_ratio
+    acc = torch.promote_types(torch.promote_types(boxes.dtype, features.dtype), torch.float32)
     with torch.autocast(features.device.type, enabled=False):
-        scaled = boxes.float() * spatial_scale
+        scaled = boxes.to(acc) * spatial_scale
         x1, y1, x2, y2 = scaled.unbind(-1)
         bh = (y2 - y1).clamp(min=1.0)
         bw = (x2 - x1).clamp(min=1.0)
-        off = _sample_offsets(o, s, boxes.device).reshape(-1)  # [o * s]
+        off = _sample_offsets(o, s, boxes.device).to(acc).reshape(-1)  # [o * s]
         ys = (y1[..., None] + off * (bh / o)[..., None]).clamp(0, h - 1).reshape(bsz, n, o, s)
         xs = (x1[..., None] + off * (bw / o)[..., None]).clamp(0, w - 1).reshape(bsz, n, o, s)
         wy = _interp_weights(ys, h)  # [B, N, o, H]
         wx = _interp_weights(xs, w)  # [B, N, o, W]
-        feat = features.float().reshape(bsz, h, w * c)
+        feat = features.to(acc).reshape(bsz, h, w * c)
         # contract H: [B, N*o, H] @ [B, H, W*C] -> [B*N, o(i), W, C]
         tmp = torch.bmm(wy.reshape(bsz, n * o, h), feat).reshape(bsz * n, o, w, c)
         # contract W, batched over (B*N, i): [o(j), W] @ [W, C] -> [B*N, i, j, C]

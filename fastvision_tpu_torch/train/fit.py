@@ -23,16 +23,22 @@ positional one named ``rng``; the rules of the JAX package's ``step_fn``
 setter) gets a ``torch.Generator`` on the model's device, seeded from
 (``seed``, global step): the per-step key that dropout needs.
 
-Data parallel (``mesh``, a `core.mesh.Mesh`, in a process group): the model
-is wrapped in ``DistributedDataParallel`` or, with ``fsdp=True``, sharded by
-`parallel.fsdp` (the EMA copy too), at any world size, one rank per device.
-Each rank trains on its share of every global batch: a loader built with
-``host_shard`` yields it, any other yields the global batch and the rank
-keeps its contiguous part; the step gives every rank the global batch's BN
-statistics, loss and metrics (`train.steps`). Rank 0 writes the
-checkpoints (FSDP's state gathered first, in the single-process format)
-while the others wait, every rank restores, and the evaluators shard each
-validation batch over the ranks and gather the outputs, so every rank
+Parallel placement (``mesh``, a `core.mesh.Mesh`, in a process group; one
+rank per device), in the JAX package's order: a ``model`` axis above 1
+means tensor parallel (`parallel.tensor_shard`, the EMA copy too), even
+with ``fsdp=True``; else ``fsdp=True`` shards the model over the data axis
+(`parallel.fsdp`); else the model is replicated. Except under FSDP it is
+then wrapped in ``DistributedDataParallel`` over the batch axis (the data
+ranks, and the time ranks of a time-sharded model, which hold partial
+gradients of one clip: `core.mesh`) unless that axis is one rank of
+several (tensor parallel alone). Each data rank trains on its share of
+every global batch: a loader built with ``host_shard`` yields it, any other
+yields the global batch and the rank keeps its data index's contiguous
+part; the step gives every rank the global batch's BN statistics, loss and
+metrics (`train.steps`). Rank 0 writes the checkpoints (FSDP's and tensor
+parallel's state gathered first, in the single-process format) while the
+others wait, every rank restores, and the evaluators shard each
+validation batch over the data axis and gather the outputs, so every rank
 computes the metric one process would. Without a process group a mesh has
 one rank and training is the single-process one.
 """
@@ -49,8 +55,8 @@ import torch
 from torch import nn
 
 from ..core.checkpoint import CheckpointManager
-from ..core.distributed import all_gather_cat, barrier, is_initialized, rank
-from ..core.mesh import Mesh
+from ..core.distributed import all_gather_cat, axis, barrier, is_initialized, rank, world_size
+from ..core.mesh import Mesh, use_mesh
 from ..core.rng import step_seed
 from ..core.telemetry import MetricLogger
 from ..data.pipeline import prefetch_to_device
@@ -65,7 +71,7 @@ PREEMPT_POLL = 8
 
 
 def check_mesh(mesh) -> None:
-    """``mesh``: None or a `core.mesh.Mesh` (which refuses the axes not ported)."""
+    """``mesh``: None or a `core.mesh.Mesh`."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a core.mesh.Mesh, got {type(mesh).__name__}")
 
@@ -86,8 +92,9 @@ class Fit:
     checkpoint after every epoch (``save_every_epoch``; else after the last
     only) and on preemption; ``resume``: continue from the newest
     checkpoint there. ``seed``: the root of the per-step generators that
-    an rng-taking ``step_fn`` receives. ``mesh`` / ``fsdp``: data parallel
-    placement (module docstring); the optimizer must not have stepped."""
+    an rng-taking ``step_fn`` receives. ``mesh`` / ``fsdp``: parallel
+    placement (module docstring; the mesh becomes the process's,
+    `core.mesh.use_mesh`); the optimizer must not have stepped."""
 
     def __init__(
         self,
@@ -167,9 +174,13 @@ class Fit:
             # model's, copied in at evaluation (`eval_state`)
             self.ema_model = copy.deepcopy(self.state.model).requires_grad_(False)
             self._ema_update = make_ema_update(ema_decay)
-        # ranks sharing each global batch (1 without a mesh over a process group)
-        self.world = mesh.data if mesh is not None and is_initialized() else 1
-        if mesh is not None and is_initialized():
+        # ranks sharing each global batch, and the ranks that agree on each
+        # stop and checkpoint (1 and 1 without a mesh over a process group)
+        grouped = mesh is not None and is_initialized()
+        self.world = mesh.data if grouped else 1
+        self._ranks = world_size() if grouped else 1
+        if grouped:
+            use_mesh(mesh)
             self._place(fsdp)
         if self.ema_model is not None:
             self._ema_pairs = (list(self.ema_model.parameters()),
@@ -181,46 +192,64 @@ class Fit:
             self._restore()
 
     def _place(self, fsdp: bool) -> None:
-        """Data parallel placement over the process group (one rank per
-        device): FSDP shards the model and the EMA copy and rebinds the
-        optimizer; else DDP wraps the model. Global BN keeps the buffers
-        equal on every rank, so DDP broadcasts none."""
+        """Placement over the process group (one rank per device), as the
+        JAX package orders it: a model axis above 1 shards the model and
+        the EMA copy's channels (tensor parallel) whatever ``fsdp`` says;
+        else ``fsdp`` shards them over the data (and time) ranks and rebinds
+        the optimizer; else they stay whole. Then, but for FSDP, DDP wraps
+        the model over the batch axis, where it has more than one rank (or
+        is the whole world). Global BN keeps the buffers equal on every
+        rank, so DDP broadcasts none."""
+        from ..core.mesh import replicate
+
         model = self.state.model
-        if fsdp:
-            from ..core.mesh import replicate
+        replicate(model)  # rank 0's weights everywhere, as DDP starts
+        if self.ema_model is not None:
+            replicate(self.ema_model)
+        if self.mesh.model > 1:
+            from ..parallel.tensor_shard import shard_module
+            from .optim import MultiSteps
+
+            shard_module(model, self.mesh)
+            if isinstance(self.state.optimizer, MultiSteps):
+                self.state.optimizer.rebind()  # its means take the slices' shapes
+            if self.ema_model is not None:
+                shard_module(self.ema_model, self.mesh)
+        elif fsdp:
             from ..parallel.fsdp import fsdp_shard_module, rebind_optimizer
 
-            replicate(model)  # rank 0's weights everywhere, as DDP starts
-            if self.ema_model is not None:
-                replicate(self.ema_model)
-            names = fsdp_shard_module(model, self.world)
+            # over every rank: with a model axis of 1 the batch axis is the world
+            names = fsdp_shard_module(model, self._ranks)
             rebind_optimizer(self.state.optimizer, names, model)
             if self.ema_model is not None:
-                fsdp_shard_module(self.ema_model, self.world)
-        else:
-            from torch.nn.parallel import DistributedDataParallel
+                fsdp_shard_module(self.ema_model, self._ranks)
+            return
+        batch = axis("batch")
+        if batch.size == 1 and self._ranks > 1:
+            return  # tensor parallel alone: no gradient to average
+        from torch.nn.parallel import DistributedDataParallel
 
-            # newer torch names the switch forward_sync_buffers (and still
-            # syncs at construction, where the buffers are equal anyway)
-            sync = ("forward_sync_buffers" if "forward_sync_buffers" in
-                    inspect.signature(DistributedDataParallel).parameters
-                    else "broadcast_buffers")
-            self.state.model = DistributedDataParallel(
-                model, device_ids=[self.device] if self.device.type == "cuda" else None,
-                **{sync: False})
+        # newer torch names the switch forward_sync_buffers (and still
+        # syncs at construction, where the buffers are equal anyway)
+        sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+                inspect.signature(DistributedDataParallel).parameters
+                else "broadcast_buffers")
+        self.state.model = DistributedDataParallel(
+            model, device_ids=[self.device] if self.device.type == "cuda" else None,
+            process_group=batch.group, **{sync: False})
 
     def _restore(self) -> None:
         restored = self.ckpt.restore()
         state, meta = restored["state"], restored["meta"]
         model = unwrap(self.state.model)
         ema = state.get("ema")
-        if parallel_kind(model) == "fsdp":
-            from ..parallel.fsdp import load_full_state
-
-            load_full_state(model, state["model"], self.state.optimizer, state.get("optimizer"))
+        sharded = self._sharded_state_module(model)
+        if sharded is not None:
+            sharded.load_full_state(model, state["model"], self.state.optimizer,
+                                    state.get("optimizer"))
             if self.ema_model is not None:
                 # the EMA shadow over the restored model's state (its BN buffers)
-                load_full_state(self.ema_model, {**state["model"], **(ema or {})})
+                sharded.load_full_state(self.ema_model, {**state["model"], **(ema or {})})
         else:
             model.load_state_dict(state["model"])
             if "optimizer" in state:
@@ -245,27 +274,40 @@ class Fit:
         self.state.step = int(meta.get("state_step", self.global_step))
         print(f"[fit] resumed from epoch {self.start_epoch}, batch {self._resume_batch}")
 
+    @staticmethod
+    def _sharded_state_module(model: nn.Module):
+        """The module of `parallel` whose ``full_state`` / ``load_full_state``
+        give ``model``'s sharded state in the one-process format (FSDP's or
+        tensor parallel's), or None for a whole model."""
+        if parallel_kind(model) == "fsdp":
+            from ..parallel import fsdp
+
+            return fsdp
+        from ..parallel import tensor_shard
+
+        return tensor_shard if tensor_shard.is_tensor_parallel(model) else None
+
     def _save(self, step: int, extra: dict, metric: float | None = None) -> None:
         """Rank 0 writes; the others wait for the write to be on disk."""
         model = unwrap(self.state.model)
-        if parallel_kind(model) == "fsdp":
-            from ..parallel.fsdp import full_state
-
-            model_sd, opt_sd = full_state(model, self.state.optimizer)
+        sharded = self._sharded_state_module(model)
+        if sharded is not None:
+            model_sd, opt_sd = sharded.full_state(model, self.state.optimizer)
             ema = None
             if self.ema_model is not None:
                 names = dict(self.ema_model.named_parameters())
-                ema = {k: v for k, v in full_state(self.ema_model)[0].items() if k in names}
+                ema = {k: v for k, v in sharded.full_state(self.ema_model)[0].items()
+                       if k in names}
         else:
             model_sd, opt_sd = model.state_dict(), self.state.optimizer.state_dict()
             ema = (dict(self.ema_model.named_parameters())
                    if self.ema_model is not None else None)
-        if self.world == 1 or rank() == 0:
+        if rank() == 0 or self._ranks == 1:
             self.ckpt.save(step, model_sd, opt_sd, ema=ema,
                            extra={**extra, "state_step": self.state.step,
                                   "host_count": getattr(self.train_loader, "host_count", 1)},
                            metric=metric, higher_is_better=self.metric_mode == "max")
-        if self.world > 1:
+        if self._ranks > 1:
             if rank() == 0:
                 self.ckpt.wait()
             barrier()
@@ -311,7 +353,7 @@ class Fit:
         agree at every `PREEMPT_POLL`-th step and at the end; elsewhere
         False. A request is never cleared here, so one that lands after
         an agreement counts at the next."""
-        if self.world == 1:
+        if self._ranks == 1:
             return self._preempt
         if n_steps is not None and n_steps % PREEMPT_POLL:
             return False

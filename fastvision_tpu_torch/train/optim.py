@@ -35,15 +35,23 @@ def decay_mask(model: nn.Module) -> dict[str, bool]:
 
 def clip_grads_by_global_norm_(params, max_norm: float) -> None:
     """optax.clip_by_global_norm in place: g stays when ||g|| < max_norm,
-    else becomes g / ||g|| * max_norm. No host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
+    else becomes g / ||g|| * max_norm, ||g|| over the whole model (FSDP's
+    shards and tensor parallel slices included) in float32, or float64 for
+    float64 gradients, as optax computes it in the gradients' dtype. No
+    host sync."""
+    from ..parallel.tensor_shard import tp_global_norm
+
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-    if hasattr(norm, "full_tensor"):  # FSDP's sharded gradients: scale the local shards
-        norm = norm.full_tensor()
+    acc = torch.float64 if any(g.dtype == torch.float64 for g in grads) else torch.float32
+    norms = [torch.linalg.vector_norm(g.to(acc)) for g in grads]
+    if hasattr(norms[0], "full_tensor"):  # FSDP's sharded gradients: scale the local shards
+        norm = torch.linalg.vector_norm(torch.stack(norms)).full_tensor()
         grads = [g.to_local() for g in grads]
+    else:  # tensor parallel slices count once over the model axis
+        norm = tp_global_norm(norms, params)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
 

@@ -37,10 +37,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.distributed import all_gather_cat, data_parallel, rank, world_size
+from ..core.distributed import all_gather_cat, axis, data_parallel
 from ..data.pipeline import normalize_images
 from ..device import resolve_device
 from ..nn.layers import memory_format_for
+from ..parallel.tensor_shard import tp_global_norm
 from .optim import MultiSteps, set_lr
 
 
@@ -89,12 +90,14 @@ def gradient_sync(model: nn.Module, enabled: bool):
 
 
 def _average_over_ranks_(tensors: list[torch.Tensor]) -> None:
-    """In place: each tensor becomes its mean over the ranks (one
-    all-reduce of their concatenation)."""
+    """In place: each tensor becomes its mean over the batch axis (the
+    ranks data parallelism averages gradients over; one all-reduce of
+    their concatenation)."""
+    ax = axis("batch")
     dtype = torch.float64 if any(t.dtype == torch.float64 for t in tensors) else torch.float32
     flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
-    torch.distributed.all_reduce(flat)
-    flat /= world_size()
+    torch.distributed.all_reduce(flat, group=ax.group)
+    flat /= ax.size
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
 
@@ -215,13 +218,14 @@ def make_train_step(
         i-th contiguous slice, as the JAX package splits the global batch."""
         draws = (np.random.default_rng((transform_seed, step))
                  if batch_transform is not None else None)
-        if not parallel or world_size() == 1 or (batch_transform is None and accum_steps == 1):
+        data = axis("data")
+        if not parallel or data.size == 1 or (batch_transform is None and accum_steps == 1):
             return split(batch if draws is None else batch_transform(batch, draws))
         split(batch)  # this rank's share must split too
         full = {k: all_gather_cat(v) for k, v in batch.items()}
         if draws is not None:
             full = batch_transform(full, draws)
-        w, r = world_size(), rank()
+        w, r = data.size, data.index
         return [{k: v[r * (len(v) // w):(r + 1) * (len(v) // w)] for k, v in mb.items()}
                 for mb in split(full)]
 
@@ -250,17 +254,18 @@ def make_train_step(
                 loss = torch.stack([r[0] for r in runs]).mean()
                 metrics = {k: torch.stack([r[1][k] for r in runs]).mean() for k in runs[0][1]}
         metrics["loss"] = loss
-        if kind and world_size() > 1:
+        if kind and axis("batch").size > 1:
             values = list(metrics.values())
             _average_over_ranks_(values)
         if with_grad_norm and local:  # the rank's own gradient: the global norm is unknown
             metrics["grad_norm"] = torch.tensor(float("nan"), device=loss.device)
         elif with_grad_norm:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            metrics["grad_norm"] = plain_value(torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))))
+            params = [p for p in model.parameters() if p.grad is not None]
+            norms = torch._foreach_norm([p.grad for p in params])
+            metrics["grad_norm"] = (plain_value(torch.linalg.vector_norm(torch.stack(norms)))
+                                    if kind == "fsdp" else tp_global_norm(list(norms), params))
         if (kind == "ddp" and isinstance(opt, MultiSteps) and opt.every_k > 1
-                and opt.mini_step + 1 == opt.every_k and world_size() > 1):
+                and opt.mini_step + 1 == opt.every_k and axis("batch").size > 1):
             _average_over_ranks_(opt.acc)  # the local means of the calls that skipped DDP
         set_lr(opt, lr)
         opt.step()

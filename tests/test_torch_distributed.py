@@ -369,9 +369,9 @@ def test_mesh_and_prefetch_without_a_group():
     assert create_mesh() == Mesh(1) and create_mesh(0) == Mesh(1)
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
         create_mesh(2)
-    for kw, what in ((dict(model=2), "tensor parallel"), (dict(time=2), "time sharding")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*item 17"):
-            create_mesh(**kw)
+    for kw, shape in ((dict(model=2), "0x2x1"), (dict(time=2), "0x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 processes"):
+            create_mesh(**kw)  # the model and time axes too must cover the world
     batch = {"images": np.zeros((4, 2, 2, 3), np.uint8), "num_real": 4}
     assert shard_batch(batch, Mesh(1)) is batch
     assert shard_batch(batch, Mesh(2), per_host=True) is batch

@@ -351,10 +351,12 @@ def test_cli_rejects_what_is_not_ported(root, tmp_path, monkeypatch):
         with pytest.raises(SystemExit, match="mp4v writer.*item 6\\)"):
             cli.main(args)
     common = [f"data.data_root={root}", "--device", "cpu"]
-    for override, item in (("mesh_model=2", 17), ("mesh_time=2", 17),
-                           ("compile_cache=cache", 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            cli.main(["eval", override, *common])
+    with pytest.raises(NotImplementedError, match="item 10\\)"):
+        cli.main(["eval", "compile_cache=cache", *common])
+    # the model and time axes are ported: their mesh, too, must cover the world
+    for override, shape in (("mesh_model=2", "0x2x1"), ("mesh_time=2", "0x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 processes"):
+            cli.main(["eval", "--task", "cls", "--ckpt", str(tmp_path), override, *common])
     # data parallel is ported: a mesh must match the world size (one
     # process here), and multihost=true without a process group fails
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):

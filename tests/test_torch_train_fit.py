@@ -225,8 +225,8 @@ def test_fit_ema_eval_state_and_preempt(tiny):
 def test_fit_rejects_what_is_not_ported(tiny, tmp_path):
     from fastvision_tpu_torch.core.mesh import Mesh
 
-    for kw, what in ((dict(model=2), "tensor parallel"), (dict(time=2), "time sharding")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.*item 17"):
+    for kw in (dict(model=0), dict(time=0)):
+        with pytest.raises(ValueError, match=">= 1"):
             Mesh(1, **kw)  # no such mesh reaches Fit or an evaluator
     with pytest.raises(TypeError, match="core.mesh.Mesh"):
         tiny(mesh=object())

@@ -223,8 +223,8 @@ def test_cli_train_video_resume_and_eval_on_default_pools(tmp_path, monkeypatch,
     assert "2-clip protocol" in capsys.readouterr().out and res["clip_per_sec"] > 0
     with pytest.raises(SystemExit, match="needs --ckpt"):
         cli.main(["eval", "--task", "video", *common])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main(["train-video", "mesh_time=2", *common])
+    with pytest.raises(ValueError, match="mesh 0x1x2 != 1 processes"):
+        cli.main(["train-video", "mesh_time=2", *common])  # ported: two ranks needed
     monkeypatch.undo()
     with pytest.raises(SystemExit, match="unknown video model"):
         cli.main(["train-video", "model.backbone=slowfast_resnet9", *common])

@@ -1,9 +1,12 @@
-"""One rank of the port's data-parallel checks on the CPU (gloo).
+"""One rank of the port's parallelism checks on the CPU (gloo).
 
     python tests/torch_dist_worker.py <scenario> <rank> <world> <port> <workdir>
 
-Started by tests/test_torch_distributed.py (scenario ``dp``) and
-tests/test_torch_fsdp.py (scenario ``fsdp``), once per rank, on inputs the
+Started by tests/test_torch_distributed.py (scenario ``dp``),
+tests/test_torch_fsdp.py (``fsdp``), tests/test_torch_tensor_shard.py
+(``tp2``: a 1 x 2 x 1 mesh, ``tp4``: 2 x 2 x 1), tests/test_torch_time_shard.py
+(``time2``: 1 x 1 x 2) and tests/test_torch_frcnn_distributed.py
+(``frcnn2``: 2 x 1 x 1), once per rank, on inputs the
 test wrote into ``workdir``; each rank saves what it computed to
 ``workdir/<scenario>_rank<rank>.pt`` for the test to compare (the ranks
 but 0 save large tensors as digests). Imports no
@@ -22,7 +25,7 @@ def _load(workdir, name):
     return torch.load(os.path.join(workdir, name), weights_only=False)
 
 
-def _fit(model, loss_fn, optimizer, mesh, dtype=torch.float64, **kw):
+def _fit(model, loss_fn, optimizer, mesh=None, dtype=torch.float64, **kw):
     from fastvision_tpu_torch.train import Fit, make_train_step
 
     step = kw.pop("step_fn", None) or make_train_step(loss_fn, dtype)
@@ -35,21 +38,25 @@ def _plain_state(state):
     from fastvision_tpu_torch.parallel import full_state
     from fastvision_tpu_torch.train.steps import parallel_kind, unwrap
 
+    from fastvision_tpu_torch.parallel import tensor_shard
+
     model = unwrap(state.model)
     if parallel_kind(model) == "fsdp":
         return full_state(model, state.optimizer)
+    if tensor_shard.is_tensor_parallel(model):
+        return tensor_shard.full_state(model, state.optimizer)
     return ({k: v.detach().clone() for k, v in model.state_dict().items()},
             state.optimizer.state_dict())
 
 
-def _equal_to_file(workdir, model_sd, opt_sd) -> bool | None:
+def _equal_to_file(workdir, model_sd, opt_sd, name="plain_ckpt") -> bool | None:
     """The gathered state bit-equal to the one-process checkpoint's (None
     on ranks that hold no gathered state)."""
     from fastvision_tpu_torch.core import CheckpointManager
 
     if not model_sd:
         return None
-    plain = CheckpointManager(os.path.join(workdir, "plain_ckpt")).restore(0)["state"]
+    plain = CheckpointManager(os.path.join(workdir, name)).restore(0)["state"]
     return (all(torch.equal(model_sd[k], v) for k, v in plain["model"].items())
             and all(torch.equal(opt_sd["state"][i]["momentum_buffer"], s["momentum_buffer"])
                     for i, s in plain["optimizer"]["state"].items()))
@@ -464,6 +471,314 @@ def check_cli_fsdp(workdir, out):
                   "steps": fit.global_step}
 
 
+# (data, model, time) of each scenario's mesh (the others: every rank on data)
+MESHES = {"tp2": (1, 2, 1), "tp4": (2, 2, 1), "time2": (1, 1, 2), "frcnn2": (2, 1, 1)}
+
+
+def _tiny_det_loss(inputs):
+    from fastvision_tpu_torch.train import YOLOv3Loss
+
+    loss_obj = YOLOv3Loss(inputs["anchors"], num_classes=inputs["num_classes"])
+
+    def loss_fn(heads, batch):
+        o = loss_obj(heads, batch["labels"])
+        return o.total, {"box": o.box, "obj": o.obj, "cls": o.cls}
+
+    return loss_fn
+
+
+def _shallow_yolo(inputs):
+    from fastvision_tpu_torch.models import YOLOv3
+
+    model = YOLOv3(num_classes=inputs["num_classes"], stage_sizes=(1, 1, 1, 1, 1)).double()
+    model.load_state_dict(inputs["state"])  # a float64 state stays exact
+    return model
+
+
+def check_tp_yolo(workdir, mesh, out):
+    """One SGD step (momentum 0.9, clip 10) of a shallow YOLOv3 with its
+    channels sharded over the model axis, every rank on the global batch;
+    an eval forward against this process's unsharded model; Fit's
+    placement with fsdp=True on a model axis (tensor parallel wins)."""
+    from fastvision_tpu_torch.parallel import tensor_shard
+    from fastvision_tpu_torch.train import TrainState, build_optimizer, make_train_step
+    from fastvision_tpu_torch.train.steps import parallel_kind
+
+    inputs = _load(workdir, "tp_yolo_inputs.pt")
+    loss_fn = _tiny_det_loss(inputs)
+    model = _shallow_yolo(inputs)
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model, momentum=0.9, grad_clip_norm=10.0),
+               mesh, fsdp=True, ckpt_dir=os.path.join(workdir, "tp_ckpt"), ema_decay=0.9)
+    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    fit.state, m = fit.step_fn(fit.state, batch, inputs["lr"])
+    res = {"metrics": {k: float(v) for k, v in m.items()}, "state": _plain_state(fit.state)[0],
+           "local_shapes": local, "kind": parallel_kind(fit.state.model),
+           "tensor_parallel": tensor_shard.is_tensor_parallel(fit.state.model)}
+    # eval forward: the sharded model (after the step) against the same weights whole
+    whole = _shallow_yolo({**inputs, "state": res["state"]})
+    from fastvision_tpu_torch.train import make_eval_step
+
+    step = make_eval_step(dtype=torch.float64)
+    got = step(fit.state, batch)
+    want = step(TrainState.create(whole, None, "cpu"), batch)
+    res["eval_max_rel"] = max(float((g - w).abs().max() / w.std()) for g, w in zip(got, want))
+    out["tp_yolo"] = res
+    return fit
+
+
+def check_tp_checkpoints(workdir, mesh, out, fit):
+    """``fit`` (at mesh_model=2, after its step) saves the one-process
+    format (with the EMA and the momentum), and a one-process checkpoint
+    resumes at mesh_model=2 (the reverse)."""
+    from fastvision_tpu_torch.train import build_optimizer
+
+    inputs = _load(workdir, "tp_yolo_inputs.pt")
+    loss_fn = _tiny_det_loss(inputs)
+    fit._ema_update(*fit._ema_pairs, fit.state.step)
+    fit._save(0, {"epoch": 0, "global_step": 1})
+    fit.ckpt.wait()
+    model_sd, opt_sd = _plain_state(fit.state)
+    from fastvision_tpu_torch.parallel import tensor_shard
+
+    ema = tensor_shard.full_state(fit.ema_model)[0]
+    res = {"state": model_sd, "optimizer": opt_sd,
+           "ema": {k: ema[k] for k, _ in fit.ema_model.named_parameters()}}
+    model = _shallow_yolo(inputs)
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model, momentum=0.9), mesh,
+               ckpt_dir=os.path.join(workdir, "plain_tp_ckpt"), resume=True)
+    model_sd, opt_sd = _plain_state(fit.state)
+    res["resumed_epoch"] = fit.start_epoch
+    res["resumed_equal_to_file"] = _equal_to_file(workdir, model_sd, opt_sd,
+                                                  name="plain_tp_ckpt")
+    out["tp_ckpt"] = res
+
+
+def check_loaders_by_data_index(workdir, out):
+    """host_shard='auto' on a data x model mesh: the data index's share."""
+    from fastvision_tpu_torch.data import ClassificationDataset, ClassificationLoader
+
+    loader = ClassificationLoader(
+        ClassificationDataset(os.path.join(workdir, "data", "cls"), "train"), 32, 2, seed=3,
+        host_shard="auto")
+    out["loader"] = {"host": (loader.host_index, loader.host_count),
+                     "labels": [b["labels"] for b in loader.epoch(0)],
+                     "images": [b["images"] for b in loader.epoch(0)]}
+    loader.close()
+
+
+def check_tp_resnet(workdir, mesh, out):
+    """One SGD step of ResNet-18 over a 2 x 2 (data x model) mesh."""
+    from fastvision_tpu_torch.models import classification as tz
+    from fastvision_tpu_torch.train import build_optimizer, cross_entropy, make_train_step
+
+    inputs = _load(workdir, "tp_resnet_inputs.pt")
+    model = tz.resnet18(num_classes=inputs["k"])
+    model.load_state_dict(inputs["state"])
+    model.double()
+
+    def loss_fn(logits, batch):
+        return cross_entropy(logits, batch["labels"]), {}
+
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model), mesh,
+               step_fn=make_train_step(loss_fn, torch.float64, imagenet=True))
+    (batch,) = _batches({k: v[None] for k, v in inputs["batch"].items()}, mesh)
+    fit.state, m = fit.step_fn(fit.state, batch, inputs["lr"])
+    out["tp_resnet"] = {"metrics": {k: float(v) for k, v in m.items()},
+                        "state": _plain_state(fit.state)[0],
+                        "local_batch": int(batch["images"].shape[0]),
+                        "buffers_equal": _buffers_agree(fit.state.model)}
+
+
+def check_cli_tp(workdir, out):
+    """``train-cls ... mesh_data=2 mesh_model=2 multihost=true`` on 4 ranks,
+    then ``eval --task cls`` of its checkpoint at mesh_model=2."""
+    import json
+
+    from fastvision_tpu_torch import cli
+
+    cli._build_zoo_model = lambda cfg, task="cls", **kw: _resnet(k=cfg.model.num_classes).float()
+    ckpt = os.path.join(workdir, "cli_tp_ckpt")
+    common = [f"data.data_root={os.path.join(workdir, 'data', 'cls')}", "data.input_size=32",
+              "data.batch_size=4", "data.num_workers=0", "model.num_classes=4",
+              "train.bf16=false", "mesh_data=2", "mesh_model=2", "multihost=true",
+              "--device", "cpu"]
+    fit = cli.main(["train-cls", f"train.ckpt_dir={ckpt}", "train.epochs=2",
+                    "train.warmup_epochs=0", "fsdp=true", *common])
+    recs = []
+    if os.path.exists(os.path.join(ckpt, "train.jsonl")):
+        with open(os.path.join(ckpt, "train.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    from fastvision_tpu_torch.parallel import tensor_shard
+
+    res = cli.main(["eval", "--task", "cls", "--ckpt", ckpt, *common])
+    out["cli"] = {"records": recs, "steps": fit.global_step,
+                  "tensor_parallel": tensor_shard.is_tensor_parallel(fit.state.model),
+                  "eval": res["accuracy"]}
+
+
+def _temporal_conv_valid(x, kernel):
+    k = len(kernel)
+    return sum(x[:, i:x.shape[1] - (k - 1 - i)] * kernel[i] for i in range(k))
+
+
+def check_time_sharded_conv(workdir, out):
+    """`time_sharded_conv` on tests/test_time_shard.py's case and its
+    gradient (this rank's share of the clip's)."""
+    from fastvision_tpu_torch.parallel import time_sharded_conv
+
+    inputs = _load(workdir, "time_conv_inputs.pt")
+    clip = inputs["clip"].clone().requires_grad_(True)
+    y = time_sharded_conv(lambda x: _temporal_conv_valid(x, inputs["kernel"]), clip, halo=1)
+    (y * inputs["cotangent"]).sum().backward()
+    out["time_conv"] = {"y": y.detach(), "grad": clip.grad}
+
+
+def _small_slowfast(inputs, time_axis=None, dtype=torch.float64):
+    from fastvision_tpu_torch.models.video import SlowFast
+
+    model = SlowFast((1, 1, 1, 1), **inputs["kw"], time_axis=time_axis)
+    model.load_state_dict(inputs["state"])
+    return model.to(dtype)
+
+
+def check_time_slowfast(workdir, mesh, out):
+    """One SGD step of a small SlowFast with the clip's frames sharded over
+    the time axis; its float32 eval forward."""
+    from fastvision_tpu_torch.train import (TrainState, build_optimizer, cross_entropy,
+                                            make_eval_step, make_train_step)
+
+    inputs = _load(workdir, "time_inputs.pt")
+    model = _small_slowfast(inputs, "time")
+
+    def loss_fn(logits, batch):
+        return cross_entropy(logits, batch["labels"]), {}
+
+    fit = _fit(model, loss_fn, build_optimizer("sgd", model, weight_decay=1e-4, momentum=0.9),
+               mesh, step_fn=make_train_step(loss_fn, torch.float64, imagenet=True))
+    batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+    res = {"metrics": {k: float(v) for k, v in m.items()}, "state": _plain_state(fit.state)[0],
+           "buffers_equal": _buffers_agree(fit.state.model)}
+    eval32 = TrainState.create(_small_slowfast(inputs, "time", torch.float32), None, "cpu")
+    res["eval32"] = make_eval_step(dtype=torch.float32, imagenet=True)(eval32, batch)
+    try:
+        bad = {"images": batch["images"][:, :6]}
+        make_eval_step(dtype=torch.float32, imagenet=True)(eval32, bad)
+    except ValueError as e:
+        res["uneven"] = str(e)
+    out["time_slowfast"] = res
+
+
+def check_cli_time(workdir, out):
+    """``train-video ... mesh_time=2 multihost=true`` on a small SlowFast,
+    then the refusal of a backbone without time_axis."""
+    import json
+
+    from fastvision_tpu_torch import cli
+    from fastvision_tpu_torch.models import video as zoo
+
+    inputs = _load(workdir, "time_inputs.pt")
+    build = cli._build_zoo_model
+    cli._build_zoo_model = lambda cfg, task="cls", **kw: zoo.SlowFast(
+        (1, 1, 1, 1), **{**inputs["kw"], "num_classes": cfg.model.num_classes}, **kw)
+    ckpt = os.path.join(workdir, "cli_time_ckpt")
+    common = [f"data.data_root={os.path.join(workdir, 'data', 'video')}", "data.input_size=32",
+              "data.num_frames=8", "data.batch_size=2", "data.num_workers=0",
+              "model.num_classes=4", "model.backbone=slowfast_resnet18", "train.bf16=false",
+              "mesh_time=2", "multihost=true", "--device", "cpu"]
+    fit = cli.main(["train-video", f"train.ckpt_dir={ckpt}", "train.epochs=1",
+                    "train.warmup_epochs=0", *common])
+    with open(os.path.join(ckpt, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    res = cli.main(["eval", "--task", "video", "--ckpt", ckpt, *common])
+    from fastvision_tpu_torch.train.steps import unwrap
+
+    out["cli"] = {"records": recs, "steps": fit.global_step, "eval": res["accuracy"],
+                  "time_axis": unwrap(fit.state.model).time_axis}
+    cli._build_zoo_model = build
+    try:
+        cli.main(["train-video", f"train.ckpt_dir={ckpt}_c3d", *common,
+                  "model.backbone=c3d"])
+    except SystemExit as e:
+        out["cli"]["c3d"] = str(e)
+
+
+def check_frcnn_step(workdir, mesh, out):
+    """One SGD step (momentum 0.9, clip 10) of a small Faster R-CNN, each
+    rank on its half of the global batch, with the global batch's draws."""
+    from fastvision_tpu_torch.models import FasterRCNN
+    from fastvision_tpu_torch.models.detection.faster_rcnn import Draws
+    from fastvision_tpu_torch.train import build_optimizer, make_frcnn_train_step
+
+    inputs = _load(workdir, "frcnn_inputs.pt")
+    model = FasterRCNN(**inputs["cfg"])
+    model.load_state_dict(inputs["state"])
+    model.double()
+    fit = _fit(model, None, build_optimizer("sgd", model, momentum=0.9, grad_clip_norm=10.0),
+               mesh, step_fn=make_frcnn_train_step(seed=0, dtype=torch.float64))
+    (batch,) = _batches({k: v[None] for k, v in inputs["batch"].items()}, mesh)
+    draws = Draws(*(torch.from_numpy(d) for d in inputs["draws"]))
+    fit.state, m = fit.step_fn(fit.state, batch, 1e-2, draws=draws)
+    res = {"metrics": {k: float(v) for k, v in m.items()}, "state": _plain_state(fit.state)[0],
+           "local_batch": int(batch["images"].shape[0])}
+    # the same step under FSDP (data axis) and tensor parallel (a 1 x 2 x 1
+    # mesh: every rank on the global batch)
+    from fastvision_tpu_torch.core import create_mesh
+    from fastvision_tpu_torch.train.steps import parallel_kind
+
+    whole = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    for name, place, step_batch in (("fsdp", dict(mesh=mesh, fsdp=True), batch),
+                                    ("tp", dict(mesh=create_mesh(1, 2, 1)), whole)):
+        model = FasterRCNN(**inputs["cfg"])
+        model.load_state_dict(inputs["state"])
+        model.double()
+        fit = _fit(model, None, build_optimizer("sgd", model, momentum=0.9,
+                                                grad_clip_norm=10.0),
+                   step_fn=make_frcnn_train_step(seed=0, dtype=torch.float64), **place)
+        fit.state, m = fit.step_fn(fit.state, step_batch, 1e-2, draws=draws)
+        res[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "state": _plain_state(fit.state)[0], "kind": parallel_kind(fit.state.model)}
+    mesh = create_mesh(2, 1, 1)
+    # the step's own draws (from its generator): this rank's rows of the global batch's
+    model = FasterRCNN(**inputs["cfg"])
+    model.load_state_dict(inputs["state"])
+    model.double()
+    fit = _fit(model, None, build_optimizer("sgd", model, momentum=0.9, grad_clip_norm=10.0),
+               mesh, step_fn=make_frcnn_train_step(seed=0, dtype=torch.float64))
+    fit.state, m = fit.step_fn(fit.state, batch, 1e-2)
+    res["generator"] = {"metrics": {k: float(v) for k, v in m.items()},
+                        "state": _plain_state(fit.state)[0]}
+    out["frcnn"] = res
+
+
+def check_cli_frcnn(workdir, out):
+    """``train model.name=faster_rcnn mesh_data=2 multihost=true``."""
+    import functools
+    import json
+
+    import fastvision_tpu_torch.models as models
+    from fastvision_tpu_torch import cli
+
+    inputs = _load(workdir, "frcnn_inputs.pt")
+    cfg = {k: v for k, v in inputs["cfg"].items() if k not in ("num_classes", "image_size")}
+    models.FasterRCNN = functools.partial(models.FasterRCNN, **cfg)
+    ckpt = os.path.join(workdir, "cli_frcnn_ckpt")
+    fit = cli.main(["train", "model.name=faster_rcnn",
+                    f"data.data_root={os.path.join(workdir, 'data', 'det')}",
+                    "data.input_size=64", "data.batch_size=2",
+                    "data.num_workers=0", f"model.num_classes={inputs['cfg']['num_classes']}",
+                    f"train.ckpt_dir={ckpt}", "train.epochs=1", "train.bf16=false",
+                    "mesh_data=2", "multihost=true", "data.host_shard=auto", "--device", "cpu"])
+    with open(os.path.join(ckpt, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    from fastvision_tpu_torch.train.steps import parallel_kind
+
+    out["cli"] = {"records": recs, "steps": fit.global_step,
+                  "kind": parallel_kind(fit.state.model),
+                  "host": (fit.train_loader.host_index, fit.train_loader.host_count)}
+
+
 def free_port() -> int:
     import socket
 
@@ -518,8 +833,8 @@ def main():
     from fastvision_tpu_torch.core import create_mesh, initialize_multihost
 
     initialize_multihost(device="cpu", timeout_s=120)
-    mesh = create_mesh()
-    out = {}
+    mesh = create_mesh(*MESHES.get(scenario, ()))
+    out = {"coords": mesh.coords()}
     if scenario == "dp":
         check_global_bn(rank, world, out)
         check_yolo_accum(workdir, mesh, out)
@@ -530,6 +845,19 @@ def main():
     elif scenario == "fsdp":
         check_fsdp(rank, workdir, mesh, out)
         check_cli_fsdp(workdir, out)
+    elif scenario == "tp2":
+        check_tp_checkpoints(workdir, mesh, out, check_tp_yolo(workdir, mesh, out))
+    elif scenario == "tp4":
+        check_loaders_by_data_index(workdir, out)
+        check_tp_resnet(workdir, mesh, out)
+        check_cli_tp(workdir, out)
+    elif scenario == "time2":
+        check_time_sharded_conv(workdir, out)
+        check_time_slowfast(workdir, mesh, out)
+        check_cli_time(workdir, out)
+    elif scenario == "frcnn2":
+        check_frcnn_step(workdir, mesh, out)
+        check_cli_frcnn(workdir, out)
     else:
         raise SystemExit(f"unknown scenario {scenario!r}")
     torch.save(out if rank == 0 else _digest_large(out),
