@@ -9,7 +9,11 @@ exits non-zero before a result is printed:
   1. device   the card's name, count and power limit (nvidia-smi);
   2. build    every ``csrc/*.cu`` compiled with nvcc (ptxas register and
               shared-memory report) and every ``csrc/*.cpp`` (the JPEG
-              decoder) with the host compiler, all at once;
+              decoder, the letterbox, the MPEG-4 packer) with the host
+              compiler, all at once; meanwhile a child process builds them
+              all into a fresh ``compile_cache`` directory
+              (`core.mesh.enable_compile_cache`), then a second child finds
+              every one there with ``seconds == 0.0`` (both wall times);
   3. kernel   each kernel against its plain PyTorch version on the card over
               seeded cases, clustered (trained-like) ones, K up to MAX_K
               included, and the evaluate paths' B = 32, K = 1024 at every
@@ -301,7 +305,13 @@ exits non-zero before a result is printed:
               frames decoded one by one, the NMS kernel's launches counted
               and each keep mask bit-equal to the plain version, the kernel
               timed on this path's inputs; demux + decode and predict_video
-              frames/s;
+              frames/s; then ``predict_video(out_path=)`` (the port's MPEG-4
+              encoder and MP4 muxer: no cv2 here), its NMS launches counted
+              and held, the file's own ``moov`` read back (frame count, fps,
+              ``stsz`` summing to the ``mdat`` payload), its samples equal
+              to the encoder's bytes of the drawn frames, each frame's
+              reconstruction within 1 level of the 4:2:0 round trip's own
+              loss; encode ms and bytes a frame, frames/s with out_path;
   28. parallel  data parallel over a process group, in subprocesses
               (``chip_smoke.py --parallel-child ...``, each a fresh TCP
               port): world size 1 over NCCL at full width, ``cli.main(["train",
@@ -316,9 +326,20 @@ exits non-zero before a result is printed:
               the one card (gloo with CUDA tensors) against one process on
               the global batch; train img/s plain, DDP and FSDP, the global
               BN against plain BN over Darknet-53's layers, the evaluator
-              sharded and not;
-  29. doctor  ``cli.main(["doctor"])``: the card, nvcc, the builds, a bf16
-              matmul chain's TFLOP/s; then the run's total seconds.
+              sharded and not; the mesh's model and time axes (PR 17); the
+              GPipe pipeline (`parallel.pipeline`): at world size 1 over NCCL
+              ``pipeline_apply`` bit-equal to the chain, and the two gloo
+              ranks as a 2-stage model axis: ViT-B/16 (224, 1000 classes)
+              through ``pipeline_vit_apply`` at batch 8 in 4 microbatches,
+              float32 with TF32 off, logits and every gradient within 1e-5 of
+              each tensor's std of the plain model in the same process,
+              ResNet-50 through ``resnet_stage_split`` (logits, same limit),
+              a small float64 ViT trunk and ResNet within 1e-12 (logits and
+              gradients), each rank's seconds and img/s (gloo's host
+              staging);
+  29. doctor  ``cli.main(["doctor"])``: the card, nvcc, ``compile_cache``, the
+              builds, a bf16 matmul chain's TFLOP/s; then the run's total
+              seconds.
 
 ``python3 chip_smoke.py --only i420`` (or ``--only int8``, ``--only export``,
 ``--only recipe``, ``--only decode``, ``--only parallel``) runs the device
@@ -401,8 +422,10 @@ from fastvision_tpu_torch.infer.predictor import _Subset
 from fastvision_tpu_torch.infer.quantize import link_int8, quant_state, quantize_model
 from fastvision_tpu_torch.models import FasterRCNN, YOLOv3
 from fastvision_tpu_torch.models.classification import (
+    BasicBlock,
     Bottleneck,
     ResNet,
+    ViT,
     darknet53,
     resnet50,
     resnext50_32x4d,
@@ -722,15 +745,68 @@ def phase_device() -> dict:
     return {"kind": name, "count": count, "smi": smi}
 
 
+# a fresh process that builds (or finds) every csrc source in the compile_cache argv[1]
+CACHE_CHILD = """import json, sys, time
+t0 = time.perf_counter()
+from fastvision_tpu_torch import cuda_build
+from fastvision_tpu_torch.core import enable_compile_cache
+enable_compile_cache(sys.argv[1])
+builds = cuda_build.build_all()
+print(json.dumps({"wall_s": time.perf_counter() - t0,
+                  "builds": {b.name: [b.seconds, b.path] for b in builds}}))
+"""
+
+
+def cache_child(cache: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", CACHE_CHILD, cache], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def cache_result(proc: subprocess.Popen, t0: float) -> dict:
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"compile_cache child exited {proc.returncode}: {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res["process_wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def phase_build() -> None:
-    t0 = time.perf_counter()
-    builds = cuda_build.build_all()
+    """Every csrc source built at once into ``_build/``; meanwhile a child
+    process builds them all into a fresh ``compile_cache`` directory
+    (`core.mesh.enable_compile_cache`), then a second child finds every one
+    there (``seconds == 0.0``, the same paths)."""
+    cache = tempfile.mkdtemp(prefix="fastvision_cache_")
+    try:
+        t_first = time.perf_counter()
+        first = cache_child(cache)
+        t0 = time.perf_counter()
+        builds = cuda_build.build_all()
+        seconds = time.perf_counter() - t0
+        first = cache_result(first, t_first)
+        t_second = time.perf_counter()
+        second = cache_result(cache_child(cache), t_second)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    names = sorted(cuda_build.sources())
+    check(sorted(first["builds"]) == names and all(
+        sec > 0 and os.path.dirname(path) == cache for sec, path in first["builds"].values()),
+        f"compile_cache, first process: {first}")
+    check(sorted(second["builds"]) == names and all(
+        sec == 0.0 and path == first["builds"][n][1] for n, (sec, path) in
+        second["builds"].items()), f"compile_cache, second process: {second}")
     report = []
     for b in builds:
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         report.append({"source": b.source, "compile_s": round(b.seconds, 3), "ptxas": ptxas})
-    emit("build", seconds=round(time.perf_counter() - t0, 3), builds=report)
+    emit("build", seconds=round(seconds, 3), builds=report, compile_cache={
+        "sources": len(names),
+        "first_process": {"wall_s": first["wall_s"], "process_wall_s": first["process_wall_s"],
+                          "compile_s": {n: v[0] for n, v in first["builds"].items()}},
+        "second_process": {"wall_s": second["wall_s"],
+                           "process_wall_s": second["process_wall_s"],
+                           "all_found": True}})
 
 
 def kernel_cases():
@@ -4772,12 +4848,94 @@ def check_decode_corpus() -> dict:
             "native_oracles": check_native_oracles()}
 
 
+def mp4_boxes(data: bytes, start: int = 0, end: int | None = None) -> dict:
+    """ISO BMFF boxes -> {type: [payload]}, through moov / trak / mdia /
+    minf / stbl (the file's own index, read without any decoder)."""
+    end = len(data) if end is None else end
+    out: dict = {}
+    while start < end:
+        size, kind = int.from_bytes(data[start:start + 4], "big"), data[start + 4:start + 8]
+        head = 8
+        if size == 1:
+            size, head = int.from_bytes(data[start + 8:start + 16], "big"), 16
+        out.setdefault(kind.decode(), []).append(data[start + head:start + size])
+        if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+            for k, v in mp4_boxes(data, start + head, start + size).items():
+                out.setdefault(k, []).extend(v)
+        start += size
+    return out
+
+
+def predict_video_writer(det: Detector, clip: str, out_path: str) -> dict:
+    """``Detector.predict_video(out_path=)`` (no cv2 on this machine: the
+    port's MPEG-4 encoder and MP4 muxer) with the NMS kernel's launches
+    counted and every keep mask held against the plain version; the file's
+    own ``moov`` read back (frame count, fps, the ``stsz`` sizes summing to
+    the ``mdat`` payload), its samples equal to the encoder's bytes of the
+    drawn frames, each frame's encoder reconstruction within 1 level (mean
+    |d|) of what 4:2:0 alone keeps of the drawn frame (the clip is blurred
+    noise, whose chroma no 4:2:0 writer keeps: ~3.5 levels), and within
+    the CPU tests' bound of 3 where that floor is below 2; encode ms and
+    bytes a frame, frames/s with ``out_path`` (and, from the phase,
+    without)."""
+    from fastvision_tpu_torch.data.mpeg4 import (Mpeg4Encoder, rgb_to_yuv420,
+                                                 yuv420_to_rgb)
+    from fastvision_tpu_torch.viz import draw_detections
+
+    seen = []
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        n = det.predict_video(clip, out_path, frame_callback=lambda rgb, res: seen.append(
+            (rgb, res)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = suppression_mask_cuda.launches
+    held = kernel_vs_plain_recorded(recorded)
+    check(held["mismatches"] == 0
+          and launches == held["calls"] == DECODE_AVI_FRAMES // DECODE_BATCH,
+          f"predict_video(out_path): {launches} launches, {held}")
+    with open(out_path, "rb") as f:
+        data = f.read()
+    boxes = mp4_boxes(data)
+    sizes = np.frombuffer(boxes["stsz"][0][12:], ">u4")
+    count, delta = np.frombuffer(boxes["stts"][0][8:16], ">u4")
+    timescale = int.from_bytes(boxes["mdhd"][0][12:16], "big")
+    mdat = boxes["mdat"][0]
+    check(n == len(seen) == DECODE_AVI_FRAMES == len(sizes) == count
+          and timescale / delta == DECODE_AVI_FPS and int(sizes.sum()) == len(mdat),
+          f"the annotated video's index: {len(sizes)} samples, {count} x {delta} / {timescale}")
+    h, w = seen[0][0].shape[:2]
+    enc = Mpeg4Encoder(w, h, DECODE_AVI_FPS)
+    drawn = [draw_detections(rgb, r["boxes"], r["scores"], r["classes"], det.class_names)
+             for rgb, r in seen]
+    t0 = time.perf_counter()
+    samples = [enc.encode(f) for f in drawn]
+    encode_ms = 1e3 * (time.perf_counter() - t0) / len(drawn)
+    check(b"".join(samples) == mdat, "the annotated video's samples != the encoder's bytes")
+    errs, floors = [], []
+    for f in drawn:
+        errs.append(float(np.abs(enc.reconstruct(enc.levels(f)).astype(np.int16) - f).mean()))
+        floors.append(float(np.abs(yuv420_to_rgb(*rgb_to_yuv420(f), h, w)
+                                   .astype(np.int16) - f).mean()))
+        check(errs[-1] <= floors[-1] + 1 and (floors[-1] >= 2 or errs[-1] <= 3),
+              f"encoder reconstruction {errs[-1]} vs the drawn frame (4:2:0 alone {floors[-1]})")
+    report = {"frames": n, "hw": [h, w], "fps": timescale / delta, "bytes": len(data),
+              "bytes_per_frame": float(sizes.mean()), "encode_ms_per_frame": encode_ms,
+              "reconstruction_mean_abs": {"max": max(errs), "mean": float(np.mean(errs))},
+              "yuv420_alone_mean_abs": {"max": max(floors), "mean": float(np.mean(floors))},
+              "predict_video_out_path_s": seconds,
+              "predict_video_out_path_fps": n / seconds, "nms_vs_plain": held}
+    return {"report": report, "launches": launches, "mismatches": held["mismatches"]}
+
+
 def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     """The decode leftovers, with no cv2 call: the corpus, the
     progressive twins of bench.py's JPEG corpus, their times, and a
     640 x 480 MJPEG AVI through load_clip, VideoFolderDataset, a
     VideoClipLoader feeding SlowFast-R50's eval step and
-    Detector.predict_video (YOLOv3-416)."""
+    Detector.predict_video (YOLOv3-416), without and with ``out_path``
+    (`predict_video_writer`)."""
     t_phase = time.perf_counter()
     corpus = check_decode_corpus()
 
@@ -4904,6 +5062,7 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     check(kernel["mismatches"] == 0, f"nms kernel vs plain on predict_video's inputs: {kernel}")
     check(video_launches == DECODE_AVI_FRAMES // DECODE_BATCH,
           f"predict_video launched the NMS kernel {video_launches} times")
+    writer = predict_video_writer(det, path, os.path.join(workdir, "annotated.mp4"))
     boxes, scores, iou = recorded[-1]
     keep = suppression_mask_cuda(boxes, scores, iou)
     bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
@@ -4921,15 +5080,17 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
                    "slowfast_loader_eval_s": loader_eval_s,
                    "predict_video_fps": DECODE_AVI_FRAMES / predict_video_s,
                    "predict_video_s": predict_video_s, "detections": detections},
+           "annotated_video": writer["report"],
            "nms_kernel_predict_video": nms, "kernel_vs_plain": kernel,
            "launches": {"detector_predict_video": video_launches,
+                        "detector_predict_video_out_path": writer["launches"],
                         "video_clip_loader_slowfast_eval": slowfast_launches},
            "host_cpus": os.cpu_count(), "seconds": time.perf_counter() - t_phase}
     emit("decode", card=smi, **out)
     del det, model
     torch.cuda.empty_cache()
     return {"launches": out["launches"], "zero": ["video_clip_loader_slowfast_eval"],
-            "mismatches": kernel["mismatches"], "kernel": nms}
+            "mismatches": kernel["mismatches"] + writer["mismatches"], "kernel": nms}
 
 
 PAR_VAL_IMAGES = 32  # one validation batch of 32 per epoch
@@ -5192,6 +5353,7 @@ def parallel_world1(port: str, workdir: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     res["times"] = times
+    res["pipeline"] = pipeline_world1(dev)
     return res
 
 
@@ -5474,6 +5636,176 @@ def rank_cli_runs(rank: int, workdir: str) -> dict:
     return res
 
 
+PIPE_BATCH, PIPE_MICRO, PIPE_REPS = 8, 4, 3  # pipeline runs: 2 stages, 4 microbatches of 2
+
+
+def pipeline_world1(dev: torch.device) -> dict:
+    """(g) at world size 1 over NCCL (the model axis of one rank):
+    `pipeline_apply` of a 4-layer tanh chain (one stage, its layers stacked)
+    on 8 microbatches bit-equal to the chain applied to each."""
+    from fastvision_tpu_torch.core.mesh import Mesh, use_mesh
+    from fastvision_tpu_torch.parallel import pipeline_apply
+
+    use_mesh(Mesh(1, 1, 1))
+    suppression_mask_cuda.launches = 0
+    g = torch.Generator().manual_seed(SEED)
+    c = 512
+    stacked = {"w": (torch.randn(1, 4, c, c, generator=g) / c ** 0.5).to(dev),
+               "b": (0.1 * torch.randn(1, 4, c, generator=g)).to(dev)}
+    mbs = torch.randn(8, 64, c, generator=g).to(dev)
+
+    def chain(p, x):
+        for w, b in zip(p["w"], p["b"]):
+            x = torch.tanh(x @ w + b)
+        return x
+
+    y = pipeline_apply(chain, stacked, mbs)
+    want = torch.stack([chain({k: v[0] for k, v in stacked.items()}, x) for x in mbs])
+    res = {"shape": list(y.shape), "bit_equal": bool(torch.equal(y, want)),
+           "backend": torch.distributed.get_backend(),
+           "nms_launches": suppression_mask_cuda.launches}
+    check(res["bit_equal"] and res["backend"] == "nccl", f"pipeline at world size 1: {res}")
+    return res
+
+
+def _grads(model: torch.nn.Module) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _timed(fn, reps: int) -> float:
+    """Seconds a call of ``fn`` (after one warm-up), synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def pipeline_rank(rank: int, dev: torch.device) -> dict:
+    """(g) this rank as one stage of a 2-stage model axis (mesh 1 x 2 x 1,
+    gloo with CUDA tensors), against this process's plain forward and
+    backward of the same model on the same batch:
+
+      - ViT-B/16 at full width (224, 1000 classes, batch 8 in 4
+        microbatches) through `pipeline_vit_apply`: in float64 (its trunk,
+        ``including_top=False``, with a float64 head: the model's own head
+        runs in float32) the tokens' logits and every gradient this rank
+        holds (its 6 blocks, the prefix, the final norm) within 1e-12 of
+        each tensor's std; in float32 with TF32 off the classifier's
+        logits within 1e-5, and its gradients held to the float64
+        classifier (float64 trunk, its float32 head) no farther than
+        max(1e-5, twice the plain float32 step's own distance);
+      - ResNet-50 (BN from the images) through `resnet_stage_split` +
+        `pipeline_hetero_apply`, float32, its logits within 1e-5;
+      - a small float64 ResNet (BasicBlock, 64 px), logits and gradients
+        within 1e-12.
+
+    Each number is max |d| / std of the reference; the pipelined calls'
+    seconds and img/s (two ranks sharing the card: gloo's host staging)."""
+    from fastvision_tpu_torch.core.mesh import Mesh, use_mesh
+    from fastvision_tpu_torch.parallel import (pipeline_hetero_apply, pipeline_vit_apply,
+                                               resnet_stage_split)
+
+    mesh = use_mesh(Mesh(1, 2, 1))
+    suppression_mask_cuda.launches = 0  # the classifiers' pipelines run no NMS
+    g = torch.Generator().manual_seed(SEED + 60)
+    res: dict = {"mesh": "1 x 2 x 1 (two gloo ranks on one card)", "rank": rank}
+    ce = torch.nn.functional.cross_entropy
+
+    def seeded(factory, **kw):
+        return factory(generator=torch.Generator().manual_seed(SEED), **kw)
+
+    def vit_case(model, images, labels, loss_of):
+        """-> (max rel of the outputs and the gradients, the pipelined and
+        the plain gradients)."""
+        loss_of(model(images), labels).backward()
+        plain = _grads(model)
+        with torch.no_grad():
+            plain_out = model(images)
+        model.zero_grad(set_to_none=True)
+        out = pipeline_vit_apply(model, images, mesh, n_micro=PIPE_MICRO)
+        loss_of(out, labels).backward()
+        got = _grads(model)
+        model.zero_grad(set_to_none=True)
+        return ({"out_max_rel": max_rel_to_std({"o": out.detach()}, {"o": plain_out}),
+                 "grads_max_rel": max_rel_to_std(got, {n: plain[n] for n in got}),
+                 "grads_held": len(got), "grads_in_model": len(plain)}, got, plain)
+
+    images = torch.randn(PIPE_BATCH, 224, 224, 3, generator=g).to(dev)
+    labels = torch.randint(0, 1000, (PIPE_BATCH,), generator=g).to(dev)
+    trunk = seeded(vit_base_patch16, including_top=False).double().to(dev)
+    head = {"w": (0.03 * torch.randn(trunk.dim, 1000, generator=g, dtype=torch.float64)).to(dev),
+            "b": (0.1 * torch.randn(1000, generator=g, dtype=torch.float64)).to(dev)}
+    r, _, _ = vit_case(trunk, images.double().permute(0, 3, 1, 2).contiguous(), labels,
+                       lambda t, lab: ce(t[:, 0] @ head["w"] + head["b"], lab))
+    res["vit_b16_trunk_float64"] = r
+    del trunk
+    # the float64 classifier's gradients (float64 trunk, the model's float32 head)
+    ref_model = seeded(vit_base_patch16).double().to(dev)
+    ref_model.head.float()
+    ce(ref_model(images.double()), labels).backward()
+    ref = _grads(ref_model)
+    del ref_model
+    torch.cuda.empty_cache()
+    with no_tf32():
+        vit = seeded(vit_base_patch16).to(dev)
+        r, got, plain = vit_case(vit, images, labels, ce)
+        worst = 0.0
+        for n in got:
+            pipe_err = max_rel_to_std({n: got[n]}, {n: ref[n]})
+            plain_err = max_rel_to_std({n: plain[n]}, {n: ref[n]})
+            worst = max(worst, pipe_err / max(1e-5, 2 * plain_err))
+        r["vs_float64"] = {"pipelined": max_rel_to_std(got, {n: ref[n] for n in got}),
+                           "plain": max_rel_to_std(plain, ref),
+                           "worst_over_limit": worst}
+
+        def vit_step():
+            ce(pipeline_vit_apply(vit, images, mesh, n_micro=PIPE_MICRO), labels).backward()
+            vit.zero_grad(set_to_none=True)
+
+        s = _timed(vit_step, PIPE_REPS)
+        res["vit_b16_float32"] = {**r, "fwd_bwd_s": s, "img_s": PIPE_BATCH / s}
+        del vit, got, plain, ref
+        r50 = seeded(resnet50).to(dev)
+        calibrate_bn_(r50, images)
+        fns, params = resnet_stage_split(r50, 2)
+
+        def r50_forward():
+            return pipeline_hetero_apply(fns, params, images.reshape(
+                PIPE_MICRO, -1, *images.shape[1:]), mesh).reshape(PIPE_BATCH, -1)
+
+        with torch.no_grad():
+            out = r50_forward()
+            want = r50(images)
+            s = _timed(r50_forward, PIPE_REPS)
+        res["resnet50_float32"] = {"out_max_rel": max_rel_to_std({"o": out}, {"o": want}),
+                                   "forward_s": s, "img_s": PIPE_BATCH / s}
+        del r50, fns, params
+        torch.cuda.empty_cache()
+    rn = seeded(ResNet, block_cls=BasicBlock, stage_sizes=(1, 1, 1, 1), num_classes=5)
+    rn = rn.double().to(dev)
+    x = torch.randn(PIPE_BATCH, 64, 64, 3, generator=g, dtype=torch.float64).to(dev)
+    calibrate_bn_(rn, x)
+    fns, params = resnet_stage_split(rn, 2)
+    out = pipeline_hetero_apply(fns, params, x.reshape(PIPE_MICRO, -1, *x.shape[1:]),
+                                mesh).reshape(PIPE_BATCH, -1)
+    (out ** 2).sum().backward()
+    got = _grads(rn)
+    rn.zero_grad(set_to_none=True)
+    want = rn(x)
+    (want ** 2).sum().backward()
+    plain = _grads(rn)
+    res["small_resnet_float64"] = {
+        "out_max_rel": max_rel_to_std({"o": out.detach()}, {"o": want.detach()}),
+        "grads_max_rel": max_rel_to_std(got, {n: plain[n] for n in got}),
+        "grads_held": len(got)}
+    res["nms_launches"] = suppression_mask_cuda.launches
+    torch.cuda.empty_cache()
+    return res
+
+
 def parallel_rank(rank: int, port: str, workdir: str) -> dict:
     """A child of (b): rank ``rank`` of 2 on the one card, gloo with CUDA
     tensors (NCCL refuses two ranks on one device): one float32 step of a
@@ -5519,6 +5851,7 @@ def parallel_rank(rank: int, port: str, workdir: str) -> dict:
         torch.save({"frcnn": state, "tp": tp_state, "time": sf_state, "time_logits": logits},
                    os.path.join(workdir, "mesh_float64.pt"))
     torch.cuda.empty_cache()
+    out["pipeline"] = pipeline_rank(rank, dev)
     out["cli"] = rank_cli_runs(rank, workdir)
     torch.distributed.destroy_process_group()
     return out
@@ -5650,16 +5983,33 @@ def phase_parallel(dev: torch.device, smi: str, workdir: str) -> dict:
     del fit, model
     torch.cuda.empty_cache()
     mesh_runs = parallel_mesh_results(ranks, root, dev, one[f64], start)
+    pipe = {"world1_nccl": a["pipeline"], "ranks": [r["pipeline"] for r in ranks],
+            "tolerances": {"float32": 1e-5, "float64": 1e-12, "float32_grads_vs_float64":
+                           "max(1e-5, 2 x the plain float32 step's)"},
+            "times": "two gloo ranks sharing the card: gloo's host staging sets these times"}
+    emit("parallel_pipeline", card=smi, **pipe)
+    for r in pipe["ranks"]:
+        for name, key, tol in (("vit_b16_trunk_float64", "out_max_rel", 1e-12),
+                               ("vit_b16_trunk_float64", "grads_max_rel", 1e-12),
+                               ("vit_b16_float32", "out_max_rel", 1e-5),
+                               ("resnet50_float32", "out_max_rel", 1e-5),
+                               ("small_resnet_float64", "out_max_rel", 1e-12),
+                               ("small_resnet_float64", "grads_max_rel", 1e-12)):
+            check(r[name][key] <= tol, f"pipeline {name} {key} on rank {r['rank']}: {r[name]}")
+        check(r["vit_b16_float32"]["vs_float64"]["worst_over_limit"] <= 1,
+              f"pipeline ViT-B float32 gradients vs float64: {r['vit_b16_float32']}")
     launches = {**a["launches"], "parallel_tp_train": ranks[0]["cli"]["tp"]["launches"],
-                "parallel_time_train_video": ranks[0]["cli"]["time"]["launches"]}
+                "parallel_time_train_video": ranks[0]["cli"]["time"]["launches"],
+                "parallel_pipeline": pipe["world1_nccl"]["nms_launches"] + sum(
+                    r["nms_launches"] for r in pipe["ranks"])}
     mismatches = a["mismatches"] + sum(r["cli"][n]["nms_vs_plain"]["mismatches"]
                                        for r in ranks for n in ("tp", "time"))
     emit("parallel", card=smi, cli=a["cli"], equality=a["equality"],
          fsdp_checkpoint_bit_equal=a["fsdp_checkpoint_bit_equal"], two_ranks_one_card=two,
-         mesh=mesh_runs, times=a["times"], nms_launches=launches, mismatches=mismatches,
-         seconds=time.perf_counter() - t_phase)
+         mesh=mesh_runs, pipeline=pipe, times=a["times"], nms_launches=launches,
+         mismatches=mismatches, seconds=time.perf_counter() - t_phase)
     return {"launches": launches, "mismatches": mismatches,
-            "zero": ["parallel_time_train_video"]}
+            "zero": ["parallel_time_train_video", "parallel_pipeline"]}
 
 
 def parallel_mesh_results(ranks: list, root: str, dev, yolo_f64: tuple, yolo_start: dict) -> dict:

@@ -17,9 +17,14 @@ custom ops, and their plain PyTorch versions on CPU tensors. Data
 parallelism over a ``torch.distributed`` process group (multi-process and
 multi-host, `core.distributed` / `core.mesh`, with a global-batch BN and
 loss, host-sharded loaders and FSDP, `parallel.fsdp`) runs `train.Fit`, the
-evaluators and the train commands; tensor parallel, time sharding, the
-pipeline and Faster R-CNN over several ranks are not ported yet (ROADMAP
-Queue 1, item 17).
+evaluators and the train commands, as do tensor parallel and time
+sharding over the mesh's model and time axes (`parallel`) and Faster R-CNN
+over several ranks; GPipe pipelines run a model's stages over the model
+axis (`parallel.pipeline`). ``compile_cache`` keeps the native builds
+across restarts (`core.mesh.enable_compile_cache`); annotated videos are
+written by the port's own MPEG-4 encoder and MP4 muxer (`data.mp4`). Not
+ported: the rare JPEG kinds (arithmetic coding, 12-bit, lossless) and video
+codecs other than Motion-JPEG without cv2 (ROADMAP Queue 1, item 11).
 """
 
 __version__ = "0.1.0"

@@ -42,7 +42,8 @@ frames (``data.num_frames`` drawn by ``data.frame_strategy``; ``eval
 windows per video); detection data is ``<split>/images`` +
 ``<split>/labels``. Images and frames are JPEG (baseline), PNG or BMP
 files, read by the port's own decoder (`data.codec`), so no command needs
-cv2 for them; video files need cv2. ``serve`` answers HTTP requests
+cv2 for them, nor for Motion-JPEG AVIs (`data.avi`); other video codecs
+need cv2. ``serve`` answers HTTP requests
 (`infer.serving`) with the JAX package's serving preset: multi-label NMS at
 conf 0.001 / IoU 0.6 unless ``nms.*`` is given, batch buckets (1, 2, 4)
 below the batch size, micro-batched concurrent requests; SIGTERM drains
@@ -63,10 +64,14 @@ StableHLO artifact's counterpart): the detector's normalize + forward +
 decode + NMS on uint8 NHWC (``--int8``: quantized first, as ``eval --int8``),
 or with ``--task cls|video`` a zoo model's normalize + forward + softmax;
 a SavedModel or ``--tflite`` (jax2tf and TensorFlow in the JAX package)
-exits naming why. ``doctor`` reports the CUDA card, nvcc, the kernels'
-builds and a bf16 matmul rate, and exits non-zero without a card. ``infer``
-on a video writes ``--out``/annotated.mp4 with cv2's mp4v writer (without
-cv2 it exits naming ROADMAP item 6).
+exits naming why. ``doctor`` reports the CUDA card, nvcc, ``compile_cache``
+and the native libraries found there, the kernels' builds and a bf16
+matmul rate, and exits non-zero without a card. ``infer`` on a video
+writes ``--out``/annotated.mp4 with the port's own MPEG-4 (Simple Profile,
+intra-only) encoder and MP4 muxer (`data.mp4`), with or without cv2.
+``compile_cache=<dir>`` builds the native libraries (``csrc/``) into and
+loads them from ``<dir>`` (`core.mesh.enable_compile_cache`), so a
+restarted run or another rank compiles nothing.
 
 Parallelism: ``multihost=true`` joins the process group torchrun sets up
 (NCCL on CUDA, gloo with ``--device cpu``) and fails when it cannot form.
@@ -104,18 +109,6 @@ import torch
 SERVE_PRESET = ("nms.multi_label=true", "nms.conf_thres=0.001", "nms.iou_thres=0.6")
 SERVE_BUCKETS = (1, 2, 4)
 
-def _exit_not_ported(what: str, item: int) -> SystemExit:
-    return SystemExit(f"fastvision_tpu_torch: {what} is not ported yet "
-                      f"(ROADMAP Queue 1, item {item})")
-
-
-def _check_ported(cfg) -> None:
-    """Config values of work the port does not have raise here."""
-    if cfg.compile_cache:
-        raise NotImplementedError("compile_cache (the JAX package's XLA cache) is not ported "
-                                  "yet (ROADMAP Queue 1, item 10)")
-
-
 def _mesh_from_cfg(cfg, device):
     """The (data, model, time) mesh the config asks for
     (`core.mesh.create_mesh`). ``multihost=true`` first joins the process
@@ -138,7 +131,10 @@ def _load_config(args, overrides):
         cfg = from_yaml(Config, args.config, overrides)
     else:
         cfg = apply_overrides(Config(), overrides)
-    _check_ported(cfg)
+    if cfg.compile_cache:
+        from .core.mesh import enable_compile_cache
+
+        enable_compile_cache(cfg.compile_cache)
     return cfg
 
 
@@ -641,15 +637,10 @@ def cmd_eval(args, overrides):
 
 def cmd_infer(args, overrides):
     """Draw the detections of an image or a directory into ``--out``
-    (same file names), or of a video into ``--out``/annotated.mp4 (cv2's
-    mp4v writer). -> {path: result}, or the video's frames processed."""
+    (same file names), or of a video into ``--out``/annotated.mp4 (the
+    port's MPEG-4 encoder and muxer, `data.mp4`). -> {path: result}, or the
+    video's frames processed."""
     video = args.source.lower().endswith((".mp4", ".avi", ".mov", ".mkv"))
-    if video:
-        try:
-            import cv2  # noqa: F401  (the annotated video's writer)
-        except ImportError:
-            raise _exit_not_ported("infer on a video without cv2 (the annotated video's mp4v "
-                                   "writer)", 6) from None
     cfg = _load_config(args, overrides)
     from .data.dataset import imread_rgb, imwrite_rgb
     from .viz import draw_detections
@@ -881,11 +872,13 @@ def _ptxas_summary(log: str) -> dict:
 def cmd_doctor(args, overrides):
     """Environment triage of a host for the port: Python and PyTorch, the
     optional packages (cv2, PyYAML, matplotlib), the loaders' start method,
-    the CUDA devices (name and power limit from nvidia-smi), nvcc, every
-    ``csrc`` library built through `cuda_build` (seconds, ptxas registers
-    and spills), and the bf16 rate of a chain of 4096^3 matmuls. One line a
-    check, then one JSON line. Exits non-zero without a CUDA card or nvcc.
-    -> the report."""
+    ``compile_cache`` (the config's value; the directory the native
+    libraries are built into and loaded from, and the libraries found
+    there), the host libraries (``csrc/*.cpp``) built there, the CUDA
+    devices (name and power limit from nvidia-smi), nvcc, every CUDA
+    library built (seconds, ptxas registers and spills, the path), and the
+    bf16 rate of a chain of 4096^3 matmuls. One line a check, then one JSON
+    line. Exits non-zero without a CUDA card or nvcc. -> the report."""
     import importlib.util
     import json
     import platform
@@ -894,9 +887,9 @@ def cmd_doctor(args, overrides):
     import time
 
     from . import cuda_build
-    from .core.config import Config
     from .data.pipeline import parse_worker_backend
 
+    cfg = _load_config(args, overrides)
     report: dict = {}
 
     def line(key, value, hint=""):
@@ -908,7 +901,7 @@ def cmd_doctor(args, overrides):
     line("torch", torch.__version__, f"CUDA {torch.version.cuda}")
     for mod in ("cv2", "yaml", "matplotlib"):
         line(f"has_{mod}", importlib.util.find_spec(mod) is not None)
-    backend = Config().data.worker_backend
+    backend = cfg.data.worker_backend
     line("worker_start_method", parse_worker_backend(backend)[1],
          f"data.worker_backend={backend!r}; 'process:spawn' or 'process:forkserver' to change")
     from .core.distributed import process_info
@@ -918,6 +911,19 @@ def cmd_doctor(args, overrides):
          f"rank {info['process_index']}, backend {info['backend'] or 'none'}; torchrun + "
          "multihost=true forms a group (NCCL on CUDA)")
     line("nccl", torch.distributed.is_available() and torch.distributed.is_nccl_available())
+
+    line("compile_cache", cfg.compile_cache or "(unset)",
+         "compile_cache=<dir>: native builds kept across restarts and ranks")
+    line("build_dir", cuda_build.build_dir())
+    line("build_dir_cached", cuda_build.cached(), "libraries found there before this run")
+
+    def built(builds):
+        for b in builds:
+            line(f"build_{b.name}", {"seconds": round(b.seconds, 2), "path": b.path,
+                                     **_ptxas_summary(b.log)}, b.source)
+
+    built(cuda_build.build_all([n for n in cuda_build.sources()
+                                if cuda_build.kind(n) == "host"]))
 
     def fail(why: str):
         print(json.dumps(report))
@@ -941,11 +947,10 @@ def cmd_doctor(args, overrides):
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=False)
     line("nvcc", nvcc, version.stdout.strip().splitlines()[-1] if version.stdout else "")
     t0 = time.perf_counter()
-    builds = cuda_build.build_all()
-    for b in builds:
-        line(f"build_{b.name}", {"seconds": round(b.seconds, 2), **_ptxas_summary(b.log)}
-             if b.seconds else "reused from _build/", b.source)
-    line("build_all_s", round(time.perf_counter() - t0, 2), "every csrc source, at once")
+    built(cuda_build.build_all([n for n in cuda_build.sources()
+                                if cuda_build.kind(n) == "cuda"]))
+    line("build_all_s", round(time.perf_counter() - t0, 2),
+         "every CUDA source, at once (seconds 0: found in the build directory)")
 
     iters, n = 128, 4096
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1032,8 +1037,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "(default: the val split)")
     p.add_argument("--fast-decode", action="store_true",
                    help="reduced JPEG decode for >=2x oversized images")
-    sub.add_parser("doctor", help="environment triage: the CUDA card, nvcc, the kernels' "
-                                  "builds, a bf16 matmul rate")
+    p = sub.add_parser("doctor", help="environment triage: the CUDA card, nvcc, "
+                                      "compile_cache, the native builds, a bf16 matmul rate")
+    p.add_argument("--config", default="", help="YAML config file")
     p = sub.add_parser("convert")
     p.add_argument("--kind", choices=["coco", "voc"], required=True)
     p.add_argument("--ann", default="")

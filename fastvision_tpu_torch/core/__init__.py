@@ -19,7 +19,16 @@ from .config import (
     update_dataclass,
 )
 from .distributed import initialize_multihost, process_info, set_visible_devices
-from .mesh import Mesh, MeshConfig, create_mesh, local_batch_size, replicate, shard_batch
+from .mesh import (
+    Mesh,
+    MeshConfig,
+    create_mesh,
+    enable_compile_cache,
+    local_batch_size,
+    replicate,
+    shard_batch,
+    use_mesh,
+)
 from .rng import set_random_seeds, step_seed
 from .telemetry import MetricLogger, StepTimer, flops_of, trace
 
@@ -28,6 +37,6 @@ __all__ = [
     "trainable_mask", "Config", "DataConfig", "ModelConfig", "NMSConfig", "TrainConfig",
     "apply_overrides", "from_yaml", "to_dict", "update_dataclass", "set_random_seeds", "step_seed",
     "MetricLogger", "StepTimer", "flops_of", "trace", "initialize_multihost", "process_info",
-    "set_visible_devices", "Mesh", "MeshConfig", "create_mesh", "local_batch_size", "replicate",
-    "shard_batch",
+    "set_visible_devices", "Mesh", "MeshConfig", "create_mesh", "enable_compile_cache",
+    "local_batch_size", "replicate", "shard_batch", "use_mesh",
 ]

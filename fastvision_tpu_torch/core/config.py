@@ -200,10 +200,10 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     nms: NMSConfig = field(default_factory=NMSConfig)
-    # data parallel over the process group (core/mesh.py): mesh_data (0 =
-    # every rank) must equal the world size; mesh_model / mesh_time > 1
-    # (tensor parallel, time sharding) are not ported yet (ROADMAP Queue 1,
-    # item 17). fsdp=true shards parameters and optimizer state 1/N
+    # the mesh over the process group (core/mesh.py): mesh_data (0 = every
+    # rank that the other axes leave) x mesh_model (tensor parallel) x
+    # mesh_time (time sharding) must equal the world size. fsdp=true shards
+    # parameters and optimizer state 1/N
     # (parallel/fsdp.py). multihost=true joins torchrun's process group
     # (NCCL on CUDA, gloo on the CPU) and fails when it cannot form
     mesh_data: int = 0
@@ -211,4 +211,6 @@ class Config:
     mesh_time: int = 1
     fsdp: bool = False
     multihost: bool = False
-    compile_cache: str = ""  # the JAX package's XLA compile cache: no counterpart
+    # a directory for the native libraries' builds, kept across restarts
+    # (core.mesh.enable_compile_cache; the JAX package keeps XLA's there)
+    compile_cache: str = ""

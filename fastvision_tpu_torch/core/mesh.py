@@ -17,7 +17,9 @@ holds mesh position (d, m, t).
   - `shard_batch`: this rank's contiguous share of a global batch by its
     data index (every rank of one data index holds the same share), or a
     host-local batch passed through (``per_host``);
-  - `local_batch_size`, `replicate` (rank 0's tensors broadcast).
+  - `local_batch_size`, `replicate` (rank 0's tensors broadcast);
+  - `enable_compile_cache`: the JAX package's persistent compilation cache;
+    here the port's compiled artefacts, its native libraries.
 """
 from __future__ import annotations
 
@@ -175,6 +177,22 @@ def shard_batch(batch: dict, mesh: Mesh, per_host: bool = False) -> dict:
         return batch
     index = mesh.coords()[DATA_AXIS]
     return {k: _take_shard(v, index, count) for k, v in batch.items()}
+
+
+def enable_compile_cache(cache_dir: str) -> str:
+    """Keep the port's compiled artefacts in ``cache_dir`` (created): the
+    native libraries of ``csrc/`` (the CUDA kernels built by nvcc, the host
+    decoders and encoders by the host compiler) are built into and loaded
+    from it (`cuda_build.set_build_dir`), so a restarted run, another rank
+    or a loader worker on the same host finds them built. Libraries are
+    named by a hash of their source and flags, and written through a
+    temporary file and a rename, so processes may share the directory. Call
+    it before the process's first native build or load (the CLI does, from
+    ``compile_cache``): a directory other than the one a library was
+    already built or loaded from raises. -> the absolute path."""
+    from .. import cuda_build
+
+    return cuda_build.set_build_dir(cache_dir)
 
 
 @torch.no_grad()

@@ -6,10 +6,13 @@ Each source is compiled at first use into a shared library with a plain C
 interface, loaded with ``ctypes``. The library's name carries a hash of the
 source, of the CUDA headers beside it (``csrc/*.cuh``, for a ``.cu``) and
 of the flags, so an edited source is rebuilt and an unchanged one is
-loaded from ``_build/`` (listed in ``.gitignore``). Each build writes a
-temporary file and renames it, so that several processes (pytest workers,
-forked loader workers) can build the same library at once. A failed build
-raises with the compiler's log; nothing falls back.
+loaded from the build directory: ``_build/`` beside the package (listed in
+``.gitignore``), or the run's ``compile_cache`` (`set_build_dir`, which
+`core.mesh.enable_compile_cache` calls), where a restarted process finds
+the libraries an earlier one built. Each build writes a temporary file and
+renames it, so that several processes (pytest workers, loader workers,
+ranks) can build the same library at once. A failed build raises with the
+compiler's log; nothing falls back.
 
 CUDA flags: ``sm_90a`` (Hopper), ``--fmad=false`` because the kernels must
 round every intermediate as the plain PyTorch versions do, and
@@ -54,6 +57,37 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()  # one build of a source at a time within a process
 
 
+def build_dir() -> str:
+    """The directory this process builds into and loads from (``BUILD_DIR``,
+    one directory for the process's life: `set_build_dir`)."""
+    return BUILD_DIR
+
+
+def set_build_dir(path: str) -> str:
+    """Build into and load from ``path`` (created) from now on. It must be
+    set before the process's first build or load: once a library was built
+    or loaded from another directory, a different one raises, so that one
+    process never mixes two. -> the absolute path."""
+    global BUILD_DIR
+    path = os.path.abspath(os.path.expanduser(path))
+    with _LOCK:
+        if path != BUILD_DIR:
+            if _BUILDS or _LIBS:
+                raise RuntimeError(
+                    f"compile_cache {path!r}: this process already built or loaded "
+                    f"{sorted(set(_BUILDS) | set(_LIBS))} from {BUILD_DIR!r}; set the "
+                    "cache before the first native build")
+            os.makedirs(path, exist_ok=True)
+            BUILD_DIR = path
+    return path
+
+
+def cached() -> list[str]:
+    """The shared libraries in the build directory (file names, sorted)."""
+    d = build_dir()
+    return sorted(f for f in os.listdir(d) if f.endswith(".so")) if os.path.isdir(d) else []
+
+
 def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
@@ -78,6 +112,12 @@ def _source(name: str) -> str:
     raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
 
 
+def kind(name: str) -> str:
+    """``"cuda"`` for ``csrc/<name>.cu`` (nvcc), ``"host"`` for
+    ``csrc/<name>.cpp`` (the host compiler)."""
+    return "cuda" if _source(name).endswith(".cu") else "host"
+
+
 def _command(src: str, out: str) -> list[str]:
     if src.endswith(".cu"):
         return [nvcc(), *NVCC_FLAGS, "-o", out, src]
@@ -93,7 +133,7 @@ def _target(src: str, name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS if src.endswith(".cu") else HOST_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def sources() -> list[str]:
@@ -109,7 +149,7 @@ def build_all(names: list[str] | None = None) -> list[Build]:
     if names is None:
         names = sources()
     with _LOCK:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir(), exist_ok=True)
         running = []
         for name in names:
             if name in _BUILDS:

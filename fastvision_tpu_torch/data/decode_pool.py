@@ -20,7 +20,10 @@ that holds a CUDA context is safe while the child stays on the host.
 
 The start method is ``fork`` unless the caller names ``forkserver`` or
 ``spawn``; those pickle the work function, and a script that drives them
-must guard its entry point with ``if __name__ == "__main__":``.
+must guard its entry point with ``if __name__ == "__main__":``. Such a
+worker starts from a fresh import, so it is handed the parent's native
+build directory (`cuda_build.build_dir`: ``compile_cache``) and loads the
+libraries the parent built there.
 """
 from __future__ import annotations
 
@@ -34,13 +37,15 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from .. import cuda_build
 from .codec import jpeg_library
 
 _SENTINEL = None
 
 
-def _worker(work_fn, task_q, result_q, shm_name, slot_shape):
+def _worker(work_fn, task_q, result_q, shm_name, slot_shape, build_dir):
     torch.set_num_threads(1)
+    cuda_build.set_build_dir(build_dir)  # a no-op in a forked worker
     shm = shared_memory.SharedMemory(name=shm_name)
     slot_bytes = int(np.prod(slot_shape))
     try:
@@ -99,7 +104,7 @@ class DecodePool:
         self._procs = [
             ctx.Process(target=_worker, daemon=True,
                         args=(work_fn, self._task_q, self._result_q, self._shm.name,
-                              self.slot_shape))
+                              self.slot_shape, cuda_build.build_dir()))
             for _ in range(self.num_workers)]
         for p in self._procs:
             p.start()

@@ -93,10 +93,6 @@ def fetch_with_corrupt_policy(ds, on_corrupt: str, fn, idx: int):
     raise RuntimeError(f"{min(8, n)} consecutive corrupt samples from index {int(idx)}") from last
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
-
-
 def resolve_host_shard(host_shard) -> tuple[int, int]:
     """A loader's ``host_shard`` spec -> ``(index, count)``:
 

@@ -18,7 +18,8 @@ grid point runs its NMS on the device-resident predictions.
 
 `Detector.predict_video` runs the detector over a video's frames, batch by
 batch, with a reader thread decoding ahead (a Motion-JPEG AVI without cv2,
-`data.avi`), and can write an annotated ``mp4v`` video (with cv2).
+`data.avi`), and can write an annotated ``mp4v`` video (the port's own
+encoder and muxer, `data.mp4`, cv2 or not).
 `VideoClassifier` classifies clips with a model of the video zoo.
 
 ``multi_label=True`` runs the serving NMS (`ops.nms.non_max_suppression_multilabel`:
@@ -62,7 +63,8 @@ from ..data.augment import Augmentation, HorizontalFlip
 from ..data.avi import open_video
 from ..data.converters import coco_80_to_91_ids
 from ..data.dataset import IMG_EXTS, imread_rgb, imread_rgb_scaled, resize_bilinear
-from ..data.pipeline import DetectionLoader, _not_ported, normalize_images, prefetch_to_device
+from ..data.mp4 import VideoWriter
+from ..data.pipeline import DetectionLoader, normalize_images, prefetch_to_device
 from ..device import resolve_device
 from ..nn.layers import memory_format_for
 from ..ops.box import xywhn2xyxy
@@ -507,23 +509,17 @@ class Detector:
         ``2 * batch_size`` RGB frames; the frames run through `predict_batch`
         up to ``batch_size`` at a time, so decode overlaps the device. Per
         frame, in order: ``frame_callback(rgb, result)``, and with
-        ``out_path`` the frame with its detections drawn, written by cv2's
-        ``mp4v`` ``VideoWriter`` at the source's fps (25 where it has none).
-        Writing needs cv2: without it ``out_path`` raises before a frame is
-        decoded. A frame that does not decode raises here, after the frames
-        before it were processed."""
+        ``out_path`` the frame with its detections drawn and written by
+        `data.mp4.VideoWriter` (the port's MPEG-4 Part 2 intra encoder, on
+        its own threads, in an ``mp4v`` ``.mp4``, cv2 or not) at the
+        source's fps (25 where it has none). A
+        frame that does not decode raises here, after the frames before it
+        were processed; the file then holds those frames."""
         import queue
         import threading
 
         from ..viz import draw_detections
 
-        cv2 = None
-        if out_path is not None:
-            try:
-                import cv2
-            except ImportError:
-                raise _not_ported("writing the annotated video without cv2 (its mp4v "
-                                  "VideoWriter; Detector.predict_video with out_path)", 6) from None
         video = open_video(video_path)
         q: queue.Queue = queue.Queue(maxsize=2 * self.batch_size)
         stop = threading.Event()
@@ -564,13 +560,14 @@ class Detector:
                         drawn = draw_detections(rgb, res["boxes"], res["scores"], res["classes"],
                                                 self.class_names)
                         if writer is None:
-                            writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"),
-                                                     video.fps or 25,
-                                                     (drawn.shape[1], drawn.shape[0]))
-                        writer.write(cv2.cvtColor(drawn, cv2.COLOR_RGB2BGR))
+                            writer = VideoWriter(out_path, video.fps or 25,
+                                                 (drawn.shape[1], drawn.shape[0]))
+                        writer.write(drawn)
                     count += 1
             if failed:
                 raise failed[0]
+            if writer is not None:
+                writer.close()  # the pending frames written, or an encoder error raised
         finally:
             stop.set()
             try:  # unblock a reader waiting on a full queue
@@ -581,7 +578,7 @@ class Detector:
             thread.join(timeout=10)
             video.release()
             if writer is not None:
-                writer.release()
+                writer.close()  # after a failure: the frames before it
         return count
 
     def predict_dataset(self, dataset, fast_decode: bool | None = None, num_workers: int = 0,

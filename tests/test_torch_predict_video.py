@@ -11,7 +11,9 @@ classes in the same order and the same count, boxes within 0.1 px, scores
 within 1e-4 relative. The port's
 ``predict_video`` (frames read without cv2, `data.avi`) must be bit-equal,
 frame by frame and in order, to ``predict_batch`` on the same frames in the
-same batches, with ``max_frames``, a ragged last batch and an early stop.
+same batches, with ``max_frames``, a ragged last batch and an early stop;
+with ``out_path`` it writes the annotated video without cv2 (`data.mp4`;
+the writer's own tests are tests/test_torch_mp4_writer.py).
 """
 import os
 import sys
@@ -123,12 +125,14 @@ def test_predict_video_stops_early_and_releases_its_reader(detectors, clip):
 
 
 def test_predict_video_writes_the_annotated_video(detectors, clip, tmp_path, monkeypatch):
-    """With cv2: an mp4v file of every frame at the source's fps. Without
-    cv2 and with ``out_path``: NotImplementedError naming item 6 before any
-    frame is decoded; without ``out_path`` it runs."""
+    """Without cv2: every frame drawn and written by the port's MPEG-4
+    encoder and muxer (`data.mp4`) at the source's fps; cv2, back, reads the
+    file: the frame count, the fps and the frame size."""
     tdet, _ = detectors
     out = str(tmp_path / "annotated.mp4")
-    assert tdet.predict_video(clip, out) == FRAMES
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", None)
+        assert tdet.predict_video(clip, out) == FRAMES
     cap = cv2.VideoCapture(out)
     assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == FRAMES and cap.get(cv2.CAP_PROP_FPS) == 8
     assert cap.read()[1].shape == (72, 96, 3)
@@ -136,10 +140,6 @@ def test_predict_video_writes_the_annotated_video(detectors, clip, tmp_path, mon
     decoded = []
     real_decode = avi.MJPEGAvi.decode
     monkeypatch.setattr(avi.MJPEGAvi, "decode", lambda self, i: decoded.append(i) or real_decode(self, i))
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(NotImplementedError, match="mp4v VideoWriter.*item 6"):
-        tdet.predict_video(clip, str(tmp_path / "no.mp4"))
-    assert decoded == [] and not os.path.exists(tmp_path / "no.mp4")
     assert tdet.predict_video(clip, max_frames=2) == 2 and decoded == [0, 1]
 
 

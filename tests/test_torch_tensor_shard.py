@@ -116,11 +116,21 @@ def test_mesh_without_a_group():
         Mesh(1, 0)
 
 
-def test_cli_no_longer_refuses_the_mesh_axes():
-    cfg = apply_overrides(Config(), ["mesh_model=2", "mesh_time=2"])
-    cli._check_ported(cfg)  # compile_cache alone still raises
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli._check_ported(apply_overrides(Config(), ["compile_cache=x"]))
+def test_cli_no_longer_refuses_the_mesh_axes(tmp_path, monkeypatch):
+    """The CLI's config load takes the mesh axes, and compile_cache too (it
+    sets the native build directory; this process's is put back after)."""
+    from types import SimpleNamespace
+
+    from fastvision_tpu_torch import cuda_build
+
+    args = SimpleNamespace(config="")
+    cfg = cli._load_config(args, ["mesh_model=2", "mesh_time=2"])
+    assert (cfg.mesh_model, cfg.mesh_time) == (2, 2)
+    for name in ("_BUILDS", "_LIBS"):
+        monkeypatch.setattr(cuda_build, name, {})
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    cfg = cli._load_config(args, [f"compile_cache={tmp_path / 'x'}"])
+    assert cuda_build.build_dir() == str(tmp_path / "x") == cfg.compile_cache
 
 
 def _labels(rng, counts):

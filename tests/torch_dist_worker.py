@@ -5,8 +5,9 @@
 Started by tests/test_torch_distributed.py (scenario ``dp``),
 tests/test_torch_fsdp.py (``fsdp``), tests/test_torch_tensor_shard.py
 (``tp2``: a 1 x 2 x 1 mesh, ``tp4``: 2 x 2 x 1), tests/test_torch_time_shard.py
-(``time2``: 1 x 1 x 2) and tests/test_torch_frcnn_distributed.py
-(``frcnn2``: 2 x 1 x 1), once per rank, on inputs the
+(``time2``: 1 x 1 x 2), tests/test_torch_frcnn_distributed.py
+(``frcnn2``: 2 x 1 x 1) and tests/test_torch_pipeline.py (``pipe4``: 4
+ranks, 1 x 4 x 1 then 2 x 2 x 1), once per rank, on inputs the
 test wrote into ``workdir``; each rank saves what it computed to
 ``workdir/<scenario>_rank<rank>.pt`` for the test to compare (the ranks
 but 0 save large tensors as digests). Imports no
@@ -472,7 +473,8 @@ def check_cli_fsdp(workdir, out):
 
 
 # (data, model, time) of each scenario's mesh (the others: every rank on data)
-MESHES = {"tp2": (1, 2, 1), "tp4": (2, 2, 1), "time2": (1, 1, 2), "frcnn2": (2, 1, 1)}
+MESHES = {"tp2": (1, 2, 1), "tp4": (2, 2, 1), "time2": (1, 1, 2), "frcnn2": (2, 1, 1),
+          "pipe4": (1, 4, 1)}
 
 
 def _tiny_det_loss(inputs):
@@ -779,6 +781,101 @@ def check_cli_frcnn(workdir, out):
                   "host": (fit.train_loader.host_index, fit.train_loader.host_count)}
 
 
+def chain_stage(p, x):
+    """tests/test_pipeline.py's homogeneous stage."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def hetero_stage_fns() -> list:
+    """tests/test_pipeline.py's heterogeneous dense stages (stage 2 has a
+    ``gain``)."""
+    return [chain_stage, chain_stage, lambda p, x: chain_stage(p, x) * p["gain"], chain_stage]
+
+
+def vit_trunk_loss(tokens, head, labels):
+    """A float64 head (``tokens[:, 0] @ w + b``) and the mean cross-entropy."""
+    logits = tokens[:, 0] @ head["w"] + head["b"]
+    return torch.nn.functional.cross_entropy(logits, labels)
+
+
+def _named_grads(params: dict) -> dict:
+    return {k: p.grad.clone() for k, p in params.items() if p.grad is not None}
+
+
+def check_pipeline(workdir, out):
+    """The GPipe schedule on a 4-stage model axis (1 x 4 x 1) and a 2-stage
+    one (2 x 2 x 1): forwards and gradients of the tanh chain (8 and 2
+    microbatches), the heterogeneous dense chain, a ViT trunk with a float64
+    head and the ViT classifier (float32 head), and a ResNet split at its
+    residual stages (in train mode: the split must run it in inference
+    mode and leave its BN buffers and mode as they were)."""
+    from fastvision_tpu_torch.core.mesh import Mesh, use_mesh
+    from fastvision_tpu_torch.models.classification import BasicBlock, ResNet, ViT
+    from fastvision_tpu_torch.parallel import (pipeline_apply, pipeline_hetero_apply,
+                                               pipeline_vit_apply, resnet_stage_split)
+
+    inputs = _load(workdir, "pipe_inputs.pt")
+    for mesh in (Mesh(1, 4, 1), Mesh(2, 2, 1)):
+        use_mesh(mesh)
+        res = {}
+        if mesh.model == 4:
+            for n in (8, 2):
+                stacked = {k: inputs["chain"][k].clone().requires_grad_(True) for k in ("w", "b")}
+                y = pipeline_apply(chain_stage, stacked, inputs["chain"][f"mbs{n}"], mesh)
+                (y ** 2).sum().backward()
+                res[f"chain{n}"] = {"y": y.detach(), "w": stacked["w"].grad,
+                                    "b": stacked["b"].grad}
+            params = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+                      for p in inputs["hetero"]["params"]]
+            y = pipeline_hetero_apply(hetero_stage_fns(), params, inputs["hetero"]["mbs"], mesh)
+            (y ** 2).sum().backward()
+            res["hetero"] = {"y": y.detach(), "grads": [{k: v.grad for k, v in p.items()}
+                                                         for p in params]}
+            errors = {}
+            try:
+                pipeline_hetero_apply(hetero_stage_fns()[:3], inputs["hetero"]["params"][:3],
+                                      inputs["hetero"]["mbs"], mesh)
+            except ValueError as e:
+                errors["stage_count"] = str(e)
+            try:
+                pipeline_apply(chain_stage, {k: inputs["chain"][k][:2] for k in ("w", "b")},
+                               inputs["chain"]["mbs8"], mesh)
+            except ValueError as e:
+                errors["stacked"] = str(e)
+            res["errors"] = errors
+        vi = inputs["vit"]
+        trunk = ViT(**vi["kw"], including_top=False).double()
+        trunk.load_state_dict(vi["trunk"])
+        head = {k: v.clone().requires_grad_(True) for k, v in vi["head"].items()}
+        tokens = pipeline_vit_apply(trunk, vi["images"].permute(0, 3, 1, 2), mesh, n_micro=4)
+        vit_trunk_loss(tokens, head, vi["labels"]).backward()
+        res["vit_trunk"] = {"tokens": tokens.detach(), "head": _named_grads(head),
+                            "grads": _named_grads(dict(trunk.named_parameters()))}
+        cls = ViT(**vi["kw"]).double()
+        cls.load_state_dict(vi["cls"])
+        cls.head.float()
+        logits = pipeline_vit_apply(cls, vi["images"], mesh, n_micro=4)
+        torch.nn.functional.cross_entropy(logits, vi["labels"]).backward()
+        res["vit_cls"] = {"logits": logits.detach(),
+                          "grads": _named_grads(dict(cls.named_parameters()))}
+        rn = inputs["resnet"]
+        model = ResNet(BasicBlock, (1, 1, 1, 1), num_classes=5).double()
+        model.load_state_dict(rn["state"])
+        model.train()
+        buffers = {k: v.clone() for k, v in model.named_buffers()}
+        fns, params = resnet_stage_split(model, mesh.model)
+        images = rn["images"]
+        y = pipeline_hetero_apply(fns, params, images.reshape(4, 2, *images.shape[1:]), mesh)
+        logits = y.reshape(images.shape[0], -1)
+        (logits ** 2).sum().backward()
+        res["resnet"] = {"logits": logits.detach(),
+                         "grads": _named_grads(dict(model.named_parameters())),
+                         "buffers_unchanged": all(torch.equal(v, buffers[k])
+                                                  for k, v in model.named_buffers()),
+                         "still_training": all(m.training for m in model.modules())}
+        out[f"stages{mesh.model}"] = res
+
+
 def free_port() -> int:
     import socket
 
@@ -858,9 +955,12 @@ def main():
     elif scenario == "frcnn2":
         check_frcnn_step(workdir, mesh, out)
         check_cli_frcnn(workdir, out)
+    elif scenario == "pipe4":
+        check_pipeline(workdir, out)
     else:
         raise SystemExit(f"unknown scenario {scenario!r}")
-    torch.save(out if rank == 0 else _digest_large(out),
+    # the pipeline's ranks each hold other stages' gradients: saved whole
+    torch.save(out if rank == 0 or scenario == "pipe4" else _digest_large(out),
                os.path.join(workdir, f"{scenario}_rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
