@@ -9,7 +9,7 @@ exits non-zero before a result is printed:
   1. device   the card's name, count and power limit (nvidia-smi);
   2. build    every ``csrc/*.cu`` compiled with nvcc (ptxas register and
               shared-memory report) and every ``csrc/*.cpp`` (the JPEG
-              decoder, the letterbox, the MPEG-4 packer) with the host
+              decoder, the letterbox, the MPEG-4 packer and decoder) with the host
               compiler, all at once; meanwhile a child process builds them
               all into a fresh ``compile_cache`` directory
               (`core.mesh.enable_compile_cache`), then a second child finds
@@ -311,7 +311,21 @@ exits non-zero before a result is printed:
               ``stsz`` summing to the ``mdat`` payload), its samples equal
               to the encoder's bytes of the drawn frames, each frame's
               reconstruction within 1 level of the 4:2:0 round trip's own
-              loss; encode ms and bytes a frame, frames/s with out_path;
+              loss, and the file decoded by the port (each frame's planes
+              within 1 level of the encoder's reconstruction); encode ms and
+              bytes a frame, frames/s with out_path; then MPEG-4 Part 2
+              with ``import cv2`` blocked (``mpeg4``): every committed fixture of
+              ``tests/torch_video_fixtures`` (XviD / DivX / mp4v in AVI, MP4
+              and MOV, B-frames, 4MV, quarter-pel, interlacing, ...) decoded
+              to FFmpeg's planes (SHA-256 per frame) with cv2's counts and
+              seek landings, decode frames/s at 1 and 4 threads (320 x 240
+              XviD, 640 x 480 mp4v), the fixtures as a folder through
+              ``VideoClipLoader`` (4 process workers) into SlowFast-R50's
+              eval step (NMS launches counted: 0), and ``predict_video`` on
+              the 320 x 240 XviD clip, equal to ``predict_batch`` on its
+              frames, the NMS kernel's launches counted under
+              ``detector_predict_video_mpeg4`` and held bit-equal to the
+              plain version;
   28. parallel  data parallel over a process group, in subprocesses
               (``chip_smoke.py --parallel-child ...``, each a fresh TCP
               port): world size 1 over NCCL at full width, ``cli.main(["train",
@@ -4920,7 +4934,20 @@ def predict_video_writer(det: Detector, clip: str, out_path: str) -> dict:
                                    .astype(np.int16) - f).mean()))
         check(errs[-1] <= floors[-1] + 1 and (floors[-1] >= 2 or errs[-1] <= 3),
               f"encoder reconstruction {errs[-1]} vs the drawn frame (4:2:0 alone {floors[-1]})")
-    report = {"frames": n, "hw": [h, w], "fps": timescale / delta, "bytes": len(data),
+    from fastvision_tpu_torch.data.mpeg4 import Mpeg4Video
+    back = avi.open_video(out_path)  # the port's own .mp4 read back by the port's decoder
+    check(isinstance(back, Mpeg4Video) and back.frame_count == back.walk_count() == n
+          and back.fps == DECODE_AVI_FPS, "the annotated video read back: its count")
+    back_err = 0
+    for k, f in enumerate(drawn):
+        got = back.planes(k)
+        for a, b in zip(got[:3], enc.reconstruct_planes(enc.levels(f))):
+            back_err = max(back_err, int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()))
+    back.release()
+    check(back_err <= 1, f"the annotated video read back: {back_err} levels from the encoder's "
+          "reconstruction")
+    report = {"read_back_max_abs_vs_reconstruction": back_err,
+              "frames": n, "hw": [h, w], "fps": timescale / delta, "bytes": len(data),
               "bytes_per_frame": float(sizes.mean()), "encode_ms_per_frame": encode_ms,
               "reconstruction_mean_abs": {"max": max(errs), "mean": float(np.mean(errs))},
               "yuv420_alone_mean_abs": {"max": max(floors), "mean": float(np.mean(floors))},
@@ -4929,13 +4956,196 @@ def predict_video_writer(det: Detector, clip: str, out_path: str) -> dict:
     return {"report": report, "launches": launches, "mismatches": held["mismatches"]}
 
 
+VIDEO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                              "torch_video_fixtures")
+MPEG4_UCF = "xvid_cv2_320x240.avi"  # UCF-101's shape: XVID, 320 x 240, 25 fps
+MPEG4_VGA = "mp4v_cv2_640x480.mp4"
+
+
+def video_fixtures() -> list[dict]:
+    with open(os.path.join(VIDEO_FIXTURES, "manifest.json")) as f:
+        return json.load(f)["fixtures"]
+
+
+@contextlib.contextmanager
+def cv2_blocked():
+    """``import cv2`` raises ImportError inside the block (as on a machine
+    without it), whether or not this machine has cv2."""
+    saved = sys.modules.get("cv2", False)
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def check_mpeg4_fixtures() -> dict:
+    """Every committed MPEG-4 fixture decoded without cv2: the frame count,
+    each frame's Y / Cb / Cr SHA-256 equal to FFmpeg's (the manifest), the
+    decoder's tool counts, and cv2's seek landings read ascending and
+    descending on one reader."""
+    from fastvision_tpu_torch.data.mpeg4 import Mpeg4Video
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    frames = landings = 0
+    for e in video_fixtures():
+        path = os.path.join(VIDEO_FIXTURES, e["file"])
+        video = avi.open_video(path)
+        check(isinstance(video, Mpeg4Video), f"{e['file']}: not read as MPEG-4")
+        check([video.frame_count, video.fps, video.walk_count()]
+              == [e["frame_count"], e["fps"], e["frames"]], f"{e['file']}: counts")
+        planes = [video.planes(i) for i in range(e["frames"])]
+        check([[sha(f.y), sha(f.cb), sha(f.cr)] for f in planes] == e["sha256"],
+              f"{e['file']}: a frame's planes differ from FFmpeg's")
+        check(video.stats == e["stats"], f"{e['file']}: the stream's tools {video.stats}")
+        video.release()
+        frames += len(planes)
+        if e["landings"] is None:
+            continue
+        digests = [sha(f.y) for f in planes]
+        for order in (range(len(e["landings"])), reversed(range(len(e["landings"])))):
+            video = avi.open_video(path)
+            for i in order:
+                got, want = video.read_at(i), e["landings"][i]
+                check((got is None) == (want is None), f"{e['file']}: read_at({i})")
+                if got is not None:
+                    check(sha(video.planes(want).y) == digests[want], f"{e['file']}: read_at({i})")
+                landings += 1
+            video.release()
+    return {"fixtures": len(video_fixtures()), "frames": frames, "landings_read": landings,
+            "planes_differing": 0}
+
+
+def _decode_all(path: str) -> int:
+    video = avi.open_video(path)
+    n = sum(1 for _ in video.frames())
+    video.release()
+    return n
+
+
+def mpeg4_decode_speed() -> dict:
+    """Demux + decode + RGB frames/s of the UCF-101-sized XviD fixture and
+    the 640 x 480 one: one reader, and 4 readers on 4 threads (the decoder
+    releases the interpreter's lock); planes alone on one reader."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {}
+    for name in (MPEG4_UCF, MPEG4_VGA):
+        path = os.path.join(VIDEO_FIXTURES, name)
+        n = _decode_all(path)  # warm: the build, the page cache
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _decode_all(path)
+        one = 3 * n / (time.perf_counter() - t0)
+        video = avi.open_video(path)
+        t0 = time.perf_counter()
+        for i in range(n):
+            video.planes(i)
+        planes_fps = n / (time.perf_counter() - t0)
+        video.release()
+        with ThreadPoolExecutor(4) as pool:
+            t0 = time.perf_counter()
+            total = sum(pool.map(_decode_all, [path] * 8))
+            four = total / (time.perf_counter() - t0)
+        e = next(x for x in video_fixtures() if x["file"] == name)
+        out[name] = {"hw": [e["height"], e["width"]], "frames": n, "fps_1_thread": one,
+                     "planes_only_fps_1_thread": planes_fps, "fps_4_threads": four}
+    return out
+
+
+def mpeg4_slowfast(slowfast, dev, eval_step, workdir: str) -> dict:
+    """A folder of the MPEG-4 fixtures (AVI, MP4, MOV; every tool), three
+    copies of each, through VideoFolderDataset and a VideoClipLoader (4
+    process workers) into the full-width SlowFast-R50's eval step (bf16, 32
+    x 224), the NMS kernel's launches counted (0: it runs no NMS); the
+    loader's clips/s alone over its second epoch (the first starts the
+    pool)."""
+    root = os.path.join(workdir, "mpeg4_video")
+    for k, e in enumerate(video_fixtures()):
+        d = os.path.join(root, "val", f"class_{k % 4:03d}")
+        os.makedirs(d, exist_ok=True)
+        for copy in range(3):
+            shutil.copy(os.path.join(VIDEO_FIXTURES, e["file"]), os.path.join(d, f"{copy}_{e['file']}"))
+    ds = VideoFolderDataset(root, "val")
+    state = type("State", (), {"model": slowfast})()
+    ld = VideoClipLoader(ds, num_frames=VID_T, size=VID_SIZE, batch_size=VID_BATCH,
+                         strategy="average", train=False, seed=SEED, num_workers=4,
+                         worker_backend="process")
+    try:
+        t0 = time.perf_counter()
+        clips = sum(int(b["num_real"]) for b in ld.epoch(0))
+        first_epoch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clips2 = sum(int(b["num_real"]) for b in ld.epoch(1))
+        loader_s = time.perf_counter() - t0
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        batches = [{k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                    for k, v in b.items()} for b in ld.epoch(2)]
+        logits = [eval_step(state, b) for b in batches]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = suppression_mask_cuda.launches
+    finally:
+        ld.close()
+    check(clips == clips2 == len(ds) == sum(int(b["num_real"]) for b in batches)
+          and all(tuple(x.shape) == (VID_BATCH, VID_CLASSES) and bool(torch.isfinite(x.float()).all())
+                  for x in logits), "SlowFast eval on the MPEG-4 clips")
+    return {"clips": clips, "loader_clips_s": clips / loader_s, "loader_s": loader_s,
+            "first_epoch_s": first_epoch_s, "loader_eval_clips_s": clips / eval_s,
+            "loader_eval_s": eval_s, "batches": len(batches), "launches": launches}
+
+
+def mpeg4_predict_video(det: Detector) -> dict:
+    """``Detector.predict_video`` (YOLOv3-416) on the UCF-101-sized XviD
+    fixture: each frame's result equal to ``predict_batch`` on the same
+    frames decoded one by one, the NMS kernel's launches counted and each
+    keep mask held against the plain version, the kernel timed on this
+    path's inputs; frames/s."""
+    path = os.path.join(VIDEO_FIXTURES, MPEG4_UCF)
+    frames = list(avi.open_video(path).frames())
+    seen = []
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        n = det.predict_video(path, frame_callback=lambda rgb, res: seen.append(res))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = suppression_mask_cuda.launches
+    check(n == len(seen) == len(frames), f"predict_video processed {n} of {len(frames)} frames")
+    want = [r for i in range(0, n, DECODE_BATCH) for r in det.predict_batch(frames[i:i + DECODE_BATCH])]
+    check(all(all(np.array_equal(a[k], b[k]) for k in ("boxes", "scores", "classes"))
+              for a, b in zip(seen, want)),
+          "predict_video's results on the MPEG-4 file differ from predict_batch")
+    held = kernel_vs_plain_recorded(recorded)
+    check(held["mismatches"] == 0 and launches == held["calls"] == -(-n // DECODE_BATCH),
+          f"predict_video (MPEG-4): {launches} launches, {held}")
+    boxes, scores, iou = recorded[-1]
+    keep = suppression_mask_cuda(boxes, scores, iou)
+    bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
+    kernel = {"shape": list(scores.shape),
+              "ms": cuda_ms(lambda: suppression_mask_cuda(boxes, scores, iou), reps=50),
+              "plain_ms": cuda_ms(lambda: suppression_mask_plain(boxes, scores, iou), reps=3),
+              "bound_ms": bound_ms, "bound_by": bound_by, **work}
+    return {"frames": n, "predict_video_fps": n / seconds, "predict_video_s": seconds,
+            "detections": sum(len(r["boxes"]) for r in seen), "nms_vs_plain": held,
+            "nms_kernel": kernel, "launches": launches, "mismatches": held["mismatches"]}
+
+
 def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     """The decode leftovers, with no cv2 call: the corpus, the
     progressive twins of bench.py's JPEG corpus, their times, and a
     640 x 480 MJPEG AVI through load_clip, VideoFolderDataset, a
     VideoClipLoader feeding SlowFast-R50's eval step and
     Detector.predict_video (YOLOv3-416), without and with ``out_path``
-    (`predict_video_writer`)."""
+    (`predict_video_writer`, whose file the port reads back); then MPEG-4
+    Part 2: the committed fixtures against FFmpeg, decode frames/s,
+    SlowFast-R50 on the MPEG-4 clips and predict_video on the XviD one."""
     t_phase = time.perf_counter()
     corpus = check_decode_corpus()
 
@@ -5034,7 +5244,16 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     check(len(batches) == 1 and batches[0]["num_real"] == 1
           and tuple(logits[0].shape) == (VID_BATCH, VID_CLASSES)
           and bool(torch.isfinite(logits[0].float()).all()), "SlowFast eval on the AVI")
-    del slowfast, batches, logits
+    del batches, logits
+    # (e) MPEG-4 Part 2 without cv2: the fixtures against FFmpeg, decode speed,
+    # SlowFast on the MPEG-4 clips (and predict_video below)
+    t_mpeg4 = time.perf_counter()
+    with cv2_blocked():
+        mpeg4 = {"fixtures": check_mpeg4_fixtures(), "decode_speed": mpeg4_decode_speed(),
+                 "slowfast": mpeg4_slowfast(slowfast, dev, eval_step, workdir),
+                 "cv2_importable": False}
+    mpeg4_s = time.perf_counter() - t_mpeg4
+    del slowfast
     torch.cuda.empty_cache()
 
     anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
@@ -5063,6 +5282,10 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     check(video_launches == DECODE_AVI_FRAMES // DECODE_BATCH,
           f"predict_video launched the NMS kernel {video_launches} times")
     writer = predict_video_writer(det, path, os.path.join(workdir, "annotated.mp4"))
+    t_mpeg4 = time.perf_counter()
+    with cv2_blocked():
+        mpeg4["predict_video"] = mpeg4_predict_video(det)
+    mpeg4["seconds"] = mpeg4_s + time.perf_counter() - t_mpeg4
     boxes, scores, iou = recorded[-1]
     keep = suppression_mask_cuda(boxes, scores, iou)
     bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
@@ -5080,17 +5303,21 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
                    "slowfast_loader_eval_s": loader_eval_s,
                    "predict_video_fps": DECODE_AVI_FRAMES / predict_video_s,
                    "predict_video_s": predict_video_s, "detections": detections},
-           "annotated_video": writer["report"],
+           "annotated_video": writer["report"], "mpeg4": mpeg4,
            "nms_kernel_predict_video": nms, "kernel_vs_plain": kernel,
            "launches": {"detector_predict_video": video_launches,
                         "detector_predict_video_out_path": writer["launches"],
-                        "video_clip_loader_slowfast_eval": slowfast_launches},
+                        "detector_predict_video_mpeg4": mpeg4["predict_video"]["launches"],
+                        "video_clip_loader_slowfast_eval": slowfast_launches,
+                        "video_clip_loader_slowfast_eval_mpeg4": mpeg4["slowfast"]["launches"]},
            "host_cpus": os.cpu_count(), "seconds": time.perf_counter() - t_phase}
     emit("decode", card=smi, **out)
     del det, model
     torch.cuda.empty_cache()
-    return {"launches": out["launches"], "zero": ["video_clip_loader_slowfast_eval"],
-            "mismatches": kernel["mismatches"] + writer["mismatches"], "kernel": nms}
+    return {"launches": out["launches"],
+            "zero": ["video_clip_loader_slowfast_eval", "video_clip_loader_slowfast_eval_mpeg4"],
+            "mismatches": (kernel["mismatches"] + writer["mismatches"]
+                           + mpeg4["predict_video"]["mismatches"]), "kernel": nms}
 
 
 PAR_VAL_IMAGES = 32  # one validation batch of 32 per epoch

@@ -22,9 +22,13 @@ sharding over the mesh's model and time axes (`parallel`) and Faster R-CNN
 over several ranks; GPipe pipelines run a model's stages over the model
 axis (`parallel.pipeline`). ``compile_cache`` keeps the native builds
 across restarts (`core.mesh.enable_compile_cache`); annotated videos are
-written by the port's own MPEG-4 encoder and MP4 muxer (`data.mp4`). Not
-ported: the rare JPEG kinds (arithmetic coding, 12-bit, lossless) and video
-codecs other than Motion-JPEG without cv2 (ROADMAP Queue 1, item 11).
+written by the port's own MPEG-4 encoder and MP4 muxer (`data.mp4`), and
+videos are read without cv2 in Motion-JPEG AVIs and in MPEG-4 Part 2 (XviD /
+DivX / mp4v in AVI, MP4 and MOV: `data.mpeg4`, FFmpeg's frames bit for
+bit). Not ported: the rare JPEG kinds (arithmetic coding, 12-bit, lossless),
+H.264 and the other video codecs without cv2, the MPEG-4 tools no encoder
+at hand writes (static sprites, RVLC, ...), Matroska / WebM (ROADMAP Queue
+1, item 11).
 """
 
 __version__ = "0.1.0"

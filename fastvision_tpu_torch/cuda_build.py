@@ -1,6 +1,6 @@
 """Builds the port's native sources into shared libraries: the CUDA
 kernels (``csrc/*.cu``) with ``nvcc``, and the host code (``csrc/*.cpp``,
-the JPEG decoder and the letterbox) with the host C++ compiler.
+the JPEG decoder, the letterbox, the MPEG-4 encoder and decoder) with the host C++ compiler.
 
 Each source is compiled at first use into a shared library with a plain C
 interface, loaded with ``ctypes``. The library's name carries a hash of the

@@ -1,9 +1,16 @@
-"""Motion-JPEG AVI files without cv2: the port's counterpart of
-``cv2.VideoCapture`` on an MJPEG ``.avi``, as `codec` is its counterpart of
-``cv2.imdecode``. Every other video (XviD / H.264 AVIs, ``.mp4``, ``.mov``,
-``.mkv``, ``.webm``) is read through cv2, imported where it is called; where
-cv2 is absent those raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 11 and the file's FourCC, and never return a black clip.
+"""Video files without cv2: the port's counterpart of ``cv2.VideoCapture``,
+as `codec` is its counterpart of ``cv2.imdecode``. AVI files are read
+here: Motion-JPEG (`MJPEGAvi`) and MPEG-4 Part 2 (XviD, DivX, FMP4 and the
+other FourCCs FFmpeg gives its ``mpeg4`` decoder, `mpeg4.MPEG4_FOURCCS`,
+read by `mpeg4.Mpeg4Video`); ``.mp4`` / ``.mov`` / ``.m4v`` files go to
+`mp4.open_mp4`. MPEG-4 Part 2 is never handed to cv2, installed or not: a
+feature the decoder does not port raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 11, and a stream that does not decode ValueError.
+Other codecs in those containers (H.264, MS-MPEG4 ``DIV3`` / ``MP43``,
+...) and other containers (``.mkv``, ``.webm``) are read through cv2,
+imported where it is called; where cv2 is absent those raise
+``NotImplementedError`` naming item 11 and the codec, and never return a
+black clip.
 
 `open_video(path)` gives a reader with the calls the loaders make of a
 ``VideoCapture``: ``frame_count`` (``CAP_PROP_FRAME_COUNT``), ``fps``,
@@ -13,34 +20,40 @@ the start gets) and ``frames()`` (that loop).
 
 The container (RIFF ``AVI ``): ``LIST hdrl`` gives the first ``vids``
 stream, its ``strh`` (FourCC, ``dwRate / dwScale``, ``dwLength``) and
-``strf`` (compression); ``LIST movi`` holds its ``##dc`` / ``##db`` chunks
-among ``JUNK``, ``LIST rec `` and OpenDML ``ix##`` chunks; ``idx1``, where it
-is present and agrees with the chunks it names, lists them, else ``movi`` is
-walked once. OpenDML files (over 1 GB) continue in ``RIFF AVIX`` parts,
-whose ``movi`` lists are walked after the first part's frames. A frame's
-bytes go through `codec.decode_image` (a frame without Huffman tables gets
-the standard ones).
+``strf`` (compression, and an MPEG-4 stream's headers after the 40-byte
+BITMAPINFOHEADER, where the writer put them there); ``LIST movi`` holds its
+``##dc`` / ``##db`` chunks among ``JUNK``, ``LIST rec `` and OpenDML
+``ix##`` chunks; ``idx1``, where it is present and agrees with the chunks
+it names, lists them, else ``movi`` is walked once. OpenDML files (over 1
+GB) continue in ``RIFF AVIX`` parts, whose ``movi`` lists are walked after
+the first part's frames. A Motion-JPEG frame's bytes go through
+`codec.decode_image` (a frame without Huffman tables gets the standard
+ones); an MPEG-4 stream's chunks are its samples in decode order.
 
-What cv2 5.0.0 (its FFmpeg backend) does, and so what the reader does:
+What cv2 5.0.0 (its FFmpeg backend) does, and so what the readers do:
 
 - the frame count is the stream header's ``dwLength`` (``avih``'s
   ``dwTotalFrames`` is not read), whatever ``movi`` and ``idx1`` hold;
 - a zero-length frame chunk (a dropped frame) is no frame: reads skip it
-  and the frames after it are numbered without it;
+  and the frames after it are numbered without it; in MPEG-4 so are
+  N-VOPs and the placeholder chunks of packed B-frames, and frames are
+  numbered in display order (`mpeg4.Mpeg4Video` states its rules);
 - a seek is clamped to the frame count, so an index past an under-counting
   header reads the frame at the count; one past the real frames reads
   nothing;
 - with a count of 0 or 1 a seek does not move: reads go on from the
   frame after the last one read;
 - in a file whose first frame chunk is empty, cv2's seeks land on other
-  frames than asked (its frame numbers start at 1 there): the reader
-  refuses to seek in it (ValueError naming item 11) and reads it from the
-  start only (ROADMAP Queue 3).
+  frames than asked (its frame numbers start at 1 there, shown for
+  Motion-JPEG): the readers refuse to seek in it (ValueError naming item
+  11) and read it from the start only (ROADMAP Queue 3).
 
-The pixels are libjpeg-turbo's (``cv2.imdecode`` of each frame's bytes, bit
-for bit), not ``VideoCapture``'s: FFmpeg's MJPEG decoder and swscale's
-chroma differ from libjpeg's fancy upsampling at colour edges (ROADMAP
-Queue 3 gives the bound measured on the committed fixtures).
+The Motion-JPEG pixels are libjpeg-turbo's (``cv2.imdecode`` of each
+frame's bytes, bit for bit), not ``VideoCapture``'s: FFmpeg's MJPEG decoder
+and swscale's chroma differ from libjpeg's fancy upsampling at colour
+edges (ROADMAP Queue 3 gives the bound measured on the committed
+fixtures). The MPEG-4 pixels are ``VideoCapture``'s own: FFmpeg's planes
+and swscale's RGB (`mpeg4.planes_to_rgb`).
 """
 from __future__ import annotations
 
@@ -50,12 +63,18 @@ import struct
 import numpy as np
 
 from .codec import decode_image
+from .mpeg4 import MPEG4_FOURCCS, Mpeg4Video
 
 _ITEM = "(ROADMAP Queue 1, item 11)"
 
 
 class AviError(ValueError):
     """A file that is not an AVI this module reads (the caller tries cv2)."""
+
+
+class OtherCodec(NotImplementedError):
+    """A container the port reads holding a codec it does not decode
+    (`open_video` hands the file to cv2 where it is installed)."""
 
 
 def _chunks(data: bytes, start: int, end: int):
@@ -70,11 +89,12 @@ def _chunks(data: bytes, start: int, end: int):
         pos = body + size + (size & 1)
 
 
-class MJPEGAvi:
-    """The first video stream of a Motion-JPEG AVI file (see the module
-    docstring). Raises `AviError` if the file is not a RIFF AVI, and
-    ``NotImplementedError`` if its video is not MJPEG (`open_video` sends
-    those to cv2)."""
+class AviFile:
+    """The first video stream of a RIFF AVI file: ``fourcc``,
+    ``frame_count``, ``fps``, ``extradata`` (``strf`` past its
+    BITMAPINFOHEADER) and its frame chunks [(offset, size)] in file order,
+    empty ones included (see the module docstring). Raises `AviError` if
+    the file is not a RIFF AVI."""
 
     def __init__(self, path: str):
         self.path = path
@@ -84,6 +104,7 @@ class MJPEGAvi:
         if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"AVI ":
             raise AviError(f"not an AVI file: {path}")
         self.fourcc = b""
+        self.extradata = b""
         self.stream = -1
         self.frame_count = 0
         self.fps = 0.0
@@ -108,18 +129,25 @@ class MJPEGAvi:
                     idx1 = (body, size)
         if self.stream < 0:
             raise AviError(f"AVI without a video stream: {path}")
-        if self.fourcc.upper() != b"MJPG":
-            raise NotImplementedError(f"{self.fourcc.decode('latin-1')!r} video")
         if not movi:
             raise ValueError(f"corrupt AVI: no movi list: {path}")
         ids = (b"%02ddc" % self.stream, b"%02ddb" % self.stream)
         first = self._index(idx1, movi[0], ids) if idx1 else None
         if first is None:
             first = self._walk(*movi[0], ids)
-        chunks = first + [c for m in movi[1:] for c in self._walk(*m, ids)]
-        self._frames = [(off, size) for off, size in chunks if size > 0]
-        self._first_empty = bool(chunks) and chunks[0][1] == 0
-        self._pos = 0  # the next frame a read gets
+        self.chunks = first + [c for m in movi[1:] for c in self._walk(*m, ids)]
+        self._first_empty = bool(self.chunks) and self.chunks[0][1] == 0
+
+    @property
+    def codec(self) -> str:
+        return self.fourcc.decode("latin-1")
+
+    def refusal(self) -> str | None:
+        """Why seeks are refused in this file (its first chunk is empty), or None."""
+        if not self._first_empty:
+            return None
+        return (f"seeking in an AVI whose first frame chunk is empty is not ported {_ITEM}: "
+                f"cv2 5.0.0 lands on other frames than asked there; {self.path}")
 
     def _read_hdrl(self, start: int, end: int) -> None:
         d = self._data
@@ -140,6 +168,8 @@ class MJPEGAvi:
                 length = struct.unpack_from("<I", d, b2 + 32)[0]
                 compression = d[strf[0] + 16:strf[0] + 20] if strf and strf[1] >= 20 else b""
                 self.fourcc = compression if compression.strip(b"\0") else handler
+                if strf and strf[1] > 40:
+                    self.extradata = d[strf[0] + 40:strf[0] + strf[1]]
                 self.stream = n
                 self.frame_count = length
                 self.fps = rate / scale if scale else 0.0
@@ -178,11 +208,23 @@ class MJPEGAvi:
                 return out
         return None
 
+
+
+class MJPEGAvi(AviFile):
+    """The first video stream of a Motion-JPEG AVI file (see the module
+    docstring). Raises `AviError` if the file is not a RIFF AVI, and
+    `OtherCodec` if its video is not MJPEG."""
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        if self.fourcc.upper() != b"MJPG":
+            raise OtherCodec(f"{self.codec!r} video")
+        self._frames = [(off, size) for off, size in self.chunks if size > 0]
+        self._pos = 0  # the next frame a read gets
+
     def _refuse_seek(self) -> None:
         if self._first_empty:
-            raise ValueError(
-                f"seeking in a Motion-JPEG AVI whose first frame chunk is empty is not ported "
-                f"{_ITEM}: cv2 5.0.0 lands on other frames than asked there; {self.path}")
+            raise ValueError(self.refusal())
 
     def frame_bytes(self, i: int) -> bytes:
         off, size = self._frames[i]
@@ -278,22 +320,44 @@ class _Cv2Video:
         self._cap.release()
 
 
+def open_avi(path: str):
+    """The reader of an AVI's first video stream: `MJPEGAvi`, or
+    `mpeg4.Mpeg4Video` for the MPEG-4 FourCCs; `OtherCodec` for the rest."""
+    avi = AviFile(path)
+    if avi.fourcc.upper() == b"MJPG":
+        return MJPEGAvi(path)
+    if avi.codec.upper() not in MPEG4_FOURCCS:
+        raise OtherCodec(f"{avi.codec!r} video")
+    samples = [c for c in avi.chunks if c[1] > 0]
+    return Mpeg4Video(path, avi._data, samples, avi.extradata, avi.codec, avi.frame_count,
+                      avi.fps, avi.refusal())
+
+
 def open_video(path: str):
-    """A reader for ``path``: `MJPEGAvi` for a Motion-JPEG AVI (no cv2),
-    cv2's ``VideoCapture`` behind the same calls for anything else. Where
-    cv2 is absent, a video that is not MJPEG AVI raises NotImplementedError
-    naming item 11 and its FourCC; a missing file raises FileNotFoundError."""
+    """A reader for ``path``: the port's for AVI (Motion-JPEG and MPEG-4
+    Part 2) and for ``.mp4`` / ``.mov`` / ``.m4v`` (MPEG-4 Part 2,
+    `mp4.open_mp4`), with or without cv2; cv2's ``VideoCapture`` behind the
+    same calls for other codecs and containers. Where cv2 is absent, those
+    raise NotImplementedError naming item 11 and the codec; a missing file
+    raises FileNotFoundError."""
+    from .mp4 import is_mp4, open_mp4
+
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     try:
-        return MJPEGAvi(path)
-    except (AviError, NotImplementedError):
+        return open_avi(path)
+    except (AviError, OtherCodec):
         pass
+    if is_mp4(path):
+        try:
+            return open_mp4(path)
+        except OtherCodec:
+            pass
     try:
         import cv2
     except ImportError:
         raise NotImplementedError(
             f"decoding {video_fourcc(path)!r} video without cv2 is not ported {_ITEM}: "
-            f"{path}; Motion-JPEG AVI files and clips stored as directories of frames are "
-            f"read without it") from None
+            f"{path}; Motion-JPEG and MPEG-4 Part 2 (XviD, DivX, mp4v) in AVI, MP4 and MOV, "
+            f"and clips stored as directories of frames, are read without it") from None
     return _Cv2Video(path, cv2)

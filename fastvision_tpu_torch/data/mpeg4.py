@@ -1,7 +1,20 @@
-"""An MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile intra-only video
-encoder, the port's writer of annotated videos (`data.mp4.VideoWriter`
-muxes its frames into an ``mp4v`` ``.mp4``, the file cv2's ``mp4v``
-``VideoWriter`` writes in the JAX package).
+"""MPEG-4 Part 2 (ISO/IEC 14496-2) video: `Mpeg4Decoder` and `Mpeg4Video`,
+the port's reader of XviD / DivX / mp4v streams (the AVI, MP4 and MOV
+readers, `data.avi` and `data.mp4`, hand it their samples), and
+`Mpeg4Encoder`, a Simple Profile intra-only encoder, the port's writer of
+annotated videos (`data.mp4.VideoWriter` muxes its frames into an ``mp4v``
+``.mp4``, the file cv2's ``mp4v`` ``VideoWriter`` writes in the JAX
+package).
+
+The decoder is ``csrc/mpeg4_decode.cpp`` (built by `cuda_build` with the
+host compiler, called through ctypes with the interpreter's lock
+released): FFmpeg's ``mpeg4`` decoder's output bit for bit, the decoder
+cv2's ``VideoCapture`` uses (its source says how, and what raises). Its
+planes become RGB as swscale converts them for cv2 (`planes_to_rgb`).
+`Mpeg4Video` gives `avi.open_video`'s calls over a stream's samples, with
+the frame order, frame count and seeks of cv2 (its docstring).
+
+The encoder:
 
 Each frame is encoded by ``csrc/mpeg4_encode.cpp`` (built by `cuda_build`
 with the host compiler, called through ctypes, the interpreter's lock
@@ -23,12 +36,17 @@ reconstruct`, for checks).
     enc = Mpeg4Encoder(640, 480, fps=25)
     vop = enc.encode(rgb)          # bytes of one I-VOP
     rec = enc.reconstruct(enc.levels(rgb))   # what a decoder shows
+
+    dec = Mpeg4Decoder(config)     # the VOL from the container, or b""
+    for frame in dec.decode(vop) + dec.flush():   # YUVFrame(y, cb, cr, tag)
+        rgb = planes_to_rgb(frame.y, frame.cb, frame.cr)
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from fractions import Fraction
+from typing import NamedTuple
 
 import numpy as np
 
@@ -239,12 +257,21 @@ class Mpeg4Encoder:
         self._encode(rgb, 0, 0, levels)
         return levels
 
+    def _macroblock_planes(self, levels: np.ndarray) -> tuple[np.ndarray, ...]:
+        pix = np.clip(np.rint(DCT.T @ dequantize(levels, self.quant) @ DCT), 0, 255)
+        return _planes(pix.astype(np.uint8), self.mb_h, self.mb_w)
+
+    def reconstruct_planes(self, levels: np.ndarray) -> tuple[np.ndarray, ...]:
+        """Levels -> the Y, Cb, Cr planes they decode to, cropped to the frame
+        (a float IDCT; a decoder's integer IDCT may differ by one level)."""
+        y, cb, cr = self._macroblock_planes(levels)
+        ch, cw = (self.height + 1) // 2, (self.width + 1) // 2
+        return y[:self.height, :self.width], cb[:ch, :cw], cr[:ch, :cw]
+
     def reconstruct(self, levels: np.ndarray) -> np.ndarray:
         """Levels -> the uint8 RGB frame they decode to (a float IDCT; a
         decoder's integer IDCT may differ by one level)."""
-        pix = np.clip(np.rint(DCT.T @ dequantize(levels, self.quant) @ DCT), 0, 255)
-        return yuv420_to_rgb(*_planes(pix.astype(np.uint8), self.mb_h, self.mb_w),
-                             self.height, self.width)
+        return yuv420_to_rgb(*self._macroblock_planes(levels), self.height, self.width)
 
     def stamp(self) -> tuple[int, int]:
         """The next frame's time stamp: (seconds since the last frame's
@@ -262,3 +289,336 @@ class Mpeg4Encoder:
         stamped in order may be encoded on several threads at once)."""
         seconds, increment = self.stamp() if stamp is None else stamp
         return self._encode(rgb, seconds, increment, None)
+
+
+# --- decoding -------------------------------------------------------------
+
+_ITEM = "(ROADMAP Queue 1, item 11)"
+# the AVI FourCCs FFmpeg's RIFF table gives its mpeg4 decoder (matched in
+# upper case, as FFmpeg retries a tag)
+MPEG4_FOURCCS = frozenset(
+    "FMP4 DIVX DX50 XVID MP4S M4S2 DIV1 BLZ0 MP4V UMP4 WV1F SEDG RMP4 3IV2 WAWV FFDS FVFW "
+    "DCOD MVXM PM4V SMP4 DXGM VIDM M4T3 GEOX HDX4 DM4V DMK2 DIGI INMC EPHV EM4A M4CC SN40 "
+    "VSPX ULDX GEOV SIPP SM4V XVIX DREX QMP4 PLV1 GLV4 GMP4 MNM4 GTM4 ZMP4".split())
+_N_STATS = 31
+STATS = ("i_vops", "p_vops", "b_vops", "n_vops", "packed_b_vops", "skipped_b_vops",
+         "intra_mbs_in_p", "inter4v_mbs", "skipped_p_mbs", "direct_mbs", "forward_mbs",
+         "backward_mbs", "bidirectional_mbs", "skipped_b_mbs", "dquant_mbs", "video_packets",
+         "quarter_pel", "mpeg_quant", "loaded_intra_matrix", "loaded_inter_matrix",
+         "xvid_idct", "rounding_type_1_vops", "ac_pred_mbs", "escape3_levels", "interlaced",
+         "field_mbs", "partitioned_vops", "alternate_scan_vops", "gmc_translation_vops",
+         "gmc_mbs", "gmc_affine_vops")
+assert len(STATS) == _N_STATS
+
+
+class YUVFrame(NamedTuple):
+    """A decoded frame: the Y [h, w], Cb and Cr [(h + 1) // 2, (w + 1) // 2]
+    uint8 planes and the tag of the packet its VOP came from (plus 2**32
+    for a packet's second, packed, VOP)."""
+    y: np.ndarray
+    cb: np.ndarray
+    cr: np.ndarray
+    tag: int
+
+
+def decoder_library() -> ctypes.CDLL:
+    """``csrc/mpeg4_decode.cpp``, built on first use."""
+    lib = cuda_build.load("mpeg4_decode")
+    if not getattr(lib, "_fv_typed", False):
+        vp, i, l, u8 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_char_p
+        lib.fvd_open.argtypes = [u8, l, ctypes.c_uint32, u8, i]
+        lib.fvd_open.restype = vp
+        lib.fvd_decode.argtypes = [vp, u8, l, l, i, u8, i]
+        lib.fvd_decode.restype = i
+        lib.fvd_take.argtypes = [vp, vp, vp, vp, ctypes.POINTER(l)]
+        lib.fvd_take.restype = i
+        lib.fvd_info.argtypes = [vp, ctypes.POINTER(l)]
+        lib.fvd_info.restype = i
+        lib.fvd_rgb.argtypes = [vp, vp, vp, i, i, vp]
+        lib.fvd_rgb.restype = None
+        lib.fvd_reset.argtypes = [vp]
+        lib.fvd_reset.restype = None
+        lib.fvd_close.argtypes = [vp]
+        lib.fvd_close.restype = None
+        lib._fv_typed = True
+    return lib
+
+
+def _raise(code: int, err: bytes, where: str):
+    msg = err.decode(errors="replace")
+    if code == -2:
+        raise NotImplementedError(f"decoding {msg} is not ported {_ITEM}: {where}")
+    raise ValueError(f"corrupt MPEG-4 video ({msg}): {where}")
+
+
+class Mpeg4Decoder:
+    """One MPEG-4 Part 2 stream. ``config``: the VOS / VO / VOL headers the
+    container holds (AVI ``strf`` extradata, MP4 ``esds``), or b"" where the
+    VOL comes in the stream; ``fourcc``: the AVI FourCC (it names the
+    encoder where the stream does not). `decode` takes one container sample
+    and gives the frames ready (0 or 1, display order); `flush` ends the
+    stream; `reset` drops the pictures for a seek. A stream that does not
+    decode raises ValueError, an unsupported feature NotImplementedError
+    naming item 11; a decoder that raised is not used again."""
+
+    def __init__(self, config: bytes = b"", fourcc: str = "", name: str = "MPEG-4 stream"):
+        self._lib = decoder_library()
+        self.name = name
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        tag = fourcc.encode("latin-1")[:4].ljust(4, b"\0") if fourcc else b"\0" * 4
+        self._h = self._lib.fvd_open(config, len(config), int.from_bytes(tag, "little"), err,
+                                     _ERR_LEN)
+        if not self._h:
+            msg = err.value
+            _raise(-2 if msg.startswith(b"unsupported: ") else -1,
+                   msg.removeprefix(b"unsupported: "), name)
+        self._err = err
+        self._info = (ctypes.c_long * (2 + _N_STATS))()
+
+    def _call(self, data: bytes, tag: int, parse_only: bool) -> list:
+        rc = self._lib.fvd_decode(self._h, data, len(data), tag, int(parse_only), self._err,
+                                  _ERR_LEN)
+        if rc < 0:
+            _raise(rc, self._err.value, self.name)
+        if not rc:
+            return []
+        if parse_only:
+            t = ctypes.c_long()
+            self._lib.fvd_take(self._h, None, None, None, ctypes.byref(t))
+            return [t.value]
+        w, h = self.size
+        y = np.empty((h, w), np.uint8)
+        cb, cr = (np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8) for _ in range(2))
+        t = ctypes.c_long()
+        self._lib.fvd_take(self._h, y.ctypes.data, cb.ctypes.data, cr.ctypes.data,
+                           ctypes.byref(t))
+        return [YUVFrame(y, cb, cr, t.value)]
+
+    def decode(self, vop: bytes, tag: int = 0, parse_only: bool = False) -> list:
+        """One sample -> the frames it completes ([] or [YUVFrame]); an
+        empty sample is skipped (a dropped frame). ``parse_only``: headers
+        and frame order only, the frames' tags instead of frames."""
+        return self._call(vop, tag, parse_only) if vop else []
+
+    def flush(self, parse_only: bool = False) -> list:
+        """The end of the stream: the last reference frame, if one waits."""
+        return self._call(b"", -1, parse_only)
+
+    def reset(self) -> None:
+        self._lib.fvd_reset(self._h)
+
+    @property
+    def size(self) -> tuple[int, int]:
+        """(width, height) from the VOL, (0, 0) before one was read."""
+        self._lib.fvd_info(self._h, self._info)
+        return self._info[0], self._info[1]
+
+    @property
+    def stats(self) -> dict:
+        """What the stream has used so far: VOP and macroblock counts by
+        kind, and its tools (`STATS`)."""
+        self._lib.fvd_info(self._h, self._info)
+        return dict(zip(STATS, self._info[2:]))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fvd_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def planes_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """Y / Cb / Cr 4:2:0 planes -> uint8 RGB [h, w, 3], as swscale's unscaled
+    yuv420p -> BGR converter gives it to cv2's ``VideoCapture`` on x86
+    (BT.601 limited range, each chroma sample over its 2 x 2 pixels, its
+    16-bit fixed point); bit-equal to cv2's frames on every committed
+    fixture."""
+    h, w = y.shape
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    if cb.shape != ((h + 1) // 2, (w + 1) // 2) or cr.shape != cb.shape:
+        raise ValueError(f"chroma planes {cb.shape} / {cr.shape} do not match Y {y.shape}")
+    rgb = np.empty((h, w, 3), np.uint8)
+    decoder_library().fvd_rgb(y.ctypes.data, cb.ctypes.data, cr.ctypes.data, w, h,
+                              rgb.ctypes.data)
+    return rgb
+
+
+def vop_types(sample: bytes) -> str:
+    """The coding types of the VOPs in a sample, in order ('I', 'P', 'B',
+    'S'; 'N' for a VOP with vop_coded 0 is not told apart here)."""
+    out, pos = [], 0
+    while True:
+        pos = sample.find(b"\x00\x00\x01\xb6", pos)
+        if pos < 0 or pos + 4 >= len(sample):
+            return "".join(out)
+        out.append("IPBS"[sample[pos + 4] >> 6])
+        pos += 4
+
+
+def stream_config(sample: bytes) -> bytes:
+    """The headers before a sample's first GOV or VOP (VOS, VO, VOL, user
+    data), as FFmpeg extracts a stream's extradata from its first packet
+    where the container holds none; b"" where there are none."""
+    pos = 0
+    while True:
+        pos = sample.find(b"\x00\x00\x01", pos)
+        if pos < 0 or pos + 3 >= len(sample):
+            return b""
+        if sample[pos + 3] in (0xB3, 0xB6):
+            return sample[:pos] if pos > 4 else b""
+        pos += 3
+
+
+class Mpeg4Video:
+    """`avi.open_video`'s calls over an MPEG-4 Part 2 stream: ``samples``
+    [(offset, size)] into ``data`` in decode order (empty ones are dropped
+    frames), ``config`` the container's headers (b"": the first sample's,
+    `stream_config`), ``frame_count`` the container's (AVI ``dwLength``,
+    MP4 sample count), ``fps``.
+
+    What cv2 5.0.0 (its FFmpeg backend) does, and so what the reader does:
+
+    - frames come in display order: a B-VOP where it is decoded, an I/P-VOP
+      once the next I/P-VOP is (at once in a low-delay stream), the last
+      at the end; an N-VOP (vop_coded 0), an empty chunk and the
+      placeholder after a packed (P + B) chunk give no frame; so the read
+      loop's count (`walk_count`) is the VOPs shown, which the
+      container's count may exceed;
+    - frame i is the i-th in that order: ``read_at(i)`` decodes from the
+      last I-VOP shown at or before i (B-VOPs decoded after it but shown
+      before it are skipped, as FFmpeg skips them without a reference)
+      and keeps the decoder, so that ascending reads decode each sample
+      once;
+    - a seek is clamped to the frame count; one past the frames shown
+      reads nothing (None); with a count of 0 or 1 a seek does not move;
+    - in an AVI whose first chunk is empty the reader refuses to seek
+      (``refuse_seek``), as for Motion-JPEG.
+    """
+
+    def __init__(self, path: str, data: bytes, samples: list[tuple[int, int]], config: bytes,
+                 fourcc: str, frame_count: int, fps: float, refuse_seek: str | None = None):
+        self.path, self.fourcc, self.frame_count, self.fps = path, fourcc, frame_count, fps
+        self._data = data
+        self._samples = samples
+        self._refuse = refuse_seek
+        if not config:
+            config = next((c for c in (stream_config(self._sample(k)) for k in
+                                       range(len(samples))) if c), b"")
+        self._config = config
+        # the frame order: a header-only pass from the start
+        probe = Mpeg4Decoder(config, fourcc, path)
+        self._order: list[int] = []  # the tag of each frame shown
+        for k in range(len(samples)):
+            self._order += probe.decode(self._sample(k), k, parse_only=True)
+        self._order += probe.flush(parse_only=True)
+        self.width, self.height = probe.size
+        probe.close()
+        self._shown = {tag: i for i, tag in enumerate(self._order)}
+        # decode starts: samples whose first VOP is an I-VOP, by where it shows
+        self._starts = sorted((self._shown[k], k) for k in range(len(samples))
+                              if k in self._shown and vop_types(self._sample(k))[:1] == "I")
+        self._dec: Mpeg4Decoder | None = None
+        self._next_sample = 0  # the next sample the live decoder takes
+        self._next_shown = 0  # the frame its next output is
+        self._pos = 0  # the next frame a read gets
+
+    def _sample(self, k: int) -> bytes:
+        off, size = self._samples[k]
+        return self._data[off:off + size]
+
+    def _start(self, i: int) -> None:
+        """Point the live decoder at the last I-VOP shown at or before frame i."""
+        starts = [s for s in self._starts if s[0] <= i]
+        if not starts:
+            raise ValueError(f"no I-VOP at or before frame {i}: {self.path}")
+        shown, k = starts[-1]
+        if self._dec is None:
+            self._dec = Mpeg4Decoder(self._config, self.fourcc, self.path)
+        else:
+            self._dec.reset()
+        self._next_sample, self._next_shown = k, shown
+
+    def planes(self, i: int) -> YUVFrame:
+        """Frame i of the frames shown (0 <= i < `walk_count`), its planes.
+        A stream error raises, and the next read starts a fresh decoder."""
+        try:
+            return self._planes(i)
+        except (ValueError, NotImplementedError):
+            if self._dec is not None:
+                self._dec.close()
+                self._dec = None
+            raise
+
+    def _planes(self, i: int) -> YUVFrame:
+        live = self._dec is not None and self._next_shown <= i
+        better = [s for s in self._starts if self._next_shown < s[0] <= i]
+        if not live or better:
+            self._start(i)
+        while True:
+            if self._next_sample < len(self._samples):
+                k = self._next_sample
+                self._next_sample += 1
+                out = self._dec.decode(self._sample(k), k)
+            elif self._next_sample == len(self._samples):
+                self._next_sample += 1
+                out = self._dec.flush()
+            else:
+                raise ValueError(f"frame {i} was not decoded: {self.path}")
+            for frame in out:
+                j = self._shown.get(frame.tag)
+                if j != self._next_shown:
+                    raise ValueError(f"frame {self._next_shown} decoded out of order "
+                                     f"(tag {frame.tag}): {self.path}")
+                self._next_shown += 1
+                if j == i:
+                    return frame
+
+    def decode(self, i: int) -> np.ndarray:
+        """Frame i of the frames shown, RGB uint8 HWC."""
+        f = self.planes(i)
+        return planes_to_rgb(f.y, f.cb, f.cr)
+
+    @property
+    def stats(self) -> dict:
+        """The decoder's counts of the stream's tools so far (`Mpeg4Decoder.stats`)."""
+        return self._dec.stats if self._dec is not None else {}
+
+    def _refuse_seek(self) -> None:
+        if self._refuse:
+            raise ValueError(self._refuse)
+
+    def read_at(self, i: int) -> np.ndarray | None:
+        """``cap.set(CAP_PROP_POS_FRAMES, i); cap.read()`` as cv2 5.0.0 does
+        it (see the class docstring)."""
+        if self.frame_count > 1:
+            self._refuse_seek()
+            self._pos = min(max(int(i), 0), self.frame_count)
+        if self._pos >= len(self._order):
+            return None
+        self._pos += 1
+        return self.decode(self._pos - 1)
+
+    def walk_count(self) -> int:
+        """``set(CAP_PROP_POS_FRAMES, 0)``, then the frames a read loop gets."""
+        if self.frame_count > 1:
+            self._refuse_seek()
+            self._pos = 0
+        n, self._pos = len(self._order) - self._pos, len(self._order)
+        return max(n, 0)
+
+    def frames(self):
+        """Every frame shown, in order, RGB uint8 HWC (a read loop from the
+        start)."""
+        for i in range(len(self._order)):
+            yield self.decode(i)
+
+    def release(self) -> None:
+        if self._dec is not None:
+            self._dec.close()
+            self._dec = None
+        self._data = b""

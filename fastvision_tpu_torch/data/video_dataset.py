@@ -1,8 +1,8 @@
 """Video recognition data (port of fastvision_tpu/data/video_dataset.py).
 
   - `VideoFolderDataset`: ``<root>/<split>/<class_name>/<clip>``, each clip
-    a video file (a Motion-JPEG .avi read without cv2, other videos with
-    cv2; `avi.open_video`) or a directory of
+    a video file (Motion-JPEG .avi and MPEG-4 Part 2 .avi / .mp4 / .mov read
+    without cv2, other videos with cv2; `avi.open_video`) or a directory of
     frame images (JPEG, PNG or BMP, read by `dataset.imread_rgb`); classes
     sorted, or pinned by ``categories``;
   - `VideoClipLoader`: batches {'images' uint8 [B, T, S, S, 3], 'labels'

@@ -5,10 +5,12 @@ stride and random-within-clips (`sample_indices`, draw for draw the JAX
 package's for the same ``np.random.Generator``); `sample_clip_from_array`
 over pre-decoded frames; `load_clip` and `count_real_frames` over a video
 file, through `avi.open_video`: a Motion-JPEG AVI is read without cv2 (its
-frames decoded as ``cv2.imdecode`` decodes them), anything else through
-cv2, imported where it is called (where cv2 is not installed it raises,
-naming ROADMAP Queue 1 item 11, and never returns a black clip). The frame
-count, the seeks and the reads past the end are those of
+frames decoded as ``cv2.imdecode`` decodes them), and so is MPEG-4 Part 2
+(XviD / DivX / mp4v in AVI, MP4 and MOV, `mpeg4.Mpeg4Video`: FFmpeg's frames
+and swscale's RGB, as ``cv2.VideoCapture`` gives them); other codecs go
+through cv2, imported where it is called (where cv2 is not installed they
+raise, naming ROADMAP Queue 1 item 11, and never return a black clip). The
+frame count, the seeks and the reads past the end are those of
 ``cv2.VideoCapture`` (see `avi`). Frames are resized with the loaders'
 `resize_bilinear` (within +-1 of cv2's resize per pixel).
 """

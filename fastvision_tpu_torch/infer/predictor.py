@@ -17,8 +17,8 @@ data pass: each batch is uploaded and run through the model once, and every
 grid point runs its NMS on the device-resident predictions.
 
 `Detector.predict_video` runs the detector over a video's frames, batch by
-batch, with a reader thread decoding ahead (a Motion-JPEG AVI without cv2,
-`data.avi`), and can write an annotated ``mp4v`` video (the port's own
+batch, with a reader thread decoding ahead (Motion-JPEG and MPEG-4 Part 2
+videos without cv2, `data.avi`), and can write an annotated ``mp4v`` video (the port's own
 encoder and muxer, `data.mp4`, cv2 or not).
 `VideoClassifier` classifies clips with a model of the video zoo.
 
@@ -504,8 +504,9 @@ class Detector:
                       frame_callback=None, max_frames: int | None = None) -> int:
         """Batched frame-loop inference over a video file; -> frames processed.
 
-        A reader thread decodes ahead (`data.avi.open_video`: a Motion-JPEG
-        AVI without cv2, other codecs with cv2) into a queue of at most
+        A reader thread decodes ahead (`data.avi.open_video`: Motion-JPEG AVIs
+        and MPEG-4 Part 2 in AVI / MP4 / MOV without cv2, other codecs with
+        cv2) into a queue of at most
         ``2 * batch_size`` RGB frames; the frames run through `predict_batch`
         up to ``batch_size`` at a time, so decode overlaps the device. Per
         frame, in order: ``frame_callback(rgb, result)``, and with
@@ -803,8 +804,9 @@ class VideoClassifier:
                 "prob": float(probs[idx]), "probs": probs}
 
     def predict_video(self, path: str, rng: np.random.Generator | None = None) -> dict:
-        """A video file (``data.video_sampler.load_clip``: a Motion-JPEG AVI
-        without cv2, other codecs with cv2) -> `predict_clip` of
+        """A video file (``data.video_sampler.load_clip``: Motion-JPEG AVIs and
+        MPEG-4 Part 2 in AVI / MP4 / MOV without cv2, other codecs with cv2)
+        -> `predict_clip` of
         ``num_frames`` frames drawn by ``strategy``."""
         from ..data.video_sampler import load_clip
 

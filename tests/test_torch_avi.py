@@ -33,6 +33,7 @@ from fastvision_tpu.data import video_dataset as jvideo
 from fastvision_tpu_torch.data import avi
 from fastvision_tpu_torch.data import video_sampler as tsampler
 from fastvision_tpu_torch.data.dataset import resize_bilinear
+from fastvision_tpu_torch.data.mpeg4 import Mpeg4Video
 from fastvision_tpu_torch.data.video_dataset import VideoFolderDataset
 from fastvision_tpu_torch.infer import VideoClassifier
 from fastvision_tpu_torch.testing import _scene, mjpeg_avi
@@ -231,27 +232,43 @@ def test_writer_checked_against_cv2(tmp_path):
 
 
 def test_other_codecs_through_cv2_or_raise(tmp_path, monkeypatch):
-    """An mp4v .mp4 and an XVID .avi go to cv2 (the same count and frames as
-    the JAX package's); without cv2 they raise naming item 11 and their
-    FourCC, and a missing file raises FileNotFoundError."""
-    paths = {}
-    for name, fourcc in (("clip.mp4", "mp4v"), ("xvid.avi", "XVID")):
+    """An mp4v .mp4 and an XVID .avi (cv2's writer: MPEG-4 Part 2) are read
+    by the port, cv2 or not: the same count and frames as the JAX
+    package's (cv2), and the same frames again with cv2 unimportable. An
+    H.264 .mp4 (libx264) and a .mkv go to cv2 while it is installed and
+    without it raise naming item 11 and their codec; a missing file raises
+    FileNotFoundError."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import make_torch_video_fixtures as maker
+
+    paths, clips = {}, {}
+    for name, fourcc in (("clip.mp4", "mp4v"), ("xvid.avi", "XVID"), ("clip.mkv", "XVID")):
         paths[name] = str(tmp_path / name)
         w = cv2.VideoWriter(paths[name], cv2.VideoWriter_fourcc(*fourcc), 10, (W, H))
         for s in SCENES[:6]:
             w.write(np.ascontiguousarray(s[..., ::-1]))
         w.release()
+    paths["avc.mp4"] = str(tmp_path / "avc.mp4")
+    maker.write_lib(paths["avc.mp4"], "mp4", "libx264", None, 10,
+                    [np.ascontiguousarray(s[..., ::-1]) for s in SCENES[:6]], {"g": "6"})
+    for name in paths:
         video = avi.open_video(paths[name])
-        assert not isinstance(video, avi.MJPEGAvi) and video.frame_count == 6
+        assert isinstance(video, Mpeg4Video) == (name in ("clip.mp4", "xvid.avi"))
+        assert video.frame_count == 6
         assert tsampler.count_real_frames(paths[name]) == jsampler.count_real_frames(paths[name])
-        got = tsampler.load_clip(paths[name], 4, "average", rng=np.random.default_rng(1))
+        clips[name] = tsampler.load_clip(paths[name], 4, "average", rng=np.random.default_rng(1))
         want = jsampler.load_clip(paths[name], 4, "average", rng=np.random.default_rng(1))
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(clips[name], want)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(NotImplementedError, match=r"'mp4v' video .*item 11"):
-        tsampler.load_clip(paths["clip.mp4"], 4)
-    with pytest.raises(NotImplementedError, match=r"'(XVID|FMP4)' video .*item 11"):
-        tsampler.count_real_frames(paths["xvid.avi"])
+    for name in ("clip.mp4", "xvid.avi"):
+        assert tsampler.count_real_frames(paths[name]) == 6
+        np.testing.assert_array_equal(
+            tsampler.load_clip(paths[name], 4, "average", rng=np.random.default_rng(1)),
+            clips[name])
+    with pytest.raises(NotImplementedError, match=r"'avc1' video .*item 11"):
+        tsampler.load_clip(paths["avc.mp4"], 4)
+    with pytest.raises(NotImplementedError, match=r"'\?' video .*item 11"):
+        tsampler.count_real_frames(paths["clip.mkv"])
     with pytest.raises(FileNotFoundError):
         avi.open_video(str(tmp_path / "missing.avi"))
 

@@ -117,9 +117,10 @@ def test_load_clip_from_a_video_file(root, imdecode_capture):
 
 
 def test_video_files_without_cv2_raise_naming_item_11(root, tmp_path, monkeypatch):
-    """Without cv2 the Motion-JPEG AVI reads as it
-    reads with cv2; a video of another codec raises naming item 11 and its
-    FourCC, and a loader never skips it as corrupt."""
+    """Without cv2 the Motion-JPEG AVI reads as it reads with cv2, and so
+    does an XVID (MPEG-4 Part 2) AVI; a video of a codec the port does not
+    decode (MS-MPEG4, FourCC DIV3) raises naming item 11 and its FourCC,
+    and a loader never skips it as corrupt."""
     ds = VideoFolderDataset(root, "train")
     vid = next(i for i, (p, _) in enumerate(ds.samples) if p.endswith(".avi"))
     with_cv2 = (ds.load_clip(vid, T, "average", S, np.random.default_rng(0)), ds.clip_length(vid),
@@ -129,18 +130,24 @@ def test_video_files_without_cv2_raise_naming_item_11(root, tmp_path, monkeypatc
     for _ in range(3):
         w.write(np.zeros((32, 40, 3), np.uint8))
     w.release()
+    xvid_clip = tsampler.load_clip(xvid, T)
+    div3 = str(tmp_path / "div3.avi")
+    with open(xvid, "rb") as f, open(div3, "wb") as g:
+        g.write(f.read().replace(b"XVID", b"DIV3").replace(b"FMP4", b"DIV3"))
     monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
     clip, length, real = (ds.load_clip(vid, T, "average", S, np.random.default_rng(0)),
                           ds.clip_length(vid), tsampler.count_real_frames(ds.samples[vid][0]))
     np.testing.assert_array_equal(clip[0], with_cv2[0][0])
     assert (length, real) == with_cv2[1:] == (12, 12)
-    for call in (lambda: tsampler.load_clip(xvid, T), lambda: tsampler.count_real_frames(xvid)):
-        with pytest.raises(NotImplementedError, match=r"'(XVID|FMP4)' video .*item 11"):
+    np.testing.assert_array_equal(tsampler.load_clip(xvid, T), xvid_clip)
+    assert tsampler.count_real_frames(xvid) == 3
+    for call in (lambda: tsampler.load_clip(div3, T), lambda: tsampler.count_real_frames(div3)):
+        with pytest.raises(NotImplementedError, match=r"'DIV3' video .*item 11"):
             call()
     clip, _ = ds.load_clip(0, T, "average", S, np.random.default_rng(0))  # BMP frames: numpy
     assert clip.shape == (T, S, S, 3)
     os.makedirs(tmp_path / "train" / "class_000")
-    os.replace(xvid, tmp_path / "train" / "class_000" / "xvid.avi")
+    os.replace(div3, tmp_path / "train" / "class_000" / "div3.avi")
     loader = VideoClipLoader(VideoFolderDataset(str(tmp_path), "train"), T, S, batch_size=1,
                              train=False, on_corrupt="skip")
     with pytest.raises(NotImplementedError, match="item 11"):  # never skipped as corrupt
