@@ -500,6 +500,7 @@ from fastvision_tpu_torch.testing import (
     INT8_IMPLICIT_CASES,
     SyntheticDetectionDataset,
     blurred_noise,
+    encode_lossless_jpeg,
     encode_progressive_jpeg,
     mjpeg_avi,
     standard_jpeg_tables,
@@ -3105,6 +3106,15 @@ def check_native_oracles() -> dict:
         check(got == [e["sha256"], e["scale"], e["pads"], e["orig_hw"], e["decoded_hw"]],
               f"fused decode differs from the stored oracle: {e}, got {got}")
         fused += 1
+    refused = 0
+    for e in oracles["fused_i420_raises"]:  # lossless: the JAX package's decode refuses it too
+        try:
+            decode_jpeg_i420(data[e["file"]], e["size"], oracles["i420_pad_value"],
+                             e["reduce_target"])
+        except ValueError:
+            refused += 1
+            continue
+        raise SmokeFailure(f"the fused decode took {e}; it must raise as the JAX package's does")
     for e in oracles["cv2_reduced"]:
         rgb = decode_jpeg_reduced(data[e["file"]], e["factor"])
         check([list(rgb.shape), hashlib.sha256(rgb.tobytes()).hexdigest()]
@@ -3113,8 +3123,8 @@ def check_native_oracles() -> dict:
     factors = sorted({next(f for f in (1, 2, 4, 8)
                            if -(-max(e["orig_hw"]) // f) == max(e["decoded_hw"]))
                       for e in oracles["fused_i420"]})
-    return {"fused_i420_cases": fused, "reduced_rgb_cases": reduced, "factors": factors,
-            "differing": 0}
+    return {"fused_i420_cases": fused, "fused_i420_refused": refused,
+            "reduced_rgb_cases": reduced, "factors": factors, "differing": 0}
 
 
 def kernel_vs_plain_on(pred: torch.Tensor, conf: float, iou: float, class_offset: float,
@@ -4805,13 +4815,13 @@ def _avi_frame(job) -> bytes:
                                    progressive=False, tables=t % 2 == 0)
 
 
-def _pool_map(fn, jobs: list) -> list:
+def _pool_map(fn, jobs: list, chunksize: int = 4) -> list:
     """``fn`` over ``jobs`` on a worker per core (spawned: this process has
     CUDA and intra-op threads)."""
     import multiprocessing
 
     with multiprocessing.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
-        return pool.map(fn, jobs, chunksize=4)
+        return pool.map(fn, jobs, chunksize=chunksize)
 
 
 def check_decode_corpus() -> dict:
@@ -4824,7 +4834,7 @@ def check_decode_corpus() -> dict:
     with open(os.path.join(FIXTURES, "native_oracles.json")) as f:
         reduced = {(e["file"], e["factor"]): e for e in json.load(f)["cv2_reduced"]}
     kinds = ("prog", "cmyk", "ycck", "tableless", "png_adam7", "png_interlaced", "video",
-             "progressive")
+             "progressive", "arith", "lossless")
     differing, files, by_kind = 0, 0, collections.Counter()
     for e in manifest:
         name = e["file"]
@@ -4855,8 +4865,11 @@ def check_decode_corpus() -> dict:
                 check([list(r.shape), hashlib.sha256(r.tobytes()).hexdigest()] ==
                       [reduced[(name, f)]["shape"], reduced[(name, f)]["sha256"]],
                       f"{name}: the 1/{f} decode differs from cv2's")
-            if name.startswith(("cmyk", "ycck")):
+            if name.startswith(("cmyk", "ycck", "arith_seq_cmyk", "arith_prog_ycck")):
                 check(decode_jpeg_i420(e["data"], 416) is None, f"{name}: fused decode not None")
+            if name.startswith("lossless"):
+                check(raises_value_error(lambda: decode_jpeg_i420(e["data"], 416)),
+                      f"{name}: the fused decode took a lossless file")
     check(differing == 0, f"the decoder differs from cv2 in {differing} bytes")
     return {"files": files, "by_kind": dict(by_kind), "differing_bytes": differing,
             "native_oracles": check_native_oracles()}
@@ -5137,6 +5150,252 @@ def mpeg4_predict_video(det: Detector) -> dict:
             "nms_kernel": kernel, "launches": launches, "mismatches": held["mismatches"]}
 
 
+# ---------------------------------------------------------------------------
+# The rare JPEG kinds without cv2: arithmetic-coded (SOF9, SOF10) and
+# lossless (SOF3) files on the decode routes, the loaders, predict_dataset,
+# the i420 path and serving
+# ---------------------------------------------------------------------------
+RARE_SHAPES = [(480, 640)] * 26 + [(720, 1280)] * 4 + [(480, 640)] * 2
+RARE_ORIENTATIONS = [1] * 30 + [6] * 2
+RARE_WORKERS = 4
+
+
+def raises_value_error(fn) -> bool:
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def _rare_encode(job):
+    """("twin", h, w, seed, orientation, coding, kind) -> a `blurred_noise`
+    image's quantized coefficients (4:2:0, libjpeg's q90 tables) as a
+    Huffman- or arithmetic-coded, sequential or progressive JPEG; or
+    ("lossless", h, w, seed, predictor, cmyk) -> (the source, its lossless
+    JPEG with a restart every 16 rows; CMYK adds a fourth plane)."""
+    if job[0] == "lossless":
+        _, h, w, seed, predictor, cmyk = job
+        src = blurred_noise(h, w, seed)
+        if cmyk:
+            src = np.concatenate([src, blurred_noise(h, w, seed + 1)[..., :1]], -1)
+        return src, encode_lossless_jpeg(src, predictor, 0, 16, cmyk=cmyk)
+    _, h, w, seed, orientation, coding, kind = job
+    data = encode_progressive_jpeg(blurred_noise(h, w, seed), *standard_jpeg_tables(90),
+                                   progressive=kind == "progressive",
+                                   arithmetic=coding == "arithmetic")
+    return with_exif_orientation(data, orientation) if orientation > 1 else data
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """The plain version of the CMYK decode: OpenCV's icvCvt_CMYK2BGR on
+    libjpeg's CMYK samples, as RGB."""
+    c = cmyk.astype(np.int32)
+    k = c[..., 3:]
+    return (k - ((255 - c[..., :3]) * k >> 8)).astype(np.uint8)
+
+
+def rare_jpeg(dev: torch.device, det: Detector, model: YOLOv3, anchors: np.ndarray,
+              workdir: str) -> dict:
+    """The arithmetic-coded and lossless JPEG kinds, with ``import cv2``
+    blocked. (a) Full-size twins (sequential and progressive, Huffman and
+    arithmetic, from the same coefficients) of each of DECODE_SHAPES' kinds
+    bit-equal on the full, reduced 1/2 - 1/8 and fused I420 routes; lossless
+    RGB and CMYK at full size equal to their plain versions (the source;
+    OpenCV's CMYK conversion of it), full size on the reduced routes, refused
+    by the fused one. (b) Decode ms of each kind against its Huffman twin.
+    (c) A detection dataset written four ways (baseline, arithmetic,
+    lossless, BMP) through ``imread_rgb``, the DetectionLoader on the
+    DecodePool's process workers (img/s) and ``predict_dataset`` (YOLOv3-416,
+    bf16, batch 8): arithmetic equal to baseline, lossless equal to BMP;
+    the i420 path (fused decode) on the arithmetic files equal to the
+    baseline's; ``VisionService`` answering 200 for an arithmetic and a
+    lossless request (equal to ``predict_batch`` on the decoded image) and
+    400 for a YCbCr-tagged lossless one. Every NMS launch on these paths is
+    counted and held against the plain version."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fastvision_tpu_torch.data.dataset import imread_rgb
+    from fastvision_tpu_torch.infer import VisionService, make_server
+
+    t_block = time.perf_counter()
+    kinds = list(dict.fromkeys(zip(DECODE_SHAPES, DECODE_ORIENTATIONS)))
+    jobs = [(h, w, SEED * 100003 + 50000 + i, o) for i, ((h, w), o) in enumerate(kinds)]
+    names = [f"{coding}_{kind}" for coding in ("huffman", "arithmetic")
+             for kind in ("sequential", "progressive")]
+    lossless_jobs = [("lossless", 480, 640, SEED + 61, 1, False),
+                     ("lossless", 720, 1280, SEED + 62, 7, False),
+                     ("lossless", 480, 640, SEED + 63, 4, True)]
+    work = [("twin", *job, *name.split("_")) for job in jobs for name in names] + lossless_jobs
+    order = sorted(range(len(work)), key=lambda i: -work[i][1] * work[i][2])  # largest first
+    t0 = time.perf_counter()
+    encoded = dict(zip(order, _pool_map(_rare_encode, [work[i] for i in order], chunksize=1)))
+    encode_s = time.perf_counter() - t0
+    twins = [{name: encoded[4 * k + n] for n, name in enumerate(names)} for k in range(len(jobs))]
+    lossless = [encoded[4 * len(jobs) + n] for n in range(len(lossless_jobs))]
+    checks = collections.Counter()
+    for files, (h, w, _, o) in zip(twins, jobs):
+        ref = files["huffman_sequential"]
+        full, fused = decode_image(ref), decode_jpeg_i420(ref, INPUT_SIZE, 114, INPUT_SIZE)
+        reduced = {f: decode_jpeg_reduced(ref, f) for f in (2, 4, 8)}
+        for name, data in files.items():
+            check(np.array_equal(decode_image(data), full),
+                  f"{name} {h}x{w} decodes otherwise than its Huffman sequential twin")
+            check(all(np.array_equal(decode_jpeg_reduced(data, f), r) for f, r in reduced.items()),
+                  f"{name} {h}x{w}: a reduced decode differs")
+            got = decode_jpeg_i420(data, INPUT_SIZE, 114, INPUT_SIZE)
+            check(np.array_equal(got[0], fused[0]) and got[1:] == fused[1:],
+                  f"{name} {h}x{w}: the fused decode differs")
+            checks["full_reduced_fused"] += 1
+    for src, data in lossless:
+        want = cmyk_to_rgb(src) if src.shape[2] == 4 else src
+        check(np.array_equal(decode_image(data), want),
+              f"lossless {src.shape} differs from its plain version")
+        check(all(np.array_equal(decode_jpeg_reduced(data, f), want) for f in (2, 4, 8)),
+              "a reduced lossless decode is not the full image")
+        check(raises_value_error(lambda: decode_jpeg_i420(data, INPUT_SIZE, 114, INPUT_SIZE)),
+              "the fused decode took a lossless file")
+        checks["lossless_full_reduced_fused"] += 1
+
+    # (b) decode ms at full size, each kind against its Huffman twin (1 thread)
+    times = {}
+    for files, (h, w, _, o) in zip(twins, jobs):
+        if o == 1:
+            times[f"{h}x{w}"] = {f"{k}_ms": 1e3 * host_s(lambda d=d: decode_image(d), reps=5)
+                                 for k, d in files.items()}
+    for src, data in lossless:
+        key = f"{src.shape[0]}x{src.shape[1]}"
+        tag = "lossless_cmyk_ms" if src.shape[2] == 4 else "lossless_rgb_ms"
+        times.setdefault(key, {})[tag] = 1e3 * host_s(lambda d=data: decode_image(d), reps=5)
+        times[key][tag.replace("_ms", "_bytes")] = len(data)
+    del twins
+
+    # (c) the detection dataset, four ways
+    t0 = time.perf_counter()
+    roots = {}
+    for enc in ("baseline", "arithmetic", "lossless", "bmp"):
+        roots[enc] = write_jpeg_detection_dataset(
+            os.path.join(workdir, f"rare_{enc}"), RARE_SHAPES, seed=SEED + 21,
+            num_classes=NUM_CLASSES, workers=os.cpu_count() or 1, encoding=enc,
+            orientations=RARE_ORIENTATIONS if enc in ("baseline", "arithmetic") else None)
+    data_s = time.perf_counter() - t0
+    ds = {enc: DetectionDataset(r, "val") for enc, r in roots.items()}
+    for a, b in (("arithmetic", "baseline"), ("lossless", "bmp")):
+        check(all(np.array_equal(imread_rgb(ds[a].image_path(i)),
+                                 imread_rgb(ds[b].image_path(i))) for i in range(len(ds[a]))),
+              f"imread_rgb: the {a} files differ from the {b} ones")
+    checks["imread_rgb"] = 2 * len(RARE_SHAPES)
+    decode_img_s = {}
+    for enc in ("baseline", "arithmetic", "lossless"):
+        datas = [open(ds[enc].image_path(i), "rb").read() for i in range(len(ds[enc]))]
+        t0 = time.perf_counter()
+        for d in datas:
+            decode_image(d)
+        decode_img_s[f"{enc}_1_thread"] = len(datas) / (time.perf_counter() - t0)
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(decode_image, datas[:8]))
+            t0 = time.perf_counter()
+            list(pool.map(decode_image, datas))
+            decode_img_s[f"{enc}_4_threads"] = len(datas) / (time.perf_counter() - t0)
+    loader_img_s = {}
+    for enc, d in ds.items():  # the loader alone: predict_dataset's, at fast_decode
+        fast = copy.copy(d)
+        fast.decode_size = INPUT_SIZE
+        loader = det._loader(fast, 1, RARE_WORKERS, "process")
+        try:
+            t0 = time.perf_counter()
+            n = sum(b["num_real"] for b in loader.epoch(0))
+            loader_img_s[enc] = n / (time.perf_counter() - t0)
+        finally:
+            loader.close()
+    runs, launches = {}, {}
+    with recorded_nms_inputs() as recorded:
+        for tag, enc in (("rare_jpeg_predict_dataset_arith", "arithmetic"),
+                         ("rare_jpeg_predict_dataset_lossless", "lossless"),
+                         ("baseline", "baseline"), ("bmp", "bmp")):
+            out, sec, n = counted_launches(lambda e=enc: list(det.predict_dataset(
+                ds[e], fast_decode=True, num_workers=RARE_WORKERS)))
+            runs[tag] = {"results": out, "img_s": len(out) / sec}
+            if tag.startswith("rare_"):
+                launches[tag] = n
+        check(same_detections(runs["rare_jpeg_predict_dataset_arith"]["results"],
+                              runs["baseline"]["results"]),
+              "predict_dataset on the arithmetic files differs from the baseline files'")
+        check(same_detections(runs["rare_jpeg_predict_dataset_lossless"]["results"],
+                              runs["bmp"]["results"]),
+              "predict_dataset on the lossless files differs from the BMP files'")
+        n_boxes = sum(len(r["boxes"])
+                      for r, _ in runs["rare_jpeg_predict_dataset_arith"]["results"])
+        check(n_boxes > 0 and all(np.isfinite(r["boxes"]).all() for tag in runs
+                                  for r, _ in runs[tag]["results"]), "no or non-finite detections")
+        # the jpeg -> boxes i420 path (fused decode) on the arithmetic files
+        det_i420 = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=DECODE_BATCH,
+                            input_format="i420", device=dev)
+        list(det_i420.predict_dataset(_Subset(ds["baseline"], DECODE_BATCH), fast_decode=True))
+        i420 = {}
+        for enc in ("arithmetic", "baseline"):
+            det_i420.i420_fallbacks = 0
+            out, sec, n = counted_launches(lambda e=enc: list(det_i420.predict_dataset(
+                ds[e], fast_decode=True, num_workers=RARE_WORKERS)))
+            i420[enc] = {"results": out, "img_s": len(out) / sec,
+                         "fallbacks": det_i420.i420_fallbacks}
+            if enc == "arithmetic":
+                launches["rare_jpeg_i420_predict_dataset_arith"] = n
+        check(same_detections(i420["arithmetic"]["results"], i420["baseline"]["results"])
+              and i420["arithmetic"]["fallbacks"] == 0,
+              "the i420 path on the arithmetic files differs from the baseline files'")
+        del det_i420
+        # serving: an arithmetic, a lossless and a YCbCr-tagged lossless request
+        bodies = {"arithmetic": open(ds["arithmetic"].image_path(1), "rb").read(),
+                  "lossless": open(ds["lossless"].image_path(2), "rb").read(),
+                  "lossless_ycbcr": open(os.path.join(FIXTURES, "lossless_ycbcr_p1_21x30.jpg"),
+                                         "rb").read()}
+        service = VisionService(det)
+        port = free_port()
+        server = make_server(service, "127.0.0.1", port)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            answers, _, launches["rare_jpeg_serve"] = counted_launches(
+                lambda: {k: _http(port, "POST", "/predict", b) for k, b in bodies.items()})
+        finally:
+            server.batcher.shutdown()
+            server.shutdown()
+            server.server_close()
+        statuses = {k: a[0] for k, a in answers.items()}
+        check(statuses == {"arithmetic": 200, "lossless": 200, "lossless_ycbcr": 400},
+              f"serving answered {statuses}")
+        for k in ("arithmetic", "lossless"):
+            # on a thread of its own, as the batcher runs it: OpenMP's intra-op
+            # thread count is each thread's, and the host letterbox's float
+            # resize rounds some pixels otherwise on another count
+            img, want = decode_image(bodies[k]), []
+            ref = threading.Thread(target=lambda: want.append(
+                service._to_json(det.predict_batch([img])[0])))
+            ref.start()
+            ref.join()
+            check(json.loads(answers[k][1]) == want[0] and len(want[0]["detection_scores"]) > 0,
+                  f"serving's {k} answer differs from predict_batch on the decoded image")
+        fresh: list = []
+        probe = threading.Thread(target=lambda: fresh.append(torch.get_num_threads()))
+        probe.start()
+        probe.join()
+        intra_op = {"main_thread": torch.get_num_threads(), "fresh_thread": fresh[0]}
+    kernel = kernel_vs_plain_recorded(recorded)
+    check(all(n > 0 for n in launches.values()), f"a rare-JPEG path launched no NMS: {launches}")
+    return {"twins": {"kinds": [list(k[0]) + [k[1]] for k in kinds], "encode_s": encode_s,
+                      "checks": dict(checks)},
+            "decode_ms_1_thread": times, "dataset_decode_img_s": decode_img_s,
+            "dataset": {"images": len(RARE_SHAPES), "write_s": data_s,
+                        "loader_img_s_4_process_workers": loader_img_s,
+                        "predict_dataset_img_s": {k: r["img_s"] for k, r in runs.items()},
+                        "i420_predict_dataset_img_s": {k: r["img_s"] for k, r in i420.items()},
+                        "detections": n_boxes},
+            "serve_statuses": statuses, "intra_op_threads": intra_op, "launches": launches,
+            "kernel_vs_plain": kernel,
+            "seconds": time.perf_counter() - t_block}
+
+
 def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     """The decode leftovers, with no cv2 call: the corpus, the
     progressive twins of bench.py's JPEG corpus, their times, and a
@@ -5286,6 +5545,8 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     with cv2_blocked():
         mpeg4["predict_video"] = mpeg4_predict_video(det)
     mpeg4["seconds"] = mpeg4_s + time.perf_counter() - t_mpeg4
+    with cv2_blocked():
+        rare = rare_jpeg(dev, det, model, anchors, workdir)
     boxes, scores, iou = recorded[-1]
     keep = suppression_mask_cuda(boxes, scores, iou)
     bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
@@ -5303,13 +5564,14 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
                    "slowfast_loader_eval_s": loader_eval_s,
                    "predict_video_fps": DECODE_AVI_FRAMES / predict_video_s,
                    "predict_video_s": predict_video_s, "detections": detections},
-           "annotated_video": writer["report"], "mpeg4": mpeg4,
+           "annotated_video": writer["report"], "mpeg4": mpeg4, "rare_jpeg": rare,
            "nms_kernel_predict_video": nms, "kernel_vs_plain": kernel,
            "launches": {"detector_predict_video": video_launches,
                         "detector_predict_video_out_path": writer["launches"],
                         "detector_predict_video_mpeg4": mpeg4["predict_video"]["launches"],
                         "video_clip_loader_slowfast_eval": slowfast_launches,
-                        "video_clip_loader_slowfast_eval_mpeg4": mpeg4["slowfast"]["launches"]},
+                        "video_clip_loader_slowfast_eval_mpeg4": mpeg4["slowfast"]["launches"],
+                        **rare["launches"]},
            "host_cpus": os.cpu_count(), "seconds": time.perf_counter() - t_phase}
     emit("decode", card=smi, **out)
     del det, model
@@ -5317,7 +5579,8 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     return {"launches": out["launches"],
             "zero": ["video_clip_loader_slowfast_eval", "video_clip_loader_slowfast_eval_mpeg4"],
             "mismatches": (kernel["mismatches"] + writer["mismatches"]
-                           + mpeg4["predict_video"]["mismatches"]), "kernel": nms}
+                           + mpeg4["predict_video"]["mismatches"]
+                           + rare["kernel_vs_plain"]["mismatches"]), "kernel": nms}
 
 
 PAR_VAL_IMAGES = 32  # one validation batch of 32 per epoch

@@ -25,10 +25,12 @@ across restarts (`core.mesh.enable_compile_cache`); annotated videos are
 written by the port's own MPEG-4 encoder and MP4 muxer (`data.mp4`), and
 videos are read without cv2 in Motion-JPEG AVIs and in MPEG-4 Part 2 (XviD /
 DivX / mp4v in AVI, MP4 and MOV: `data.mpeg4`, FFmpeg's frames bit for
-bit). Not ported: the rare JPEG kinds (arithmetic coding, 12-bit, lossless),
-H.264 and the other video codecs without cv2, the MPEG-4 tools no encoder
-at hand writes (static sprites, RVLC, ...), Matroska / WebM (ROADMAP Queue
-1, item 11).
+bit). Arithmetic-coded and lossless JPEG decode as cv2 5.0 decodes them
+(`data.codec`); the JPEG kinds cv2 returns no image for (12-bit, lossless
+above 8 bits or YCbCr / gray lossless, hierarchical) raise. Not ported: H.264 and
+the other video codecs without cv2, the MPEG-4 tools no encoder at hand
+writes (static sprites, RVLC, ...), Matroska / WebM (ROADMAP Queue 1, item
+11).
 """
 
 __version__ = "0.1.0"

@@ -6,23 +6,41 @@
 // (cuda_build.load("jpeg_decode")) and called through ctypes, which releases the
 // GIL, so the loaders' thread backend decodes in parallel.
 //
-// Scope: Huffman-coded JPEG at 8 bits, sequential (SOF0, SOF1) or
-// progressive (SOF2: spectral selection, successive approximation, EOB
-// runs; jdphuff.c's four block decoders and its scan-header checks), 1, 3
-// or 4 components (CMYK, or YCCK under an Adobe transform but 0, as
-// jdcolor.c and OpenCV's icvCvt_CMYK2BGR do), any integral sampling
-// factors, restart intervals, tables (re)defined anywhere before a scan,
-// 16-bit quantization tables, interleaved and non-interleaved scans, the
-// Adobe APP14 transform flag and the EXIF orientation, applied as OpenCV
-// applies it. A sequential scan that names Huffman table 0 or 1 where no
-// DHT defined it gets the standard tables of T.81 Annex K.3, as
-// libjpeg-turbo installs them (jstdhuff.c; Motion-JPEG frames leave them
-// out); a progressive one fails there, as in libjpeg. A progressive file
-// whose scans leave any of a component's coefficients 1-9 short of full
-// precision is block-smoothed before its IDCT, as jdcoefct.c does by
-// default. Everything else (arithmetic-coded, lossless, hierarchical,
-// 12-bit, DNL) and every truncated or corrupt stream fails with a message;
-// nothing returns a partial image.
+// Scope: DCT-based JPEG at 8 bits, sequential (SOF0, SOF1; SOF9 arithmetic)
+// or progressive (SOF2; SOF10 arithmetic: spectral selection, successive
+// approximation, EOB runs; jdphuff.c's and jdarith.c's four block decoders
+// and their scan-header checks), 1, 3 or 4 components (CMYK, or YCCK under
+// an Adobe transform but 0, as jdcolor.c and OpenCV's icvCvt_CMYK2BGR do),
+// any integral sampling factors, restart intervals, tables (re)defined
+// anywhere before a scan, 16-bit quantization tables, arithmetic
+// conditioning (DAC), interleaved and non-interleaved scans, the Adobe APP14
+// transform flag and the EXIF orientation, applied as OpenCV applies it. A
+// sequential scan that names Huffman table 0 or 1 where no DHT defined it
+// gets the standard tables of T.81 Annex K.3, as libjpeg-turbo installs them
+// (jstdhuff.c; Motion-JPEG frames leave them out); a progressive or
+// lossless one fails there, as in libjpeg. A progressive file whose scans
+// leave any of a component's coefficients 1-9 short of full precision is
+// block-smoothed before its IDCT, as jdcoefct.c does by default. The
+// arithmetic decoder is a second source of the same coefficients (T.81
+// Annex D as jdarith.c and jaricom.c run it): everything after the entropy
+// layer is shared.
+//
+// Lossless JPEG (SOF3, Huffman, 2 to 8 bits: jdlhuff.c, jddiffct.c,
+// jdlossls.c; samples below 8 bits come out as they are, not scaled):
+// predictors 1-7, the point transform, restarts, any integral sampling
+// (upsampled by replication, as libjpeg does at a 1x1 "IDCT"), decoded where
+// libjpeg-turbo 3.1 gives cv2 5.0 an image: RGB-coded three components and
+// CMYK four. YCbCr-tagged, YCCK and gray lossless files fail (libjpeg-turbo
+// converts no colour in lossless mode, so cv2 returns no image either), as
+// do 12-bit DCT data and lossless above 8 bits, hierarchical, SOF11 / SOF15
+// and DNL, for none of which cv2 5.0 returns an image. The reduced decodes of a
+// lossless file are full size (libjpeg does not scale it); the fused I420
+// decode refuses it, as the JAX package's libjpeg 2.1.5 does.
+//
+// Every truncated stream, every bad Huffman or arithmetic code (where
+// libjpeg would warn and go on) and every other corrupt stream fails with a
+// message; nothing returns a partial image. An arithmetic decoder that meets
+// a marker reads zeros from there on, which T.81 allows and jdarith.c does.
 //
 // The pixels are libjpeg-turbo's defaults, bit for bit: the ISLOW integer
 // IDCT (jidctint.c: 13-bit constants, DESCALE rounding; the output clamped
@@ -59,7 +77,7 @@
 //   fvj_decode_i420_letterbox(data, n, out_size, pad_y, reduce_target, out,
 //     scale, pads, dims, err, errlen) -> 0; 1 where the JAX package falls
 //     back to its plain chain (colour space or sampling it does not take);
-//     2 with a message for data this decoder refuses
+//     2 with a message for data this decoder refuses (lossless JPEG included)
 #include <algorithm>
 #include <climits>
 #include <cmath>
@@ -86,6 +104,8 @@ struct DecodeError {
 }
 
 constexpr const char* kItem = "(ROADMAP Queue 1, item 11)";
+// the kinds libjpeg-turbo 3.1 refuses, so cv2 5.0's imdecode returns None for them
+constexpr const char* kNoCv2 = "cv2 5.0 returns no image for it either";
 // the largest image taken: OpenCV's default CV_IO_MAX_IMAGE_PIXELS
 constexpr int64_t kMaxPixels = int64_t(1) << 30;
 
@@ -106,11 +126,13 @@ struct Huffman {
   int32_t valoff[17];
   uint8_t vals[256];
   int nvals = 0;
+  int max_symbol = 0;  // a DC table's symbols are checked where a scan uses it (jdhuff.c)
 
-  void build(const uint8_t* counts, const uint8_t* symbols, int n, bool dc) {
+  void build(const uint8_t* counts, const uint8_t* symbols, int n) {
     standard = false;
     std::memcpy(vals, symbols, n);
     nvals = n;
+    max_symbol = n ? *std::max_element(vals, vals + n) : 0;
     std::fill(fast, fast + 512, 0);
     int code = 0, k = 0;
     for (int len = 1; len <= 16; ++len) {
@@ -128,9 +150,6 @@ struct Huffman {
       code <<= 1;
     }
     maxcode[17] = INT32_MAX;
-    if (dc)
-      for (int i = 0; i < n; ++i)
-        if (vals[i] > 15) fail("corrupt JPEG data: bad DC Huffman table");
     defined = true;
   }
 };
@@ -179,10 +198,10 @@ constexpr uint8_t kACChromaSymbols[162] = {
 struct StandardTables {
   Huffman dc[2], ac[2];
   StandardTables() {
-    dc[0].build(kDCLumaCounts, kDCLumaSymbols, 12, true);
-    dc[1].build(kDCChromaCounts, kDCChromaSymbols, 12, true);
-    ac[0].build(kACLumaCounts, kACLumaSymbols, 162, false);
-    ac[1].build(kACChromaCounts, kACChromaSymbols, 162, false);
+    dc[0].build(kDCLumaCounts, kDCLumaSymbols, 12);
+    dc[1].build(kDCChromaCounts, kDCChromaSymbols, 12);
+    ac[0].build(kACLumaCounts, kACLumaSymbols, 162);
+    ac[1].build(kACChromaCounts, kACChromaSymbols, 162);
   }
 };
 
@@ -263,14 +282,135 @@ inline int decode_symbol(Bits& b, const Huffman& h) {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// ---- arithmetic decoding (T.81 Annex D, as libjpeg's jdarith.c runs it) ----
+// Table D.2 packed as jaricom.c packs it:
+// Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; the last
+// entry is the fixed 0.5 estimate (T.851 Table 5) of signs and refinement bits.
+#define V(qe, lps, mps, sw) \
+  ((uint32_t(qe) << 16) | (uint32_t(mps) << 8) | (uint32_t(sw) << 7) | uint32_t(lps))
+constexpr uint32_t kAriTab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+constexpr int kFixedBin = 113;
+
+// The decoder's registers (D.2: C, A, CT) over entropy-coded data. A marker
+// (or 0xFF fill bytes before one) stops the input: zeros are fed from there,
+// and the reader stays on the marker. Running out of data without a marker
+// is a truncation (libjpeg warns of a premature end and feeds zeros).
+struct Arith {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: the two initial bytes are still to come
+  bool at_marker = false;
+
+  void reset(const uint8_t* q) {
+    p = q;
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+  int next_byte() {
+    if (at_marker) return 0;
+    if (p >= end) fail("truncated JPEG data: the arithmetic-coded segment ends early");
+    if (*p != 0xFF) return *p++;
+    const uint8_t* q = p + 1;
+    while (q < end && *q == 0xFF) ++q;  // fill bytes
+    if (q >= end) fail("truncated JPEG data: the arithmetic-coded segment ends early");
+    if (*q == 0x00) {  // a stuffed 0xFF
+      p = q + 1;
+      return 0xFF;
+    }
+    at_marker = true;
+    return 0;
+  }
+  // one binary decision with the adaptive estimate *st (D.2.4 - D.2.6)
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kAriTab[sv & 0x7F];
+    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    const int64_t qe = e >> 16;
+    a -= qe;
+    const int64_t temp = a << ct;
+    if (c >= temp) {  // the LPS interval, or the MPS one after a conditional exchange
+      c -= temp;
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// A DAC segment's conditioning (jdmarker.c's defaults at SOI: L 0, U 1, Kx 5)
+// and the statistics areas of one scan (jdarith.c: 64 DC and 256 AC bins per
+// table), reset at each scan's start and restart for the tables it uses.
+struct ArithStats {
+  uint8_t dc_l[16], dc_u[16], ac_k[16];
+  uint8_t dc[16][64], ac[16][256];
+  uint8_t fixed = kFixedBin;
+  ArithStats() {
+    std::fill(dc_l, dc_l + 16, 0);
+    std::fill(dc_u, dc_u + 16, 1);
+    std::fill(ac_k, ac_k + 16, 5);
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int cw = 0, ch = 0;  // downsampled size in samples (libjpeg's downsampled_width/height)
   int bw = 0, bh = 0;  // blocks per row / column of the MCU-padded grid
   int dct = 8;         // the IDCT's output size a block side (libjpeg's DCT_scaled_size)
   int sw = 0, sh = 0;  // downsampled size at that IDCT size
-  int td = 0, ta = 0;  // Huffman tables of the current scan
+  int td = 0, ta = 0;  // entropy-coding tables of the current scan
   int dc_pred = 0;
+  int dc_context = 0;  // arithmetic: the DC statistics' conditioning offset (F.1.4.4.1.2)
   bool coded = false;
   int16_t qt[64];     // latched at the component's first scan, natural order, as the IDCT
                       // multiplies (jddctmgr.c's ISLOW_MULT_TYPE: 16 bits)
@@ -278,7 +418,7 @@ struct Component {
   int coef_bits[64];  // progressive: each coefficient's point transform Al so far, -1 while
                       // no scan has coded it (jdinput.c's coef_bits)
   std::vector<int16_t> coef;
-  std::vector<uint8_t> plane;  // (bh * dct) x (bw * dct)
+  std::vector<uint8_t> plane;  // (bh * dct) x (bw * dct); lossless: bh x bw samples
 };
 
 // ---- ISLOW IDCT (jidctint.c) ----
@@ -631,8 +771,15 @@ class Decoder {
   void read_header() { parse(true); }
 
   // the output's height and width at scale 1/denom, in the oriented frame
-  int out_h(int denom = 1) const { return ceil_div(orientation_ >= 5 ? width_ : height_, denom); }
-  int out_w(int denom = 1) const { return ceil_div(orientation_ >= 5 ? height_ : width_, denom); }
+  // (libjpeg scales no lossless image: its reduced decodes are full size)
+  int out_h(int denom = 1) const {
+    return ceil_div(orientation_ >= 5 ? width_ : height_, lossless_ ? 1 : denom);
+  }
+  int out_w(int denom = 1) const {
+    return ceil_div(orientation_ >= 5 ? height_ : width_, lossless_ ? 1 : denom);
+  }
+
+  bool lossless() const { return lossless_; }
 
   // RGB uint8 HWC at scale 1/denom (1, 2, 4 or 8), oriented
   void decode(uint8_t* out, int denom = 1) {
@@ -648,11 +795,12 @@ class Decoder {
     if (!direct) orient_image(rgb.data(), oh_, ow_, size_t(ow_) * 3, 3, orientation_, out);
   }
 
-  // libjpeg's colour space for three components (jdapimin.c): RGB rather than YCbCr
+  // libjpeg's colour space for three components (jdapimin.c): RGB rather
+  // than YCbCr; a lossless file without a JFIF or Adobe marker is RGB
   bool rgb_coded() const {
     if (jfif_) return false;
     if (adobe_) return adobe_transform_ == 0;
-    return comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+    return lossless_ || (comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
   }
 
   // What fastvision_tpu/native/jpeg_i420.cpp takes (after the header): gray,
@@ -749,8 +897,10 @@ class Decoder {
   int orientation_ = 1;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
-  bool frame_ = false, progressive_ = false;
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  int precision_ = 8;
   int eobrun_ = 0;  // progressive AC scans: blocks left in the current end-of-band run
+  ArithStats stats_;
   std::vector<Component> comps_;
   uint16_t qtables_[4][64];
   bool qdefined_[4] = {false, false, false, false};
@@ -798,23 +948,23 @@ class Decoder {
         case 0xC0:
         case 0xC1:
         case 0xC2:
-          read_sof(seg, seg_len);
-          progressive_ = marker == 0xC2;
-          break;
         case 0xC3:
-        case 0xC7:
-        case 0xCB:
-        case 0xCF:
-          fail("lossless JPEG is not supported %s", kItem);
-        case 0xC5:
-        case 0xC6:
-          fail("hierarchical JPEG is not supported %s", kItem);
         case 0xC9:
         case 0xCA:
+          read_sof(seg, seg_len, marker);
+          break;
+        case 0xC5:
+        case 0xC6:
+        case 0xC7:
         case 0xCD:
         case 0xCE:
+        case 0xCF:
+          fail("hierarchical JPEG is not supported: %s %s", kNoCv2, kItem);
+        case 0xCB:
+          fail("arithmetic-coded lossless JPEG is not supported: %s %s", kNoCv2, kItem);
         case 0xCC:
-          fail("arithmetic-coded JPEG is not supported %s", kItem);
+          read_dac(seg, seg_len);
+          break;
         case 0xC4:
           read_dht(seg, seg_len);
           break;
@@ -839,25 +989,34 @@ class Decoder {
           break;
         case 0xDA:
           if (!frame_) fail("corrupt JPEG data: a scan before the frame header");
+          if (lossless_) check_lossless_colour();
           if (header_only) return;
           read_scan(seg, seg_len);
           break;
         case 0xDC:
-          fail("JPEG with a DNL marker is not supported %s", kItem);
+          fail("JPEG with a DNL marker is not supported: %s %s", kNoCv2, kItem);
         default:
           break;  // other APPn, COM, JPGn: skipped
       }
     }
   }
 
-  void read_sof(const uint8_t* s, int n) {
+  void read_sof(const uint8_t* s, int n, int marker) {
     if (frame_) fail("corrupt JPEG data: a second frame header");
     if (n < 6) fail("corrupt JPEG data: SOF length");
-    if (s[0] != 8) fail("%d-bit JPEG is not supported %s", s[0], kItem);
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
+    lossless_ = marker == 0xC3;
+    precision_ = s[0];
+    // libjpeg-turbo 3.1's 8-bit API (cv2's) reads 8-bit DCT data and 2- to 8-bit lossless data
+    if (lossless_ ? precision_ < 2 || precision_ > 8 : precision_ != 8)
+      fail("%d-bit %sJPEG is not supported: %s %s", precision_, lossless_ ? "lossless " : "",
+           kNoCv2, kItem);
     height_ = be16(s + 1);
     width_ = be16(s + 3);
     int nc = s[5];
-    if (height_ == 0 || width_ == 0) fail("JPEG without a frame height (DNL) is not supported %s", kItem);
+    if (height_ == 0 || width_ == 0)
+      fail("JPEG without a frame height (DNL) is not supported: %s %s", kNoCv2, kItem);
     if (int64_t(width_) * height_ > kMaxPixels)
       fail("JPEG of %d x %d exceeds %lld pixels", width_, height_, (long long)kMaxPixels);
     if (nc != 1 && nc != 3 && nc != 4)
@@ -876,8 +1035,9 @@ class Decoder {
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
-    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    const int unit = lossless_ ? 1 : 8;  // samples a block side: lossless codes samples
+    mcux_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcuy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
     for (auto& c : comps_) {
       if (hmax_ % c.h || vmax_ % c.v)
         fail("JPEG with fractional sampling factors is not supported %s", kItem);
@@ -897,10 +1057,40 @@ class Decoder {
       int total = 0;
       for (int i = 0; i < 16; ++i) total += s[1 + i];
       if (total > 256 || 17 + total > n) fail("corrupt JPEG data: DHT length");
-      (tc ? ac_[th] : dc_[th]).build(s + 1, s + 17, total, tc == 0);
+      (tc ? ac_[th] : dc_[th]).build(s + 1, s + 17, total);
       s += 17 + total;
       n -= 17 + total;
     }
+  }
+
+  // DAC (jdmarker.c's get_dac): conditioning of DC tables 0-15 (L, U) and AC
+  // tables 0-15 (Kx)
+  void read_dac(const uint8_t* s, int n) {
+    if (n % 2) fail("corrupt JPEG data: DAC length");
+    for (int i = 0; i < n; i += 2) {
+      const int index = s[i], val = s[i + 1];
+      if (index >= 32) fail("corrupt JPEG data: DAC table index %d", index);
+      if (index >= 16) {
+        stats_.ac_k[index - 16] = uint8_t(val);
+      } else {
+        if ((val & 15) > (val >> 4)) fail("corrupt JPEG data: DAC value %d", val);
+        stats_.dc_l[index] = uint8_t(val & 15);
+        stats_.dc_u[index] = uint8_t(val >> 4);
+      }
+    }
+  }
+
+  // libjpeg-turbo converts no colour in lossless mode (jdcolor.c), so the
+  // RGB (three components) or CMYK (four) output OpenCV asks for exists only
+  // where the file is coded in it
+  void check_lossless_colour() const {
+    const char* kind = nullptr;
+    if (comps_.size() == 1) kind = "gray";
+    else if (comps_.size() == 3 && !rgb_coded()) kind = "YCbCr";
+    else if (comps_.size() == 4 && adobe_ && adobe_transform_ != 0) kind = "YCCK";
+    if (kind)
+      fail("lossless %s JPEG is not supported (libjpeg-turbo converts no colour in lossless "
+           "mode): %s %s", kind, kNoCv2, kItem);
   }
 
   void read_dqt(const uint8_t* s, int n) {
@@ -1052,24 +1242,141 @@ class Decoder {
     }
   }
 
+  // ---- arithmetic block decoders (jdarith.c; F.2.4 with the statistics of F.1.4.4) ----
+  [[noreturn]] static void bad_arith_code() { fail("corrupt JPEG data: bad arithmetic code"); }
+
+  // decode_mcu_DC_first, and the DC part of the sequential decode_mcu (Al 0)
+  void arith_dc_first(Arith& ar, Component& c, int16_t* blk, int al) {
+    uint8_t* const base = stats_.dc[c.td];
+    uint8_t* st = base + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = base + 20;  // X1
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) bad_arith_code();
+          ++st;
+        }
+      }
+      // the conditioning category of the next difference: zero, small or large
+      if (m < ((1 << stats_.dc_l[c.td]) >> 1)) c.dc_context = 0;
+      else if (m > ((1 << stats_.dc_u[c.td]) >> 1)) c.dc_context = 12 + sign * 4;
+      else c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+    }
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+  }
+
+  // decode_mcu_AC_first, and the AC part of the sequential decode_mcu (1-63, Al 0)
+  void arith_ac_first(Arith& ar, const Component& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* const base = stats_.ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (ar.decode(st)) break;  // end of block
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) bad_arith_code();
+      }
+      const int sign = ar.decode(&stats_.fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = base + (k <= stats_.ac_k[c.ta] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) bad_arith_code();
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    }
+  }
+
+  void arith_dc_refine(Arith& ar, int16_t* blk, int al) {
+    if (ar.decode(&stats_.fixed)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  // decode_mcu_AC_refine: past the block's last nonzero coefficient (EOBx) an
+  // end-of-block decision comes first; a nonzero coefficient takes a
+  // correction bit, a zero one may become +-2^al
+  void arith_ac_refine(Arith& ar, const Component& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* const base = stats_.ac[c.ta];
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    while (kex > 0 && !blk[kNatural[kex]]) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = base + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = static_cast<int16_t>(ar.decode(&stats_.fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) bad_arith_code();
+      }
+    }
+  }
+
+  // jdarith.c's start_pass / process_restart: the statistics of the tables
+  // this scan reads start over, as do the DC predictions
+  void reset_arith(const std::vector<Component*>& sc, bool uses_dc, bool uses_ac) {
+    for (auto* c : sc) {
+      if (uses_dc) {
+        std::memset(stats_.dc[c->td], 0, sizeof stats_.dc[0]);
+        c->dc_pred = c->dc_context = 0;
+      }
+      if (uses_ac) std::memset(stats_.ac[c->ta], 0, sizeof stats_.ac[0]);
+    }
+  }
+
   void read_scan(const uint8_t* s, int n) {
     if (n < 1) fail("corrupt JPEG data: SOS length");
     int ns = s[0];
     if (ns < 1 || ns > 4 || n < 4 + 2 * ns) fail("corrupt JPEG data: SOS length");
     const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
               al = s[3 + 2 * ns] & 15;
-    if (progressive_) {  // jdphuff.c's start_pass_phuff_decoder
+    if (lossless_) {  // jdlossls.c: Ss selects the predictor, Al is the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision_)
+        fail("corrupt JPEG data: lossless scan Ss %d Se %d Ah %d Al %d", ss, se, ah, al);
+    } else if (progressive_) {  // jdphuff.c's and jdarith.c's start_pass
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
       if (bad) fail("corrupt JPEG data: progressive scan Ss %d Se %d Ah %d Al %d", ss, se, ah, al);
-    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+    } else if (!arith_ && (ss != 0 || se != 63 || ah != 0 || al != 0)) {
+      // (jdarith.c only warns here, and decodes coefficients 0-63 all the same)
       fail("corrupt JPEG data: spectral selection %d-%d in a sequential scan", ss, se);
     }
-    // the tables this kind of scan reads (jdhuff.c: both; jdphuff.c: the
-    // first DC scan its DC table, an AC scan its AC table, a DC refinement none)
+    // the tables this kind of scan reads (jdhuff.c and jdarith.c: both;
+    // jdphuff.c and jdarith.c: the first DC scan its DC table, an AC scan its
+    // AC table, a DC refinement none; jdlhuff.c: the DC table)
     const bool uses_dc = !progressive_ || (ss == 0 && ah == 0);
-    const bool uses_ac = !progressive_ || ss != 0;
-    auto usable = [&](const Huffman& h) { return h.defined && !(progressive_ && h.standard); };
+    const bool uses_ac = !lossless_ && (!progressive_ || ss != 0);
+    // (the standard tables stand in for the sequential DCT decoder only: jdhuff.c)
+    auto usable = [&](const Huffman& h) {
+      return h.defined && !((progressive_ || lossless_) && h.standard);
+    };
     std::vector<Component*> sc;
     for (int i = 0; i < ns; ++i) {
       int id = s[1 + 2 * i];
@@ -1079,26 +1386,40 @@ class Decoder {
       if (!c) fail("corrupt JPEG data: scan names component %d", id);
       c->td = s[2 + 2 * i] >> 4;
       c->ta = s[2 + 2 * i] & 15;
-      if ((uses_dc && (c->td > 3 || !usable(dc_[c->td]))) ||
-          (uses_ac && (c->ta > 3 || !usable(ac_[c->ta]))))
-        fail("corrupt JPEG data: a scan uses an undefined Huffman table");
+      if (!arith_) {
+        if ((uses_dc && (c->td > 3 || !usable(dc_[c->td]))) ||
+            (uses_ac && (c->ta > 3 || !usable(ac_[c->ta]))))
+          fail("corrupt JPEG data: a scan uses an undefined Huffman table");
+        // DC symbols are difference sizes: 0-15, or 0-16 in lossless mode
+        if (uses_dc && dc_[c->td].max_symbol > (lossless_ ? 16 : 15))
+          fail("corrupt JPEG data: bad DC Huffman table");
+      }
       if (!c->coded) {  // the quantization table is latched at the first scan
-        if (!qdefined_[c->tq]) fail("corrupt JPEG data: undefined quantization table %d", c->tq);
-        for (int k = 0; k < 64; ++k) {
-          c->qraw[k] = qtables_[c->tq][k];
-          c->qt[k] = static_cast<int16_t>(qtables_[c->tq][k]);
+        if (lossless_) {
+          c->plane.assign(size_t(c->bw) * c->bh, 0);
+        } else {
+          if (!qdefined_[c->tq]) fail("corrupt JPEG data: undefined quantization table %d", c->tq);
+          for (int k = 0; k < 64; ++k) {
+            c->qraw[k] = qtables_[c->tq][k];
+            c->qt[k] = static_cast<int16_t>(qtables_[c->tq][k]);
+          }
+          c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
         }
-        c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
       }
       c->coded = true;
-      c->dc_pred = 0;
+      c->dc_pred = c->dc_context = 0;
       if (progressive_)  // out-of-order refinements are only warnings in libjpeg
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
       sc.push_back(c);
     }
     eobrun_ = 0;
+    if (lossless_) return scan_lossless(sc, ss, al);
 
+    // the entropy decoder: Huffman (jdhuff.c, jdphuff.c) or arithmetic
+    // (jdarith.c), each writing the same coefficient store
     Bits bits{p_, end_};
+    Arith ar{p_, end_};
+    if (arith_) reset_arith(sc, uses_dc, uses_ac);
     int64_t total;
     int nbx = 0;
     if (ns == 1) {
@@ -1111,21 +1432,40 @@ class Decoder {
       total = int64_t(mcux_) * mcuy_;
     }
     auto unit = [&](Component& c, int16_t* blk) {
-      if (!progressive_) decode_block(bits, c, blk);
-      else if (ss == 0) ah == 0 ? dc_first(bits, c, blk, al) : dc_refine(bits, blk, al);
-      else if (ah == 0) ac_first(bits, c, blk, ss, se, al);
-      else ac_refine(bits, c, blk, ss, se, al);
+      if (arith_) {
+        if (!progressive_) {
+          std::memset(blk, 0, 64 * sizeof(int16_t));
+          arith_dc_first(ar, c, blk, 0);
+          arith_ac_first(ar, c, blk, 1, 63, 0);
+        } else if (ss == 0) {
+          ah == 0 ? arith_dc_first(ar, c, blk, al) : arith_dc_refine(ar, blk, al);
+        } else {
+          ah == 0 ? arith_ac_first(ar, c, blk, ss, se, al)
+                  : arith_ac_refine(ar, c, blk, ss, se, al);
+        }
+      } else if (!progressive_) {
+        decode_block(bits, c, blk);
+      } else if (ss == 0) {
+        ah == 0 ? dc_first(bits, c, blk, al) : dc_refine(bits, blk, al);
+      } else {
+        ah == 0 ? ac_first(bits, c, blk, ss, se, al) : ac_refine(bits, c, blk, ss, se, al);
+      }
     };
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
-        const uint8_t* q = next_marker(bits.p);
+        const uint8_t* q = next_marker(arith_ ? ar.p : bits.p);
         if (!q || q[1] != 0xD0 + next_rst)
           fail("corrupt JPEG data: expected restart marker %d", next_rst);
-        bits.reset(q + 2);
         next_rst = (next_rst + 1) & 7;
         for (auto* c : sc) c->dc_pred = 0;
         eobrun_ = 0;
+        if (arith_) {
+          ar.reset(q + 2);
+          reset_arith(sc, uses_dc, uses_ac);
+        } else {
+          bits.reset(q + 2);
+        }
       }
       if (ns == 1) {
         Component& c = *sc[0];
@@ -1141,7 +1481,114 @@ class Decoder {
             }
       }
     }
-    p_ = bits.p;  // the marker parser finds what follows the entropy-coded data
+    p_ = arith_ ? ar.p : bits.p;  // the marker parser finds what follows the entropy-coded data
+  }
+
+  // ---- lossless (jddiffct.c over jdlhuff.c's differences and jdlossls.c's undifferencing) ----
+  static int decode_difference(Bits& b, const Huffman& h) {
+    const int s = decode_symbol(b, h);
+    if (s == 0) return 0;
+    if (s == 16) return 32768;  // no extra bits
+    return extend(b.get(s), s);
+  }
+
+  // One row of one component: the first row of a scan or restart interval
+  // is predicted from 2^(P - Pt - 1), then leftwards; every other row starts
+  // from the sample above, then runs the scan's predictor. Sums wrap at 16 bits.
+  static void undifference(const int* d, const int* above, int* out, int w, int psv, bool first,
+                           int initial) {
+    int ra = (d[0] + (first ? initial : above[0])) & 0xFFFF;
+    out[0] = ra;
+    if (first || psv == 1) {
+      for (int x = 1; x < w; ++x) out[x] = ra = (d[x] + ra) & 0xFFFF;
+      return;
+    }
+    int rb = above[0];
+    for (int x = 1; x < w; ++x) {
+      const int rc = rb;
+      rb = above[x];
+      int pred;
+      switch (psv) {
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;  // 7
+      }
+      out[x] = ra = (d[x] + pred) & 0xFFFF;
+    }
+  }
+
+  // An iMCU row's differences are decoded MCU row by MCU row, then each
+  // component's rows are undifferenced and point-transformed (sample << Pt,
+  // kept to 8 bits as libjpeg's JSAMPLE cast keeps it) into its plane. A
+  // restart resets the predictor of the next row undifferenced: libjpeg's
+  // order, which in a non-interleaved scan of a vertically subsampled
+  // component is the iMCU row's first row.
+  void scan_lossless(const std::vector<Component*>& sc, int psv, int pt) {
+    const int ns = int(sc.size());
+    const int per_row = ns == 1 ? sc[0]->cw : mcux_;  // MCUs in an MCU row
+    if (restart_interval_ % per_row)
+      fail("corrupt JPEG data: lossless restart interval %d is not a multiple of the %d MCUs of "
+           "a row", restart_interval_, per_row);
+    const int restart_rows = restart_interval_ / per_row;
+    const int initial = 1 << (precision_ - pt - 1);
+    std::vector<std::vector<int>> diff(ns), above(ns), cur(ns);
+    std::vector<int> width(ns);  // differences decoded a row (the MCUs' padding included)
+    std::vector<char> first(ns, 1);
+    for (int i = 0; i < ns; ++i) {
+      const Component& c = *sc[i];
+      width[i] = ns == 1 ? c.cw : mcux_ * c.h;
+      diff[i].assign(size_t(c.v) * width[i], 0);
+      above[i].assign(c.cw, 0);
+      cur[i].assign(c.cw, 0);
+    }
+    auto rows_in = [&](const Component& c, bool last) {  // libjpeg's last_row_height
+      return last && c.ch % c.v ? c.ch % c.v : c.v;
+    };
+    Bits bits{p_, end_};
+    int rows_to_go = restart_rows, next_rst = 0;
+    for (int r = 0; r < mcuy_; ++r) {
+      const bool last = r == mcuy_ - 1;
+      const int mcu_rows = ns > 1 ? 1 : rows_in(*sc[0], last);
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval_ && rows_to_go == 0) {
+          const uint8_t* q = next_marker(bits.p);
+          if (!q || q[1] != 0xD0 + next_rst)
+            fail("corrupt JPEG data: expected restart marker %d", next_rst);
+          bits.reset(q + 2);
+          next_rst = (next_rst + 1) & 7;
+          rows_to_go = restart_rows;
+          std::fill(first.begin(), first.end(), 1);
+        }
+        for (int mx = 0; mx < per_row; ++mx) {
+          if (ns == 1) {
+            diff[0][size_t(y) * width[0] + mx] = decode_difference(bits, dc_[sc[0]->td]);
+            continue;
+          }
+          for (int i = 0; i < ns; ++i) {
+            const Component& c = *sc[i];
+            for (int yy = 0; yy < c.v; ++yy)
+              for (int xx = 0; xx < c.h; ++xx)
+                diff[i][size_t(yy) * width[i] + mx * c.h + xx] = decode_difference(bits, dc_[c.td]);
+          }
+        }
+        if (restart_interval_) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        for (int y = 0, rows = rows_in(c, last); y < rows; ++y) {
+          undifference(&diff[i][size_t(y) * width[i]], above[i].data(), cur[i].data(), c.cw, psv,
+                       first[i], initial);
+          first[i] = 0;
+          uint8_t* out = &c.plane[size_t(r * c.v + y) * c.bw];
+          for (int x = 0; x < c.cw; ++x) out[x] = static_cast<uint8_t>(cur[i][x] << pt);
+          std::swap(above[i], cur[i]);
+        }
+      }
+    }
+    p_ = bits.p;
   }
 
   static int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -1153,6 +1600,17 @@ class Decoder {
     parse(false);
     for (auto& c : comps_)
       if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+    if (lossless_) {  // the scans wrote the planes; a 1 x 1 "IDCT" at any scale
+      min_dct_ = 1;
+      oh_ = height_;
+      ow_ = width_;
+      for (auto& c : comps_) {
+        c.dct = 1;
+        c.sw = c.cw;
+        c.sh = c.ch;
+      }
+      return;
+    }
     const bool smooth = smoothing_on();
     min_dct_ = 8 / denom;
     oh_ = ceil_div(height_, denom);
@@ -1456,6 +1914,12 @@ int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int out_size, uint
     }
     Decoder d(data, size_t(n));
     d.read_header();
+    if (d.lossless()) {  // libjpeg 2.1.5, which the JAX package's fused decode links, refuses SOF3
+      report("lossless JPEG is not taken by the fused I420 decode: it has no DCT planes, and the "
+             "JAX package's native decode (libjpeg 2.1.5) refuses it too",
+             err, errlen);
+      return 2;
+    }
     if (!d.i420_eligible()) return 1;
     Decoder full(data, size_t(n));
     full.decode_i420(out_size, pad_y, d.reduction(reduce_target), out, scale, pads, dims);

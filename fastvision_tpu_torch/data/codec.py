@@ -7,10 +7,12 @@ image files (fastvision_tpu/data/dataset.py:28-35).
 
 - JPEG (``FF D8``): ``csrc/jpeg_decode.cpp``, built with the host compiler
   and called through ctypes (which releases the GIL). Sequential and
-  progressive Huffman JPEG at 8 bits, gray, YCbCr, RGB, CMYK and YCCK, any
-  integral sampling, restart intervals, the standard Huffman tables where
-  a scan names one no DHT defined (Motion-JPEG frames), the Adobe
-  transform flag and the EXIF orientation, bit-equal to libjpeg-turbo
+  progressive JPEG at 8 bits, Huffman- or arithmetic-coded (SOF0-2, SOF9,
+  SOF10), gray, YCbCr, RGB, CMYK and YCCK, any integral sampling, restart
+  intervals, the standard Huffman tables where a sequential scan names one
+  no DHT defined (Motion-JPEG frames), the Adobe transform flag and the
+  EXIF orientation; lossless JPEG (SOF3, 2-8 bits: predictors 1-7, the
+  point transform) where it is RGB-coded or CMYK. All bit-equal to libjpeg-turbo
   3.1's default decode as cv2 5.0 runs it (block smoothing of a
   progressive file whose scans stop early included);
 - PNG, non-interlaced or Adam7-interlaced: gray, RGB, palette, gray +
@@ -19,16 +21,18 @@ image files (fastvision_tpu/data/dataset.py:28-35).
   cv2's ``IMREAD_COLOR`` does;
 - BMP (``BM``): uncompressed 24- and 32-bit, with numpy.
 
-Anything else raises ``ValueError("cannot decode image payload")``; an
-arithmetic-coded, 12-bit, lossless or hierarchical JPEG, one with a DNL
-marker, and truncated or corrupt data raise ``ValueError`` naming what is
-missing. Nothing falls back to cv2. The output is RGB uint8 HWC; grayscale
-is repeated to 3 channels.
+Anything else raises ``ValueError("cannot decode image payload")``; the
+JPEG kinds cv2 returns no image for (12-bit, lossless above 8 bits,
+YCbCr-tagged, YCCK or gray lossless, hierarchical, SOF11, a DNL marker)
+and truncated or corrupt data (a bad Huffman or arithmetic code included)
+raise ``ValueError`` naming what is missing. Nothing falls back to cv2. The
+output is RGB uint8 HWC; grayscale is repeated to 3 channels.
 
 The same library gives the port's counterparts of the JAX package's
 ``fastvision_tpu.native`` and of cv2's reduced reads:
 
-- `decode_jpeg_reduced`: ``cv2.IMREAD_REDUCED_COLOR_{2,4,8}``, bit for bit;
+- `decode_jpeg_reduced`: ``cv2.IMREAD_REDUCED_COLOR_{2,4,8}``, bit for bit
+  (a lossless JPEG at full size: libjpeg does not scale it);
 - `decode_jpeg_i420`: ``native.decode_jpeg_i420``, the fused JPEG ->
   letterboxed packed-I420 decode (bit-equal to the JAX package's build on
   the files both take), except that it applies the EXIF orientation;
@@ -67,7 +71,8 @@ def jpeg_library() -> ctypes.CDLL:
 
 def jpeg_size(data: bytes, factor: int = 1) -> tuple[int, int]:
     """A JPEG's (height, width) as `decode_jpeg_reduced` gives it
-    at 1/``factor``: EXIF orientation applied, ceil(side / factor)."""
+    at 1/``factor``: EXIF orientation applied, ceil(side / factor) (a
+    lossless JPEG's full size)."""
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
     dims = (ctypes.c_int32 * 2)()
@@ -109,8 +114,8 @@ def decode_jpeg_i420(data: bytes, size: int, pad_value: int = 114, reduce_target
     (orig_h, orig_w), (decoded_h, decoded_w)), or None where the JAX package
     falls back to its plain chain: not a JPEG, an RGB-coded JPEG, or a
     sampling other than luma (1|2) x (1|2) with 1x1 chroma, or CMYK / YCCK.
-    A JPEG this decoder refuses (arithmetic-coded, truncated, ...) raises
-    ValueError."""
+    A lossless JPEG raises ValueError, as the JAX package's (libjpeg 2.1.5)
+    does, and so does a JPEG this decoder refuses (truncated, ...)."""
     if size % 2:
         raise ValueError(f"i420 needs an even input_size, got {size}")
     data = bytes(data)

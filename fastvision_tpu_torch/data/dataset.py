@@ -11,8 +11,9 @@ uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
 (cv2 rounds with fixed-point weights). Its float kernel rounds a few pixels
 differently on one intra-op thread and on several, so the loaders run all
 their host work on one thread (`pipeline._PooledLoader`). Image files are
-read by the port's own decoders (`codec.decode_image`: baseline JPEG, PNG and
-BMP, bit-equal to cv2's ``IMREAD_COLOR``), so no reader needs cv2;
+read by the port's own decoders (`codec.decode_image`: JPEG, Huffman- or
+arithmetic-coded, sequential, progressive or lossless, PNG and BMP, bit-equal
+to cv2's ``IMREAD_COLOR``), so no reader needs cv2;
 ``imwrite_rgb`` writes ``.bmp`` with numpy and other formats with cv2.
 
 `imread_rgb_scaled` decodes an oversized JPEG at 1/2, 1/4 or 1/8 in the DCT
@@ -147,9 +148,10 @@ def jpeg_dimensions(path: str, max_header: int = 262144) -> tuple[int, int] | No
 def imread_rgb_scaled(path: str, target_size: int) -> tuple[np.ndarray, tuple[int, int]]:
     """Read an image, decoding a JPEG at 1/2, 1/4 or 1/8 in the DCT domain
     when its long side is at least 2x, 4x, 8x ``target_size``
-    (the largest such f; cv2's ``IMREAD_REDUCED_COLOR_*`` pixels).
-    -> (RGB image, possibly reduced to ceil(side / f); the original (h, w)
-    in the image's EXIF-oriented frame). Other files: `imread_rgb`."""
+    (the largest such f; cv2's ``IMREAD_REDUCED_COLOR_*`` pixels, which
+    are full size for a lossless JPEG). -> (RGB image, possibly reduced to
+    ceil(side / f); the original (h, w) in the image's EXIF-oriented frame).
+    Other files: `imread_rgb`."""
     dims = jpeg_dimensions(path) if path.lower().endswith((".jpg", ".jpeg")) else None
     if dims is not None:
         factor = next((f for f in (8, 4, 2) if max(dims) >= f * target_size), 1)

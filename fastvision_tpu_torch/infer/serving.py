@@ -8,8 +8,9 @@ kernel) -> boxes unscaled to the original pixels -> JSON
 [y1, x1, y2, x2] and scores rounded to 5 places.
 
 `VisionService` decodes request bodies with the port's own decoder
-(`data.codec.decode_image`: baseline JPEG, PNG, BMP; no cv2), so a payload
-it refuses raises ValueError, which the HTTP layer answers with 400.
+(`data.codec.decode_image`: JPEG of every kind cv2 decodes, arithmetic-coded
+and lossless included, PNG, BMP; no cv2), so a payload it refuses raises
+ValueError, which the HTTP layer answers with 400.
 `make_server` / `serve` put it behind the standard library's threaded HTTP
 server: concurrent ``POST /predict`` requests are micro-batched into one
 device call by `_MicroBatcher`, ``POST /predict_stream`` takes NDJSON and

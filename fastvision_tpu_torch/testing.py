@@ -297,22 +297,43 @@ def with_exif_orientation(jpeg: bytes, orientation: int) -> bytes:
     return jpeg[:2] + _exif_app1(orientation, False) + jpeg[2:]
 
 
+ENCODINGS = ("baseline", "arithmetic", "lossless", "bmp")
+
+
 def _jpeg_sample(args):
-    path, h, w, seed, quality, orientation = args
-    data = encode_baseline_jpeg(blurred_noise(h, w, seed), *standard_jpeg_tables(quality))
+    path, h, w, seed, quality, orientation, encoding = args
+    img = blurred_noise(h, w, seed)
+    i = int(os.path.basename(path).split(".")[0])
+    if encoding == "bmp":
+        from .data.dataset import write_bmp
+
+        return write_bmp(path, img)
+    if encoding == "lossless":
+        data = encode_lossless_jpeg(img, 1 + i % 7, 0, 8)
+    else:
+        data = encode_progressive_jpeg(img, *standard_jpeg_tables(quality), progressive=i % 2 == 1,
+                                       arithmetic=True) if encoding == "arithmetic" \
+            else encode_baseline_jpeg(img, *standard_jpeg_tables(quality))
     with open(path, "wb") as f:
         f.write(with_exif_orientation(data, orientation) if orientation > 1 else data)
 
 
 def write_jpeg_detection_dataset(root: str, shapes, split: str = "val", seed: int = 0,
                                  num_classes: int = 80, quality: int = 90, orientations=None,
-                                 workers: int = 0) -> str:
+                                 workers: int = 0, encoding: str = "baseline") -> str:
     """Write one baseline 4:2:0 JPEG (`encode_baseline_jpeg` with libjpeg's
     tables at ``quality``; no cv2) of `blurred_noise` per (h, w) of
     ``shapes`` as ``<root>/<split>/images/<i>.jpg``, with 1-4 random boxes
     in ``labels/<i>.txt`` (pixels of the image as shown: an EXIF
     ``orientations[i]`` of 5-8 turns it to w x h). ``workers`` > 1 encodes
-    in that many forked processes. -> root."""
+    in that many forked processes. ``encoding`` writes the same images
+    otherwise: "arithmetic" codes the same quantized coefficients with the
+    arithmetic coder (sequential at even i, progressive at odd: the baseline
+    files' pixels), "lossless" as lossless JPEG (RGB-coded, predictor 1 + i
+    % 7, a restart every 8 rows: the source's pixels), "bmp" as ``<i>.bmp``
+    (no orientation). -> root."""
+    if encoding not in ENCODINGS:
+        raise ValueError(f"encoding must be one of {ENCODINGS}, got {encoding!r}")
     images, labels = (os.path.join(root, split, d) for d in ("images", "labels"))
     os.makedirs(images, exist_ok=True)
     os.makedirs(labels, exist_ok=True)
@@ -321,7 +342,11 @@ def write_jpeg_detection_dataset(root: str, shapes, split: str = "val", seed: in
     jobs = []
     for i, (h, w) in enumerate(shapes):
         o = orientations[i]
-        jobs.append((os.path.join(images, f"{i:05d}.jpg"), h, w, seed * 100003 + i, quality, o))
+        if encoding == "bmp" and o > 1:
+            raise ValueError("a BMP file carries no orientation")
+        ext = ".bmp" if encoding == "bmp" else ".jpg"
+        jobs.append((os.path.join(images, f"{i:05d}{ext}"), h, w, seed * 100003 + i, quality, o,
+                     encoding))
         sh, sw = (w, h) if o >= 5 else (h, w)
         with open(os.path.join(labels, f"{i:05d}.txt"), "w") as f:
             for _ in range(int(rng.integers(1, 5))):
@@ -333,7 +358,7 @@ def write_jpeg_detection_dataset(root: str, shapes, split: str = "val", seed: in
         import multiprocessing
 
         with multiprocessing.get_context("fork").Pool(workers) as pool:
-            pool.map(_jpeg_sample, jobs, chunksize=4)
+            pool.map(_jpeg_sample, jobs, chunksize=1 if encoding == "arithmetic" else 4)
     else:
         for job in jobs:
             _jpeg_sample(job)
@@ -787,9 +812,288 @@ def _scan_items(z: np.ndarray, comp: np.ndarray, ss: int, se: int, ah: int, al: 
     return keys, codes, lens
 
 
+# T.81 Table D.2 (libjpeg's jaricom.c): per state (Qe, Next_Index_LPS,
+# Next_Index_MPS, Switch_MPS); the last state is the fixed 0.5 estimate
+_ARITH_STATES = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+_QE = tuple(q for q, *_ in _ARITH_STATES)
+_NEXT_LPS = tuple(lps | sw << 7 for _, lps, _, sw in _ARITH_STATES)  # the switch flips the MPS
+_NEXT_MPS = tuple(mps for _, _, mps, _ in _ARITH_STATES)
+_DC_BINS, _AC_BINS = 64, 256  # statistics bins per table (jcarith.c)
+_FIXED_BIN = 4 * _DC_BINS + 4 * _AC_BINS  # the fixed 0.5 estimate's bin after the tables'
+
+
+class _ArithCoder:
+    """jcarith.c's coder (T.81 Annex D.1): `encode` one binary decision
+    with the adaptive estimate ``stats[i]``; `finish` terminates the
+    interval ("Pacman" termination: trailing zero bytes dropped)."""
+
+    def __init__(self, out: bytearray):
+        self.out = out
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit_pending(self, byte: int) -> None:
+        if self.zc:
+            self.out += bytes(self.zc)
+            self.zc = 0
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _flush_stack(self) -> None:
+        if self.sc:
+            if self.zc:
+                self.out += bytes(self.zc)
+                self.zc = 0
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def _byte_out(self, temp: int) -> None:
+        if temp > 0xFF:  # a carry over every stacked 0xFF byte
+            if self.buffer >= 0:
+                self._emit_pending(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._emit_pending(self.buffer)
+            self._flush_stack()
+            self.buffer = temp & 0xFF
+
+    def encode(self, stats: bytearray, i: int, val: int) -> None:
+        sv = stats[i]
+        state = sv & 0x7F
+        qe = _QE[state]
+        a = self.a - qe
+        if val != sv >> 7:  # the less probable symbol
+            if a >= qe:
+                self.c += a
+                a = qe
+            stats[i] = (sv & 0x80) ^ _NEXT_LPS[state]
+        else:
+            if a >= 0x8000:
+                self.a = a
+                return
+            if a < qe:  # conditional exchange
+                self.c += a
+                a = qe
+            stats[i] = (sv & 0x80) ^ _NEXT_MPS[state]
+        c, ct = self.c, self.ct
+        while a < 0x8000:  # renormalization (D.1.6)
+            a <<= 1
+            c <<= 1
+            ct -= 1
+            if ct == 0:
+                self._byte_out(c >> 19)
+                c &= 0x7FFFF
+                ct = 8
+        self.a, self.c, self.ct = a, c, ct
+
+    def finish(self) -> None:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        c = self.c << self.ct
+        if c & 0xF8000000:
+            if self.buffer >= 0:
+                self._emit_pending(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._emit_pending(self.buffer)
+            self._flush_stack()
+        if c & 0x7FFF800:
+            self._emit_pending((c >> 19) & 0xFF)
+            if c & 0x7F800:
+                self.out.append((c >> 11) & 0xFF)
+                if (c >> 11) & 0xFF == 0xFF:
+                    self.out.append(0)
+
+
+def _arith_dc(enc: _ArithCoder, st: bytearray, base: int, ctx: list, last: list, i: int,
+              m: int, lu: tuple) -> None:
+    """One DC value (F.1.4.1 / F.1.4.4.1: jcarith.c's encode_mcu_DC_first)."""
+    s = base + ctx[i]
+    v = m - last[i]
+    if v == 0:
+        enc.encode(st, s, 0)
+        ctx[i] = 0
+        return
+    last[i] = m
+    enc.encode(st, s, 1)
+    if v > 0:
+        enc.encode(st, s + 1, 0)
+        s += 2
+        ctx[i] = 4
+    else:
+        v = -v
+        enc.encode(st, s + 1, 1)
+        s += 3
+        ctx[i] = 8
+    m = 0
+    v -= 1
+    if v:
+        enc.encode(st, s, 1)
+        m, v2, s = 1, v >> 1, base + 20
+        while v2:
+            enc.encode(st, s, 1)
+            m, v2, s = m << 1, v2 >> 1, s + 1
+    enc.encode(st, s, 0)
+    if m < (1 << lu[0]) >> 1:
+        ctx[i] = 0
+    elif m > (1 << lu[1]) >> 1:
+        ctx[i] += 8
+    s += 14
+    m >>= 1
+    while m:
+        enc.encode(st, s, 1 if m & v else 0)
+        m >>= 1
+
+
+def _arith_ac(enc: _ArithCoder, st: bytearray, base: int, z: list, ss: int, se: int, al: int,
+              kx: int) -> None:
+    """One block's band ss..se at point transform al (F.1.4.2 / G.1.3.2:
+    jcarith.c's encode_mcu_AC_first; 1..63 at al 0 is the sequential AC)."""
+    ke = next((k for k in range(se, 0, -1) if abs(z[k]) >> al), 0)
+    k = ss
+    while k <= ke:
+        s = base + 3 * (k - 1)
+        enc.encode(st, s, 0)  # not the end of the block
+        while True:
+            v = abs(z[k]) >> al
+            if v:
+                enc.encode(st, s + 1, 1)
+                enc.encode(st, _FIXED_BIN, 1 if z[k] < 0 else 0)
+                break
+            enc.encode(st, s + 1, 0)
+            s += 3
+            k += 1
+        s += 2
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, s, 1)
+            m, v2 = 1, v >> 1
+            if v2:
+                enc.encode(st, s, 1)
+                m, v2, s = 2, v2 >> 1, base + (189 if k <= kx else 217)
+                while v2:
+                    enc.encode(st, s, 1)
+                    m, v2, s = m << 1, v2 >> 1, s + 1
+        enc.encode(st, s, 0)
+        s += 14
+        m >>= 1
+        while m:
+            enc.encode(st, s, 1 if m & v else 0)
+            m >>= 1
+        k += 1
+    if k <= se:
+        enc.encode(st, base + 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc: _ArithCoder, st: bytearray, base: int, z: list, ss: int, se: int,
+                     ah: int, al: int) -> None:
+    """G.1.3.3 (jcarith.c's encode_mcu_AC_refine): past the previous
+    stage's last nonzero coefficient an end-of-block decision comes first;
+    a coefficient already nonzero sends its bit al, a new one its sign."""
+    ke = next((k for k in range(se, 0, -1) if abs(z[k]) >> al), 0)
+    kex = next((k for k in range(ke, 0, -1) if abs(z[k]) >> ah), 0)
+    k = ss
+    while k <= ke:
+        s = base + 3 * (k - 1)
+        if k > kex:
+            enc.encode(st, s, 0)
+        while True:
+            v = abs(z[k]) >> al
+            if v:
+                if v >> 1:
+                    enc.encode(st, s + 2, v & 1)
+                else:
+                    enc.encode(st, s + 1, 1)
+                    enc.encode(st, _FIXED_BIN, 1 if z[k] < 0 else 0)
+                break
+            enc.encode(st, s + 1, 0)
+            s += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(st, base + 3 * (k - 1), 1)
+
+
+def _arith_scan(z: np.ndarray, comp: np.ndarray, interval: np.ndarray, ss: int, se: int, ah: int,
+                al: int, tables: list, progressive: bool, conditioning: tuple) -> bytes:
+    """The entropy-coded data of one arithmetic scan over blocks ``z`` [N,
+    64] (zigzag, scan order) of members ``comp`` [N] (``tables[i]``: the
+    member's table pair), a restart marker where ``interval`` changes; the
+    statistics and DC predictions start over in each interval (jcarith.c's
+    emit_restart)."""
+    lu, kx = conditioning[:2], conditioning[2]
+    out = bytearray()
+    rows, comps, ivals = z.tolist(), comp.tolist(), interval.tolist()
+    enc = st = None
+    for b, (zb, i, iv) in enumerate(zip(rows, comps, ivals)):
+        if b == 0 or iv != ivals[b - 1]:
+            if enc is not None:
+                enc.finish()
+                out += bytes((0xFF, 0xD0 + (iv - 1) % 8))
+            enc, st = _ArithCoder(out), bytearray(_FIXED_BIN + 1)
+            st[_FIXED_BIN] = 113
+            ctx, last = [0] * len(tables), [0] * len(tables)
+        dc_base, ac_base = tables[i][0] * _DC_BINS, 4 * _DC_BINS + tables[i][1] * _AC_BINS
+        if not progressive:
+            _arith_dc(enc, st, dc_base, ctx, last, i, zb[0], lu)
+            _arith_ac(enc, st, ac_base, zb, 1, 63, 0, kx)
+        elif ss == 0 and ah == 0:
+            _arith_dc(enc, st, dc_base, ctx, last, i, zb[0] >> al, lu)
+        elif ss == 0:
+            enc.encode(st, _FIXED_BIN, (zb[0] >> al) & 1)
+        elif ah == 0:
+            _arith_ac(enc, st, ac_base, zb, ss, se, al, kx)
+        else:
+            _arith_ac_refine(enc, st, ac_base, zb, ss, se, ah, al)
+    enc.finish()
+    return bytes(out)
+
+
 def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 2),
                             restart: int = 0, script: str = "full", tables: bool = True,
-                            progressive: bool = True) -> bytes:
+                            progressive: bool = True, arithmetic: bool = False,
+                            conditioning: tuple | None = None) -> bytes:
     """A progressive JPEG (SOF2) of the quantized coefficients
     `encode_baseline_jpeg` codes (`_jpeg_coefficients`): libjpeg's
     jpeg_simple_progression script (spectral selection, successive
@@ -802,13 +1106,18 @@ def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 
     interleaved scan (SOF0), the twin that decodes to the same pixels.
     ``rgb`` [H, W, 3] is coded as YCbCr, [H, W] as gray, and [H, W, 4]
     (CMYK) as YCCK (Adobe transform 2, K sampled as luma).
-    Numpy throughout: a 640 x 480 image in ~0.1 s."""
+    ``arithmetic=True`` codes the same coefficients with jcarith.c's
+    arithmetic coder instead (SOF10, or SOF9 with ``progressive=False``; no
+    DHT): ``conditioning`` (L, U, Kx) is written in a DAC segment before
+    every scan as libjpeg writes one, and None writes none (the decoder's
+    defaults 0, 1, 5 apply). Huffman coding is numpy throughout (a 640 x 480
+    image in ~0.1 s); the arithmetic coder runs one Python call a decision."""
     h, w, comps, mcux, mcuy, qts, tq = _jpeg_coefficients(rgb, dqt, sampling)
     ncomp = len(comps)
     tsel = [0, 1, 1, 0][:ncomp]
     dc_tabs = [dht[(0, t)] for t in tsel]
     ac_tabs = [dht[(1, t)] for t in tsel]
-    if not tables:
+    if not tables and not arithmetic:
         assert all(dht[k] == _ANNEX_K_HUFFMAN[k] for k in dht if k[1] in tsel), "standard tables"
 
     def scan(members, ss, se, ah, al):
@@ -829,6 +1138,20 @@ def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 
             comp = np.tile(comp, mcuy * mcux)
             unit = np.repeat(np.arange(mcuy * mcux), sum(p.shape[1] for p in parts))
         interval = unit // restart if restart else np.zeros(len(z), np.int64)
+        sel = b"".join(bytes((comps[i]["id"], (tsel[i] << 4 if ss == 0 else 0)
+                              | (tsel[i] if se or not progressive else 0))) for i in members)
+        header = _segment(0xDA, bytes((len(members),)) + sel + bytes((ss, se, ah << 4 | al)))
+        if arithmetic:
+            data = _arith_scan(z, comp, interval, ss, se, ah, al,
+                               [(tsel[i], tsel[i]) for i in members], progressive,
+                               conditioning or (0, 1, 5))
+            if conditioning is None:
+                return header + data
+            used = sorted({(0, tsel[i]) for i in members if ss == 0 and ah == 0}
+                          | {(1, tsel[i]) for i in members if se})
+            dac = b"".join(bytes((tc << 4 | t, (conditioning[0] | conditioning[1] << 4) if tc == 0
+                                  else conditioning[2])) for tc, t in used)
+            return (_segment(0xCC, dac) if dac else b"") + header + data
         keys, codes, lens = _scan_items(
             z, comp, ss, se, ah, al, [dc_tabs[i] for i in members], [ac_tabs[i] for i in members],
             interval)
@@ -844,10 +1167,7 @@ def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 
             if k:
                 data += bytes((0xFF, 0xD0 + (k - 1) % 8))
             data += _pack_bits(codes[a:b], lens[a:b])
-        sel = b"".join(bytes((comps[i]["id"], (tsel[i] << 4 if ss == 0 else 0)
-                              | (tsel[i] if se or not progressive else 0))) for i in members)
-        return _segment(0xDA, bytes((len(members),)) + sel + bytes((ss, se, ah << 4 | al))) \
-            + bytes(data)
+        return header + bytes(data)
 
     out = bytearray(b"\xff\xd8" + (
         _segment(0xEE, b"Adobe" + (100).to_bytes(2, "big") + bytes(4) + bytes((2,)))  # YCCK
@@ -855,11 +1175,12 @@ def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 
     for tid in sorted(set(tq[:ncomp])):
         values = qts[tid]
         out += _segment(0xDB, bytes((tid,)) + values[list(ZIGZAG)].astype(np.uint8).tobytes())
-    out += _segment(0xC2 if progressive else 0xC0,
+    sof = (0xCA if progressive else 0xC9) if arithmetic else (0xC2 if progressive else 0xC0)
+    out += _segment(sof,
                     bytes((8,)) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes((ncomp,))
                     + b"".join(bytes((c["id"], c["hv"][0] << 4 | c["hv"][1], tq[i]))
                                for i, c in enumerate(comps)))
-    if tables:
+    if tables and not arithmetic:
         for tc in (0, 1):
             for th in sorted(set(tsel)):
                 table = dht[(tc, th)]
@@ -874,6 +1195,96 @@ def encode_progressive_jpeg(rgb: np.ndarray, dqt: dict, dht: dict, sampling=(2, 
                 continue
             out += scan(list(members), ss, se, ah, al)
     return bytes(out + b"\xff\xd9")
+
+
+# a DC table for lossless difference categories 0-16 (lengths 2, 3 x 5, 4 ... 14)
+_LOSSLESS_HUFFMAN = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0], bytes(range(17)))
+
+
+def lossless_differences(samples: np.ndarray, predictor: int, pt: int = 0,
+                         restart_rows: int = 0, precision: int = 8) -> np.ndarray:
+    """The differences a lossless JPEG codes for ``samples`` [H, W, C]
+    uint8 (T.81 H.1.2, as libjpeg's jclossls.c forms them): each sample >>
+    ``pt`` less its prediction. The first row of the image and of each
+    restart interval (``restart_rows`` rows) predicts its first sample
+    from 2^(precision - 1 - pt) and the rest from the left; every other row
+    its first sample from above and the rest with ``predictor`` (1-7).
+    -> int64 [H, W, C]."""
+    x = samples.astype(np.int64) >> pt
+    h = x.shape[0]
+    ra = np.zeros_like(x)
+    rb = np.zeros_like(x)
+    rc = np.zeros_like(x)
+    ra[:, 1:], rb[1:], rc[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    first = np.zeros(h, bool)
+    first[::restart_rows or h] = True
+    pred[first] = ra[first]
+    pred[first, 0] = 1 << (precision - 1 - pt)
+    return x - pred
+
+
+def lossless_jpeg(diffs: np.ndarray, predictor: int, pt: int = 0, restart_rows: int = 0,
+                  cmyk: bool = False, markers: bool = True, interleaved: bool = True,
+                  precision: int = 8) -> bytes:
+    """A lossless JPEG (SOF3, ``precision`` bits, Huffman, 1x1 sampling)
+    coding the differences ``diffs`` [H, W, C] (categories 0-16; 16 is
+    32768) in one interleaved scan, or one scan per component: RGB-coded (C 3, Adobe
+    transform 0, components 'R', 'G', 'B') or CMYK (C 4, 'C', 'M', 'Y',
+    'K'); ``markers=False`` leaves the Adobe segment out. ``restart_rows``:
+    a restart interval of that many rows."""
+    h, w, nc = diffs.shape
+    code_of, len_of = _code_arrays(_LOSSLESS_HUFFMAN)
+    ids = b"CMYK" if cmyk else b"RGB"
+
+    def scan(d: np.ndarray, members: bytes) -> bytes:  # d [H, W * members]
+        cat = np.where(d == 32768, 16, _bit_length(d))
+        extra = np.where(d > 0, d, d + (1 << cat) - 1) & ((1 << cat) - 1)
+        codes = np.stack([code_of[cat], extra], -1).reshape(h, -1)
+        lens = np.stack([len_of[cat], np.where(cat == 16, 0, cat)], -1).reshape(h, -1)
+        data = bytearray()
+        step = restart_rows or h
+        for k, r in enumerate(range(0, h, step)):
+            if k:
+                data += bytes((0xFF, 0xD0 + (k - 1) % 8))
+            data += _pack_bits(codes[r:r + step].ravel(), lens[r:r + step].ravel())
+        return _segment(0xDA, bytes((len(members),)) + b"".join(bytes((i, 0)) for i in members)
+                        + bytes((predictor, 0, pt))) + bytes(data)
+
+    d = diffs.astype(np.int64)
+    scans = [scan(d.reshape(h, w * nc), ids)] if interleaved else [
+        scan(d[..., c], ids[c:c + 1]) for c in range(nc)]
+    out = bytearray(b"\xff\xd8")
+    if markers:
+        out += _segment(0xEE, b"Adobe" + (100).to_bytes(2, "big") + bytes(4) + bytes((0,)))
+    out += _segment(0xC3, bytes((precision,)) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                    + bytes((nc,))
+                    + b"".join(bytes((i, 0x11, 0)) for i in ids))
+    out += _segment(0xC4, bytes((0,)) + bytes(_LOSSLESS_HUFFMAN[0]) + _LOSSLESS_HUFFMAN[1])
+    if restart_rows:
+        out += _segment(0xDD, (restart_rows * w).to_bytes(2, "big"))
+    return bytes(out + b"".join(scans) + b"\xff\xd9")
+
+
+def encode_lossless_jpeg(rgb: np.ndarray, predictor: int, pt: int = 0, restart: int = 0,
+                         cmyk: bool = False, precision: int = 8) -> bytes:
+    """A lossless JPEG (SOF3) of ``rgb`` [H, W, 3] uint8 (RGB-coded, as
+    libjpeg writes JCS_RGB: Adobe transform 0), or with ``cmyk`` of [H, W,
+    4] CMYK: predictor 1-7, point transform ``pt`` (the decode is the
+    samples with their low ``pt`` bits cleared; at 0 the source exactly), a
+    restart every ``restart`` rows (libjpeg takes only whole rows in lossless
+    mode), samples of ``precision`` (2-8) bits. Numpy throughout."""
+    rgb = np.asarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != (4 if cmyk else 3):
+        raise ValueError(f"expected [H, W, {4 if cmyk else 3}] uint8, got {rgb.shape}")
+    if restart * rgb.shape[1] > 65535:
+        raise ValueError("the restart interval exceeds 65535 samples")
+    if not 2 <= precision <= 8 or int(rgb.max(initial=0)) >> precision:
+        raise ValueError(f"samples must fit {precision} bits (2-8)")
+    return lossless_jpeg(lossless_differences(rgb, predictor, pt, restart, precision), predictor,
+                         pt, restart, cmyk, precision=precision)
 
 
 def _exif_app1(orientation: int, little_endian: bool) -> bytes:

@@ -182,9 +182,13 @@ def _patched(buf: bytes, at: bytes, offset: int, value: int) -> bytes:
 
 
 def test_jpeg_kinds_not_taken_raise():
-    """Arithmetic-coded (sequential and progressive), lossless,
-    hierarchical and 12-bit JPEG raise naming item 11; the progressive and
-    CMYK files that raised here before decode as cv2 decodes them."""
+    """The kinds cv2 5.0 returns no image for raise naming item 11 and
+    saying so: hierarchical (SOF5-7, SOF13-15), arithmetic lossless (SOF11),
+    12-bit and a frame height left to a DNL marker, made by patching a
+    baseline file's SOF (cv2 itself returns None for each). The kinds that
+    raised here before decode as cv2 decodes them: progressive, CMYK, and
+    the committed arithmetic-coded (SOF9, SOF10) and lossless (SOF3) files
+    of libjpeg's and GDCM's encoders."""
     rng = np.random.default_rng(8)
     img = smooth(rng, 32, 48)
     base = cv2.imencode(".jpg", img)[1].tobytes()
@@ -194,14 +198,22 @@ def test_jpeg_kinds_not_taken_raise():
     Image.fromarray(noise(rng, 16, 16, 4), "CMYK").save(cmyk, "JPEG")
     for buf, what in ((bio.getvalue(), "progressive"), (cmyk.getvalue(), "CMYK")):
         assert_same_as_cv2(buf, what)
-    for buf, match in ((_patched(base, b"\xff\xc0", 1, 0xC9), "arithmetic-coded"),
-                       (_patched(base, b"\xff\xc0", 1, 0xCA), "arithmetic-coded"),
-                       (_patched(base, b"\xff\xc0", 1, 0xC3), "lossless"),
-                       (_patched(base, b"\xff\xc0", 1, 0xC5), "hierarchical"),
-                       (_patched(base, b"\xff\xc0", 4, 12), "12-bit")):
+    for name in ("arith_seq_420_37x53.jpg", "arith_prog_420_47x66.jpg", "lossless_rgb_p1_37x53.jpg",
+                 "lossless_cmyk_p1_21x30.jpg"):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            assert_same_as_cv2(f.read(), name)
+    sof = base.index(b"\xff\xc0")
+    cases = [(_patched(base, b"\xff\xc0", 1, m), "hierarchical")
+             for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)]
+    cases += [(_patched(base, b"\xff\xc0", 1, 0xCB), "arithmetic-coded lossless"),
+              (_patched(base, b"\xff\xc0", 4, 12), "12-bit"),
+              (base[:sof + 5] + b"\x00\x00" + base[sof + 7:], "DNL")]
+    for buf, match in cases:
+        assert cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR) is None, match
         with pytest.raises(ValueError, match=match) as e:
             decode_image(buf)
         assert "ROADMAP Queue 1, item 11" in str(e.value)
+        assert "cv2 5.0 returns no image for it either" in str(e.value)
 
 
 def test_jpeg_truncated_or_corrupt_raises():

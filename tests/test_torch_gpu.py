@@ -888,6 +888,10 @@ def test_native_decodes_equal_the_stored_oracles():
             read(e["file"]), e["size"], oracles["i420_pad_value"], e["reduce_target"])
         assert (digest(packed), float(np.float32(scale)), list(pads), list(orig), list(dec)) == (
             e["sha256"], e["scale"], e["pads"], e["orig_hw"], e["decoded_hw"]), e
+    for e in oracles["fused_i420_raises"]:  # lossless: refused, as the JAX package refuses it
+        with pytest.raises(ValueError):
+            codec.decode_jpeg_i420(read(e["file"]), e["size"], oracles["i420_pad_value"],
+                                   e["reduce_target"])
     for e in oracles["cv2_reduced"]:
         rgb = codec.decode_jpeg_reduced(read(e["file"]), e["factor"])
         assert [list(rgb.shape), digest(rgb)] == [e["shape"], e["sha256"]], e

@@ -8,8 +8,9 @@ the native letterbox (`codec.letterbox_batch_native`) against
 Every comparison is bit-equal (bytes, scale, pads, dims), on every JPEG of
 `tests/torch_codec_fixtures` that both take, at sizes 416 / 64 / 32 and at
 the reduce targets that give factors 1 / 2 / 4 / 8, and on files encoded
-here. Where the port departs on purpose (ROADMAP Queue 3), a test pins the
-departure: the port applies the EXIF orientation on the fused path (the JAX
+here; where the JAX package's fused decode raises (lossless JPEG, which its
+libjpeg 2.1.5 refuses) the port's raises too. Where the port departs on
+purpose (ROADMAP Queue 3), a test pins the departure: the port applies the EXIF orientation on the fused path (the JAX
 package's ignores it) and reports the oriented original size from the
 reduced decode (the JAX package's ``imread_rgb_scaled`` reports the SOF's);
 on a progressive file whose scans stop early (block smoothing) the port
@@ -79,17 +80,29 @@ def _fused(fn, data, size, target):
             "orig_hw": list(orig), "decoded_hw": list(dec)}
 
 
+def _fused_or_raise(fn, data, size, target):
+    """`_fused`, or {"raises": True} where ``fn`` raises ValueError (the
+    JAX package's libjpeg 2.1.5 refuses lossless JPEG)."""
+    try:
+        return _fused(fn, data, size, target)
+    except ValueError:
+        return {"raises": True}
+
+
 def live_oracles() -> dict:
     """The oracles, regenerated: the JAX package's fused decode of every
-    unrotated corpus JPEG at each size and reduce target, and cv2's reduced
-    RGB decode of every corpus JPEG at 1/2, 1/4, 1/8."""
-    i420 = []
+    unrotated corpus JPEG at each size and reduce target (the files it
+    refuses listed apart), and cv2's reduced RGB decode of every corpus
+    JPEG at 1/2, 1/4, 1/8 (a lossless file's full size)."""
+    i420, refused = [], []
     for name in UNROTATED:
         data = _read(name)
         for size in SIZES:
             for target in reduce_targets(data):
-                r = _fused(native.decode_jpeg_i420, data, size, target)
-                if r is not None:
+                r = _fused_or_raise(native.decode_jpeg_i420, data, size, target)
+                if r == {"raises": True}:
+                    refused.append({"file": name, "size": size, "reduce_target": target})
+                elif r is not None:
                     i420.append({"file": name, "size": size, "reduce_target": target, **r})
     reduced = []
     for name in JPEGS:
@@ -97,7 +110,8 @@ def live_oracles() -> dict:
             rgb = cv2.imdecode(np.frombuffer(_read(name), np.uint8), flag)[..., ::-1]
             reduced.append({"file": name, "factor": f, "shape": list(rgb.shape),
                             "sha256": _digest(rgb)})
-    return {"i420_pad_value": 114, "fused_i420": i420, "cv2_reduced": reduced}
+    return {"i420_pad_value": 114, "fused_i420": i420, "fused_i420_raises": refused,
+            "cv2_reduced": reduced}
 
 
 def test_stored_oracles_equal_live_ones():
@@ -111,11 +125,12 @@ def test_fused_i420_bit_equal_to_jax_native(name):
     data = _read(name)
     for size in SIZES:
         for target in reduce_targets(data):
-            want = _fused(native.decode_jpeg_i420, data, size, target)
+            want = _fused_or_raise(native.decode_jpeg_i420, data, size, target)
             if want is None:  # the JAX package falls back: so must the port
                 assert codec.decode_jpeg_i420(data, size, 114, target) is None, (size, target)
                 continue
-            assert _fused(codec.decode_jpeg_i420, data, size, target) == want, (size, target)
+            got = _fused_or_raise(codec.decode_jpeg_i420, data, size, target)
+            assert got == want, (size, target)
 
 
 @pytest.mark.parametrize("name", JPEGS)
