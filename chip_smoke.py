@@ -5396,6 +5396,361 @@ def rare_jpeg(dev: torch.device, det: Detector, model: YOLOv3, anchors: np.ndarr
             "seconds": time.perf_counter() - t_block}
 
 
+# ---------------------------------------------------------------------------
+# Every image and video read as the JAX package's cv2 calls read them, with
+# cv2 importable: the committed cv2-parity files on each route, the loaders,
+# predict_dataset (rgb and i420), serving; the videos the port hands to cv2
+# through load_clip, the video loader into SlowFast and predict_video
+# ---------------------------------------------------------------------------
+CV2_IMAGES = os.path.join(FIXTURES, "cv2_parity")
+CV2_VIDEOS = os.path.join(VIDEO_FIXTURES, "cv2")
+CV2_WORKERS = 4
+CV2_PREDICT_VIDEO = "x264_kinetics_340x256.mp4"
+
+
+def _sha(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _cv2_image_routes(path: str, data: bytes, target: int, size: int) -> dict:
+    """The port's image on each route: an array, (array, orig) on the
+    reduced route, the fused tuple / None, or the exception raised."""
+    from fastvision_tpu_torch.data.dataset import imread_rgb
+
+    def call(fn):
+        try:
+            return fn()
+        except (ValueError, NotImplementedError) as e:
+            return e
+
+    return {"memory": call(lambda: decode_image(data)), "file": call(lambda: imread_rgb(path)),
+            "reduced": call(lambda: imread_rgb_scaled(path, target)),
+            "fused": call(lambda: decode_jpeg_i420(data, size, 114, size))}
+
+
+def check_cv2_parity_images(cv2) -> dict:
+    """(a) The 32 committed cv2-parity files on the memory, file, reduced
+    and fused routes. The port's own decoders (JPEG, BMP, PNG) must give
+    the digests the JAX package's calls gave where its manifest was written,
+    and raise where those gave no image; the files handed to cv2 must equal
+    this machine's ``cv2.imdecode`` / ``cv2.imread`` (their digests against
+    the manifest are counted, not gated: the card's cv2 build may differ).
+    With ``import cv2`` blocked the own kinds give the same pixels and the
+    others raise NotImplementedError naming item 11. Then decode ms per
+    image by kind and route on one thread."""
+    with open(os.path.join(CV2_IMAGES, "manifest.json")) as f:
+        manifest = json.load(f)
+    target, size = manifest["reduce_target"], manifest["fused_size"]
+    checked, cv2_match, cv2_differ = collections.Counter(), [], []
+    for e in manifest["files"]:
+        path = os.path.join(CV2_IMAGES, e["file"])
+        with open(path, "rb") as f:
+            data = f.read()
+        got = _cv2_image_routes(path, data, target, size)
+        for route in ("memory", "file", "reduced"):
+            want, out = e["routes"][route], got[route]
+            if want is None:
+                check(isinstance(out, ValueError), f"{e['file']} {route}: {out!r} (JAX: None)")
+                continue
+            check(not isinstance(out, Exception), f"{e['file']} {route}: {out!r}")
+            img = out[0] if route == "reduced" else out
+            if e["kind"] == "cv2":
+                ref = (cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+                       if route == "memory" else cv2.imread(path, cv2.IMREAD_COLOR))
+                check(np.array_equal(img, ref[..., ::-1]), f"{e['file']} {route}: not cv2's")
+                (cv2_match if _sha(img) == want["sha256"] else cv2_differ).append(
+                    f"{e['file']}:{route}")
+            else:
+                check([list(img.shape), _sha(img)] == [want["shape"], want["sha256"]],
+                      f"{e['file']} {route}: the pixels differ from the JAX call's")
+                if route == "reduced":
+                    check(list(out[1]) == want["orig"], f"{e['file']}: reduced original size")
+            checked[route] += 1
+        want, out = e["routes"]["fused"], got["fused"]
+        if want is None:
+            check(isinstance(out, ValueError), f"{e['file']} fused: {out!r} (JAX raises)")
+        elif want == "fallback":
+            check(out is None, f"{e['file']} fused: not the plain chain's")
+        else:
+            check((_sha(out[0]), out[1], list(out[2]), list(out[3]), list(out[4])) == (
+                want["sha256"], want["scale"], want["pads"], want["orig"], want["decoded"]),
+                f"{e['file']} fused: differs from the JAX package's")
+        checked["fused"] += 1
+        with cv2_blocked():
+            blocked = _cv2_image_routes(path, data, target, size)
+        for route in ("memory", "file", "reduced"):
+            b, out = blocked[route], got[route]
+            if e["kind"] == "cv2":
+                check(isinstance(b, NotImplementedError) and "item 11" in str(b),
+                      f"{e['file']} {route} without cv2: {b!r}")
+            elif isinstance(out, Exception):
+                check(type(b) is type(out), f"{e['file']} {route} without cv2: {b!r}")
+            else:
+                pair = zip(b, out) if route == "reduced" else [(b, out)]
+                check(all(np.array_equal(x, y) for x, y in pair),
+                      f"{e['file']} {route}: other pixels without cv2")
+        checked["without_cv2"] += 1
+    from fastvision_tpu_torch.data.dataset import imread_rgb
+
+    times = collections.defaultdict(dict)
+    for kind in ("jpeg", "bmp", "png", "cv2"):
+        files = [e for e in manifest["files"] if e["kind"] == kind]
+        for route in ("memory", "file"):
+            paths = [os.path.join(CV2_IMAGES, e["file"]) for e in files
+                     if e["routes"][route] is not None]
+            datas = [open(path, "rb").read() for path in paths]
+            fn = (lambda: [decode_image(d) for d in datas]) if route == "memory" else \
+                (lambda: [imread_rgb(path) for path in paths])
+            times[kind][f"{route}_ms_per_image"] = 1e3 * host_s(fn, reps=5) / max(len(paths), 1)
+    return {"files": len(manifest["files"]), "checked": dict(checked),
+            "cv2_kinds_equal_to_manifest": len(cv2_match), "cv2_kinds_other_than_manifest":
+            cv2_differ, "decode_ms_1_thread": dict(times)}
+
+
+def _cv2_parity_dataset(root: str, exclude=()) -> DetectionDataset:
+    """The cv2-parity files as a detection dataset (one box each): JPEG,
+    BMP and PNG under their names, the formats only cv2 decodes under
+    ``.jpg`` (misnamed, as scraped files often are)."""
+    with open(os.path.join(CV2_IMAGES, "manifest.json")) as f:
+        manifest = json.load(f)
+    images, labels = os.path.join(root, "val", "images"), os.path.join(root, "val", "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    for k, e in enumerate(manifest["files"]):
+        if e["file"] in exclude:
+            continue
+        stem, ext = os.path.splitext(e["file"])
+        shutil.copy(os.path.join(CV2_IMAGES, e["file"]),
+                    os.path.join(images, stem + (ext if e["kind"] != "cv2" else ".jpg")))
+        with open(os.path.join(labels, stem + ".txt"), "w") as f:
+            f.write(f"{k % NUM_CLASSES} 2 3 20 18\n")
+    return DetectionDataset(root, "val")
+
+
+def cv2_parity_images(dev, det: Detector, model: YOLOv3, anchors: np.ndarray,
+                      workdir: str) -> dict:
+    """(b) The cv2-parity files as a dataset: the DetectionLoader on 4
+    process workers byte-equal to the serial loader (img/s), YOLOv3-416
+    ``predict_dataset`` (bf16, batch 8) equal to the same pixels written as
+    BMP, the i420 route (the fused decode; the other formats through their
+    plain chain, counted as fallbacks) on the files its JAX counterpart
+    decodes, and ``VisionService`` answering 200 where cv2.imdecode gives
+    an image (equal to ``predict_batch`` on it) and 400 where it gives
+    None. Every NMS launch counted and held against the plain version."""
+    import threading
+
+    from fastvision_tpu_torch.data.dataset import imread_rgb, write_bmp
+    from fastvision_tpu_torch.infer import VisionService, make_server
+
+    with open(os.path.join(CV2_IMAGES, "manifest.json")) as f:
+        manifest = json.load(f)
+    ds = _cv2_parity_dataset(os.path.join(workdir, "cv2_parity"))
+    bmp_root = os.path.join(workdir, "cv2_parity_bmp")
+    os.makedirs(os.path.join(bmp_root, "val", "images"))
+    shutil.copytree(ds.labels_dir, os.path.join(bmp_root, "val", "labels"))
+    for i in range(len(ds)):
+        write_bmp(os.path.join(bmp_root, "val", "images", ds.ids[i] + ".bmp"),
+                  imread_rgb(ds.image_path(i)))
+    bmp = DetectionDataset(bmp_root, "val")
+    serial = [b["images"] for b in det._loader(ds, 1, 0).epoch(0)]
+    pooled_loader = det._loader(ds, 1, CV2_WORKERS, "process")
+    try:
+        pooled = [b["images"] for b in pooled_loader.epoch(0)]
+        t0 = time.perf_counter()
+        n = sum(b["num_real"] for b in pooled_loader.epoch(1))
+        loader_img_s = n / (time.perf_counter() - t0)
+    finally:
+        pooled_loader.close()
+    check(len(serial) == len(pooled) and all(np.array_equal(a, b) for a, b in zip(serial, pooled)),
+          "the pooled DetectionLoader differs from the serial one on the cv2-parity files")
+    launches = {}
+    with recorded_nms_inputs() as recorded:
+        runs = {}
+        for tag, d in (("cv2_parity_predict_dataset", ds), ("bmp", bmp)):
+            out, sec, nl = counted_launches(lambda d=d: list(det.predict_dataset(
+                d, fast_decode=True, num_workers=CV2_WORKERS)))
+            runs[tag] = {"results": out, "img_s": len(out) / sec}
+            if tag != "bmp":
+                launches[tag] = nl
+        check(len(runs["bmp"]["results"]) == len(ds) and same_detections(
+            runs["cv2_parity_predict_dataset"]["results"], runs["bmp"]["results"]),
+            "predict_dataset on the cv2-parity files differs from the same pixels as BMP")
+        fused_raises = [e["file"] for e in manifest["files"] if e["routes"]["fused"] is None]
+        i420_ds = _cv2_parity_dataset(os.path.join(workdir, "cv2_parity_i420"), fused_raises)
+        det_i420 = Detector(model, anchors, input_size=INPUT_SIZE, batch_size=DECODE_BATCH,
+                            input_format="i420", device=dev)
+        det_i420.i420_fallbacks = 0
+        out, sec, launches["cv2_parity_i420_predict_dataset"] = counted_launches(
+            lambda: list(det_i420.predict_dataset(i420_ds, fast_decode=True,
+                                                  num_workers=CV2_WORKERS)))
+        fallbacks = det_i420.i420_fallbacks
+        want_fallbacks = sum(1 for e in manifest["files"] if e["routes"]["fused"] == "fallback")
+        check(len(out) == len(i420_ds) and fallbacks == want_fallbacks
+              and all(np.isfinite(r["boxes"]).all() for r, _ in out),
+              f"the i420 route on the cv2-parity files: {len(out)} results, {fallbacks} fallbacks")
+        i420 = {"images": len(out), "img_s": len(out) / sec, "fallbacks": fallbacks,
+                "left_out_as_the_jax_fused_decode_raises": fused_raises}
+        del det_i420
+        bodies = {e["file"]: open(os.path.join(CV2_IMAGES, e["file"]), "rb").read()
+                  for e in manifest["files"]}
+        service = VisionService(det)
+        port = free_port()
+        server = make_server(service, "127.0.0.1", port)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            answers, _, launches["cv2_parity_serve"] = counted_launches(
+                lambda: {k: _http(port, "POST", "/predict", b) for k, b in bodies.items()})
+        finally:
+            server.batcher.shutdown()
+            server.shutdown()
+            server.server_close()
+        statuses = {e["file"]: answers[e["file"]][0] for e in manifest["files"]}
+        want_status = {e["file"]: 200 if e["routes"]["memory"] else 400 for e in manifest["files"]}
+        check(statuses == want_status, f"serving answered {statuses}")
+        for name in [n for n, st in statuses.items() if st == 200][::8]:
+            img, want = decode_image(bodies[name]), []
+            ref = threading.Thread(target=lambda: want.append(
+                service._to_json(det.predict_batch([img])[0])))
+            ref.start()
+            ref.join()
+            check(json.loads(answers[name][1]) == want[0],
+                  f"serving's {name} answer differs from predict_batch on the decoded image")
+    kernel = kernel_vs_plain_recorded(recorded)
+    check(all(nl > 0 for nl in launches.values()), f"a cv2-parity path launched no NMS: {launches}")
+    return {"images": len(ds), "loader_img_s_4_process_workers": loader_img_s,
+            "predict_dataset_img_s": runs["cv2_parity_predict_dataset"]["img_s"],
+            "detections": sum(len(r["boxes"]) for r, _ in runs["bmp"]["results"]),
+            "i420": i420, "serve_statuses": collections.Counter(statuses.values()),
+            "launches": launches, "kernel_vs_plain": kernel}
+
+
+def _cv2_frames(cv2, path: str) -> list[np.ndarray]:
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        frames.append(np.ascontiguousarray(bgr[..., ::-1]))
+    cap.release()
+    return frames
+
+
+def _cv2_clip(cv2, path: str, rng) -> np.ndarray:
+    """load_clip's rule on this machine's VideoCapture directly: the
+    sampled frames by seek + read, a frame that does not read repeating the
+    last, resized by ``resize_bilinear``."""
+    cap = cv2.VideoCapture(path)
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    frames, last = [], None
+    for i in np.sort(sample_indices(total, VID_T, "average", rng)):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
+        ok, bgr = cap.read()
+        frame = resize_bilinear(np.ascontiguousarray(bgr[..., ::-1]), VID_SIZE, VID_SIZE) \
+            if ok else last
+        frames.append(frame)
+        last = frame
+    cap.release()
+    return np.stack(frames)
+
+
+def cv2_parity_videos(cv2, slowfast, dev, eval_step, det: Detector, workdir: str) -> dict:
+    """(c) The videos the port hands to cv2 (the refused MPEG-4 files;
+    H.264 at Kinetics' shape, XviD in Matroska, VP9 in WebM): ``reader``
+    printed, every frame equal to this machine's ``cv2.VideoCapture`` read
+    loop (digests against the manifest counted, not gated), ``load_clip``
+    (32 x 224) equal to its rule run on VideoCapture directly, the files as
+    a folder through ``VideoClipLoader`` (4 process workers) into the
+    full-width SlowFast-R50 eval step (NMS launches: 0), and
+    ``predict_video`` (YOLOv3-416) on the H.264 clip equal to
+    ``predict_batch`` on VideoCapture's frames, its NMS launches counted
+    and held against the plain version."""
+    with open(os.path.join(CV2_VIDEOS, "manifest.json")) as f:
+        videos = json.load(f)["videos"]
+    readers, digests_equal, frames_total = {}, 0, 0
+    for e in videos:
+        path = os.path.join(CV2_VIDEOS, e["file"])
+        video = avi.open_video(path)
+        readers[e["file"]] = video.reader
+        got, want = list(video.frames()), _cv2_frames(cv2, path)
+        video.release()
+        check(video.reader == "cv2" and len(got) == len(want) > 0
+              and all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"{e['file']}: the frames differ from VideoCapture's")
+        digests_equal += [_sha(f) for f in got] == e["rgb_sha256"]
+        frames_total += len(got)
+        check(np.array_equal(load_clip(path, VID_T, "average", VID_SIZE, np.random.default_rng(SEED)),
+                             _cv2_clip(cv2, path, np.random.default_rng(SEED))),
+              f"{e['file']}: load_clip differs from VideoCapture's seeks")
+    root = os.path.join(workdir, "cv2_videos")
+    for k, e in enumerate(videos):
+        d = os.path.join(root, "val", f"class_{k % 4:03d}")
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(CV2_VIDEOS, e["file"]), os.path.join(d, e["file"]))
+    ds = VideoFolderDataset(root, "val")
+    state = type("State", (), {"model": slowfast})()
+    ld = VideoClipLoader(ds, num_frames=VID_T, size=VID_SIZE, batch_size=VID_BATCH,
+                         strategy="average", train=False, seed=SEED, num_workers=CV2_WORKERS,
+                         worker_backend="process")
+    try:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        batches = [{k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                    for k, v in b.items()} for b in ld.epoch(0)]
+        logits = [eval_step(state, b) for b in batches]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        slowfast_launches = suppression_mask_cuda.launches
+    finally:
+        ld.close()
+    check(sum(int(b["num_real"]) for b in batches) == len(ds) and all(
+        tuple(x.shape) == (VID_BATCH, VID_CLASSES) and bool(torch.isfinite(x.float()).all())
+        for x in logits), "SlowFast eval on the cv2 videos")
+    path = os.path.join(CV2_VIDEOS, CV2_PREDICT_VIDEO)
+    frames, seen = _cv2_frames(cv2, path), []
+    with recorded_nms_inputs() as recorded:
+        suppression_mask_cuda.launches = 0
+        t0 = time.perf_counter()
+        n = det.predict_video(path, frame_callback=lambda rgb, res: seen.append(res))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = suppression_mask_cuda.launches
+    check(n == len(seen) == len(frames), f"predict_video processed {n} of {len(frames)} frames")
+    want = [r for i in range(0, n, DECODE_BATCH) for r in det.predict_batch(frames[i:i + DECODE_BATCH])]
+    check(all(all(np.array_equal(a[k], b[k]) for k in ("boxes", "scores", "classes"))
+              for a, b in zip(seen, want)),
+          "predict_video's results on the H.264 clip differ from predict_batch")
+    held = kernel_vs_plain_recorded(recorded)
+    check(held["mismatches"] == 0 and launches == held["calls"] == -(-n // DECODE_BATCH),
+          f"predict_video (H.264): {launches} launches, {held}")
+    return {"videos": len(videos), "readers": readers, "frames": frames_total,
+            "videos_equal_to_manifest_digests": digests_equal,
+            "slowfast": {"clips": len(ds), "loader_eval_s": eval_s, "launches": slowfast_launches},
+            "predict_video": {"file": CV2_PREDICT_VIDEO, "frames": n, "fps": n / seconds,
+                              "launches": launches, "nms_vs_plain": held},
+            "launches": {"cv2_parity_predict_video": launches,
+                         "video_clip_loader_slowfast_eval_cv2": slowfast_launches},
+            "mismatches": held["mismatches"]}
+
+
+def cv2_parity(dev, det: Detector, model: YOLOv3, anchors: np.ndarray, slowfast, eval_step,
+               workdir: str) -> dict:
+    """Every image and video read as the JAX package's cv2 calls read them,
+    with cv2 importable (the card's host has it): (a) - (c) above."""
+    t0 = time.perf_counter()
+    try:
+        import cv2
+    except ImportError:
+        check(False, "cv2 does not import on this machine: the cv2-parity block needs it")
+    images = check_cv2_parity_images(cv2)
+    paths = cv2_parity_images(dev, det, model, anchors, workdir)
+    videos = cv2_parity_videos(cv2, slowfast, dev, eval_step, det, workdir)
+    return {"cv2": cv2.__version__, "images": images, "dataset": paths, "videos": videos,
+            "launches": {**paths["launches"], **videos["launches"]},
+            "mismatches": paths["kernel_vs_plain"]["mismatches"] + videos["mismatches"],
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     """The decode leftovers, with no cv2 call: the corpus, the
     progressive twins of bench.py's JPEG corpus, their times, and a
@@ -5512,8 +5867,6 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
                  "slowfast": mpeg4_slowfast(slowfast, dev, eval_step, workdir),
                  "cv2_importable": False}
     mpeg4_s = time.perf_counter() - t_mpeg4
-    del slowfast
-    torch.cuda.empty_cache()
 
     anchors = COCO_ANCHORS.reshape(3, 3, 2)[::-1].copy()
     model = yolo_model()
@@ -5547,6 +5900,9 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
     mpeg4["seconds"] = mpeg4_s + time.perf_counter() - t_mpeg4
     with cv2_blocked():
         rare = rare_jpeg(dev, det, model, anchors, workdir)
+    parity = cv2_parity(dev, det, model, anchors, slowfast, eval_step, workdir)
+    del slowfast
+    torch.cuda.empty_cache()
     boxes, scores, iou = recorded[-1]
     keep = suppression_mask_cuda(boxes, scores, iou)
     bound_ms, bound_by, work = nms_bound(boxes, scores, keep)
@@ -5565,22 +5921,25 @@ def phase_decode(dev: torch.device, smi: str, workdir: str) -> dict:
                    "predict_video_fps": DECODE_AVI_FRAMES / predict_video_s,
                    "predict_video_s": predict_video_s, "detections": detections},
            "annotated_video": writer["report"], "mpeg4": mpeg4, "rare_jpeg": rare,
+           "cv2_parity": parity,
            "nms_kernel_predict_video": nms, "kernel_vs_plain": kernel,
            "launches": {"detector_predict_video": video_launches,
                         "detector_predict_video_out_path": writer["launches"],
                         "detector_predict_video_mpeg4": mpeg4["predict_video"]["launches"],
                         "video_clip_loader_slowfast_eval": slowfast_launches,
                         "video_clip_loader_slowfast_eval_mpeg4": mpeg4["slowfast"]["launches"],
-                        **rare["launches"]},
+                        **rare["launches"], **parity["launches"]},
            "host_cpus": os.cpu_count(), "seconds": time.perf_counter() - t_phase}
     emit("decode", card=smi, **out)
     del det, model
     torch.cuda.empty_cache()
     return {"launches": out["launches"],
-            "zero": ["video_clip_loader_slowfast_eval", "video_clip_loader_slowfast_eval_mpeg4"],
+            "zero": ["video_clip_loader_slowfast_eval", "video_clip_loader_slowfast_eval_mpeg4",
+                     "video_clip_loader_slowfast_eval_cv2"],
             "mismatches": (kernel["mismatches"] + writer["mismatches"]
                            + mpeg4["predict_video"]["mismatches"]
-                           + rare["kernel_vs_plain"]["mismatches"]), "kernel": nms}
+                           + rare["kernel_vs_plain"]["mismatches"] + parity["mismatches"]),
+            "kernel": nms}
 
 
 PAR_VAL_IMAGES = 32  # one validation batch of 32 per epoch

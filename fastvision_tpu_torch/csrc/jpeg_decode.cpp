@@ -33,14 +33,24 @@
 // CMYK four. YCbCr-tagged, YCCK and gray lossless files fail (libjpeg-turbo
 // converts no colour in lossless mode, so cv2 returns no image either), as
 // do 12-bit DCT data and lossless above 8 bits, hierarchical, SOF11 / SOF15
-// and DNL, for none of which cv2 5.0 returns an image. The reduced decodes of a
+// and a frame whose height is left to a DNL marker, for none of which cv2
+// 5.0 returns an image (a DNL segment elsewhere is skipped, as jdmarker.c
+// skips it). The reduced decodes of a
 // lossless file are full size (libjpeg does not scale it); the fused I420
 // decode refuses it, as the JAX package's libjpeg 2.1.5 does.
 //
-// Every truncated stream, every bad Huffman or arithmetic code (where
-// libjpeg would warn and go on) and every other corrupt stream fails with a
-// message; nothing returns a partial image. An arithmetic decoder that meets
-// a marker reads zeros from there on, which T.81 allows and jdarith.c does.
+// The end of the data follows the route's source (Decoder's `route`):
+// cv2.imdecode's suspends, so a read past the end fails (a one-pass scan's
+// libjpeg fills are followed to know where); cv2.imread's and jpeg_mem_src
+// insert a fake EOI, so a truncated scan is finished from zero bits and what
+// the scans read is decoded. Corrupt data is recovered from as libjpeg does:
+// a bad Huffman code reads as symbol 0 (17 bits dropped), a scan that runs
+// into a marker finishes its MCU on zero bits and leaves the rest of the
+// restart interval as it is, a bad arithmetic code leaves the rest of the
+// restart interval (jdarith.c's ct = -1), a restart marker out of place goes
+// through jpeg_resync_to_restart, and an arithmetic decoder that meets a
+// marker reads zeros from there on, which T.81 allows and jdarith.c does.
+// What libjpeg refuses (ERREXIT) fails with a message.
 //
 // The pixels are libjpeg-turbo's defaults, bit for bit: the ISLOW integer
 // IDCT (jidctint.c: 13-bit constants, DESCALE rounding; the output clamped
@@ -104,6 +114,12 @@ struct DecodeError {
 }
 
 constexpr const char* kItem = "(ROADMAP Queue 1, item 11)";
+// the end-of-data rules of the three routes (see Decoder)
+constexpr int kMemory = 0, kFile = 1, kFused = 2;
+// The fake EOI repeats (FF D9 FF D9 ...): a marker segment that ends an odd
+// number of bytes past the end leaves its D9, which the entropy decoder
+// reads as a data byte before the next FF D9.
+constexpr uint8_t kOddTail[1] = {0xD9};
 // the kinds libjpeg-turbo 3.1 refuses, so cv2 5.0's imdecode returns None for them
 constexpr const char* kNoCv2 = "cv2 5.0 returns no image for it either";
 // the largest image taken: OpenCV's default CV_IO_MAX_IMAGE_PIXELS
@@ -210,32 +226,45 @@ const StandardTables& standard_tables() {
   return t;
 }
 
-// Entropy-coded data: byte stuffing removed, a marker or the end of the
-// data feeds zero bits, and consuming one of those is a truncation.
+// Entropy-coded data: byte stuffing removed (an 0xFF run before 0x00 is
+// one 0xFF byte, as jdhuff.c's jpeg_fill_bit_buffer reads it), a marker
+// feeds zero bits. Where `eoi_at_end` the end of the data reads as a marker
+// too (the fake EOI that libjpeg's stdio and memory sources insert: cv2.imread
+// and jpeg_mem_src); otherwise reading past the end is a truncation
+// (cv2.imdecode's source suspends and cv2 returns no image). Consuming a zero
+// bit past a marker sets `insufficient` (jdhuff.c's insufficient_data): the
+// MCU in hand is finished on zero bits, the later ones of the restart
+// interval are left as they are.
 struct Bits {
   const uint8_t* p;
   const uint8_t* end;
+  bool eoi_at_end = false;
   uint64_t acc = 0;
   int n = 0;    // bits in acc
   int pad = 0;  // zero bits appended past the data, at the low end of acc
   bool at_marker = false;
+  bool insufficient = false;
 
   void fill() {
     while (n <= 56) {
       unsigned byte = 0;
-      if (!at_marker && p < end) {
-        if (*p != 0xFF) {
+      if (!at_marker) {
+        if (p < end && *p != 0xFF) {
           byte = *p++;
-        } else if (p + 1 < end && p[1] == 0x00) {
-          byte = 0xFF;
-          p += 2;
         } else {
-          at_marker = true;  // p stays on the marker's 0xFF
-          pad += 8;
+          const uint8_t* q = p < end ? p + 1 : end;
+          while (q < end && *q == 0xFF) ++q;
+          if (q < end && *q == 0x00) {  // a stuffed 0xFF
+            byte = 0xFF;
+            p = q + 1;
+          } else if (q >= end && !eoi_at_end && !shadow) {
+            fail("truncated JPEG data: the entropy-coded segment ends early, with no EOI marker");
+          } else {
+            at_marker = true;  // p stays on the marker's first 0xFF (or at the end)
+          }
         }
-      } else {
-        pad += 8;
       }
+      if (at_marker) pad += 8;
       acc = (acc << 8) | byte;
       n += 8;
     }
@@ -246,25 +275,127 @@ struct Bits {
   }
   void skip(int k) {
     n -= k;
-    if (n < pad) fail("truncated JPEG data: the entropy-coded segment ends early");
+    if (n < pad) {
+      insufficient = true;
+      pad = n;
+    }
+  }
+  void skip_code(int k) {
+    if (shadow) reads.push_back(int8_t(k));
+    skip(k);
   }
   int get(int k) {
     uint32_t v = peek(k);
+    if (shadow) reads.push_back(int8_t(-k));
     skip(k);
     return static_cast<int>(v);
   }
-  void reset(const uint8_t* q) {
+
+  // cv2.imdecode's one-pass decode fails only where libjpeg's own bit buffer
+  // asks its source for a byte past the end (a scan without a marker after
+  // it may still decode). `shadow` follows that buffer (jdhuff.c: 64 bits,
+  // refilled to 57; decode_mcu_fast where no restart interval is set and
+  // 512 bytes an MCU block remain, decode_mcu_slow otherwise) over each
+  // MCU's reads: code lengths (> 0) and extra bits (< 0).
+  bool shadow = false;
+  std::vector<int8_t> reads;
+  const uint8_t* lp = nullptr;
+  int lbits = 0;
+  bool lmarker = false;
+
+  void shadow_reset(const uint8_t* q, bool unread) {
+    lp = q;
+    lbits = 0;
+    lmarker = unread;
+  }
+  void lfill(int nbits) {  // jpeg_fill_bit_buffer
+    while (!lmarker && lbits < 57) {
+      if (lp >= end) fail("truncated JPEG data: the entropy-coded segment ends early");
+      int c = *lp++;
+      if (c == 0xFF) {
+        do {
+          if (lp >= end) fail("truncated JPEG data: the entropy-coded segment ends early");
+          c = *lp++;
+        } while (c == 0xFF);
+        if (c != 0) lmarker = true;
+      }
+      if (!lmarker) lbits += 8;
+    }
+    if (lmarker && nbits > lbits) lbits = 57;
+  }
+  bool lfill_fast() {  // FILL_BIT_BUFFER_FAST; true where it met a marker
+    bool marker = false;
+    if (lbits <= 16)
+      for (int i = 0; i < 6; ++i) {
+        const int c0 = *lp++, c1 = *lp;
+        lbits += 8;
+        if (c0 == 0xFF) {
+          ++lp;
+          if (c1 != 0) {
+            marker = true;
+            lp -= 2;
+          }
+        }
+      }
+    return marker;
+  }
+  void shadow_mcu(int blocks, bool restarts) {
+    if (!restarts && !lmarker && end - lp >= 512 * blocks) {
+      const uint8_t* p0 = lp;
+      const int b0 = lbits;
+      bool marker = false;
+      for (int r : reads) {
+        marker = lfill_fast() || marker;
+        lbits -= r > 0 ? r : -r;
+      }
+      reads.clear();
+      if (!marker) return;
+      lp = p0;  // decode_mcu_fast met a marker: decode_mcu_slow does the MCU again
+      lbits = b0;
+      return shadow_mcu(blocks, true);
+    }
+    for (int r : reads) {
+      if (r < 0) {  // CHECK_BIT_BUFFER, GET_BITS
+        if (lbits < -r) lfill(-r);
+        lbits += r;
+        continue;
+      }
+      // HUFF_DECODE: the 8-bit lookahead, else jpeg_huff_decode from 9 bits
+      // (from 1 where the buffer holds fewer than 8 after a fill)
+      bool lookahead = true;
+      if (lbits < 8) {
+        lfill(0);
+        lookahead = lbits >= 8;
+      }
+      if (lookahead && r <= 8) {
+        lbits -= r;
+        continue;
+      }
+      const int min_bits = lookahead ? 9 : 1;
+      if (lbits < min_bits) lfill(min_bits);
+      lbits -= min_bits;
+      for (int l = min_bits; l < r; ++l) {
+        if (lbits < 1) lfill(1);
+        --lbits;
+      }
+    }
+    reads.clear();
+  }
+  // resume at q: on data, or (unread) on a marker left for the next restart
+  void reset(const uint8_t* q, bool unread = false) {
     p = q;
     acc = 0;
     n = pad = 0;
-    at_marker = false;
+    at_marker = unread;
   }
 };
 
+// jdhuff.c's jpeg_huff_decode: a code matching no symbol after 16 bits is a
+// warning; the 17 bits read are dropped and the symbol is 0
 inline int decode_symbol(Bits& b, const Huffman& h) {
   uint16_t e = h.fast[b.peek(9)];
   if (e) {
-    b.skip(e >> 8);
+    b.skip_code(e >> 8);
     return e & 255;
   }
   uint32_t code16 = b.peek(16);
@@ -273,11 +404,13 @@ inline int decode_symbol(Bits& b, const Huffman& h) {
     if (c <= h.maxcode[len]) {
       int i = h.valoff[len] + c;
       if (i < 0 || i >= h.nvals) break;
-      b.skip(len);
+      b.skip_code(len);
       return h.vals[i];
     }
   }
-  fail("corrupt JPEG data: bad Huffman code");
+  b.peek(17);
+  b.skip_code(17);
+  return 0;
 }
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
@@ -323,28 +456,37 @@ constexpr int kFixedBin = 113;
 
 // The decoder's registers (D.2: C, A, CT) over entropy-coded data. A marker
 // (or 0xFF fill bytes before one) stops the input: zeros are fed from there,
-// and the reader stays on the marker. Running out of data without a marker
-// is a truncation (libjpeg warns of a premature end and feeds zeros).
+// and the reader stays on the marker. The end of the data is a marker where
+// `eoi_at_end` (the sources' fake EOI), else a truncation (jdarith.c's
+// get_byte cannot suspend). `dead` is jdarith.c's ct == -1 after a bad code:
+// nothing more is decoded until the next restart.
 struct Arith {
   const uint8_t* p;
   const uint8_t* end;
+  bool eoi_at_end = false;
   int64_t c = 0, a = 0;
   int ct = -16;  // -16: the two initial bytes are still to come
   bool at_marker = false;
+  bool dead = false;
 
-  void reset(const uint8_t* q) {
+  void reset(const uint8_t* q, bool unread = false) {
     p = q;
     c = a = 0;
     ct = -16;
-    at_marker = false;
+    at_marker = unread;
+    dead = false;
   }
   int next_byte() {
     if (at_marker) return 0;
-    if (p >= end) fail("truncated JPEG data: the arithmetic-coded segment ends early");
-    if (*p != 0xFF) return *p++;
-    const uint8_t* q = p + 1;
+    const uint8_t* q = p < end && *p == 0xFF ? p + 1 : p;
     while (q < end && *q == 0xFF) ++q;  // fill bytes
-    if (q >= end) fail("truncated JPEG data: the arithmetic-coded segment ends early");
+    if (q >= end) {
+      if (!eoi_at_end)
+        fail("truncated JPEG data: the arithmetic-coded segment ends early, with no EOI marker");
+      at_marker = true;
+      return 0;
+    }
+    if (q == p) return *p++;
     if (*q == 0x00) {  // a stuffed 0xFF
       p = q + 1;
       return 0xFF;
@@ -417,6 +559,8 @@ struct Component {
   uint16_t qraw[64];  // the same table as stored, which block smoothing divides by
   int coef_bits[64];  // progressive: each coefficient's point transform Al so far, -1 while
                       // no scan has coded it (jdinput.c's coef_bits)
+  int prev_bits[10];  // coefficients 1-9's coef_bits before the last scan of this component
+                      // (jdphuff.c's second half of coef_bits; 0 at the file's first scan)
   std::vector<int16_t> coef;
   std::vector<uint8_t> plane;  // (bh * dct) x (bw * dct); lossless: bh x bw samples
 };
@@ -758,7 +902,14 @@ uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : data_(data), end_(data + n) {
+  // route: kMemory (cv2.imdecode: OpenCV's source suspends past the end of
+  // the buffer, and cv2 returns no image), kFile (cv2.imread: libjpeg's
+  // stdio source reads a fake EOI at the end) or kFused (the JAX package's
+  // fused decode: jpeg_mem_src's fake EOI, and jpeg_finish_decompress's
+  // errors are fatal)
+  Decoder(const uint8_t* data, size_t n, int route)
+      : data_(data), end_(data + n), eoi_at_end_(route != kMemory),
+        one_pass_reads_on_(route == kFused) {
     const StandardTables& t = standard_tables();
     for (int i = 0; i < 2; ++i) {
       dc_[i] = t.dc[i];
@@ -889,7 +1040,13 @@ class Decoder {
  private:
   const uint8_t* data_;
   const uint8_t* end_;
+  const bool eoi_at_end_;
   const uint8_t* p_ = nullptr;
+  int scans_ = 0;          // scans read (libjpeg's input_scan_number)
+  int last_scan_comps_ = 0;
+  bool one_pass_reads_on_;  // the fused route: markers after a one-pass scan are read to EOI
+  int last_good_row_ = 0;  // jdcoefct.c's last_good_iMCU_row: the last iMCU row an MCU of
+                           // began with data to decode
   int width_ = 0, height_ = 0;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int min_dct_ = 8, oh_ = 0, ow_ = 0;  // the smallest IDCT size; the output before orientation
@@ -906,8 +1063,21 @@ class Decoder {
   bool qdefined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
 
-  void need(const uint8_t* q, size_t k) {
-    if (q > end_ || size_t(end_ - q) < k) fail("truncated JPEG data: a marker segment ends early");
+  std::vector<uint8_t> tail_;  // a marker segment cut by the end, completed with the fake EOI
+
+  // The k bytes of a marker segment at q. Past the end of the data they are
+  // the fake EOI's (FF D9 FF D9 ...), as jdmarker.c reads them from a source
+  // that inserts one; else the segment is truncated.
+  const uint8_t* segment(const uint8_t* q, size_t k) {
+    const int64_t at = q - data_, n = end_ - data_;
+    if (at + int64_t(k) <= n) return q;
+    if (!eoi_at_end_) fail("truncated JPEG data: a marker segment ends early");
+    tail_.resize(k);
+    for (size_t i = 0; i < k; ++i) {
+      const int64_t pos = at + int64_t(i);
+      tail_[i] = pos < n ? data_[pos] : ((pos - n) % 2 ? 0xD9 : 0xFF);
+    }
+    return tail_.data();
   }
 
   // The next marker at or after q (fill bytes and extraneous data skipped).
@@ -924,24 +1094,20 @@ class Decoder {
     p_ = data_ + 2;
     for (;;) {
       const uint8_t* m = next_marker(p_);
-      if (!m) {
-        if (header_only || !frame_) fail("truncated JPEG data: no frame or scan");
-        return;  // the end of the data after the scans: the check of each component decides
-      }
-      int marker = m[1];
-      p_ = m + 2;
+      if (!m && !eoi_at_end_) fail("truncated JPEG data: no EOI marker");
+      const int marker = m ? m[1] : 0xD9;  // the end of the data: the source's fake EOI
+      p_ = m ? m + 2 : end_;
       if (marker == 0xD9) {  // EOI
-        if (!frame_) fail("corrupt JPEG data: EOI before a frame");
+        if (!frame_) fail("truncated JPEG data: EOI before a frame");
+        if (header_only || scans_ == 0) fail("truncated JPEG data: EOI before a scan");
         return;
       }
       if (marker >= 0xD0 && marker <= 0xD7) continue;  // stray RSTn
       if (marker == 0x01) continue;                    // TEM
       if (marker == 0xD8) fail("corrupt JPEG data: a second SOI");
-      need(p_, 2);
-      int len = be16(p_);
+      int len = be16(segment(p_, 2));
       if (len < 2) fail("corrupt JPEG data: marker length %d", len);
-      need(p_, len);
-      const uint8_t* seg = p_ + 2;
+      const uint8_t* seg = segment(p_, len) + 2;
       int seg_len = len - 2;
       p_ += len;
       switch (marker) {
@@ -972,7 +1138,7 @@ class Decoder {
           read_dqt(seg, seg_len);
           break;
         case 0xDD:
-          if (seg_len < 2) fail("corrupt JPEG data: DRI length");
+          if (seg_len != 2) fail("corrupt JPEG data: DRI length");
           restart_interval_ = be16(seg);
           break;
         case 0xE0:
@@ -993,11 +1159,21 @@ class Decoder {
           if (header_only) return;
           read_scan(seg, seg_len);
           break;
-        case 0xDC:
-          fail("JPEG with a DNL marker is not supported: %s %s", kNoCv2, kItem);
+        case 0xDC:  // DNL: skipped (a frame without a height fails at its SOF)
+          break;
         default:
-          break;  // other APPn, COM, JPGn: skipped
+          // APPn and COM are skipped; DHP, EXP, JPGn and the reserved markers
+          // are fatal in jdmarker.c
+          if (!(marker >= 0xE0 && marker <= 0xEF) && marker != 0xFE)
+            fail("corrupt JPEG data: unknown marker 0x%02x", marker);
       }
+      // libjpeg's one-pass decode (one sequential scan of every component)
+      // reads no marker after its scan: what follows is left to
+      // jpeg_finish_decompress, whose errors cv2 ignores once the rows are
+      // out (the fused decode's are fatal)
+      if (marker == 0xDA && !one_pass_reads_on_ && scans_ == 1 && !progressive_ &&
+          last_scan_comps_ == int(comps_.size()))
+        return;
     }
   }
 
@@ -1021,7 +1197,7 @@ class Decoder {
       fail("JPEG of %d x %d exceeds %lld pixels", width_, height_, (long long)kMaxPixels);
     if (nc != 1 && nc != 3 && nc != 4)
       fail("JPEG with %d components is not supported %s", nc, kItem);
-    if (n < 6 + 3 * nc) fail("corrupt JPEG data: SOF length");
+    if (n != 6 + 3 * nc) fail("corrupt JPEG data: SOF length");
     comps_.resize(nc);
     for (int i = 0; i < nc; ++i) {
       Component& c = comps_[i];
@@ -1243,7 +1419,10 @@ class Decoder {
   }
 
   // ---- arithmetic block decoders (jdarith.c; F.2.4 with the statistics of F.1.4.4) ----
-  [[noreturn]] static void bad_arith_code() { fail("corrupt JPEG data: bad arithmetic code"); }
+  // jdarith.c's JWRN_ARITH_BAD_CODE: the block keeps what was decoded, the
+  // rest of the MCU and of the restart interval is left as it is
+  struct ArithBadCode {};
+  [[noreturn]] static void bad_arith_code() { throw ArithBadCode{}; }
 
   // decode_mcu_DC_first, and the DC part of the sequential decode_mcu (Al 0)
   void arith_dc_first(Arith& ar, Component& c, int16_t* blk, int al) {
@@ -1351,10 +1530,48 @@ class Decoder {
     }
   }
 
+  // Where the entropy decoder resumes after a restart: on the data after
+  // the marker, or (unread) on a marker it leaves for later, which it reads
+  // as an empty segment.
+  struct Resume {
+    const uint8_t* at;
+    bool unread;
+  };
+
+  // The first marker at or after q, or the end of the data read as the
+  // source's fake EOI (nullptr); the end fails where nothing is inserted.
+  const uint8_t* marker_or_eoi(const uint8_t* q) {
+    if (q == kOddTail || q == kOddTail + 1) return nullptr;
+    const uint8_t* m = next_marker(q);
+    if (!m && !eoi_at_end_) fail("truncated JPEG data: no marker after a restart interval");
+    return m;
+  }
+
+  // jdmarker.c's read_restart_marker: the expected RSTn is swallowed; any
+  // other marker goes to jpeg_resync_to_restart, whose action depends on
+  // its distance from the expected one: 1 discard it and go on, 2 scan on to
+  // the next marker and decide again, 3 leave it unread (an empty segment)
+  Resume restart(const uint8_t* q, int desired) {
+    const uint8_t* m = marker_or_eoi(q);
+    for (;;) {
+      const int marker = m ? m[1] : 0xD9;
+      int action = 1;  // (the expected marker among them)
+      if (marker < 0xC0) action = 2;
+      else if (marker < 0xD0 || marker > 0xD7) action = 3;
+      else if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7))
+        action = 3;
+      else if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7))
+        action = 2;
+      if (action == 1) return {m + 2, false};
+      if (action == 3) return {m ? m : end_, true};
+      m = marker_or_eoi(m + 2);
+    }
+  }
+
   void read_scan(const uint8_t* s, int n) {
     if (n < 1) fail("corrupt JPEG data: SOS length");
     int ns = s[0];
-    if (ns < 1 || ns > 4 || n < 4 + 2 * ns) fail("corrupt JPEG data: SOS length");
+    if (ns < 1 || ns > 4 || n != 4 + 2 * ns) fail("corrupt JPEG data: SOS length");
     const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
               al = s[3 + 2 * ns] & 15;
     if (lossless_) {  // jdlossls.c: Ss selects the predictor, Al is the point transform
@@ -1364,10 +1581,7 @@ class Decoder {
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
       if (bad) fail("corrupt JPEG data: progressive scan Ss %d Se %d Ah %d Al %d", ss, se, ah, al);
-    } else if (!arith_ && (ss != 0 || se != 63 || ah != 0 || al != 0)) {
-      // (jdarith.c only warns here, and decodes coefficients 0-63 all the same)
-      fail("corrupt JPEG data: spectral selection %d-%d in a sequential scan", ss, se);
-    }
+    }  // (a sequential scan's Ss, Se, Ah and Al are only warned of: coefficients 0-63 are decoded)
     // the tables this kind of scan reads (jdhuff.c and jdarith.c: both;
     // jdphuff.c and jdarith.c: the first DC scan its DC table, an AC scan its
     // AC table, a DC refinement none; jdlhuff.c: the DC table)
@@ -1408,18 +1622,29 @@ class Decoder {
       }
       c->coded = true;
       c->dc_pred = c->dc_context = 0;
-      if (progressive_)  // out-of-order refinements are only warnings in libjpeg
+      if (progressive_) {  // out-of-order refinements are only warnings in libjpeg
+        for (int k = 1; k < 10; ++k) c->prev_bits[k] = scans_ > 0 ? c->coef_bits[k] : 0;
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      }
       sc.push_back(c);
     }
     eobrun_ = 0;
+    ++scans_;
+    last_scan_comps_ = ns;
     if (lossless_) return scan_lossless(sc, ss, al);
 
     // the entropy decoder: Huffman (jdhuff.c, jdphuff.c) or arithmetic
     // (jdarith.c), each writing the same coefficient store
-    Bits bits{p_, end_};
-    Arith ar{p_, end_};
+    const bool odd = p_ > end_ && (p_ - end_) % 2;
+    Bits bits{odd ? kOddTail : p_, odd ? kOddTail + 1 : end_, eoi_at_end_};
+    Arith ar{bits.p, bits.end, eoi_at_end_};
     if (arith_) reset_arith(sc, uses_dc, uses_ac);
+    // a one-pass scan on the memory route: its end is decided by libjpeg's fills
+    bits.shadow = !eoi_at_end_ && !arith_ && !progressive_ && !one_pass_reads_on_ &&
+                  scans_ == 1 && ns == int(comps_.size());
+    bits.shadow_reset(bits.p, false);
+    int mcu_blocks = 0;
+    for (auto* c : sc) mcu_blocks += ns == 1 ? 1 : c->h * c->v;
     int64_t total;
     int nbx = 0;
     if (ns == 1) {
@@ -1454,34 +1679,50 @@ class Decoder {
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval_ && m > 0 && m % restart_interval_ == 0) {
-        const uint8_t* q = next_marker(arith_ ? ar.p : bits.p);
-        if (!q || q[1] != 0xD0 + next_rst)
-          fail("corrupt JPEG data: expected restart marker %d", next_rst);
+        const Resume r = restart(arith_ ? ar.p : bits.p, next_rst);
         next_rst = (next_rst + 1) & 7;
         for (auto* c : sc) c->dc_pred = 0;
         eobrun_ = 0;
         if (arith_) {
-          ar.reset(q + 2);
+          ar.reset(r.at, r.unread);
           reset_arith(sc, uses_dc, uses_ac);
         } else {
-          bits.reset(q + 2);
+          bits.reset(r.at, r.unread);
+          bits.shadow_reset(r.at, r.unread);
+          if (!r.unread) bits.insufficient = false;
         }
       }
+      // out of data or past a bad arithmetic code: the MCU is left as it is
+      // (jdarith.c leaves insufficient_data unset: its rows all count as good)
+      const int row = ns == 1 ? int(m / nbx) / sc[0]->v : int(m / mcux_);
+      if (!bits.insufficient) last_good_row_ = row;
+      if (arith_ ? ar.dead : bits.insufficient) continue;
       if (ns == 1) {
         Component& c = *sc[0];
         int by = int(m / nbx), bx = int(m % nbx);
-        unit(c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+        try {
+          unit(c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+        } catch (const ArithBadCode&) {
+          ar.dead = true;
+        }
+        if (bits.shadow) bits.shadow_mcu(mcu_blocks, restart_interval_ != 0);
       } else {
         int my = int(m / mcux_), mx = int(m % mcux_);
-        for (auto* c : sc)
-          for (int y = 0; y < c->v; ++y)
-            for (int x = 0; x < c->h; ++x) {
-              size_t by = size_t(my) * c->v + y, bx = size_t(mx) * c->h + x;
-              unit(*c, &c->coef[(by * c->bw + bx) * 64]);
-            }
+        try {
+          for (auto* c : sc)
+            for (int y = 0; y < c->v; ++y)
+              for (int x = 0; x < c->h; ++x) {
+                size_t by = size_t(my) * c->v + y, bx = size_t(mx) * c->h + x;
+                unit(*c, &c->coef[(by * c->bw + bx) * 64]);
+              }
+        } catch (const ArithBadCode&) {
+          ar.dead = true;
+        }
+        if (bits.shadow) bits.shadow_mcu(mcu_blocks, restart_interval_ != 0);
       }
     }
     p_ = arith_ ? ar.p : bits.p;  // the marker parser finds what follows the entropy-coded data
+    if (p_ == kOddTail || p_ == kOddTail + 1) p_ = end_;
   }
 
   // ---- lossless (jddiffct.c over jdlhuff.c's differences and jdlossls.c's undifferencing) ----
@@ -1547,22 +1788,33 @@ class Decoder {
     auto rows_in = [&](const Component& c, bool last) {  // libjpeg's last_row_height
       return last && c.ch % c.v ? c.ch % c.v : c.v;
     };
-    Bits bits{p_, end_};
+    const bool odd = p_ > end_ && (p_ - end_) % 2;
+    Bits bits{odd ? kOddTail : p_, odd ? kOddTail + 1 : end_, eoi_at_end_};
     int rows_to_go = restart_rows, next_rst = 0;
     for (int r = 0; r < mcuy_; ++r) {
       const bool last = r == mcuy_ - 1;
       const int mcu_rows = ns > 1 ? 1 : rows_in(*sc[0], last);
       for (int y = 0; y < mcu_rows; ++y) {
         if (restart_interval_ && rows_to_go == 0) {
-          const uint8_t* q = next_marker(bits.p);
-          if (!q || q[1] != 0xD0 + next_rst)
-            fail("corrupt JPEG data: expected restart marker %d", next_rst);
-          bits.reset(q + 2);
+          const Resume rs = restart(bits.p, next_rst);
+          bits.reset(rs.at, rs.unread);
+          if (!rs.unread) bits.insufficient = false;
           next_rst = (next_rst + 1) & 7;
           rows_to_go = restart_rows;
           std::fill(first.begin(), first.end(), 1);
         }
-        for (int mx = 0; mx < per_row; ++mx) {
+        // jdlhuff.c: out of data, the row's differences are left zero
+        const bool skip = bits.insufficient;
+        for (int mx = 0; mx < per_row && skip; ++mx) {
+          for (int i = 0; i < ns; ++i) {
+            const Component& c = *sc[i];
+            const int rows = ns == 1 ? 1 : c.v, cols = ns == 1 ? 1 : c.h;
+            for (int yy = 0; yy < rows; ++yy)
+              for (int xx = 0; xx < cols; ++xx)
+                diff[i][size_t(ns == 1 ? y : yy) * width[i] + mx * cols + xx] = 0;
+          }
+        }
+        for (int mx = 0; mx < per_row && !skip; ++mx) {
           if (ns == 1) {
             diff[0][size_t(y) * width[0] + mx] = decode_difference(bits, dc_[sc[0]->td]);
             continue;
@@ -1588,7 +1840,7 @@ class Decoder {
         }
       }
     }
-    p_ = bits.p;
+    p_ = bits.p == kOddTail || bits.p == kOddTail + 1 ? end_ : bits.p;
   }
 
   static int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -1598,8 +1850,15 @@ class Decoder {
   // doubled for a subsampled component while its upsampling ratio allows).
   void decode_planes(int denom) {
     parse(false);
-    for (auto& c : comps_)
-      if (!c.coded) fail("truncated JPEG data: component %d has no scan", c.id);
+    for (auto& c : comps_) {
+      if (c.coded) continue;
+      // an EOI before this component's first scan: libjpeg's pre-zeroed
+      // coefficients, so a flat 128 (a lossless plane has no such default)
+      if (lossless_) fail("truncated JPEG data: component %d has no scan", c.id);
+      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      std::fill(c.qt, c.qt + 64, int16_t(0));
+      std::fill(c.qraw, c.qraw + 64, uint16_t(0));
+    }
     if (lossless_) {  // the scans wrote the planes; a 1 x 1 "IDCT" at any scale
       min_dct_ = 1;
       oh_ = height_;
@@ -1642,6 +1901,7 @@ class Decoder {
     if (!progressive_) return false;
     bool useful = false;
     for (const auto& c : comps_) {
+      if (!c.coded) return false;  // no quantization table latched
       for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
         if (c.qraw[pos] == 0) return false;
       if (c.coef_bits[0] < 0) return false;
@@ -1661,9 +1921,11 @@ class Decoder {
   void idct_smoothed(Component& c, IdctFn idct) {
     const int ss = c.dct, stride = c.bw * ss;
     const int wib = (c.cw + 7) / 8, hib = (c.ch + 7) / 8, total = mcuy_, last = total - 1;
-    const int* cb = c.coef_bits;
-    bool change_dc = true;
-    for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
+    // an iMCU row past the last one with data (a scan cut short) is
+    // smoothed by the coef_bits from before that scan (jdcoefct.c's
+    // prev_coef_bits_latch; -1 where the file has one scan)
+    int prev[10] = {0};
+    for (int k = 1; k < 10; ++k) prev[k] = scans_ > 1 ? c.prev_bits[k] : -1;
     const int64_t Q00 = c.qraw[0], Q01 = c.qraw[1], Q10 = c.qraw[8], Q20 = c.qraw[16],
                   Q11 = c.qraw[9], Q02 = c.qraw[2], Q03 = c.qraw[3], Q12 = c.qraw[10],
                   Q21 = c.qraw[17], Q30 = c.qraw[24];
@@ -1676,6 +1938,9 @@ class Decoder {
     };
     int16_t ws[64];
     for (int r = 0; r < total; ++r) {
+      const int* cb = r > last_good_row_ ? prev : c.coef_bits;
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
       const int block_rows = r < last ? c.v : (hib % c.v ? hib % c.v : c.v);
       const int image_block_rows = block_rows * total;
       for (int br = 0; br < block_rows; ++br) {
@@ -1868,12 +2133,13 @@ int report(const char* msg, char* err, int errlen) {
 
 extern "C" {
 
-int fvj_dims_reduced(const uint8_t* data, int64_t n, int denom, int32_t* dims, char* err,
-                     int errlen) {
+int fvj_dims_reduced(const uint8_t* data, int64_t n, int route, int denom, int32_t* dims,
+                     char* err, int errlen) {
   try {
     if (denom != 1 && denom != 2 && denom != 4 && denom != 8)
       return report("the reduction must be 1, 2, 4 or 8", err, errlen);
-    Decoder d(data, size_t(n));
+    if (route < kMemory || route > kFused) return report("the route must be 0, 1 or 2", err, errlen);
+    Decoder d(data, size_t(n), route);
     d.read_header();
     dims[0] = d.out_h(denom);
     dims[1] = d.out_w(denom);
@@ -1885,16 +2151,17 @@ int fvj_dims_reduced(const uint8_t* data, int64_t n, int denom, int32_t* dims, c
   }
 }
 
-int fvj_decode_reduced(const uint8_t* data, int64_t n, int denom, uint8_t* out, int64_t out_bytes,
-                       char* err, int errlen) {
+int fvj_decode_reduced(const uint8_t* data, int64_t n, int route, int denom, uint8_t* out,
+                       int64_t out_bytes, char* err, int errlen) {
   try {
     if (denom != 1 && denom != 2 && denom != 4 && denom != 8)
       return report("the reduction must be 1, 2, 4 or 8", err, errlen);
-    Decoder d(data, size_t(n));
+    if (route < kMemory || route > kFused) return report("the route must be 0, 1 or 2", err, errlen);
+    Decoder d(data, size_t(n), route);
     d.read_header();
     if (int64_t(d.out_h(denom)) * d.out_w(denom) * 3 != out_bytes)
       return report("output buffer does not match the image size", err, errlen);
-    Decoder full(data, size_t(n));
+    Decoder full(data, size_t(n), route);
     full.decode(out, denom);
     return 0;
   } catch (const DecodeError& e) {
@@ -1904,7 +2171,8 @@ int fvj_decode_reduced(const uint8_t* data, int64_t n, int denom, uint8_t* out, 
   }
 }
 
-int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int out_size, uint8_t pad_y,
+int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int route, int out_size,
+                              uint8_t pad_y,
                               int reduce_target, uint8_t* out, float* scale, int32_t* pads,
                               int32_t* dims, char* err, int errlen) {
   try {
@@ -1912,7 +2180,11 @@ int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int out_size, uint
       report("the I420 size must be even and at least 2", err, errlen);
       return 2;
     }
-    Decoder d(data, size_t(n));
+    if (route < kMemory || route > kFused) {
+      report("the route must be 0, 1 or 2", err, errlen);
+      return 2;
+    }
+    Decoder d(data, size_t(n), route);
     d.read_header();
     if (d.lossless()) {  // libjpeg 2.1.5, which the JAX package's fused decode links, refuses SOF3
       report("lossless JPEG is not taken by the fused I420 decode: it has no DCT planes, and the "
@@ -1921,7 +2193,7 @@ int fvj_decode_i420_letterbox(const uint8_t* data, int64_t n, int out_size, uint
       return 2;
     }
     if (!d.i420_eligible()) return 1;
-    Decoder full(data, size_t(n));
+    Decoder full(data, size_t(n), route);
     full.decode_i420(out_size, pad_y, d.reduction(reduce_target), out, scale, pads, dims);
     return 0;
   } catch (const DecodeError& e) {

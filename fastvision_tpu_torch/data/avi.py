@@ -3,12 +3,18 @@ as `codec` is its counterpart of ``cv2.imdecode``. AVI files are read
 here: Motion-JPEG (`MJPEGAvi`) and MPEG-4 Part 2 (XviD, DivX, FMP4 and the
 other FourCCs FFmpeg gives its ``mpeg4`` decoder, `mpeg4.MPEG4_FOURCCS`,
 read by `mpeg4.Mpeg4Video`); ``.mp4`` / ``.mov`` / ``.m4v`` files go to
-`mp4.open_mp4`. MPEG-4 Part 2 is never handed to cv2, installed or not: a
-feature the decoder does not port raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 11, and a stream that does not decode ValueError.
-Other codecs in those containers (H.264, MS-MPEG4 ``DIV3`` / ``MP43``,
-...) and other containers (``.mkv``, ``.webm``) are read through cv2,
-imported where it is called; where cv2 is absent those raise
+`mp4.open_mp4`. The port's readers decode those files on every machine;
+a stream that does not decode raises ValueError, which never goes to cv2.
+What they do not port goes to cv2's ``VideoCapture`` where cv2 imports, as
+the JAX package reads every video: other codecs in those containers
+(H.264, MS-MPEG4 ``DIV3`` / ``MP43``, ...), other containers (``.mkv``,
+``.webm``), and the files the port's readers refuse with
+``NotImplementedError`` (a fragmented MP4, an edit list that cuts frames,
+the MPEG-4 tools and encoder builds `mpeg4` does not port, seeks in an AVI
+whose first chunk is empty): at open where the headers show it, else from
+the read that meets it on (`mpeg4.Mpeg4Video`; the port's frames and their
+numbering are cv2's, so the clip stays whole). Each reader's ``reader``
+says which decodes it ("port" or "cv2"). Where cv2 is absent those raise
 ``NotImplementedError`` naming item 11 and the codec, and never return a
 black clip.
 
@@ -28,7 +34,8 @@ it names, lists them, else ``movi`` is walked once. OpenDML files (over 1
 GB) continue in ``RIFF AVIX`` parts, whose ``movi`` lists are walked after
 the first part's frames. A Motion-JPEG frame's bytes go through
 `codec.decode_image` (a frame without Huffman tables gets the standard
-ones); an MPEG-4 stream's chunks are its samples in decode order.
+ones; one cut short, or without its EOI, raises as cv2.imdecode gives no
+image for it); an MPEG-4 stream's chunks are its samples in decode order.
 
 What cv2 5.0.0 (its FFmpeg backend) does, and so what the readers do:
 
@@ -215,6 +222,8 @@ class MJPEGAvi(AviFile):
     docstring). Raises `AviError` if the file is not a RIFF AVI, and
     `OtherCodec` if its video is not MJPEG."""
 
+    reader = "port"
+
     def __init__(self, path: str):
         super().__init__(path)
         if self.fourcc.upper() != b"MJPG":
@@ -288,11 +297,23 @@ def video_fourcc(path: str) -> str:
 class _Cv2Video:
     """A video that cv2 reads: the same calls through ``cv2.VideoCapture``."""
 
+    reader = "cv2"
+
     def __init__(self, path: str, cv2):
         self._cv2 = cv2
         self._cap = cv2.VideoCapture(path)
         self.frame_count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
         self.fps = float(self._cap.get(cv2.CAP_PROP_FPS))
+        self._next = 0  # the frame the next plain read() gets
+
+    def frame(self, i: int) -> np.ndarray | None:
+        """Frame ``i`` of a read loop: read on where the last read stopped,
+        else ``set(CAP_PROP_POS_FRAMES, i)`` first (cv2 lands there as the
+        port's readers number frames)."""
+        if i != self._next:
+            self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, int(i))
+        self._next = i + 1
+        return self._rgb(self._cap.read())
 
     def _rgb(self, ok_frame):
         ok, frame = ok_frame
@@ -300,6 +321,7 @@ class _Cv2Video:
 
     def read_at(self, i: int) -> np.ndarray | None:
         self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, int(i))
+        self._next = -1
         return self._rgb(self._cap.read())
 
     def walk_count(self) -> int:
@@ -307,9 +329,11 @@ class _Cv2Video:
         n = 0
         while self._cap.read()[0]:
             n += 1
+        self._next = -1
         return n
 
     def frames(self):
+        self._next = -1
         while True:
             frame = self._rgb(self._cap.read())
             if frame is None:
@@ -333,31 +357,51 @@ def open_avi(path: str):
                       avi.fps, avi.refusal())
 
 
+def import_cv2():
+    """cv2, or None where it cannot be imported."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
 def open_video(path: str):
     """A reader for ``path``: the port's for AVI (Motion-JPEG and MPEG-4
     Part 2) and for ``.mp4`` / ``.mov`` / ``.m4v`` (MPEG-4 Part 2,
     `mp4.open_mp4`), with or without cv2; cv2's ``VideoCapture`` behind the
-    same calls for other codecs and containers. Where cv2 is absent, those
-    raise NotImplementedError naming item 11 and the codec; a missing file
-    raises FileNotFoundError."""
+    same calls for other codecs and containers, and for the files the
+    port's readers refuse at open (NotImplementedError) or would refuse to
+    seek in. Where cv2 is absent, those raise NotImplementedError naming
+    item 11 and the codec (seeks in an AVI whose first chunk is empty
+    raise ValueError when made); a missing file raises FileNotFoundError."""
     from .mp4 import is_mp4, open_mp4
 
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
+    cv2, refused = import_cv2(), None
     try:
-        return open_avi(path)
+        video = open_avi(path)
+        if video.refusal() is None or cv2 is None:
+            return video
+        video.release()
+        return _Cv2Video(path, cv2)
     except (AviError, OtherCodec):
         pass
-    if is_mp4(path):
+    except NotImplementedError as e:
+        refused = e
+    if refused is None and is_mp4(path):
         try:
             return open_mp4(path)
         except OtherCodec:
             pass
-    try:
-        import cv2
-    except ImportError:
+        except NotImplementedError as e:
+            refused = e
+    if cv2 is None:
+        if refused is not None:
+            raise refused
         raise NotImplementedError(
             f"decoding {video_fourcc(path)!r} video without cv2 is not ported {_ITEM}: "
             f"{path}; Motion-JPEG and MPEG-4 Part 2 (XviD, DivX, mp4v) in AVI, MP4 and MOV, "
-            f"and clips stored as directories of frames, are read without it") from None
+            f"and clips stored as directories of frames, are read without it")
     return _Cv2Video(path, cv2)

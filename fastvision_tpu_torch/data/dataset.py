@@ -11,10 +11,13 @@ uint8: the same sampling as cv2's ``INTER_LINEAR``, within +-1 per pixel
 (cv2 rounds with fixed-point weights). Its float kernel rounds a few pixels
 differently on one intra-op thread and on several, so the loaders run all
 their host work on one thread (`pipeline._PooledLoader`). Image files are
-read by the port's own decoders (`codec.decode_image`: JPEG, Huffman- or
-arithmetic-coded, sequential, progressive or lossless, PNG and BMP, bit-equal
-to cv2's ``IMREAD_COLOR``), so no reader needs cv2;
-``imwrite_rgb`` writes ``.bmp`` with numpy and other formats with cv2.
+read as ``cv2.imread`` reads them: JPEG (Huffman- or arithmetic-coded,
+sequential, progressive or lossless; a truncated or corrupt file decoded as
+libjpeg's stdio source decodes it), PNG and BMP by the port's own decoders
+(`codec.decode_image`'s file route, bit-equal to cv2's ``IMREAD_COLOR``),
+so no reader needs cv2 for them; any other format through ``cv2.imread``
+where cv2 imports (`codec.cv2_decode`). ``imwrite_rgb`` writes ``.bmp``
+with numpy and other formats with cv2.
 
 `imread_rgb_scaled` decodes an oversized JPEG at 1/2, 1/4 or 1/8 in the DCT
 domain (`codec.decode_jpeg_reduced`, cv2's ``IMREAD_REDUCED_COLOR_*``), and
@@ -40,8 +43,8 @@ IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
 def read_bmp(path: str) -> np.ndarray:
-    """An uncompressed 24- or 32-bit BMP file -> RGB uint8 HWC
-    (`codec.decode_bmp`). Anything else raises ValueError."""
+    """A BMP file -> RGB uint8 HWC (`codec.decode_bmp`: every kind cv2
+    reads). Anything else raises ValueError."""
     with open(path, "rb") as f:
         return decode_bmp(f.read(), path)
 
@@ -64,13 +67,15 @@ def write_bmp(path: str, image: np.ndarray) -> None:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """Decode an image file (JPEG, PNG or BMP, told apart by its bytes) ->
-    RGB uint8 HWC with `codec.decode_image`. A file it cannot decode raises
-    ValueError naming the file."""
+    """Decode an image file -> RGB uint8 HWC as ``cv2.imread(path,
+    IMREAD_COLOR)`` + BGR -> RGB (`codec.decode_image`'s file route: the
+    format told apart by its bytes; JPEG, PNG and BMP without cv2). A file
+    cv2 gives no image for raises ValueError naming the file; a format
+    only cv2 decodes, where cv2 cannot be imported, NotImplementedError."""
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_image(data)
+        return decode_image(data, path)
     except ValueError as e:
         raise ValueError(f"cannot decode image {path}: {e}") from None
 
@@ -151,7 +156,9 @@ def imread_rgb_scaled(path: str, target_size: int) -> tuple[np.ndarray, tuple[in
     (the largest such f; cv2's ``IMREAD_REDUCED_COLOR_*`` pixels, which
     are full size for a lossless JPEG). -> (RGB image, possibly reduced to
     ceil(side / f); the original (h, w) in the image's EXIF-oriented frame).
-    Other files: `imread_rgb`."""
+    A reduced decode that fails falls back to the full one, as the JAX
+    package's does. Other files: `imread_rgb`, whose shape is the original
+    (an EXIF-turned PNG's turned shape)."""
     dims = jpeg_dimensions(path) if path.lower().endswith((".jpg", ".jpeg")) else None
     if dims is not None:
         factor = next((f for f in (8, 4, 2) if max(dims) >= f * target_size), 1)
@@ -159,9 +166,9 @@ def imread_rgb_scaled(path: str, target_size: int) -> tuple[np.ndarray, tuple[in
             with open(path, "rb") as f:
                 data = f.read()
             try:
-                return decode_jpeg_reduced(data, factor), jpeg_size(data)
-            except ValueError as e:
-                raise ValueError(f"cannot decode image {path}: {e}") from None
+                return decode_jpeg_reduced(data, factor, "file"), jpeg_size(data)
+            except ValueError:
+                pass  # cv2.imread gave no reduced image: the full decode decides
     img = imread_rgb(path)
     return img, img.shape[:2]
 

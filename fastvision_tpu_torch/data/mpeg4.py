@@ -498,7 +498,16 @@ class Mpeg4Video:
       reads nothing (None); with a count of 0 or 1 a seek does not move;
     - in an AVI whose first chunk is empty the reader refuses to seek
       (``refuse_seek``), as for Motion-JPEG.
+
+    A tool the decoder does not port that only the picture data shows
+    (GMC parameters out of FFmpeg's range, DivX interlaced half-pel chroma,
+    GMC video packets with a header extension; the header-only pass at open
+    shows the rest) hands the file to cv2's ``VideoCapture`` from the read
+    that meets it on, where cv2 imports (``reader`` becomes "cv2"); else
+    that read raises NotImplementedError naming item 11.
     """
+
+    reader = "port"
 
     def __init__(self, path: str, data: bytes, samples: list[tuple[int, int]], config: bytes,
                  fourcc: str, frame_count: int, fps: float, refuse_seek: str | None = None):
@@ -523,6 +532,7 @@ class Mpeg4Video:
         self._starts = sorted((self._shown[k], k) for k in range(len(samples))
                               if k in self._shown and vop_types(self._sample(k))[:1] == "I")
         self._dec: Mpeg4Decoder | None = None
+        self._cv2 = None  # cv2's reader, after a tool the decoder does not port
         self._next_sample = 0  # the next sample the live decoder takes
         self._next_shown = 0  # the frame its next output is
         self._pos = 0  # the next frame a read gets
@@ -580,13 +590,31 @@ class Mpeg4Video:
 
     def decode(self, i: int) -> np.ndarray:
         """Frame i of the frames shown, RGB uint8 HWC."""
-        f = self.planes(i)
-        return planes_to_rgb(f.y, f.cb, f.cr)
+        if self._cv2 is None:
+            try:
+                f = self.planes(i)
+                return planes_to_rgb(f.y, f.cb, f.cr)
+            except NotImplementedError:
+                from .avi import _Cv2Video, import_cv2
+
+                cv2 = import_cv2()
+                if cv2 is None:
+                    raise
+                self._cv2, self.reader = _Cv2Video(self.path, cv2), "cv2"
+        frame = self._cv2.frame(i)
+        if frame is None:
+            raise ValueError(f"cv2 read no frame {i}: {self.path}")
+        return frame
 
     @property
     def stats(self) -> dict:
         """The decoder's counts of the stream's tools so far (`Mpeg4Decoder.stats`)."""
         return self._dec.stats if self._dec is not None else {}
+
+    def refusal(self) -> str | None:
+        """Why seeks are refused in this file (an AVI whose first chunk is
+        empty), or None."""
+        return self._refuse
 
     def _refuse_seek(self) -> None:
         if self._refuse:
@@ -621,4 +649,6 @@ class Mpeg4Video:
         if self._dec is not None:
             self._dec.close()
             self._dec = None
+        if self._cv2 is not None:
+            self._cv2.release()
         self._data = b""

@@ -1295,6 +1295,217 @@ def _exif_app1(orientation: int, little_endian: bool) -> bytes:
     return _segment(0xE1, b"Exif\x00\x00" + tiff)
 
 
+def bmp_rle(index: np.ndarray, bits: int, seed: int = 0, *, gaps: bool = True) -> bytes:
+    """Palette indices [h, w] (stored row order: the first row is the
+    file's first) -> an RLE8 (``bits`` 8) or RLE4 (4) stream with a seeded
+    mix of encoded runs, absolute blocks (odd lengths included), end-of-line
+    escapes (after a run that fills its row too) and, where ``gaps``, deltas
+    and (RLE8) an early end-of-bitmap over the pixels they skip. RLE4 deltas
+    stay on their row: cv2 drops an RLE4 delta's dy and reads RLE4's
+    end-of-bitmap as an end of line."""
+    rng = np.random.default_rng(seed)
+    h, w = index.shape
+    out = bytearray()
+    y = x = 0
+    while y < h:
+        if gaps and rng.random() < 0.04 and y < h - 1 and x < w:
+            dx, dy = int(rng.integers(0, w - x)), int(rng.integers(0, min(3, h - y)))
+            dy = dy if bits == 8 else 0
+            out += bytes([0, 2, dx, dy])
+            x, y = x + dx, y + dy
+        if gaps and bits == 8 and y == h - 1 and x > w // 2 and rng.random() < 0.5:
+            return bytes(out + b"\x00\x01")  # end of bitmap before the last pixels
+        left = w - x
+        if left == 0 or (rng.random() < 0.1 and x > 0):
+            out += b"\x00\x00"  # end of line
+            x, y = 0, y + 1
+            continue
+        n = int(rng.integers(1, min(left, 60) + 1))
+        seg = index[y, x:x + n]
+        if n >= 3 and rng.random() < 0.4:  # absolute
+            if bits == 8:
+                body = bytes(seg)
+            else:
+                pad = np.append(seg, 0).astype(np.uint8) if n % 2 else seg
+                body = bytes((pad[0::2] << 4) | pad[1::2])
+            out += bytes([0, n]) + body + (b"\x00" if len(body) % 2 else b"")
+        else:  # encoded: the segment's first (and, RLE4, second) index repeated
+            a = int(seg[0])
+            b = int(seg[1]) if n > 1 and bits == 4 else a
+            out += bytes([n, a if bits == 8 else (a << 4) | b])
+        x += n
+        if x == w and bits == 8 and rng.random() < 0.7:
+            out += b"\x00\x00"  # end of line right after a run that fills the row
+            x, y = 0, y + 1
+    return bytes(out + b"\x00\x01")
+
+
+def encode_bmp(pixels: np.ndarray, bpp: int, *, palette: np.ndarray | None = None,
+               header: int = 40, compression: int = 0, masks=None, top_down: bool = False,
+               colors_used: int = 0, data: bytes | None = None) -> bytes:
+    """A BMP of ``pixels`` stored as they are: palette indices [h, w] for
+    ``bpp`` 1-8, raw 16-bit values [h, w] for 16, BGR(X) bytes [h, w, 3|4]
+    for 24 and 32, rows in display order. ``header`` 12 (OS/2 core: 3-byte
+    palette entries), 40, or a larger size (52-124: V2-V5, the masks inside
+    it); ``compression`` 0 BI_RGB, 1 RLE8, 2 RLE4 (then ``data`` is the
+    stream, `bmp_rle`, in stored row order), 3 BI_BITFIELDS (``masks`` (r,
+    g, b), also written after the header, where cv2 reads a 16-bit file's).
+    ``palette`` [n, 3] RGB; ``colors_used`` is written as biClrUsed."""
+    h, w = pixels.shape[:2]
+    stored = pixels if top_down else pixels[::-1]
+    if data is None:
+        stride = ((w * bpp + 7) // 8 + 3) & ~3
+        rows = np.zeros((h, stride), np.uint8)
+        if bpp <= 8:
+            per = 8 // bpp
+            idx = np.zeros((h, -(-w // per) * per), np.uint8)
+            idx[:, :w] = stored
+            packed = np.zeros((h, idx.shape[1] // per), np.uint8)
+            for k in range(per):
+                packed |= (idx[:, k::per] << (8 - bpp * (k + 1))).astype(np.uint8)
+            rows[:, :packed.shape[1]] = packed
+        elif bpp == 16:
+            rows[:, :2 * w] = stored.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+        else:
+            rows[:, :w * bpp // 8] = stored.reshape(h, -1)
+        data = rows.tobytes()
+    le = lambda v, n=4: int(v).to_bytes(n, "little", signed=v < 0)  # noqa: E731
+    if header == 12:
+        info = le(12) + le(w, 2) + le(h, 2) + le(1, 2) + le(bpp, 2)
+    else:
+        info = (le(header) + le(w) + le(-h if top_down else h) + le(1, 2) + le(bpp, 2)
+                + le(compression) + le(len(data)) + le(2835) + le(2835) + le(colors_used) + le(0))
+        if header > 40:  # V2 - V5: masks, alpha mask, colour space and the rest zero
+            inner = b"".join(le(m) for m in (masks or (0, 0, 0))) + le(0) + b"sRGB"
+            info += (inner + bytes(header))[:header - 40]
+    extra = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)[:, ::-1]  # RGB -> BGR
+        if header != 12:
+            pal = np.concatenate([pal, np.zeros((len(pal), 1), np.uint8)], 1)
+        extra = pal.tobytes()
+    elif compression == 3:
+        extra = b"".join(le(m) for m in masks)
+    offset = 14 + len(info) + len(extra)
+    return b"BM" + le(offset + len(data)) + bytes(4) + le(offset) + info + extra + data
+
+
+def png_with_exif(png: bytes, orientation: int, after_idat: bool = False) -> bytes:
+    """A PNG with an eXIf chunk (little-endian TIFF, IFD0 orientation)
+    before its first IDAT, or after its last."""
+    import zlib
+
+    tiff = _exif_app1(orientation, True)[10:]
+    crc = zlib.crc32(b"eXIf" + tiff).to_bytes(4, "big")
+    chunk = len(tiff).to_bytes(4, "big") + b"eXIf" + tiff + crc
+    at = png.rindex(b"IEND") - 4 if after_idat else png.index(b"IDAT") - 4
+    return png[:at] + chunk + png[at:]
+
+
+def _flip_scan_bits(jpeg: bytes, seed: int, n: int) -> bytes:
+    """``n`` seeded bit flips in the first scan's entropy-coded data (never
+    making or breaking a 0xFF byte)."""
+    rng = np.random.default_rng(seed)
+    out = bytearray(jpeg)
+    sos = jpeg.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(jpeg[sos + 2:sos + 4], "big")
+    end = jpeg.index(b"\xff", start + 16)
+    while jpeg[end + 1] == 0x00 or 0xD0 <= jpeg[end + 1] <= 0xD7:
+        end = jpeg.index(b"\xff", end + 2)
+    done = 0
+    while done < n:
+        at = int(rng.integers(start + 4, end - 1))
+        new = out[at] ^ (1 << int(rng.integers(8)))
+        if 0xFF in (out[at], new, out[at - 1], out[at + 1]):
+            continue
+        out[at] = new
+        done += 1
+    return bytes(out)
+
+
+def cv2_parity_images(seed: int = 0) -> list[tuple[str, str, bytes]]:
+    """32 small files, one for each decode departure closed against cv2 and
+    each format handed to it: (file name, kind, bytes); kind is "jpeg",
+    "bmp", "png" (the port's decoders) or "cv2" (decoded through cv2).
+    JPEG: cut at half its length (sequential, with restarts, arithmetic),
+    without its EOI, bad Huffman codes (sequential and progressive), a bad
+    arithmetic code, restart markers out of place or dropped (Huffman and
+    arithmetic), a frame marker and extraneous bytes inside the scan. BMP:
+    cv2's gray writer (8 bits, a palette), 1- and 4-bit palettes, an 8-bit
+    V4 top-down file, RLE8 and RLE4 with deltas, 16-bit 555 and 565, the
+    OS/2 core header, a V5 32-bit file with RGBA masks. PNG: eXIf
+    orientations before and after the image data. Through cv2: WebP (lossy,
+    lossless), TIFF, AVIF, JPEG 2000, GIF and PPM. Needs cv2."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    scene = [_scene(72, 96, seed * 31 + k) for k in range(8)]
+
+    def jpg(img, *params):
+        return cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, *params])[1].tobytes()
+
+    base, rst = jpg(scene[0]), jpg(scene[1], cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+    prog = jpg(scene[2], cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    dqt, dht = standard_jpeg_tables(90)
+    arith = encode_progressive_jpeg(scene[3], dqt, dht, progressive=False, arithmetic=True)
+    arith_rst = encode_progressive_jpeg(scene[4], dqt, dht, progressive=False, arithmetic=True,
+                                        restart=2)
+    sos = rst.index(b"\xff\xda")
+    r0 = rst.index(b"\xff\xd0", sos)
+    a0 = arith_rst.index(b"\xff\xd0", arith_rst.index(b"\xff\xda"))
+    r2 = rst.index(b"\xff\xd2", sos)
+    mid = (sos + len(rst)) // 2
+    files = [
+        ("jpeg_cut_half.jpg", base[:len(base) // 2]),
+        ("jpeg_rst_cut_60.jpg", rst[:len(rst) * 3 // 5]),
+        ("jpeg_no_eoi.jpg", jpg(scene[5])[:-2]),
+        ("jpeg_bad_huffman.jpg", _flip_scan_bits(base, seed + 1, 3)),
+        ("jpeg_prog_bad_huffman.jpg", _flip_scan_bits(prog, seed + 2, 2)),
+        ("jpeg_rst_out_of_place.jpg", rst[:r0 + 1] + b"\xd3" + rst[r0 + 2:]),
+        ("jpeg_rst_dropped.jpg", rst[:r2] + rst[r2 + 2:]),
+        ("jpeg_frame_marker_in_scan.jpg", rst[:mid] + b"\xff\xc2" + rst[mid:]),
+        ("jpeg_extraneous_bytes.jpg", rst[:r0] + bytes(range(1, 40)) + rst[r0:]),
+        ("arith_cut_half.jpg", arith[:len(arith) // 2]),
+        ("arith_bad_code.jpg", _flip_scan_bits(arith, seed + 3, 1)),
+        ("arith_rst_out_of_place.jpg", arith_rst[:a0 + 1] + b"\xd3" + arith_rst[a0 + 2:]),
+    ]
+    out = [(name, "jpeg", data) for name, data in files]
+    pal = lambda n: rng.integers(0, 256, (n, 3), dtype=np.uint8)  # noqa: E731
+    idx = lambda n, h=40, w=52: rng.integers(0, n, (h, w)).astype(np.uint8)  # noqa: E731
+    blocky = (rng.integers(0, 16, (40, 13)).repeat(4, 1)[:, :50]).astype(np.uint8)
+    bmps = [
+        ("bmp_gray8_cv2.bmp", cv2.imencode(".bmp", scene[6][..., 1])[1].tobytes()),
+        ("bmp_pal1.bmp", encode_bmp(idx(2), 1, palette=pal(2))),
+        ("bmp_pal4.bmp", encode_bmp(idx(16), 4, palette=pal(16))),
+        ("bmp_pal8_v4_topdown.bmp", encode_bmp(idx(200), 8, palette=pal(200), header=108,
+                                               top_down=True, colors_used=200)),
+        ("bmp_rle8.bmp", encode_bmp(blocky, 8, palette=pal(256), compression=1,
+                                    data=bmp_rle(blocky[::-1], 8, seed + 4))),
+        ("bmp_rle4.bmp", encode_bmp(blocky, 4, palette=pal(16), compression=2,
+                                    data=bmp_rle(blocky[::-1], 4, seed + 5))),
+        ("bmp_555.bmp", encode_bmp(rng.integers(0, 1 << 15, (33, 47)).astype(np.uint16), 16)),
+        ("bmp_565.bmp", encode_bmp(rng.integers(0, 1 << 16, (33, 47)).astype(np.uint16), 16,
+                                   compression=3, masks=(0xF800, 0x7E0, 0x1F))),
+        ("bmp_os2_pal8.bmp", encode_bmp(idx(256), 8, palette=pal(256), header=12)),
+        ("bmp_v5_rgba_masks.bmp", encode_bmp(rng.integers(0, 256, (29, 31, 4), dtype=np.uint8), 32,
+                                             header=124, compression=3,
+                                             masks=(0xFF, 0xFF00, 0xFF0000))),
+    ]
+    out += [(name, "bmp", data) for name, data in bmps]
+    png = lambda img: cv2.imencode(".png", img)[1].tobytes()  # noqa: E731
+    out += [("png_exif6.png", "png", png_with_exif(png(scene[7][:30, :41]), 6)),
+            ("png_exif8_after_idat.png", "png", png_with_exif(png(scene[6]), 8, after_idat=True)),
+            ("png_exif3_gray16.png", "png", png_with_exif(png(
+                (scene[5][..., 0].astype(np.uint16) * 257)), 3))]
+    enc = lambda ext, *p: cv2.imencode(ext, scene[0], list(p))[1].tobytes()  # noqa: E731
+    out += [("webp_lossy.webp", "cv2", enc(".webp", cv2.IMWRITE_WEBP_QUALITY, 80)),
+            ("webp_lossless.webp", "cv2", enc(".webp", cv2.IMWRITE_WEBP_QUALITY, 101)),
+            ("tiff.tiff", "cv2", enc(".tiff")), ("avif.avif", "cv2", enc(".avif")),
+            ("jpeg2000.jp2", "cv2", enc(".jp2")), ("gif.gif", "cv2", enc(".gif")),
+            ("ppm.ppm", "cv2", enc(".ppm"))]
+    return out
+
+
 def _png_filter(row: np.ndarray, prior: np.ndarray, bpp: int, ftype: int) -> bytes:
     """One scanline filtered with PNG filter ``ftype`` (0-4) against the
     previous scanline of its pass (zeros for the first)."""

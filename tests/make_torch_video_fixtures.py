@@ -197,9 +197,11 @@ def write_cv2(path: str, fourcc: str, fps: float, frames: list[np.ndarray]) -> N
 
 def write_lib(path: str, fmt: str, encoder: str, tag: str | None, fps: int,
               frames: list[np.ndarray], opts: dict[str, str], flags: str = "",
-              matrices: tuple[list[int], list[int]] | None = None) -> None:
+              matrices: tuple[list[int], list[int]] | None = None,
+              muxer_opts: dict[str, str] | None = None) -> None:
     """``frames`` through libavcodec 59's ``encoder`` with ``opts`` (set by
-    name), muxed by libavformat 59 as ``fmt`` with the FourCC ``tag``."""
+    name), muxed by libavformat 59 as ``fmt`` with the FourCC ``tag`` and
+    the muxer's ``muxer_opts`` (``movflags``, ...)."""
     h, w = frames[0].shape[:2]
     codec = AVCODEC.avcodec_find_encoder_by_name(encoder.encode())
     if not codec:
@@ -237,6 +239,8 @@ def write_lib(path: str, fmt: str, encoder: str, tag: str | None, fps: int,
     _i32(st + ST_TIME_BASE + 4, fps)
     _i32(st + ST_AVG_RATE, fps)
     _i32(st + ST_AVG_RATE + 4, 1)
+    for k, v in (muxer_opts or {}).items():
+        _check(AVUTIL.av_opt_set(oc, k.encode(), v.encode(), SEARCH_CHILDREN), f"muxer option {k}")
     _check(AVFORMAT.avio_open(oc.value + FMT_PB, path.encode(), AVIO_WRITE), "avio_open")
     _check(AVFORMAT.avformat_write_header(oc, None), "write header")
     st_tb = Rational(_i32(st + ST_TIME_BASE), _i32(st + ST_TIME_BASE + 4))

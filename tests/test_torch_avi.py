@@ -13,9 +13,13 @@ size max 83, mean 3.24 levels; after the loaders' resize (the port's
 `resize_bilinear`, the JAX package's ``cv2.resize``) max 79, mean 2.96.
 Departures pinned here: the JAX package's ``load_clip`` converts a frame it
 repeats past the real end from BGR to RGB again (its channels reversed at
-every repeat), the port repeats it as read; in a file whose first frame
-chunk is empty cv2 seeks to other frames than asked, the port refuses to
-seek there (ValueError naming item 11).
+every repeat), the port repeats it as read. A file whose first frame chunk
+is empty (cv2 seeks to other frames than asked there) goes to cv2 whole
+while cv2 imports; without it the port refuses to seek there (ValueError
+naming item 11). The files the port's readers refuse (a fragmented MP4, an
+edit list that cuts frames, the FourCCs UMP4 and XVIX, tests/
+torch_video_fixtures/cv2) go to cv2 while it imports: their clips equal the
+JAX package's.
 """
 import json
 import os
@@ -162,11 +166,12 @@ def test_crafted_avis_read_as_cv2(tmp_path):
                                verify_frames=verify)
 
 
-def test_first_chunk_empty_refuses_to_seek(tmp_path):
+def test_first_chunk_empty_refuses_to_seek(tmp_path, monkeypatch):
     """cv2 numbers the frames from 1 when the first frame chunk is empty and
-    lands elsewhere than asked (a fresh capture's seek to 0 reads frame 1);
-    the port raises naming item 11 rather than guess, and reads the file
-    from the start as cv2 does."""
+    lands elsewhere than asked (a fresh capture's seek to 0 reads frame 1).
+    While cv2 imports, the file goes to it whole: the counts and clips are
+    the JAX package's. Without cv2 the port raises naming item 11 rather
+    than guess, and reads the file from the start as cv2 does."""
     path = str(tmp_path / "first_empty.avi")
     with open(path, "wb") as f:
         f.write(mjpeg_avi([b""] + JPEGS[:5], W, H, 10))
@@ -174,12 +179,19 @@ def test_first_chunk_empty_refuses_to_seek(tmp_path):
     cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
     assert which(cv2.cvtColor(cap.read()[1], cv2.COLOR_BGR2RGB))[0] == 1
     cap.release()
+    assert avi.open_video(path).reader == "cv2"
+    assert tsampler.count_real_frames(path) == jsampler.count_real_frames(path)
+    np.testing.assert_array_equal(
+        tsampler.load_clip(path, 2, "average", rng=np.random.default_rng(2)),
+        jsampler.load_clip(path, 2, "average", rng=np.random.default_rng(2)))
+    frames = [which(f)[0] for f in capture_frames(path)]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    assert avi.open_video(path).reader == "port"
     for call in (lambda: avi.open_video(path).read_at(0), lambda: tsampler.count_real_frames(path),
                  lambda: tsampler.load_clip(path, 2)):
         with pytest.raises(ValueError, match="first frame chunk is empty.*item 11"):
             call()
-    assert [which(f)[0] for f in avi.open_video(path).frames()] == \
-        [which(f)[0] for f in capture_frames(path)] == [0, 1, 2, 3, 4]
+    assert [which(f)[0] for f in avi.open_video(path).frames()] == frames == [0, 1, 2, 3, 4]
 
 
 def test_opendml_avix_parts_read_as_cv2(tmp_path):
@@ -254,6 +266,7 @@ def test_other_codecs_through_cv2_or_raise(tmp_path, monkeypatch):
     for name in paths:
         video = avi.open_video(paths[name])
         assert isinstance(video, Mpeg4Video) == (name in ("clip.mp4", "xvid.avi"))
+        assert video.reader == ("port" if name in ("clip.mp4", "xvid.avi") else "cv2")
         assert video.frame_count == 6
         assert tsampler.count_real_frames(paths[name]) == jsampler.count_real_frames(paths[name])
         clips[name] = tsampler.load_clip(paths[name], 4, "average", rng=np.random.default_rng(1))
@@ -271,6 +284,76 @@ def test_other_codecs_through_cv2_or_raise(tmp_path, monkeypatch):
         tsampler.count_real_frames(paths["clip.mkv"])
     with pytest.raises(FileNotFoundError):
         avi.open_video(str(tmp_path / "missing.avi"))
+
+
+CV2_VIDEOS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_video_fixtures",
+                          "cv2")
+with open(os.path.join(CV2_VIDEOS, "manifest.json")) as _f:
+    REFUSED = [e for e in json.load(_f)["videos"] if e["file"].startswith("refused_")]
+
+
+@pytest.mark.parametrize("entry", REFUSED, ids=[e["file"] for e in REFUSED])
+def test_refused_files_read_through_cv2(entry, monkeypatch):
+    """A file the port's readers refuse goes to cv2 whole while it imports:
+    ``reader`` is "cv2", the frames are the manifest's (cv2's read loop),
+    and the count and clips equal the JAX package's (but for its channel
+    swap of a frame it repeats, the departure pinned above). Without cv2 it raises
+    as before: NotImplementedError naming item 11 where the headers show
+    the refusal, ValueError at the first seek in an AVI whose first chunk is
+    empty."""
+    import hashlib
+
+    path = os.path.join(CV2_VIDEOS, entry["file"])
+    video = avi.open_video(path)
+    assert video.reader == "cv2" and video.frame_count == entry["frame_count"]
+    assert [hashlib.sha256(f.tobytes()).hexdigest() for f in video.frames()] == entry["rgb_sha256"]
+    assert tsampler.count_real_frames(path) == jsampler.count_real_frames(path)
+    for strategy, seed in (("average", 0), ("random", 3)):
+        got = tsampler.load_clip(path, 8, strategy, rng=np.random.default_rng(seed))
+        want = jsampler.load_clip(path, 8, strategy, rng=np.random.default_rng(seed))
+        for t in range(len(want)):  # a frame cv2's seek does not read repeats the last one
+            assert np.array_equal(got[t], want[t]) or (  # (the JAX package's channels reversed)
+                t > 0 and np.array_equal(got[t], got[t - 1])
+                and np.array_equal(want[t], want[t - 1][..., ::-1])), (strategy, t)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    if "first_chunk_empty" in entry["file"]:
+        with pytest.raises(ValueError, match="first frame chunk is empty.*item 11"):
+            tsampler.load_clip(path, 8)
+    else:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            avi.open_video(path)
+
+
+def test_mpeg4_tool_met_mid_file_switches_to_cv2(monkeypatch):
+    """A tool the MPEG-4 decoder does not port that only the picture data
+    shows (the fixture writers' encoders make none: DivX interlaced half-pel
+    chroma is interlaced, which cv2 5.0 returns no image for, and libxvid
+    writes no out-of-range GMC or GMC packets with a header extension) is stood in for
+    by a decoder that refuses from the 9th sample on: the reader goes on
+    through cv2 from that read, with the port's frames bit for bit and
+    ``reader`` "cv2"; without cv2 that read raises NotImplementedError."""
+    from fastvision_tpu_torch.data import mpeg4
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_video_fixtures",
+                        "xvid_cv2_320x240.avi")
+    whole = list(avi.open_video(path).frames())
+    real = mpeg4.Mpeg4Decoder.decode
+
+    def refusing(self, vop, tag=0, parse_only=False):
+        if tag >= 8 and not parse_only:
+            raise NotImplementedError("decoding a stand-in tool is not ported (item 11)")
+        return real(self, vop, tag, parse_only)
+
+    monkeypatch.setattr(mpeg4.Mpeg4Decoder, "decode", refusing)
+    video = avi.open_video(path)
+    assert video.reader == "port"
+    frames = list(video.frames())
+    assert video.reader == "cv2" and len(frames) == len(whole)
+    assert all(np.array_equal(a, b) for a, b in zip(frames, whole))
+    np.testing.assert_array_equal(avi.open_video(path).read_at(len(whole) - 3), whole[-3])
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        list(avi.open_video(path).frames())
 
 
 class _TinyVideoNet(nn.Module):

@@ -216,19 +216,36 @@ def test_jpeg_kinds_not_taken_raise():
         assert "cv2 5.0 returns no image for it either" in str(e.value)
 
 
-def test_jpeg_truncated_or_corrupt_raises():
-    """Cut anywhere before the last scan's data ends, or with a broken
-    restart marker or Huffman code: ValueError, never a partial image."""
+def test_jpeg_truncated_or_corrupt_raises(tmp_path):
+    """The memory route (cv2.imdecode's source suspends past the end of the
+    buffer): cut anywhere, or complete but for the EOI marker, ValueError,
+    as cv2 returns None. The file route (cv2.imread: a fake EOI at the end)
+    decodes the same cuts past the first scan's start as cv2.imread does,
+    the rest of the scan from zero bits. A restart marker out of place or a
+    flipped byte in the scan decodes as libjpeg recovers from it, on both."""
     rng = np.random.default_rng(9)
     buf = cv2.imencode(".jpg", noise(rng, 48, 64), [cv2.IMWRITE_JPEG_RST_INTERVAL, 2])[1].tobytes()
     sos = buf.index(b"\xff\xda")
-    for cut in (3, 20, sos + 5, sos + 40, len(buf) // 2, len(buf) - 40, len(buf) - 5):
-        with pytest.raises(ValueError):
+    for k, cut in enumerate((3, 20, sos + 5, sos + 40, len(buf) // 2, len(buf) - 40,
+                             len(buf) - 5, len(buf) - 2)):
+        assert cv2.imdecode(np.frombuffer(buf[:cut], np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="truncated"):
             decode_image(buf[:cut])
+        path = str(tmp_path / f"cut{k}.jpg")
+        with open(path, "wb") as f:
+            f.write(buf[:cut])
+        want = cv2.imread(path, cv2.IMREAD_COLOR)
+        if want is None:
+            assert cut < sos + 14
+            with pytest.raises(ValueError, match="truncated"):
+                imread_rgb(path)
+        else:
+            np.testing.assert_array_equal(imread_rgb(path), want[..., ::-1])
     rst = buf.index(b"\xff\xd0", sos)
-    with pytest.raises(ValueError, match="restart marker"):
-        decode_image(buf[:rst + 1] + b"\xd3" + buf[rst + 2:])
-    assert decode_image(buf[:-2]).shape == (48, 64, 3)  # complete but for the EOI marker
+    assert_same_as_cv2(buf[:rst + 1] + b"\xd3" + buf[rst + 2:], "RST3 for RST0")
+    flipped = bytearray(buf)
+    flipped[sos + 30] ^= 0x10
+    assert_same_as_cv2(bytes(flipped), "a flipped byte in the scan")
     for payload in (b"", b"garbage", b"\x00" * 10, b"GIF89a...."):
         with pytest.raises(ValueError, match="cannot decode image payload"):
             decode_image(payload)
@@ -290,8 +307,11 @@ def test_png_not_taken_or_corrupt_raises():
 
 
 def test_bmp_from_bytes_and_imread_rgb_without_cv2_or_pil(tmp_path, monkeypatch):
-    """The card's machine: no cv2, no PIL. imread_rgb reads JPEG, PNG and
-    BMP files by their bytes (a file's extension does not decide)."""
+    """A machine without cv2 or PIL: imread_rgb reads JPEG, PNG and BMP
+    files by their bytes (a file's extension does not decide). Bytes of no
+    format the port decodes go to cv2, which gives no image for them
+    (ValueError naming the file) and, where it cannot be imported, raise
+    NotImplementedError naming item 11."""
     rng = np.random.default_rng(12)
     img = smooth(rng, 30, 50)
     files = {"a.jpg": cv2.imencode(".jpg", img)[1].tobytes(),
@@ -301,13 +321,15 @@ def test_bmp_from_bytes_and_imread_rgb_without_cv2_or_pil(tmp_path, monkeypatch)
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
     (tmp_path / "e.jpg").write_bytes(b"no image here")
+    with pytest.raises(ValueError, match="e.jpg"):
+        imread_rgb(str(tmp_path / "e.jpg"))
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
     for name, data in files.items():
         np.testing.assert_array_equal(imread_rgb(str(tmp_path / name)), cv2_rgb(data))
     np.testing.assert_array_equal(imread_rgb(str(tmp_path / "b.png")), img[..., ::-1])
     np.testing.assert_array_equal(codec.decode_bmp(files["c.bmp"]), img[..., ::-1])
-    with pytest.raises(ValueError, match="e.jpg"):
+    with pytest.raises(NotImplementedError, match="unknown format.*item 11"):
         imread_rgb(str(tmp_path / "e.jpg"))
 
 

@@ -13,7 +13,9 @@ consumer's int8 input) byte-equal to the composed route; the patches line
 kernel on the stems; a quantized Detector on the card against the CPU,
 linked and unlinked, with no float conv on a quantized layer), and data
 parallelism (the global BN on the card against the CPU; a step under DDP
-and FSDP in a one-rank NCCL group against the plain step).
+and FSDP in a one-rank NCCL group against the plain step), and the image
+and video reads of the cv2-parity fixtures against their manifests and this
+machine's cv2.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -1556,3 +1558,95 @@ def test_world_size_1_over_nccl_equals_the_plain_step():
             if w.is_floating_point() and w.numel() > 1:
                 d = float((got[k] - w).abs().max())
                 assert d <= 1e-5 * max(float(w.std()), 1e-12), (k, d)
+
+
+# --- every image and video read as the JAX package's cv2 calls read it -------
+
+def _parity_digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def test_cv2_parity_images_equal_the_manifest_on_card():
+    """The 32 committed cv2-parity files (tests/torch_codec_fixtures/
+    cv2_parity) on this machine's host build: on the memory, file, reduced
+    and fused routes the port's own decoders (JPEG, BMP, PNG) give the
+    digests the JAX package's calls gave, and raise where those gave no
+    image; the formats handed to cv2 equal this machine's cv2 calls."""
+    import json
+
+    from fastvision_tpu_torch.data import codec
+    from fastvision_tpu_torch.data import dataset as tds
+
+    _cuda()
+    root = os.path.join(_FIXTURES, "cv2_parity")
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    for e in manifest["files"]:
+        path = os.path.join(root, e["file"])
+        with open(path, "rb") as f:
+            data = f.read()
+        routes = {"memory": lambda: codec.decode_image(data),
+                  "file": lambda: tds.imread_rgb(path),
+                  "reduced": lambda: tds.imread_rgb_scaled(path, manifest["reduce_target"])}
+        for route, fn in routes.items():
+            want = e["routes"][route]
+            if want is None:
+                with pytest.raises(ValueError):
+                    fn()
+                continue
+            got = fn()
+            img = got[0] if route == "reduced" else got
+            if e["kind"] == "cv2":
+                import cv2
+
+                ref = (cv2.imread(path) if route != "memory"
+                       else cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+                assert np.array_equal(img, ref[..., ::-1]), (e["file"], route)
+                continue
+            assert [list(img.shape), _parity_digest(img)] == [want["shape"], want["sha256"]], \
+                (e["file"], route)
+            if route == "reduced":
+                assert list(got[1]) == want["orig"], e["file"]
+        size = manifest["fused_size"]
+        want = e["routes"]["fused"]
+        if want is None:
+            with pytest.raises(ValueError):
+                codec.decode_jpeg_i420(data, size, 114, size)
+            continue
+        got = codec.decode_jpeg_i420(data, size, 114, size)
+        if want == "fallback":
+            assert got is None, e["file"]
+            continue
+        assert (_parity_digest(got[0]), got[1], list(got[2]), list(got[3]), list(got[4])) == (
+            want["sha256"], want["scale"], want["pads"], want["orig"], want["decoded"]), e["file"]
+
+
+def test_cv2_videos_read_as_videocapture_on_card():
+    """The committed videos the port hands to cv2 (refused MPEG-4 files,
+    H.264, Matroska, VP9): ``reader`` "cv2" and every frame equal to this
+    machine's ``cv2.VideoCapture`` read loop."""
+    import json
+
+    import cv2
+
+    from fastvision_tpu_torch.data import avi
+
+    _cuda()
+    root = os.path.join(os.path.dirname(_FIXTURES), "torch_video_fixtures", "cv2")
+    with open(os.path.join(root, "manifest.json")) as f:
+        videos = json.load(f)["videos"]
+    for e in videos:
+        path = os.path.join(root, e["file"])
+        video = avi.open_video(path)
+        assert video.reader == "cv2", e["file"]
+        cap = cv2.VideoCapture(path)
+        want = []
+        while True:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            want.append(bgr[..., ::-1])
+        got = list(video.frames())
+        assert len(got) == len(want) > 0 and all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -274,13 +274,15 @@ def test_arithmetic_smoothing_departure_pinned(jax_native_jpeg):
         T.encode_progressive_jpeg(scene, dqt, dht)))
 
 
-def test_truncated_and_bad_code_streams_pinned():
-    """Raise-or-match on corrupt arithmetic data. A stream cut anywhere in
-    its entropy-coded data without an EOI raises (libjpeg warns of a
-    premature end; cv2's memory source returns None); the same cut followed
-    by EOI is legal (the decoder reads zeros past a marker) and decodes as
-    cv2 decodes it where no restart marker is missing. A bad arithmetic code
-    raises where libjpeg warns and cv2 returns an image."""
+def test_truncated_and_bad_code_streams_pinned(tmp_path):
+    """Corrupt arithmetic data, route by route. A stream cut anywhere in its
+    entropy-coded data without an EOI raises on the memory route (jdarith.c
+    cannot suspend; cv2.imdecode returns None) and decodes on the file route
+    as cv2.imread does (the stdio source's fake EOI: zeros from there on);
+    the same cut followed by EOI decodes as cv2 decodes it, restarts
+    included (a missing restart marker is resynchronized). A bad arithmetic
+    code decodes as libjpeg recovers from it: the rest of the restart
+    interval is left zero."""
     dqt, dht = T.standard_jpeg_tables(90)
     for restart in (0, 2):
         data = T.encode_progressive_jpeg(T.blurred_noise(48, 64, 7), dqt, dht, progressive=False,
@@ -290,13 +292,13 @@ def test_truncated_and_bad_code_streams_pinned():
             assert cv2_rgb(data[:cut]) is None
             with pytest.raises(ValueError, match="truncated"):
                 codec.decode_image(data[:cut])
-            if not restart:
-                assert_as_cv2(data[:cut] + b"\xff\xd9", f"cut at {cut} + EOI")
+            assert_as_cv2(data[:cut] + b"\xff\xd9", f"cut at {cut} + EOI")
+            path = str(tmp_path / f"cut{restart}_{cut}.jpg")
+            with open(path, "wb") as f:
+                f.write(data[:cut])
+            np.testing.assert_array_equal(tds.imread_rgb(path), cv2.imread(path)[..., ::-1])
     truncated = read("arith_truncated.jpg")
     assert cv2_rgb(truncated) is None
     with pytest.raises(ValueError, match="truncated"):
         codec.decode_image(truncated)
-    bad = read("arith_bad_code.jpg")
-    assert cv2_rgb(bad) is not None
-    with pytest.raises(ValueError, match="bad arithmetic code"):
-        codec.decode_image(bad)
+    assert_as_cv2(read("arith_bad_code.jpg"), "a bad arithmetic code")

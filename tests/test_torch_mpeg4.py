@@ -187,9 +187,9 @@ def _crafted_vol(sprite: bool) -> bytes:
 def test_unsupported_streams_raise_item_11(tmp_path, monkeypatch):
     """Without cv2: an H.264 (avc1) MP4 from libx264, a DIV3 (MS-MPEG4)
     AVI and a Matroska file raise naming item 11 and the codec; a GMC VOL
-    raises naming item 11 and the feature, with cv2 or without (MPEG-4
-    never goes to cv2); a fragmented MP4 and an edit list that cuts frames
-    raise too."""
+    raises naming item 11 and the feature in the decoder, with cv2 or
+    without; a fragmented MP4 and an edit list that cuts frames go to cv2
+    while it imports and raise naming item 11 without it."""
     sys.path.insert(0, HERE)
     import make_torch_video_fixtures as maker
 
@@ -214,8 +214,9 @@ def test_unsupported_streams_raise_item_11(tmp_path, monkeypatch):
         mp4_data = f.read()
     with open(fragmented, "wb") as f:
         f.write(mp4_data + mp4.box(b"moof", mp4.full_box(b"mfhd", 0, 0, struct.pack(">I", 1))))
+    assert avi.open_video(fragmented).reader == "cv2"
     with pytest.raises(NotImplementedError, match=r"fragmented.*item 11"):
-        avi.open_video(fragmented)
+        mp4.open_mp4(fragmented)
     ctts = path_of(next(e for e in MANIFEST if e["file"] == "lavc_bframes_ctts.mp4"))
     with open(ctts, "rb") as f:
         ctts_data = f.read()
@@ -225,9 +226,11 @@ def test_unsupported_streams_raise_item_11(tmp_path, monkeypatch):
     cut_path = str(tmp_path / "cut.mp4")
     with open(cut_path, "wb") as f:
         f.write(bytes(cut))
-    with pytest.raises(NotImplementedError, match=r"edit lists.*item 11"):
-        avi.open_video(cut_path)
+    assert avi.open_video(cut_path).reader == "cv2"
     monkeypatch.setitem(sys.modules, "cv2", None)
+    for path, what in ((fragmented, "fragmented"), (cut_path, "edit lists")):
+        with pytest.raises(NotImplementedError, match=rf"{what}.*item 11"):
+            avi.open_video(path)
     for path, codec in ((avc, "avc1"), (div3, "DIV3"), (mkv, r"\?|XVID")):
         with pytest.raises(NotImplementedError, match=rf"'({codec})' video .*item 11"):
             avi.open_video(path)

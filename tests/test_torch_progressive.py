@@ -35,6 +35,12 @@ from fastvision_tpu_torch.testing import (
     encode_progressive_jpeg,
     standard_jpeg_tables,
 )
+from test_torch_fast_decode import jax_native_jpeg  # noqa: F401 (a fixture)
+
+# the JAX package's native build races on a cold temporary directory (a
+# worker that loses keeps the letterbox-only library): the fixture builds it
+# again, privately, where that happened
+pytestmark = pytest.mark.usefixtures("jax_native_jpeg")
 
 torch.set_num_threads(2)
 REDUCED = {1: cv2.IMREAD_COLOR, 2: cv2.IMREAD_REDUCED_COLOR_2, 4: cv2.IMREAD_REDUCED_COLOR_4,

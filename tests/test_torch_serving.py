@@ -129,19 +129,25 @@ def test_multi_label_detector_matches_jax(models):
 
 
 def test_service_decodes_without_cv2_or_pil(service, monkeypatch):
-    """The card's machine: JPEG, PNG and BMP bodies decode with cv2 and PIL
-    blocked; an undecodable body raises ValueError (HTTP 400)."""
+    """JPEG, PNG and BMP bodies decode with cv2 and PIL blocked; an
+    undecodable body raises ValueError (HTTP 400): a truncated JPEG always
+    (cv2.imdecode gives None), bytes of no known format where cv2 gives no
+    image for them; without cv2 those raise NotImplementedError naming item
+    11 (HTTP 400 too)."""
     rng = np.random.default_rng(2)
     img = rng.integers(0, 256, (70, SIZE, 3), dtype=np.uint8)
     bodies = [cv2.imencode(ext, img)[1].tobytes() for ext in (".jpg", ".png", ".bmp")]
     want = [service.predict(b) for b in bodies]
+    with pytest.raises(ValueError):
+        service.predict(b"not an image")
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert [service.predict(b) for b in bodies] == want
     assert want[1] == want[2]  # PNG and BMP hold the same pixels
-    for bad in (b"not an image", bodies[0][: len(bodies[0]) // 2]):
-        with pytest.raises(ValueError):
-            service.predict(bad)
+    with pytest.raises(ValueError):
+        service.predict(bodies[0][: len(bodies[0]) // 2])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        service.predict(b"not an image")
     assert suppression_mask_cuda.launches == 0  # CPU tensors never reach the kernel
 
 
