@@ -2,11 +2,11 @@
 
   - `MetricLogger`: one JSON line per record in ``<log_dir>/<name>.jsonl``
     and a ``[fastvision]`` line on stdout;
-  - `StepTimer`: wall-clock time per step, warm-up steps skipped, waiting
-    for the step's CUDA work where the JAX package blocks on its result;
-  - `trace`: a ``torch.profiler`` region written as a Chrome trace;
-  - `flops_of`: the floating-point operations of one call, counted by
-    ``torch.utils.flop_counter.FlopCounterMode`` from the operators' shapes.
+  - `span`: a named range of the program (``fit.step``, ``data.wait``, ...)
+    that a running ``torch.profiler`` records on its own clock, beside the
+    kernels it launched; without a profiler, one check of its state;
+  - `trace`: a ``torch.profiler`` region written as a Chrome trace, the
+    spans in it.
 
 The JAX package's TPU peak rates have no counterpart here.
 """
@@ -17,7 +17,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Any, Callable
+from typing import Any
 
 import torch
 
@@ -60,46 +60,6 @@ class MetricLogger:
             self._fh.close()
 
 
-def _synchronize(result: Any) -> None:
-    """Wait for the CUDA devices that hold a tensor of ``result`` (a tensor
-    or a nest of them)."""
-    devices = {t.device for t in torch.utils._pytree.tree_leaves(result)
-               if isinstance(t, torch.Tensor) and t.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-class StepTimer:
-    """Per-step timing: `start`, then `tick(result)` once a step; `mean`
-    over the steps after the first ``warmup``."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.count = 0
-        self.total = 0.0
-        self._last = None
-
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def tick(self, result: Any = None) -> float:
-        """End a step: wait for ``result``'s CUDA work (where it holds CUDA
-        tensors), then -> the seconds since the last tick (or `start`)."""
-        if result is not None:
-            _synchronize(result)
-        now = time.perf_counter()
-        dt = now - (self._last if self._last is not None else now)
-        self._last = now
-        self.count += 1
-        if self.count > self.warmup:
-            self.total += dt
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count - self.warmup, 1)
-
-
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
     """Profile the region (the CPU, and the CUDA devices where there is a
@@ -118,13 +78,26 @@ def trace(log_dir: str | None = None):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def flops_of(fn: Callable, *args) -> float | None:
-    """Floating-point operations of ``fn(*args)`` (one call, run here), as
-    ``FlopCounterMode`` counts them from the operators' shapes (a conv or
-    a matmul: 2 per multiply-add); None where it counts none."""
-    from torch.utils.flop_counter import FlopCounterMode
+class span:
+    """``with span("loss.targets"): ...`` opens a ``record_function`` range
+    while a profiler records (``torch.profiler.profile``, `trace`, the
+    autograd profiler, ``emit_nvtx``, which makes it an NVTX range) and
+    does nothing else otherwise: a profiler being on is the only switch.
+    A plain class, not a generator: entering one costs the check alone."""
 
-    with FlopCounterMode(display=False) as counter:
-        fn(*args)
-    total = counter.get_total_flops()
-    return float(total) if total else None
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> span:
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range, opened = None, self._range
+            opened.__exit__(*exc)

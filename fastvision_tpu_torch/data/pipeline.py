@@ -32,6 +32,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..core.telemetry import span
 from ..device import resolve_device
 from ..ops.image import i420_packed_to_rgb, rgb_batch_to_i420_packed
 from .augment import Augmentation, uint8_only
@@ -528,7 +529,9 @@ def prefetch_to_device(
     stream, so loading batch k + 2, copying batch k + 1 and computing on
     batch k overlap; the consumer's stream waits for the copy's event
     before the batch is handed out. Other keys (meta, num_real) pass
-    through. An exception in either thread re-raises in the consumer."""
+    through. An exception in either thread re-raises in the consumer.
+    The consumer's wait for each batch, and the last one for the end, is a
+    ``data.wait`` span (`core.telemetry.span`) on the consumer's thread."""
     if per_host and mesh is None:
         raise ValueError("prefetch_to_device(per_host=True) needs the mesh the host-local "
                          "batches are slices of")
@@ -604,16 +607,18 @@ def prefetch_to_device(
         t.start()
     try:
         while True:
-            item = q_dev.get()
-            if item is sentinel:
-                break
-            batch, event = item
-            if event is not None:
-                current = torch.cuda.current_stream(dev)
-                current.wait_event(event)
-                for k in device_keys:  # memory of the side stream, used on this one
-                    if k in batch:
-                        batch[k].record_stream(current)
+            # the consumer's wait: the last one finds the iterator done
+            with span("data.wait"):
+                item = q_dev.get()
+                if item is sentinel:
+                    break
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(dev)
+                    current.wait_event(event)
+                    for k in device_keys:  # memory of the side stream, used on this one
+                        if k in batch:
+                            batch[k].record_stream(current)
             yield batch
         if errors:
             raise errors[0]

@@ -4,7 +4,10 @@ Sequences epochs, schedules the learning rate on the host per step (a base
 schedule times the plateau factor), streams prefetched device batches into
 the train step, keeps an EMA copy of the weights, and validates every
 ``eval_every`` epochs with the EMA weights when there are any. The epoch's
-loss sum stays on the device and is read once at the end of the epoch.
+loss sum stays on the device and is read once at the end of the epoch. The
+logged rates (``img_per_sec``, ``epoch_img_s``) stop their clock after a
+loss read, so they count finished steps, not enqueued ones. Each step runs
+in a ``fit.step`` span (`core.telemetry.span`), which a profiler records.
 
 With ``ckpt_dir`` every epoch is checkpointed (`core.checkpoint`: the raw
 weights and BN statistics, the optimizer's state, the EMA parameters, and
@@ -58,7 +61,7 @@ from ..core.checkpoint import CheckpointManager
 from ..core.distributed import all_gather_cat, axis, barrier, is_initialized, rank, world_size
 from ..core.mesh import Mesh, use_mesh
 from ..core.rng import step_seed
-from ..core.telemetry import MetricLogger
+from ..core.telemetry import MetricLogger, span
 from ..data.pipeline import prefetch_to_device
 from ..infer.postprocess import scale_coords
 from ..ops.map import MeanAveragePrecision
@@ -392,30 +395,33 @@ class Fit:
                 stop = True
                 break
             lr = lr_override if lr_override is not None else self._lr()
-            self.state, metrics = self._step(batch, lr)
-            if self.ema_model is not None:
-                self._ema_update(*self._ema_pairs, self.state.step)
-            step_loss = metrics["loss"]
-            loss_sum = step_loss if loss_sum is None else loss_sum + step_loss
+            with span("fit.step"):
+                self.state, metrics = self._step(batch, lr)
+                if self.ema_model is not None:
+                    self._ema_update(*self._ema_pairs, self.state.step)
+                step_loss = metrics["loss"]
+                loss_sum = step_loss if loss_sum is None else loss_sum + step_loss
             n_steps += 1
             self.global_step += 1
             n_images += batch["images"].shape[0] * self.world  # the global batch
             if self.global_step % self.log_every == 0:
+                loss = float(step_loss)  # waits for the step: the rate counts finished work
                 dt = time.perf_counter() - t0
-                self.logger.log(self.global_step, epoch=epoch, loss=float(step_loss), lr=lr,
+                self.logger.log(self.global_step, epoch=epoch, loss=loss, lr=lr,
                                 img_per_sec=n_images / max(dt, 1e-9))
-        img_s = n_images / max(time.perf_counter() - t0, 1e-9)
         # a request after the last agreement: every rank must take the same branch
         stop = stop or self._stop_now()
+        total = None if loss_sum is None else float(loss_sum)  # waits for the last step
+        img_s = n_images / max(time.perf_counter() - t0, 1e-9)
         self._progress = None
         if stop:
-            self._progress = (n_steps, None if loss_sum is None else float(loss_sum))
+            self._progress = (n_steps, total)
             return float("nan"), img_s
         if n_steps == 0:
             raise ValueError(
                 f"train loader produced zero batches in epoch {epoch} "
                 "(dataset smaller than batch_size with drop_last?)")
-        return float(loss_sum) / n_steps, img_s
+        return total / n_steps, img_s
 
     def eval_state(self) -> TrainState:
         """State for evaluation and serving: the EMA weights, when enabled,

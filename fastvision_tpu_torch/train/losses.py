@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.distributed import dp_world, global_sum
+from ..core.telemetry import span
 from ..ops.grid import grid as make_grid
 from ..ops.iou import box_iou, box_iou_matrix, wh_iou_matrix
 from ..ops.one_hot import one_hot
@@ -234,7 +235,8 @@ class YOLOv3Loss:
 
     decode_style 'v3' decodes sigma-xy / exp-wh; 'v5' (default) decodes
     2 * sig - 0.5 / (2 * sig)^2. Heads are taken in float32 whatever the
-    model's dtype."""
+    model's dtype. Each level's target assignment is a ``loss.targets``
+    span (`core.telemetry.span`)."""
 
     def __init__(
         self,
@@ -292,8 +294,9 @@ class YOLOv3Loss:
         for li, head in enumerate(heads):
             head = head.float()
             _, h, w, a, _ = head.shape
-            t = _dense_targets(labels, anchors[li], (h, w), ratio_thres=self.ratio_thres,
-                               neighbor_cells=self.neighbor_cells)
+            with span("loss.targets"):
+                t = _dense_targets(labels, anchors[li], (h, w), ratio_thres=self.ratio_thres,
+                                   neighbor_cells=self.neighbor_cells)
             pos = t["pos"]
 
             pxy, pwh = self._decode_cell(head, t["anchor"])

@@ -4,7 +4,9 @@ One train step is forward (train mode, bf16 autocast when the step's dtype
 is bf16) -> loss in float32 -> backward -> the host-scheduled learning rate
 -> optimizer step. Parameters, optimizer state and BN statistics stay
 float32. The step's loss and gradient norm stay on the device: nothing in
-the step waits for the card.
+the step waits for the card. Each microbatch's forward, loss and backward
+are the spans ``step.forward``, ``step.loss`` and ``step.backward``
+(`core.telemetry.span`); the optimizer keeps torch's own range.
 
 A ``batch_transform`` (mixup / cutmix, `train.mix`) edits the batch on the
 device before the forward, with a numpy Generator seeded from
@@ -38,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.distributed import all_gather_cat, axis, data_parallel
+from ..core.telemetry import span
 from ..data.pipeline import normalize_images
 from ..device import resolve_device
 from ..nn.layers import memory_format_for
@@ -191,13 +194,16 @@ def make_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def grads_of(model: nn.Module, batch: dict, rng: torch.Generator | None):
-        outputs = _forward(model, batch["images"], dtype, remat, imagenet, rng)
+        with span("step.forward"):
+            outputs = _forward(model, batch["images"], dtype, remat, imagenet, rng)
         if remat:  # BN's statistics after the forward, before the recompute
             buffers = list(model.buffers())
             saved = [b.clone() for b in buffers]
-        loss, metrics = loss_fn(outputs, batch)
-        loss = loss.float()
-        loss.backward()
+        with span("step.loss"):
+            loss, metrics = loss_fn(outputs, batch)
+            loss = loss.float()
+        with span("step.backward"):
+            loss.backward()
         if remat:
             torch._foreach_copy_(buffers, saved)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}

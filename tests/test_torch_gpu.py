@@ -1650,3 +1650,24 @@ def test_cv2_videos_read_as_videocapture_on_card():
             want.append(bgr[..., ::-1])
         got = list(video.frames())
         assert len(got) == len(want) > 0 and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_span_opens_under_emit_nvtx(monkeypatch):
+    """`core.telemetry.span` opens its range under ``emit_nvtx`` (which makes
+    it an NVTX range for ``nsys``), and under a profiler of the card alone."""
+    from fastvision_tpu_torch.core import telemetry
+
+    _cuda()
+    opened = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    with torch.autograd.profiler.emit_nvtx():
+        with telemetry.span("fit.step"):
+            torch.ones(8, device="cuda").sum()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        with telemetry.span("data.wait"):
+            torch.ones(8, device="cuda").sum()
+    with telemetry.span("step.loss"):
+        pass
+    assert opened == ["fit.step", "data.wait"]
